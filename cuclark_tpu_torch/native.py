@@ -1,0 +1,560 @@
+"""ctypes bindings to the native host module (csrc/host_ops.cpp).
+
+Counterpart of `cuclark_tpu/native.py`, carried over unchanged: it
+compiles the same `csrc/host_ops.cpp` at the repository root, in place,
+and caches the library under its own `cuclark_tpu_torch` subdirectory.
+
+Compiled lazily with g++ on first use and cached next to the package;
+everything degrades gracefully to the numpy implementations when no
+compiler is available (`native.available()` -> False).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "host_ops.cpp"
+_LIB = None
+_TRIED = False
+
+_I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_U8P = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_U64P = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+
+
+def _cache_dir() -> Path:
+    """User-owned 0700 cache directory for the compiled library.
+
+    NOT the world-writable tempdir: the cache path is predictable (a
+    public hash of the source), so on a shared host another local user
+    could pre-plant a malicious .so there and ctypes.CDLL would execute
+    its constructor with this process's privileges."""
+    d = Path(os.environ.get("XDG_CACHE_HOME")
+             or Path.home() / ".cache") / "cuclark_tpu_torch" / "native"
+    try:
+        d.mkdir(parents=True, exist_ok=True)
+        os.chmod(d, 0o700)
+        return d
+    except OSError:
+        # no usable home: fall back to a per-uid tempdir subdirectory
+        d = Path(tempfile.gettempdir()) / f"cuclark_tpu_torch_{os.getuid()}"
+        d.mkdir(mode=0o700, parents=True, exist_ok=True)
+        if d.stat().st_uid != os.getuid():
+            raise RuntimeError(f"native cache dir {d} owned by another "
+                               f"user")
+        return d
+
+
+def _build() -> ctypes.CDLL | None:
+    if not _SRC.exists():
+        return None
+    src = _SRC.read_bytes()
+    flags = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
+    # cache tag covers source AND compile command: a flag-only change
+    # must not silently reuse a binary built with the old flags
+    tag = hashlib.sha256(src + "\0".join(flags).encode()).hexdigest()[:16]
+    try:
+        cache = _cache_dir() / f"cuclark_host_ops_{tag}.so"
+    except (RuntimeError, OSError):
+        return None
+    if not cache.exists():
+        # per-process temp name: concurrent first-use builds (parallel
+        # CLI runs / multi-process hosts) must not interleave writes
+        # into one file and publish a corrupt library
+        tmp = cache.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = flags + [str(_SRC), "-o", str(tmp)]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, cache)  # atomic publish
+        except (subprocess.SubprocessError, FileNotFoundError, OSError):
+            tmp.unlink(missing_ok=True)
+            return None
+    try:
+        lib = ctypes.CDLL(str(cache))
+    except OSError:  # corrupt/unreadable cache: degrade to numpy
+        return None
+
+    lib.scan_fastq.restype = ctypes.c_int64
+    lib.scan_fastq.argtypes = [_U8P, ctypes.c_int64, _I64P, _I64P, _I64P,
+                               _I64P, ctypes.c_int64,
+                               ctypes.POINTER(ctypes.c_int64)]
+    lib.scan_fasta.restype = ctypes.c_int64
+    lib.scan_fasta.argtypes = lib.scan_fastq.argtypes
+    lib.pack_block.restype = None
+    lib.pack_block.argtypes = [_U8P, _I64P, _I64P, ctypes.c_int64, _U8P,
+                               ctypes.c_int64, _I64P]
+    lib.pack_block2.restype = None
+    lib.pack_block2.argtypes = [_U8P, _I64P, _I64P, ctypes.c_int64, _U8P,
+                                _U8P, ctypes.c_int64, ctypes.c_int64,
+                                _I64P]
+    lib.pack_block2_paired.restype = None
+    lib.pack_block2_paired.argtypes = [
+        _U8P, _I64P, _I64P, _U8P, _I64P, _I64P, ctypes.c_int64,
+        _U8P, _U8P, ctypes.c_int64, ctypes.c_int64, _I64P]
+    lib.extract_canonical.restype = ctypes.c_int64
+    lib.extract_canonical.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int32,
+                                      _U64P]
+    lib.extract_canonical_light.restype = ctypes.c_int64
+    lib.extract_canonical_light.argtypes = [
+        _U8P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int64), _U64P]
+    lib.kmer_bound.restype = ctypes.c_int64
+    lib.kmer_bound.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32]
+    lib.build_cuckoo.restype = ctypes.c_int64
+    lib.build_cuckoo.argtypes = [
+        _U64P, np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        _U8P, ctypes.c_int64]
+    _F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    _I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.format_rows.restype = ctypes.c_int64
+    lib.format_rows.argtypes = [
+        ctypes.c_int64, _I64P, _F64P, _I32P, _I32P, _I32P, _I32P, _F64P,
+        _U8P, _I64P, _I64P, _U8P, _I64P,
+        ctypes.c_char_p, ctypes.c_int64]
+    _U32P = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    lib.build_q4.restype = ctypes.c_int64
+    lib.build_q4.argtypes = [
+        _U64P, _U32P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+        _U32P, _U8P, ctypes.c_int64]
+    lib.spill_partition.restype = None
+    lib.spill_partition.argtypes = [
+        _U64P, np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        _U64P, _I64P]
+    lib.reduce_occurrences.restype = ctypes.c_int64
+    lib.reduce_occurrences.argtypes = [
+        _U64P, _U32P, _U32P, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32,
+        _U64P, _U64P, _U64P, _U32P, _U32P]
+    lib.format_rows_ext.restype = ctypes.c_int64
+    lib.format_rows_ext.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, _U32P,
+        _I64P, _F64P, _I32P, _I32P, _I32P, _I32P, _F64P,
+        _U8P, _I64P, _I64P, _U8P, _I64P,
+        ctypes.c_char_p, ctypes.c_int64]
+    lib.csv_tally.restype = ctypes.c_int64
+    lib.csv_tally.argtypes = [
+        _U8P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_double, ctypes.c_double,
+        _I64P, ctypes.c_int32, _U8P, ctypes.c_int64, _I64P,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.count_lines.restype = ctypes.c_int64
+    lib.count_lines.argtypes = [_U8P, ctypes.c_int64]
+    lib.csv_values.restype = ctypes.c_int64
+    lib.csv_values.argtypes = [
+        _U8P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, _F64P, ctypes.c_int64]
+    return lib
+
+
+def _lib() -> ctypes.CDLL | None:
+    global _LIB, _TRIED
+    if not _TRIED:
+        _TRIED = True
+        if os.environ.get("CUCLARK_NO_NATIVE"):
+            _LIB = None
+        else:
+            _LIB = _build()
+    return _LIB
+
+
+def available() -> bool:
+    return _lib() is not None
+
+
+def scan(buf: np.ndarray):
+    """Scan FASTA/FASTQ bytes -> (name_s, name_e, seq_s, seq_e).
+
+    Raises ValueError on malformed FASTQ (a mid-file line that is not a
+    record header) instead of silently dropping the remainder; a
+    trailing partial record (truncated file) is dropped like the numpy
+    scanner's.  The offset arrays grow when the minimum-record-size
+    guess undershoots (header-only records)."""
+    lib = _lib()
+    n = len(buf)
+    if n == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z
+    # upper bound on record count (grown below if records are smaller)
+    if buf[0] == ord("@"):
+        cap = n // 8 + 2
+        fn = lib.scan_fastq
+    elif buf[0] == ord(">"):
+        cap = n // 4 + 2
+        fn = lib.scan_fasta
+    else:
+        raise ValueError("Failed to recognize the format of the file.")
+    buf = np.ascontiguousarray(buf)
+    consumed = ctypes.c_int64(0)
+    while True:
+        ns = np.empty(cap, np.int64)
+        ne = np.empty(cap, np.int64)
+        ss = np.empty(cap, np.int64)
+        se = np.empty(cap, np.int64)
+        r = fn(buf, n, ns, ne, ss, se, cap, ctypes.byref(consumed))
+        if r < cap:
+            break
+        cap *= 4  # tiny records beat the size guess: rescan larger
+    c = consumed.value
+    if c < n and buf[c:].tobytes().strip():
+        raise ValueError(
+            f"malformed FASTQ record at byte {c}: line does not start "
+            f"with '@' (remainder would be silently skipped)")
+    return ns[:r], ne[:r], ss[:r], se[:r]
+
+
+def pack_block(buf: np.ndarray, seq_s, seq_e, max_len: int,
+               n_rows: int | None = None):
+    lib = _lib()
+    nrec = len(seq_s)
+    R = n_rows if n_rows is not None else nrec
+    if R < nrec or len(seq_e) != nrec:
+        raise ValueError("pack_block: output rows/offsets mismatch")
+    codes = np.empty((R, max_len), np.uint8)
+    if R > nrec:
+        codes[nrec:] = 4
+    lengths = np.zeros(R, np.int64)
+    if nrec:
+        lib.pack_block(
+            np.ascontiguousarray(buf),
+            np.ascontiguousarray(seq_s, np.int64),
+            np.ascontiguousarray(seq_e, np.int64),
+            nrec, codes, max_len, lengths,
+        )
+    return codes, lengths
+
+
+def pack_block2(buf: np.ndarray, seq_s, seq_e, max_len: int,
+                n_rows: int | None = None):
+    """Pack records straight into the device wire format.
+
+    Returns (packed2 uint8 [R, Lp/4], vbits uint8 [R, Lp/8],
+    lengths int64 [R]) with Lp = max_len rounded up to a multiple of 8;
+    padding rows/positions have all-zero validity bits.  Bit-identical
+    to pack_block + codec.pack_codes, one native sweep."""
+    lib = _lib()
+    nrec = len(seq_s)
+    R = n_rows if n_rows is not None else nrec
+    if R < nrec or len(seq_e) != nrec:
+        raise ValueError("pack_block2: output rows/offsets mismatch")
+    Lp = -(-max_len // 8) * 8
+    packed2 = np.zeros((R, Lp // 4), np.uint8)
+    vbits = np.zeros((R, Lp // 8), np.uint8)
+    lengths = np.zeros(R, np.int64)
+    if nrec:
+        lib.pack_block2(
+            np.ascontiguousarray(buf),
+            np.ascontiguousarray(seq_s, np.int64),
+            np.ascontiguousarray(seq_e, np.int64),
+            nrec, packed2, vbits, Lp, max_len, lengths,
+        )
+    return packed2, vbits, lengths
+
+
+def pack_block2_paired(buf1: np.ndarray, s1, e1, buf2: np.ndarray, s2, e2,
+                       max_len: int, n_rows: int | None = None):
+    """Fused paired-end wire packing: mate1 + joining invalid + mate2
+    straight into (packed2, vbits, lengths) — the native replacement
+    for the pack + numpy shift-merge + re-pack detour (reference
+    mergePairedFiles parity, src/file.cc:205-268)."""
+    lib = _lib()
+    nrec = len(s1)
+    R = n_rows if n_rows is not None else nrec
+    if (R < nrec or len(e1) != nrec or len(s2) != nrec
+            or len(e2) != nrec):
+        raise ValueError("pack_block2_paired: offset array mismatch")
+    Lp = -(-max_len // 8) * 8
+    packed2 = np.zeros((R, Lp // 4), np.uint8)
+    vbits = np.zeros((R, Lp // 8), np.uint8)
+    lengths = np.zeros(R, np.int64)
+    if nrec:
+        lib.pack_block2_paired(
+            np.ascontiguousarray(buf1),
+            np.ascontiguousarray(s1, np.int64),
+            np.ascontiguousarray(e1, np.int64),
+            np.ascontiguousarray(buf2),
+            np.ascontiguousarray(s2, np.int64),
+            np.ascontiguousarray(e2, np.int64),
+            nrec, packed2, vbits, Lp, max_len, lengths,
+        )
+    return packed2, vbits, lengths
+
+
+def _as_u8(seq) -> np.ndarray:
+    buf = (np.frombuffer(seq, np.uint8)
+           if isinstance(seq, (bytes, bytearray)) else np.asarray(seq, np.uint8))
+    return np.ascontiguousarray(buf)
+
+
+def extract_canonical(seq: bytes | np.ndarray, k: int) -> np.ndarray:
+    """Every overlapping canonical k-mer (full-mode build walk)."""
+    lib = _lib()
+    buf = _as_u8(seq)
+    cap = lib.kmer_bound(len(buf), k, 1)
+    out = np.empty(max(cap, 1), np.uint64)
+    cnt = lib.extract_canonical(buf, len(buf), k, out)
+    return out[:cnt]
+
+
+def extract_canonical_light(seq: bytes | np.ndarray, k: int, gap: int,
+                            iter0: int = 0):
+    """Non-overlapping light-mode walk; returns (kmers, iter)."""
+    lib = _lib()
+    buf = _as_u8(seq)
+    cap = lib.kmer_bound(len(buf), k, 1) // k + 2
+    out = np.empty(max(cap, 1), np.uint64)
+    it = ctypes.c_int64(iter0)
+    cnt = lib.extract_canonical_light(buf, len(buf), k, gap,
+                                      ctypes.byref(it), out)
+    return out[:cnt], it.value
+
+
+def pack_target_names(target_names) -> tuple[np.ndarray, np.ndarray]:
+    """Concatenate target names into (bytes, offsets) for format_rows."""
+    blobs = [n.encode("ascii", "replace") for n in target_names]
+    offs = np.zeros(len(blobs) + 1, np.int64)
+    offs[1:] = np.cumsum([len(b) for b in blobs])
+    return np.frombuffer(b"".join(blobs), np.uint8).copy(), offs
+
+
+def format_rows(norm, gamma, ibest, best, isecond, second, conf,
+                buf, name_s, name_e, tname_bytes, tname_off) -> bytes:
+    """CLARK CSV rows for one batch via the native printf formatter."""
+    lib = _lib()
+    n = len(norm)
+    name_s = np.ascontiguousarray(name_s, np.int64)
+    name_e = np.ascontiguousarray(name_e, np.int64)
+    max_tl = int(np.diff(tname_off).max(initial=0))
+    cap = int((192 + 2 * max_tl) * n + (name_e - name_s).sum() + 64)
+    out = ctypes.create_string_buffer(cap)
+    w = lib.format_rows(
+        n,
+        np.ascontiguousarray(norm, np.int64),
+        np.ascontiguousarray(gamma, np.float64),
+        np.ascontiguousarray(ibest, np.int32),
+        np.ascontiguousarray(best, np.int32),
+        np.ascontiguousarray(isecond, np.int32),
+        np.ascontiguousarray(second, np.int32),
+        np.ascontiguousarray(conf, np.float64),
+        np.ascontiguousarray(buf, np.uint8),
+        name_s, name_e,
+        np.ascontiguousarray(tname_bytes, np.uint8),
+        np.ascontiguousarray(tname_off, np.int64),
+        out, cap,
+    )
+    if w < 0:
+        raise RuntimeError("format_rows buffer overflow")
+    return out.raw[:w]
+
+
+def format_rows_ext(counts, norm, gamma, ibest, best, isecond, second,
+                    conf, buf, name_s, name_e, tname_bytes,
+                    tname_off) -> bytes:
+    """Extended-mode CSV rows: dense per-target count columns between
+    the name and Length (reference --extended)."""
+    lib = _lib()
+    n = len(norm)
+    counts = np.ascontiguousarray(counts, np.uint32)
+    n_targets = counts.shape[1] if counts.ndim == 2 else 0
+    name_s = np.ascontiguousarray(name_s, np.int64)
+    name_e = np.ascontiguousarray(name_e, np.int64)
+    max_tl = int(np.diff(tname_off).max(initial=0))
+    cap = int(n * (12 * (n_targets + 1) + 192 + 2 * max_tl)
+              + (name_e - name_s).sum() + 64)
+    out = ctypes.create_string_buffer(cap)
+    w = lib.format_rows_ext(
+        n, n_targets, counts,
+        np.ascontiguousarray(norm, np.int64),
+        np.ascontiguousarray(gamma, np.float64),
+        np.ascontiguousarray(ibest, np.int32),
+        np.ascontiguousarray(best, np.int32),
+        np.ascontiguousarray(isecond, np.int32),
+        np.ascontiguousarray(second, np.int32),
+        np.ascontiguousarray(conf, np.float64),
+        np.ascontiguousarray(buf, np.uint8),
+        name_s, name_e,
+        np.ascontiguousarray(tname_bytes, np.uint8),
+        np.ascontiguousarray(tname_off, np.int64),
+        out, cap,
+    )
+    if w < 0:
+        raise RuntimeError("format_rows_ext buffer overflow")
+    return out.raw[:w]
+
+
+def spill_partition(kmers: np.ndarray, labels: np.ndarray,
+                    counts: np.ndarray | None, shift: int, nshards: int):
+    """Order occurrence records by k-mer-range shard in one native
+    count+scatter pass.  Returns (records u64 [n, 2] = {km,
+    (lb<<32)|ct} grouped by shard, bounds int64 [nshards+1])."""
+    lib = _lib()
+    n = len(kmers)
+    out = np.empty((n, 2), np.uint64)
+    bounds = np.empty(nshards + 1, np.int64)
+    has_ct = counts is not None
+    ct = (np.ascontiguousarray(counts, np.uint32) if has_ct
+          else np.empty(1, np.uint32))
+    lib.spill_partition(
+        np.ascontiguousarray(kmers, np.uint64),
+        np.ascontiguousarray(labels, np.uint32), ct,
+        1 if has_ct else 0, n, shift, nshards, out.reshape(-1), bounds)
+    return out, bounds
+
+
+def reduce_occurrences(kmers: np.ndarray, labels: np.ndarray,
+                       counts: np.ndarray | None, min_count: int):
+    """Sort-reduce (kmer, label, count) occurrences to target-specific
+    k-mers (RemoveCommon multiplicity==1 semantics) via the native
+    radix sort — the hot path of the DB build.  counts None = 1 each.
+
+    Returns (kmers u64 ascending, labels u32, counts u32)."""
+    lib = _lib()
+    n = len(kmers)
+    if n == 0:
+        return (np.empty(0, np.uint64), np.empty(0, np.uint32),
+                np.empty(0, np.uint32))
+    kmers = np.ascontiguousarray(kmers, np.uint64)
+    key_bits = int(int(kmers.max()).bit_length())
+    A = np.empty(2 * n, np.uint64)
+    B = np.empty(2 * n, np.uint64)
+    out_km = np.empty(n, np.uint64)
+    out_lb = np.empty(n, np.uint32)
+    out_ct = np.empty(n, np.uint32)
+    has_ct = counts is not None
+    ct = (np.ascontiguousarray(counts, np.uint32) if has_ct
+          else np.empty(1, np.uint32))
+    m = lib.reduce_occurrences(
+        kmers, np.ascontiguousarray(labels, np.uint32), ct,
+        1 if has_ct else 0, n, key_bits, min_count,
+        A, B, out_km, out_lb, out_ct)
+    # in-place shrink (realloc) instead of slicing, which would either
+    # copy or pin the full n-sized buffers alive via views
+    for a in (out_km, out_lb, out_ct):
+        a.resize(m, refcheck=False)
+    return out_km, out_lb, out_ct
+
+
+def build_q4(kmers: np.ndarray, labels: np.ndarray, nb_bits: int,
+             seed_consts: tuple[int, int, int], max_kicks: int = 500,
+             stash_bits: int = 0):
+    """q4/qs-layout table build (C++ Feistel + cuckoo insert loop).
+
+    stash_bits == 0 builds classic q4 ([NB, 8]); stash_bits > 0 builds
+    the qs layout with choice-1 buckets in a stash section appended
+    below the main rows ([NB + NBS, 8]).  Returns the uint32 table, or
+    None on overflow (caller reseeds / grows)."""
+    lib = _lib()
+    rows = (1 << nb_bits) + ((1 << stash_bits) if stash_bits else 0)
+    table = np.zeros((rows, 8), dtype=np.uint32)
+    occ = np.zeros(rows, dtype=np.uint8)
+    c1, c2, c3 = seed_consts
+    rc = lib.build_q4(
+        np.ascontiguousarray(kmers, np.uint64),
+        np.ascontiguousarray(labels, np.uint32),
+        len(kmers), nb_bits, stash_bits, c1, c2, c3, table, occ, max_kicks,
+    )
+    if rc != 0:
+        return None
+    return table
+
+
+def csv_tally(buf: np.ndarray, ncols: int, col_assign: int,
+              col_conf: int, col_gamma: int,
+              min_conf: float, min_gamma: float,
+              max_names: int = 1 << 20, offset0: int = 0):
+    """One-pass abundance tally over result-CSV bytes (header already
+    stripped): per-assignment counts with the low-confidence/low-gamma
+    -> NA filter applied natively.  Returns (names list with names[0]
+    == 'NA', counts int64 [len(names)], total_rows).
+
+    Raises ValueError on a malformed row (wrong field count, or an
+    unparseable value in a filtered column); offset0 is added to the
+    reported byte position so it points into the FILE, not the
+    header-stripped body."""
+    lib = _lib()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    counts = np.zeros(max_names, np.int64)
+    # blob scales with max_names: long accession-style names must not
+    # exhaust the byte budget before the name-count budget
+    names_cap = max(4 << 20, 64 * max_names)
+    names = np.empty(names_cap, np.uint8)
+    name_off = np.zeros(max_names + 1, np.int64)
+    total = ctypes.c_int64(0)
+    r = lib.csv_tally(buf, len(buf), ncols, col_assign, col_conf,
+                      col_gamma, min_conf, min_gamma, counts, max_names,
+                      names, names_cap, name_off, ctypes.byref(total))
+    if r == -(len(buf) + 2):
+        raise ValueError("csv_tally: too many distinct assignment names")
+    if r < 0:
+        raise ValueError(
+            f"malformed result CSV row at byte {-r - 1 + offset0}")
+    # slice BEFORE tobytes: only the used prefix (KBs) copies, not the
+    # whole scratch blob (64 MB at the default max_names)
+    blob = names[:int(name_off[r])].tobytes()
+    out_names = [blob[name_off[i]:name_off[i + 1]].decode("utf-8",
+                                                          "replace")
+                 for i in range(r)]
+    return out_names, counts[:r], total.value
+
+
+def count_lines(buf: np.ndarray) -> int:
+    """Number of '\\n' bytes (one native memchr pass)."""
+    lib = _lib()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    return int(lib.count_lines(buf, len(buf)))
+
+
+def csv_values(buf: np.ndarray, ncols: int, col_val: int,
+               col_assign: int, offset0: int = 0) -> np.ndarray:
+    """Float column col_val of every assigned (non-NA) row of result-CSV
+    bytes (header stripped) — the density histogram input."""
+    lib = _lib()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    cap = lib.count_lines(buf, len(buf)) + 1
+    out = np.empty(cap, np.float64)
+    r = lib.csv_values(buf, len(buf), ncols, col_val, col_assign, out,
+                       cap)
+    if r == -(len(buf) + 2):
+        raise ValueError("csv_values: bad column arguments or row "
+                         "capacity exceeded")
+    if r < 0:
+        raise ValueError(
+            f"malformed result CSV row at byte {-r - 1 + offset0}")
+    out.resize(r, refcheck=False)
+    return out
+
+
+def build_cuckoo(kmers: np.ndarray, labels: np.ndarray, nb_bits: int,
+                 slots: int, num_choices: int, max_kicks: int = 500):
+    """Two-choice cuckoo table build (C++ insert loop).
+
+    Returns (keys_lo, keys_hi, labs) as [NB, S] uint32 arrays, or None
+    on overflow (caller grows the table)."""
+    lib = _lib()
+    nb = 1 << nb_bits
+    keys_lo = np.full((nb, slots), 0xFFFFFFFF, dtype=np.uint32)
+    keys_hi = np.full((nb, slots), 0xFFFFFFFF, dtype=np.uint32)
+    labs = np.zeros((nb, slots), dtype=np.uint32)
+    occ = np.zeros(nb, dtype=np.uint8)
+    rc = lib.build_cuckoo(
+        np.ascontiguousarray(kmers, np.uint64),
+        np.ascontiguousarray(labels, np.uint32),
+        len(kmers), nb_bits, slots, num_choices,
+        keys_lo, keys_hi, labs, occ, max_kicks,
+    )
+    if rc != 0:
+        return None
+    return keys_lo, keys_hi, labs

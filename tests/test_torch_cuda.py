@@ -1,0 +1,86 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on
+the card.  Marked `cuda`: they skip on a machine without a CUDA device,
+and run there with `pytest -m cuda tests/test_torch_cuda.py`."""
+
+import numpy as np
+import pytest
+import torch
+
+from cuclark_tpu_torch import codec, hashdb, kernels, probe, score
+from cuclark_tpu_torch.config import DBConfig
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("k", [27, 32])
+def test_query_kernel_matches_plain(dev, k):
+    rng = np.random.default_rng(k)
+    km = rng.integers(0, np.iinfo(np.uint64).max, size=310_000,
+                      dtype=np.uint64, endpoint=True)
+    km = np.unique(codec.canonical_np(km >> np.uint64(64 - 2 * k), k))
+    km = km[:300_000]
+    labels = rng.integers(1, 65536, size=len(km)).astype(np.uint32)
+    names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
+    db = hashdb.build_table(km, labels, names, DBConfig(k=k), nb_bits=17)
+    R, L = 256, 152
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    for r in range(0, R, 2):
+        for p in range(0, L - k + 1, k):
+            v = int(km[rng.integers(len(km))])
+            codes[r, p:p + k] = [(v >> (2 * (k - 1 - j))) & 3
+                                 for j in range(k)]
+    codes[rng.random((R, L)) < 0.01] = codec.INVALID
+    codes[3, 90:] = codec.INVALID
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    main, stash = hashdb.table_to_device(db, dev)
+    args = dict(k=k, nb_bits=db.nb_bits, stash_bits=db.stash_bits,
+                seed=db.seed)
+    before = kernels.LAUNCHES["query"]
+    got = probe.query_labels(p2, vb, main, stash, **args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["query"] == before + 1
+    want = probe.query_labels_plain(p2, vb, main, stash, **args)
+    assert torch.equal(got, want)
+    assert int((want > 0).sum()) > R
+
+
+@pytest.mark.parametrize("R,P", [(4096, 122), (64, 1), (33, 1000),
+                                 (16, 16354)])
+def test_score_kernel_matches_plain(dev, R, P):
+    rng = np.random.default_rng(R + P)
+    lab = rng.integers(0, 6, size=(R, P)).astype(np.int32)
+    lab[rng.random((R, P)) < 0.3] = 0
+    lab[0] = 0
+    t = torch.from_numpy(lab).to(dev)
+    before = kernels.LAUNCHES["score"]
+    got = score.score_labels(t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["score"] == before + 1
+    assert torch.equal(got, score.score_labels_plain(t))
+
+
+def test_classifier_rows_match_cpu(dev, tmp_path):
+    """The row iterators on the card give the CPU path's rows."""
+    from pathlib import Path
+
+    from cuclark_tpu_torch import cli, pipeline
+    from cuclark_tpu_torch.hashdb import KmerDB
+
+    ex = Path(__file__).resolve().parent.parent / "examples"
+    assert cli.main(["build-db", "-T", str(ex / "targets.txt"),
+                     "-D", str(tmp_path / "db"), "-k", "27"]) == 0
+    db = KmerDB.load(next((tmp_path / "db").glob("db_k*.npz")))
+    gpu = pipeline.Classifier(db, device=dev)
+    cpu = pipeline.Classifier(db, device="cpu")
+    reads = str(ex / "reads.fq")
+    assert list(gpu.classify_file(reads)) == list(cpu.classify_file(reads))
+    recs = [(f"r{i}", b"ACGT" * (10 + i)) for i in range(50)]
+    assert list(gpu.classify_records(iter(recs))) == list(
+        cpu.classify_records(iter(recs)))
