@@ -10,10 +10,19 @@ kernel against its plain PyTorch version on the card, reproduces the
 golden example through the port's CLI, and classifies 131,072 simulated
 150 bp reads against the repository's headline database shape (k=31,
 64M target-specific k-mers, 16,384 targets, target load 0.85: a 1.107 GB
-qs table resident on the card) through `cuclark-tpu-torch classify
---device cuda`.  Each phase prints one line; any failure raises and
-exits non-zero.  The last three lines are the card's name and power
-limit, a JSON object of the kernels, and `{"ok": true, "device": ...}`.
+qs table) through `cuclark-tpu-torch classify --device cuda`, each path
+against `--device cpu`:
+
+  - resident: the table on the card (query and score kernels);
+  - streamed: `--max-table-mb 600`, the table in 4 bucket-range parts of
+    268 MB uploaded per group of batches (part-mode query kernel);
+  - paired: 131,072 pairs of 150 bp mates from 400 bp fragments (-P);
+  - extended: 1,024 reads with one count column per target, resident
+    and streamed (--extended).
+
+Each phase prints one line; any failure raises and exits non-zero.  The
+last three lines are the card's name and power limit, a JSON object of
+the kernels, and `{"ok": true, "device": ...}`.
 
 Without a CUDA device, or outside a checkout of the repository, it
 prints no result and exits 2.  `--genomes` and `--reads` shrink the
@@ -37,8 +46,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 K = 31
 READ_LEN = 150
+FRAGMENT = 400             # paired: mate 1 = [0, 150), mate 2 = [250, 400)
 GENOME_LEN = 3936          # 3,906 31-mers per genome: 64.0M for 16,384
 SUB_RATE = 0.01
+STREAM_MB = 600            # cuCLARK-l's "< 600 MB DB" budget: 4 parts
+STREAM_PARTS = 4
 
 
 def _phase(name: str, t0: float, detail: str) -> None:
@@ -195,23 +207,148 @@ def build_headline_db(n_genomes: int, dbdir: Path):
     return genomes, db
 
 
+def _substitute(rng, codes: np.ndarray) -> np.ndarray:
+    """SUB_RATE of the bases replaced by one of the other three."""
+    sub = rng.random(codes.shape) < SUB_RATE
+    codes[sub] = (codes[sub] + rng.integers(1, 4, size=int(sub.sum()),
+                                            dtype=np.uint8)) % 4
+    return codes
+
+
+def _write_fastq(path: Path, names, codes: np.ndarray) -> None:
+    ascii_ = np.frombuffer(b"TGCA", np.uint8)[codes]   # A=3 C=2 G=1 T=0
+    qual = "I" * codes.shape[1]
+    with open(path, "w") as f:
+        f.write("".join(f"@{n}\n{row.tobytes().decode()}\n+\n{qual}\n"
+                        for n, row in zip(names, ascii_)))
+
+
 def write_reads(genomes: np.ndarray, n_reads: int, path: Path):
     """150 bp reads sampled from the genomes with 1% substitutions,
     named r<i>_T<source>; returns their codes [n, 150] and sources."""
     rng = np.random.default_rng(1)
     src = rng.integers(0, len(genomes), size=n_reads)
     pos = rng.integers(0, GENOME_LEN - READ_LEN + 1, size=n_reads)
-    codes = genomes[src[:, None], pos[:, None] + np.arange(READ_LEN)]
-    sub = rng.random(codes.shape) < SUB_RATE
-    codes[sub] = (codes[sub] + rng.integers(1, 4, size=int(sub.sum()),
-                                            dtype=np.uint8)) % 4
-    ascii_ = np.frombuffer(b"TGCA", np.uint8)[codes]   # A=3 C=2 G=1 T=0
-    qual = "I" * READ_LEN
-    with open(path, "w") as f:
-        f.write("".join(f"@r{i}_T{s + 1}\n{row.tobytes().decode()}\n+\n"
-                        f"{qual}\n" for i, (s, row) in
-                        enumerate(zip(src, ascii_))))
+    codes = _substitute(rng, genomes[src[:, None],
+                                     pos[:, None] + np.arange(READ_LEN)])
+    _write_fastq(path, (f"r{i}_T{s + 1}" for i, s in enumerate(src)), codes)
     return codes, src
+
+
+def write_pairs(genomes: np.ndarray, n_pairs: int, r1: Path, r2: Path):
+    """Pairs of 150 bp mates from 400 bp fragments of the genomes: mate 1
+    the fragment's first 150 bases, mate 2 the reverse complement of its
+    last 150, each with 1% substitutions, named p<i>_T<source>/1 and /2."""
+    rng = np.random.default_rng(2)
+    src = rng.integers(0, len(genomes), size=n_pairs)
+    pos = rng.integers(0, GENOME_LEN - FRAGMENT + 1, size=n_pairs)
+    frag = genomes[src[:, None], pos[:, None] + np.arange(FRAGMENT)]
+    m1 = _substitute(rng, frag[:, :READ_LEN].copy())
+    m2 = _substitute(rng, (3 - frag[:, FRAGMENT - READ_LEN:])[:, ::-1].copy())
+    for path, mate, codes in ((r1, 1, m1), (r2, 2, m2)):
+        _write_fastq(path, (f"p{i}_T{s + 1}/{mate}" for i, s in
+                            enumerate(src)), codes)
+
+
+def head_fastq(src: Path, dst: Path, n: int) -> Path:
+    """The first n records of a 4-line FASTQ file."""
+    with open(src) as f:
+        lines = [next(f) for _ in range(4 * n)]
+    dst.write_text("".join(lines))
+    return dst
+
+
+def run_cli(argv, launches_of=None):
+    """cuclark-tpu-torch with stdout and stderr captured -> (stderr,
+    kernel launches of this run).  Raises on a non-zero return."""
+    from cuclark_tpu_torch import cli, kernels
+
+    import torch
+
+    err = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if rc:
+        raise AssertionError(f"{' '.join(argv[:1] + argv[-4:])} returned "
+                             f"{rc}: {err.getvalue()[-2000:]}")
+    for name in launches_of or ():
+        if launches[name] < 1:
+            raise AssertionError(f"kernel {name} of the path never "
+                                 f"launched: {launches}")
+    return err.getvalue(), launches
+
+
+def assigned_right(csv: Path) -> float:
+    """Share of CSV rows whose first assignment is the T<source> named in
+    the read's id (r<i>_T<s> or p<i>_T<s>/1)."""
+    rows = csv.read_text().splitlines()[1:]
+    return sum(r.split(",")[0].split("/")[0].rsplit("_", 1)[1]
+               == r.split(",")[-5] for r in rows) / max(len(rows), 1)
+
+
+def stream_budget_mb(db) -> float:
+    """STREAM_MB, which plans the headline table in STREAM_PARTS parts;
+    for the smaller table of a quick run (--genomes), a budget that
+    plans it in as many: 0.6 of its main rows over the stash, which
+    needs 2 parts and so halves to 0.3 for the double buffer."""
+    from cuclark_tpu_torch.memplan import plan_stream_parts
+
+    main_mb, stash_mb = db.nb * 32 / 1e6, (db.total_rows - db.nb) * 32 / 1e6
+    if plan_stream_parts(db.nb * 32, (STREAM_MB - stash_mb) / 2, 1,
+                         db.nb) == STREAM_PARTS:
+        return STREAM_MB
+    return round(stash_mb + 0.6 * main_mb, 3)
+
+
+def check_stream_kernels(main_t, stash_t, wire, qargs):
+    """The part-mode query kernel against its plain version on each of
+    STREAM_PARTS bucket-range parts of the resident headline table, the
+    stash on part 0 only, writing and accumulating; the accumulated
+    parts equal the resident query.  Returns (max_abs_err, ms, plain ms)
+    per part call, the times over a whole pass of the parts."""
+    import torch
+
+    from cuclark_tpu_torch import probe
+
+    p2, vb = wire
+    rows = main_t.shape[0] // STREAM_PARTS
+    parts = [main_t[p * rows:(p + 1) * rows] for p in range(STREAM_PARTS)]
+
+    def one(fn, p, acc=None):
+        return fn(p2, vb, parts[p], stash_t if p == 0 else None,
+                  bucket_start=p * rows, nb_local=rows, acc=acc, **qargs)
+
+    def all_parts(fn):
+        acc = None
+        for p in range(STREAM_PARTS):
+            acc = one(fn, p, acc)
+        return acc
+
+    err = 0
+    for p in range(STREAM_PARTS):
+        got = one(probe.query_part_labels, p)
+        torch.cuda.synchronize()
+        want = one(probe.query_part_labels_plain, p)
+        if not torch.equal(got, want):
+            raise AssertionError(f"part kernel != plain on part {p}: "
+                                 f"{int((got != want).sum())} windows differ")
+        err = max(err, _max_abs_err(got, want))
+    acc = all_parts(probe.query_part_labels)
+    torch.cuda.synchronize()
+    acc_plain = all_parts(probe.query_part_labels_plain)
+    resident = probe.query_labels(p2, vb, main_t, stash_t, **qargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(acc, acc_plain) and torch.equal(acc, resident)):
+        raise AssertionError("accumulated parts != plain or != resident "
+                             "labels")
+    err = max(err, _max_abs_err(acc, acc_plain))
+    ms = _cuda_ms(lambda: all_parts(probe.query_part_labels), 10)
+    plain_ms = _cuda_ms(lambda: all_parts(probe.query_part_labels_plain), 2)
+    return err, ms / STREAM_PARTS, plain_ms / STREAM_PARTS
 
 
 def main(argv=None) -> int:
@@ -234,8 +371,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import cuclark_tpu_torch
-    from cuclark_tpu_torch import cli, codec, kernels, pipeline, probe, score
-    from cuclark_tpu_torch.hashdb import KmerDB, table_to_device
+    from cuclark_tpu_torch import codec, kernels, pipeline, probe, score
+    from cuclark_tpu_torch.config import ClassifyConfig
+    from cuclark_tpu_torch.hashdb import table_to_device
 
     if Path(cuclark_tpu_torch.__file__).resolve().parent != ROOT / "cuclark_tpu_torch":
         raise AssertionError(f"imported {cuclark_tpu_torch.__file__}, not "
@@ -279,15 +417,19 @@ def main(argv=None) -> int:
         # 4. real size
         t0 = time.time()
         genomes, db = build_headline_db(args.genomes, tmp / "db")
+        dbdir = str(tmp / "db")
+        stream_mb = stream_budget_mb(db)
         _phase("build_db", t0,
                f"{db.num_kmers} k-mers, {db.num_targets} targets, "
                f"nb_bits {db.nb_bits}, stash_bits {db.stash_bits}, "
                f"table {db.table.nbytes / 1e9:.3f} GB")
         t0 = time.time()
-        fq = tmp / "reads.fq"
+        fq, r1, r2 = tmp / "reads.fq", tmp / "r1.fq", tmp / "r2.fq"
         codes, src = write_reads(genomes, args.reads, fq)
+        write_pairs(genomes, args.reads, r1, r2)
         del genomes
-        _phase("write_reads", t0, f"{args.reads} reads of {READ_LEN} bp")
+        _phase("write_reads", t0, f"{args.reads} reads of {READ_LEN} bp, "
+               f"{args.reads} pairs of {READ_LEN} bp mates")
 
         # the main-path batch shape: 65,536 reads in the 152 bin
         t0 = time.time()
@@ -335,34 +477,35 @@ def main(argv=None) -> int:
 
         step_ms = _cuda_ms(step_all, 10)
         step_rps = len(wire) * B / (step_ms / 1e3)
-        del main_t, stash_t, wire, lab, res
-        torch.cuda.empty_cache()
         _phase("real_size_kernels", t0,
                f"[{B}, {L}] batch bit-identical; query {ms['query']:.4f} ms "
                f"(plain {ms['query_plain']:.4f}), score {ms['score']:.4f} "
                f"ms (plain {ms['score_plain']:.4f}); device step "
                f"{step_rps:.1f} reads/s on {card}")
 
-        # the main path, through the CLI: counts from this run only
+        # the part-mode query on the headline table cut in 4 parts
+        t0 = time.time()
+        err["query_part"], ms["query_part"], ms["query_part_plain"] = (
+            check_stream_kernels(main_t, stash_t, wire[0], qargs))
+        del main_t, stash_t, wire, lab, res
+        torch.cuda.empty_cache()
+        _phase("stream_kernels_vs_plain", t0,
+               f"{STREAM_PARTS} parts of [{B}, {L}] bit-identical, stash on "
+               f"part 0, accumulated parts == resident labels; "
+               f"{ms['query_part']:.4f} ms per part call (plain "
+               f"{ms['query_part_plain']:.4f}) on {card}")
+
+        # the resident main path, through the CLI: counts from this run
         t0 = time.time()
         gpu_csv, cpu_csv = tmp / "gpu.csv", tmp / "cpu.csv"
-        kernels.reset_launches()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(["classify", "-D", str(tmp / "db"), "-O", str(fq),
-                           "-R", str(gpu_csv), "--device", "cuda"])
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
-        if rc:
-            raise AssertionError(f"classify --device cuda returned {rc}")
-        if min(launches.values()) < 1:
-            raise AssertionError(f"a kernel of the path never launched: "
-                                 f"{launches}")
+        _, launches = run_cli(["classify", "-D", dbdir, "-O", str(fq),
+                               "-R", str(gpu_csv), "--device", "cuda"],
+                              ("query", "score"))
         _phase("classify_cuda", t0, f"launches {launches}")
 
         # file -> CSV with the DB resident, timed apart from the DB load
         t0 = time.time()
-        clf = pipeline.Classifier(KmerDB.load(next((tmp / "db").glob(
-            "db_k*.npz"))), device=dev)
+        clf = pipeline.Classifier(db, device=dev)
         e2e = []
         for _ in range(2):
             t1 = time.time()
@@ -371,27 +514,19 @@ def main(argv=None) -> int:
             e2e.append(n / (time.time() - t1))
         if (tmp / "again.csv").read_bytes() != gpu_csv.read_bytes():
             raise AssertionError("a second classify wrote another CSV")
-        del clf
-        torch.cuda.empty_cache()
         _phase("file_to_csv", t0,
                f"{', '.join(f'{r:.1f}' for r in e2e)} reads/s on {card}")
 
         t0 = time.time()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(["classify", "-D", str(tmp / "db"), "-O", str(fq),
-                           "-R", str(cpu_csv), "--device", "cpu"])
-        if rc:
-            raise AssertionError(f"classify --device cpu returned {rc}")
+        run_cli(["classify", "-D", dbdir, "-O", str(fq), "-R", str(cpu_csv),
+                 "--device", "cpu"])
         if cpu_csv.read_bytes() != gpu_csv.read_bytes():
             raise AssertionError("--device cuda CSV differs from --device "
                                  "cpu CSV")
-        rows = gpu_csv.read_text().splitlines()[1:]
-        if len(rows) != args.reads:
-            raise AssertionError(f"{len(rows)} CSV rows for {args.reads} "
-                                 f"reads")
-        right = sum(r.split(",")[0].rsplit("_", 1)[1] == r.split(",")[3]
-                    for r in rows)
-        acc = right / len(rows)
+        n_rows = len(gpu_csv.read_text().splitlines()) - 1
+        if n_rows != args.reads:
+            raise AssertionError(f"{n_rows} CSV rows for {args.reads} reads")
+        acc = assigned_right(gpu_csv)
         if acc < 0.99:
             raise AssertionError(f"only {acc:.4%} of reads assigned to "
                                  f"their source genome")
@@ -399,12 +534,115 @@ def main(argv=None) -> int:
                f"CSV identical to --device cpu; {acc:.6f} of reads "
                f"assigned to their source genome")
 
+        # the streamed path: --max-table-mb 600 -> 4 parts of 268 MB
+        # (a smaller budget for the smaller table of a quick run)
+        t0 = time.time()
+        stream_csv = tmp / "stream.csv"
+        stderr, launches_stream = run_cli(
+            ["classify", "-D", dbdir, "-O", str(fq), "-R", str(stream_csv),
+             "--device", "cuda", "--max-table-mb", str(stream_mb)],
+            ("query_part", "score"))
+        if f"{STREAM_PARTS} bucket-range parts" not in stderr:
+            raise AssertionError(f"--max-table-mb {stream_mb} did not stream "
+                                 f"in {STREAM_PARTS} parts: {stderr}")
+        if stream_csv.read_bytes() != gpu_csv.read_bytes():
+            raise AssertionError("streamed CSV differs from the resident "
+                                 "CSV")
+        sclf = pipeline.Classifier(db, ClassifyConfig(max_table_mb=stream_mb),
+                                   device=dev)
+        stream_e2e = []
+        for _ in range(2):
+            t1 = time.time()
+            n = sclf.classify_file_to_csv(fq, tmp / "stream_again.csv")
+            torch.cuda.synchronize()
+            stream_e2e.append(n / (time.time() - t1))
+        gbps = sclf.part_upload_gbps()
+        sclf.close()
+        del sclf
+        if (tmp / "stream_again.csv").read_bytes() != gpu_csv.read_bytes():
+            raise AssertionError("a second streamed classify wrote another "
+                                 "CSV")
+        _phase("classify_stream", t0,
+               f"{STREAM_PARTS} parts of {db.nb // STREAM_PARTS * 32 / 1e6:.1f}"
+               f" MB, CSV identical to the resident CSV, launches "
+               f"{launches_stream}; part upload "
+               f"{', '.join(f'{g:.2f}' for g in gbps)} GB/s; file->CSV "
+               f"{', '.join(f'{r:.1f}' for r in stream_e2e)} reads/s on "
+               f"{card}")
+
+        # paired: mate 1 + N + mate 2 in the 320 bin, P = 290
+        t0 = time.time()
+        paired_csv = tmp / "paired.csv"
+        _, launches_paired = run_cli(
+            ["classify", "-D", dbdir, "-P", str(r1), str(r2),
+             "-R", str(paired_csv), "--device", "cuda"], ("query", "score"))
+        acc_paired = assigned_right(paired_csv)
+        if acc_paired < 0.99:
+            raise AssertionError(f"only {acc_paired:.4%} of pairs assigned "
+                                 f"to their source genome")
+        n_cpu = min(16384, args.reads)
+        sub_csv = tmp / "paired_cpu.csv"
+        run_cli(["classify", "-D", dbdir, "-P",
+                 str(head_fastq(r1, tmp / "s1.fq", n_cpu)),
+                 str(head_fastq(r2, tmp / "s2.fq", n_cpu)),
+                 "-R", str(sub_csv), "--device", "cpu"])
+        head = paired_csv.read_bytes().split(b"\n")[:n_cpu + 1]
+        if b"\n".join(head) + b"\n" != sub_csv.read_bytes():
+            raise AssertionError(f"paired CSV of the first {n_cpu} pairs "
+                                 f"differs from --device cpu's")
+        paired_e2e = []
+        for _ in range(2):
+            t1 = time.time()
+            n = clf.classify_file_to_csv(r1, tmp / "paired_again.csv", r2)
+            torch.cuda.synchronize()
+            paired_e2e.append(n / (time.time() - t1))
+        if (tmp / "paired_again.csv").read_bytes() != paired_csv.read_bytes():
+            raise AssertionError("a second paired classify wrote another "
+                                 "CSV")
+        del clf
+        torch.cuda.empty_cache()
+        _phase("classify_paired", t0,
+               f"{acc_paired:.6f} of {args.reads} pairs assigned to their "
+               f"source genome, first {n_cpu} identical to --device cpu, "
+               f"launches {launches_paired}; file->CSV "
+               f"{', '.join(f'{r:.1f}' for r in paired_e2e)} pairs/s on "
+               f"{card}")
+
+        # extended: one count column per target, resident and streamed
+        t0 = time.time()
+        n_ext = min(1024, args.reads)
+        ext_fq = head_fastq(fq, tmp / "ext.fq", n_ext)
+        ext = {}
+        for name, device, flags, path_kernels in (
+                ("cuda", "cuda", [], ("query", "score")),
+                ("cuda_stream", "cuda", ["--max-table-mb", str(stream_mb)],
+                 ("query_part", "score")),
+                ("cpu", "cpu", [], ())):
+            out = tmp / f"ext_{name}.csv"
+            run_cli(["classify", "-D", dbdir, "-O", str(ext_fq), "-R",
+                     str(out), "--device", device, "--extended", *flags],
+                    path_kernels)
+            ext[name] = out.read_bytes()
+        if not ext["cuda"] == ext["cuda_stream"] == ext["cpu"]:
+            raise AssertionError("--extended CSVs differ between resident, "
+                                 "streamed and --device cpu")
+        cols = ext["cpu"].split(b"\n", 1)[0].count(b",") + 1
+        _phase("extended", t0,
+               f"{n_ext} reads x {cols} columns, {len(ext['cpu']) / 1e6:.1f} "
+               f"MB of CSV identical resident, streamed and --device cpu")
+
     kern = [
         {"name": "query", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/query.cu",
          "replaces": "cuclark_tpu/probe.py:198",
          "launches": launches["query"], "max_abs_err": err["query"],
          "ms": ms["query"], "plain_ms": ms["query_plain"]},
+        {"name": "query_part", "route": "cuda",
+         "source": "cuclark_tpu_torch/csrc/query.cu",
+         "replaces": "cuclark_tpu/pipeline.py:96",
+         "launches": launches_stream["query_part"],
+         "max_abs_err": err["query_part"],
+         "ms": ms["query_part"], "plain_ms": ms["query_part_plain"]},
         {"name": "score", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/score.cu",
          "replaces": "cuclark_tpu/score.py:28",

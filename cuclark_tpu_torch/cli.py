@@ -7,13 +7,15 @@ ports, under one `cuclark-tpu-torch` entry point:
   cuclark-tpu-torch classify  -D dbdir -O reads.fq -R out.csv [--device cuda]
   cuclark-tpu-torch info      -D dbdir
 
-`classify` runs single-end reads against a device-resident qs database
-on one device (`--device`, default `cuda`; `cpu` runs the kernels'
-plain PyTorch versions).  It builds the database first when it is
-missing, as the reference's CuCLARK constructor does
-(src/CuCLARK_hh.hh:221-310).  Flags of modes not ported yet (paired
-reads, --extended, DB streaming, multiple devices or processes,
---profile) raise NotImplementedError naming their ROADMAP.md item.
+`classify` runs single-end (-O) or paired (-P) reads against a qs
+database on one device (`--device`, default `cuda`; `cpu` runs the
+kernels' plain PyTorch versions), with default or --extended CSV output.
+The table stays resident when it fits the device's free memory (or
+--max-table-mb), else it streams in bucket-range parts.  It builds the
+database first when it is missing, as the reference's CuCLARK
+constructor does (src/CuCLARK_hh.hh:221-310).  Flags of modes not ported
+yet (multiple devices or processes, --profile) raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -32,12 +34,6 @@ from cuclark_tpu_torch.config import (
 )
 
 _TODO = {
-    "paired": "paired reads (-P) are not ported yet (ROADMAP.md, Queue 1: "
-              "paired and --extended)",
-    "extended": "--extended is not ported yet (ROADMAP.md, Queue 1: paired "
-                "and --extended)",
-    "max_table_mb": "--max-table-mb (DB-part streaming) is not ported yet "
-                    "(ROADMAP.md, Queue 1: DB-part streaming)",
     "devices": "-d above 1 is not ported yet (ROADMAP.md, Queue 1: mesh.py)",
     "multiprocess": "--coordinator/--num-processes/--process-id are not "
                     "ported yet (ROADMAP.md, Queue 1: multihost.py)",
@@ -101,20 +97,31 @@ def cmd_build_db(args) -> int:
 
 
 def _build_jobs(args):
-    """(input, output) pairs from -O/-R, honoring the multi-file list
-    mode (src/CuCLARK_hh.hh:382-506).  Raises ValueError when an input
-    or output file is missing from the flags."""
+    """(input, paired_mate, output) triples from -O/-P/-R, honoring the
+    list modes (src/CuCLARK_hh.hh:382-506).  Raises ValueError when an
+    input or output file is missing from the flags."""
     from cuclark_tpu_torch.io import fasta
 
-    if not args.objects:
-        raise ValueError("classify needs -O <reads>")
-    pairs = fasta.parse_file_list(args.objects)
-    if pairs is None:
-        jobs = [(args.objects, args.results)]
+    jobs = []
+    if args.paired:
+        # paired list mode: -P may name two lists of mate files with -R
+        # a matching list of result paths
+        triples = fasta.parse_paired_file_lists(
+            args.paired[0], args.paired[1], args.results)
+        if triples is None:
+            jobs.append((args.paired[0], args.paired[1], args.results))
+        else:
+            jobs.extend(triples)
+    elif args.objects:
+        pairs = fasta.parse_file_list(args.objects)
+        if pairs is None:
+            jobs.append((args.objects, None, args.results))
+        else:
+            # multi-file mode: the list names each job's result path
+            jobs.extend((obj, None, res) for obj, res in pairs)
     else:
-        # multi-file mode: the list names each job's result path
-        jobs = list(pairs)
-    for path, out_path in jobs:
+        raise ValueError("classify needs -O <reads> (or -P <R1> <R2>)")
+    for path, _, out_path in jobs:
         if not out_path:
             raise ValueError(
                 f"no result path for {path}: pass -R (or use an "
@@ -125,12 +132,6 @@ def _build_jobs(args):
 def _refuse_unported(args) -> None:
     """Raise NotImplementedError for any classify flag outside the slice
     this package ports; none is silently ignored."""
-    if args.paired:
-        raise NotImplementedError(_TODO["paired"])
-    if args.extended:
-        raise NotImplementedError(_TODO["extended"])
-    if args.max_table_mb is not None:
-        raise NotImplementedError(_TODO["max_table_mb"])
     if args.devices != 1:
         raise NotImplementedError(_TODO["devices"])
     if (args.coordinator is not None or args.num_processes is not None
@@ -178,28 +179,42 @@ def cmd_classify(args) -> int:
         dbp = _find_db(dbdir)
 
     db = KmerDB.load(dbp, sample_factor=args.sfactor)
-    cfg = ClassifyConfig(batch_reads=args.batch, sample_factor=args.sfactor)
+    cfg = ClassifyConfig(batch_reads=args.batch, extended=args.extended,
+                         sample_factor=args.sfactor,
+                         max_table_mb=args.max_table_mb,
+                         stream_group=args.stream_group)
     clf = Classifier(db, cfg, device=args.device)
-    jobs = _build_jobs(args)  # (path, out_path)
+    try:
+        if clf.stream_parts > 1:
+            # swap-cycle analog: the table exceeds the device budget
+            src = (f"--max-table-mb {args.max_table_mb}"
+                   if args.max_table_mb is not None
+                   else f"auto device budget {clf.table_budget_mb:.0f} MB")
+            print(f" - Streaming DB in {clf.stream_parts} bucket-range "
+                  f"parts ({src})", file=sys.stderr)
+        jobs = _build_jobs(args)  # (path, paired_path, out_path)
 
-    for path, out_path in jobs:
-        t0 = time.time()
-        skip = 0
-        if args.resume:
-            skip = _count_csv_rows(out_path)
-            if skip:
-                print(f"Resuming after {skip} already-classified reads.",
-                      file=sys.stderr)
-        n = clf.classify_file_to_csv(path, out_path, skip=skip,
-                                     append=bool(skip))
-        n += skip
-        dt = time.time() - t0
-        # reference prints objects/min (src/CuCLARK_hh.hh:1940-1943)
-        print(
-            f" - Assignment time: {dt:.6g} s. Speed: "
-            f"{int(n / dt * 60.0) if dt > 0 else 0} objects/min. ({n} objects).",
-        )
-        print(f" - Results stored in {out_path}")
+        for path, paired_path, out_path in jobs:
+            t0 = time.time()
+            skip = 0
+            if args.resume:
+                skip = _count_csv_rows(out_path)
+                if skip:
+                    print(f"Resuming after {skip} already-classified "
+                          f"reads.", file=sys.stderr)
+            n = clf.classify_file_to_csv(path, out_path, paired_path,
+                                         skip=skip, append=bool(skip))
+            n += skip
+            dt = time.time() - t0
+            # reference prints objects/min (src/CuCLARK_hh.hh:1940-1943)
+            print(
+                f" - Assignment time: {dt:.6g} s. Speed: "
+                f"{int(n / dt * 60.0) if dt > 0 else 0} objects/min. "
+                f"({n} objects).",
+            )
+            print(f" - Results stored in {out_path}")
+    finally:
+        clf.close()
     return 0
 
 
@@ -358,7 +373,8 @@ def main(argv=None) -> int:
                    help="torch device to classify on: cuda, cuda:N or cpu "
                         "[cuda]")
     c.add_argument("-P", "--paired", nargs=2, metavar=("R1", "R2"),
-                   help="paired-end mates (not ported yet)")
+                   help="paired-end mates (or two lists of mate files, "
+                        "with -R a list of result paths)")
     c.add_argument("-s", "--sfactor", type=int, default=1,
                    help="query-time bucket sampling factor [1]")
     c.add_argument("-b", "--batch", type=int, default=65536,
@@ -370,10 +386,16 @@ def main(argv=None) -> int:
                    help="accepted for reference CLI compatibility; host "
                         "packing already overlaps device compute")
     c.add_argument("--extended", action="store_true",
-                   help="emit dense per-target hit columns (not ported yet)")
+                   help="emit dense per-target hit columns")
     c.add_argument("--max-table-mb", type=float, default=None,
-                   help="device memory budget for the DB table (DB "
-                        "streaming, not ported yet)")
+                   help="device memory budget for the DB table; larger "
+                        "tables stream in bucket-range parts (swap-cycle "
+                        "analog) [default: the device's free memory "
+                        "minus a reserve]")
+    c.add_argument("--stream-group", type=int, default=8,
+                   help="minimum batches classified per DB-part upload "
+                        "cycle when streaming; auto-grows to fill free "
+                        "device memory [8]")
     c.add_argument("--resume", action="store_true",
                    help="append to an existing result CSV, skipping reads "
                         "already classified (crash recovery)")

@@ -10,12 +10,30 @@
 // and the mask by window validity.  The plain PyTorch version is
 // cuclark_tpu_torch/probe.py:query_labels_plain.
 //
+// The same kernel replaces cuclark_tpu/pipeline.py:probe_part_step, one
+// bucket-range part of a streamed table (plain version:
+// probe.py:query_part_labels_plain).  Three arguments carry the part:
+//   - (bucket_start, nb_local): main rows [bucket_start, bucket_start +
+//     nb_local) are the part's rows 0..nb_local-1; a window whose main
+//     bucket lies outside skips its main-row gather (the range mask of
+//     cuclark_tpu/probe.py:_localize, :59-69; the TPU-only _spread_oob has
+//     no counterpart);
+//   - a null stash pointer: no stash probe (skip_stash, every part but 0);
+//   - accumulate: add the labels into `labels` instead of writing them
+//     (the acc + lab of cuclark_tpu/pipeline.py:811); an invalid window
+//     leaves its accumulator as it is.
+// bucket_start = 0, nb_local = NB, a stash and accumulate = 0 is the
+// resident query.
+//
 // What bounds it on the card: two random 32 B row gathers per window, one
 // into the main table (1.07 GB at the 64M-k-mer configuration, 22x the
 // 50 MB L2, so nearly every main gather goes to device memory) and one into
 // the stash (at most 2^20 rows = 33.6 MB, small enough to stay in L2).
 // The arithmetic (k-mer assembly, revcomp, Feistel) is a few hundred integer
-// operations per window and the wire bytes are read through L1.
+// operations per window and the wire bytes are read through L1.  A part call
+// gathers main rows only for the windows whose bucket lies in its range, 1/P
+// of them over P parts, so each part call costs the k-mer arithmetic and a
+// P-th of the resident call's main gathers.
 //
 // Simple design: one thread per (read, window).  Each thread assembles its
 // k-mer from the wire bytes, so no shared memory and no synchronisation; the
@@ -84,8 +102,9 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
                              const uint4* __restrict__ stash_rows,
                              int32_t* __restrict__ labels, int64_t n, int P,
                              int s2, int s8, int k, int nb_bits,
-                             int stash_bits, uint32_t c1, uint32_t c2,
-                             uint32_t c3) {
+                             int stash_bits, uint64_t bucket_start,
+                             uint64_t nb_local, int accumulate, uint32_t c1,
+                             uint32_t c2, uint32_t c3) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (idx >= n) return;
@@ -100,7 +119,7 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
   for (int j = 0; j < k; ++j) {
     const int q = p + j;
     if (!((__ldg(vr + (q >> 3)) >> (q & 7)) & 1)) {
-      labels[idx] = 0;
+      if (!accumulate) labels[idx] = 0;
       return;
     }
     km = (km << 2) | ((__ldg(pr + (q >> 2)) >> (2 * (q & 3))) & 3u);
@@ -118,23 +137,38 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
   const uint32_t l2 = l1 ^ fmix32(h1 + c3);
 
   // main row l2 & (NB-1): other == h1, quotient l2 >> nb_bits, choice 0;
-  // stash row h1 & (NBS-1): other == l2, quotient h1 >> stash_bits, choice 1
-  const uint32_t mask = static_cast<uint32_t>((1ull << nb_bits) - 1);
-  const uint32_t smask = static_cast<uint32_t>((1ull << stash_bits) - 1);
-  labels[idx] = row_label(main_rows, l2 & mask, h1, l2 >> nb_bits, 0u) +
-                row_label(stash_rows, h1 & smask, l2, h1 >> stash_bits, 1u);
+  // stash row h1 & (NBS-1): other == l2, quotient h1 >> stash_bits, choice 1.
+  // The bucket and the range are compared in 64 bits, so the part row
+  // b - bucket_start never wraps (bucket_start passes 2^31 at nb_bits 31).
+  const uint64_t b = static_cast<uint64_t>(
+      l2 & static_cast<uint32_t>((1ull << nb_bits) - 1));
+  int32_t lab = 0;
+  if (b >= bucket_start && b - bucket_start < nb_local)
+    lab = row_label(main_rows, b - bucket_start, h1, l2 >> nb_bits, 0u);
+  if (stash_rows != nullptr) {
+    const uint32_t smask = static_cast<uint32_t>((1ull << stash_bits) - 1);
+    lab += row_label(stash_rows, h1 & smask, l2, h1 >> stash_bits, 1u);
+  }
+  if (!accumulate)
+    labels[idx] = lab;
+  else if (lab != 0)
+    labels[idx] += lab;
 }
 
 }  // namespace
 
 // labels int32 [R, P] from packed2 uint8 [R, s2], vbits uint8 [R, s8],
-// main int32 [NB, 8], stash int32 [NBS, 8]; P = 4*s2 - k + 1.  Launches on
+// main int32 [nb_local, 8] (global main rows bucket_start.. of a table of
+// 2^nb_bits), stash int32 [NBS, 8] or null; P = 4*s2 - k + 1.  With
+// accumulate != 0 the labels are added into `labels`.  Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int cuclark_query(const void* packed2, const void* vbits,
                              const void* main_rows, const void* stash_rows,
                              void* labels, int64_t R, int P, int s2, int s8,
-                             int k, int nb_bits, int stash_bits, uint32_t c1,
-                             uint32_t c2, uint32_t c3, void* stream) {
+                             int k, int nb_bits, int stash_bits,
+                             int64_t bucket_start, int64_t nb_local,
+                             int accumulate, uint32_t c1, uint32_t c2,
+                             uint32_t c3, void* stream) {
   const int64_t n = R * P;
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int threads = 256;
@@ -144,6 +178,7 @@ extern "C" int cuclark_query(const void* packed2, const void* vbits,
       static_cast<const uint8_t*>(packed2), static_cast<const uint8_t*>(vbits),
       static_cast<const uint4*>(main_rows),
       static_cast<const uint4*>(stash_rows), static_cast<int32_t*>(labels), n,
-      P, s2, s8, k, nb_bits, stash_bits, c1, c2, c3);
+      P, s2, s8, k, nb_bits, stash_bits, static_cast<uint64_t>(bucket_start),
+      static_cast<uint64_t>(nb_local), accumulate, c1, c2, c3);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,10 @@ module is imported, so the CPU tests import it without nvcc.
 Each launch function takes CUDA tensors, checks them, launches on
 PyTorch's current stream, raises if the launch reports an error, and
 adds one to its entry of `LAUNCHES`.  The callers are the wrappers
-`probe.query_labels` and `score.score_labels`, which take the plain
-PyTorch versions for CPU tensors.
+`probe.query_labels`, `probe.query_part_labels` and `score.score_labels`,
+which take the plain PyTorch versions for CPU tensors.  `query` and
+`query_part` launch the same kernel (`csrc/query.cu`): the resident query
+over the whole table, and one bucket-range part of a streamed table.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuclark_tpu_torc
 MAX_SCORE_WINDOWS = 32768
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"query": 0, "score": 0}
+LAUNCHES = {"query": 0, "query_part": 0, "score": 0}
 
 _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
@@ -89,7 +91,8 @@ def load() -> ctypes.CDLL:
                              ctypes.c_uint32)
         lib.cuclark_query.restype = i32
         lib.cuclark_query.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32,
-                                      i32, i32, i32, u32, u32, u32, vp]
+                                      i32, i32, i32, i64, i64, i32, u32, u32,
+                                      u32, vp]
         lib.cuclark_score.restype = i32
         lib.cuclark_score.argtypes = [vp, vp, i64, i32, vp]
         _LIB = lib
@@ -110,17 +113,19 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def query(packed2: torch.Tensor, vbits: torch.Tensor, main: torch.Tensor,
-          stash: torch.Tensor, *, k: int, nb_bits: int, stash_bits: int,
-          consts: tuple[int, int, int]) -> torch.Tensor:
-    """Launch the query kernel (csrc/query.cu) -> labels int32 [R, P]."""
+def _launch_query(packed2, vbits, main, stash, acc, *, k, nb_bits,
+                  stash_bits, consts, bucket_start) -> torch.Tensor:
+    """Check the query kernel's operands and launch it on the current
+    stream: main holds global main rows [bucket_start, bucket_start +
+    len(main)) of a table of 2^nb_bits rows; stash None skips the stash
+    probe.  Returns new labels int32 [R, P], or `acc` with the labels
+    added in place."""
     dev = packed2.device
     if dev.type != "cuda":
         raise ValueError(f"query kernel needs CUDA tensors, got {dev}")
     _check(packed2, "packed2", torch.uint8, dev)
     _check(vbits, "vbits", torch.uint8, dev)
     _check(main, "main", torch.int32, dev)
-    _check(stash, "stash", torch.int32, dev)
     R, s2 = packed2.shape
     s8 = vbits.shape[1]
     L = 4 * s2
@@ -129,21 +134,68 @@ def query(packed2: torch.Tensor, vbits: torch.Tensor, main: torch.Tensor,
                          f"packed2 {tuple(packed2.shape)}")
     if not 2 <= k <= 32 or L < k:
         raise ValueError(f"padded read length {L} < k={k} or k out of range")
-    if main.shape != (1 << nb_bits, 8) or stash.shape != (1 << stash_bits, 8):
-        raise ValueError("main/stash shapes do not match nb_bits/stash_bits")
-    if main.data_ptr() % 16 or stash.data_ptr() % 16:
-        raise ValueError("table rows must be 16-byte aligned")
     P = L - k + 1
-    labels = torch.empty((R, P), dtype=torch.int32, device=dev)
+    if acc is not None:
+        _check(acc, "acc", torch.int32, dev)
+        if acc.shape != (R, P):
+            raise ValueError(f"acc {tuple(acc.shape)}, expected {(R, P)}")
+    nb_local = main.shape[0]
+    if (main.shape[1] != 8 or nb_local < 1 or bucket_start < 0
+            or bucket_start + nb_local > 1 << nb_bits):
+        raise ValueError(f"main rows {tuple(main.shape)} from bucket "
+                         f"{bucket_start} do not lie in 2^{nb_bits} rows")
+    stash_ptr = None
+    if stash is not None:
+        _check(stash, "stash", torch.int32, dev)
+        if stash.shape != (1 << stash_bits, 8):
+            raise ValueError("stash shape does not match stash_bits")
+        if stash.data_ptr() % 16:
+            raise ValueError("table rows must be 16-byte aligned")
+        stash_ptr = stash.data_ptr()
+    if main.data_ptr() % 16:
+        raise ValueError("table rows must be 16-byte aligned")
+    out = acc if acc is not None else torch.empty(
+        (R, P), dtype=torch.int32, device=dev)
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     c1, c2, c3 = consts
     _raise_on(lib.cuclark_query(
-        packed2.data_ptr(), vbits.data_ptr(), main.data_ptr(),
-        stash.data_ptr(), labels.data_ptr(), R, P, s2, s8, k, nb_bits,
-        stash_bits, c1, c2, c3, stream), "query")
+        packed2.data_ptr(), vbits.data_ptr(), main.data_ptr(), stash_ptr,
+        out.data_ptr(), R, P, s2, s8, k, nb_bits, stash_bits, bucket_start,
+        nb_local, int(acc is not None), c1, c2, c3, stream), "query")
+    return out
+
+
+def query(packed2: torch.Tensor, vbits: torch.Tensor, main: torch.Tensor,
+          stash: torch.Tensor, *, k: int, nb_bits: int, stash_bits: int,
+          consts: tuple[int, int, int]) -> torch.Tensor:
+    """Launch the query kernel (csrc/query.cu) on the resident table:
+    main [2^nb_bits, 8] and stash [2^stash_bits, 8] -> labels int32
+    [R, P]."""
+    if main.shape[0] != 1 << nb_bits or stash is None:
+        raise ValueError("main/stash shapes do not match nb_bits/stash_bits")
+    labels = _launch_query(packed2, vbits, main, stash, None, k=k,
+                           nb_bits=nb_bits, stash_bits=stash_bits,
+                           consts=consts, bucket_start=0)
     LAUNCHES["query"] += 1
     return labels
+
+
+def query_part(packed2: torch.Tensor, vbits: torch.Tensor,
+               main_part: torch.Tensor, stash: torch.Tensor | None, *,
+               bucket_start: int, k: int, nb_bits: int, stash_bits: int,
+               consts: tuple[int, int, int],
+               acc: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the query kernel (csrc/query.cu) on one bucket-range part:
+    main_part holds main rows [bucket_start, bucket_start +
+    len(main_part)), stash None skips the stash probe.  Returns new
+    labels int32 [R, P], or adds them into `acc` in place and returns
+    it."""
+    out = _launch_query(packed2, vbits, main_part, stash, acc, k=k,
+                        nb_bits=nb_bits, stash_bits=stash_bits,
+                        consts=consts, bucket_start=bucket_start)
+    LAUNCHES["query_part"] += 1
+    return out
 
 
 def score(labels: torch.Tensor) -> torch.Tensor:

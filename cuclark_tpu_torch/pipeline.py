@@ -1,24 +1,27 @@
 """End-to-end classification pipeline on one torch device.
 
-Counterpart of `cuclark_tpu/pipeline.py`: `classify_step_packed` (:71),
-the resident single-device path of `Classifier` (`__init__` :281-293,
-`_put_wire` :370, `_device_step` :383, `classify_file_to_csv` :571,
-`_emit` :841, and the single-end `classify_file` and `classify_records`
-iterators), and the host helpers `CsvSink`, `_prefetch`, `dense_counts`,
+Counterpart of `cuclark_tpu/pipeline.py` on one device:
+`classify_step_packed` (:71), the single-device `Classifier` (resident
+and DB-part streaming: `_plan_parts` :339, `_effective_stream_group`
+:310, `_stream_group_dev` :689, paired scan and packing :417-521,
+`classify_file` :524, `classify_file_to_csv` :571, `classify_records`
+:896), and the host helpers `CsvSink`, `_prefetch`, `dense_counts`,
 `DEFAULT_LEN_BINS`, carried over.
 
-The host scans and packs reads into the 2-bit wire format in a
-background thread, which also starts the host-to-device copy from
-pinned memory; the main thread launches the query and score kernels
-(`probe.query_labels`, `score.score_labels`) on the current stream and
-starts the copy of the [R, 5] results back into pinned memory; a writer
-thread waits for that copy and formats the CSV natively.  With
-`device="cpu"` the same path runs the kernels' plain PyTorch versions.
+The host scans and packs reads (single-end, or mate 1 + N + mate 2) into
+the 2-bit wire format in a background thread, which also starts the
+host-to-device copy from pinned memory; the main thread launches the
+kernels on the current stream and starts the copy of the [R, 5] results
+(and, in extended mode, the [R, P] labels) back into pinned memory; a
+writer thread waits for those copies and formats the CSV natively.
 
-Outside this slice, and refused with NotImplementedError: extended
-output, DB-part streaming (a table larger than the device's free
-memory, or `max_table_mb`), and q4/s2 tables.  Paired reads and
-multi-device runs are refused by the CLI.
+A table that fits the device budget (memplan) is resident and each batch
+runs the query and score kernels.  A larger one streams: its main rows
+go to the card in power-of-two bucket-range parts per group of batches,
+each part probed by the part-mode query kernel into label accumulators
+on the device, then the score kernel runs on the sums (`_PartStream`).
+With `device="cpu"` the same paths run the kernels' plain PyTorch
+versions.  q4/s2 tables are refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,15 +38,6 @@ from cuclark_tpu_torch.hashdb import KmerDB, table_to_device
 # puts Illumina-length reads at 122 windows instead of 160's 130.
 DEFAULT_LEN_BINS = (128, 152, 160, 192, 256, 320, 512, 1024, 2048, 4096,
                     16384)
-
-_TODO_EXTENDED = ("--extended output is not ported yet "
-                  "(ROADMAP.md, Queue 1: paired and --extended)")
-_TODO_STREAM = ("DB-part streaming is not ported yet (ROADMAP.md, "
-                "Queue 1: DB-part streaming)")
-
-# Device memory kept free beside the table for the batches in flight:
-# four batches of labels, results and wire bytes at MAX_BATCH_CELLS.
-_DEVICE_RESERVE_BYTES = 1 << 30
 
 
 def classify_step_packed(table, packed2, vbits, *, k, nb_bits, stash_bits,
@@ -144,6 +138,14 @@ def _to_host_async(t: torch.Tensor):
     return host, ev
 
 
+def _readback(out):
+    """Start the copies to the host of a device step's (results, labels
+    or None)."""
+    results, labels = out
+    return (_to_host_async(results),
+            _to_host_async(labels) if labels is not None else None)
+
+
 def _host_numpy(pending) -> np.ndarray:
     """Wait for a copy started by _to_host_async and return it as numpy."""
     host, ev = pending
@@ -152,9 +154,90 @@ def _host_numpy(pending) -> np.ndarray:
     return host.numpy()
 
 
+class _PartStream:
+    """The card's side of DB-part streaming: the host main rows, page-
+    locked once in place with cudaHostRegister (no second host copy of
+    the table), two preallocated device part buffers, and a dedicated
+    copy stream.  Part p+2 uploads into the buffer part p was read from;
+    CUDA events order the two streams: an upload into a buffer waits for
+    the last kernel that read it, and a probe waits for its upload.  The
+    host thread never blocks on either (the reference's async swap of DB
+    parts, src/CuClarkDB.cu:813-858)."""
+
+    def __init__(self, main_np: np.ndarray, parts: int, device):
+        self.device = device
+        self.parts = parts
+        self.rows = main_np.shape[0] // parts
+        self.host = torch.from_numpy(main_np.view(np.int32))
+        self._registered = False
+        nbytes = self.host.numel() * 4
+        err = int(torch.cuda.cudart().cudaHostRegister(
+            self.host.data_ptr(), nbytes, 0))
+        if err != 0:
+            raise RuntimeError(f"cudaHostRegister of {nbytes / 1e6:.0f} MB "
+                               f"of main rows failed: CUDA error {err}")
+        self._registered = True
+        self.copy_stream = torch.cuda.Stream(device)
+        self.bufs = [torch.empty((self.rows, 8), dtype=torch.int32,
+                                 device=device) for _ in range(2)]
+        for b in self.bufs:
+            # written on the copy stream, read on the compute stream
+            b.record_stream(self.copy_stream)
+        self._read_done = [None, None]   # event after the last probe
+        self._uploads = []               # (start, end) events per part
+
+    def _upload(self, p: int) -> torch.cuda.Event:
+        i = p % 2
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.copy_stream):
+            if self._read_done[i] is not None:
+                self.copy_stream.wait_event(self._read_done[i])
+            start.record(self.copy_stream)
+            self.bufs[i].copy_(self.host[p * self.rows:(p + 1) * self.rows],
+                               non_blocking=True)
+            done.record(self.copy_stream)
+        self._uploads.append((start, done))
+        return done
+
+    def parts_on_device(self):
+        """Yield (part index, device rows) for every part, in order; the
+        caller launches its probes of a part on the current stream
+        before asking for the next."""
+        compute = torch.cuda.current_stream(self.device)
+        self._uploads = []
+        pending = [self._upload(p) for p in range(min(2, self.parts))]
+        for p in range(self.parts):
+            compute.wait_event(pending[p])
+            yield p, self.bufs[p % 2]
+            done = torch.cuda.Event()
+            done.record(compute)
+            self._read_done[p % 2] = done
+            if p + 2 < self.parts:
+                pending.append(self._upload(p + 2))
+
+    def upload_gbps(self) -> list[float]:
+        """Host-to-device rate of each part upload of the last group,
+        GB/s from the copy stream's events (waits for them)."""
+        nbytes = self.rows * 32
+        out = []
+        for start, done in self._uploads:
+            done.synchronize()
+            out.append(nbytes / (start.elapsed_time(done) * 1e6))
+        return out
+
+    def close(self) -> None:
+        if self._registered:
+            torch.cuda.synchronize(self.device)
+            self.bufs = []
+            torch.cuda.cudart().cudaHostUnregister(self.host.data_ptr())
+            self._registered = False
+
+
 class Classifier:
-    """Holds the device-resident DB and runs batched classification on
-    one torch device ("cuda", "cuda:N" or "cpu")."""
+    """Holds the DB on one torch device ("cuda", "cuda:N" or "cpu") and
+    runs batched classification: the table resident when it fits the
+    device budget, else streamed in bucket-range parts."""
 
     # Device-memory guard: batch_rows x padded_length is capped so a
     # stretch of very long reads (nanopore-scale) shrinks the batch
@@ -164,15 +247,15 @@ class Classifier:
     def __init__(self, db: KmerDB, cfg: ClassifyConfig | None = None,
                  len_bins=DEFAULT_LEN_BINS, device="cuda"):
         from cuclark_tpu_torch.hashdb import _Q4_S2_TODO
+        from cuclark_tpu_torch.memplan import resolve_table_budget_mb
 
         self.db = db
         self.cfg = cfg or ClassifyConfig()
         self.len_bins = tuple(sorted(len_bins))
         self.device = torch.device(device)
-        if self.cfg.extended:
-            raise NotImplementedError(_TODO_EXTENDED)
-        if self.cfg.max_table_mb is not None:
-            raise NotImplementedError(_TODO_STREAM)
+        self.stream_parts = 1
+        self.stream_group_eff = self.cfg.stream_group
+        self._parts = None  # _PartStream of a streamed table on a card
         if db.layout != "qs":
             raise NotImplementedError(_Q4_S2_TODO)
         if self.device.type == "cuda":
@@ -180,15 +263,93 @@ class Classifier:
                 raise RuntimeError(
                     f"device {self.device} requested but "
                     f"torch.cuda.is_available() is False")
-            free, _ = torch.cuda.mem_get_info(self.device)
-            if db.table.nbytes + _DEVICE_RESERVE_BYTES > free:
-                raise NotImplementedError(
-                    f"table of {db.table.nbytes / 1e6:.0f} MB does not fit "
-                    f"the {free / 1e6:.0f} MB free on {self.device}: "
-                    f"{_TODO_STREAM}")
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
-        self.table, self.stash = table_to_device(db, self.device)
+        # Explicit --max-table-mb, else the device's free memory less a
+        # reserve (the reference's free-VRAM probe + RESERVED,
+        # src/CuClarkDB.cu:540-574); None = unbounded (the CPU).
+        self.table_budget_mb = resolve_table_budget_mb(self.cfg.max_table_mb,
+                                                       self.device)
+        main_np, stash_np = db.split_tables()
+        self.stream_parts = self._plan_parts(main_np, stash_np)
+        if self.stream_parts == 1:
+            self.table, self.stash = table_to_device(db, self.device)
+            return
+        # DB streaming (reference swap-cycle analog): the main rows stay
+        # on the host and stream in power-of-two bucket-range parts per
+        # batch group; the small stash stays resident
+        self.table = None
+        self.np_table = np.ascontiguousarray(main_np)
+        self.np_stash = np.ascontiguousarray(stash_np)
+        self.stream_group_eff = self._effective_stream_group()
+        self.stash = torch.from_numpy(self.np_stash.view(np.int32)).to(
+            self.device)
+        if self.device.type == "cuda":
+            self._parts = _PartStream(self.np_table, self.stream_parts,
+                                      self.device)
+
+    def close(self) -> None:
+        """Wait for the card, then release the streamed table's device
+        buffers and the page-locking of its host rows."""
+        if self._parts is not None:
+            self._parts.close()
+            self._parts = None
+
+    def __del__(self):  # best effort; close() is the deliberate path
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _effective_stream_group(self) -> int:
+        """Batch-group size for DB-part streaming: at least
+        cfg.stream_group, grown to fill the device's free memory with
+        on-device label accumulators so the table restreams as rarely
+        as possible.  The reference re-queries ALL prepared batches per
+        swap cycle (src/CuCLARK_hh.hh:1766-1774); this is the same idea
+        bounded by device memory.  Sized against the worst-case
+        per-batch footprint (MAX_BATCH_CELLS int32 accumulator + wire
+        bytes), so mixed length bins can never overshoot; the CPU keeps
+        the configured value."""
+        from cuclark_tpu_torch.memplan import device_memory_budget_mb
+
+        base = self.cfg.stream_group
+        dev_mb = device_memory_budget_mb(self.device)
+        if dev_mb is None:
+            return base
+        per_batch = int(self.MAX_BATCH_CELLS * 4.5)  # acc + wire, bytes
+        part = self.np_table.nbytes // self.stream_parts
+        avail = dev_mb * 1e6 - 2 * part - self.np_stash.nbytes
+        # NOT np.clip: with base > 512 numpy's a_min > a_max rule would
+        # silently return 512 and break the "at least cfg.stream_group"
+        # contract; an explicitly larger configured group is honored
+        return max(base, min(int(avail // per_batch), 512))
+
+    def _plan_parts(self, main_np, stash_np) -> int:
+        """Streaming-part plan honoring the REAL device footprint: the
+        part uploads are double-buffered (part p+1 transfers while part
+        p computes, so TWO parts are resident at once) and the stash
+        stays resident on top; both come off the budget and only the
+        main rows are planned against the rest."""
+        from cuclark_tpu_torch.memplan import plan_stream_parts
+
+        budget = self.table_budget_mb
+        if budget is not None:
+            left = budget - stash_np.nbytes / 1e6
+            # stash alone past the stated budget: the plan is infeasible
+            # either way; keep the unadjusted budget (best effort)
+            budget = left if left > 0 else budget
+            # halve for the double-buffered part uploads, but only when
+            # streaming is needed at all (a resident table has none)
+            if plan_stream_parts(main_np.nbytes, budget, 1,
+                                 main_np.shape[0]) > 1:
+                budget = budget / 2
+        return plan_stream_parts(main_np.nbytes, budget, 1, main_np.shape[0])
+
+    def part_upload_gbps(self) -> list[float]:
+        """GB/s of each part upload of the last streamed group on the
+        card (empty for a resident table or the CPU)."""
+        return self._parts.upload_gbps() if self._parts is not None else []
 
     def _bin_for(self, max_len: int) -> int:
         for b in self.len_bins:
@@ -196,8 +357,15 @@ class Classifier:
                 return b
         return int(np.ceil((max_len + 1) / 128) * 128)
 
-    def _bin_for_range(self, s, e) -> int:
-        mx = int((e - s).max(initial=1))
+    def _bin_for_range(self, s, e, s2=None, e2=None) -> int:
+        if s2 is not None:
+            # max of the PER-RECORD combined lengths, the same metric
+            # the MAX_BATCH_CELLS shrink loop uses; summing separate
+            # maxima could pick a bin up to 2x larger and overshoot the
+            # cell cap when mate lengths vary
+            mx = int(((e - s) + (e2 - s2) + 1).max(initial=1))
+        else:
+            mx = int((e - s).max(initial=1))
         return max(self._bin_for(mx), self.db.k)
 
     def _put_wire(self, wire):
@@ -211,36 +379,105 @@ class Classifier:
 
     def _device_step(self, wire):
         """Launch one device step on a wire batch already on the device
-        -> results int32 [R, 5] on the device."""
+        against the resident table -> (results int32 [R, 5], labels
+        int32 [R, P] in extended mode else None) on the device."""
         db = self.db
         packed2, vbits = wire
-        results, _ = classify_step_packed(
+        return classify_step_packed(
             self.table, packed2, vbits, k=db.k, nb_bits=db.nb_bits,
             stash_bits=db.stash_bits, seed=db.seed, stash=self.stash,
-            with_labels=False)
-        return results
+            with_labels=self.cfg.extended)
+
+    def _stream_group_dev(self, wires):
+        """Stream DB parts over a group of wire batches already on the
+        device (the reference multi-cycle path: swap part, re-query
+        every batch, src/CuCLARK_hh.hh:1766-1774) and merge partial
+        labels by sum: every k-mer lives in exactly one part, and the
+        resident stash is probed on part 0's call only.  The labels
+        accumulate in place on the device, and on the card part p+1
+        uploads while part p probes (_PartStream).  Returns (results,
+        labels in extended mode else None) per batch, on the device."""
+        db = self.db
+        rows = self.np_table.shape[0] // self.stream_parts
+        if self._parts is not None:
+            parts = self._parts.parts_on_device()
+        else:
+            parts = ((p, torch.from_numpy(
+                self.np_table[p * rows:(p + 1) * rows].view(np.int32)))
+                for p in range(self.stream_parts))
+        acc = [None] * len(wires)
+        for p, part in parts:
+            for gi, (p2, vb) in enumerate(wires):
+                acc[gi] = probe.query_part_labels(
+                    p2, vb, part, self.stash if p == 0 else None,
+                    bucket_start=p * rows, nb_local=rows, k=db.k,
+                    nb_bits=db.nb_bits, stash_bits=db.stash_bits,
+                    seed=db.seed, acc=acc[gi])
+        return [(score.score_labels(a), a if self.cfg.extended else None)
+                for a in acc]
+
+    def _grouped(self, batches):
+        """Group (wire, ...) items by stream_group_eff for streaming."""
+        group = []
+        for item in batches:
+            group.append(item)
+            if len(group) >= self.stream_group_eff:
+                yield group
+                group = []
+        if group:
+            yield group
 
     # ---------- file fast path ----------
 
-    def _scan_for_classify(self, path, skip):
-        """Scan a classify job's input file -> (buf, name_s, name_e,
-        seq_s, seq_e), skipping the first `skip` records."""
+    def _scan_for_classify(self, path, paired_path, skip):
+        """Scan a classify job's input file(s) -> (buf, buf2, name_s,
+        name_e, seq_s, seq_e, seq_s2, seq_e2), skipping the first `skip`
+        records; buf2 and the mate offsets are None without a mate
+        file."""
         from cuclark_tpu_torch.io import fast_parse
 
         buf = _read_file_bytes(path)
         name_s, name_e, seq_s, seq_e = fast_parse.scan_file(buf)
+        n1_total = len(name_s)
         if skip:
             name_s, name_e = name_s[skip:], name_e[skip:]
             seq_s, seq_e = seq_s[skip:], seq_e[skip:]
-        return buf, name_s, name_e, seq_s, seq_e
+        if paired_path is None:
+            return buf, None, name_s, name_e, seq_s, seq_e, None, None
+        buf2 = _read_file_bytes(paired_path)
+        ns2, ne2, seq_s2, seq_e2 = fast_parse.scan_file(buf2)
+        # mergePairedFiles parity (src/file.cc:205-268): hard error on
+        # differing record counts or mismatched mate ids instead of
+        # silently zipping by order; FULL file counts, so truncation
+        # hard-errors on resumed runs too
+        if n1_total != len(seq_s2):
+            raise ValueError(
+                f"paired files have different record counts: {path} has "
+                f"{n1_total}, {paired_path} has {len(seq_s2)}")
+        bad = fast_parse.first_mate_mismatch(buf, name_s, name_e, buf2,
+                                             ns2[skip:], ne2[skip:])
+        if bad >= 0:
+            n1 = buf[name_s[bad]:name_e[bad]].tobytes().decode(
+                "ascii", "replace")
+            i2 = skip + bad
+            n2 = buf2[ns2[i2]:ne2[i2]].tobytes().decode("ascii", "replace")
+            raise ValueError(f"read id does not match between files at "
+                             f"record {i2}: {n1!r} vs {n2!r}")
+        seq_s2, seq_e2 = seq_s2[skip:], seq_e2[skip:]
+        return buf, buf2, name_s, name_e, seq_s, seq_e, seq_s2, seq_e2
 
-    def _packed_batches(self, buf, name_s, name_e, seq_s, seq_e):
+    def _packed_batches(self, buf, buf2, name_s, name_e, seq_s, seq_e,
+                        seq_s2, seq_e2):
         """Yield ((packed2, vbits), (ns, ne), lengths, cnt) batches in
-        the 2-bit wire format (codec.pack_codes layout)."""
+        the 2-bit wire format (codec.pack_codes layout); a pair is
+        packed as mate 1, a joining N, mate 2."""
         from cuclark_tpu_torch.io import fast_parse
 
+        paired = buf2 is not None
         B = self.cfg.batch_reads
         raw_len = seq_e - seq_s
+        if paired:
+            raw_len = raw_len + (seq_e2 - seq_s2) + 1
         lo = 0
         n_rec = len(seq_s)
         while lo < n_rec:
@@ -252,109 +489,185 @@ class Classifier:
                     break
                 hi = lo + max(1, self.MAX_BATCH_CELLS // bin_len)
             cnt = hi - lo
-            L = self._bin_for_range(seq_s[lo:hi], seq_e[lo:hi])
-            p2, vb, lengths = fast_parse.pack_block2_dispatch(
-                buf, seq_s[lo:hi], seq_e[lo:hi], L, n_rows=cnt)
+            if paired:
+                L = self._bin_for_range(seq_s[lo:hi], seq_e[lo:hi],
+                                        seq_s2[lo:hi], seq_e2[lo:hi])
+                p2, vb, lengths = fast_parse.pack_block2_paired_dispatch(
+                    buf, seq_s[lo:hi], seq_e[lo:hi],
+                    buf2, seq_s2[lo:hi], seq_e2[lo:hi], L, n_rows=cnt)
+            else:
+                L = self._bin_for_range(seq_s[lo:hi], seq_e[lo:hi])
+                p2, vb, lengths = fast_parse.pack_block2_dispatch(
+                    buf, seq_s[lo:hi], seq_e[lo:hi], L, n_rows=cnt)
             yield (p2, vb), (name_s[lo:hi], name_e[lo:hi]), lengths, cnt
             lo = hi
 
-    def classify_file(self, path, skip: int = 0):
-        """Yield result rows (dicts, see _emit) for a whole single-end
-        FASTA/FASTQ file.  skip: number of leading records to skip."""
+    def classify_file(self, path, paired_path=None, skip: int = 0):
+        """Yield result rows (dicts, see _emit_np) for a whole
+        FASTA/FASTQ file, optionally with a mate file merged with a
+        joining N.  skip: number of leading records to skip."""
         from collections import deque
 
         from cuclark_tpu_torch.io import fast_parse
 
-        buf, *scan = self._scan_for_classify(path, skip)
+        buf, buf2, *scan = self._scan_for_classify(path, paired_path, skip)
+        paired = buf2 is not None
 
         def packed():
             for wire, (ns, ne), lengths, cnt in self._packed_batches(
-                    buf, *scan):
+                    buf, buf2, *scan):
                 names = fast_parse.names_of(buf, ns, ne)
                 yield self._put_wire(wire), names, lengths, cnt
 
+        if self.stream_parts > 1:
+            for group in self._grouped(_prefetch(packed())):
+                yield from self._classify_group_streaming(group, paired)
+            return
         # keep a few batches in flight so host packing/formatting and
         # transfers overlap device compute (the reference's pipeline
         # scheduler role, src/CuCLARK_hh.hh:1738-1761)
         inflight = deque()
         for wire, names, lengths, cnt in _prefetch(packed()):
-            inflight.append((_to_host_async(self._device_step(wire)),
-                             names, lengths, cnt))
+            inflight.append((_readback(self._device_step(wire)), names,
+                             lengths, cnt))
             if len(inflight) > 3:
-                yield from self._emit(*inflight.popleft())
+                yield from self._emit(*inflight.popleft(), paired)
         while inflight:
-            yield from self._emit(*inflight.popleft())
+            yield from self._emit(*inflight.popleft(), paired)
 
-    def classify_file_to_csv(self, path, out_path, skip: int = 0,
-                             append: bool = False) -> int:
-        """Classify a single-end FASTA/FASTQ file straight into a CLARK
-        CSV using the native row formatter — the fast path for the CLI.
-        Falls back to the per-row dict path when the native module is
-        unavailable.  skip: number of leading records to skip (resume
+    def classify_file_to_csv(self, path, out_path, paired_path=None,
+                             skip: int = 0, append: bool = False) -> int:
+        """Classify a file (optionally with a mate file) straight into a
+        CLARK CSV using the native row formatter, the fast path for the
+        CLI.  Falls back to the per-row dict path when the native module
+        is unavailable.  skip: number of leading records to skip (resume
         support).  Returns the number of reads written."""
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
         from cuclark_tpu_torch import native
 
+        extended = self.cfg.extended
         if not native.available():
-            from cuclark_tpu_torch.io.csv_out import format_row, header_line
+            return self._classify_file_to_csv_rows(path, out_path,
+                                                   paired_path, skip, append)
 
-            names = self.db.target_names
-            n = 0
-            with open(out_path, "a" if append else "w") as f:
-                if not append:
-                    f.write(header_line(names))
-                for row in self.classify_file(path, skip=skip):
-                    f.write(format_row(row, names))
-                    n += 1
-            return n
-
-        buf, *scan = self._scan_for_classify(path, skip)
+        buf, buf2, *scan = self._scan_for_classify(path, paired_path, skip)
 
         with open(out_path, "ab" if append else "wb") as f:
-            sink = CsvSink(f, self.db, extended=False, paired=False)
+            sink = CsvSink(f, self.db, extended, buf2 is not None)
             if not append:
                 sink.write_header()
 
             def flush_one(pending, ns, ne, lengths, cnt):
-                sink.flush(_host_numpy(pending), None, buf, ns, ne,
-                           lengths, cnt)
+                res, lab = pending
+                sink.flush(_host_numpy(res),
+                           _host_numpy(lab) if lab is not None else None,
+                           buf, ns, ne, lengths, cnt)
 
             def put_batches():
                 for wire, nsne, lengths, cnt in self._packed_batches(
-                        buf, *scan):
+                        buf, buf2, *scan):
                     yield self._put_wire(wire), nsne, lengths, cnt
 
             # Third pipeline stage: the D2H wait + CSV formatting + file
             # write run on a single writer thread (in submission order,
             # so rows stay ordered), overlapping the main thread's
-            # kernel launches — the reference's "one thread starts
+            # kernel launches: the reference's "one thread starts
             # writing results while others still feed batches"
             # (src/CuCLARK_hh.hh:1755-1761).
             with ThreadPoolExecutor(1) as writer:
                 futs = deque()
-                for wire, (ns, ne), lengths, cnt in _prefetch(
-                        put_batches()):
-                    pending = _to_host_async(self._device_step(wire))
-                    futs.append(writer.submit(
-                        flush_one, pending, ns, ne, lengths, cnt))
-                    if len(futs) > 3:
-                        futs.popleft().result()
+
+                def submit(out, ns, ne, lengths, cnt):
+                    futs.append(writer.submit(flush_one, _readback(out),
+                                              ns, ne, lengths, cnt))
+
+                if self.stream_parts > 1:
+                    # streaming on the same native writer path: stream
+                    # the parts over a group, then flush its batches
+                    for group in self._grouped(_prefetch(put_batches())):
+                        outs = self._stream_group_dev(
+                            [w for w, _, _, _ in group])
+                        for (_, (ns, ne), lengths, cnt), out in zip(group,
+                                                                   outs):
+                            submit(out, ns, ne, lengths, cnt)
+                        while len(futs) > 3:
+                            futs.popleft().result()
+                else:
+                    for wire, (ns, ne), lengths, cnt in _prefetch(
+                            put_batches()):
+                        submit(self._device_step(wire), ns, ne, lengths,
+                               cnt)
+                        if len(futs) > 3:
+                            futs.popleft().result()
                 while futs:
                     futs.popleft().result()
+        sink.print_hit_stats()
         return sink.total_rows
 
-    def _emit(self, pending, names, lengths, count):
-        """Result dicts of one batch whose [R, 5] copy was started by
-        _to_host_async."""
-        results = _host_numpy(pending)[:count]
+    def _classify_file_to_csv_rows(self, path, out_path, paired_path, skip,
+                                   append) -> int:
+        """classify_file_to_csv without the native module: the per-row
+        dict path and Python formatting, with the same extended-mode hit
+        stats as CsvSink."""
+        from cuclark_tpu_torch.io.csv_out import format_row, write_results
+
+        n = 0
+        hstats = [None, 0, 0]  # same triple CsvSink accumulates
+
+        def counted(rows):
+            nonlocal n
+            for r in rows:
+                n += 1
+                if "target_counts" in r:
+                    accumulate_hit_stats(
+                        hstats, np.array([len(r["target_counts"])]))
+                yield r
+
+        rows = counted(self.classify_file(path, paired_path, skip=skip))
+        names, extended = self.db.target_names, self.cfg.extended
+        if append:
+            with open(out_path, "a") as f:
+                for row in rows:
+                    f.write(format_row(row, names, extended))
+        else:
+            write_results(out_path, rows, names, extended=extended)
+        if extended and n:
+            # reference extended-mode hit stats (CuCLARK_hh.hh:2075-2080)
+            import sys
+
+            print(f"MIN targets: {hstats[0] or 0}, MAX targets: "
+                  f"{hstats[1]}, AVG targets: {hstats[2] / n:g}",
+                  file=sys.stderr)
+        return n
+
+    def _classify_group_streaming(self, group, paired: bool):
+        """Dict rows of a streamed group of (wire, names, lengths, cnt)."""
+        outs = [_readback(o) for o in self._stream_group_dev(
+            [w for w, _, _, _ in group])]
+        for (_, names, lengths, cnt), pending in zip(group, outs):
+            yield from self._emit(pending, names, lengths, cnt, paired)
+
+    def _emit(self, pending, names, lengths, count, paired: bool):
+        """Result dicts of one batch whose copies to the host were
+        started by _readback."""
+        res, lab = pending
+        yield from self._emit_np(
+            _host_numpy(res), _host_numpy(lab) if lab is not None else None,
+            names, lengths, count, paired)
+
+    def _emit_np(self, results, labels_np, names, lengths, count,
+                 paired: bool):
+        results = results[:count]
         lengths = lengths[:count]
         total, ibest, best, isecond, second = (results[:, i] for i in range(5))
         norm, gamma, conf = score.gamma_confidence(
-            total, best, second, lengths, self.db.k, False)
+            total, best, second, lengths, self.db.k, paired)
+        counts = (dense_counts(labels_np[:count], self.db.num_targets)
+                  if labels_np is not None else None)
         for i in range(count):
-            yield {
+            row = {
                 "name": names[i],
                 "length": int(norm[i]),
                 "gamma": float(gamma[i]),
@@ -365,12 +678,17 @@ class Classifier:
                 "second": int(second[i]),
                 "confidence": float(conf[i]),
             }
+            if counts is not None:
+                (t,) = np.nonzero(counts[i])
+                row["target_counts"] = dict(
+                    zip(t.tolist(), counts[i, t].tolist()))
+            yield row
 
     # ---------- record-iterator path ----------
 
     def _record_batches(self, records):
         """Group records into batches honoring BOTH caps: count
-        (batch_reads) and padded cells (MAX_BATCH_CELLS) — long records
+        (batch_reads) and padded cells (MAX_BATCH_CELLS); long records
         shrink the batch instead of exploding the padded device arrays,
         matching the file path's shrink loop."""
         batch, max_len = [], 1
@@ -404,20 +722,28 @@ class Classifier:
         names = [n for n, _ in batch]
         return (p2, vb), names, lengths, len(batch)
 
-    def classify_records(self, records):
-        """records: iterable of single-end (name, seq_bytes).
+    def classify_records(self, records, paired: bool = False):
+        """records: iterable of (name, seq_bytes); with paired=True each
+        record is a merged pair (mate 1 + b"N" + mate 2, as
+        io.fasta.read_paired_records yields them).
 
         Yields per-read result dicts in input order, one batch behind
         the device so packing overlaps the step."""
+        batches = ((self._put_wire(wire), names, lengths, count)
+                   for wire, names, lengths, count in map(
+                       self._wire_records, self._record_batches(records)))
+        if self.stream_parts > 1:
+            for group in self._grouped(batches):
+                yield from self._classify_group_streaming(group, paired)
+            return
         inflight = None
-        for batch in self._record_batches(records):
-            wire, names, lengths, count = self._wire_records(batch)
-            pending = _to_host_async(self._device_step(self._put_wire(wire)))
+        for wire, names, lengths, count in batches:
+            pending = _readback(self._device_step(wire))
             if inflight is not None:
-                yield from self._emit(*inflight)
+                yield from self._emit(*inflight, paired)
             inflight = (pending, names, lengths, count)
         if inflight is not None:
-            yield from self._emit(*inflight)
+            yield from self._emit(*inflight, paired)
 
 
 def dense_counts(labels_np: np.ndarray, n_targets: int) -> np.ndarray:

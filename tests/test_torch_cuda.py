@@ -84,3 +84,88 @@ def test_classifier_rows_match_cpu(dev, tmp_path):
     recs = [(f"r{i}", b"ACGT" * (10 + i)) for i in range(50)]
     assert list(gpu.classify_records(iter(recs))) == list(
         cpu.classify_records(iter(recs)))
+
+
+@pytest.mark.parametrize("with_stash", [True, False])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_query_part_kernel_matches_plain(dev, with_stash, accumulate):
+    """The part-mode query kernel on each of 4 bucket-range parts, with
+    or without the stash, writing or adding into an accumulator whose
+    invalid windows must keep their values."""
+    k = 31
+    rng = np.random.default_rng(5)
+    km = rng.integers(0, 1 << 62, size=301_000, dtype=np.uint64)
+    km = np.unique(codec.canonical_np(km, k))[:300_000]
+    labels = rng.integers(1, 65536, size=len(km)).astype(np.uint32)
+    names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
+    db = hashdb.build_table(km, labels, names, DBConfig(k=k), nb_bits=17)
+    R, L = 256, 152
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    for r in range(0, R, 2):
+        for p in range(0, L - k + 1, k):
+            codes[r, p:p + k] = (km[rng.integers(len(km))] >> shifts) & 3
+    codes[rng.random((R, L)) < 0.01] = codec.INVALID
+    codes[3, 90:] = codec.INVALID
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    main, stash = hashdb.table_to_device(db, dev)
+    rows = db.nb // 4
+    args = dict(nb_local=rows, k=k, nb_bits=db.nb_bits,
+                stash_bits=db.stash_bits, seed=db.seed)
+    hits = 0
+    for p in range(4):
+        part = main[p * rows:(p + 1) * rows].contiguous()
+        s = stash if with_stash else None
+        acc = (torch.from_numpy(rng.integers(0, 1000, size=(R, L - k + 1),
+                                             dtype=np.int32)).to(dev)
+               if accumulate else None)
+        want = probe.query_part_labels_plain(
+            p2, vb, part, s, bucket_start=p * rows,
+            acc=acc.clone() if accumulate else None, **args)
+        before = kernels.LAUNCHES["query_part"]
+        got = probe.query_part_labels(p2, vb, part, s, bucket_start=p * rows,
+                                      acc=acc, **args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["query_part"] == before + 1
+        assert torch.equal(got, want)
+        if accumulate:
+            assert got.data_ptr() == acc.data_ptr()
+        hits += int((want > 0).sum())
+    assert hits > R
+
+
+def test_streamed_classifier_matches_cpu(dev, tmp_path):
+    """A table streamed in 4 or more parts on the card: the rows and the
+    extended CSV bytes of the CPU's resident run, through the part-mode
+    kernel, with an upload rate for every part."""
+    from pathlib import Path
+
+    from cuclark_tpu_torch import cli, pipeline
+    from cuclark_tpu_torch.config import ClassifyConfig
+    from cuclark_tpu_torch.hashdb import KmerDB
+
+    ex = Path(__file__).resolve().parent.parent / "examples"
+    assert cli.main(["build-db", "-T", str(ex / "targets.txt"),
+                     "-D", str(tmp_path / "db"), "-k", "27"]) == 0
+    db = KmerDB.load(next((tmp_path / "db").glob("db_k*.npz")))
+    cfg = ClassifyConfig(extended=True, batch_reads=64, stream_group=2,
+                         max_table_mb=db.table.nbytes / 8e6)
+    gpu = pipeline.Classifier(db, cfg, device=dev)
+    cpu = pipeline.Classifier(db, ClassifyConfig(extended=True,
+                                                 batch_reads=64),
+                              device="cpu")
+    assert gpu.stream_parts >= 4 and cpu.stream_parts == 1
+    reads = str(ex / "reads.fq")
+    before = kernels.LAUNCHES["query_part"]
+    try:
+        assert list(gpu.classify_file(reads)) == list(
+            cpu.classify_file(reads))
+        assert kernels.LAUNCHES["query_part"] > before
+        rates = gpu.part_upload_gbps()
+        assert len(rates) == gpu.stream_parts and min(rates) > 0
+        gpu.classify_file_to_csv(reads, tmp_path / "gpu.csv")
+        cpu.classify_file_to_csv(reads, tmp_path / "cpu.csv")
+        assert ((tmp_path / "gpu.csv").read_bytes()
+                == (tmp_path / "cpu.csv").read_bytes())
+    finally:
+        gpu.close()

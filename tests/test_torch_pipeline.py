@@ -133,7 +133,7 @@ def test_port_imports_no_jax():
         "sys.modules['jax'] = None\n"
         "import cuclark_tpu_torch\n"
         "from cuclark_tpu_torch import (cli, codec, config, hashdb, kernels,"
-        " native, pipeline, probe, score)\n"
+        " memplan, native, pipeline, probe, score)\n"
         "from cuclark_tpu_torch.io import csv_out, fast_parse, fasta\n"
         "from cuclark_tpu_torch.db_build import builder\n"
         "try:\n"
@@ -159,9 +159,6 @@ def test_cuda_classifier_does_not_fall_back(inputs, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-P", "r1.fq", "r2.fq"],
-    ["--extended"],
-    ["--max-table-mb", "100"],
     ["-d", "2"],
     ["--coordinator", "localhost:1234"],
     ["--num-processes", "2"],
