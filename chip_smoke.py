@@ -18,7 +18,12 @@ against `--device cpu`:
     268 MB uploaded per group of batches (part-mode query kernel);
   - paired: 131,072 pairs of 150 bp mates from 400 bp fragments (-P);
   - extended: 1,024 reads with one count column per target, resident
-    and streamed (--extended).
+    and streamed (--extended);
+  - layouts: the same k-mers in a q4 table (1.074 GB) and an s2 table
+    (2 slots, 2 hash choices: 1.611 GB), resident and streamed (4 and 8
+    parts at `--max-table-mb 600`), each CSV equal to the qs CSV;
+  - long_reads: 256 reads of 33,000 to 100,000 bases (the score
+    kernel's device-memory path for rows over 32,768 windows).
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -50,7 +55,9 @@ FRAGMENT = 400             # paired: mate 1 = [0, 150), mate 2 = [250, 400)
 GENOME_LEN = 3936          # 3,906 31-mers per genome: 64.0M for 16,384
 SUB_RATE = 0.01
 STREAM_MB = 600            # cuCLARK-l's "< 600 MB DB" budget: 4 parts
-STREAM_PARTS = 4
+STREAM_PARTS = {"qs": 4, "q4": 4, "s2": 8}   # at STREAM_MB, full size
+S2_SLOTS, S2_CHOICES = 2, 2
+N_LONG, LONG_MIN, LONG_MAX = 256, 33_000, 100_000
 
 
 def _phase(name: str, t0: float, detail: str) -> None:
@@ -112,8 +119,7 @@ def check_small_query(dev, k: int) -> int:
     p2, vb = (torch.from_numpy(a).to(dev)
               for a in _planted_reads(rng, km, k, 1024, 152))
     main, stash = hashdb.table_to_device(db, dev)
-    args = dict(k=k, nb_bits=db.nb_bits, stash_bits=db.stash_bits,
-                seed=db.seed)
+    args = dict(k=k, spec=db.spec)
     got = probe.query_labels(p2, vb, main, stash, **args)
     torch.cuda.synchronize()
     want = probe.query_labels_plain(p2, vb, main, stash, **args)
@@ -129,6 +135,91 @@ def check_small_query(dev, k: int) -> int:
     print(f"  k={k}: {got.numel()} windows bit-identical, {n_hit} hits, "
           f"{n_stash} from the stash", flush=True)
     return _max_abs_err(got, want)
+
+
+def _second_choice_only(db) -> np.ndarray:
+    """A q4 or s2 table with every entry stored at its first hash choice
+    removed: what remains answers from the second choice alone."""
+    from cuclark_tpu_torch import hashdb
+
+    t = db.table.copy()
+    if db.layout == "q4":
+        first = ((t[:, 4:] >> np.uint32(16)) & np.uint32(1)) == 0
+        t[:, :4][first] = 0
+        t[:, 4:][first] = 0
+        return t
+    S = db.slots
+    with np.errstate(over="ignore"):
+        b1 = hashdb.mix1(t[:, S:2 * S], t[:, :S]) & np.uint32(db.nb - 1)
+    first = b1 == np.arange(db.nb, dtype=np.uint32)[:, None]
+    t[:, :2 * S][np.concatenate([first, first], axis=1)] = hashdb.EMPTY
+    return t
+
+
+def check_small_layout(dev, layout: str, k: int) -> dict:
+    """The q4 or s2 query kernel vs plain on a small table, resident and
+    on 4 bucket-range parts written and accumulated, with hits from the
+    second hash choice alone.  Returns max_abs_err per launch name."""
+    import torch
+
+    from cuclark_tpu_torch import codec, hashdb, probe
+    from cuclark_tpu_torch.config import DBConfig
+
+    rng = np.random.default_rng(100 + k)
+    n, nb_bits = (300_000, 17) if layout == "q4" else (90_000, 16)
+    km = rng.integers(0, np.iinfo(np.uint64).max, size=n + 10_000,
+                      dtype=np.uint64, endpoint=True)
+    km = np.unique(codec.canonical_np(km >> np.uint64(64 - 2 * k), k))[:n]
+    labels = rng.integers(1, 65536, size=len(km)).astype(np.uint32)
+    names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
+    db = hashdb.build_table(km, labels, names, DBConfig(
+        k=k, layout=layout, slots=S2_SLOTS, num_choices=S2_CHOICES),
+        nb_bits=nb_bits)
+    p2, vb = (torch.from_numpy(a).to(dev)
+              for a in _planted_reads(rng, km, k, 1024, 152))
+    err = {f"query_{layout}": 0, f"query_part_{layout}": 0}
+    n_second = 0
+    for table in (db.table, _second_choice_only(db)):
+        main = torch.from_numpy(table.view(np.int32)).to(dev)
+        got = probe.query_labels(p2, vb, main, None, k=k, spec=db.spec)
+        torch.cuda.synchronize()
+        want = probe.query_labels_plain(p2, vb, main, None, k=k,
+                                        spec=db.spec)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{layout} query kernel != plain at k={k}")
+        err[f"query_{layout}"] = max(err[f"query_{layout}"],
+                                     _max_abs_err(got, want))
+        rows = db.nb // 4
+        acc = acc_plain = None
+        for p in range(4):
+            part = main[p * rows:(p + 1) * rows]
+            args = dict(bucket_start=p * rows, nb_local=rows, k=k,
+                        spec=db.spec)
+            one = probe.query_part_labels(p2, vb, part, None, **args)
+            acc = probe.query_part_labels(p2, vb, part, None, acc=acc,
+                                          **args)
+            torch.cuda.synchronize()
+            one_plain = probe.query_part_labels_plain(p2, vb, part, None,
+                                                      **args)
+            acc_plain = probe.query_part_labels_plain(
+                p2, vb, part, None, acc=acc_plain, **args)
+            if not (torch.equal(one, one_plain)
+                    and torch.equal(acc, acc_plain)):
+                raise AssertionError(f"{layout} part kernel != plain at "
+                                     f"k={k} on part {p}")
+            err[f"query_part_{layout}"] = max(
+                err[f"query_part_{layout}"], _max_abs_err(one, one_plain),
+                _max_abs_err(acc, acc_plain))
+        if not torch.equal(acc, got):
+            raise AssertionError(f"{layout} parts != resident at k={k}")
+        n_second = int((want > 0).sum())
+    if n_second == 0:
+        raise AssertionError(f"no {layout} hit from the second hash choice "
+                             f"alone at k={k}")
+    print(f"  {layout} k={k}: {got.numel()} windows bit-identical resident "
+          f"and in 4 parts, {n_second} hits from the second choice alone",
+          flush=True)
+    return err
 
 
 def check_score(dev, R: int, P: int, seed: int) -> int:
@@ -174,10 +265,12 @@ def golden_example(tmp: Path) -> None:
         raise AssertionError("example CSV differs from expected_results.csv")
 
 
-def build_headline_db(n_genomes: int, dbdir: Path):
+def build_headline_db(n_genomes: int, tmp: Path):
     """Random genomes (numpy, seed 0) -> canonical 31-mers -> keep the
-    target-specific ones (builder.discriminate) -> qs table through the
-    port's build_table -> the .npz that `classify -D` loads."""
+    target-specific ones (builder.discriminate) -> a qs, a q4 and an s2
+    table of those k-mers through the port's build_table -> the .npz
+    files that `classify -D` loads, in tmp/db_<layout>.  Returns the
+    genomes and the tables by layout."""
     from cuclark_tpu_torch import codec
     from cuclark_tpu_torch.config import DBConfig
     from cuclark_tpu_torch.db_build.builder import db_name, discriminate
@@ -199,12 +292,16 @@ def build_headline_db(n_genomes: int, dbdir: Path):
     kmers, labels, _ = discriminate(np.concatenate(parts),
                                     np.concatenate(labs))
     del parts, labs
-    cfg = DBConfig(k=K, target_load=0.85)
     names = ["NA"] + [f"T{i}" for i in range(1, n_genomes + 1)]
-    db = build_table(kmers, labels, names, cfg)
-    dbdir.mkdir(parents=True, exist_ok=True)
-    db.save(dbdir / db_name(cfg, n_genomes))
-    return genomes, db
+    dbs = {}
+    for layout in ("qs", "q4", "s2"):
+        cfg = DBConfig(k=K, target_load=0.85, layout=layout,
+                       slots=S2_SLOTS, num_choices=S2_CHOICES)
+        dbs[layout] = build_table(kmers, labels, names, cfg)
+        dbdir = tmp / f"db_{layout}"
+        dbdir.mkdir(parents=True, exist_ok=True)
+        dbs[layout].save(dbdir / db_name(cfg, n_genomes))
+    return genomes, dbs
 
 
 def _substitute(rng, codes: np.ndarray) -> np.ndarray:
@@ -291,64 +388,232 @@ def assigned_right(csv: Path) -> float:
 
 
 def stream_budget_mb(db) -> float:
-    """STREAM_MB, which plans the headline table in STREAM_PARTS parts;
-    for the smaller table of a quick run (--genomes), a budget that
-    plans it in as many: 0.6 of its main rows over the stash, which
-    needs 2 parts and so halves to 0.3 for the double buffer."""
+    """STREAM_MB, which plans the headline tables in STREAM_PARTS parts;
+    for the smaller tables of a quick run (--genomes), a budget that
+    plans them in as many: the stash and 2.4/parts of the main rows,
+    which needs streaming and so halves to 1.2/parts for the double
+    buffer."""
     from cuclark_tpu_torch.memplan import plan_stream_parts
 
-    main_mb, stash_mb = db.nb * 32 / 1e6, (db.total_rows - db.nb) * 32 / 1e6
-    if plan_stream_parts(db.nb * 32, (STREAM_MB - stash_mb) / 2, 1,
-                         db.nb) == STREAM_PARTS:
+    parts = STREAM_PARTS[db.layout]
+    main, stash = db.split_tables()
+    stash_mb = stash.nbytes / 1e6 if stash is not None else 0.0
+    if plan_stream_parts(main.nbytes, (STREAM_MB - stash_mb) / 2, 1,
+                         db.nb) == parts:
         return STREAM_MB
-    return round(stash_mb + 0.6 * main_mb, 3)
+    return round(stash_mb + 2.4 * main.nbytes / 1e6 / parts, 3)
 
 
-def check_stream_kernels(main_t, stash_t, wire, qargs):
+def check_stream_kernels(main_t, stash_t, wire, k, spec, parts):
     """The part-mode query kernel against its plain version on each of
-    STREAM_PARTS bucket-range parts of the resident headline table, the
-    stash on part 0 only, writing and accumulating; the accumulated
-    parts equal the resident query.  Returns (max_abs_err, ms, plain ms)
-    per part call, the times over a whole pass of the parts."""
+    `parts` bucket-range parts of a resident headline table, a qs stash
+    on part 0 only, writing and accumulating; the accumulated parts equal
+    the resident query.  Returns (max_abs_err, ms, plain ms) per part
+    call, the times over a whole pass of the parts."""
     import torch
 
     from cuclark_tpu_torch import probe
 
     p2, vb = wire
-    rows = main_t.shape[0] // STREAM_PARTS
-    parts = [main_t[p * rows:(p + 1) * rows] for p in range(STREAM_PARTS)]
+    rows = main_t.shape[0] // parts
+    pieces = [main_t[p * rows:(p + 1) * rows] for p in range(parts)]
 
     def one(fn, p, acc=None):
-        return fn(p2, vb, parts[p], stash_t if p == 0 else None,
-                  bucket_start=p * rows, nb_local=rows, acc=acc, **qargs)
+        return fn(p2, vb, pieces[p], stash_t if p == 0 else None,
+                  bucket_start=p * rows, nb_local=rows, acc=acc, k=k,
+                  spec=spec)
 
     def all_parts(fn):
         acc = None
-        for p in range(STREAM_PARTS):
+        for p in range(parts):
             acc = one(fn, p, acc)
         return acc
 
     err = 0
-    for p in range(STREAM_PARTS):
+    for p in range(parts):
         got = one(probe.query_part_labels, p)
         torch.cuda.synchronize()
         want = one(probe.query_part_labels_plain, p)
         if not torch.equal(got, want):
-            raise AssertionError(f"part kernel != plain on part {p}: "
-                                 f"{int((got != want).sum())} windows differ")
+            raise AssertionError(f"{spec.layout} part kernel != plain on "
+                                 f"part {p}: {int((got != want).sum())} "
+                                 f"windows differ")
         err = max(err, _max_abs_err(got, want))
     acc = all_parts(probe.query_part_labels)
     torch.cuda.synchronize()
     acc_plain = all_parts(probe.query_part_labels_plain)
-    resident = probe.query_labels(p2, vb, main_t, stash_t, **qargs)
+    resident = probe.query_labels(p2, vb, main_t, stash_t, k=k, spec=spec)
     torch.cuda.synchronize()
     if not (torch.equal(acc, acc_plain) and torch.equal(acc, resident)):
-        raise AssertionError("accumulated parts != plain or != resident "
-                             "labels")
+        raise AssertionError(f"{spec.layout} accumulated parts != plain or "
+                             f"!= resident labels")
     err = max(err, _max_abs_err(acc, acc_plain))
     ms = _cuda_ms(lambda: all_parts(probe.query_part_labels), 10)
     plain_ms = _cuda_ms(lambda: all_parts(probe.query_part_labels_plain), 2)
-    return err, ms / STREAM_PARTS, plain_ms / STREAM_PARTS
+    return err, ms / parts, plain_ms / parts
+
+
+def write_long_reads(genomes: np.ndarray, path: Path) -> list:
+    """N_LONG reads of LONG_MIN to LONG_MAX bases cut from the genomes
+    laid end to end, with 1% substitutions, named l<i>; returns their
+    codes."""
+    rng = np.random.default_rng(3)
+    flat = genomes.ravel()
+    lens = rng.integers(LONG_MIN, LONG_MAX + 1, size=N_LONG)
+    starts = rng.integers(0, len(flat) - LONG_MAX, size=N_LONG)
+    reads = [_substitute(rng, flat[s:s + n].copy())
+             for s, n in zip(starts, lens)]
+    ascii_ = np.frombuffer(b"TGCA", np.uint8)
+    with open(path, "w") as f:
+        for i, c in enumerate(reads):
+            f.write(f"@l{i}\n{ascii_[c].tobytes().decode()}\n+\n"
+                    f"{'I' * len(c)}\n")
+    return reads
+
+
+def check_layout(db, tmp: Path, fq: Path, head: Path, wire, qs_csv: Path,
+                 dev, card: str):
+    """A q4 or s2 headline table: the query kernel on one main-path
+    batch ([65536, 152] at full size), resident and per part call,
+    against plain; then the CLI on the
+    card, resident and streamed, each CSV equal to the qs CSV; two timed
+    file->CSV passes; and --device cpu on the head of the reads.  Returns
+    (max_abs_err, ms, launches, phase detail) keyed by launch name."""
+    import torch
+
+    from cuclark_tpu_torch import pipeline, probe
+    from cuclark_tpu_torch.config import ClassifyConfig
+    from cuclark_tpu_torch.hashdb import table_to_device
+
+    layout, parts = db.layout, STREAM_PARTS[db.layout]
+    res_name, part_name = f"query_{layout}", f"query_part_{layout}"
+    dbdir = str(tmp / f"db_{layout}")
+    stream_mb = stream_budget_mb(db)
+    p2, vb = wire
+    main_t, _ = table_to_device(db, dev)
+    lab = probe.query_labels(p2, vb, main_t, None, k=db.k, spec=db.spec)
+    torch.cuda.synchronize()
+    lab_plain = probe.query_labels_plain(p2, vb, main_t, None, k=db.k,
+                                         spec=db.spec)
+    if not torch.equal(lab, lab_plain):
+        raise AssertionError(f"{layout} query kernel != plain on the "
+                             f"real-size table")
+    err = {res_name: _max_abs_err(lab, lab_plain)}
+    lab_shape = lab.shape
+    del lab, lab_plain
+    ms = {res_name: _cuda_ms(lambda: probe.query_labels(
+              p2, vb, main_t, None, k=db.k, spec=db.spec), 20),
+          f"{res_name}_plain": _cuda_ms(lambda: probe.query_labels_plain(
+              p2, vb, main_t, None, k=db.k, spec=db.spec), 5)}
+    err[part_name], ms[part_name], ms[f"{part_name}_plain"] = (
+        check_stream_kernels(main_t, None, wire, db.k, db.spec, parts))
+    del main_t
+    torch.cuda.empty_cache()
+
+    csv, stream_csv = tmp / f"{layout}.csv", tmp / f"{layout}_stream.csv"
+    _, launches = run_cli(["classify", "-D", dbdir, "-O", str(fq), "-R",
+                           str(csv), "--device", "cuda"], (res_name, "score"))
+    if csv.read_bytes() != qs_csv.read_bytes():
+        raise AssertionError(f"{layout} CSV differs from the qs CSV")
+    stderr, launches_stream = run_cli(
+        ["classify", "-D", dbdir, "-O", str(fq), "-R", str(stream_csv),
+         "--device", "cuda", "--max-table-mb", str(stream_mb)],
+        (part_name, "score"))
+    if f"{parts} bucket-range parts" not in stderr:
+        raise AssertionError(f"{layout} --max-table-mb {stream_mb} did not "
+                             f"stream in {parts} parts: {stderr}")
+    if stream_csv.read_bytes() != qs_csv.read_bytes():
+        raise AssertionError(f"{layout} streamed CSV differs from the qs "
+                             f"CSV")
+    rates = {}
+    for name, cfg in (("resident", None),
+                      ("streamed", ClassifyConfig(max_table_mb=stream_mb))):
+        clf = pipeline.Classifier(db, cfg, device=dev)
+        rates[name] = []
+        for _ in range(2):
+            t1 = time.time()
+            n = clf.classify_file_to_csv(fq, tmp / "again.csv")
+            torch.cuda.synchronize()
+            rates[name].append(n / (time.time() - t1))
+        clf.close()
+        del clf
+        if (tmp / "again.csv").read_bytes() != qs_csv.read_bytes():
+            raise AssertionError(f"a second {layout} {name} classify wrote "
+                                 f"another CSV")
+    cpu_csv = tmp / f"{layout}_cpu.csv"
+    run_cli(["classify", "-D", dbdir, "-O", str(head), "-R", str(cpu_csv),
+             "--device", "cpu"])
+    n_head = len(cpu_csv.read_bytes().split(b"\n")) - 2
+    want = b"\n".join(qs_csv.read_bytes().split(b"\n")[:n_head + 1]) + b"\n"
+    if cpu_csv.read_bytes() != want:
+        raise AssertionError(f"{layout} --device cpu CSV of the first "
+                             f"{n_head} reads differs from the card's")
+    torch.cuda.empty_cache()
+    part_mb = db.table.nbytes / parts / 1e6
+    detail = (f"{db.table.nbytes / 1e9:.3f} GB table, nb_bits "
+              f"{db.nb_bits}; labels {list(lab_shape)} bit-identical, query "
+              f"{ms[res_name]:.4f} ms (plain {ms[res_name + '_plain']:.4f}),"
+              f" {ms[part_name]:.4f} ms per part call of {parts} (plain "
+              f"{ms[part_name + '_plain']:.4f}); resident CSV == qs CSV, "
+              f"launches {launches}; {parts} parts of {part_mb:.1f} MB, CSV "
+              f"== qs CSV, launches {launches_stream}; file->CSV resident "
+              f"{', '.join(f'{r:.1f}' for r in rates['resident'])}, streamed "
+              f"{', '.join(f'{r:.1f}' for r in rates['streamed'])} reads/s; "
+              f"first {n_head} reads identical to --device cpu; on {card}")
+    return (err, ms, {res_name: launches[res_name],
+                      part_name: launches_stream[part_name]}, detail)
+
+
+def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
+                     dev, card: str):
+    """Reads of LONG_MIN to LONG_MAX bases against the qs headline table:
+    the score kernel's device-memory path against plain on the labels of
+    the batch the main path gives it, then `classify --device cuda` (which
+    must launch score_long) equal to --device cpu byte for byte.  Returns
+    (max_abs_err, ms, plain ms, launches, phase detail)."""
+    import torch
+
+    from cuclark_tpu_torch import codec, probe, score
+    from cuclark_tpu_torch.hashdb import table_to_device
+
+    L = int(np.ceil((max(len(c) for c in long_codes) + 1) / 128) * 128)
+    padded = np.full((len(long_codes), L), codec.INVALID, np.uint8)
+    for i, c in enumerate(long_codes):
+        padded[i, :len(c)] = c
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(padded))
+    del padded
+    main_t, stash_t = table_to_device(db, dev)
+    lab = probe.query_labels(p2, vb, main_t, stash_t, k=db.k, spec=db.spec)
+    del main_t, stash_t, p2, vb
+    res = score.score_labels(lab)
+    torch.cuda.synchronize()
+    res_plain = score.score_labels_plain(lab)
+    if not torch.equal(res, res_plain):
+        raise AssertionError(f"score_long kernel != plain at "
+                             f"{list(lab.shape)}")
+    err = _max_abs_err(res, res_plain)
+    ms = _cuda_ms(lambda: score.score_labels(lab), 5)
+    plain_ms = _cuda_ms(lambda: score.score_labels_plain(lab), 2)
+    shape = list(lab.shape)
+    del lab, res, res_plain
+    torch.cuda.empty_cache()
+    gpu_csv, cpu_csv = tmp / "long_gpu.csv", tmp / "long_cpu.csv"
+    _, launches = run_cli(["classify", "-D", dbdir, "-O", str(long_fq),
+                           "-R", str(gpu_csv), "--device", "cuda"],
+                          ("query", "score_long"))
+    run_cli(["classify", "-D", dbdir, "-O", str(long_fq), "-R",
+             str(cpu_csv), "--device", "cpu"])
+    if gpu_csv.read_bytes() != cpu_csv.read_bytes():
+        raise AssertionError("long-read CSV of --device cuda differs from "
+                             "--device cpu")
+    rows = gpu_csv.read_text().splitlines()[1:]
+    if len(rows) != len(long_codes) or any(r.split(",")[-5] == "NA" for r in rows):
+        raise AssertionError(f"{len(rows)} long-read rows, or an "
+                             f"unassigned one, for {len(long_codes)} reads")
+    detail = (f"{N_LONG} reads, score_long on {shape} bit-identical, "
+              f"{ms:.4f} ms (plain {plain_ms:.4f}); CSV identical to "
+              f"--device cpu, launches {launches}; on {card}")
+    return err, ms, plain_ms, launches["score_long"], detail
 
 
 def main(argv=None) -> int:
@@ -397,13 +662,24 @@ def main(argv=None) -> int:
 
     # 2. each kernel against its plain version on the card
     t0 = time.time()
-    err = {"query": 0, "score": 0}
+    err = {"query": 0, "score": 0, "score_long": 0}
     for k in (27, 32):
         err["query"] = max(err["query"], check_small_query(dev, k))
+        for layout in ("q4", "s2"):
+            for name, e in check_small_layout(dev, layout, k).items():
+                err[name] = max(err.get(name, 0), e)
     for i, (R, P) in enumerate(((65536, 122), (64, 16354), (33, 1000),
                                 (64, 1), (5, 2))):
         err["score"] = max(err["score"], check_score(dev, R, P, i))
-    _phase("kernels_vs_plain", t0, "query and score bit-identical")
+    for i, (R, P) in enumerate(((4, 40000), (2, 100000))):
+        launched = kernels.LAUNCHES["score_long"]
+        err["score_long"] = max(err["score_long"],
+                                check_score(dev, R, P, 10 + i))
+        if kernels.LAUNCHES["score_long"] != launched + 1:
+            raise AssertionError(f"score [{R}, {P}] did not take the "
+                                 f"device-memory path")
+    _phase("kernels_vs_plain", t0, "query (qs, q4, s2, resident and part) "
+           "and score (shared and device memory) bit-identical")
 
     with tempfile.TemporaryDirectory(prefix="cuclark_smoke_") as td:
         tmp = Path(td)
@@ -416,20 +692,28 @@ def main(argv=None) -> int:
 
         # 4. real size
         t0 = time.time()
-        genomes, db = build_headline_db(args.genomes, tmp / "db")
-        dbdir = str(tmp / "db")
+        genomes, dbs = build_headline_db(args.genomes, tmp)
+        db = dbs["qs"]
+        dbdir = str(tmp / "db_qs")
         stream_mb = stream_budget_mb(db)
         _phase("build_db", t0,
-               f"{db.num_kmers} k-mers, {db.num_targets} targets, "
-               f"nb_bits {db.nb_bits}, stash_bits {db.stash_bits}, "
-               f"table {db.table.nbytes / 1e9:.3f} GB")
+               f"{db.num_kmers} k-mers, {db.num_targets} targets; qs: "
+               f"nb_bits {db.nb_bits}, stash_bits {db.stash_bits}, table "
+               f"{db.table.nbytes / 1e9:.3f} GB; q4: nb_bits "
+               f"{dbs['q4'].nb_bits}, table {dbs['q4'].table.nbytes / 1e9:.3f}"
+               f" GB; s2 ({S2_SLOTS} slots, {S2_CHOICES} choices): nb_bits "
+               f"{dbs['s2'].nb_bits}, table "
+               f"{dbs['s2'].table.nbytes / 1e9:.3f} GB")
         t0 = time.time()
         fq, r1, r2 = tmp / "reads.fq", tmp / "r1.fq", tmp / "r2.fq"
+        long_fq = tmp / "long.fq"
         codes, src = write_reads(genomes, args.reads, fq)
         write_pairs(genomes, args.reads, r1, r2)
+        long_codes = write_long_reads(genomes, long_fq)
         del genomes
         _phase("write_reads", t0, f"{args.reads} reads of {READ_LEN} bp, "
-               f"{args.reads} pairs of {READ_LEN} bp mates")
+               f"{args.reads} pairs of {READ_LEN} bp mates, {N_LONG} reads "
+               f"of {LONG_MIN}-{LONG_MAX} bp")
 
         # the main-path batch shape: 65,536 reads in the 152 bin
         t0 = time.time()
@@ -441,8 +725,7 @@ def main(argv=None) -> int:
                       for a in codec.pack_codes(padded[i:i + B]))
                 for i in range(0, args.reads - B + 1, B)]
         main_t, stash_t = table_to_device(db, dev)
-        qargs = dict(k=db.k, nb_bits=db.nb_bits, stash_bits=db.stash_bits,
-                     seed=db.seed)
+        qargs = dict(k=db.k, spec=db.spec)
         p2, vb = wire[0]
         lab = probe.query_labels(p2, vb, main_t, stash_t, **qargs)
         torch.cuda.synchronize()
@@ -486,11 +769,14 @@ def main(argv=None) -> int:
         # the part-mode query on the headline table cut in 4 parts
         t0 = time.time()
         err["query_part"], ms["query_part"], ms["query_part_plain"] = (
-            check_stream_kernels(main_t, stash_t, wire[0], qargs))
+            check_stream_kernels(main_t, stash_t, wire[0], db.k, db.spec,
+                                 STREAM_PARTS["qs"]))
+        wire0 = wire[0]
         del main_t, stash_t, wire, lab, res
         torch.cuda.empty_cache()
         _phase("stream_kernels_vs_plain", t0,
-               f"{STREAM_PARTS} parts of [{B}, {L}] bit-identical, stash on "
+               f"{STREAM_PARTS['qs']} parts of [{B}, {L}] bit-identical, "
+               f"stash on "
                f"part 0, accumulated parts == resident labels; "
                f"{ms['query_part']:.4f} ms per part call (plain "
                f"{ms['query_part_plain']:.4f}) on {card}")
@@ -542,9 +828,9 @@ def main(argv=None) -> int:
             ["classify", "-D", dbdir, "-O", str(fq), "-R", str(stream_csv),
              "--device", "cuda", "--max-table-mb", str(stream_mb)],
             ("query_part", "score"))
-        if f"{STREAM_PARTS} bucket-range parts" not in stderr:
+        if f"{STREAM_PARTS['qs']} bucket-range parts" not in stderr:
             raise AssertionError(f"--max-table-mb {stream_mb} did not stream "
-                                 f"in {STREAM_PARTS} parts: {stderr}")
+                                 f"in {STREAM_PARTS['qs']} parts: {stderr}")
         if stream_csv.read_bytes() != gpu_csv.read_bytes():
             raise AssertionError("streamed CSV differs from the resident "
                                  "CSV")
@@ -563,7 +849,8 @@ def main(argv=None) -> int:
             raise AssertionError("a second streamed classify wrote another "
                                  "CSV")
         _phase("classify_stream", t0,
-               f"{STREAM_PARTS} parts of {db.nb // STREAM_PARTS * 32 / 1e6:.1f}"
+               f"{STREAM_PARTS['qs']} parts of "
+               f"{db.nb // STREAM_PARTS['qs'] * 32 / 1e6:.1f}"
                f" MB, CSV identical to the resident CSV, launches "
                f"{launches_stream}; part upload "
                f"{', '.join(f'{g:.2f}' for g in gbps)} GB/s; file->CSV "
@@ -631,6 +918,27 @@ def main(argv=None) -> int:
                f"{n_ext} reads x {cols} columns, {len(ext['cpu']) / 1e6:.1f} "
                f"MB of CSV identical resident, streamed and --device cpu")
 
+        # the q4 and s2 tables of the same k-mers: kernels at real size,
+        # then resident and streamed classify through the CLI
+        head = head_fastq(fq, tmp / "head.fq", min(16384, args.reads))
+        for layout in ("q4", "s2"):
+            t0 = time.time()
+            lay_err, lay_ms, lay_launches, detail = check_layout(
+                dbs.pop(layout), tmp, fq, head, wire0, gpu_csv, dev, card)
+            err.update(lay_err)
+            ms.update(lay_ms)
+            launches.update(lay_launches)
+            _phase(f"layouts_{layout}", t0, detail)
+        del wire0
+        torch.cuda.empty_cache()
+
+        # reads over 32,768 bases: the score kernel's device-memory path
+        t0 = time.time()
+        err["score_long"], ms["score_long"], ms["score_long_plain"], \
+            launches["score_long"], detail = check_long_reads(
+                tmp, db, dbdir, long_fq, long_codes, dev, card)
+        _phase("long_reads", t0, detail)
+
     kern = [
         {"name": "query", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/query.cu",
@@ -649,6 +957,21 @@ def main(argv=None) -> int:
          "launches": launches["score"], "max_abs_err": err["score"],
          "ms": ms["score"], "plain_ms": ms["score_plain"]},
     ]
+    for name, replaces in (("query_q4", "cuclark_tpu/probe.py:236"),
+                           ("query_part_q4", "cuclark_tpu/probe.py:236"),
+                           ("query_s2", "cuclark_tpu/probe.py:131"),
+                           ("query_part_s2", "cuclark_tpu/probe.py:131")):
+        kern.append({"name": name, "route": "cuda",
+                     "source": "cuclark_tpu_torch/csrc/query.cu",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err[name], "ms": ms[name],
+                     "plain_ms": ms[f"{name}_plain"]})
+    kern.append({"name": "score_long", "route": "cuda",
+                 "source": "cuclark_tpu_torch/csrc/score.cu",
+                 "replaces": "cuclark_tpu/score.py:28",
+                 "launches": launches["score_long"],
+                 "max_abs_err": err["score_long"], "ms": ms["score_long"],
+                 "plain_ms": ms["score_long_plain"]})
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

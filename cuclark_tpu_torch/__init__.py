@@ -3,10 +3,10 @@
 Beside the JAX package, which stays the reference, this package runs
 the classifier on one NVIDIA GPU: build a database of target-specific
 canonical k-mers (host code carried over from `cuclark_tpu`), then
-classify single-end reads against the device-resident qs table with two
-hand-written CUDA kernels, `csrc/query.cu` (wire batch -> per-window
-labels) and `csrc/score.cu` (labels -> per-read top-2), and write
-CLARK-format CSV.  Module names follow `cuclark_tpu`, so each module's
+classify single-end or paired reads against a qs, q4 or s2 table,
+resident on the card or streamed to it in parts, with two hand-written
+CUDA kernels, `csrc/query.cu` (wire batch -> per-window labels) and
+`csrc/score.cu` (labels -> per-read top-2), and write CLARK-format CSV.  Module names follow `cuclark_tpu`, so each module's
 counterpart has the same name there.  Nothing here imports JAX.
 """
 

@@ -7,8 +7,8 @@ ports, under one `cuclark-tpu-torch` entry point:
   cuclark-tpu-torch classify  -D dbdir -O reads.fq -R out.csv [--device cuda]
   cuclark-tpu-torch info      -D dbdir
 
-`classify` runs single-end (-O) or paired (-P) reads against a qs
-database on one device (`--device`, default `cuda`; `cpu` runs the
+`classify` runs single-end (-O) or paired (-P) reads against a qs, q4
+or s2 database on one device (`--device`, default `cuda`; `cpu` runs the
 kernels' plain PyTorch versions), with default or --extended CSV output.
 The table stays resident when it fits the device's free memory (or
 --max-table-mb), else it streams in bucket-range parts.  It builds the
@@ -320,9 +320,10 @@ def _add_db_args(p):
     p.add_argument("--light", action="store_true",
                    help="light preset: k=27, gap=4 (cuCLARK-l)")
     p.add_argument("--layout", default="qs", choices=("qs", "q4", "s2"),
-                   help="hash table layout; this package builds and "
-                        "probes qs (quotient-compressed 32 B rows with a "
-                        "small stash section) only [qs]")
+                   help="hash table layout: qs (quotient-compressed 32 B "
+                        "rows with a small stash section), q4 (the same "
+                        "rows, both hash choices in the main table) or "
+                        "s2 (full-key rows of --slots slots) [qs]")
     p.add_argument("--slots", type=int, default=2,
                    help="hash bucket slots (s2 layout) [2]")
     p.add_argument("--choices", type=int, default=2, choices=(1, 2),

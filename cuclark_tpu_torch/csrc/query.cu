@@ -44,6 +44,24 @@
 // inside) return before any gather, which also stands in for the TPU-only
 // probe.spread_invalid.
 //
+// The q4 and s2 layouts (cuclark_tpu/probe.py:_probe_q4 :236 and the s2
+// branch of probe.probe :131-155) share the front half (unpack, k-mer,
+// canonical) and differ in the gathers; the layout is a template parameter,
+// so each layout compiles to its own kernel and the qs code stays as it was:
+//   - q4: the qs row format, both choices in the main rows: choice 0 row
+//     l2 & (NB-1), other h1, quotient l2 >> nb_bits; choice 1 row
+//     h1 & (NB-1), other l2, quotient h1 >> nb_bits.  Two cold 32 B gathers
+//     into a 1 GB table instead of qs's one cold and one warm.
+//   - s2: rows [klo x S | khi x S | label x S] of full keys, S = 1..255 at
+//     run time, buckets mix1/mix2 of the canonical k-mer's u32 halves; the
+//     labels of the slots whose two key words match are summed.  Choice 1
+//     runs only with num_choices 2 and counts only when its global bucket
+//     differs from choice 0's.  A row is 12*S bytes (24 B at S = 2), which
+//     is not 16 B aligned, so it is read with 4 B loads: the S low key words
+//     first, the high word and the label only on a match.
+// In part mode each choice is range-checked on its own, so a key whose two
+// buckets fall in different parts is found in exactly one of them.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cuclark_tpu_torch/kernels.py).
 
@@ -96,58 +114,109 @@ __device__ __forceinline__ int32_t row_label(const uint4* __restrict__ rows,
          slot_label(o.w, m.w, other, quot, choice);
 }
 
-__global__ void query_kernel(const uint8_t* __restrict__ packed2,
-                             const uint8_t* __restrict__ vbits,
-                             const uint4* __restrict__ main_rows,
-                             const uint4* __restrict__ stash_rows,
-                             int32_t* __restrict__ labels, int64_t n, int P,
-                             int s2, int s8, int k, int nb_bits,
-                             int stash_bits, uint64_t bucket_start,
-                             uint64_t nb_local, int accumulate, uint32_t c1,
-                             uint32_t c2, uint32_t c3) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= n) return;
-  const int64_t r = idx / P;
-  const int p = static_cast<int>(idx - r * P);
-  const uint8_t* pr = packed2 + r * s2;
-  const uint8_t* vr = vbits + r * s8;
+enum Layout { kQs = 0, kQ4 = 1, kS2 = 2 };
 
+// s2 bucket hashes (cuclark_tpu/hashdb.py:mix1/mix2, :55-62).
+__device__ __forceinline__ uint32_t mix1(uint32_t hi, uint32_t lo) {
+  return fmix32(lo ^ (hi * 0x9E3779B9u));
+}
+__device__ __forceinline__ uint32_t mix2(uint32_t hi, uint32_t lo) {
+  return fmix32(hi ^ (lo * 0x85EBCA6Bu) ^ 0x5BD1E995u);
+}
+
+// Sum of the labels of the slots of s2 row `row` (S slots, 3*S words)
+// whose key words equal (lo, hi), as the s2 branch of
+// cuclark_tpu/probe.py:probe sums them.
+__device__ __forceinline__ int32_t s2_row_label(
+    const uint32_t* __restrict__ rows, uint64_t row, uint32_t lo, uint32_t hi,
+    int S) {
+  const uint32_t* r = rows + row * 3 * static_cast<uint64_t>(S);
+  int32_t lab = 0;
+  for (int j = 0; j < S; ++j) {
+    if (__ldg(r + j) == lo && __ldg(r + S + j) == hi)
+      lab += static_cast<int32_t>(__ldg(r + 2 * S + j));
+  }
+  return lab;
+}
+
+// One (read, window) per thread.  The canonical k-mer of the window, or
+// false when the window holds an N or padding.
+__device__ __forceinline__ bool window_kmer(const uint8_t* __restrict__ pr,
+                                            const uint8_t* __restrict__ vr,
+                                            int p, int k, uint64_t* out) {
   // unpack + extract: code of position q is packed2[r, q>>2] >> 2*(q&3),
   // its valid bit vbits[r, q>>3] >> (q&7); first base most significant
   uint64_t km = 0;
   for (int j = 0; j < k; ++j) {
     const int q = p + j;
-    if (!((__ldg(vr + (q >> 3)) >> (q & 7)) & 1)) {
-      if (!accumulate) labels[idx] = 0;
-      return;
-    }
+    if (!((__ldg(vr + (q >> 3)) >> (q & 7)) & 1)) return false;
     km = (km << 2) | ((__ldg(pr + (q >> 2)) >> (2 * (q & 3))) & 3u);
   }
-
   // canonical: unsigned min of forward and reverse complement
   const uint64_t rc = revcomp64(km, k);
-  const uint64_t c = rc < km ? rc : km;
+  *out = rc < km ? rc : km;
+  return true;
+}
 
-  // 3-round Feistel on the u32 halves -> (h1, l2)
+template <int LAYOUT>
+__global__ void query_kernel(const uint8_t* __restrict__ packed2,
+                             const uint8_t* __restrict__ vbits,
+                             const void* __restrict__ main_rows,
+                             const uint4* __restrict__ stash_rows,
+                             int32_t* __restrict__ labels, int64_t n, int P,
+                             int s2, int s8, int k, int nb_bits,
+                             int stash_bits, uint64_t bucket_start,
+                             uint64_t nb_local, int accumulate, uint32_t c1,
+                             uint32_t c2, uint32_t c3, int slots,
+                             int num_choices) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (idx >= n) return;
+  const int64_t r = idx / P;
+  const int p = static_cast<int>(idx - r * P);
+  uint64_t c;
+  if (!window_kmer(packed2 + r * s2, vbits + r * s8, p, k, &c)) {
+    if (!accumulate) labels[idx] = 0;
+    return;
+  }
   const uint32_t hi = static_cast<uint32_t>(c >> 32);
   const uint32_t lo = static_cast<uint32_t>(c);
-  const uint32_t l1 = lo ^ fmix32(hi + c1);
-  const uint32_t h1 = hi ^ fmix32(l1 + c2);
-  const uint32_t l2 = l1 ^ fmix32(h1 + c3);
-
-  // main row l2 & (NB-1): other == h1, quotient l2 >> nb_bits, choice 0;
-  // stash row h1 & (NBS-1): other == l2, quotient h1 >> stash_bits, choice 1.
-  // The bucket and the range are compared in 64 bits, so the part row
+  const uint32_t mask = static_cast<uint32_t>((1ull << nb_bits) - 1);
+  // Buckets and the part's range are compared in 64 bits, so the part row
   // b - bucket_start never wraps (bucket_start passes 2^31 at nb_bits 31).
-  const uint64_t b = static_cast<uint64_t>(
-      l2 & static_cast<uint32_t>((1ull << nb_bits) - 1));
   int32_t lab = 0;
-  if (b >= bucket_start && b - bucket_start < nb_local)
-    lab = row_label(main_rows, b - bucket_start, h1, l2 >> nb_bits, 0u);
-  if (stash_rows != nullptr) {
-    const uint32_t smask = static_cast<uint32_t>((1ull << stash_bits) - 1);
-    lab += row_label(stash_rows, h1 & smask, l2, h1 >> stash_bits, 1u);
+  if (LAYOUT == kS2) {
+    const uint32_t* rows = static_cast<const uint32_t*>(main_rows);
+    const uint64_t b1 = mix1(hi, lo) & mask;
+    if (b1 >= bucket_start && b1 - bucket_start < nb_local)
+      lab = s2_row_label(rows, b1 - bucket_start, lo, hi, slots);
+    if (num_choices == 2) {
+      const uint64_t b2 = mix2(hi, lo) & mask;
+      if (b2 != b1 && b2 >= bucket_start && b2 - bucket_start < nb_local)
+        lab += s2_row_label(rows, b2 - bucket_start, lo, hi, slots);
+    }
+  } else {
+    // 3-round Feistel on the u32 halves -> (h1, l2)
+    const uint32_t l1 = lo ^ fmix32(hi + c1);
+    const uint32_t h1 = hi ^ fmix32(l1 + c2);
+    const uint32_t l2 = l1 ^ fmix32(h1 + c3);
+    const uint4* rows = static_cast<const uint4*>(main_rows);
+    // main row l2 & (NB-1): other == h1, quotient l2 >> nb_bits, choice 0
+    const uint64_t b = static_cast<uint64_t>(l2 & mask);
+    if (b >= bucket_start && b - bucket_start < nb_local)
+      lab = row_label(rows, b - bucket_start, h1, l2 >> nb_bits, 0u);
+    if (LAYOUT == kQ4) {
+      // q4: main row h1 & (NB-1): other == l2, quotient h1 >> nb_bits,
+      // choice 1
+      const uint64_t b1 = static_cast<uint64_t>(h1 & mask);
+      if (b1 >= bucket_start && b1 - bucket_start < nb_local)
+        lab += row_label(rows, b1 - bucket_start, l2, h1 >> nb_bits, 1u);
+    } else if (stash_rows != nullptr) {
+      // qs: stash row h1 & (NBS-1): other == l2, quotient
+      // h1 >> stash_bits, choice 1
+      const uint32_t smask = static_cast<uint32_t>((1ull << stash_bits) - 1);
+      lab += row_label(stash_rows, h1 & smask, l2, h1 >> stash_bits, 1u);
+    }
   }
   if (!accumulate)
     labels[idx] = lab;
@@ -157,28 +226,50 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
 
 }  // namespace
 
-// labels int32 [R, P] from packed2 uint8 [R, s2], vbits uint8 [R, s8],
-// main int32 [nb_local, 8] (global main rows bucket_start.. of a table of
-// 2^nb_bits), stash int32 [NBS, 8] or null; P = 4*s2 - k + 1.  With
-// accumulate != 0 the labels are added into `labels`.  Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int cuclark_query(const void* packed2, const void* vbits,
-                             const void* main_rows, const void* stash_rows,
-                             void* labels, int64_t R, int P, int s2, int s8,
-                             int k, int nb_bits, int stash_bits,
-                             int64_t bucket_start, int64_t nb_local,
-                             int accumulate, uint32_t c1, uint32_t c2,
-                             uint32_t c3, void* stream) {
+// labels int32 [R, P] from packed2 uint8 [R, s2], vbits uint8 [R, s8] and
+// the main rows (global rows bucket_start.. of a table of 2^nb_bits): layout
+// 0 (qs) int32 [nb_local, 8] with stash int32 [NBS, 8] or null, layout 1
+// (q4) int32 [nb_local, 8], layout 2 (s2) int32 [nb_local, 3*slots] with
+// num_choices 1 or 2; P = 4*s2 - k + 1.  With accumulate != 0 the labels are
+// added into `labels`.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int cuclark_query(int layout, const void* packed2,
+                             const void* vbits, const void* main_rows,
+                             const void* stash_rows, void* labels, int64_t R,
+                             int P, int s2, int s8, int k, int nb_bits,
+                             int stash_bits, int64_t bucket_start,
+                             int64_t nb_local, int accumulate, uint32_t c1,
+                             uint32_t c2, uint32_t c3, int slots,
+                             int num_choices, void* stream) {
   const int64_t n = R * P;
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  query_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed2), static_cast<const uint8_t*>(vbits),
-      static_cast<const uint4*>(main_rows),
-      static_cast<const uint4*>(stash_rows), static_cast<int32_t*>(labels), n,
-      P, s2, s8, k, nb_bits, stash_bits, static_cast<uint64_t>(bucket_start),
-      static_cast<uint64_t>(nb_local), accumulate, c1, c2, c3);
+  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* p2 = static_cast<const uint8_t*>(packed2);
+  const uint8_t* vb = static_cast<const uint8_t*>(vbits);
+  const uint4* stash = static_cast<const uint4*>(stash_rows);
+  int32_t* out = static_cast<int32_t*>(labels);
+  const uint64_t start = static_cast<uint64_t>(bucket_start);
+  const uint64_t local = static_cast<uint64_t>(nb_local);
+  switch (layout) {
+    case kQs:
+      query_kernel<kQs><<<blocks, threads, 0, st>>>(
+          p2, vb, main_rows, stash, out, n, P, s2, s8, k, nb_bits,
+          stash_bits, start, local, accumulate, c1, c2, c3, slots,
+          num_choices);
+      break;
+    case kQ4:
+      query_kernel<kQ4><<<blocks, threads, 0, st>>>(
+          p2, vb, main_rows, nullptr, out, n, P, s2, s8, k, nb_bits, 0,
+          start, local, accumulate, c1, c2, c3, slots, num_choices);
+      break;
+    case kS2:
+      query_kernel<kS2><<<blocks, threads, 0, st>>>(
+          p2, vb, main_rows, nullptr, out, n, P, s2, s8, k, nb_bits, 0,
+          start, local, accumulate, c1, c2, c3, slots, num_choices);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,14 @@
 // Pp is at most 32,768 (128 KB of shared memory); above 48 KB the launch
 // raises the kernel's dynamic shared-memory limit first.
 //
+// Rows of more than 32,768 windows (reads over 32,798 bases at k=31, as
+// nanopore and PacBio give) take a second kernel, score_long_kernel: the
+// same sort and the same two passes, one block per read, on the row copied
+// into a device scratch buffer [R, Pp] that the caller allocates, with
+// __syncthreads() between the sort's stages.  Its compare-exchanges go to
+// L2 and device memory instead of shared memory: O(P log^2 P) 8 B accesses
+// per read, which a few long reads per batch can afford.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cuclark_tpu_torch/kernels.py).
 
@@ -46,8 +54,8 @@ __device__ __forceinline__ int lower_bound(const int32_t* s, int n,
 }
 
 // Maximum of v over the block; blockDim.x is a multiple of 32.
-__device__ unsigned long long block_max(unsigned long long v,
-                                        unsigned long long* red) {
+__device__ __forceinline__ unsigned long long block_max(
+    unsigned long long v, unsigned long long* red) {
   for (int o = 16; o > 0; o >>= 1) {
     const unsigned long long w = __shfl_down_sync(0xFFFFFFFFu, v, o);
     v = w > v ? w : v;
@@ -68,8 +76,8 @@ __device__ unsigned long long block_max(unsigned long long v,
 }
 
 // Best run key over the run ends of positive labels other than `skip`.
-__device__ unsigned long long best_run(const int32_t* s, int Pp, int32_t skip,
-                                       unsigned long long* red) {
+__device__ __forceinline__ unsigned long long best_run(
+    const int32_t* s, int Pp, int32_t skip, unsigned long long* red) {
   unsigned long long best = 0;
   for (int i = threadIdx.x; i < Pp; i += blockDim.x) {
     const int32_t v = s[i];
@@ -83,18 +91,14 @@ __device__ unsigned long long best_run(const int32_t* s, int Pp, int32_t skip,
   return block_max(best, red);
 }
 
-__global__ void score_kernel(const int32_t* __restrict__ labels,
-                             int32_t* __restrict__ results, int P, int Pp) {
-  extern __shared__ int32_t s[];
-  __shared__ unsigned long long red[33];
-  const int64_t r = blockIdx.x;
-  const int32_t* row = labels + r * P;
-  for (int i = threadIdx.x; i < Pp; i += blockDim.x) {
-    s[i] = i < P ? row[i] : 0;
-  }
-  __syncthreads();
-
-  // bitonic sort, ascending
+// The block's row s[0, Pp), already copied and padded: bitonic sort,
+// ascending, then the two best_run passes into out[0, 5).  `s` is shared
+// memory (score_kernel) or the block's own slice of device scratch
+// (score_long_kernel); either way only this block touches it, and
+// __syncthreads() makes each stage's writes visible to the next.
+__device__ __forceinline__ void sort_and_score(int32_t* s, int Pp,
+                                               int32_t* out,
+                                               unsigned long long* red) {
   for (int size = 2; size <= Pp; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int t = threadIdx.x; t < (Pp >> 1); t += blockDim.x) {
@@ -122,13 +126,42 @@ __global__ void score_kernel(const int32_t* __restrict__ labels,
       second ? static_cast<int32_t>(0xFFFFFFFFu - static_cast<uint32_t>(b2))
              : 0;
   if (threadIdx.x == 0) {
-    int32_t* out = results + r * 5;
     out[0] = Pp - lower_bound(s, Pp, 1);  // windows with a label > 0
     out[1] = ibest;
     out[2] = best;
     out[3] = isecond;
     out[4] = second;
   }
+}
+
+__global__ void score_kernel(const int32_t* __restrict__ labels,
+                             int32_t* __restrict__ results, int P, int Pp) {
+  extern __shared__ int32_t s[];
+  __shared__ unsigned long long red[33];
+  const int64_t r = blockIdx.x;
+  const int32_t* row = labels + r * P;
+  for (int i = threadIdx.x; i < Pp; i += blockDim.x) {
+    s[i] = i < P ? row[i] : 0;
+  }
+  __syncthreads();
+  sort_and_score(s, Pp, results + r * 5, red);
+}
+
+// score_kernel for rows longer than shared memory holds: the row is sorted
+// in scratch[r, 0:Pp) in device memory.  Plain loads and stores (no __ldg:
+// the read-only path is not coherent with this block's own writes).
+__global__ void score_long_kernel(const int32_t* __restrict__ labels,
+                                  int32_t* __restrict__ results,
+                                  int32_t* scratch, int P, int Pp) {
+  __shared__ unsigned long long red[33];
+  const int64_t r = blockIdx.x;
+  const int32_t* row = labels + r * P;
+  int32_t* s = scratch + r * Pp;
+  for (int i = threadIdx.x; i < Pp; i += blockDim.x) {
+    s[i] = i < P ? row[i] : 0;
+  }
+  __syncthreads();
+  sort_and_score(s, Pp, results + r * 5, red);
 }
 
 }  // namespace
@@ -154,5 +187,21 @@ extern "C" int cuclark_score(const void* labels, void* results, int64_t R,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(labels), static_cast<int32_t*>(results), P,
       Pp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// results int32 [R, 5] from labels int32 [R, P] with P > 32768, through
+// scratch int32 [R, Pp], Pp the power of two at or above P.  Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int cuclark_score_long(const void* labels, void* results,
+                                  void* scratch, int64_t R, int P, int Pp,
+                                  void* stream) {
+  if (P <= kMaxPp || Pp < P || (Pp & (Pp - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  score_long_kernel<<<static_cast<unsigned>(R), 1024, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(labels), static_cast<int32_t*>(results),
+      static_cast<int32_t*>(scratch), P, Pp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,13 @@ PyTorch's current stream, raises if the launch reports an error, and
 adds one to its entry of `LAUNCHES`.  The callers are the wrappers
 `probe.query_labels`, `probe.query_part_labels` and `score.score_labels`,
 which take the plain PyTorch versions for CPU tensors.  `query` and
-`query_part` launch the same kernel (`csrc/query.cu`): the resident query
-over the whole table, and one bucket-range part of a streamed table.
+`query_part` launch the query kernel (`csrc/query.cu`) of the table's
+layout: the resident query over the whole table, and one bucket-range
+part of a streamed table.  Their counts are kept per layout: `query` and
+`query_part` for qs, `query_q4`, `query_part_q4`, `query_s2` and
+`query_part_s2` for the others.  `score` launches the score kernel
+(`csrc/score.cu`), counted as `score` for rows that sort in shared
+memory and `score_long` for longer ones.
 """
 
 from __future__ import annotations
@@ -28,17 +33,24 @@ from pathlib import Path
 
 import torch
 
+from cuclark_tpu_torch.hashdb import TableSpec, feistel_seed_consts
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("query.cu", "score.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuclark_tpu_torch"
 
-# Largest label row the score kernel sorts in shared memory (128 KB).
+# Largest label row the score kernel sorts in shared memory (128 KB);
+# longer rows take its device-memory path.
 MAX_SCORE_WINDOWS = 32768
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"query": 0, "query_part": 0, "score": 0}
+LAUNCHES = {"query": 0, "query_part": 0, "query_q4": 0, "query_part_q4": 0,
+            "query_s2": 0, "query_part_s2": 0, "score": 0, "score_long": 0}
+
+# The query kernel's layout argument (csrc/query.cu, enum Layout).
+_LAYOUT_CODE = {"qs": 0, "q4": 1, "s2": 2}
 
 _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
@@ -90,11 +102,13 @@ def load() -> ctypes.CDLL:
         vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                              ctypes.c_uint32)
         lib.cuclark_query.restype = i32
-        lib.cuclark_query.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32,
-                                      i32, i32, i32, i64, i64, i32, u32, u32,
-                                      u32, vp]
+        lib.cuclark_query.argtypes = [i32, vp, vp, vp, vp, vp, i64, i32, i32,
+                                      i32, i32, i32, i32, i64, i64, i32, u32,
+                                      u32, u32, i32, i32, vp]
         lib.cuclark_score.restype = i32
         lib.cuclark_score.argtypes = [vp, vp, i64, i32, vp]
+        lib.cuclark_score_long.restype = i32
+        lib.cuclark_score_long.argtypes = [vp, vp, vp, i64, i32, i32, vp]
         _LIB = lib
         return lib
 
@@ -113,16 +127,18 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _launch_query(packed2, vbits, main, stash, acc, *, k, nb_bits,
-                  stash_bits, consts, bucket_start) -> torch.Tensor:
-    """Check the query kernel's operands and launch it on the current
-    stream: main holds global main rows [bucket_start, bucket_start +
-    len(main)) of a table of 2^nb_bits rows; stash None skips the stash
-    probe.  Returns new labels int32 [R, P], or `acc` with the labels
-    added in place."""
+def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
+                  bucket_start) -> torch.Tensor:
+    """Check the query kernel's operands and launch the kernel of
+    `spec.layout` on the current stream: main holds global main rows
+    [bucket_start, bucket_start + len(main)) of a table of 2^nb_bits
+    rows, [rows, 8] for qs and q4 and [rows, 3 * slots] for s2; a qs
+    stash None skips the stash probe, and q4 and s2 have none.  Returns
+    new labels int32 [R, P], or `acc` with the labels added in place."""
     dev = packed2.device
     if dev.type != "cuda":
         raise ValueError(f"query kernel needs CUDA tensors, got {dev}")
+    spec.check()
     _check(packed2, "packed2", torch.uint8, dev)
     _check(vbits, "vbits", torch.uint8, dev)
     _check(main, "main", torch.int32, dev)
@@ -140,80 +156,96 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, nb_bits,
         if acc.shape != (R, P):
             raise ValueError(f"acc {tuple(acc.shape)}, expected {(R, P)}")
     nb_local = main.shape[0]
-    if (main.shape[1] != 8 or nb_local < 1 or bucket_start < 0
-            or bucket_start + nb_local > 1 << nb_bits):
+    if (main.shape[1] != spec.row_words or nb_local < 1 or bucket_start < 0
+            or bucket_start + nb_local > 1 << spec.nb_bits):
         raise ValueError(f"main rows {tuple(main.shape)} from bucket "
-                         f"{bucket_start} do not lie in 2^{nb_bits} rows")
+                         f"{bucket_start} do not lie in 2^{spec.nb_bits} "
+                         f"rows of {spec.row_words} words")
     stash_ptr = None
     if stash is not None:
+        if spec.layout != "qs":
+            raise ValueError(f"a {spec.layout} table has no stash")
         _check(stash, "stash", torch.int32, dev)
-        if stash.shape != (1 << stash_bits, 8):
+        if stash.shape != (1 << spec.stash_bits, 8):
             raise ValueError("stash shape does not match stash_bits")
         if stash.data_ptr() % 16:
             raise ValueError("table rows must be 16-byte aligned")
         stash_ptr = stash.data_ptr()
-    if main.data_ptr() % 16:
+    # qs and q4 rows are read as two 16 B loads; s2 rows as 4 B loads
+    if spec.layout != "s2" and main.data_ptr() % 16:
         raise ValueError("table rows must be 16-byte aligned")
     out = acc if acc is not None else torch.empty(
         (R, P), dtype=torch.int32, device=dev)
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    c1, c2, c3 = consts
+    c1, c2, c3 = feistel_seed_consts(spec.seed)
     _raise_on(lib.cuclark_query(
-        packed2.data_ptr(), vbits.data_ptr(), main.data_ptr(), stash_ptr,
-        out.data_ptr(), R, P, s2, s8, k, nb_bits, stash_bits, bucket_start,
-        nb_local, int(acc is not None), c1, c2, c3, stream), "query")
+        _LAYOUT_CODE[spec.layout], packed2.data_ptr(), vbits.data_ptr(),
+        main.data_ptr(), stash_ptr, out.data_ptr(), R, P, s2, s8, k,
+        spec.nb_bits, spec.stash_bits, bucket_start, nb_local,
+        int(acc is not None), c1, c2, c3, spec.slots, spec.num_choices,
+        stream), "query")
     return out
 
 
+def _count(name: str, layout: str) -> None:
+    LAUNCHES[name if layout == "qs" else f"{name}_{layout}"] += 1
+
+
 def query(packed2: torch.Tensor, vbits: torch.Tensor, main: torch.Tensor,
-          stash: torch.Tensor, *, k: int, nb_bits: int, stash_bits: int,
-          consts: tuple[int, int, int]) -> torch.Tensor:
+          stash: torch.Tensor | None, *, k: int,
+          spec: TableSpec) -> torch.Tensor:
     """Launch the query kernel (csrc/query.cu) on the resident table:
-    main [2^nb_bits, 8] and stash [2^stash_bits, 8] -> labels int32
-    [R, P]."""
-    if main.shape[0] != 1 << nb_bits or stash is None:
-        raise ValueError("main/stash shapes do not match nb_bits/stash_bits")
+    main [2^nb_bits, row words] and, for qs, stash [2^stash_bits, 8] ->
+    labels int32 [R, P]."""
+    if main.shape[0] != 1 << spec.nb_bits or (
+            (stash is None) != (spec.layout != "qs")):
+        raise ValueError("main/stash shapes do not match the table")
     labels = _launch_query(packed2, vbits, main, stash, None, k=k,
-                           nb_bits=nb_bits, stash_bits=stash_bits,
-                           consts=consts, bucket_start=0)
-    LAUNCHES["query"] += 1
+                           spec=spec, bucket_start=0)
+    _count("query", spec.layout)
     return labels
 
 
 def query_part(packed2: torch.Tensor, vbits: torch.Tensor,
                main_part: torch.Tensor, stash: torch.Tensor | None, *,
-               bucket_start: int, k: int, nb_bits: int, stash_bits: int,
-               consts: tuple[int, int, int],
+               bucket_start: int, k: int, spec: TableSpec,
                acc: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the query kernel (csrc/query.cu) on one bucket-range part:
     main_part holds main rows [bucket_start, bucket_start +
-    len(main_part)), stash None skips the stash probe.  Returns new
+    len(main_part)), a qs stash None skips the stash probe.  Returns new
     labels int32 [R, P], or adds them into `acc` in place and returns
     it."""
     out = _launch_query(packed2, vbits, main_part, stash, acc, k=k,
-                        nb_bits=nb_bits, stash_bits=stash_bits,
-                        consts=consts, bucket_start=bucket_start)
-    LAUNCHES["query_part"] += 1
+                        spec=spec, bucket_start=bucket_start)
+    _count("query_part", spec.layout)
     return out
 
 
 def score(labels: torch.Tensor) -> torch.Tensor:
-    """Launch the score kernel (csrc/score.cu) -> results int32 [R, 5]."""
+    """Launch the score kernel (csrc/score.cu) -> results int32 [R, 5].
+    Rows of up to MAX_SCORE_WINDOWS windows sort in shared memory
+    (`score`); longer rows sort in a device scratch buffer [R, Pp]
+    allocated here (`score_long`)."""
     dev = labels.device
     if dev.type != "cuda":
         raise ValueError(f"score kernel needs CUDA tensors, got {dev}")
     _check(labels, "labels", torch.int32, dev)
     R, P = labels.shape
-    if not 1 <= P <= MAX_SCORE_WINDOWS:
-        raise NotImplementedError(
-            f"the score kernel sorts at most {MAX_SCORE_WINDOWS} windows "
-            f"per read in shared memory, got {P} (reads longer than "
-            f"{MAX_SCORE_WINDOWS} bases: ROADMAP.md, Queue 2)")
+    if P < 1:
+        raise ValueError(f"labels need at least one window per read, got {P}")
     results = torch.empty((R, 5), dtype=torch.int32, device=dev)
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(lib.cuclark_score(labels.data_ptr(), results.data_ptr(), R, P,
-                                stream), "score")
-    LAUNCHES["score"] += 1
+    if P <= MAX_SCORE_WINDOWS:
+        _raise_on(lib.cuclark_score(labels.data_ptr(), results.data_ptr(), R,
+                                    P, stream), "score")
+        LAUNCHES["score"] += 1
+        return results
+    Pp = 1 << (P - 1).bit_length()
+    scratch = torch.empty((R, Pp), dtype=torch.int32, device=dev)
+    _raise_on(lib.cuclark_score_long(labels.data_ptr(), results.data_ptr(),
+                                     scratch.data_ptr(), R, P, Pp, stream),
+              "score_long")
+    LAUNCHES["score_long"] += 1
     return results

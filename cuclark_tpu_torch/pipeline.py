@@ -21,7 +21,8 @@ go to the card in power-of-two bucket-range parts per group of batches,
 each part probed by the part-mode query kernel into label accumulators
 on the device, then the score kernel runs on the sums (`_PartStream`).
 With `device="cpu"` the same paths run the kernels' plain PyTorch
-versions.  q4/s2 tables are refused with NotImplementedError.
+versions.  Every layout (qs, q4, s2) takes both paths; only qs has a
+stash, which stays resident while its main rows stream.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from cuclark_tpu_torch import probe, score
 from cuclark_tpu_torch.config import ClassifyConfig
-from cuclark_tpu_torch.hashdb import KmerDB, table_to_device
+from cuclark_tpu_torch.hashdb import KmerDB, TableSpec, table_to_device
 
 # Length bins: a read is packed into the smallest bin holding it, so a
 # batch of short reads never pays for a rare long read; the 152 bin
@@ -40,16 +41,15 @@ DEFAULT_LEN_BINS = (128, 152, 160, 192, 256, 320, 512, 1024, 2048, 4096,
                     16384)
 
 
-def classify_step_packed(table, packed2, vbits, *, k, nb_bits, stash_bits,
-                         seed=0, stash, with_labels=True):
+def classify_step_packed(table, packed2, vbits, *, k, spec: TableSpec,
+                         stash=None, with_labels=True):
     """One device step on the 2-bit wire format: packed2 uint8
     [R, Lp/4], vbits uint8 [R, Lp/8] -> (results int32 [R, 5], labels
-    int32 [R, P] or None).  `table` is the qs main rows [NB, 8] and
-    `stash` the stash rows [NBS, 8], both int32 (hashdb.table_to_device).
-    """
-    labels = probe.query_labels(packed2, vbits, table, stash, k=k,
-                                nb_bits=nb_bits, stash_bits=stash_bits,
-                                seed=seed)
+    int32 [R, P] or None).  `table` and `stash` are what
+    hashdb.table_to_device gives for the layout `spec` (KmerDB.spec):
+    the qs main rows [NB, 8] and stash rows [NBS, 8], or the q4 or s2
+    rows with stash None."""
+    labels = probe.query_labels(packed2, vbits, table, stash, k=k, spec=spec)
     results = score.score_labels(labels)
     return results, (labels if with_labels else None)
 
@@ -168,6 +168,7 @@ class _PartStream:
         self.device = device
         self.parts = parts
         self.rows = main_np.shape[0] // parts
+        self.row_words = main_np.shape[1]
         self.host = torch.from_numpy(main_np.view(np.int32))
         self._registered = False
         nbytes = self.host.numel() * 4
@@ -178,8 +179,9 @@ class _PartStream:
                                f"of main rows failed: CUDA error {err}")
         self._registered = True
         self.copy_stream = torch.cuda.Stream(device)
-        self.bufs = [torch.empty((self.rows, 8), dtype=torch.int32,
-                                 device=device) for _ in range(2)]
+        self.bufs = [torch.empty((self.rows, self.row_words),
+                                 dtype=torch.int32, device=device)
+                     for _ in range(2)]
         for b in self.bufs:
             # written on the copy stream, read on the compute stream
             b.record_stream(self.copy_stream)
@@ -219,7 +221,7 @@ class _PartStream:
     def upload_gbps(self) -> list[float]:
         """Host-to-device rate of each part upload of the last group,
         GB/s from the copy stream's events (waits for them)."""
-        nbytes = self.rows * 32
+        nbytes = self.rows * self.row_words * 4
         out = []
         for start, done in self._uploads:
             done.synchronize()
@@ -246,7 +248,6 @@ class Classifier:
 
     def __init__(self, db: KmerDB, cfg: ClassifyConfig | None = None,
                  len_bins=DEFAULT_LEN_BINS, device="cuda"):
-        from cuclark_tpu_torch.hashdb import _Q4_S2_TODO
         from cuclark_tpu_torch.memplan import resolve_table_budget_mb
 
         self.db = db
@@ -256,8 +257,8 @@ class Classifier:
         self.stream_parts = 1
         self.stream_group_eff = self.cfg.stream_group
         self._parts = None  # _PartStream of a streamed table on a card
-        if db.layout != "qs":
-            raise NotImplementedError(_Q4_S2_TODO)
+        self.spec = db.spec
+        self.spec.check()
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -277,13 +278,14 @@ class Classifier:
             return
         # DB streaming (reference swap-cycle analog): the main rows stay
         # on the host and stream in power-of-two bucket-range parts per
-        # batch group; the small stash stays resident
+        # batch group; a qs table's small stash stays resident
         self.table = None
         self.np_table = np.ascontiguousarray(main_np)
-        self.np_stash = np.ascontiguousarray(stash_np)
+        self.np_stash = (np.ascontiguousarray(stash_np)
+                         if stash_np is not None else None)
         self.stream_group_eff = self._effective_stream_group()
-        self.stash = torch.from_numpy(self.np_stash.view(np.int32)).to(
-            self.device)
+        self.stash = (torch.from_numpy(self.np_stash.view(np.int32)).to(
+            self.device) if self.np_stash is not None else None)
         if self.device.type == "cuda":
             self._parts = _PartStream(self.np_table, self.stream_parts,
                                       self.device)
@@ -319,7 +321,8 @@ class Classifier:
             return base
         per_batch = int(self.MAX_BATCH_CELLS * 4.5)  # acc + wire, bytes
         part = self.np_table.nbytes // self.stream_parts
-        avail = dev_mb * 1e6 - 2 * part - self.np_stash.nbytes
+        stash = self.np_stash.nbytes if self.np_stash is not None else 0
+        avail = dev_mb * 1e6 - 2 * part - stash
         # NOT np.clip: with base > 512 numpy's a_min > a_max rule would
         # silently return 512 and break the "at least cfg.stream_group"
         # contract; an explicitly larger configured group is honored
@@ -328,17 +331,20 @@ class Classifier:
     def _plan_parts(self, main_np, stash_np) -> int:
         """Streaming-part plan honoring the REAL device footprint: the
         part uploads are double-buffered (part p+1 transfers while part
-        p computes, so TWO parts are resident at once) and the stash
-        stays resident on top; both come off the budget and only the
-        main rows are planned against the rest."""
+        p computes, so TWO parts are resident at once) and a qs stash
+        (stash_np; None for q4 and s2) stays resident on top; both come
+        off the budget and only the main rows are planned against the
+        rest."""
         from cuclark_tpu_torch.memplan import plan_stream_parts
 
         budget = self.table_budget_mb
         if budget is not None:
-            left = budget - stash_np.nbytes / 1e6
-            # stash alone past the stated budget: the plan is infeasible
-            # either way; keep the unadjusted budget (best effort)
-            budget = left if left > 0 else budget
+            if stash_np is not None:
+                left = budget - stash_np.nbytes / 1e6
+                # stash alone past the stated budget: the plan is
+                # infeasible either way; keep the unadjusted budget
+                # (best effort)
+                budget = left if left > 0 else budget
             # halve for the double-buffered part uploads, but only when
             # streaming is needed at all (a resident table has none)
             if plan_stream_parts(main_np.nbytes, budget, 1,
@@ -381,23 +387,21 @@ class Classifier:
         """Launch one device step on a wire batch already on the device
         against the resident table -> (results int32 [R, 5], labels
         int32 [R, P] in extended mode else None) on the device."""
-        db = self.db
         packed2, vbits = wire
         return classify_step_packed(
-            self.table, packed2, vbits, k=db.k, nb_bits=db.nb_bits,
-            stash_bits=db.stash_bits, seed=db.seed, stash=self.stash,
-            with_labels=self.cfg.extended)
+            self.table, packed2, vbits, k=self.db.k, spec=self.spec,
+            stash=self.stash, with_labels=self.cfg.extended)
 
     def _stream_group_dev(self, wires):
         """Stream DB parts over a group of wire batches already on the
         device (the reference multi-cycle path: swap part, re-query
         every batch, src/CuCLARK_hh.hh:1766-1774) and merge partial
-        labels by sum: every k-mer lives in exactly one part, and the
-        resident stash is probed on part 0's call only.  The labels
+        labels by sum: every k-mer lives in exactly one part (each hash
+        choice is range-checked on its own), and a qs table's resident
+        stash is probed on part 0's call only.  The labels
         accumulate in place on the device, and on the card part p+1
         uploads while part p probes (_PartStream).  Returns (results,
         labels in extended mode else None) per batch, on the device."""
-        db = self.db
         rows = self.np_table.shape[0] // self.stream_parts
         if self._parts is not None:
             parts = self._parts.parts_on_device()
@@ -410,9 +414,8 @@ class Classifier:
             for gi, (p2, vb) in enumerate(wires):
                 acc[gi] = probe.query_part_labels(
                     p2, vb, part, self.stash if p == 0 else None,
-                    bucket_start=p * rows, nb_local=rows, k=db.k,
-                    nb_bits=db.nb_bits, stash_bits=db.stash_bits,
-                    seed=db.seed, acc=acc[gi])
+                    bucket_start=p * rows, nb_local=rows, k=self.db.k,
+                    spec=self.spec, acc=acc[gi])
         return [(score.score_labels(a), a if self.cfg.extended else None)
                 for a in acc]
 

@@ -1,21 +1,24 @@
 """Device-side query: wire batch -> per-window labels.
 
 Counterpart of `cuclark_tpu/probe.py` (`_probe_qs_split` :198 with
-`_q_match_labels` :73) together with the chain that feeds it in
+`_q_match_labels` :73, `_probe_q4` :236, and the s2 branch of `probe`
+:131-155) together with the chain that feeds them in
 `cuclark_tpu/pipeline.py:classify_step_packed` (unpack, k-mer
-extraction, canonical form, Feistel mix, mask by validity), and of
+extraction, canonical form, hash, mask by validity), and of
 `cuclark_tpu/pipeline.py:probe_part_step` (:96), the same chain over one
 bucket-range part of a streamed table.  On a CUDA tensor each is one
 launch of the hand-written kernel `csrc/query.cu`; the plain PyTorch
 versions here are what the wrappers run on CPU tensors and what the
 kernel is held against.
 
-The port always probes the qs table in split form, main rows [NB, 8] and
-stash rows [NBS, 8] as two tensors: the JAX package's fused probe
-(`_probe_qs`) reads the same rows and gives identical labels.  The
-TPU-only `spread_invalid` and `_spread_oob` have no counterpart: invalid
-windows and main buckets outside a part's range are masked (the plain
-versions) or skipped (the kernel).
+The table's layout reaches the query as one record, `hashdb.TableSpec`
+(`KmerDB.spec`).  The port always probes the qs table in split form,
+main rows [NB, 8] and stash rows [NBS, 8] as two tensors: the JAX
+package's fused probe (`_probe_qs`) reads the same rows and gives
+identical labels.  q4 and s2 tables have no stash.  The TPU-only
+`spread_invalid` and `_spread_oob` have no counterpart: invalid windows
+and buckets outside a part's range are masked (the plain versions) or
+skipped (the kernel).
 """
 
 from __future__ import annotations
@@ -23,10 +26,30 @@ from __future__ import annotations
 import torch
 
 from cuclark_tpu_torch import codec, kernels
-from cuclark_tpu_torch.hashdb import (check_q_bits, feistel_mix_torch,
-                                      feistel_seed_consts)
+from cuclark_tpu_torch.hashdb import (TableSpec, check_q_bits,
+                                      feistel_mix_torch, mix1_torch,
+                                      mix2_torch)
 
 _MASK32 = 0xFFFFFFFF
+
+
+def _localize(b: torch.Tensor, bucket_start: int, table: torch.Tensor,
+              nb_bits: int):
+    """(row of `table`, in-range mask) of global buckets b, the range
+    mask of `cuclark_tpu.probe._localize`: `table` holds rows
+    [bucket_start, bucket_start + len(table)), and a bucket out of that
+    range reads row 0 and is masked by the caller.  (b, None) when
+    `table` is the whole table."""
+    nb_local = table.shape[0]
+    if bucket_start == 0 and nb_local == 1 << nb_bits:
+        return b, None
+    loc = b - bucket_start
+    in_range = (loc >= 0) & (loc < nb_local)
+    return torch.where(in_range, loc, 0), in_range
+
+
+def _masked(lab: torch.Tensor, in_range) -> torch.Tensor:
+    return lab if in_range is None else torch.where(in_range, lab, 0)
 
 
 def _match_labels(tbl: torch.Tensor, b: torch.Tensor, own: torch.Tensor,
@@ -42,6 +65,11 @@ def _match_labels(tbl: torch.Tensor, b: torch.Tensor, own: torch.Tensor,
     return torch.where(m, meta & 0xFFFF, 0).sum(dim=1).to(torch.int32)
 
 
+def _split_kmers(kmers: torch.Tensor):
+    km = kmers.reshape(-1)
+    return codec.shr(km, 32), km & _MASK32
+
+
 def probe_qs_split(main: torch.Tensor, stash: torch.Tensor | None,
                    nb_bits: int, stash_bits: int, seed: int,
                    kmers: torch.Tensor,
@@ -49,79 +77,149 @@ def probe_qs_split(main: torch.Tensor, stash: torch.Tensor | None,
     """Labels of canonical k-mers (int64 [...], the u64 bit pattern) in a
     qs table given as int32 main [NB, 8] and stash [NBS, 8]: the main row
     l2 & (NB-1) and the stash row h1 & (NBS-1), label = meta & 0xFFFF on
-    a match, 0 on a miss.  Plain version of the probe in csrc/query.cu.
+    a match, 0 on a miss.  Plain version of the qs probe in
+    csrc/query.cu.
 
     For a part of a streamed table, `main` holds the main rows
     [bucket_start, bucket_start + len(main)) only: a bucket outside that
     range contributes 0 (`cuclark_tpu.probe._localize`), and stash None
     probes no stash."""
     check_q_bits("qs", nb_bits, stash_bits)
-    shape = kmers.shape
-    km = kmers.reshape(-1)
-    hi = codec.shr(km, 32)
-    lo = km & _MASK32
+    hi, lo = _split_kmers(kmers)
     h1, l2 = feistel_mix_torch(hi, lo, seed)
-    b = l2 & ((1 << nb_bits) - 1)
-    nb_local = main.shape[0]
-    if bucket_start == 0 and nb_local == 1 << nb_bits:
-        lab = _match_labels(main, b, l2, h1, nb_bits, 0)
-    else:
-        loc = b - bucket_start
-        in_range = (loc >= 0) & (loc < nb_local)
-        lab = torch.where(in_range, _match_labels(
-            main, torch.where(in_range, loc, 0), l2, h1, nb_bits, 0), 0)
+    loc, in_range = _localize(l2 & ((1 << nb_bits) - 1), bucket_start,
+                              main, nb_bits)
+    lab = _masked(_match_labels(main, loc, l2, h1, nb_bits, 0), in_range)
     if stash is not None:
         lab += _match_labels(stash, h1 & ((1 << stash_bits) - 1), h1, l2,
                              stash_bits, 1)
-    return lab.reshape(shape)
+    return lab.reshape(kmers.shape)
 
 
-def query_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
-                       main: torch.Tensor, stash: torch.Tensor, *, k: int,
-                       nb_bits: int, stash_bits: int,
-                       seed: int) -> torch.Tensor:
-    """Plain PyTorch version of the query kernel: packed2 uint8 [R, L/4]
-    and vbits uint8 [R, L/8] -> labels int32 [R, L-k+1], 0 where the
-    window holds an N or padding or misses the table."""
+def probe_q4(table: torch.Tensor, nb_bits: int, seed: int,
+             kmers: torch.Tensor, bucket_start: int = 0) -> torch.Tensor:
+    """Labels of canonical k-mers (int64 [...]) in a q4 table, int32
+    [NB, 8] (`cuclark_tpu.probe._probe_q4`): choice 0 at main row
+    l2 & (NB-1) with other h1, choice 1 at main row h1 & (NB-1) with
+    other l2, both quotients against nb_bits.  Plain version of the q4
+    probe in csrc/query.cu.  For a part, `table` holds rows
+    [bucket_start, bucket_start + len(table)) and each choice counts
+    only when its own bucket lies in that range."""
+    check_q_bits("q4", nb_bits)
+    hi, lo = _split_kmers(kmers)
+    h1, l2 = feistel_mix_torch(hi, lo, seed)
+    mask = (1 << nb_bits) - 1
+    lab = torch.zeros(h1.shape, dtype=torch.int32, device=h1.device)
+    for choice, own, other in ((0, l2, h1), (1, h1, l2)):
+        loc, in_range = _localize(own & mask, bucket_start, table,
+                                  nb_bits)
+        lab += _masked(_match_labels(table, loc, own, other, nb_bits,
+                                     choice), in_range)
+    return lab.reshape(kmers.shape)
+
+
+def probe_s2(table: torch.Tensor, nb_bits: int, slots: int,
+             num_choices: int, kmers: torch.Tensor,
+             bucket_start: int = 0) -> torch.Tensor:
+    """Labels of canonical k-mers (int64 [...]) in an s2 table, int32
+    [NB, 3 * slots] rows [klo x S | khi x S | label x S] (the s2 branch
+    of `cuclark_tpu.probe.probe`): bucket mix1 & (NB-1), and with two
+    choices mix2 & (NB-1) when it differs from the first as a global
+    bucket; the labels of the slots whose two key words match are
+    summed.  Plain version of the s2 probe in csrc/query.cu.  For a
+    part, `table` holds rows [bucket_start, bucket_start + len(table))
+    and each choice counts only when its own bucket lies in range."""
+    S = slots
+    hi, lo = _split_kmers(kmers)
+    mask = (1 << nb_bits) - 1
+    b1 = mix1_torch(hi, lo) & mask
+    lab = torch.zeros(hi.shape, dtype=torch.int64, device=hi.device)
+    for choice in range(num_choices):
+        b = b1 if choice == 0 else mix2_torch(hi, lo) & mask
+        loc, in_range = _localize(b, bucket_start, table, nb_bits)
+        rows = table[loc]                                    # [N, 3S]
+        words = rows[:, :2 * S].to(torch.int64) & _MASK32
+        m = (words[:, :S] == lo[:, None]) & (words[:, S:] == hi[:, None])
+        if in_range is not None:
+            m &= in_range[:, None]
+        if choice == 1:
+            m &= (b != b1)[:, None]
+        lab += torch.where(m, rows[:, 2 * S:], 0).sum(dim=1)
+    # int32 sums wrap as the JAX probe's do
+    return lab.to(torch.int32).reshape(kmers.shape)
+
+
+def probe_table(main: torch.Tensor, stash: torch.Tensor | None,
+                spec: TableSpec, kmers: torch.Tensor,
+                bucket_start: int = 0) -> torch.Tensor:
+    """Labels of canonical k-mers in a table of any layout: the plain
+    probe of `spec.layout` (stash None for q4 and s2)."""
+    if spec.layout == "qs":
+        return probe_qs_split(main, stash, spec.nb_bits, spec.stash_bits,
+                              spec.seed, kmers, bucket_start)
+    if spec.layout == "q4":
+        return probe_q4(main, spec.nb_bits, spec.seed, kmers, bucket_start)
+    return probe_s2(main, spec.nb_bits, spec.slots, spec.num_choices,
+                    kmers, bucket_start)
+
+
+def _check_table(main: torch.Tensor, stash: torch.Tensor | None,
+                 spec: TableSpec, resident: bool) -> None:
+    spec.check()
+    if main.dim() != 2 or main.shape[1] != spec.row_words:
+        raise ValueError(f"{spec.layout} rows must be [rows, "
+                         f"{spec.row_words}], got {tuple(main.shape)}")
+    if spec.layout != "qs" and stash is not None:
+        raise ValueError(f"a {spec.layout} table has no stash")
+    if resident and (main.shape[0] != 1 << spec.nb_bits
+                     or (spec.layout == "qs" and stash is None)):
+        raise ValueError("resident query needs the whole table: "
+                         f"2^{spec.nb_bits} main rows and, for qs, the "
+                         "stash")
+
+
+def _window_labels(packed2, vbits, main, stash, spec, k, bucket_start):
     codes = codec.unpack_codes(packed2, vbits)
     kmers, valid = codec.extract_kmers(codes, k)
     canon = codec.canonical(kmers, k)
-    labels = probe_qs_split(main, stash, nb_bits, stash_bits, seed, canon)
+    labels = probe_table(main, stash, spec, canon, bucket_start)
     return torch.where(valid, labels, 0)
 
 
+def query_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
+                       main: torch.Tensor, stash: torch.Tensor | None, *,
+                       k: int, spec: TableSpec) -> torch.Tensor:
+    """Plain PyTorch version of the query kernel: packed2 uint8 [R, L/4]
+    and vbits uint8 [R, L/8] -> labels int32 [R, L-k+1], 0 where the
+    window holds an N or padding or misses the table."""
+    _check_table(main, stash, spec, resident=True)
+    return _window_labels(packed2, vbits, main, stash, spec, k, 0)
+
+
 def query_labels(packed2: torch.Tensor, vbits: torch.Tensor,
-                 main: torch.Tensor, stash: torch.Tensor, *, k: int,
-                 nb_bits: int, stash_bits: int, seed: int) -> torch.Tensor:
-    """Per-window labels of a wire batch: the query kernel for CUDA
-    tensors, its plain version for CPU tensors."""
-    check_q_bits("qs", nb_bits, stash_bits)
+                 main: torch.Tensor, stash: torch.Tensor | None, *, k: int,
+                 spec: TableSpec) -> torch.Tensor:
+    """Per-window labels of a wire batch against a resident table (main
+    rows and, for qs, the stash; see `hashdb.table_to_device`): the
+    query kernel for CUDA tensors, its plain version for CPU tensors."""
     if packed2.device.type == "cpu":
         return query_labels_plain(packed2, vbits, main, stash, k=k,
-                                  nb_bits=nb_bits, stash_bits=stash_bits,
-                                  seed=seed)
-    return kernels.query(packed2, vbits, main, stash, k=k, nb_bits=nb_bits,
-                         stash_bits=stash_bits,
-                         consts=feistel_seed_consts(seed))
+                                  spec=spec)
+    return kernels.query(packed2, vbits, main, stash, k=k, spec=spec)
 
 
 def query_part_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
                             main_part: torch.Tensor,
                             stash: torch.Tensor | None, *, bucket_start: int,
-                            nb_local: int, k: int, nb_bits: int,
-                            stash_bits: int, seed: int,
+                            nb_local: int, k: int, spec: TableSpec,
                             acc: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the part-mode query kernel: the labels
     of one bucket-range part (main rows [bucket_start, bucket_start +
-    nb_local), and the stash when it is given), 0 on invalid windows;
+    nb_local), and the qs stash when it is given), 0 on invalid windows;
     added into `acc` in place when it is given."""
-    _check_part(main_part, bucket_start, nb_local, nb_bits)
-    codes = codec.unpack_codes(packed2, vbits)
-    kmers, valid = codec.extract_kmers(codes, k)
-    canon = codec.canonical(kmers, k)
-    labels = probe_qs_split(main_part, stash, nb_bits, stash_bits, seed,
-                            canon, bucket_start)
-    labels = torch.where(valid, labels, 0)
+    _check_part(main_part, stash, spec, bucket_start, nb_local)
+    labels = _window_labels(packed2, vbits, main_part, stash, spec, k,
+                            bucket_start)
     if acc is None:
         return labels
     return acc.add_(labels)
@@ -129,36 +227,35 @@ def query_part_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
 
 def query_part_labels(packed2: torch.Tensor, vbits: torch.Tensor,
                       main_part: torch.Tensor, stash: torch.Tensor | None, *,
-                      bucket_start: int, nb_local: int, k: int, nb_bits: int,
-                      stash_bits: int, seed: int,
+                      bucket_start: int, nb_local: int, k: int,
+                      spec: TableSpec,
                       acc: torch.Tensor | None = None) -> torch.Tensor:
     """Per-window labels of a wire batch against one bucket-range part
-    of a streamed qs table (`cuclark_tpu.pipeline.probe_part_step`):
-    main-row bucket b = l2 & (NB-1) counts only when bucket_start <= b <
-    bucket_start + nb_local, and then reads row b - bucket_start of
-    `main_part`; the stash is probed only when it is passed (one part per
-    batch).  With `acc`, the labels are added into it in place (the
-    `acc + lab` of the JAX streaming loop) and `acc` is returned.  The
-    part-mode query kernel for CUDA tensors, its plain version for CPU
-    tensors."""
-    check_q_bits("qs", nb_bits, stash_bits)
+    of a streamed table (`cuclark_tpu.pipeline.probe_part_step`): a
+    bucket b counts only when bucket_start <= b < bucket_start +
+    nb_local, and then reads row b - bucket_start of `main_part`; each
+    hash choice of q4 and s2 is range-checked on its own, and the qs
+    stash is probed only when it is passed (one part per batch).  With
+    `acc`, the labels are added into it in place (the `acc + lab` of the
+    JAX streaming loop) and `acc` is returned.  The part-mode query
+    kernel for CUDA tensors, its plain version for CPU tensors."""
     if packed2.device.type == "cpu":
         return query_part_labels_plain(
             packed2, vbits, main_part, stash, bucket_start=bucket_start,
-            nb_local=nb_local, k=k, nb_bits=nb_bits, stash_bits=stash_bits,
-            seed=seed, acc=acc)
-    _check_part(main_part, bucket_start, nb_local, nb_bits)
+            nb_local=nb_local, k=k, spec=spec, acc=acc)
+    _check_part(main_part, stash, spec, bucket_start, nb_local)
     return kernels.query_part(packed2, vbits, main_part, stash,
-                              bucket_start=bucket_start, k=k,
-                              nb_bits=nb_bits, stash_bits=stash_bits,
-                              consts=feistel_seed_consts(seed), acc=acc)
+                              bucket_start=bucket_start, k=k, spec=spec,
+                              acc=acc)
 
 
-def _check_part(main_part: torch.Tensor, bucket_start: int, nb_local: int,
-                nb_bits: int) -> None:
+def _check_part(main_part: torch.Tensor, stash: torch.Tensor | None,
+                spec: TableSpec, bucket_start: int, nb_local: int) -> None:
+    _check_table(main_part, stash, spec, resident=False)
     if main_part.shape[0] != nb_local:
         raise ValueError(f"part holds {main_part.shape[0]} rows, "
                          f"nb_local is {nb_local}")
-    if bucket_start < 0 or bucket_start + nb_local > 1 << nb_bits:
+    if bucket_start < 0 or bucket_start + nb_local > 1 << spec.nb_bits:
         raise ValueError(f"part rows [{bucket_start}, "
-                         f"{bucket_start + nb_local}) exceed 2^{nb_bits}")
+                         f"{bucket_start + nb_local}) exceed "
+                         f"2^{spec.nb_bits}")

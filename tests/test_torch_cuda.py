@@ -40,8 +40,7 @@ def test_query_kernel_matches_plain(dev, k):
     codes[3, 90:] = codec.INVALID
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
     main, stash = hashdb.table_to_device(db, dev)
-    args = dict(k=k, nb_bits=db.nb_bits, stash_bits=db.stash_bits,
-                seed=db.seed)
+    args = dict(k=k, spec=db.spec)
     before = kernels.LAUNCHES["query"]
     got = probe.query_labels(p2, vb, main, stash, **args)
     torch.cuda.synchronize()
@@ -64,6 +63,110 @@ def test_score_kernel_matches_plain(dev, R, P):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["score"] == before + 1
     assert torch.equal(got, score.score_labels_plain(t))
+
+
+@pytest.mark.parametrize("R,P", [(3, 32769), (4, 40000), (2, 100000)])
+def test_score_long_kernel_matches_plain(dev, R, P):
+    """Rows past the shared-memory sort take the device-memory path."""
+    rng = np.random.default_rng(P)
+    lab = rng.integers(0, 40, size=(R, P)).astype(np.int32)
+    lab[rng.random((R, P)) < 0.5] = 0
+    lab[0] = 0
+    t = torch.from_numpy(lab).to(dev)
+    before = dict(kernels.LAUNCHES)
+    got = score.score_labels(t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["score_long"] == before["score_long"] + 1
+    assert kernels.LAUNCHES["score"] == before["score"]
+    assert torch.equal(got, score.score_labels_plain(t))
+
+
+def _layout_case(dev, layout, slots, choices, n, nb_bits, k):
+    """A q4 or s2 table of n keys (those with two hash choices hold some
+    at their second), and 256 reads of 152 bases with its keys planted,
+    Ns and an N tail."""
+    rng = np.random.default_rng(k + slots)
+    km = rng.integers(0, np.iinfo(np.uint64).max, size=n + 10_000,
+                      dtype=np.uint64, endpoint=True)
+    km = np.unique(codec.canonical_np(km >> np.uint64(64 - 2 * k), k))
+    km = km[:n]
+    labels = rng.integers(1, 65536, size=len(km)).astype(np.uint32)
+    names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
+    db = hashdb.build_table(km, labels, names, DBConfig(
+        k=k, layout=layout, slots=slots, num_choices=choices),
+        nb_bits=nb_bits)
+    R, L = 256, 152
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    for r in range(0, R, 2):
+        for p in range(0, L - k + 1, k):
+            codes[r, p:p + k] = (km[rng.integers(len(km))] >> shifts) & 3
+    codes[rng.random((R, L)) < 0.01] = codec.INVALID
+    codes[3, 90:] = codec.INVALID
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    return db, p2, vb
+
+
+# (layout, slots, choices, keys, nb_bits): 57-69% loads, and a one-choice
+# s2 table loose enough to build without eviction
+LAYOUTS = [("q4", 4, 2, 300_000, 17), ("s2", 2, 2, 90_000, 16),
+           ("s2", 4, 1, 20_000, 16), ("s2", 3, 2, 130_000, 16)]
+
+
+@pytest.mark.parametrize("k", [27, 32])
+@pytest.mark.parametrize("layout,slots,choices,n,nb_bits", LAYOUTS)
+def test_layout_query_kernel_matches_plain(dev, layout, slots, choices, n,
+                                           nb_bits, k):
+    """The resident q4 or s2 query kernel against its plain version."""
+    db, p2, vb = _layout_case(dev, layout, slots, choices, n, nb_bits, k)
+    main, stash = hashdb.table_to_device(db, dev)
+    assert stash is None
+    name = f"query_{layout}"
+    before = kernels.LAUNCHES[name]
+    got = probe.query_labels(p2, vb, main, None, k=k, spec=db.spec)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    want = probe.query_labels_plain(p2, vb, main, None, k=k, spec=db.spec)
+    assert torch.equal(got, want)
+    assert int((want > 0).sum()) > 256
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("layout,slots,choices,n,nb_bits", LAYOUTS)
+def test_layout_query_part_kernel_matches_plain(dev, layout, slots, choices,
+                                                n, nb_bits, accumulate):
+    """The part-mode q4 or s2 query kernel on each of 4 bucket-range
+    parts, writing or adding into an accumulator; the parts add up to
+    the resident labels."""
+    k = 31
+    db, p2, vb = _layout_case(dev, layout, slots, choices, n, nb_bits, k)
+    main, _ = hashdb.table_to_device(db, dev)
+    rows = db.nb // 4
+    rng = np.random.default_rng(9)
+    name = f"query_part_{layout}"
+    total = torch.zeros((p2.shape[0], 4 * p2.shape[1] - k + 1),
+                        dtype=torch.int32, device=dev)
+    for p in range(4):
+        part = main[p * rows:(p + 1) * rows].contiguous()
+        acc = (torch.from_numpy(rng.integers(0, 1000, size=tuple(total.shape),
+                                             dtype=np.int32)).to(dev)
+               if accumulate else None)
+        args = dict(bucket_start=p * rows, nb_local=rows, k=k, spec=db.spec)
+        want = probe.query_part_labels_plain(
+            p2, vb, part, None, acc=acc.clone() if accumulate else None,
+            **args)
+        before = kernels.LAUNCHES[name]
+        got = probe.query_part_labels(p2, vb, part, None, acc=acc, **args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        assert torch.equal(got, want)
+        if accumulate:
+            assert got.data_ptr() == acc.data_ptr()
+        else:
+            total += got
+    if not accumulate:
+        assert torch.equal(total, probe.query_labels(p2, vb, main, None, k=k,
+                                                     spec=db.spec))
 
 
 def test_classifier_rows_match_cpu(dev, tmp_path):
@@ -110,8 +213,7 @@ def test_query_part_kernel_matches_plain(dev, with_stash, accumulate):
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
     main, stash = hashdb.table_to_device(db, dev)
     rows = db.nb // 4
-    args = dict(nb_local=rows, k=k, nb_bits=db.nb_bits,
-                stash_bits=db.stash_bits, seed=db.seed)
+    args = dict(nb_local=rows, k=k, spec=db.spec)
     hits = 0
     for p in range(4):
         part = main[p * rows:(p + 1) * rows].contiguous()

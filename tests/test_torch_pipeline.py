@@ -1,7 +1,7 @@
 """The port's slice end to end against the JAX package on the CPU:
 `classify_step_packed`, the CLI's CSV bytes (golden example and
 synthetic genomes), DB files shared both ways, and the refusals of what
-the slice does not port.  Every comparison is exact."""
+the port does not cover yet.  Every comparison is exact."""
 
 import subprocess
 import sys
@@ -108,8 +108,7 @@ def test_classify_step_packed_matches_jax(inputs):
     main, stash = table_to_device(db, "cpu")
     res, lab = pipeline.classify_step_packed(
         main, torch.from_numpy(p2), torch.from_numpy(vb), k=db.k,
-        nb_bits=db.nb_bits, stash_bits=db.stash_bits, seed=db.seed,
-        stash=stash)
+        spec=db.spec, stash=stash)
     np.testing.assert_array_equal(lab.numpy(), np.asarray(jlab))
     np.testing.assert_array_equal(res.numpy(), np.asarray(jres))
     assert (res.numpy()[:, 2] > 0).sum() > len(reads) // 2
@@ -171,17 +170,6 @@ def test_unported_flags_raise(inputs, flags):
         cli.main(["classify", "-D", str(tmp / "tdb"), "-O", str(reads),
                   "-R", str(tmp / "never.csv"), "--device", "cpu", *flags])
     assert not (tmp / "never.csv").exists()
-
-
-def test_q4_database_raises(inputs):
-    tmp, reads, _ = inputs
-    db = _db(tmp / "tdb", KmerDB)
-    db.layout = "q4"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.Classifier(db, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["build-db", "-T", str(tmp / "targets.txt"),
-                  "-D", str(tmp / "q4db"), "-k", str(K), "--layout", "q4"])
 
 
 def test_row_iterators_match_jax(inputs):

@@ -3,6 +3,8 @@ JAX package's `hashdb.feistel_mix`, `probe._probe_qs_split` and
 `probe._probe_qs`, on a table with nb_bits 17 and stash_bits 17 holding
 keys in both main and stash rows.  Every comparison is exact."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,8 +120,7 @@ def test_query_labels_matches_jax_chain(table):
     p2, vb = jcodec.pack_codes(codes)
     main, stash = hashdb.table_to_device(db, "cpu")
     got = probe.query_labels(torch.from_numpy(p2), torch.from_numpy(vb),
-                             main, stash, k=K, nb_bits=db.nb_bits,
-                             stash_bits=db.stash_bits, seed=db.seed)
+                             main, stash, k=K, spec=db.spec)
     jcodes = jcodec.unpack_codes(jnp.asarray(p2), jnp.asarray(vb))
     (hi, lo), valid = jcodec.extract_kmers(jcodes, K)
     chi, clo = jcodec.canonical((hi, lo), K)
@@ -138,6 +139,6 @@ def test_query_labels_rejects_bad_stash_bits(table):
     main, stash = hashdb.table_to_device(db, "cpu")
     p2 = torch.zeros((1, 10), dtype=torch.uint8)
     vb = torch.zeros((1, 5), dtype=torch.uint8)
+    spec = dataclasses.replace(db.spec, stash_bits=0)
     with pytest.raises(ValueError, match="stash_bits"):
-        probe.query_labels(p2, vb, main, stash, k=K, nb_bits=17,
-                           stash_bits=0, seed=db.seed)
+        probe.query_labels(p2, vb, main, stash, k=K, spec=spec)

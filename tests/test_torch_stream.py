@@ -217,8 +217,7 @@ def test_query_part_labels_match_probe_part_step(part_case, parts):
     db, p2, vb = part_case
     main, stash = hashdb.table_to_device(db, "cpu")
     rows = db.nb // parts
-    args = dict(k=K, nb_bits=db.nb_bits, stash_bits=db.stash_bits,
-                seed=db.seed)
+    args = dict(k=K, spec=db.spec)
     tp2, tvb = torch.from_numpy(p2), torch.from_numpy(vb)
     total, acc = None, None
     for p in range(parts):
@@ -248,14 +247,12 @@ def test_query_part_labels_stash_side(part_case):
     part without the stash answers none of it."""
     db, p2, vb = part_case
     main, stash = hashdb.table_to_device(db, "cpu")
-    args = dict(bucket_start=0, nb_local=db.nb, k=K, nb_bits=db.nb_bits,
-                stash_bits=db.stash_bits, seed=db.seed)
+    args = dict(bucket_start=0, nb_local=db.nb, k=K, spec=db.spec)
     tp2, tvb = torch.from_numpy(p2), torch.from_numpy(vb)
     only_stash = probe.query_part_labels(tp2, tvb, torch.zeros_like(main),
                                          stash, **args)
     no_stash = probe.query_part_labels(tp2, tvb, main, None, **args)
-    both = probe.query_labels(tp2, tvb, main, stash, k=K, nb_bits=db.nb_bits,
-                              stash_bits=db.stash_bits, seed=db.seed)
+    both = probe.query_labels(tp2, tvb, main, stash, k=K, spec=db.spec)
     assert int((only_stash > 0).sum()) > 0
     assert torch.equal(only_stash + no_stash, both)
 
@@ -267,5 +264,4 @@ def test_query_part_labels_rejects_bad_range(part_case, start, rows):
     with pytest.raises(ValueError, match="part"):
         probe.query_part_labels(
             torch.from_numpy(p2), torch.from_numpy(vb), main[:4], None,
-            bucket_start=start, nb_local=rows, k=K, nb_bits=db.nb_bits,
-            stash_bits=db.stash_bits, seed=db.seed)
+            bucket_start=start, nb_local=rows, k=K, spec=db.spec)
