@@ -23,7 +23,16 @@ against `--device cpu`:
     (2 slots, 2 hash choices: 1.611 GB), resident and streamed (4 and 8
     parts at `--max-table-mb 600`), each CSV equal to the qs CSV;
   - long_reads: 256 reads of 33,000 to 100,000 bases (the score
-    kernel's device-memory path for rows over 32,768 windows).
+    kernel's device-memory path for rows over 32,768 windows);
+  - classify_step: the 131,072 reads as unpacked codes through
+    `pipeline.classify_step` (the query kernel's codes front half);
+  - mesh: a 2 data x 2 db mesh of four handles of the one card, each db
+    shard (a main range and a stash range) against plain, and
+    `Classifier(db, mesh=...)` resident and streamed (each device's
+    shard in 4 parts), each CSV equal to the resident CSV;
+  - multiprocess: two ranks of `classify --coordinator` over gloo on the
+    card, and two `--num-hosts 2` runs, each pair's CSVs concatenating
+    to the resident CSV.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -40,6 +49,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -132,8 +142,72 @@ def check_small_query(dev, k: int) -> int:
     if n_hit < 1024 or n_stash == 0:
         raise AssertionError(f"too few hits to check k={k}: {n_hit} "
                              f"windows, {n_stash} from the stash")
+    err = {"query": _max_abs_err(got, want),
+           "build_sharded_classify": check_stash_ranges(p2, vb, main, stash,
+                                                        got, **args),
+           "classify_step": check_codes(p2, vb, main, stash, got, **args)}
     print(f"  k={k}: {got.numel()} windows bit-identical, {n_hit} hits, "
-          f"{n_stash} from the stash", flush=True)
+          f"{n_stash} from the stash; 2 and 4 db shards with stash ranges "
+          f"and the codes front half bit-identical", flush=True)
+    return err
+
+
+def check_stash_ranges(p2, vb, main, stash, resident, *, k, spec) -> int:
+    """The range query kernel on each db shard of a qs table, 2 and 4
+    shards (a main range and a stash range) against plain; with the main
+    rows zeroed every shard must answer hits from its stash range alone,
+    and the shards must add up to the resident labels."""
+    import torch
+
+    from cuclark_tpu_torch import probe
+
+    zero = torch.zeros_like(main)
+    err = 0
+    for num_db in (2, 4):
+        nbl, nbsl = main.shape[0] // num_db, stash.shape[0] // num_db
+        total = None
+        for j in range(num_db):
+            args = dict(bucket_start=j * nbl, nb_local=nbl, k=k, spec=spec,
+                        stash_start=j * nbsl)
+            s_j, m_j = stash[j * nbsl:(j + 1) * nbsl], main[j * nbl:(j + 1)
+                                                             * nbl]
+            only = probe.query_part_labels(p2, vb, zero[:nbl], s_j, **args)
+            got = probe.query_part_labels(p2, vb, m_j, s_j, **args)
+            torch.cuda.synchronize()
+            for a, m in ((only, zero[:nbl]), (got, m_j)):
+                want = probe.query_part_labels_plain(p2, vb, m, s_j, **args)
+                if not torch.equal(a, want):
+                    raise AssertionError(f"range kernel != plain on shard "
+                                         f"{j} of {num_db} at k={k}")
+                err = max(err, _max_abs_err(a, want))
+            if int((only > 0).sum()) == 0:
+                raise AssertionError(f"no hit from the stash range of shard "
+                                     f"{j} of {num_db} at k={k}")
+            total = got if total is None else total + got
+        if not torch.equal(total, resident):
+            raise AssertionError(f"{num_db} db shards != resident at k={k}")
+    return err
+
+
+def check_codes(p2, vb, main, stash, wire_labels, *, k, spec) -> int:
+    """The query kernel's codes front half on the unpacked batch (one
+    byte set to 200, an N) against plain, and against the wire labels."""
+    import torch
+
+    from cuclark_tpu_torch import codec, probe
+
+    codes = codec.unpack_codes(p2, vb).to(torch.uint8)
+    got = probe.query_codes_labels(codes, main, stash, k=k, spec=spec)
+    torch.cuda.synchronize()
+    if not torch.equal(got, wire_labels):
+        raise AssertionError(f"{spec.layout} codes kernel != wire kernel at "
+                             f"k={k}")
+    codes[5, 17] = 200
+    got = probe.query_codes_labels(codes, main, stash, k=k, spec=spec)
+    torch.cuda.synchronize()
+    want = probe.query_codes_labels_plain(codes, main, stash, k=k, spec=spec)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{spec.layout} codes kernel != plain at k={k}")
     return _max_abs_err(got, want)
 
 
@@ -189,6 +263,8 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
             raise AssertionError(f"{layout} query kernel != plain at k={k}")
         err[f"query_{layout}"] = max(err[f"query_{layout}"],
                                      _max_abs_err(got, want))
+        err["classify_step"] = max(err.get("classify_step", 0), check_codes(
+            p2, vb, main, None, got, k=k, spec=db.spec))
         rows = db.nb // 4
         acc = acc_plain = None
         for p in range(4):
@@ -216,9 +292,9 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
     if n_second == 0:
         raise AssertionError(f"no {layout} hit from the second hash choice "
                              f"alone at k={k}")
-    print(f"  {layout} k={k}: {got.numel()} windows bit-identical resident "
-          f"and in 4 parts, {n_second} hits from the second choice alone",
-          flush=True)
+    print(f"  {layout} k={k}: {got.numel()} windows bit-identical resident, "
+          f"in 4 parts and from codes, {n_second} hits from the second "
+          f"choice alone", flush=True)
     return err
 
 
@@ -616,6 +692,286 @@ def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
     return err, ms, plain_ms, launches["score_long"], detail
 
 
+def check_classify_step(codes_np: np.ndarray, B: int, main_t, stash_t,
+                        wire, lab0, db, dev, card: str):
+    """The main-path reads as unpacked codes through
+    `pipeline.classify_step`, batch by batch, with the counts reset just
+    before: the same results as the wire step, and the first batch's
+    labels equal to the wire labels; the codes kernel against plain on
+    that batch, and both timed.  Returns (max_abs_err, ms, plain ms,
+    launches, detail)."""
+    import torch
+
+    from cuclark_tpu_torch import kernels, pipeline, probe, score
+
+    qargs = dict(k=db.k, spec=db.spec)
+    codes = [torch.from_numpy(codes_np[i:i + B]).to(dev)
+             for i in range(0, len(codes_np) - B + 1, B)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = [pipeline.classify_step(main_t, c, stash=stash_t, **qargs)
+            for c in codes]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in ("query_codes", "score"):
+        if launches[name] < 1:
+            raise AssertionError(f"classify_step never launched {name}: "
+                                 f"{launches}")
+    for (res, lab), (p2, vb) in zip(outs, wire):
+        want, _ = pipeline.classify_step_packed(main_t, p2, vb, stash=stash_t,
+                                                with_labels=False, **qargs)
+        if not torch.equal(res, want):
+            raise AssertionError("classify_step results != the wire step's")
+    if not torch.equal(outs[0][1], lab0):
+        raise AssertionError("classify_step labels != the wire labels")
+    want = probe.query_codes_labels_plain(codes[0], main_t, stash_t, **qargs)
+    if not torch.equal(outs[0][1], want):
+        raise AssertionError("codes kernel != plain at real size")
+    err = _max_abs_err(outs[0][1], want)
+    del outs, want
+    ms = _cuda_ms(lambda: pipeline.classify_step(
+        main_t, codes[0], stash=stash_t, with_labels=False, **qargs), 20)
+    plain_ms = _cuda_ms(lambda: score.score_labels_plain(
+        probe.query_codes_labels_plain(codes[0], main_t, stash_t, **qargs)),
+        5)
+    detail = (f"{len(codes)} batches of {list(codes[0].shape)} codes, "
+              f"results == the wire step's, labels bit-identical to plain; "
+              f"classify_step {ms:.4f} ms (plain {plain_ms:.4f}), launches "
+              f"{launches} on {card}")
+    return err, ms, plain_ms, launches["query_codes"], detail
+
+
+def mesh_stream_budget_mb(db, num_db: int, parts: int) -> float:
+    """A per-device budget that streams each device's shard of the table
+    in `parts` parts on a mesh of num_db db shards: its stash shard and
+    2.4 / parts of its main rows, which needs streaming and so halves to
+    1.2 / parts for the double buffer."""
+    main, stash = db.split_tables()
+    stash_mb = stash.nbytes / 1e6 if stash is not None else 0.0
+    return round((stash_mb + 2.4 * main.nbytes / 1e6 / parts) / num_db, 3)
+
+
+def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
+               card: str):
+    """A 2 data x 2 db mesh of four handles of the card: each db shard's
+    labels of the main-path batch against plain, their sum against the
+    resident labels; the sharded resident step and the sharded part step
+    (4 parts, the stash on part 0) against their plain versions; then
+    `Classifier(db, mesh=...)` file->CSV, resident and with each device's
+    shard streamed in 4 parts, twice each, every CSV equal to the
+    resident one.  The counts reset just before each Classifier's runs.
+    Returns (max_abs_err, ms, launches, phase detail) keyed by the JAX
+    function."""
+    import torch
+
+    from cuclark_tpu_torch import kernels, pipeline, probe, score
+    from cuclark_tpu_torch.config import ClassifyConfig
+    from cuclark_tpu_torch.hashdb import table_to_device
+    from cuclark_tpu_torch.parallel import mesh
+
+    m = mesh.make_mesh(2, 2, [dev] * 4)
+    p2, vb = wire
+    main_t, stash_t = table_to_device(db, dev)
+    qargs = dict(k=db.k, spec=db.spec)
+    resident = probe.query_labels(p2, vb, main_t, stash_t, **qargs)
+    nb, nbs = main_t.shape[0], stash_t.shape[0]
+    smain, sstash = mesh.shard_db_table(db, m)
+    err = {"build_sharded_classify": 0, "build_sharded_probe_part": 0}
+    ms = {}
+    total = None
+    for j in range(2):
+        args = dict(bucket_start=j * nb // 2, nb_local=nb // 2,
+                    stash_start=j * nbs // 2, **qargs)
+        got = probe.query_part_labels(p2, vb, smain[0][j], sstash[0][j],
+                                      **args)
+        torch.cuda.synchronize()
+        want = probe.query_part_labels_plain(p2, vb, smain[0][j],
+                                             sstash[0][j], **args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"db shard {j} of 2 != plain")
+        err["build_sharded_classify"] = max(err["build_sharded_classify"],
+                                            _max_abs_err(got, want))
+        total = got if total is None else total + got
+    if not torch.equal(total, resident):
+        raise AssertionError("the 2 db shards' labels != resident labels")
+    del got, want, total
+
+    wires = mesh.place_wire(m, p2.cpu().numpy(), vb.cpu().numpy())
+    step, plain_step = (mesh.build_sharded_classify(
+        m, nb_total=nb, nbs_total=nbs, plain=plain, **qargs)
+        for plain in (False, True))
+    res, lab = step(smain, sstash, wires)
+    torch.cuda.synchronize()
+    pres, plab = plain_step(smain, sstash, wires)
+    lab, plab = torch.cat(lab), torch.cat(plab)
+    res, pres = torch.cat(res), torch.cat(pres)
+    if not (torch.equal(lab, plab) and torch.equal(res, pres)
+            and torch.equal(lab, resident)
+            and torch.equal(res, score.score_labels(resident))):
+        raise AssertionError("sharded step != plain or != resident")
+    err["build_sharded_classify"] = max(err["build_sharded_classify"],
+                                        _max_abs_err(lab, plab),
+                                        _max_abs_err(res, pres))
+    del lab, plab, res, pres
+    ms["build_sharded_classify"] = _cuda_ms(
+        lambda: step(smain, sstash, wires), 20)
+    ms["build_sharded_classify_plain"] = _cuda_ms(
+        lambda: plain_step(smain, sstash, wires), 3)
+
+    rows = nb // 4
+    pstep, plain_pstep = (mesh.build_sharded_probe_part(
+        m, nb_part=rows, plain=plain, **qargs) for plain in (False, True))
+
+    def part(p):
+        return [[main_t[p * rows + j * rows // 2:p * rows + (j + 1) * rows
+                        // 2] for j in range(2)] for _ in range(2)]
+
+    def all_parts(fn):
+        acc = None
+        for p in range(4):
+            acc = fn(part(p), wires, p * rows,
+                     stash=sstash if p == 0 else None, acc=acc)
+        return acc
+
+    for p in range(4):
+        got = pstep(part(p), wires, p * rows, stash=sstash if p == 0 else None)
+        torch.cuda.synchronize()
+        want = plain_pstep(part(p), wires, p * rows,
+                           stash=sstash if p == 0 else None)
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"sharded part step != plain on part {p}")
+            err["build_sharded_probe_part"] = max(
+                err["build_sharded_probe_part"], _max_abs_err(a, b))
+    if not torch.equal(torch.cat(all_parts(pstep)), resident):
+        raise AssertionError("sharded parts' sum != resident labels")
+    ms["build_sharded_probe_part"] = _cuda_ms(lambda: all_parts(pstep), 10) / 4
+    ms["build_sharded_probe_part_plain"] = _cuda_ms(
+        lambda: all_parts(plain_pstep), 2) / 4
+    del main_t, stash_t, smain, sstash, resident, wires
+    torch.cuda.empty_cache()
+
+    launches, rates, gbps = {}, {}, []
+    budget = mesh_stream_budget_mb(db, 2, 4)
+    for name, cfg, jax_fn in (
+            ("resident", None, "build_sharded_classify"),
+            ("streamed", ClassifyConfig(max_table_mb=budget),
+             "build_sharded_probe_part")):
+        out = tmp / f"mesh_{name}.csv"
+        kernels.reset_launches()
+        clf = pipeline.Classifier(db, cfg, mesh=m)
+        if clf.stream_parts != (1 if cfg is None else 4):
+            raise AssertionError(f"mesh {name}: {clf.stream_parts} parts")
+        rates[name] = []
+        for _ in range(2):
+            t1 = time.time()
+            n = clf.classify_file_to_csv(fq, out)
+            torch.cuda.synchronize()
+            rates[name].append(n / (time.time() - t1))
+            if out.read_bytes() != gpu_csv.read_bytes():
+                raise AssertionError(f"mesh {name} CSV differs from the "
+                                     f"resident CSV")
+        gbps = gbps or clf.part_upload_gbps()
+        clf.close()
+        del clf
+        launches[jax_fn] = dict(kernels.LAUNCHES)
+        if (launches[jax_fn]["query_part"] < 1 or launches[jax_fn]["score"] < 1
+                or launches[jax_fn]["query"]):
+            raise AssertionError(f"mesh {name} launches {launches[jax_fn]}")
+        torch.cuda.empty_cache()
+    detail = (f"2 data x 2 db, four handles of the one card ({card}); db "
+              f"shards of [{p2.shape[0]}, {4 * p2.shape[1]}] bit-identical, "
+              f"sum == resident; sharded step "
+              f"{ms['build_sharded_classify']:.4f} ms (plain "
+              f"{ms['build_sharded_classify_plain']:.4f}), sharded part "
+              f"step {ms['build_sharded_probe_part']:.4f} ms per part of 4 "
+              f"(plain {ms['build_sharded_probe_part_plain']:.4f}); "
+              f"Classifier(mesh) CSV == resident CSV, file->CSV "
+              f"{', '.join(f'{r:.1f}' for r in rates['resident'])} reads/s, "
+              f"launches {launches['build_sharded_classify']}; streamed at "
+              f"--max-table-mb {budget} (4 parts per device), CSV == "
+              f"resident CSV, {', '.join(f'{r:.1f}' for r in rates['streamed'])}"
+              f" reads/s, part uploads "
+              f"{', '.join(f'{g:.2f}' for g in gbps)} GB/s, launches "
+              f"{launches['build_sharded_probe_part']}")
+    return err, ms, {k: v["query_part"] for k, v in launches.items()}, detail
+
+
+_RANK_MAIN = ("import json, sys\n"
+                "from cuclark_tpu_torch import cli, kernels\n"
+                "rc = cli.main(sys.argv[1:])\n"
+                "print(json.dumps(kernels.LAUNCHES))\n"
+                "raise SystemExit(rc)\n")
+
+
+def check_multiprocess(tmp: Path, dbdir: str, fq: Path, gpu_csv: Path,
+                       card: str) -> str:
+    """Two ranks of `classify --device cuda --coordinator` on the card,
+    over gloo: .h000 + .h001 must equal the resident CSV, and each rank
+    (whose last stdout line is its kernel launches) must have launched
+    the query and score kernels.  Then `--num-hosts 2 --host-id 0|1`:
+    the two CSVs' rows concatenate to the resident CSV's."""
+    import re
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    out = tmp / "mp.csv"
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_MAIN, "classify", "-D", dbdir, "-O",
+         str(fq), "-R", str(out), "--device", "cuda", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(r)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=400))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    rank_rates, rank_launches = [], []
+    for r, (pr, (so, se)) in enumerate(zip(procs, outs)):
+        if pr.returncode:
+            raise AssertionError(f"rank {r} returned {pr.returncode}: "
+                                 f"{se[-2000:]}")
+        launches = json.loads(so.strip().splitlines()[-1])
+        if launches["query_part"] < 1 or launches["score"] < 1:
+            raise AssertionError(f"rank {r} launches {launches}")
+        rank_launches.append(launches)
+        t = re.search(r"Assignment time: ([\d.e+-]+) s\..*\((\d+) objects",
+                      so)
+        rank_rates.append(int(t.group(2)) / float(t.group(1)))
+    merged = (tmp / "mp.csv.h000").read_bytes() + (
+        tmp / "mp.csv.h001").read_bytes()
+    if merged != gpu_csv.read_bytes():
+        raise AssertionError(".h000 + .h001 differ from the resident CSV")
+    rows = []
+    host_launches = []
+    for h in range(2):
+        part = tmp / f"host{h}.csv"
+        _, launches = run_cli(["classify", "-D", dbdir, "-O", str(fq), "-R",
+                               str(part), "--device", "cuda", "--num-hosts",
+                               "2", "--host-id", str(h)], ("query", "score"))
+        host_launches.append(launches["query"])
+        lines = part.read_bytes().split(b"\n")
+        rows += lines[:-1] if h == 0 else lines[1:-1]
+    if b"\n".join(rows) + b"\n" != gpu_csv.read_bytes():
+        raise AssertionError("--num-hosts 2 shards differ from the resident "
+                             "CSV")
+    return (f"two ranks on one card ({card}) over gloo: .h000 + .h001 == "
+            f"resident CSV, {', '.join(f'{x:.1f}' for x in rank_rates)} "
+            f"reads/s per rank (each rank's file->CSV incl. its scan), "
+            f"query_part/score launches "
+            f"{[(x['query_part'], x['score']) for x in rank_launches]}; "
+            f"--num-hosts 2 shards == resident CSV, query launches "
+            f"{host_launches}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genomes", type=int, default=16384,
@@ -664,9 +1020,10 @@ def main(argv=None) -> int:
     t0 = time.time()
     err = {"query": 0, "score": 0, "score_long": 0}
     for k in (27, 32):
-        err["query"] = max(err["query"], check_small_query(dev, k))
-        for layout in ("q4", "s2"):
-            for name, e in check_small_layout(dev, layout, k).items():
+        checks = [check_small_query(dev, k)] + [
+            check_small_layout(dev, layout, k) for layout in ("q4", "s2")]
+        for one in checks:
+            for name, e in one.items():
                 err[name] = max(err.get(name, 0), e)
     for i, (R, P) in enumerate(((65536, 122), (64, 16354), (33, 1000),
                                 (64, 1), (5, 2))):
@@ -678,8 +1035,9 @@ def main(argv=None) -> int:
         if kernels.LAUNCHES["score_long"] != launched + 1:
             raise AssertionError(f"score [{R}, {P}] did not take the "
                                  f"device-memory path")
-    _phase("kernels_vs_plain", t0, "query (qs, q4, s2, resident and part) "
-           "and score (shared and device memory) bit-identical")
+    _phase("kernels_vs_plain", t0, "query (qs, q4, s2, resident, part, "
+           "qs db shards with stash ranges, codes front half) and score "
+           "(shared and device memory) bit-identical")
 
     with tempfile.TemporaryDirectory(prefix="cuclark_smoke_") as td:
         tmp = Path(td)
@@ -765,6 +1123,15 @@ def main(argv=None) -> int:
                f"(plain {ms['query_plain']:.4f}), score {ms['score']:.4f} "
                f"ms (plain {ms['score_plain']:.4f}); device step "
                f"{step_rps:.1f} reads/s on {card}")
+
+        # the same reads as unpacked codes through classify_step
+        t0 = time.time()
+        (err["classify_step"], ms["classify_step"],
+         ms["classify_step_plain"], launches_codes, detail) = (
+            check_classify_step(padded, B, main_t, stash_t, wire, lab, db,
+                                dev, card))
+        del padded
+        _phase("classify_step", t0, detail)
 
         # the part-mode query on the headline table cut in 4 parts
         t0 = time.time()
@@ -918,6 +1285,21 @@ def main(argv=None) -> int:
                f"{n_ext} reads x {cols} columns, {len(ext['cpu']) / 1e6:.1f} "
                f"MB of CSV identical resident, streamed and --device cpu")
 
+        # a 2 x 2 mesh of four handles of the card: the sharded steps,
+        # then Classifier(mesh) resident and streamed
+        t0 = time.time()
+        mesh_err, mesh_ms, launches_mesh, detail = check_mesh(
+            db, tmp, fq, wire0, gpu_csv, dev, card)
+        for name, e in mesh_err.items():
+            err[name] = max(err.get(name, 0), e)
+        ms.update(mesh_ms)
+        _phase("mesh", t0, detail)
+
+        # two ranks over gloo, and two --num-hosts shards
+        t0 = time.time()
+        _phase("multiprocess", t0, check_multiprocess(tmp, dbdir, fq,
+                                                      gpu_csv, card))
+
         # the q4 and s2 tables of the same k-mers: kernels at real size,
         # then resident and streamed classify through the CLI
         head = head_fastq(fq, tmp / "head.fq", min(16384, args.reads))
@@ -972,6 +1354,17 @@ def main(argv=None) -> int:
                  "launches": launches["score_long"],
                  "max_abs_err": err["score_long"], "ms": ms["score_long"],
                  "plain_ms": ms["score_long_plain"]})
+    for name, replaces, n in (
+            ("build_sharded_classify", "cuclark_tpu/parallel/mesh.py:96",
+             launches_mesh["build_sharded_classify"]),
+            ("build_sharded_probe_part", "cuclark_tpu/parallel/mesh.py:164",
+             launches_mesh["build_sharded_probe_part"]),
+            ("classify_step", "cuclark_tpu/pipeline.py:48", launches_codes)):
+        kern.append({"name": name, "route": "cuda",
+                     "source": "cuclark_tpu_torch/csrc/query.cu",
+                     "replaces": replaces, "launches": n,
+                     "max_abs_err": err[name], "ms": ms[name],
+                     "plain_ms": ms[f"{name}_plain"]})
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

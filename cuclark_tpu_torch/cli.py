@@ -9,13 +9,16 @@ ports, under one `cuclark-tpu-torch` entry point:
 
 `classify` runs single-end (-O) or paired (-P) reads against a qs, q4
 or s2 database on one device (`--device`, default `cuda`; `cpu` runs the
-kernels' plain PyTorch versions), with default or --extended CSV output.
-The table stays resident when it fits the device's free memory (or
---max-table-mb), else it streams in bucket-range parts.  It builds the
-database first when it is missing, as the reference's CuCLARK
-constructor does (src/CuCLARK_hh.hh:221-310).  Flags of modes not ported
-yet (multiple devices or processes, --profile) raise
-NotImplementedError naming their ROADMAP.md item.
+kernels' plain PyTorch versions) or a mesh of devices (`-d`), with
+default or --extended CSV output.  The table stays resident when it
+fits the device's free memory (or --max-table-mb), else it streams in
+bucket-range parts.  `--num-hosts`/`--host-id` classify one host's share
+of the input; `--coordinator`/`--num-processes`/`--process-id` run one
+job over several processes (torch.distributed, gloo), each writing
+<results>.h<rank>.  It builds the database first when it is missing, as
+the reference's CuCLARK constructor does (src/CuCLARK_hh.hh:221-310).
+`--profile` is not ported yet and raises NotImplementedError naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -34,11 +37,6 @@ from cuclark_tpu_torch.config import (
 )
 
 _TODO = {
-    "devices": "-d above 1 is not ported yet (ROADMAP.md, Queue 1: mesh.py)",
-    "multiprocess": "--coordinator/--num-processes/--process-id are not "
-                    "ported yet (ROADMAP.md, Queue 1: multihost.py)",
-    "num_hosts": "--num-hosts above 1 is not ported yet (ROADMAP.md, "
-                 "Queue 1: multihost.py)",
     "profile": "--profile is not ported yet (ROADMAP.md, Queue 1: CLI "
                "device touch points)",
 }
@@ -130,15 +128,8 @@ def _build_jobs(args):
 
 
 def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for any classify flag outside the slice
-    this package ports; none is silently ignored."""
-    if args.devices != 1:
-        raise NotImplementedError(_TODO["devices"])
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(_TODO["multiprocess"])
-    if args.num_hosts != 1 or args.host_id != 0:
-        raise NotImplementedError(_TODO["num_hosts"])
+    """Raise NotImplementedError for any classify flag outside what this
+    package ports; none is silently ignored."""
     if args.profile is not None:
         raise NotImplementedError(_TODO["profile"])
 
@@ -183,7 +174,18 @@ def cmd_classify(args) -> int:
                          sample_factor=args.sfactor,
                          max_table_mb=args.max_table_mb,
                          stream_group=args.stream_group)
-    clf = Classifier(db, cfg, device=args.device)
+    if args.num_processes or args.coordinator:
+        if args.resume:
+            print("warning: --resume is not supported on the "
+                  "multi-process path (per-process record blocks shift as "
+                  "shards fill); re-running the file from the start.",
+                  file=sys.stderr)
+        return _classify_multiprocess(args, db, cfg)
+    mesh = _choose_mesh(args.devices, db, args.max_table_mb, args.device)
+    if mesh is not None:
+        print(f" - Mesh: {mesh.shape['data']} data x {mesh.shape['db']} db "
+              f"devices", file=sys.stderr)
+    clf = Classifier(db, cfg, device=args.device, mesh=mesh)
     try:
         if clf.stream_parts > 1:
             # swap-cycle analog: the table exceeds the device budget
@@ -202,8 +204,10 @@ def cmd_classify(args) -> int:
                 if skip:
                     print(f"Resuming after {skip} already-classified "
                           f"reads.", file=sys.stderr)
-            n = clf.classify_file_to_csv(path, out_path, paired_path,
-                                         skip=skip, append=bool(skip))
+            n = clf.classify_file_to_csv(
+                path, out_path, paired_path, skip=skip,
+                num_hosts=args.num_hosts, host_id=args.host_id,
+                append=bool(skip))
             n += skip
             dt = time.time() - t0
             # reference prints objects/min (src/CuCLARK_hh.hh:1940-1943)
@@ -216,6 +220,104 @@ def cmd_classify(args) -> int:
     finally:
         clf.close()
     return 0
+
+
+def _classify_multiprocess(args, db, cfg) -> int:
+    """One classify job over several processes (the JAX package's
+    global-mesh path, cuclark_tpu/cli.py:217-267): bring up
+    torch.distributed (gloo), build this process's mesh of its own
+    devices, and run the multi-process engine.  Each process writes
+    <results>.h<rank>; concatenating the shards in rank order gives the
+    single-process CSV byte for byte."""
+    import dataclasses
+
+    import torch
+
+    from cuclark_tpu_torch.memplan import plan_db_axis, resolve_table_budget_mb
+    from cuclark_tpu_torch.parallel import multihost
+    from cuclark_tpu_torch.parallel.mesh import local_devices, make_global_mesh
+
+    multihost.initialize(args.coordinator, args.num_processes,
+                         args.process_id)
+    try:
+        nproc = multihost.process_count()
+        devices = local_devices(torch.device(args.device).type)
+        if not devices:
+            raise RuntimeError(f"--device {args.device}: no device of that "
+                               f"type is visible to this process")
+        # every process must plan the SAME mesh shape: agree on the
+        # global minimum budget before deriving num_db from it (live
+        # per-process memory differs; two ranks on one card each see the
+        # other's table)
+        budget_mb = multihost.agree_budget_mb(
+            resolve_table_budget_mb(args.max_table_mb, devices[0]))
+        if budget_mb is not None:
+            cfg = dataclasses.replace(cfg, max_table_mb=budget_mb)
+        # db axis capped at this process's device count; if a device's
+        # shard still exceeds the budget, the engine streams bucket-range
+        # parts on top (cycles x devices x parts, src/CuClarkDB.cu:540-574)
+        num_db = plan_db_axis(db.table.nbytes, budget_mb, len(devices))
+        mesh = make_global_mesh(num_db, devices)
+        print(f" - Global mesh: {mesh.shape['data']} data x "
+              f"{mesh.shape['db']} db per process, {nproc} process(es)",
+              file=sys.stderr)
+        jobs = _build_jobs(args)
+        # one engine for all files: the table goes to the devices once
+        engine = multihost.GlobalClassifier(db, cfg, num_db=num_db, mesh=mesh)
+        try:
+            for path, paired_path, out_path in jobs:
+                t0 = time.time()
+                n = engine.classify_file_to_csv(path, out_path, paired_path)
+                dt = time.time() - t0
+                print(f" - Assignment time: {dt:.6g} s. Speed: "
+                      f"{int(n / dt * 60.0) if dt > 0 else 0} objects/min. "
+                      f"({n} objects on process "
+                      f"{multihost.process_index()}).")
+        finally:
+            engine.close()
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def _choose_mesh(devices: int, db, max_table_mb, device: str):
+    """A (data x db) device mesh for classify (-d, reference '-d <number
+    of GPU devices>'; cuclark_tpu/cli.py:270-303), or None for one
+    device.
+
+    devices: 0 = all of `device`'s type available (every visible card;
+    CUCLARK_CPU_DEVICES handles for the CPU), 1 = no mesh, N = the first
+    N.  The db axis grows (powers of two) only while the per-device table
+    shard exceeds the memory budget; the other devices go to the data
+    axis, so reads shard instead of being replicated to every device as
+    the reference does (src/CuClarkDB.cu:886-895)."""
+    if devices == 1:
+        return None
+    import torch
+
+    from cuclark_tpu_torch.memplan import plan_db_axis, resolve_table_budget_mb
+    from cuclark_tpu_torch.parallel.mesh import local_devices, make_mesh
+
+    avail_devs = local_devices(torch.device(device).type)
+    avail = len(avail_devs)
+    n = avail if devices in (0, None) else min(devices, avail)
+    if devices not in (0, None) and devices > avail:
+        print(f" - Requested {devices} devices, only {avail} available.",
+              file=sys.stderr)
+    if n < 1:
+        return None
+    # largest power of two <= n keeps both axes power-of-two (nb % db == 0)
+    pow2 = 1 << (n.bit_length() - 1)
+    if pow2 != n:
+        print(f" - Using {pow2} of {n} devices (mesh axes must be "
+              f"powers of two so bucket ranges divide evenly).",
+              file=sys.stderr)
+    n = pow2
+    if n < 2:
+        return None
+    budget_mb = resolve_table_budget_mb(max_table_mb, avail_devs[0])
+    num_db = plan_db_axis(db.table.nbytes, budget_mb, n)
+    return make_mesh(num_db, n // num_db, avail_devs[:n])
 
 
 def _read_settings(dbdir: Path) -> dict | None:
@@ -382,7 +484,11 @@ def main(argv=None) -> int:
                    help="reads per device batch; long-read batches "
                         "auto-shrink to the device cell budget [65536]")
     c.add_argument("-d", "--devices", type=int, default=1,
-                   help="number of devices; only 1 is ported [1]")
+                   help="number of devices of --device's type to use; 0 = "
+                        "all available (reads shard over a data axis, DB "
+                        "bucket ranges over a db axis when the table "
+                        "exceeds --max-table-mb); the CPU counts "
+                        "CUCLARK_CPU_DEVICES devices [1]")
     c.add_argument("-n", "--threads", type=int, default=1,
                    help="accepted for reference CLI compatibility; host "
                         "packing already overlaps device compute")
@@ -403,16 +509,18 @@ def main(argv=None) -> int:
     c.add_argument("--profile", metavar="DIR", default=None,
                    help="capture a profiler trace (not ported yet)")
     c.add_argument("--num-hosts", type=int, default=1,
-                   help="total hosts sharding this input (only 1 is "
-                        "ported) [1]")
+                   help="total hosts sharding this input for INDEPENDENT "
+                        "per-host runs (no collectives) [1]")
     c.add_argument("--host-id", type=int, default=0,
                    help="this host's rank in [0, num-hosts)")
     c.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-process coordinator (not ported yet)")
+                   help="torch.distributed rendezvous address (rank 0 "
+                        "listens there); enables the multi-process path, "
+                        "each process writing <results>.h<rank>")
     c.add_argument("--num-processes", type=int, default=None,
-                   help="total processes (not ported yet)")
+                   help="total processes of the job")
     c.add_argument("--process-id", type=int, default=None,
-                   help="this process's rank (not ported yet)")
+                   help="this process's rank in [0, num-processes)")
     _add_db_args(c)
     c.set_defaults(fn=cmd_classify)
 

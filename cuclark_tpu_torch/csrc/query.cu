@@ -25,6 +25,21 @@
 // bucket_start = 0, nb_local = NB, a stash and accumulate = 0 is the
 // resident query.
 //
+// The stash carries a range of its own, (stash_start, nbs_local): the stash
+// rows [stash_start, stash_start + nbs_local) of a qs table sharded over a
+// mesh's db axis (cuclark_tpu/parallel/mesh.py:131-136, :199-205), checked
+// in 64 bits like the main side; a stash bucket outside it skips its gather.
+// stash_start = 0, nbs_local = NBS is the whole stash.  The db shards of one
+// read batch are launches of this kernel with their ranges, their labels
+// summed (the psum of build_sharded_classify and build_sharded_probe_part,
+// mesh.py:96, :164): every key lives in one shard only.
+//
+// A second front half reads unpacked uint8 codes [R, L] instead of the wire
+// format (cuclark_tpu/pipeline.py:classify_step, :48): the k-mer of window p
+// is codes[r, p..p+k), and a byte >= 4 makes the window invalid.  The front
+// half is a template parameter too, so the wire instances compile as they
+// did.
+//
 // What bounds it on the card: two random 32 B row gathers per window, one
 // into the main table (1.07 GB at the 64M-k-mer configuration, 22x the
 // 50 MB L2, so nearly every main gather goes to device memory) and one into
@@ -158,7 +173,22 @@ __device__ __forceinline__ bool window_kmer(const uint8_t* __restrict__ pr,
   return true;
 }
 
-template <int LAYOUT>
+// The same from unpacked codes: one byte per base, 0..3, >= 4 invalid.
+__device__ __forceinline__ bool window_kmer_codes(
+    const uint8_t* __restrict__ cr, int p, int k, uint64_t* out) {
+  uint64_t km = 0;
+  for (int j = 0; j < k; ++j) {
+    const uint32_t c = __ldg(cr + p + j);
+    if (c >= 4u) return false;
+    km = (km << 2) | c;
+  }
+  const uint64_t rc = revcomp64(km, k);
+  *out = rc < km ? rc : km;
+  return true;
+}
+
+// CODES: packed2 is codes uint8 [R, s2] (s2 = L) and vbits is unused.
+template <int LAYOUT, bool CODES>
 __global__ void query_kernel(const uint8_t* __restrict__ packed2,
                              const uint8_t* __restrict__ vbits,
                              const void* __restrict__ main_rows,
@@ -166,7 +196,8 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
                              int32_t* __restrict__ labels, int64_t n, int P,
                              int s2, int s8, int k, int nb_bits,
                              int stash_bits, uint64_t bucket_start,
-                             uint64_t nb_local, int accumulate, uint32_t c1,
+                             uint64_t nb_local, uint64_t stash_start,
+                             uint64_t nbs_local, int accumulate, uint32_t c1,
                              uint32_t c2, uint32_t c3, int slots,
                              int num_choices) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -175,7 +206,10 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
   const int64_t r = idx / P;
   const int p = static_cast<int>(idx - r * P);
   uint64_t c;
-  if (!window_kmer(packed2 + r * s2, vbits + r * s8, p, k, &c)) {
+  const bool valid =
+      CODES ? window_kmer_codes(packed2 + r * s2, p, k, &c)
+            : window_kmer(packed2 + r * s2, vbits + r * s8, p, k, &c);
+  if (!valid) {
     if (!accumulate) labels[idx] = 0;
     return;
   }
@@ -212,10 +246,13 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
       if (b1 >= bucket_start && b1 - bucket_start < nb_local)
         lab += row_label(rows, b1 - bucket_start, l2, h1 >> nb_bits, 1u);
     } else if (stash_rows != nullptr) {
-      // qs: stash row h1 & (NBS-1): other == l2, quotient
-      // h1 >> stash_bits, choice 1
+      // qs: stash row h1 & (NBS-1) of the range [stash_start, stash_start +
+      // nbs_local): other == l2, quotient h1 >> stash_bits, choice 1
       const uint32_t smask = static_cast<uint32_t>((1ull << stash_bits) - 1);
-      lab += row_label(stash_rows, h1 & smask, l2, h1 >> stash_bits, 1u);
+      const uint64_t sb = static_cast<uint64_t>(h1 & smask);
+      if (sb >= stash_start && sb - stash_start < nbs_local)
+        lab += row_label(stash_rows, sb - stash_start, l2, h1 >> stash_bits,
+                         1u);
     }
   }
   if (!accumulate)
@@ -224,20 +261,44 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
     labels[idx] += lab;
 }
 
+// One layout's kernel over one front half.
+template <int LAYOUT>
+void launch(bool codes, unsigned blocks, int threads, cudaStream_t st,
+            const uint8_t* p2, const uint8_t* vb, const void* main_rows,
+            const uint4* stash, int32_t* out, int64_t n, int P, int s2,
+            int s8, int k, int nb_bits, int stash_bits, uint64_t start,
+            uint64_t local, uint64_t sstart, uint64_t slocal, int accumulate,
+            uint32_t c1, uint32_t c2, uint32_t c3, int slots,
+            int num_choices) {
+  if (codes)
+    query_kernel<LAYOUT, true><<<blocks, threads, 0, st>>>(
+        p2, vb, main_rows, stash, out, n, P, s2, s8, k, nb_bits, stash_bits,
+        start, local, sstart, slocal, accumulate, c1, c2, c3, slots,
+        num_choices);
+  else
+    query_kernel<LAYOUT, false><<<blocks, threads, 0, st>>>(
+        p2, vb, main_rows, stash, out, n, P, s2, s8, k, nb_bits, stash_bits,
+        start, local, sstart, slocal, accumulate, c1, c2, c3, slots,
+        num_choices);
+}
+
 }  // namespace
 
 // labels int32 [R, P] from packed2 uint8 [R, s2], vbits uint8 [R, s8] and
 // the main rows (global rows bucket_start.. of a table of 2^nb_bits): layout
-// 0 (qs) int32 [nb_local, 8] with stash int32 [NBS, 8] or null, layout 1
-// (q4) int32 [nb_local, 8], layout 2 (s2) int32 [nb_local, 3*slots] with
-// num_choices 1 or 2; P = 4*s2 - k + 1.  With accumulate != 0 the labels are
+// 0 (qs) int32 [nb_local, 8] with stash int32 [nbs_local, 8] (global stash
+// rows stash_start.. of 2^stash_bits) or null, layout 1 (q4) int32
+// [nb_local, 8], layout 2 (s2) int32 [nb_local, 3*slots] with num_choices 1
+// or 2; P = 4*s2 - k + 1.  With codes != 0, packed2 is codes uint8 [R, s2],
+// vbits is unused and P = s2 - k + 1.  With accumulate != 0 the labels are
 // added into `labels`.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int cuclark_query(int layout, const void* packed2,
+extern "C" int cuclark_query(int layout, int codes, const void* packed2,
                              const void* vbits, const void* main_rows,
                              const void* stash_rows, void* labels, int64_t R,
                              int P, int s2, int s8, int k, int nb_bits,
                              int stash_bits, int64_t bucket_start,
-                             int64_t nb_local, int accumulate, uint32_t c1,
+                             int64_t nb_local, int64_t stash_start,
+                             int64_t nbs_local, int accumulate, uint32_t c1,
                              uint32_t c2, uint32_t c3, int slots,
                              int num_choices, void* stream) {
   const int64_t n = R * P;
@@ -251,22 +312,23 @@ extern "C" int cuclark_query(int layout, const void* packed2,
   int32_t* out = static_cast<int32_t*>(labels);
   const uint64_t start = static_cast<uint64_t>(bucket_start);
   const uint64_t local = static_cast<uint64_t>(nb_local);
+  const uint64_t sstart = static_cast<uint64_t>(stash_start);
+  const uint64_t slocal = static_cast<uint64_t>(nbs_local);
   switch (layout) {
     case kQs:
-      query_kernel<kQs><<<blocks, threads, 0, st>>>(
-          p2, vb, main_rows, stash, out, n, P, s2, s8, k, nb_bits,
-          stash_bits, start, local, accumulate, c1, c2, c3, slots,
-          num_choices);
+      launch<kQs>(codes != 0, blocks, threads, st, p2, vb, main_rows, stash,
+                  out, n, P, s2, s8, k, nb_bits, stash_bits, start, local,
+                  sstart, slocal, accumulate, c1, c2, c3, slots, num_choices);
       break;
     case kQ4:
-      query_kernel<kQ4><<<blocks, threads, 0, st>>>(
-          p2, vb, main_rows, nullptr, out, n, P, s2, s8, k, nb_bits, 0,
-          start, local, accumulate, c1, c2, c3, slots, num_choices);
+      launch<kQ4>(codes != 0, blocks, threads, st, p2, vb, main_rows,
+                  nullptr, out, n, P, s2, s8, k, nb_bits, 0, start, local, 0,
+                  0, accumulate, c1, c2, c3, slots, num_choices);
       break;
     case kS2:
-      query_kernel<kS2><<<blocks, threads, 0, st>>>(
-          p2, vb, main_rows, nullptr, out, n, P, s2, s8, k, nb_bits, 0,
-          start, local, accumulate, c1, c2, c3, slots, num_choices);
+      launch<kS2>(codes != 0, blocks, threads, st, p2, vb, main_rows,
+                  nullptr, out, n, P, s2, s8, k, nb_bits, 0, start, local, 0,
+                  0, accumulate, c1, c2, c3, slots, num_choices);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

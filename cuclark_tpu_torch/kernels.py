@@ -10,15 +10,22 @@ module is imported, so the CPU tests import it without nvcc.
 Each launch function takes CUDA tensors, checks them, launches on
 PyTorch's current stream, raises if the launch reports an error, and
 adds one to its entry of `LAUNCHES`.  The callers are the wrappers
-`probe.query_labels`, `probe.query_part_labels` and `score.score_labels`,
-which take the plain PyTorch versions for CPU tensors.  `query` and
-`query_part` launch the query kernel (`csrc/query.cu`) of the table's
-layout: the resident query over the whole table, and one bucket-range
-part of a streamed table.  Their counts are kept per layout: `query` and
-`query_part` for qs, `query_q4`, `query_part_q4`, `query_s2` and
-`query_part_s2` for the others.  `score` launches the score kernel
-(`csrc/score.cu`), counted as `score` for rows that sort in shared
-memory and `score_long` for longer ones.
+`probe.query_labels`, `probe.query_part_labels`, `probe.query_codes_labels`
+and `score.score_labels`, which take the plain PyTorch versions for CPU
+tensors.  `query`, `query_part` and `query_codes` launch the query kernel
+(`csrc/query.cu`) of the table's layout: the resident query over the
+whole table; the range query over one bucket range of main rows and one
+range of stash rows (a part of a streamed table, or the db shard of a
+mesh, `parallel/mesh.py`); and the resident query over unpacked codes
+(`pipeline.classify_step`).  Their counts are kept per layout: `query`,
+`query_part` and `query_codes` for qs, the same names with `_q4` or `_s2`
+for the others.  `score` launches the score kernel (`csrc/score.cu`),
+counted as `score` for rows that sort in shared memory and `score_long`
+for longer ones.
+
+A launch runs with its tensors' device made current, on that device's
+current stream, so the devices of a mesh may be different cards or
+handles of one.
 """
 
 from __future__ import annotations
@@ -46,8 +53,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuclark_tpu_torc
 MAX_SCORE_WINDOWS = 32768
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"query": 0, "query_part": 0, "query_q4": 0, "query_part_q4": 0,
-            "query_s2": 0, "query_part_s2": 0, "score": 0, "score_long": 0}
+LAUNCHES = {"query": 0, "query_part": 0, "query_codes": 0, "query_q4": 0,
+            "query_part_q4": 0, "query_codes_q4": 0, "query_s2": 0,
+            "query_part_s2": 0, "query_codes_s2": 0, "score": 0,
+            "score_long": 0}
 
 # The query kernel's layout argument (csrc/query.cu, enum Layout).
 _LAYOUT_CODE = {"qs": 0, "q4": 1, "s2": 2}
@@ -102,9 +111,9 @@ def load() -> ctypes.CDLL:
         vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                              ctypes.c_uint32)
         lib.cuclark_query.restype = i32
-        lib.cuclark_query.argtypes = [i32, vp, vp, vp, vp, vp, i64, i32, i32,
-                                      i32, i32, i32, i32, i64, i64, i32, u32,
-                                      u32, u32, i32, i32, vp]
+        lib.cuclark_query.argtypes = [i32, i32, vp, vp, vp, vp, vp, i64, i32,
+                                      i32, i32, i32, i32, i32, i64, i64, i64,
+                                      i64, i32, u32, u32, u32, i32, i32, vp]
         lib.cuclark_score.restype = i32
         lib.cuclark_score.argtypes = [vp, vp, i64, i32, vp]
         lib.cuclark_score_long.restype = i32
@@ -128,26 +137,32 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
-                  bucket_start) -> torch.Tensor:
+                  bucket_start, stash_start=0) -> torch.Tensor:
     """Check the query kernel's operands and launch the kernel of
     `spec.layout` on the current stream: main holds global main rows
     [bucket_start, bucket_start + len(main)) of a table of 2^nb_bits
     rows, [rows, 8] for qs and q4 and [rows, 3 * slots] for s2; a qs
-    stash None skips the stash probe, and q4 and s2 have none.  Returns
-    new labels int32 [R, P], or `acc` with the labels added in place."""
+    stash holds global stash rows [stash_start, stash_start + len(stash))
+    of 2^stash_bits, and None skips the stash probe; q4 and s2 have none.
+    vbits None: packed2 is unpacked codes uint8 [R, L] (the codes front
+    half).  Returns new labels int32 [R, P], or `acc` with the labels
+    added in place."""
     dev = packed2.device
     if dev.type != "cuda":
         raise ValueError(f"query kernel needs CUDA tensors, got {dev}")
     spec.check()
-    _check(packed2, "packed2", torch.uint8, dev)
-    _check(vbits, "vbits", torch.uint8, dev)
-    _check(main, "main", torch.int32, dev)
+    _check(packed2, "codes" if vbits is None else "packed2", torch.uint8, dev)
     R, s2 = packed2.shape
-    s8 = vbits.shape[1]
-    L = 4 * s2
-    if vbits.shape[0] != R or 8 * s8 < L:
-        raise ValueError(f"vbits {tuple(vbits.shape)} does not cover "
-                         f"packed2 {tuple(packed2.shape)}")
+    if vbits is None:
+        L, s8 = s2, 0
+    else:
+        _check(vbits, "vbits", torch.uint8, dev)
+        s8 = vbits.shape[1]
+        L = 4 * s2
+        if vbits.shape[0] != R or 8 * s8 < L:
+            raise ValueError(f"vbits {tuple(vbits.shape)} does not cover "
+                             f"packed2 {tuple(packed2.shape)}")
+    _check(main, "main", torch.int32, dev)
     if not 2 <= k <= 32 or L < k:
         raise ValueError(f"padded read length {L} < k={k} or k out of range")
     P = L - k + 1
@@ -161,13 +176,17 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
         raise ValueError(f"main rows {tuple(main.shape)} from bucket "
                          f"{bucket_start} do not lie in 2^{spec.nb_bits} "
                          f"rows of {spec.row_words} words")
-    stash_ptr = None
+    stash_ptr, nbs_local = None, 0
     if stash is not None:
         if spec.layout != "qs":
             raise ValueError(f"a {spec.layout} table has no stash")
         _check(stash, "stash", torch.int32, dev)
-        if stash.shape != (1 << spec.stash_bits, 8):
-            raise ValueError("stash shape does not match stash_bits")
+        nbs_local = stash.shape[0]
+        if (stash.shape[1] != 8 or nbs_local < 1 or stash_start < 0
+                or stash_start + nbs_local > 1 << spec.stash_bits):
+            raise ValueError(f"stash rows {tuple(stash.shape)} from "
+                             f"{stash_start} do not lie in "
+                             f"2^{spec.stash_bits} rows of 8 words")
         if stash.data_ptr() % 16:
             raise ValueError("table rows must be 16-byte aligned")
         stash_ptr = stash.data_ptr()
@@ -177,19 +196,29 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
     out = acc if acc is not None else torch.empty(
         (R, P), dtype=torch.int32, device=dev)
     lib = load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     c1, c2, c3 = feistel_seed_consts(spec.seed)
-    _raise_on(lib.cuclark_query(
-        _LAYOUT_CODE[spec.layout], packed2.data_ptr(), vbits.data_ptr(),
-        main.data_ptr(), stash_ptr, out.data_ptr(), R, P, s2, s8, k,
-        spec.nb_bits, spec.stash_bits, bucket_start, nb_local,
-        int(acc is not None), c1, c2, c3, spec.slots, spec.num_choices,
-        stream), "query")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib.cuclark_query(
+            _LAYOUT_CODE[spec.layout], int(vbits is None), packed2.data_ptr(),
+            None if vbits is None else vbits.data_ptr(), main.data_ptr(),
+            stash_ptr, out.data_ptr(), R, P, s2, s8, k, spec.nb_bits,
+            spec.stash_bits, bucket_start, nb_local, stash_start, nbs_local,
+            int(acc is not None), c1, c2, c3, spec.slots, spec.num_choices,
+            stream), "query")
     return out
 
 
 def _count(name: str, layout: str) -> None:
     LAUNCHES[name if layout == "qs" else f"{name}_{layout}"] += 1
+
+
+def _check_resident(main: torch.Tensor, stash: torch.Tensor | None,
+                    spec: TableSpec) -> None:
+    if main.shape[0] != 1 << spec.nb_bits or (
+            (stash is None) != (spec.layout != "qs")) or (
+            stash is not None and stash.shape[0] != 1 << spec.stash_bits):
+        raise ValueError("main/stash shapes do not match the table")
 
 
 def query(packed2: torch.Tensor, vbits: torch.Tensor, main: torch.Tensor,
@@ -198,9 +227,7 @@ def query(packed2: torch.Tensor, vbits: torch.Tensor, main: torch.Tensor,
     """Launch the query kernel (csrc/query.cu) on the resident table:
     main [2^nb_bits, row words] and, for qs, stash [2^stash_bits, 8] ->
     labels int32 [R, P]."""
-    if main.shape[0] != 1 << spec.nb_bits or (
-            (stash is None) != (spec.layout != "qs")):
-        raise ValueError("main/stash shapes do not match the table")
+    _check_resident(main, stash, spec)
     labels = _launch_query(packed2, vbits, main, stash, None, k=k,
                            spec=spec, bucket_start=0)
     _count("query", spec.layout)
@@ -210,16 +237,32 @@ def query(packed2: torch.Tensor, vbits: torch.Tensor, main: torch.Tensor,
 def query_part(packed2: torch.Tensor, vbits: torch.Tensor,
                main_part: torch.Tensor, stash: torch.Tensor | None, *,
                bucket_start: int, k: int, spec: TableSpec,
+               stash_start: int = 0,
                acc: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the query kernel (csrc/query.cu) on one bucket-range part:
+    """Launch the query kernel (csrc/query.cu) on one range of rows:
     main_part holds main rows [bucket_start, bucket_start +
-    len(main_part)), a qs stash None skips the stash probe.  Returns new
-    labels int32 [R, P], or adds them into `acc` in place and returns
-    it."""
+    len(main_part)), a qs stash holds stash rows [stash_start,
+    stash_start + len(stash)) and None skips the stash probe.  Returns
+    new labels int32 [R, P], or adds them into `acc` in place and
+    returns it."""
     out = _launch_query(packed2, vbits, main_part, stash, acc, k=k,
-                        spec=spec, bucket_start=bucket_start)
+                        spec=spec, bucket_start=bucket_start,
+                        stash_start=stash_start)
     _count("query_part", spec.layout)
     return out
+
+
+def query_codes(codes: torch.Tensor, main: torch.Tensor,
+                stash: torch.Tensor | None, *, k: int,
+                spec: TableSpec) -> torch.Tensor:
+    """Launch the query kernel's codes front half (csrc/query.cu) on the
+    resident table: codes uint8 [R, L] (0..3, >= 4 invalid) -> labels
+    int32 [R, L - k + 1]."""
+    _check_resident(main, stash, spec)
+    labels = _launch_query(codes, None, main, stash, None, k=k, spec=spec,
+                           bucket_start=0)
+    _count("query_codes", spec.layout)
+    return labels
 
 
 def score(labels: torch.Tensor) -> torch.Tensor:
@@ -236,16 +279,17 @@ def score(labels: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"labels need at least one window per read, got {P}")
     results = torch.empty((R, 5), dtype=torch.int32, device=dev)
     lib = load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if P <= MAX_SCORE_WINDOWS:
-        _raise_on(lib.cuclark_score(labels.data_ptr(), results.data_ptr(), R,
-                                    P, stream), "score")
-        LAUNCHES["score"] += 1
-        return results
-    Pp = 1 << (P - 1).bit_length()
-    scratch = torch.empty((R, Pp), dtype=torch.int32, device=dev)
-    _raise_on(lib.cuclark_score_long(labels.data_ptr(), results.data_ptr(),
-                                     scratch.data_ptr(), R, P, Pp, stream),
-              "score_long")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if P <= MAX_SCORE_WINDOWS:
+            _raise_on(lib.cuclark_score(labels.data_ptr(), results.data_ptr(),
+                                        R, P, stream), "score")
+            LAUNCHES["score"] += 1
+            return results
+        Pp = 1 << (P - 1).bit_length()
+        scratch = torch.empty((R, Pp), dtype=torch.int32, device=dev)
+        _raise_on(lib.cuclark_score_long(
+            labels.data_ptr(), results.data_ptr(), scratch.data_ptr(), R, P,
+            Pp, stream), "score_long")
     LAUNCHES["score_long"] += 1
     return results

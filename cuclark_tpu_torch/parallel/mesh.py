@@ -1,0 +1,322 @@
+"""Multi-device execution: DB sharding + data parallelism over a mesh.
+
+Counterpart of `cuclark_tpu/parallel/mesh.py`.  There a `Mesh` is a
+(data, db) grid of devices in one process, and one jitted SPMD program
+runs over it with a psum over the db axis.  Here the grid holds torch
+devices and the sharded steps are loops over it:
+
+  axis "db":   the main rows (and, for qs, the stash rows) split into
+               num_db contiguous ranges; the devices of column j hold
+               range j.  For each data block d and db shard j the
+               range-mode query kernel (`csrc/query.cu` through
+               `probe.query_part_labels`) runs on device (d, j) with
+               bucket_start = j * nb_local (plus a part's start) and
+               stash_start = j * nbs_local, and the shards' int32 labels
+               are summed on the block's column-0 device.  That takes the
+               place of the psum and is exact: a k-mer lives in one shard
+               only.  A shard on the same device as column 0 adds into
+               the sum in place; one on another card is copied across (a
+               peer copy) and added.
+  axis "data": a read batch splits into num_data contiguous row blocks;
+               the score kernel runs once per block, on its column-0
+               device (the JAX results are replicated along db; here
+               each block's results exist once).
+
+The devices of a mesh may repeat: eight handles of `cpu` stand in for
+the JAX tests' eight CPU devices, and four handles of `cuda:0` make a
+2 x 2 mesh on one card.  Nothing here assumes that the devices differ,
+or that they are the same: a table shard or a wire block is placed once
+for each distinct device that needs it.
+
+The JAX package shards a fused main+stash qs table below 256 MB of main
+rows (its fused-vs-split switch); the port always shards the split form,
+main rows and stash rows each in num_db ranges.  The rows each shard
+answers differ between the two forms; the labels and CSVs are the same.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from cuclark_tpu_torch import codec, probe, score
+from cuclark_tpu_torch.hashdb import KmerDB, TableSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (data, db) grid of torch devices: devices[d][j] is the device of
+    data block d and db shard j."""
+
+    devices: tuple[tuple[torch.device, ...], ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": len(self.devices), "db": len(self.devices[0])}
+
+    @property
+    def num_data(self) -> int:
+        return len(self.devices)
+
+    @property
+    def num_db(self) -> int:
+        return len(self.devices[0])
+
+
+def local_devices(kind: str) -> list[torch.device]:
+    """This process's devices of one type: every visible card for
+    "cuda"; for "cpu", CUCLARK_CPU_DEVICES handles of the CPU (default
+    1), which stands in for the XLA flag that splits the JAX package's
+    CPU into devices."""
+    if kind == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if kind == "cpu":
+        n = int(os.environ.get("CUCLARK_CPU_DEVICES", "1"))
+        return [torch.device("cpu")] * n
+    raise ValueError(f"unsupported device type {kind!r}")
+
+
+def make_mesh(num_db: int, num_data: int | None = None,
+              devices=None) -> Mesh:
+    """The devices (default: every visible card), in order, as a
+    num_data x num_db grid, row by row."""
+    devices = [torch.device(d) for d in (
+        devices if devices is not None else local_devices("cuda"))]
+    total = len(devices)
+    if num_data is None:
+        if num_db < 1 or total % num_db:
+            raise ValueError(f"{total} devices not divisible by db={num_db}")
+        num_data = total // num_db
+    if num_db < 1 or num_data < 1 or num_data * num_db != total:
+        raise ValueError(f"{total} devices do not make {num_data} data x "
+                         f"{num_db} db")
+    if len({d.type for d in devices}) != 1:
+        raise ValueError(f"a mesh holds devices of one type, got {devices}")
+    return Mesh(tuple(tuple(devices[d * num_db:(d + 1) * num_db])
+                      for d in range(num_data)))
+
+
+def make_global_mesh(num_db: int = 1, devices=None) -> Mesh:
+    """The mesh of one process of a multi-process job: its own devices
+    (default: every visible card) as data x num_db.  The db axis stays
+    inside the process, so the only traffic between processes is a few
+    integers (`multihost`).  The JAX package also allows a db axis over
+    every process's devices (num_db == the total device count), which
+    needs a labels all_reduce across processes; that is not ported."""
+    devices = list(devices) if devices is not None else local_devices("cuda")
+    if num_db < 1 or len(devices) % num_db:
+        raise ValueError(
+            f"num_db={num_db} must divide this process's {len(devices)} "
+            f"devices: a db axis that spans processes is not ported yet "
+            f"(ROADMAP.md, Queue 1: host-spanning db axis)")
+    return make_mesh(num_db, len(devices) // num_db, devices)
+
+
+def place_columns(mesh: Mesh, column_rows) -> list[list[torch.Tensor]]:
+    """[d][j] -> the int32 view of the uint32 rows `column_rows(j)` on
+    device (d, j), placed once for each distinct (column, device); on
+    the CPU they share memory with the host rows."""
+    placed: dict = {}
+    grid = []
+    for row in mesh.devices:
+        out = []
+        for j, dev in enumerate(row):
+            if (j, dev) not in placed:
+                rows = np.ascontiguousarray(column_rows(j)).view(np.int32)
+                placed[(j, dev)] = torch.from_numpy(rows).to(dev)
+            out.append(placed[(j, dev)])
+        grid.append(out)
+    return grid
+
+
+def shard_rows(arr: np.ndarray, mesh: Mesh) -> list[list[torch.Tensor]]:
+    """Row-shard a host table over 'db', repeated down 'data': [d][j]
+    holds rows [j * n, (j + 1) * n), n = rows / num_db."""
+    num_db = mesh.num_db
+    if arr.shape[0] % num_db:
+        raise ValueError(f"table rows {arr.shape[0]} not divisible by "
+                         f"db={num_db}")
+    n = arr.shape[0] // num_db
+    return place_columns(mesh, lambda j: arr[j * n:(j + 1) * n])
+
+
+def shard_db_table(db: KmerDB, mesh: Mesh):
+    """(main, stash) of the table on the mesh, each [d][j] row-sharded
+    over 'db' (`cuclark_tpu.parallel.mesh.shard_db_table`); stash None
+    for q4 and s2."""
+    main_np, stash_np = db.split_tables()
+    return (shard_rows(main_np, mesh),
+            shard_rows(stash_np, mesh) if stash_np is not None else None)
+
+
+def place_wire(mesh: Mesh, packed2, vbits) -> list[list[tuple]]:
+    """Split a wire batch (numpy) into num_data row blocks and place each
+    on the devices of its mesh row: [d][j] = (packed2 block, vbits
+    block), one copy per distinct device, from pinned memory without
+    blocking on a card.  Rows must be divisible by num_data: pad with
+    zero rows (zero validity bits, all-invalid reads) first."""
+    R = packed2.shape[0]
+    if R % mesh.num_data:
+        raise ValueError(f"{R} rows not divisible by data={mesh.num_data}")
+    rb = R // mesh.num_data
+    grid = []
+    for d, row in enumerate(mesh.devices):
+        block = [torch.from_numpy(np.ascontiguousarray(a[d * rb:(d + 1) * rb]))
+                 for a in (packed2, vbits)]
+        placed: dict = {}
+        for dev in row:
+            if dev not in placed:
+                placed[dev] = tuple(
+                    t if dev.type == "cpu"
+                    else t.pin_memory().to(dev, non_blocking=True)
+                    for t in block)
+        grid.append([placed[dev] for dev in row])
+    return grid
+
+
+def _sum_shards(query, mesh: Mesh, wires, main, stash, *, k: int,
+                spec: TableSpec, nb_local: int, nbs_local: int,
+                part_start: int, acc):
+    """Per data block: the db shards' labels summed on the block's
+    column-0 device (added into acc[d] when acc is given)."""
+    out = []
+    for d, row in enumerate(mesh.devices):
+        home = row[0]
+        a = None if acc is None else acc[d]
+        for j, dev in enumerate(row):
+            p2, vb = wires[d][j]
+            args = dict(bucket_start=part_start + j * nb_local,
+                        nb_local=nb_local, k=k, spec=spec,
+                        stash_start=j * nbs_local)
+            s = None if stash is None else stash[d][j]
+            if dev == home:
+                a = query(p2, vb, main[d][j], s, acc=a, **args)
+            else:
+                a = a.add_(query(p2, vb, main[d][j], s, **args).to(
+                    home, non_blocking=True))
+        out.append(a)
+    return out
+
+
+def _step_fns(plain: bool):
+    if plain:
+        return probe.query_part_labels_plain, score.score_labels_plain
+    return probe.query_part_labels, score.score_labels
+
+
+def build_sharded_classify(mesh: Mesh, *, k: int, spec: TableSpec,
+                           nb_total: int, nbs_total: int = 0,
+                           with_labels: bool = True, plain: bool = False):
+    """The sharded resident step (`cuclark_tpu.parallel.mesh.
+    build_sharded_classify`, mesh.py:96): step(main, stash, wires) ->
+    (results, labels or None), each a list of num_data blocks, int32
+    [R/num_data, 5] and [R/num_data, P] on the block's column-0 device.
+    main and stash (qs; None for q4 and s2) are `shard_db_table`'s, nb_total
+    and nbs_total the table's main and stash rows, wires `place_wire`'s.
+    with_labels=False drops the labels (only extended output needs them).
+    plain=True runs the kernels' plain versions on the same devices, the
+    version the step is held against on the card."""
+    num_db = mesh.num_db
+    if nb_total % num_db or nbs_total % num_db:
+        raise ValueError(f"table rows {nb_total} (+{nbs_total} stash) not "
+                         f"divisible by db={num_db}")
+    nb_local, nbs_local = nb_total // num_db, nbs_total // num_db
+    query, score_fn = _step_fns(plain)
+
+    def step(main, stash, wires):
+        labels = _sum_shards(query, mesh, wires, main, stash, k=k,
+                             spec=spec, nb_local=nb_local,
+                             nbs_local=nbs_local, part_start=0, acc=None)
+        results = [score_fn(lab) for lab in labels]
+        return results, (labels if with_labels else None)
+
+    return step
+
+
+def build_sharded_probe_part(mesh: Mesh, *, k: int, spec: TableSpec,
+                             nb_part: int, plain: bool = False):
+    """The sharded step of one streamed part (`cuclark_tpu.parallel.mesh.
+    build_sharded_probe_part`, mesh.py:164): step(part, wires, part_start,
+    stash=None, acc=None) -> labels, a list of num_data blocks.  `part` is
+    [d][j] main rows: global rows [part_start, part_start + nb_part)
+    row-sharded over 'db'.  A qs stash ([d][j], `shard_rows`) is probed on
+    one part per batch only.  With acc (a list of blocks), the labels add
+    into it in place.  plain as for build_sharded_classify."""
+    num_db = mesh.num_db
+    if nb_part % num_db:
+        raise ValueError(f"part rows {nb_part} not divisible by db={num_db}")
+    nb_local = nb_part // num_db
+    query, _ = _step_fns(plain)
+
+    def step(part, wires, part_start: int, stash=None, acc=None):
+        nbs_local = stash[0][0].shape[0] if stash is not None else 0
+        return _sum_shards(query, mesh, wires, part, stash, k=k, spec=spec,
+                           nb_local=nb_local, nbs_local=nbs_local,
+                           part_start=part_start, acc=acc)
+
+    return step
+
+
+class ShardedClassifier:
+    """Mesh-parallel version of pipeline.Classifier's device step
+    (`cuclark_tpu.parallel.mesh.ShardedClassifier`): the table sharded on
+    the mesh once, and the sharded resident step on wire batches.  In a
+    multi-process job each process has a mesh of its own devices and feeds
+    it only its own reads (`multihost.GlobalClassifier`)."""
+
+    def __init__(self, db: KmerDB, mesh: Mesh, with_labels: bool = True):
+        self.db = db
+        self.mesh = mesh
+        self.with_labels = with_labels
+        self.table, self.stash = shard_db_table(db, mesh)
+        main_np, stash_np = db.split_tables()
+        self._step = build_sharded_classify(
+            mesh, k=db.k, spec=db.spec, nb_total=main_np.shape[0],
+            nbs_total=stash_np.shape[0] if stash_np is not None else 0,
+            with_labels=with_labels)
+
+    @property
+    def num_data(self) -> int:
+        return self.mesh.num_data
+
+    def put_wire(self, packed2: np.ndarray, vbits: np.ndarray):
+        """Place one wire batch on the mesh (`place_wire`).  Safe to call
+        from a prefetch thread: it only starts copies."""
+        return place_wire(self.mesh, packed2, vbits)
+
+    def step_placed(self, wires):
+        """The sharded step on a placed batch, launched without waiting ->
+        (results blocks, labels blocks or None)."""
+        return self._step(self.table, self.stash, wires)
+
+    def step_packed(self, packed2: np.ndarray, vbits: np.ndarray):
+        """step_placed on a wire batch from the host; rows must be
+        divisible by the data axis (pad with zero rows first)."""
+        return self.step_placed(self.put_wire(packed2, vbits))
+
+    @staticmethod
+    def local_rows(blocks, n_local: int | None = None) -> np.ndarray:
+        """This process's rows of a data-sharded result, read back to the
+        host: its blocks, one per data index, in order.  The JAX results
+        are replicated along 'db' and its local_rows keeps one shard per
+        data block; here each block exists once, so no replica can hand
+        later reads earlier reads' rows."""
+        rows = np.concatenate([b.cpu().numpy() for b in blocks])
+        return rows if n_local is None else rows[:n_local]
+
+    def classify_codes(self, codes: np.ndarray):
+        """codes: [R, L] uint8 -> (results [R, 5], labels [R, P] or None)
+        as numpy.  Rows pad to the data axis with INVALID codes and the
+        batch is packed to the wire format first, as the JAX package
+        does."""
+        R = codes.shape[0]
+        if R % self.num_data:
+            codes = np.pad(codes, ((0, self.num_data - R % self.num_data),
+                                   (0, 0)), constant_values=codec.INVALID)
+        results, labels = self.step_packed(*codec.pack_codes(codes))
+        return (self.local_rows(results, R),
+                None if labels is None else self.local_rows(labels, R))

@@ -6,10 +6,13 @@ Counterpart of `cuclark_tpu/probe.py` (`_probe_qs_split` :198 with
 `cuclark_tpu/pipeline.py:classify_step_packed` (unpack, k-mer
 extraction, canonical form, hash, mask by validity), and of
 `cuclark_tpu/pipeline.py:probe_part_step` (:96), the same chain over one
-bucket-range part of a streamed table.  On a CUDA tensor each is one
-launch of the hand-written kernel `csrc/query.cu`; the plain PyTorch
-versions here are what the wrappers run on CPU tensors and what the
-kernel is held against.
+bucket-range part of a streamed table or one db shard of a mesh (a range
+of main rows and a range of stash rows, `cuclark_tpu/parallel/mesh.py`),
+and of the front of `cuclark_tpu/pipeline.py:classify_step` (:48), the
+chain from unpacked codes.  On a CUDA tensor each is one launch of the
+hand-written kernel `csrc/query.cu`; the plain PyTorch versions here are
+what the wrappers run on CPU tensors and what the kernel is held
+against.
 
 The table's layout reaches the query as one record, `hashdb.TableSpec`
 (`KmerDB.spec`).  The port always probes the qs table in split form,
@@ -72,18 +75,19 @@ def _split_kmers(kmers: torch.Tensor):
 
 def probe_qs_split(main: torch.Tensor, stash: torch.Tensor | None,
                    nb_bits: int, stash_bits: int, seed: int,
-                   kmers: torch.Tensor,
-                   bucket_start: int = 0) -> torch.Tensor:
+                   kmers: torch.Tensor, bucket_start: int = 0,
+                   stash_start: int = 0) -> torch.Tensor:
     """Labels of canonical k-mers (int64 [...], the u64 bit pattern) in a
     qs table given as int32 main [NB, 8] and stash [NBS, 8]: the main row
     l2 & (NB-1) and the stash row h1 & (NBS-1), label = meta & 0xFFFF on
     a match, 0 on a miss.  Plain version of the qs probe in
-    csrc/query.cu.
+    csrc/query.cu (`cuclark_tpu.probe._probe_qs_split`).
 
-    For a part of a streamed table, `main` holds the main rows
-    [bucket_start, bucket_start + len(main)) only: a bucket outside that
-    range contributes 0 (`cuclark_tpu.probe._localize`), and stash None
-    probes no stash."""
+    For a part of a streamed table or a db shard of a mesh, `main` holds
+    the main rows [bucket_start, bucket_start + len(main)) only and
+    `stash` the stash rows [stash_start, stash_start + len(stash)): a
+    bucket outside its side's range contributes 0
+    (`cuclark_tpu.probe._localize`), and stash None probes no stash."""
     check_q_bits("qs", nb_bits, stash_bits)
     hi, lo = _split_kmers(kmers)
     h1, l2 = feistel_mix_torch(hi, lo, seed)
@@ -91,8 +95,10 @@ def probe_qs_split(main: torch.Tensor, stash: torch.Tensor | None,
                               main, nb_bits)
     lab = _masked(_match_labels(main, loc, l2, h1, nb_bits, 0), in_range)
     if stash is not None:
-        lab += _match_labels(stash, h1 & ((1 << stash_bits) - 1), h1, l2,
-                             stash_bits, 1)
+        sloc, s_in = _localize(h1 & ((1 << stash_bits) - 1), stash_start,
+                               stash, stash_bits)
+        lab += _masked(_match_labels(stash, sloc, h1, l2, stash_bits, 1),
+                       s_in)
     return lab.reshape(kmers.shape)
 
 
@@ -150,13 +156,13 @@ def probe_s2(table: torch.Tensor, nb_bits: int, slots: int,
 
 
 def probe_table(main: torch.Tensor, stash: torch.Tensor | None,
-                spec: TableSpec, kmers: torch.Tensor,
-                bucket_start: int = 0) -> torch.Tensor:
+                spec: TableSpec, kmers: torch.Tensor, bucket_start: int = 0,
+                stash_start: int = 0) -> torch.Tensor:
     """Labels of canonical k-mers in a table of any layout: the plain
     probe of `spec.layout` (stash None for q4 and s2)."""
     if spec.layout == "qs":
         return probe_qs_split(main, stash, spec.nb_bits, spec.stash_bits,
-                              spec.seed, kmers, bucket_start)
+                              spec.seed, kmers, bucket_start, stash_start)
     if spec.layout == "q4":
         return probe_q4(main, spec.nb_bits, spec.seed, kmers, bucket_start)
     return probe_s2(main, spec.nb_bits, spec.slots, spec.num_choices,
@@ -172,18 +178,28 @@ def _check_table(main: torch.Tensor, stash: torch.Tensor | None,
     if spec.layout != "qs" and stash is not None:
         raise ValueError(f"a {spec.layout} table has no stash")
     if resident and (main.shape[0] != 1 << spec.nb_bits
-                     or (spec.layout == "qs" and stash is None)):
+                     or (spec.layout == "qs" and (
+                         stash is None
+                         or stash.shape[0] != 1 << spec.stash_bits))):
         raise ValueError("resident query needs the whole table: "
                          f"2^{spec.nb_bits} main rows and, for qs, the "
-                         "stash")
+                         f"2^{spec.stash_bits} stash rows")
 
 
-def _window_labels(packed2, vbits, main, stash, spec, k, bucket_start):
-    codes = codec.unpack_codes(packed2, vbits)
+def _code_labels(codes, main, stash, spec, k, bucket_start=0,
+                 stash_start=0):
+    """Labels of every k-mer window of codes [R, L] (0..3, >= 4 invalid),
+    0 on an invalid window."""
     kmers, valid = codec.extract_kmers(codes, k)
     canon = codec.canonical(kmers, k)
-    labels = probe_table(main, stash, spec, canon, bucket_start)
+    labels = probe_table(main, stash, spec, canon, bucket_start, stash_start)
     return torch.where(valid, labels, 0)
+
+
+def _window_labels(packed2, vbits, main, stash, spec, k, bucket_start=0,
+                   stash_start=0):
+    return _code_labels(codec.unpack_codes(packed2, vbits), main, stash,
+                        spec, k, bucket_start, stash_start)
 
 
 def query_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
@@ -193,7 +209,7 @@ def query_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
     and vbits uint8 [R, L/8] -> labels int32 [R, L-k+1], 0 where the
     window holds an N or padding or misses the table."""
     _check_table(main, stash, spec, resident=True)
-    return _window_labels(packed2, vbits, main, stash, spec, k, 0)
+    return _window_labels(packed2, vbits, main, stash, spec, k)
 
 
 def query_labels(packed2: torch.Tensor, vbits: torch.Tensor,
@@ -208,18 +224,42 @@ def query_labels(packed2: torch.Tensor, vbits: torch.Tensor,
     return kernels.query(packed2, vbits, main, stash, k=k, spec=spec)
 
 
+def query_codes_labels_plain(codes: torch.Tensor, main: torch.Tensor,
+                             stash: torch.Tensor | None, *, k: int,
+                             spec: TableSpec) -> torch.Tensor:
+    """Plain PyTorch version of the query kernel's codes front half: codes
+    uint8 [R, L] (0..3, >= 4 an N or padding) -> labels int32
+    [R, L-k+1] against the resident table (`extract_kmers`, `canonical`,
+    `probe_table`: `cuclark_tpu.pipeline.classify_step` up to the
+    labels)."""
+    _check_table(main, stash, spec, resident=True)
+    return _code_labels(codes, main, stash, spec, k)
+
+
+def query_codes_labels(codes: torch.Tensor, main: torch.Tensor,
+                       stash: torch.Tensor | None, *, k: int,
+                       spec: TableSpec) -> torch.Tensor:
+    """Per-window labels of unpacked codes uint8 [R, L] against a
+    resident table: the query kernel's codes front half for CUDA
+    tensors, its plain version for CPU tensors."""
+    if codes.device.type == "cpu":
+        return query_codes_labels_plain(codes, main, stash, k=k, spec=spec)
+    return kernels.query_codes(codes, main, stash, k=k, spec=spec)
+
+
 def query_part_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
                             main_part: torch.Tensor,
                             stash: torch.Tensor | None, *, bucket_start: int,
                             nb_local: int, k: int, spec: TableSpec,
+                            stash_start: int = 0,
                             acc: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the part-mode query kernel: the labels
-    of one bucket-range part (main rows [bucket_start, bucket_start +
-    nb_local), and the qs stash when it is given), 0 on invalid windows;
-    added into `acc` in place when it is given."""
-    _check_part(main_part, stash, spec, bucket_start, nb_local)
+    """Plain PyTorch version of the range-mode query kernel: the labels
+    of main rows [bucket_start, bucket_start + nb_local) and, when a qs
+    stash is given, of stash rows [stash_start, stash_start + len(stash)),
+    0 on invalid windows; added into `acc` in place when it is given."""
+    _check_part(main_part, stash, spec, bucket_start, nb_local, stash_start)
     labels = _window_labels(packed2, vbits, main_part, stash, spec, k,
-                            bucket_start)
+                            bucket_start, stash_start)
     if acc is None:
         return labels
     return acc.add_(labels)
@@ -228,29 +268,34 @@ def query_part_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
 def query_part_labels(packed2: torch.Tensor, vbits: torch.Tensor,
                       main_part: torch.Tensor, stash: torch.Tensor | None, *,
                       bucket_start: int, nb_local: int, k: int,
-                      spec: TableSpec,
+                      spec: TableSpec, stash_start: int = 0,
                       acc: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-window labels of a wire batch against one bucket-range part
-    of a streamed table (`cuclark_tpu.pipeline.probe_part_step`): a
-    bucket b counts only when bucket_start <= b < bucket_start +
-    nb_local, and then reads row b - bucket_start of `main_part`; each
-    hash choice of q4 and s2 is range-checked on its own, and the qs
-    stash is probed only when it is passed (one part per batch).  With
-    `acc`, the labels are added into it in place (the `acc + lab` of the
-    JAX streaming loop) and `acc` is returned.  The part-mode query
-    kernel for CUDA tensors, its plain version for CPU tensors."""
+    """Per-window labels of a wire batch against one range of a table: a
+    bucket-range part of a streamed table
+    (`cuclark_tpu.pipeline.probe_part_step`) or the db shard of a mesh
+    (`cuclark_tpu.parallel.mesh`).  A main bucket b counts only when
+    bucket_start <= b < bucket_start + nb_local, and then reads row
+    b - bucket_start of `main_part`; each hash choice of q4 and s2 is
+    range-checked on its own.  The qs stash is probed only when it is
+    passed, over its own range [stash_start, stash_start + len(stash)).
+    With `acc`, the labels are
+    added into it in place (the `acc + lab` of the JAX streaming loop, the
+    psum of the mesh) and `acc` is returned.  The range-mode query kernel
+    for CUDA tensors, its plain version for CPU tensors."""
     if packed2.device.type == "cpu":
         return query_part_labels_plain(
             packed2, vbits, main_part, stash, bucket_start=bucket_start,
-            nb_local=nb_local, k=k, spec=spec, acc=acc)
-    _check_part(main_part, stash, spec, bucket_start, nb_local)
+            nb_local=nb_local, k=k, spec=spec, stash_start=stash_start,
+            acc=acc)
+    _check_part(main_part, stash, spec, bucket_start, nb_local, stash_start)
     return kernels.query_part(packed2, vbits, main_part, stash,
                               bucket_start=bucket_start, k=k, spec=spec,
-                              acc=acc)
+                              stash_start=stash_start, acc=acc)
 
 
 def _check_part(main_part: torch.Tensor, stash: torch.Tensor | None,
-                spec: TableSpec, bucket_start: int, nb_local: int) -> None:
+                spec: TableSpec, bucket_start: int, nb_local: int,
+                stash_start: int = 0) -> None:
     _check_table(main_part, stash, spec, resident=False)
     if main_part.shape[0] != nb_local:
         raise ValueError(f"part holds {main_part.shape[0]} rows, "
@@ -259,3 +304,8 @@ def _check_part(main_part: torch.Tensor, stash: torch.Tensor | None,
         raise ValueError(f"part rows [{bucket_start}, "
                          f"{bucket_start + nb_local}) exceed "
                          f"2^{spec.nb_bits}")
+    if stash is None:
+        return
+    if stash_start < 0 or stash_start + stash.shape[0] > 1 << spec.stash_bits:
+        raise ValueError(f"stash part holds {stash.shape[0]} rows from "
+                         f"{stash_start}, of 2^{spec.stash_bits}")

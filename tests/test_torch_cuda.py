@@ -271,3 +271,121 @@ def test_streamed_classifier_matches_cpu(dev, tmp_path):
                 == (tmp_path / "cpu.csv").read_bytes())
     finally:
         gpu.close()
+
+
+def _qs_case(dev, k, seed):
+    """A qs table of 300,000 keys at nb_bits 17 (its overflow fills the
+    stash) and 256 reads of 152 bases with stored keys planted."""
+    rng = np.random.default_rng(seed)
+    km = rng.integers(0, np.iinfo(np.uint64).max, size=310_000,
+                      dtype=np.uint64, endpoint=True)
+    km = np.unique(codec.canonical_np(km >> np.uint64(64 - 2 * k), k))
+    km = km[:300_000]
+    labels = rng.integers(1, 65536, size=len(km)).astype(np.uint32)
+    names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
+    db = hashdb.build_table(km, labels, names, DBConfig(k=k), nb_bits=17)
+    R, L = 256, 152
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    for r in range(R):
+        for p in range(0, L - k + 1, k):
+            codes[r, p:p + k] = (km[rng.integers(len(km))] >> shifts) & 3
+    codes[rng.random((R, L)) < 0.01] = codec.INVALID
+    codes[3, 90:] = codec.INVALID
+    return db, codes
+
+
+@pytest.mark.parametrize("num_db", [2, 4])
+@pytest.mark.parametrize("k", [27, 32])
+def test_stash_range_kernel_matches_plain(dev, k, num_db):
+    """The range query kernel on each db shard of a qs table (a main
+    range and a stash range), written and accumulated, against its plain
+    version; with the main rows zeroed every shard answers hits from its
+    stash range alone; the shards add up to the resident labels."""
+    db, codes = _qs_case(dev, k, 40 + k + num_db)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    main, stash = hashdb.table_to_device(db, dev)
+    zero = torch.zeros_like(main)
+    nbl, nbsl = db.nb // num_db, stash.shape[0] // num_db
+    total = None
+    for j in range(num_db):
+        args = dict(bucket_start=j * nbl, nb_local=nbl, k=k, spec=db.spec,
+                    stash_start=j * nbsl)
+        s_j = stash[j * nbsl:(j + 1) * nbsl]
+        m_j = main[j * nbl:(j + 1) * nbl]
+        before = kernels.LAUNCHES["query_part"]
+        only = probe.query_part_labels(p2, vb, zero[j * nbl:(j + 1) * nbl],
+                                       s_j, **args)
+        got = probe.query_part_labels(p2, vb, m_j, s_j, **args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["query_part"] == before + 2
+        assert torch.equal(only, probe.query_part_labels_plain(
+            p2, vb, zero[j * nbl:(j + 1) * nbl], s_j, **args))
+        assert torch.equal(got, probe.query_part_labels_plain(
+            p2, vb, m_j, s_j, **args))
+        assert int((only > 0).sum()) > 0, j
+        total = probe.query_part_labels(p2, vb, m_j, s_j, acc=total, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(total, probe.query_labels(p2, vb, main, stash, k=k,
+                                                 spec=db.spec))
+
+
+CODES_LAYOUTS = [("qs", 2, 2, 300_000, 17)] + LAYOUTS[:2]
+
+
+@pytest.mark.parametrize("k", [27, 31, 32])
+@pytest.mark.parametrize("layout,slots,choices,n,nb_bits", CODES_LAYOUTS)
+def test_codes_kernel_matches_plain(dev, layout, slots, choices, n, nb_bits,
+                                    k):
+    """The query kernel's codes front half (pipeline.classify_step)
+    against its plain version, and against the wire front half on the
+    same reads."""
+    db, p2, vb = _layout_case(dev, layout, slots, choices, n, nb_bits, k)
+    codes = codec.unpack_codes(p2, vb).to(torch.uint8)
+    codes[5, 17] = 200  # any byte >= 4 is an N
+    main, stash = hashdb.table_to_device(db, dev)
+    name = "query_codes" if layout == "qs" else f"query_codes_{layout}"
+    before = kernels.LAUNCHES[name]
+    got = probe.query_codes_labels(codes, main, stash, k=k, spec=db.spec)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(got, probe.query_codes_labels_plain(
+        codes, main, stash, k=k, spec=db.spec))
+    codes[5, 17] = codec.INVALID
+    wire = probe.query_labels(*(torch.from_numpy(a).to(dev) for a in
+                                codec.pack_codes(codes.cpu().numpy())),
+                              main, stash, k=k, spec=db.spec)
+    assert torch.equal(probe.query_codes_labels(codes, main, stash, k=k,
+                                                spec=db.spec), wire)
+    assert int((got > 0).sum()) > 256
+
+
+def test_mesh_classifier_matches_cpu(dev, tmp_path):
+    """A 2 data x 2 db mesh of four handles of one card, resident and
+    streamed, gives the CPU's rows through the range kernel."""
+    from pathlib import Path
+
+    from cuclark_tpu_torch import cli, pipeline
+    from cuclark_tpu_torch.config import ClassifyConfig
+    from cuclark_tpu_torch.hashdb import KmerDB
+    from cuclark_tpu_torch.parallel import mesh
+
+    ex = Path(__file__).resolve().parent.parent / "examples"
+    assert cli.main(["build-db", "-T", str(ex / "targets.txt"),
+                     "-D", str(tmp_path / "db"), "-k", "27"]) == 0
+    db = KmerDB.load(next((tmp_path / "db").glob("db_k*.npz")))
+    reads = str(ex / "reads.fq")
+    m = mesh.make_mesh(2, 2, [dev] * 4)
+    want = list(pipeline.Classifier(db, ClassifyConfig(
+        extended=True, batch_reads=64), device="cpu").classify_file(reads))
+    for budget in (None, db.table.nbytes / 2 / 4 / 1e6):
+        clf = pipeline.Classifier(db, ClassifyConfig(
+            extended=True, batch_reads=63, stream_group=2,
+            max_table_mb=budget), mesh=m)
+        assert (clf.stream_parts > 1) == (budget is not None)
+        before = kernels.LAUNCHES["query_part"]
+        try:
+            assert list(clf.classify_file(reads)) == want
+        finally:
+            clf.close()
+        assert kernels.LAUNCHES["query_part"] > before
