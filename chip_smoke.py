@@ -23,7 +23,7 @@ against `--device cpu`:
     (2 slots, 2 hash choices: 1.611 GB), resident and streamed (4 and 8
     parts at `--max-table-mb 600`), each CSV equal to the qs CSV;
   - long_reads: 256 reads of 33,000 to 100,000 bases (the score
-    kernel's device-memory path for rows over 32,768 windows);
+    kernel's `score_long` entry for rows over 32,768 windows);
   - classify_step: the 131,072 reads as unpacked codes through
     `pipeline.classify_step` (the query kernel's codes front half);
   - mesh: a 2 data x 2 db mesh of four handles of the one card, each db
@@ -93,6 +93,56 @@ def _cuda_ms(fn, reps: int) -> float:
 
 def _max_abs_err(a, b) -> int:
     return int((a.to(dtype=b.dtype) - b).abs().max().item()) if a.numel() else 0
+
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+
+
+def _bound_ms(nbytes: float) -> float:
+    """The least time to move nbytes through device memory, in ms: the
+    bound of every kernel here (bytes; their integer operations need far
+    less time at the card's rates)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def touched_rows(codes, spec, k: int):
+    """The rows that the valid windows of codes [R, L] on the card make a
+    query read: (distinct global main buckets, sorted; distinct stash
+    buckets of a qs table, else None), each row read once."""
+    import torch
+
+    from cuclark_tpu_torch import codec
+    from cuclark_tpu_torch.hashdb import (feistel_mix_torch, mix1_torch,
+                                          mix2_torch)
+
+    kmers, valid = codec.extract_kmers(codes, k)
+    km = codec.canonical(kmers, k)[valid]
+    hi, lo = codec.shr(km, 32), km & 0xFFFFFFFF
+    mask = (1 << spec.nb_bits) - 1
+    stash = None
+    if spec.layout == "s2":
+        main = [mix1_torch(hi, lo) & mask]
+        if spec.num_choices == 2:
+            main.append(mix2_torch(hi, lo) & mask)
+    else:
+        h1, l2 = feistel_mix_torch(hi, lo, spec.seed)
+        main = [l2 & mask] + ([h1 & mask] if spec.layout == "q4" else [])
+        if spec.layout == "qs":
+            stash = torch.unique(h1 & ((1 << spec.stash_bits) - 1))
+    return torch.unique(torch.cat(main)), stash
+
+
+def query_bytes(touched, spec, in_bytes: int, out_bytes: int,
+                parts: int = 1) -> float:
+    """Least bytes of a query per call: its input (wire or codes) and its
+    output once, and each table row it needs once (qs stash rows 32 B).
+    Over a pass of `parts` part calls, every call reads the input and
+    the first writes the labels, each later one reads and writes them
+    (the accumulator); the table rows split over the parts."""
+    main, stash = touched
+    rows = spec.row_words * 4 * len(main) + (32 * len(stash)
+                                             if stash is not None else 0)
+    return (parts * in_bytes + (2 * parts - 1) * out_bytes + rows) / parts
 
 
 def _planted_reads(rng, km: np.ndarray, k: int, R: int, L: int):
@@ -299,7 +349,12 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
 
 
 def check_score(dev, R: int, P: int, seed: int) -> int:
-    """Score kernel vs plain on random labels with ties and empty rows."""
+    """Score kernel vs plain on random labels with ties and empty rows,
+    and, where R allows, rows across both label ranges of the histogram
+    path (random labels over 1..65,535, a tie between a label below
+    32,768 and one above, the best above with the second below, 65,535
+    the best) and rows of 6 to 40 distinct labels (the warp path's rounds
+    and its sort)."""
     import torch
 
     from cuclark_tpu_torch import score
@@ -311,6 +366,16 @@ def check_score(dev, R: int, P: int, seed: int) -> int:
     if P >= 2:
         lab[1, :P // 2], lab[1, P // 2:] = 9, 2       # tie when P is even
     lab[2 % R] = 65535
+    q = P // 4
+    ranges = np.zeros((4, P), np.int32)
+    ranges[0] = rng.integers(1, 65536, size=P)
+    ranges[1, :q], ranges[1, q:2 * q] = 40000, 1234   # tie: 1234 wins
+    ranges[2, :2 * q], ranges[2, 2 * q:3 * q] = 50000, 77
+    ranges[3, :2 * q], ranges[3, 2 * q:] = 65535, 32768
+    n = max(0, min(4, R - 3))
+    lab[3:3 + n] = ranges[:n]
+    for r in range(7, min(R, 64)):                    # 6 to 40 labels
+        lab[r] = rng.integers(0, 6 + r % 35, size=P) * 37
     t = torch.from_numpy(lab).to(dev)
     got = score.score_labels(t)
     torch.cuda.synchronize()
@@ -341,12 +406,12 @@ def golden_example(tmp: Path) -> None:
         raise AssertionError("example CSV differs from expected_results.csv")
 
 
-def build_headline_db(n_genomes: int, tmp: Path):
+def build_headline_db(n_genomes: int, tmp: Path | None):
     """Random genomes (numpy, seed 0) -> canonical 31-mers -> keep the
     target-specific ones (builder.discriminate) -> a qs, a q4 and an s2
     table of those k-mers through the port's build_table -> the .npz
-    files that `classify -D` loads, in tmp/db_<layout>.  Returns the
-    genomes and the tables by layout."""
+    files that `classify -D` loads, in tmp/db_<layout> (none when tmp is
+    None).  Returns the genomes and the tables by layout."""
     from cuclark_tpu_torch import codec
     from cuclark_tpu_torch.config import DBConfig
     from cuclark_tpu_torch.db_build.builder import db_name, discriminate
@@ -374,6 +439,8 @@ def build_headline_db(n_genomes: int, tmp: Path):
         cfg = DBConfig(k=K, target_load=0.85, layout=layout,
                        slots=S2_SLOTS, num_choices=S2_CHOICES)
         dbs[layout] = build_table(kmers, labels, names, cfg)
+        if tmp is None:
+            continue
         dbdir = tmp / f"db_{layout}"
         dbdir.mkdir(parents=True, exist_ok=True)
         dbs[layout].save(dbdir / db_name(cfg, n_genomes))
@@ -484,11 +551,11 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts):
     """The part-mode query kernel against its plain version on each of
     `parts` bucket-range parts of a resident headline table, a qs stash
     on part 0 only, writing and accumulating; the accumulated parts equal
-    the resident query.  Returns (max_abs_err, ms, plain ms) per part
-    call, the times over a whole pass of the parts."""
+    the resident query.  Returns (max_abs_err, ms, plain ms, bound ms)
+    per part call, the times over a whole pass of the parts."""
     import torch
 
-    from cuclark_tpu_torch import probe
+    from cuclark_tpu_torch import codec, probe
 
     p2, vb = wire
     rows = main_t.shape[0] // parts
@@ -526,7 +593,10 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts):
     err = max(err, _max_abs_err(acc, acc_plain))
     ms = _cuda_ms(lambda: all_parts(probe.query_part_labels), 10)
     plain_ms = _cuda_ms(lambda: all_parts(probe.query_part_labels_plain), 2)
-    return err, ms / parts, plain_ms / parts
+    bound = _bound_ms(query_bytes(
+        touched_rows(codec.unpack_codes(p2, vb), spec, k), spec,
+        p2.numel() + vb.numel(), 4 * acc.numel(), parts))
+    return err, ms / parts, plain_ms / parts, bound
 
 
 def write_long_reads(genomes: np.ndarray, path: Path) -> list:
@@ -554,10 +624,11 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, wire, qs_csv: Path,
     against plain; then the CLI on the
     card, resident and streamed, each CSV equal to the qs CSV; two timed
     file->CSV passes; and --device cpu on the head of the reads.  Returns
-    (max_abs_err, ms, launches, phase detail) keyed by launch name."""
+    (max_abs_err, ms, launches, phase detail, bound ms) keyed by launch
+    name."""
     import torch
 
-    from cuclark_tpu_torch import pipeline, probe
+    from cuclark_tpu_torch import codec, pipeline, probe
     from cuclark_tpu_torch.config import ClassifyConfig
     from cuclark_tpu_torch.hashdb import table_to_device
 
@@ -576,13 +647,17 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, wire, qs_csv: Path,
                              f"real-size table")
     err = {res_name: _max_abs_err(lab, lab_plain)}
     lab_shape = lab.shape
+    bound = {res_name: _bound_ms(query_bytes(
+        touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k), db.spec,
+        p2.numel() + vb.numel(), 4 * lab.numel()))}
     del lab, lab_plain
     ms = {res_name: _cuda_ms(lambda: probe.query_labels(
               p2, vb, main_t, None, k=db.k, spec=db.spec), 20),
           f"{res_name}_plain": _cuda_ms(lambda: probe.query_labels_plain(
               p2, vb, main_t, None, k=db.k, spec=db.spec), 5)}
-    err[part_name], ms[part_name], ms[f"{part_name}_plain"] = (
-        check_stream_kernels(main_t, None, wire, db.k, db.spec, parts))
+    (err[part_name], ms[part_name], ms[f"{part_name}_plain"],
+     bound[part_name]) = check_stream_kernels(main_t, None, wire, db.k,
+                                              db.spec, parts)
     del main_t
     torch.cuda.empty_cache()
 
@@ -637,16 +712,16 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, wire, qs_csv: Path,
               f"{', '.join(f'{r:.1f}' for r in rates['streamed'])} reads/s; "
               f"first {n_head} reads identical to --device cpu; on {card}")
     return (err, ms, {res_name: launches[res_name],
-                      part_name: launches_stream[part_name]}, detail)
+                      part_name: launches_stream[part_name]}, detail, bound)
 
 
 def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
                      dev, card: str):
     """Reads of LONG_MIN to LONG_MAX bases against the qs headline table:
-    the score kernel's device-memory path against plain on the labels of
+    the score kernel's `score_long` entry against plain on the labels of
     the batch the main path gives it, then `classify --device cuda` (which
     must launch score_long) equal to --device cpu byte for byte.  Returns
-    (max_abs_err, ms, plain ms, launches, phase detail)."""
+    (max_abs_err, ms, plain ms, launches, phase detail, bound ms)."""
     import torch
 
     from cuclark_tpu_torch import codec, probe, score
@@ -671,6 +746,7 @@ def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
     ms = _cuda_ms(lambda: score.score_labels(lab), 5)
     plain_ms = _cuda_ms(lambda: score.score_labels_plain(lab), 2)
     shape = list(lab.shape)
+    bound = _bound_ms(4 * lab.numel() + 20 * lab.shape[0])
     del lab, res, res_plain
     torch.cuda.empty_cache()
     gpu_csv, cpu_csv = tmp / "long_gpu.csv", tmp / "long_cpu.csv"
@@ -689,7 +765,7 @@ def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
     detail = (f"{N_LONG} reads, score_long on {shape} bit-identical, "
               f"{ms:.4f} ms (plain {plain_ms:.4f}); CSV identical to "
               f"--device cpu, launches {launches}; on {card}")
-    return err, ms, plain_ms, launches["score_long"], detail
+    return err, ms, plain_ms, launches["score_long"], detail, bound
 
 
 def check_classify_step(codes_np: np.ndarray, B: int, main_t, stash_t,
@@ -760,11 +836,11 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
     `Classifier(db, mesh=...)` file->CSV, resident and with each device's
     shard streamed in 4 parts, twice each, every CSV equal to the
     resident one.  The counts reset just before each Classifier's runs.
-    Returns (max_abs_err, ms, launches, phase detail) keyed by the JAX
-    function."""
+    Returns (max_abs_err, ms, launches, phase detail, bound ms) keyed by
+    the JAX function."""
     import torch
 
-    from cuclark_tpu_torch import kernels, pipeline, probe, score
+    from cuclark_tpu_torch import codec, kernels, pipeline, probe, score
     from cuclark_tpu_torch.config import ClassifyConfig
     from cuclark_tpu_torch.hashdb import table_to_device
     from cuclark_tpu_torch.parallel import mesh
@@ -775,6 +851,12 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
     qargs = dict(k=db.k, spec=db.spec)
     resident = probe.query_labels(p2, vb, main_t, stash_t, **qargs)
     nb, nbs = main_t.shape[0], stash_t.shape[0]
+    touched = touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k)
+    wire_b, lab_b = p2.numel() + vb.numel(), 4 * resident.numel()
+    bound = {"build_sharded_classify": _bound_ms(query_bytes(
+                 touched, db.spec, wire_b, lab_b + 20 * p2.shape[0])),
+             "build_sharded_probe_part": _bound_ms(query_bytes(
+                 touched, db.spec, wire_b, lab_b, 4))}
     smain, sstash = mesh.shard_db_table(db, m)
     err = {"build_sharded_classify": 0, "build_sharded_probe_part": 0}
     ms = {}
@@ -894,7 +976,8 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
               f" reads/s, part uploads "
               f"{', '.join(f'{g:.2f}' for g in gbps)} GB/s, launches "
               f"{launches['build_sharded_probe_part']}")
-    return err, ms, {k: v["query_part"] for k, v in launches.items()}, detail
+    return (err, ms, {k: v["query_part"] for k, v in launches.items()},
+            detail, bound)
 
 
 _RANK_MAIN = ("import json, sys\n"
@@ -1025,8 +1108,9 @@ def main(argv=None) -> int:
         for one in checks:
             for name, e in one.items():
                 err[name] = max(err.get(name, 0), e)
-    for i, (R, P) in enumerate(((65536, 122), (64, 16354), (33, 1000),
-                                (64, 1), (5, 2))):
+    for i, (R, P) in enumerate(((65536, 122), (65536, 290), (64, 16354),
+                                (33, 1000), (64, 1), (5, 2), (16, 1025),
+                                (8, 32768))):
         err["score"] = max(err["score"], check_score(dev, R, P, i))
     for i, (R, P) in enumerate(((4, 40000), (2, 100000))):
         launched = kernels.LAUNCHES["score_long"]
@@ -1034,10 +1118,10 @@ def main(argv=None) -> int:
                                 check_score(dev, R, P, 10 + i))
         if kernels.LAUNCHES["score_long"] != launched + 1:
             raise AssertionError(f"score [{R}, {P}] did not take the "
-                                 f"device-memory path")
+                                 f"score_long entry")
     _phase("kernels_vs_plain", t0, "query (qs, q4, s2, resident, part, "
            "qs db shards with stash ranges, codes front half) and score "
-           "(shared and device memory) bit-identical")
+           "(warp and histogram paths, both label ranges) bit-identical")
 
     with tempfile.TemporaryDirectory(prefix="cuclark_smoke_") as td:
         tmp = Path(td)
@@ -1101,6 +1185,16 @@ def main(argv=None) -> int:
                                  "labels")
         err["score"] = max(err["score"], _max_abs_err(res, res_plain))
         del lab_plain, res_plain
+        touched = touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k)
+        bound = {
+            "query": _bound_ms(query_bytes(touched, db.spec,
+                                           p2.numel() + vb.numel(),
+                                           4 * lab.numel())),
+            "score": _bound_ms(4 * lab.numel() + 20 * B),
+            "classify_step": _bound_ms(query_bytes(touched, db.spec, B * L,
+                                                   20 * B)),
+        }
+        del touched
         ms = {
             "query": _cuda_ms(lambda: probe.query_labels(
                 p2, vb, main_t, stash_t, **qargs), 20),
@@ -1135,9 +1229,9 @@ def main(argv=None) -> int:
 
         # the part-mode query on the headline table cut in 4 parts
         t0 = time.time()
-        err["query_part"], ms["query_part"], ms["query_part_plain"] = (
-            check_stream_kernels(main_t, stash_t, wire[0], db.k, db.spec,
-                                 STREAM_PARTS["qs"]))
+        (err["query_part"], ms["query_part"], ms["query_part_plain"],
+         bound["query_part"]) = check_stream_kernels(
+            main_t, stash_t, wire[0], db.k, db.spec, STREAM_PARTS["qs"])
         wire0 = wire[0]
         del main_t, stash_t, wire, lab, res
         torch.cuda.empty_cache()
@@ -1288,8 +1382,9 @@ def main(argv=None) -> int:
         # a 2 x 2 mesh of four handles of the card: the sharded steps,
         # then Classifier(mesh) resident and streamed
         t0 = time.time()
-        mesh_err, mesh_ms, launches_mesh, detail = check_mesh(
+        mesh_err, mesh_ms, launches_mesh, detail, mesh_bound = check_mesh(
             db, tmp, fq, wire0, gpu_csv, dev, card)
+        bound.update(mesh_bound)
         for name, e in mesh_err.items():
             err[name] = max(err.get(name, 0), e)
         ms.update(mesh_ms)
@@ -1305,8 +1400,9 @@ def main(argv=None) -> int:
         head = head_fastq(fq, tmp / "head.fq", min(16384, args.reads))
         for layout in ("q4", "s2"):
             t0 = time.time()
-            lay_err, lay_ms, lay_launches, detail = check_layout(
+            lay_err, lay_ms, lay_launches, detail, lay_bound = check_layout(
                 dbs.pop(layout), tmp, fq, head, wire0, gpu_csv, dev, card)
+            bound.update(lay_bound)
             err.update(lay_err)
             ms.update(lay_ms)
             launches.update(lay_launches)
@@ -1314,11 +1410,11 @@ def main(argv=None) -> int:
         del wire0
         torch.cuda.empty_cache()
 
-        # reads over 32,768 bases: the score kernel's device-memory path
+        # reads over 32,768 bases: the score kernel's score_long entry
         t0 = time.time()
-        err["score_long"], ms["score_long"], ms["score_long_plain"], \
-            launches["score_long"], detail = check_long_reads(
-                tmp, db, dbdir, long_fq, long_codes, dev, card)
+        (err["score_long"], ms["score_long"], ms["score_long_plain"],
+         launches["score_long"], detail, bound["score_long"]) = (
+            check_long_reads(tmp, db, dbdir, long_fq, long_codes, dev, card))
         _phase("long_reads", t0, detail)
 
     kern = [
@@ -1365,6 +1461,10 @@ def main(argv=None) -> int:
                      "replaces": replaces, "launches": n,
                      "max_abs_err": err[name], "ms": ms[name],
                      "plain_ms": ms[f"{name}_plain"]})
+    for entry in kern:
+        # no single PyTorch call computes any of these functions
+        entry.update(bound_ms=bound[entry["name"]], bound_by="bytes",
+                     library_ms=None)
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -37,32 +37,52 @@
 // A second front half reads unpacked uint8 codes [R, L] instead of the wire
 // format (cuclark_tpu/pipeline.py:classify_step, :48): the k-mer of window p
 // is codes[r, p..p+k), and a byte >= 4 makes the window invalid.  The front
-// half is a template parameter too, so the wire instances compile as they
-// did.
+// half is a template parameter: only the staging differs.
 //
-// What bounds it on the card: two random 32 B row gathers per window, one
-// into the main table (1.07 GB at the 64M-k-mer configuration, 22x the
-// 50 MB L2, so nearly every main gather goes to device memory) and one into
-// the stash (at most 2^20 rows = 33.6 MB, small enough to stay in L2).
-// The arithmetic (k-mer assembly, revcomp, Feistel) is a few hundred integer
-// operations per window and the wire bytes are read through L1.  A part call
-// gathers main rows only for the windows whose bucket lies in its range, 1/P
-// of them over P parts, so each part call costs the k-mer arithmetic and a
-// P-th of the resident call's main gathers.
+// What bounds it on the card: the random 32 B row gathers.  One per window
+// goes into the main table (1.07 GB at the 64M-k-mer configuration, 22x
+// the 50 MB L2, so nearly every one goes to device memory: 7.0M distinct
+// rows, 225 MB, of a [65,536, 152] batch) and one into the stash (at most
+// 2^20 rows = 33.6 MB, which L2 can hold).  Random 32 B sectors reach a
+// small share of the 3.35 TB/s that streaming does, so the resident call
+// runs at about a fifth of its bytes bound.  A part call gathers main rows
+// only for the windows whose bucket lies in its range, 1/P of them over P
+// parts, and there the front half is the larger cost.
 //
-// Simple design: one thread per (read, window).  Each thread assembles its
-// k-mer from the wire bytes, so no shared memory and no synchronisation; the
-// many independent threads of a 65,536-read batch (8M windows) keep enough
-// gathers in flight to cover the device-memory latency.  Each row is read as
-// two 16 B loads through the read-only path.  Row offsets are 64-bit: at
-// nb_bits 28 the main table is 8.6 GB.  Invalid windows (an N or padding
-// inside) return before any gather, which also stands in for the TPU-only
-// probe.spread_invalid.
+// The front half (the k-mer of each window from the wire bytes, its
+// reverse complement and the Feistel rounds) is a few instructions per
+// window, so that a part call, or a db shard of a mesh step, which repeats
+// it for a fraction of the gathers, costs little more than its gathers:
+//   - a block per (read, tile of kTile windows): reads on gridDim.x (a
+//     batch holds 65,536 of them, past gridDim.y's 65,535), tiles on
+//     gridDim.y (65,535 tiles a launch), so no thread divides;
+//   - the block stages the tile's bases [t0, t0 + kTile + 31) of its read
+//     once into shared memory as two little-endian bitstrings of 32-bit
+//     words, 2 bits a base and 1 validity bit a base, with byte loads (the
+//     rows are 38 B and 19 B at bin 152, not 4 B aligned).  The codes
+//     front half loads one byte a lane and packs the same two bitstrings
+//     with a ballot and a 16-lane OR;
+//   - window p's 2k bits are a funnel shift over three words, x.  Because
+//     the wire format is little-endian, base p + j is field j of x, so the
+//     reverse complement is ~x & (2^2k - 1) and the forward k-mer (first
+//     base most significant) is pair-swap(bit-reverse(x)) >> (64 - 2k),
+//     the pair swap exchanging the two bits of each 2-bit field.  The
+//     window is valid when the k-bit slice of the validity bitstring from
+//     bit p is all ones.
+// A thread per window then issues the loads of both its rows (qs: main and
+// stash; q4: both main choices) before it compares either, and stores to
+// labels[r * P + p] (coalesced).  Row offsets are 64-bit: at nb_bits 28 the
+// main table is 8.6 GB.  A qs or q4 row is two 16 B loads: a qs main row
+// with the streaming hint (evict first), so that the main rows, which a
+// batch reads once, leave L2 before the stash rows do (on an H100 the
+// resident qs query ran 12% faster so; q4 ran no faster), every other row
+// through the read-only path.  Invalid windows (an N or padding inside) return before
+// any gather, which also stands in for the TPU-only probe.spread_invalid.
 //
 // The q4 and s2 layouts (cuclark_tpu/probe.py:_probe_q4 :236 and the s2
-// branch of probe.probe :131-155) share the front half (unpack, k-mer,
+// branch of probe.probe :131-155) share the front half (staging, k-mer,
 // canonical) and differ in the gathers; the layout is a template parameter,
-// so each layout compiles to its own kernel and the qs code stays as it was:
+// so each layout compiles to its own kernel:
 //   - q4: the qs row format, both choices in the main rows: choice 0 row
 //     l2 & (NB-1), other h1, quotient l2 >> nb_bits; choice 1 row
 //     h1 & (NB-1), other l2, quotient h1 >> nb_bits.  Two cold 32 B gathers
@@ -72,8 +92,11 @@
 //     labels of the slots whose two key words match are summed.  Choice 1
 //     runs only with num_choices 2 and counts only when its global bucket
 //     differs from choice 0's.  A row is 12*S bytes (24 B at S = 2), which
-//     is not 16 B aligned, so it is read with 4 B loads: the S low key words
-//     first, the high word and the label only on a match.
+//     is not 16 B aligned, so it is read with 8 B loads when S is even (4 B
+//     loads when it is odd): the S low key words first, the high words and
+//     the labels only on a match, so a miss reads only the low key words.
+//     On an H100 the 8 B loads ran faster than 4 B ones, and than issuing
+//     both choices' loads side by side.
 // In part mode each choice is range-checked on its own, so a key whose two
 // buckets fall in different parts is found in exactly one of them.
 //
@@ -94,16 +117,91 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// Jellyfish reverse complement of a right-aligned 2k-bit k-mer
-// (cuclark_tpu/codec.py:revcomp_np).
-__device__ __forceinline__ uint64_t revcomp64(uint64_t x, int k) {
-  x = ((x >> 2) & 0x3333333333333333ull) | ((x & 0x3333333333333333ull) << 2);
-  x = ((x >> 4) & 0x0F0F0F0F0F0F0F0Full) | ((x & 0x0F0F0F0F0F0F0F0Full) << 4);
-  x = ((x >> 8) & 0x00FF00FF00FF00FFull) | ((x & 0x00FF00FF00FF00FFull) << 8);
-  x = ((x >> 16) & 0x0000FFFF0000FFFFull) |
-      ((x & 0x0000FFFF0000FFFFull) << 16);
-  x = (x >> 32) | (x << 32);
-  return (~x) >> (64 - 2 * k);
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Windows per block.  A block stages kStage bases: the kTile + k - 1 <=
+// kTile + 31 its windows cover, rounded to 32, as kW2 words of 2-bit codes
+// and kWv words of validity bits.  Window kTile - 1 reads 2-bit words up
+// to kW2 - 1 and validity words up to kWv - 1.
+constexpr int kTile = 128;
+constexpr int kStage = kTile + 32;
+constexpr int kW2 = kStage / 16;
+constexpr int kWv = kStage / 32;
+static_assert(kTile % 32 == 0, "tiles start on a validity word");
+
+// Stage bases [t0, t0 + kStage) of one wire row (packed2 row pr of s2
+// bytes, vbits row vr of s8 bytes): a tile starts on a byte of both, so
+// the words are the row's bytes from t0 / 4 and t0 / 8.  Bytes past the
+// row stage as 0; only windows past P, which store nothing, or the bits
+// above a window's 2k, which are masked off, read them.
+__device__ __forceinline__ void stage_wire(const uint8_t* __restrict__ pr,
+                                           const uint8_t* __restrict__ vr,
+                                           int s2, int s8, int t0,
+                                           uint32_t* w2, uint32_t* wv) {
+  uint8_t* b2 = reinterpret_cast<uint8_t*>(w2);
+  uint8_t* bv = reinterpret_cast<uint8_t*>(wv);
+  for (int i = threadIdx.x; i < 4 * (kW2 + kWv); i += blockDim.x) {
+    if (i < 4 * kW2) {
+      const int q = t0 / 4 + i;
+      b2[i] = q < s2 ? __ldg(pr + q) : 0;
+    } else {
+      const int q = t0 / 8 + i - 4 * kW2;
+      bv[i - 4 * kW2] = q < s8 ? __ldg(vr + q) : 0;
+    }
+  }
+}
+
+// The same from a row of L unpacked codes (0..3, >= 4 an N): warp w packs
+// chunks of 32 bases, one byte a lane: its validity word by ballot, its two
+// 2-bit words by an OR over each half-warp.  Positions past L stage as Ns.
+// blockDim.x is kTile.
+__device__ __forceinline__ void stage_codes(const uint8_t* __restrict__ cr,
+                                            int L, int t0, uint32_t* w2,
+                                            uint32_t* wv) {
+  const int lane = threadIdx.x & 31;
+  for (int c = threadIdx.x >> 5; c < kWv; c += kTile / 32) {
+    const int q = t0 + 32 * c + lane;
+    const uint32_t b = q < L ? __ldg(cr + q) : 4u;
+    const uint32_t valid = __ballot_sync(kFull, b < 4u);
+    uint32_t v2 = (b & 3u) << (2 * (lane & 15));
+    v2 |= __shfl_xor_sync(kFull, v2, 8);
+    v2 |= __shfl_xor_sync(kFull, v2, 4);
+    v2 |= __shfl_xor_sync(kFull, v2, 2);
+    v2 |= __shfl_xor_sync(kFull, v2, 1);
+    if (lane == 0) {
+      wv[c] = valid;
+      w2[2 * c] = v2;
+    } else if (lane == 16) {
+      w2[2 * c + 1] = v2;
+    }
+  }
+}
+
+// The canonical k-mer of the block's window lp from the staged bitstrings,
+// or false when the window holds an N or padding.
+__device__ __forceinline__ bool window_kmer(const uint32_t* w2,
+                                            const uint32_t* wv, int lp, int k,
+                                            uint64_t* out) {
+  // validity: the k bits from bit lp all ones (k <= 32: one funnel shift)
+  const uint32_t v = __funnelshift_r(wv[lp >> 5], wv[(lp >> 5) + 1], lp & 31);
+  const uint32_t vmask = kFull >> (32 - k);
+  if ((v & vmask) != vmask) return false;
+  // x: the 2k bits from bit 2 * lp; base lp + j is field j
+  const int w = lp >> 4, s = (2 * lp) & 31;
+  const uint32_t lo = __funnelshift_r(w2[w], w2[w + 1], s);
+  const uint32_t hi = __funnelshift_r(w2[w + 1], w2[w + 2], s);
+  const uint64_t mask = ~0ull >> (64 - 2 * k);
+  const uint64_t x = ((static_cast<uint64_t>(hi) << 32) | lo) & mask;
+  // forward k-mer, first base most significant: reverse the fields
+  uint64_t y = __brevll(x);
+  y = ((y >> 1) & 0x5555555555555555ull) | ((y & 0x5555555555555555ull) << 1);
+  const uint64_t fwd = y >> (64 - 2 * k);
+  // reverse complement (cuclark_tpu/codec.py:revcomp_np): complement each
+  // base (3 - c = ~c) in place, the reversal undone by the little-endian x
+  const uint64_t rc = ~x & mask;
+  // canonical: unsigned min of forward and reverse complement
+  *out = rc < fwd ? rc : fwd;
+  return true;
 }
 
 // One slot of a qs row: [other x4 | meta x4], meta = quot15 << 17 |
@@ -116,13 +214,24 @@ __device__ __forceinline__ int32_t slot_label(uint32_t o, uint32_t meta,
              : 0;
 }
 
-// Sum of the matching slots' labels in row `row` (0 on a miss), as
+// A qs row as two 16 B loads: others, metas.  STREAM: loaded with the
+// streaming (evict-first) hint, for rows a batch reads once.
+struct QRow {
+  uint4 o, m;
+};
+
+template <bool STREAM>
+__device__ __forceinline__ QRow load_row(const uint4* __restrict__ rows,
+                                         uint64_t row) {
+  if (STREAM) return {__ldcs(rows + 2 * row), __ldcs(rows + 2 * row + 1)};
+  return {__ldg(rows + 2 * row), __ldg(rows + 2 * row + 1)};
+}
+
+// Sum of the matching slots' labels in a row (0 on a miss), as
 // cuclark_tpu/probe.py:_q_match_labels sums them.
-__device__ __forceinline__ int32_t row_label(const uint4* __restrict__ rows,
-                                             uint64_t row, uint32_t other,
+__device__ __forceinline__ int32_t row_label(const QRow& row, uint32_t other,
                                              uint32_t quot, uint32_t choice) {
-  const uint4 o = __ldg(rows + 2 * row);
-  const uint4 m = __ldg(rows + 2 * row + 1);
+  const uint4 o = row.o, m = row.m;
   return slot_label(o.x, m.x, other, quot, choice) +
          slot_label(o.y, m.y, other, quot, choice) +
          slot_label(o.z, m.z, other, quot, choice) +
@@ -141,12 +250,29 @@ __device__ __forceinline__ uint32_t mix2(uint32_t hi, uint32_t lo) {
 
 // Sum of the labels of the slots of s2 row `row` (S slots, 3*S words)
 // whose key words equal (lo, hi), as the s2 branch of
-// cuclark_tpu/probe.py:probe sums them.
+// cuclark_tpu/probe.py:probe sums them: the low key words first, the high
+// words and the labels only on a match.  With S even a row is 8 B aligned
+// and each pair of slots' words is one 8 B load.
 __device__ __forceinline__ int32_t s2_row_label(
     const uint32_t* __restrict__ rows, uint64_t row, uint32_t lo, uint32_t hi,
     int S) {
   const uint32_t* r = rows + row * 3 * static_cast<uint64_t>(S);
   int32_t lab = 0;
+  if ((S & 1) == 0) {
+    const uint2* v = reinterpret_cast<const uint2*>(r);
+    const int H = S / 2;
+    for (int j = 0; j < H; ++j) {
+      const uint2 kl = __ldg(v + j);
+      const bool m0 = kl.x == lo, m1 = kl.y == lo;
+      if (m0 || m1) {
+        const uint2 kh = __ldg(v + H + j);
+        const uint2 lb = __ldg(v + 2 * H + j);
+        if (m0 && kh.x == hi) lab += static_cast<int32_t>(lb.x);
+        if (m1 && kh.y == hi) lab += static_cast<int32_t>(lb.y);
+      }
+    }
+    return lab;
+  }
   for (int j = 0; j < S; ++j) {
     if (__ldg(r + j) == lo && __ldg(r + S + j) == hi)
       lab += static_cast<int32_t>(__ldg(r + 2 * S + j));
@@ -154,62 +280,31 @@ __device__ __forceinline__ int32_t s2_row_label(
   return lab;
 }
 
-// One (read, window) per thread.  The canonical k-mer of the window, or
-// false when the window holds an N or padding.
-__device__ __forceinline__ bool window_kmer(const uint8_t* __restrict__ pr,
-                                            const uint8_t* __restrict__ vr,
-                                            int p, int k, uint64_t* out) {
-  // unpack + extract: code of position q is packed2[r, q>>2] >> 2*(q&3),
-  // its valid bit vbits[r, q>>3] >> (q&7); first base most significant
-  uint64_t km = 0;
-  for (int j = 0; j < k; ++j) {
-    const int q = p + j;
-    if (!((__ldg(vr + (q >> 3)) >> (q & 7)) & 1)) return false;
-    km = (km << 2) | ((__ldg(pr + (q >> 2)) >> (2 * (q & 3))) & 3u);
-  }
-  // canonical: unsigned min of forward and reverse complement
-  const uint64_t rc = revcomp64(km, k);
-  *out = rc < km ? rc : km;
-  return true;
-}
-
-// The same from unpacked codes: one byte per base, 0..3, >= 4 invalid.
-__device__ __forceinline__ bool window_kmer_codes(
-    const uint8_t* __restrict__ cr, int p, int k, uint64_t* out) {
-  uint64_t km = 0;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t c = __ldg(cr + p + j);
-    if (c >= 4u) return false;
-    km = (km << 2) | c;
-  }
-  const uint64_t rc = revcomp64(km, k);
-  *out = rc < km ? rc : km;
-  return true;
-}
-
-// CODES: packed2 is codes uint8 [R, s2] (s2 = L) and vbits is unused.
+// A block per (read r = blockIdx.x, tile of kTile windows from t0 =
+// (tile_base + blockIdx.y) * kTile), a thread per window.  CODES: packed2
+// is codes uint8 [R, s2] (s2 = L) and vbits is unused.
 template <int LAYOUT, bool CODES>
-__global__ void query_kernel(const uint8_t* __restrict__ packed2,
-                             const uint8_t* __restrict__ vbits,
-                             const void* __restrict__ main_rows,
-                             const uint4* __restrict__ stash_rows,
-                             int32_t* __restrict__ labels, int64_t n, int P,
-                             int s2, int s8, int k, int nb_bits,
-                             int stash_bits, uint64_t bucket_start,
-                             uint64_t nb_local, uint64_t stash_start,
-                             uint64_t nbs_local, int accumulate, uint32_t c1,
-                             uint32_t c2, uint32_t c3, int slots,
-                             int num_choices) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= n) return;
-  const int64_t r = idx / P;
-  const int p = static_cast<int>(idx - r * P);
+__global__ void __launch_bounds__(kTile) query_kernel(
+    const uint8_t* __restrict__ packed2, const uint8_t* __restrict__ vbits,
+    const void* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
+    int32_t* __restrict__ labels, int P, int s2, int s8, int k, int nb_bits,
+    int stash_bits, uint64_t bucket_start, uint64_t nb_local,
+    uint64_t stash_start, uint64_t nbs_local, int accumulate, uint32_t c1,
+    uint32_t c2, uint32_t c3, int slots, int num_choices, int tile_base) {
+  __shared__ uint32_t w2[kW2];
+  __shared__ uint32_t wv[kWv];
+  const int64_t r = blockIdx.x;
+  const int t0 = (tile_base + static_cast<int>(blockIdx.y)) * kTile;
+  if (CODES)
+    stage_codes(packed2 + r * s2, s2, t0, w2, wv);
+  else
+    stage_wire(packed2 + r * s2, vbits + r * s8, s2, s8, t0, w2, wv);
+  __syncthreads();
+  const int p = t0 + threadIdx.x;
+  if (p >= P) return;
+  const int64_t idx = r * P + p;
   uint64_t c;
-  const bool valid =
-      CODES ? window_kmer_codes(packed2 + r * s2, p, k, &c)
-            : window_kmer(packed2 + r * s2, vbits + r * s8, p, k, &c);
-  if (!valid) {
+  if (!window_kmer(w2, wv, threadIdx.x, k, &c)) {
     if (!accumulate) labels[idx] = 0;
     return;
   }
@@ -220,6 +315,8 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
   // b - bucket_start never wraps (bucket_start passes 2^31 at nb_bits 31).
   int32_t lab = 0;
   if (LAYOUT == kS2) {
+    // choice 1 runs after choice 0 and counts only when its global bucket
+    // differs from choice 0's
     const uint32_t* rows = static_cast<const uint32_t*>(main_rows);
     const uint64_t b1 = mix1(hi, lo) & mask;
     if (b1 >= bucket_start && b1 - bucket_start < nb_local)
@@ -235,25 +332,34 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
     const uint32_t h1 = hi ^ fmix32(l1 + c2);
     const uint32_t l2 = l1 ^ fmix32(h1 + c3);
     const uint4* rows = static_cast<const uint4*>(main_rows);
-    // main row l2 & (NB-1): other == h1, quotient l2 >> nb_bits, choice 0
-    const uint64_t b = static_cast<uint64_t>(l2 & mask);
-    if (b >= bucket_start && b - bucket_start < nb_local)
-      lab = row_label(rows, b - bucket_start, h1, l2 >> nb_bits, 0u);
-    if (LAYOUT == kQ4) {
-      // q4: main row h1 & (NB-1): other == l2, quotient h1 >> nb_bits,
-      // choice 1
-      const uint64_t b1 = static_cast<uint64_t>(h1 & mask);
-      if (b1 >= bucket_start && b1 - bucket_start < nb_local)
-        lab += row_label(rows, b1 - bucket_start, l2, h1 >> nb_bits, 1u);
-    } else if (stash_rows != nullptr) {
-      // qs: stash row h1 & (NBS-1) of the range [stash_start, stash_start +
-      // nbs_local): other == l2, quotient h1 >> stash_bits, choice 1
-      const uint32_t smask = static_cast<uint32_t>((1ull << stash_bits) - 1);
-      const uint64_t sb = static_cast<uint64_t>(h1 & smask);
-      if (sb >= stash_start && sb - stash_start < nbs_local)
-        lab += row_label(stash_rows, sb - stash_start, l2, h1 >> stash_bits,
-                         1u);
+    // choice 0: main row l2 & (NB-1), other h1, quotient l2 >> nb_bits
+    const uint64_t b0 = static_cast<uint64_t>(l2 & mask);
+    const bool in0 = b0 >= bucket_start && b0 - bucket_start < nb_local;
+    // choice 1, other l2: q4's main row h1 & (NB-1), quotient h1 >>
+    // nb_bits; qs's stash row h1 & (NBS-1) of the range [stash_start,
+    // stash_start + nbs_local), quotient h1 >> stash_bits
+    const uint4* rows1 = rows;
+    uint64_t b1 = static_cast<uint64_t>(h1 & mask), start1 = bucket_start,
+             local1 = nb_local;
+    int bits1 = nb_bits;
+    if (LAYOUT == kQs) {
+      rows1 = stash_rows;
+      b1 = h1 & static_cast<uint32_t>((1ull << stash_bits) - 1);
+      start1 = stash_start;
+      local1 = nbs_local;
+      bits1 = stash_bits;
     }
+    const bool in1 = (LAYOUT == kQ4 || stash_rows != nullptr) &&
+                     b1 >= start1 && b1 - start1 < local1;
+    // both rows' loads are in flight before either is compared.  A qs
+    // batch reads its main rows once, and streams them past the stash,
+    // which every batch reads and which L2 can hold; q4's two choices are
+    // alike, and gain nothing from the hint.
+    QRow row0{}, row1{};
+    if (in0) row0 = load_row<LAYOUT == kQs>(rows, b0 - bucket_start);
+    if (in1) row1 = load_row<false>(rows1, b1 - start1);
+    if (in0) lab = row_label(row0, h1, l2 >> nb_bits, 0u);
+    if (in1) lab += row_label(row1, l2, h1 >> bits1, 1u);
   }
   if (!accumulate)
     labels[idx] = lab;
@@ -263,23 +369,22 @@ __global__ void query_kernel(const uint8_t* __restrict__ packed2,
 
 // One layout's kernel over one front half.
 template <int LAYOUT>
-void launch(bool codes, unsigned blocks, int threads, cudaStream_t st,
-            const uint8_t* p2, const uint8_t* vb, const void* main_rows,
-            const uint4* stash, int32_t* out, int64_t n, int P, int s2,
-            int s8, int k, int nb_bits, int stash_bits, uint64_t start,
-            uint64_t local, uint64_t sstart, uint64_t slocal, int accumulate,
-            uint32_t c1, uint32_t c2, uint32_t c3, int slots,
-            int num_choices) {
+void launch(bool codes, dim3 grid, cudaStream_t st, const uint8_t* p2,
+            const uint8_t* vb, const void* main_rows, const uint4* stash,
+            int32_t* out, int P, int s2, int s8, int k, int nb_bits,
+            int stash_bits, uint64_t start, uint64_t local, uint64_t sstart,
+            uint64_t slocal, int accumulate, uint32_t c1, uint32_t c2,
+            uint32_t c3, int slots, int num_choices, int tile_base) {
   if (codes)
-    query_kernel<LAYOUT, true><<<blocks, threads, 0, st>>>(
-        p2, vb, main_rows, stash, out, n, P, s2, s8, k, nb_bits, stash_bits,
+    query_kernel<LAYOUT, true><<<grid, kTile, 0, st>>>(
+        p2, vb, main_rows, stash, out, P, s2, s8, k, nb_bits, stash_bits,
         start, local, sstart, slocal, accumulate, c1, c2, c3, slots,
-        num_choices);
+        num_choices, tile_base);
   else
-    query_kernel<LAYOUT, false><<<blocks, threads, 0, st>>>(
-        p2, vb, main_rows, stash, out, n, P, s2, s8, k, nb_bits, stash_bits,
+    query_kernel<LAYOUT, false><<<grid, kTile, 0, st>>>(
+        p2, vb, main_rows, stash, out, P, s2, s8, k, nb_bits, stash_bits,
         start, local, sstart, slocal, accumulate, c1, c2, c3, slots,
-        num_choices);
+        num_choices, tile_base);
 }
 
 }  // namespace
@@ -301,10 +406,9 @@ extern "C" int cuclark_query(int layout, int codes, const void* packed2,
                              int64_t nbs_local, int accumulate, uint32_t c1,
                              uint32_t c2, uint32_t c3, int slots,
                              int num_choices, void* stream) {
-  const int64_t n = R * P;
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+  if (R == 0 || P == 0) return static_cast<int>(cudaSuccess);
+  if (R > 0x7FFFFFFF || k < 2 || k > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* p2 = static_cast<const uint8_t*>(packed2);
   const uint8_t* vb = static_cast<const uint8_t*>(vbits);
@@ -314,24 +418,34 @@ extern "C" int cuclark_query(int layout, int codes, const void* packed2,
   const uint64_t local = static_cast<uint64_t>(nb_local);
   const uint64_t sstart = static_cast<uint64_t>(stash_start);
   const uint64_t slocal = static_cast<uint64_t>(nbs_local);
-  switch (layout) {
-    case kQs:
-      launch<kQs>(codes != 0, blocks, threads, st, p2, vb, main_rows, stash,
-                  out, n, P, s2, s8, k, nb_bits, stash_bits, start, local,
-                  sstart, slocal, accumulate, c1, c2, c3, slots, num_choices);
-      break;
-    case kQ4:
-      launch<kQ4>(codes != 0, blocks, threads, st, p2, vb, main_rows,
-                  nullptr, out, n, P, s2, s8, k, nb_bits, 0, start, local, 0,
-                  0, accumulate, c1, c2, c3, slots, num_choices);
-      break;
-    case kS2:
-      launch<kS2>(codes != 0, blocks, threads, st, p2, vb, main_rows,
-                  nullptr, out, n, P, s2, s8, k, nb_bits, 0, start, local, 0,
-                  0, accumulate, c1, c2, c3, slots, num_choices);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  // gridDim.y stops at 65,535 tiles (8.4M windows): a longer row, such as
+  // an assembled genome classified as one record, takes several launches
+  const int tiles = (P + kTile - 1) / kTile;
+  for (int base = 0; base < tiles; base += 65535) {
+    const dim3 grid(static_cast<unsigned>(R),
+                    static_cast<unsigned>(tiles - base < 65535 ? tiles - base
+                                                               : 65535));
+    switch (layout) {
+      case kQs:
+        launch<kQs>(codes != 0, grid, st, p2, vb, main_rows, stash, out, P,
+                    s2, s8, k, nb_bits, stash_bits, start, local, sstart,
+                    slocal, accumulate, c1, c2, c3, slots, num_choices, base);
+        break;
+      case kQ4:
+        launch<kQ4>(codes != 0, grid, st, p2, vb, main_rows, nullptr, out, P,
+                    s2, s8, k, nb_bits, 0, start, local, 0, 0, accumulate, c1,
+                    c2, c3, slots, num_choices, base);
+        break;
+      case kS2:
+        launch<kS2>(codes != 0, grid, st, p2, vb, main_rows, nullptr, out, P,
+                    s2, s8, k, nb_bits, 0, start, local, 0, 0, accumulate, c1,
+                    c2, c3, slots, num_choices, base);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }

@@ -6,27 +6,44 @@
 // passes.  The plain PyTorch version is
 // cuclark_tpu_torch/score.py:score_labels_plain.
 //
-// What bounds it on the card: reading the labels, 4 B per window (32 MB
-// for a 65,536 x 122 batch), and the compare-exchanges of the per-row sort,
-// O(P log^2 P) in shared memory.  The [R, 5] output is negligible.
+// What bounds it on the card: reading the labels once, 4 B per window (32
+// MB for a 65,536 x 122 batch, 10 us at 3.35 TB/s); the [R, 5] output is
+// small.  Everything else is the work per row, and the design keeps it off
+// barriers and out of device memory.  The best run is the maximum of the
+// 64-bit key (count << 32 | ~label): highest count first, then the smallest
+// label on ties, exactly the tie-break of score.py:37-66.  The second is
+// the same maximum with the best label left out.  total counts the labels
+// > 0.  Two paths:
 //
-// Simple design: one block per read.  The row is copied into dynamic shared
-// memory, padded with 0 (a miss, which never counts) to the next power of
-// two Pp, and bitonic-sorted ascending.  Each run end of a positive label
-// finds its run start by binary search, so the run length needs no scan.
-// The best run is the maximum of the 64-bit key (count << 32 | ~label):
-// highest count first, then the smallest label on ties, exactly the
-// tie-break of score.py:37-66.  A second pass excludes the best label.
-// Pp is at most 32,768 (128 KB of shared memory); above 48 KB the launch
-// raises the kernel's dynamic shared-memory limit first.
-//
-// Rows of more than 32,768 windows (reads over 32,798 bases at k=31, as
-// nanopore and PacBio give) take a second kernel, score_long_kernel: the
-// same sort and the same two passes, one block per read, on the row copied
-// into a device scratch buffer [R, Pp] that the caller allocates, with
-// __syncthreads() between the sort's stages.  Its compare-exchanges go to
-// L2 and device memory instead of shared memory: O(P log^2 P) 8 B accesses
-// per read, which a few long reads per batch can afford.
+//   - Rows of up to kWarpMax windows (every short-read length bin, and
+//     paired reads): one warp per read, the row in registers, E = Pp / 32
+//     labels a lane, Pp the power of two >= max(P, 32), padded with 0 (a
+//     miss, which never counts).  A short read from one genome holds one
+//     label or a few, so the warp first counts them in up to kRounds
+//     rounds: the first positive label left, its count a popcount of
+//     ballots over the E registers, then zeroed.  A row with labels left
+//     after the rounds (many distinct labels) is sorted: a bitonic network,
+//     lane l holding sorted positions l*E .. l*E + E - 1, compare-exchanges
+//     at a stride below E in the lane's registers and wider ones through
+//     __shfl_xor_sync.  Each run's start comes from a warp max-scan of the
+//     run starts; each lane keeps the top two keys of the run ends it holds
+//     (a label has one run end, so they are of two labels).  The counted
+//     and the sorted labels are disjoint, so their keys merge, and warp
+//     max-reductions give the best and the second.  No shared memory and
+//     no __syncthreads().
+//   - Longer rows, in the `score` entry above kWarpMax and in the
+//     `score_long` entry (rows over 32,768 windows: reads over 32,798
+//     bases at k=31, as nanopore and PacBio give): one block per read and
+//     a label histogram in shared memory, kBins u32 counters (128 KB) for
+//     the labels [0, 32,768), then for [32,768, 65,536) only when the row
+//     holds such a label.  Labels are at most 65,535 (config.MTRGTS; the
+//     plain version's sentinel is 65,536); a label above counts in total
+//     only.  A long read's windows mostly hit one target, so each warp
+//     groups equal labels with __match_any_sync and adds once per distinct
+//     label.  Each thread keeps the top two keys of the counters it scans,
+//     across both ranges, and two block max-reductions give the best and
+//     the second.  No scratch in device memory: the row is read once (twice
+//     when it holds labels of both ranges).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cuclark_tpu_torch/kernels.py).
@@ -36,172 +53,331 @@
 
 namespace {
 
-constexpr int kMaxPp = 32768;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxScore = 32768;    // longest row of the `score` entry
+constexpr int kWarpMax = 1024;      // longest row of the warp path
+constexpr int kWarpsPerBlock = 8;   // warp path: reads per block
+constexpr int kBins = 32768;        // histogram counters per label range
+constexpr int kHistThreads = 1024;
 
-// First index in s[0, n) whose value is >= v (s ascending).
-__device__ __forceinline__ int lower_bound(const int32_t* s, int n,
-                                           int32_t v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (s[mid] < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+__device__ __forceinline__ unsigned long long run_key(uint32_t count,
+                                                      int32_t label) {
+  return (static_cast<unsigned long long>(count) << 32) |
+         (0xFFFFFFFFu - static_cast<uint32_t>(label));
 }
 
-// Maximum of v over the block; blockDim.x is a multiple of 32.
-__device__ __forceinline__ unsigned long long block_max(
-    unsigned long long v, unsigned long long* red) {
+// The label of a key, 0 for no key.
+__device__ __forceinline__ int32_t key_label(unsigned long long key) {
+  return key ? static_cast<int32_t>(0xFFFFFFFFu - static_cast<uint32_t>(key))
+             : 0;
+}
+
+__device__ __forceinline__ void keep_top2(unsigned long long key,
+                                          unsigned long long& b1,
+                                          unsigned long long& b2) {
+  if (key > b1) {
+    b2 = b1;
+    b1 = key;
+  } else if (key > b2) {
+    b2 = key;
+  }
+}
+
+// The key of the thread's best run whose label is not `skip` (the thread's
+// top two keys are of two labels).
+__device__ __forceinline__ unsigned long long best_other(
+    unsigned long long b1, unsigned long long b2, int32_t skip) {
+  return b1 && key_label(b1) == skip ? b2 : b1;
+}
+
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
   for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long w = __shfl_down_sync(0xFFFFFFFFu, v, o);
+    const unsigned long long w = __shfl_xor_sync(kFull, v, o);
     v = w > v ? w : v;
   }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long m = 0;
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
-      m = red[w] > m ? red[w] : m;
-    }
-    red[32] = m;
-  }
-  __syncthreads();
-  v = red[32];
-  __syncthreads();  // red is reused by the next call
   return v;
 }
 
-// Best run key over the run ends of positive labels other than `skip`.
-__device__ __forceinline__ unsigned long long best_run(
-    const int32_t* s, int Pp, int32_t skip, unsigned long long* red) {
-  unsigned long long best = 0;
-  for (int i = threadIdx.x; i < Pp; i += blockDim.x) {
-    const int32_t v = s[i];
-    if (v > 0 && v != skip && (i == Pp - 1 || s[i + 1] != v)) {
-      const unsigned long long count = i - lower_bound(s, i, v) + 1;
-      const unsigned long long key =
-          (count << 32) | (0xFFFFFFFFu - static_cast<uint32_t>(v));
-      best = key > best ? key : best;
-    }
-  }
-  return block_max(best, red);
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
-// The block's row s[0, Pp), already copied and padded: bitonic sort,
-// ascending, then the two best_run passes into out[0, 5).  `s` is shared
-// memory (score_kernel) or the block's own slice of device scratch
-// (score_long_kernel); either way only this block touches it, and
-// __syncthreads() makes each stage's writes visible to the next.
-__device__ __forceinline__ void sort_and_score(int32_t* s, int Pp,
-                                               int32_t* out,
-                                               unsigned long long* red) {
-  for (int size = 2; size <= Pp; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (Pp >> 1); t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const int32_t a = s[i];
-        const int32_t b = s[j];
-        if ((a > b) == ((i & size) == 0)) {
-          s[i] = b;
-          s[j] = a;
+__device__ __forceinline__ void write_result(int32_t* out, int total,
+                                             unsigned long long best,
+                                             unsigned long long second) {
+  out[0] = total;
+  out[1] = key_label(best);
+  out[2] = static_cast<int32_t>(best >> 32);
+  out[3] = key_label(second);
+  out[4] = static_cast<int32_t>(second >> 32);
+}
+
+// The warp's row a (E labels a lane) sorted by a bitonic network, then the
+// keys of the run ends of positive labels: each lane's top two in b1, b2.
+template <int E>
+__device__ __forceinline__ void sorted_top2(int32_t (&a)[E], int lane,
+                                            unsigned long long& b1,
+                                            unsigned long long& b2) {
+  constexpr int kLogPp = 5 + (E >= 2) + (E >= 4) + (E >= 8) + (E >= 16) +
+                         (E >= 32);
+  static_assert((32 << (kLogPp - 5)) == 32 * E, "E is a power of two");
+  // bitonic sort, ascending over positions i = lane * E + e.  A block of
+  // `size` positions sorts ascending when bit `size` of i is 0: below E
+  // that bit is e's (known at compile time), from E on it is the lane's.
+  // Each compare-exchange is a min and a max.
+#pragma unroll
+  for (int ls = 1; ls <= kLogPp; ++ls) {
+    const int size = 1 << ls;
+    const bool lane_asc = size < E || (lane & (size / E)) == 0;
+#pragma unroll
+    for (int lt = ls - 1; lt >= 0; --lt) {
+      const int stride = 1 << lt;
+      if (stride >= E) {
+        // partner: the same register of lane ^ (stride / E)
+        const int lstride = stride / E;
+        const bool keep_min = lane_asc == ((lane & lstride) == 0);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int32_t o = __shfl_xor_sync(kFull, a[e], lstride);
+          a[e] = keep_min ? min(a[e], o) : max(a[e], o);
+        }
+      } else {
+        // partner: register e ^ stride of the same lane
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int l = e ^ stride;
+          if (l > e) {
+            const bool asc = size < E ? (e & size) == 0 : lane_asc;
+            const int32_t lo = min(a[e], a[l]), hi = max(a[e], a[l]);
+            a[e] = asc ? lo : hi;
+            a[l] = asc ? hi : lo;
+          }
         }
       }
-      __syncthreads();
     }
   }
 
-  const unsigned long long b1 = best_run(s, Pp, 0, red);
-  const int32_t best = static_cast<int32_t>(b1 >> 32);
-  const int32_t ibest =
-      best ? static_cast<int32_t>(0xFFFFFFFFu - static_cast<uint32_t>(b1))
-           : 0;
-  const unsigned long long b2 = best_run(s, Pp, ibest, red);
-  const int32_t second = static_cast<int32_t>(b2 >> 32);
-  const int32_t isecond =
-      second ? static_cast<int32_t>(0xFFFFFFFFu - static_cast<uint32_t>(b2))
-             : 0;
-  if (threadIdx.x == 0) {
-    out[0] = Pp - lower_bound(s, Pp, 1);  // windows with a label > 0
-    out[1] = ibest;
-    out[2] = best;
-    out[3] = isecond;
-    out[4] = second;
+  // run starts: the last start at or before each position, carried in from
+  // the lanes before by an inclusive max-scan
+  const int32_t prev = __shfl_up_sync(kFull, a[E - 1], 1);
+  const int32_t next = __shfl_down_sync(kFull, a[0], 1);
+  const int base = lane * E;
+  int last_start = -1;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const bool first =
+        e == 0 ? (lane == 0 || prev != a[0]) : a[e > 0 ? e - 1 : 0] != a[e];
+    if (first) last_start = base + e;
+  }
+  int scan = last_start;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, scan, o);
+    if (lane >= o) scan = max(scan, t);
+  }
+  int start = __shfl_up_sync(kFull, scan, 1);  // lane 0 starts a run at 0
+
+  // each run end of a positive label: its key
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const bool first =
+        e == 0 ? (lane == 0 || prev != a[0]) : a[e > 0 ? e - 1 : 0] != a[e];
+    if (first) start = base + e;
+    const bool last =
+        e == E - 1 ? (lane == 31 || next != a[E - 1])
+                   : a[e] != a[e < E - 1 ? e + 1 : e];
+    if (last && a[e] > 0)
+      keep_top2(run_key(static_cast<uint32_t>(base + e - start + 1), a[e]),
+                b1, b2);
   }
 }
 
-__global__ void score_kernel(const int32_t* __restrict__ labels,
-                             int32_t* __restrict__ results, int P, int Pp) {
-  extern __shared__ int32_t s[];
-  __shared__ unsigned long long red[33];
-  const int64_t r = blockIdx.x;
+// Rows of few distinct labels (a read from one genome) skip the sort: up to
+// kRounds rounds each take the first positive label left, count it over
+// the row by ballot, and zero it.  Labels left after the rounds are sorted;
+// they differ from every counted one, so the two sets of keys merge.
+constexpr int kRounds = 8;
+
+// One warp per read, E labels a lane (Pp = 32 * E).
+template <int E>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    score_warp_kernel(const int32_t* __restrict__ labels,
+                      int32_t* __restrict__ results, int64_t R, int P) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r >= R) return;  // the whole warp
   const int32_t* row = labels + r * P;
-  for (int i = threadIdx.x; i < Pp; i += blockDim.x) {
-    s[i] = i < P ? row[i] : 0;
+
+  // coalesced load: neither the rounds nor the sort care where a label is
+  int32_t a[E];
+  int total = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = e * 32 + lane;
+    a[e] = i < P ? __ldg(row + i) : 0;
+    total += a[e] > 0;
   }
-  __syncthreads();
-  sort_and_score(s, Pp, results + r * 5, red);
+
+  // the rounds: r1, r2 are the top two keys of the counted labels (the
+  // same in every lane)
+  unsigned long long r1 = 0, r2 = 0;
+  bool left = true;
+  for (int round = 0; round < kRounds && left; ++round) {
+    int32_t mine = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) mine = mine > 0 ? mine : a[e];
+    const unsigned any = __ballot_sync(kFull, mine > 0);
+    left = any != 0;
+    if (!left) break;
+    const int32_t cand = __shfl_sync(kFull, mine, __ffs(any) - 1);
+    int count = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool eq = a[e] == cand;
+      count += __popc(__ballot_sync(kFull, eq));
+      a[e] = eq ? 0 : a[e];
+    }
+    keep_top2(run_key(static_cast<uint32_t>(count), cand), r1, r2);
+  }
+  unsigned long long b1 = 0, b2 = 0;
+  if (left) {
+    bool pos = false;
+#pragma unroll
+    for (int e = 0; e < E; ++e) pos |= a[e] > 0;
+    if (__any_sync(kFull, pos)) sorted_top2<E>(a, lane, b1, b2);
+  }
+  unsigned long long best = warp_max(b1);
+  best = r1 > best ? r1 : best;
+  const int32_t ibest = key_label(best);
+  unsigned long long second = warp_max(best_other(b1, b2, ibest));
+  const unsigned long long rsecond = best_other(r1, r2, ibest);
+  second = rsecond > second ? rsecond : second;
+  total = warp_sum(total);
+  if (lane == 0) write_result(results + r * 5, total, best, second);
 }
 
-// score_kernel for rows longer than shared memory holds: the row is sorted
-// in scratch[r, 0:Pp) in device memory.  Plain loads and stores (no __ldg:
-// the read-only path is not coherent with this block's own writes).
-__global__ void score_long_kernel(const int32_t* __restrict__ labels,
-                                  int32_t* __restrict__ results,
-                                  int32_t* scratch, int P, int Pp) {
-  __shared__ unsigned long long red[33];
-  const int64_t r = blockIdx.x;
-  const int32_t* row = labels + r * P;
-  int32_t* s = scratch + r * Pp;
-  for (int i = threadIdx.x; i < Pp; i += blockDim.x) {
-    s[i] = i < P ? row[i] : 0;
-  }
+// Maximum and sum of v over the block (blockDim.x a multiple of 32); every
+// thread gets the result.  red is reused by the next call.
+__device__ __forceinline__ unsigned long long block_max(
+    unsigned long long v, unsigned long long* red) {
+  const int lane = threadIdx.x & 31;
+  v = warp_max(v);
+  if (lane == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  sort_and_score(s, Pp, results + r * 5, red);
+  v = warp_max(lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0ull);
+  __syncthreads();
+  return v;
+}
+
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  const int lane = threadIdx.x & 31;
+  v = warp_sum(v);
+  if (lane == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = warp_sum(lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0);
+  __syncthreads();
+  return v;
+}
+
+// One block of kHistThreads per read: the label histogram in shared
+// memory, kBins counters a range.
+__global__ void __launch_bounds__(kHistThreads)
+    score_hist_kernel(const int32_t* __restrict__ labels,
+                      int32_t* __restrict__ results, int P) {
+  extern __shared__ uint32_t hist[];
+  __shared__ unsigned long long red[kHistThreads / 32];
+  __shared__ int red_sum[kHistThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int32_t* row = labels + static_cast<int64_t>(blockIdx.x) * P;
+  unsigned long long b1 = 0, b2 = 0;
+  int total = 0;
+  bool upper = false;
+  for (int lo = 0;; lo += kBins) {
+    for (int c = threadIdx.x; c < kBins; c += blockDim.x) hist[c] = 0;
+    __syncthreads();
+    // whole warps step together, so every lane takes part in the match
+    for (int i0 = 0; i0 < P; i0 += blockDim.x) {
+      const int i = i0 + threadIdx.x;
+      const int32_t v = i < P ? __ldg(row + i) : 0;
+      if (lo == 0) {
+        total += v > 0;
+        upper |= v >= kBins;
+      }
+      const bool mine = v > 0 && v >= lo && v - lo < kBins;
+      const unsigned peers = __match_any_sync(kFull, mine ? v : -1);
+      if (mine && lane == __ffs(peers) - 1)
+        atomicAdd(&hist[v - lo], static_cast<uint32_t>(__popc(peers)));
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < kBins; c += blockDim.x) {
+      const uint32_t n = hist[c];
+      if (n) keep_top2(run_key(n, lo + c), b1, b2);
+    }
+    // the upper range only when some label needs it; the barrier also
+    // orders this scan before the counters are zeroed again
+    if (lo != 0 || !__syncthreads_or(upper)) break;
+  }
+  const unsigned long long best = block_max(b1, red);
+  const unsigned long long second =
+      block_max(best_other(b1, b2, key_label(best)), red);
+  total = block_sum(total, red_sum);
+  if (threadIdx.x == 0)
+    write_result(results + static_cast<int64_t>(blockIdx.x) * 5, total, best,
+                 second);
+}
+
+template <int E>
+int launch_warp(const int32_t* labels, int32_t* results, int64_t R, int P,
+                cudaStream_t st) {
+  const int64_t blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  score_warp_kernel<E><<<static_cast<unsigned>(blocks), 32 * kWarpsPerBlock,
+                         0, st>>>(labels, results, R, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_hist(const int32_t* labels, int32_t* results, int64_t R, int P,
+                cudaStream_t st) {
+  if (R > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = kBins * static_cast<int>(sizeof(uint32_t));
+  const cudaError_t e = cudaFuncSetAttribute(
+      score_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  score_hist_kernel<<<static_cast<unsigned>(R), kHistThreads, smem, st>>>(
+      labels, results, P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// results int32 [R, 5] from labels int32 [R, P], 1 <= P <= 32768.
-// Launches on `stream` and returns cudaGetLastError().
+// results int32 [R, 5] from labels int32 [R, P], 1 <= P <= kMaxScore: the
+// warp path up to kWarpMax windows, the histogram above.  Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int cuclark_score(const void* labels, void* results, int64_t R,
                              int P, void* stream) {
-  if (P < 1 || P > kMaxPp) return static_cast<int>(cudaErrorInvalidValue);
+  if (P < 1 || P > kMaxScore) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaSuccess);
-  int Pp = 1;
-  while (Pp < P) Pp <<= 1;
-  int threads = Pp >> 1;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  const size_t smem = static_cast<size_t>(Pp) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  score_kernel<<<static_cast<unsigned>(R), threads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(labels), static_cast<int32_t*>(results), P,
-      Pp);
-  return static_cast<int>(cudaGetLastError());
+  const int32_t* in = static_cast<const int32_t*>(labels);
+  int32_t* out = static_cast<int32_t*>(results);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (P > kWarpMax) return launch_hist(in, out, R, P, st);
+  if (P <= 32) return launch_warp<1>(in, out, R, P, st);
+  if (P <= 64) return launch_warp<2>(in, out, R, P, st);
+  if (P <= 128) return launch_warp<4>(in, out, R, P, st);
+  if (P <= 256) return launch_warp<8>(in, out, R, P, st);
+  if (P <= 512) return launch_warp<16>(in, out, R, P, st);
+  return launch_warp<32>(in, out, R, P, st);
 }
 
-// results int32 [R, 5] from labels int32 [R, P] with P > 32768, through
-// scratch int32 [R, Pp], Pp the power of two at or above P.  Launches on
-// `stream` and returns cudaGetLastError().
+// results int32 [R, 5] from labels int32 [R, P] with P > kMaxScore: the
+// histogram path.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int cuclark_score_long(const void* labels, void* results,
-                                  void* scratch, int64_t R, int P, int Pp,
-                                  void* stream) {
-  if (P <= kMaxPp || Pp < P || (Pp & (Pp - 1)) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                  int64_t R, int P, void* stream) {
+  if (P <= kMaxScore) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaSuccess);
-  score_long_kernel<<<static_cast<unsigned>(R), 1024, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(labels), static_cast<int32_t*>(results),
-      static_cast<int32_t*>(scratch), P, Pp);
-  return static_cast<int>(cudaGetLastError());
+  return launch_hist(static_cast<const int32_t*>(labels),
+                     static_cast<int32_t*>(results), R, P,
+                     static_cast<cudaStream_t>(stream));
 }

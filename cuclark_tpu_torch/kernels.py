@@ -20,8 +20,8 @@ mesh, `parallel/mesh.py`); and the resident query over unpacked codes
 (`pipeline.classify_step`).  Their counts are kept per layout: `query`,
 `query_part` and `query_codes` for qs, the same names with `_q4` or `_s2`
 for the others.  `score` launches the score kernel (`csrc/score.cu`),
-counted as `score` for rows that sort in shared memory and `score_long`
-for longer ones.
+counted as `score` for rows of up to MAX_SCORE_WINDOWS windows and
+`score_long` for longer ones.
 
 A launch runs with its tensors' device made current, on that device's
 current stream, so the devices of a mesh may be different cards or
@@ -48,8 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuclark_tpu_torch"
 
-# Largest label row the score kernel sorts in shared memory (128 KB);
-# longer rows take its device-memory path.
+# Longest label row of the score kernel's `score` entry; longer rows
+# (reads over 32,798 bases at k=31) go to its `score_long` entry.
 MAX_SCORE_WINDOWS = 32768
 
 # Kernel launches per wrapper since the last reset_launches().
@@ -86,40 +86,47 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcuclark_kernels_{h.hexdigest()[:16]}.so"
 
 
+def compile_library(src_dir: Path, path: Path) -> None:
+    """nvcc SOURCES of src_dir into the shared library `path`, through a
+    per-process temp name and an atomic rename: concurrent first builds
+    never publish a half-written library."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(src_dir / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument and return types on a loaded library."""
+    vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_uint32)
+    lib.cuclark_query.restype = i32
+    lib.cuclark_query.argtypes = [i32, i32, vp, vp, vp, vp, vp, i64, i32,
+                                  i32, i32, i32, i32, i32, i64, i64, i64,
+                                  i64, i32, u32, u32, u32, i32, i32, vp]
+    lib.cuclark_score.restype = i32
+    lib.cuclark_score.argtypes = [vp, vp, i64, i32, vp]
+    lib.cuclark_score_long.restype = i32
+    lib.cuclark_score_long.argtypes = [vp, vp, i64, i32, vp]
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """Build the kernels' library if needed, load it once, and bind the
     C functions' argument types."""
     global _LIB
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        path = library_path()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # per-process temp name, then an atomic rename: concurrent
-            # first builds never publish a half-written library
-            tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(_CSRC / s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                             ctypes.c_uint32)
-        lib.cuclark_query.restype = i32
-        lib.cuclark_query.argtypes = [i32, i32, vp, vp, vp, vp, vp, i64, i32,
-                                      i32, i32, i32, i32, i32, i64, i64, i64,
-                                      i64, i32, u32, u32, u32, i32, i32, vp]
-        lib.cuclark_score.restype = i32
-        lib.cuclark_score.argtypes = [vp, vp, i64, i32, vp]
-        lib.cuclark_score_long.restype = i32
-        lib.cuclark_score_long.argtypes = [vp, vp, vp, i64, i32, i32, vp]
-        _LIB = lib
-        return lib
+        if _LIB is None:
+            path = library_path()
+            if not path.exists():
+                compile_library(_CSRC, path)
+            _LIB = bind(ctypes.CDLL(str(path)))
+        return _LIB
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, device) -> None:
@@ -190,9 +197,11 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
         if stash.data_ptr() % 16:
             raise ValueError("table rows must be 16-byte aligned")
         stash_ptr = stash.data_ptr()
-    # qs and q4 rows are read as two 16 B loads; s2 rows as 4 B loads
-    if spec.layout != "s2" and main.data_ptr() % 16:
-        raise ValueError("table rows must be 16-byte aligned")
+    # qs and q4 rows are read as two 16 B loads; s2 rows as 8 B loads when
+    # the slots are even, else 4 B loads
+    align = 16 if spec.layout != "s2" else 8 if spec.slots % 2 == 0 else 4
+    if main.data_ptr() % align:
+        raise ValueError(f"table rows must be {align}-byte aligned")
     out = acc if acc is not None else torch.empty(
         (R, P), dtype=torch.int32, device=dev)
     lib = load()
@@ -266,10 +275,9 @@ def query_codes(codes: torch.Tensor, main: torch.Tensor,
 
 
 def score(labels: torch.Tensor) -> torch.Tensor:
-    """Launch the score kernel (csrc/score.cu) -> results int32 [R, 5].
-    Rows of up to MAX_SCORE_WINDOWS windows sort in shared memory
-    (`score`); longer rows sort in a device scratch buffer [R, Pp]
-    allocated here (`score_long`)."""
+    """Launch the score kernel (csrc/score.cu) -> results int32 [R, 5]:
+    its `score` entry for rows of up to MAX_SCORE_WINDOWS windows, its
+    `score_long` entry for longer ones.  Neither needs scratch."""
     dev = labels.device
     if dev.type != "cuda":
         raise ValueError(f"score kernel needs CUDA tensors, got {dev}")
@@ -278,18 +286,11 @@ def score(labels: torch.Tensor) -> torch.Tensor:
     if P < 1:
         raise ValueError(f"labels need at least one window per read, got {P}")
     results = torch.empty((R, 5), dtype=torch.int32, device=dev)
+    name = "score" if P <= MAX_SCORE_WINDOWS else "score_long"
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if P <= MAX_SCORE_WINDOWS:
-            _raise_on(lib.cuclark_score(labels.data_ptr(), results.data_ptr(),
-                                        R, P, stream), "score")
-            LAUNCHES["score"] += 1
-            return results
-        Pp = 1 << (P - 1).bit_length()
-        scratch = torch.empty((R, Pp), dtype=torch.int32, device=dev)
-        _raise_on(lib.cuclark_score_long(
-            labels.data_ptr(), results.data_ptr(), scratch.data_ptr(), R, P,
-            Pp, stream), "score_long")
-    LAUNCHES["score_long"] += 1
+        _raise_on(getattr(lib, f"cuclark_{name}")(
+            labels.data_ptr(), results.data_ptr(), R, P, stream), name)
+    LAUNCHES[name] += 1
     return results

@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Old against new: two builds of the port's CUDA kernels timed in turns.
+
+Run from the repository root on a machine with an NVIDIA GPU:
+
+    python3 scripts/torch_kernel_ab.py --old DIR [DIR ...]
+
+Each DIR holds an earlier `query.cu` and `score.cu` of
+`cuclark_tpu_torch/csrc` (for example the parent commit's, from `git show
+HEAD~1:<path>`).  Every set is built with `cuclark_tpu_torch.kernels`'
+nvcc flags, an old one into `build/kernel_ab/<DIR name>/`, the new one by
+`kernels.load()`, and called through its C entries on the same tensors.
+The shapes are the main path's, from chip_smoke.py's headline tables (qs,
+q4 and s2 of the same 64M 31-mers) and reads:
+
+  - query_qs, query_q4, query_s2: the resident query of a [65,536, 152]
+    wire batch of 150 bp reads;
+  - query_part_qs: a pass over the qs table in 4 bucket-range parts (the
+    stash on part 0, the labels accumulated), per part call;
+  - classify_step: the codes front half on the same reads as unpacked
+    codes, then the score kernel;
+  - step_packed: the wire query then the score kernel (the device step of
+    `pipeline.classify_step_packed`);
+  - score_122, score_290: the score kernel on the labels of the 150 bp
+    reads and of 65,536 joined 301 bp pairs (bin 320); score_122_many on
+    [65,536, 122] random labels over 1..65,535 with 30% misses (rows of
+    many distinct labels: the warp path's sort);
+  - score_long: the labels of 256 reads of 33-100 kb, [256, 98,402].
+
+Each case runs old, new, new, old for each old build, `--turns` times
+(12 timings of each old build at the default 6), a timing being the mean
+of CUDA events over `--reps` launches after a warm-up; every build's
+outputs must equal the new one's.  Each case's least time (device-memory
+bytes at 3.35 TB/s, counted as chip_smoke.py counts them) stands beside
+its medians.  Prints a line per
+case, the card's name and power limit, and one JSON object last, also
+written to `--out`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def build_old(src: Path) -> tuple[ctypes.CDLL, bool]:
+    """Build DIR's query.cu and score.cu into build/kernel_ab/ and bind
+    their C entries.  Returns the library and whether its score_long
+    entry takes a scratch buffer (the sorting design did)."""
+    from cuclark_tpu_torch import kernels
+
+    path = ROOT / "build" / "kernel_ab" / src.resolve().name / "libold.so"
+    kernels.compile_library(src, path)
+    lib = kernels.bind(ctypes.CDLL(str(path)))
+    scratch = "void* scratch" in (src / "score.cu").read_text()
+    if scratch:
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.cuclark_score_long.argtypes = [vp, vp, vp, i64, i32, i32, vp]
+    return lib, scratch
+
+
+class Kernels:
+    """The C entries of one build, called on torch tensors on the card."""
+
+    def __init__(self, lib, score_scratch: bool):
+        self.lib, self.score_scratch = lib, score_scratch
+
+    def query(self, x, vb, main, stash, out, *, spec, k, bucket_start=0,
+              stash_start=0, accumulate=False):
+        """x: packed2 [R, L/4] with vb [R, L/8], or codes [R, L] with vb
+        None; out int32 [R, P]."""
+        import torch
+
+        from cuclark_tpu_torch import kernels
+        from cuclark_tpu_torch.hashdb import feistel_seed_consts
+
+        R, s2 = x.shape
+        s8 = 0 if vb is None else vb.shape[1]
+        P = out.shape[1]
+        c1, c2, c3 = feistel_seed_consts(spec.seed)
+        err = self.lib.cuclark_query(
+            kernels._LAYOUT_CODE[spec.layout], int(vb is None), x.data_ptr(),
+            None if vb is None else vb.data_ptr(), main.data_ptr(),
+            None if stash is None else stash.data_ptr(), out.data_ptr(), R,
+            P, s2, s8, k, spec.nb_bits, spec.stash_bits, bucket_start,
+            main.shape[0], stash_start, 0 if stash is None else
+            stash.shape[0], int(accumulate), c1, c2, c3, spec.slots,
+            spec.num_choices, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"query launch failed: CUDA error {err}")
+        return out
+
+    def score(self, labels, out, scratch=None):
+        import torch
+
+        R, P = labels.shape
+        st = torch.cuda.current_stream().cuda_stream
+        if P <= 32768:
+            err = self.lib.cuclark_score(labels.data_ptr(), out.data_ptr(),
+                                         R, P, st)
+        elif self.score_scratch:
+            err = self.lib.cuclark_score_long(
+                labels.data_ptr(), out.data_ptr(), scratch.data_ptr(), R, P,
+                scratch.shape[1], st)
+        else:
+            err = self.lib.cuclark_score_long(labels.data_ptr(),
+                                              out.data_ptr(), R, P, st)
+        if err:
+            raise RuntimeError(f"score launch failed: CUDA error {err}")
+        return out
+
+
+def timed(fn, reps: int) -> float:
+    """Mean ms per call over reps calls, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def joined_pairs(genomes: np.ndarray, n: int) -> np.ndarray:
+    """n joined pairs as the pipeline packs them: mate 1 (the first 150
+    bases of a 400 bp fragment), an N, mate 2 (the reverse complement of
+    its last 150), 1% substitutions, padded with Ns to the 320 bin."""
+    import chip_smoke as cs
+    from cuclark_tpu_torch import codec
+
+    rng = np.random.default_rng(2)
+    src = rng.integers(0, len(genomes), size=n)
+    pos = rng.integers(0, cs.GENOME_LEN - cs.FRAGMENT + 1, size=n)
+    frag = genomes[src[:, None], pos[:, None] + np.arange(cs.FRAGMENT)]
+    m1 = cs._substitute(rng, frag[:, :cs.READ_LEN].copy())
+    m2 = cs._substitute(rng, (3 - frag[:, cs.FRAGMENT - cs.READ_LEN:])
+                        [:, ::-1].copy())
+    out = np.full((n, 320), codec.INVALID, np.uint8)
+    out[:, :cs.READ_LEN] = m1
+    out[:, cs.READ_LEN + 1:2 * cs.READ_LEN + 1] = m2
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", type=Path, nargs="+", required=True,
+                    help="directories of earlier query.cu and score.cu")
+    ap.add_argument("--genomes", type=int, default=16384)
+    ap.add_argument("--reads", type=int, default=65536)
+    ap.add_argument("--turns", type=int, default=6)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--cases", nargs="*", default=None,
+                    help="time only these cases (default: all)")
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "build" / "kernel_ab.json")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from cuclark_tpu_torch import codec, kernels
+    from cuclark_tpu_torch.hashdb import table_to_device
+
+    t0 = time.time()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    new = Kernels(kernels.load(), False)
+    olds = {d.resolve().name: Kernels(*build_old(d)) for d in args.old}
+    print(f"built {len(olds) + 1} sets in {time.time() - t0:.1f} s",
+          flush=True)
+
+    t0 = time.time()
+    genomes, dbs = cs.build_headline_db(args.genomes, None)
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as td:
+        codes, _ = cs.write_reads(genomes, args.reads, Path(td) / "r.fq")
+        long_codes = cs.write_long_reads(genomes, Path(td) / "l.fq")
+    pairs = joined_pairs(genomes, args.reads)
+    del genomes
+    print(f"tables and reads in {time.time() - t0:.1f} s", flush=True)
+
+    dev = torch.device("cuda")
+    k, R = cs.K, args.reads
+    padded = np.full((R, 152), codec.INVALID, np.uint8)
+    padded[:, :cs.READ_LEN] = codes
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(padded))
+    codes_t = torch.from_numpy(padded).to(dev)
+    P = 152 - k + 1
+    L_long = int(np.ceil((max(len(c) for c in long_codes) + 1) / 128) * 128)
+    lpad = np.full((len(long_codes), L_long), codec.INVALID, np.uint8)
+    for i, c in enumerate(long_codes):
+        lpad[i, :len(c)] = c
+    lp2, lvb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(lpad))
+    pp2, pvb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(pairs))
+    del lpad, pairs
+
+    tables = {lay: table_to_device(db, dev) for lay, db in dbs.items()}
+    spec = {lay: db.spec for lay, db in dbs.items()}
+    qs_main, qs_stash = tables["qs"]
+
+    def labels_of(x, v, L):
+        out = torch.empty((x.shape[0], L - k + 1), dtype=torch.int32,
+                          device=dev)
+        return new.query(x, v, qs_main, qs_stash, out, spec=spec["qs"], k=k)
+
+    lab122 = labels_of(p2, vb, 152)
+    lab290 = labels_of(pp2, pvb, 320)
+    rng = np.random.default_rng(5)
+    many = rng.integers(1, 65536, size=tuple(lab122.shape)).astype(np.int32)
+    many[rng.random(many.shape) < 0.3] = 0
+    lab_many = torch.from_numpy(many).to(dev)
+    del many
+    lab_long = labels_of(lp2, lvb, L_long)
+    del lp2, lvb, pp2, pvb
+    Pp_long = 1 << (lab_long.shape[1] - 1).bit_length()
+    scratch = torch.empty((lab_long.shape[0], Pp_long), dtype=torch.int32,
+                          device=dev) if any(
+        o.score_scratch for o in olds.values()) else None
+
+    touched = {lay: cs.touched_rows(codes_t, spec[lay], k) for lay in dbs}
+    wire_b, lab_b = p2.numel() + vb.numel(), 4 * R * P
+    bound = {f"query_{lay}": cs._bound_ms(cs.query_bytes(
+        touched[lay], spec[lay], wire_b, lab_b)) for lay in dbs}
+    bound["query_part_qs"] = cs._bound_ms(cs.query_bytes(
+        touched["qs"], spec["qs"], wire_b, lab_b, 4))
+    bound["classify_step"] = cs._bound_ms(cs.query_bytes(
+        touched["qs"], spec["qs"], R * 152, 20 * R))
+    bound["step_packed"] = cs._bound_ms(cs.query_bytes(
+        touched["qs"], spec["qs"], wire_b, 20 * R))
+    for name, lab in (("score_122", lab122), ("score_290", lab290),
+                      ("score_122_many", lab_many),
+                      ("score_long", lab_long)):
+        bound[name] = cs._bound_ms(4 * lab.numel() + 20 * lab.shape[0])
+    del touched
+
+    def make_cases(kern: Kernels):
+        """name -> (callable, launches per call, output tensor)."""
+        out = torch.empty((R, P), dtype=torch.int32, device=dev)
+        res = {n: torch.empty((lab.shape[0], 5), dtype=torch.int32,
+                              device=dev)
+               for n, lab in (("122", lab122), ("290", lab290),
+                              ("122_many", lab_many), ("long", lab_long))}
+        cases = {}
+        for lay in dbs:
+            main, stash = tables[lay]
+            cases[f"query_{lay}"] = (
+                lambda main=main, stash=stash, lay=lay: kern.query(
+                    p2, vb, main, stash, out, spec=spec[lay], k=k), 1, out)
+        rows = qs_main.shape[0] // 4
+        acc = torch.empty((R, P), dtype=torch.int32, device=dev)
+
+        def part_pass():
+            for p in range(4):
+                kern.query(p2, vb, qs_main[p * rows:(p + 1) * rows],
+                           qs_stash if p == 0 else None, acc,
+                           spec=spec["qs"], k=k, bucket_start=p * rows,
+                           accumulate=p > 0)
+            return acc
+        cases["query_part_qs"] = (part_pass, 4, acc)
+        step_out = torch.empty((R, 5), dtype=torch.int32, device=dev)
+        codes_lab = torch.empty((R, P), dtype=torch.int32, device=dev)
+
+        def classify_step():
+            kern.query(codes_t, None, qs_main, qs_stash, codes_lab,
+                       spec=spec["qs"], k=k)
+            return kern.score(codes_lab, step_out)
+        cases["classify_step"] = (classify_step, 1, step_out)
+        packed_out = torch.empty((R, 5), dtype=torch.int32, device=dev)
+        wire_lab = torch.empty((R, P), dtype=torch.int32, device=dev)
+
+        def step_packed():
+            kern.query(p2, vb, qs_main, qs_stash, wire_lab, spec=spec["qs"],
+                       k=k)
+            return kern.score(wire_lab, packed_out)
+        cases["step_packed"] = (step_packed, 1, packed_out)
+        for n, lab in (("122", lab122), ("290", lab290),
+                       ("122_many", lab_many), ("long", lab_long)):
+            cases[f"score_{n}"] = (
+                lambda lab=lab, o=res[n]: kern.score(lab, o, scratch), 1,
+                res[n])
+        return cases
+
+    builds = {"new": make_cases(new)}
+    builds.update((name, make_cases(o)) for name, o in olds.items())
+    result = {"card": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "reads": R, "turns": args.turns,
+              "reps": args.reps, "cases": {}}
+    for name in args.cases or builds["new"]:
+        outs = {}
+        for which, cases in builds.items():
+            fn, _, out = cases[name]
+            fn()
+            torch.cuda.synchronize()
+            outs[which] = out.clone()
+            if not torch.equal(outs[which], outs["new"]):
+                raise AssertionError(f"{name}: {which} and new outputs "
+                                     f"differ")
+        # per old build: its timings and the new build's beside them
+        pair = {o: {"old": [], "new": []} for o in olds}
+        reps = max(2, args.reps // 4) if name == "score_long" else args.reps
+        for _ in range(args.turns):
+            for o in olds:
+                for which in ("old", "new", "new", "old"):
+                    fn, per_call, _ = builds[o if which == "old" else
+                                              "new"][name]
+                    pair[o][which].append(timed(fn, reps) / per_call)
+        new_ms = [t for o in olds for t in pair[o]["new"]]
+        new_med = statistics.median(new_ms)
+        case = {"bound_ms": bound[name], "new_ms": new_ms,
+                "new_median_ms": new_med,
+                "share_of_bound_new": bound[name] / new_med}
+        line = [f"{name}: new {new_med:.4f} ms"]
+        for o in olds:
+            t_old, t_new = pair[o]["old"], pair[o]["new"]
+            wins = sum(n < t for n, t in zip(t_new, t_old))
+            case[o] = {"ms": t_old, "median_ms": statistics.median(t_old),
+                       "new_ms": t_new,
+                       "new_median_ms": statistics.median(t_new),
+                       "new_faster_in": wins}
+            line.append(f"{o} {case[o]['median_ms']:.4f} (new "
+                        f"{case[o]['new_median_ms']:.4f} beside it, faster "
+                        f"in {wins} of {len(t_old)})")
+        result["cases"][name] = case
+        print(", ".join(line) + f"; bound {bound[name]:.4f} ms, new at "
+              f"{bound[name] / new_med:.1%} of it", flush=True)
+    for name in ("classify_step", "step_packed"):
+        if name not in result["cases"]:
+            continue
+        c = result["cases"][name]
+        c["new_reads_per_s"] = R / (c["new_median_ms"] / 1e3)
+        for o in olds:
+            c[o]["reads_per_s"] = R / (c[o]["median_ms"] / 1e3)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    print(smi)
+    print(json.dumps({n: {"new_median_ms": c["new_median_ms"],
+                          "bound_ms": c["bound_ms"],
+                          **{o: c[o]["median_ms"] for o in olds}}
+                      for n, c in result["cases"].items()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

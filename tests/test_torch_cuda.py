@@ -50,14 +50,43 @@ def test_query_kernel_matches_plain(dev, k):
     assert int((want > 0).sum()) > R
 
 
-@pytest.mark.parametrize("R,P", [(4096, 122), (64, 1), (33, 1000),
-                                 (16, 16354)])
-def test_score_kernel_matches_plain(dev, R, P):
-    rng = np.random.default_rng(R + P)
+def _score_rows(seed, R, P):
+    """R rows of labels for the score kernel: random small labels with
+    misses; then, where R allows, all miss, random labels over 1..65,535,
+    a tie between a label below 32,768 and one above (the lower wins),
+    the best above 32,768 with the second below, 65,535 the best beside
+    32,767 and 32,768, and a dozen distinct labels (more than the warp
+    path counts before it sorts) with a tie between the first one seen
+    and a later one; then rows of 6 to 40 distinct labels."""
+    rng = np.random.default_rng(seed)
     lab = rng.integers(0, 6, size=(R, P)).astype(np.int32)
     lab[rng.random((R, P)) < 0.3] = 0
-    lab[0] = 0
-    t = torch.from_numpy(lab).to(dev)
+    q = P // 4
+    special = np.zeros((6, P), np.int32)
+    special[1] = rng.integers(1, 65536, size=P)
+    special[2, :q], special[2, q:2 * q] = 40000, 1234
+    special[3, :2 * q], special[3, 2 * q:3 * q] = 50000, 77
+    special[4, :2 * q], special[4, 2 * q:3 * q] = 65535, 32767
+    special[4, 3 * q:] = 32768
+    special[5] = rng.integers(1, 13, size=P) * 1000
+    special[5, :q], special[5, -q:] = 9000, 2000
+    n = min(R, 6)
+    lab[:n] = special[:n]
+    for r in range(n, min(R, 64)):
+        lab[r] = rng.integers(0, 6 + r % 35, size=P) * 37
+    return lab
+
+
+SCORE_P = [1, 2, 31, 32, 33, 98, 122, 128, 129, 290, 994, 1025, 2018, 16354,
+           32768]
+
+
+@pytest.mark.parametrize("P", SCORE_P)
+def test_score_kernel_matches_plain(dev, P):
+    """Every path of the `score` entry: the warp path up to 1,024 windows
+    (one E per power of two), the histogram above, both label ranges."""
+    R = 4096 if P <= 1024 else 16
+    t = torch.from_numpy(_score_rows(R + P, R, P)).to(dev)
     before = kernels.LAUNCHES["score"]
     got = score.score_labels(t)
     torch.cuda.synchronize()
@@ -65,14 +94,18 @@ def test_score_kernel_matches_plain(dev, R, P):
     assert torch.equal(got, score.score_labels_plain(t))
 
 
-@pytest.mark.parametrize("R,P", [(3, 32769), (4, 40000), (2, 100000)])
-def test_score_long_kernel_matches_plain(dev, R, P):
-    """Rows past the shared-memory sort take the device-memory path."""
-    rng = np.random.default_rng(P)
-    lab = rng.integers(0, 40, size=(R, P)).astype(np.int32)
-    lab[rng.random((R, P)) < 0.5] = 0
-    lab[0] = 0
-    t = torch.from_numpy(lab).to(dev)
+def test_score_kernel_full_batch(dev):
+    """A main-path batch: 65,536 reads of 122 windows."""
+    t = torch.from_numpy(_score_rows(7, 65536, 122)).to(dev)
+    got = score.score_labels(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, score.score_labels_plain(t))
+
+
+@pytest.mark.parametrize("P", [32769, 40000, 100000])
+def test_score_long_kernel_matches_plain(dev, P):
+    """Rows over 32,768 windows take the `score_long` entry."""
+    t = torch.from_numpy(_score_rows(P, 6, P)).to(dev)
     before = dict(kernels.LAUNCHES)
     got = score.score_labels(t)
     torch.cuda.synchronize()
@@ -389,3 +422,107 @@ def test_mesh_classifier_matches_cpu(dev, tmp_path):
         finally:
             clf.close()
         assert kernels.LAUNCHES["query_part"] > before
+
+
+TILE = 128  # csrc/query.cu kTile: windows per block
+
+
+@pytest.mark.parametrize("k", [15, 16, 17, 27, 31, 32])
+def test_query_kernel_tile_edges(dev, k):
+    """The wire and codes front halves at P = TILE and TILE + 1 windows
+    (one block and a block with one window), with an N on each side of
+    every tile edge, against the plain versions on a qs table with a
+    stash; the two front halves agree."""
+    db, _ = _qs_case(dev, k, 70 + k)
+    main, stash = hashdb.table_to_device(db, dev)
+    rng = np.random.default_rng(k)
+    km = db.items()[0]
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    for P in (TILE, TILE + 1):
+        L = P + k - 1
+        R = 512
+        codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+        for r in range(R):
+            for p in range(int(rng.integers(k)), L - k + 1, k):
+                codes[r, p:p + k] = (km[rng.integers(len(km))] >> shifts) & 3
+        edges = [q for q in (TILE - 1, TILE, TILE + k - 2, TILE + k - 1, L - 1)
+                 if q < L]
+        for i, q in enumerate(edges):
+            codes[1 + 2 * i, q] = codec.INVALID
+        codes[rng.random((R, L)) < 0.002] = codec.INVALID
+        p2, vb = (torch.from_numpy(a).to(dev)
+                  for a in codec.pack_codes(codes))
+        args = dict(k=k, spec=db.spec)
+        got = probe.query_labels(p2, vb, main, stash, **args)
+        torch.cuda.synchronize()
+        want = probe.query_labels_plain(p2, vb, main, stash, **args)
+        assert got.shape == (R, 4 * p2.shape[1] - k + 1)
+        assert torch.equal(got, want)
+        c = torch.from_numpy(codes).to(dev)
+        got_c = probe.query_codes_labels(c, main, stash, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c, probe.query_codes_labels_plain(
+            c, main, stash, **args))
+        assert torch.equal(got_c, got[:, :P])
+        assert int((want[:, :P] > 0).sum()) > R
+
+
+def test_query_kernel_full_batch(dev):
+    """A batch of exactly 65,536 reads of 152 bases (gridDim.x holds the
+    reads): wire and codes front halves against plain."""
+    k = 31
+    db, _ = _qs_case(dev, k, 99)
+    main, stash = hashdb.table_to_device(db, dev)
+    rng = np.random.default_rng(3)
+    km = db.items()[0]
+    R, L = 65536, 152
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    planted = (km[rng.integers(len(km), size=R)][:, None] >> shifts) & 3
+    codes[:, 40:40 + k] = planted
+    codes[rng.random((R, L)) < 0.01] = codec.INVALID
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    args = dict(k=k, spec=db.spec)
+    got = probe.query_labels(p2, vb, main, stash, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probe.query_labels_plain(p2, vb, main, stash,
+                                                     **args))
+    c = torch.from_numpy(codes).to(dev)
+    got_c = probe.query_codes_labels(c, main, stash, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, probe.query_codes_labels_plain(c, main, stash,
+                                                             **args))
+    assert int((got[:, 40] > 0).sum()) > R // 2
+
+
+def test_query_kernel_rows_past_grid_limit(dev):
+    """Rows of more than 65,535 tiles (an assembled genome classified as
+    one record) take several launches of the query kernel; wire and codes
+    front halves against plain, with hits past the first launch's tiles."""
+    k = 31
+    db, _ = _qs_case(dev, k, 123)
+    main, stash = hashdb.table_to_device(db, dev)
+    rng = np.random.default_rng(8)
+    km = db.items()[0]
+    first = 65535 * TILE
+    R, L = 2, first + k + 1500
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    pos = np.arange(0, L - k + 1, 997)
+    for r in range(R):
+        planted = (km[rng.integers(len(km), size=len(pos))][:, None]
+                   >> shifts) & 3
+        codes[r, pos[:, None] + np.arange(k)] = planted
+    codes[rng.random((R, L)) < 0.001] = codec.INVALID
+    args = dict(k=k, spec=db.spec)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    got = probe.query_labels(p2, vb, main, stash, **args)
+    torch.cuda.synchronize()
+    want = probe.query_labels_plain(p2, vb, main, stash, **args)
+    assert torch.equal(got, want)
+    assert int((want[:, first:] > 0).sum()) > 0
+    c = torch.from_numpy(codes).to(dev)
+    got_c = probe.query_codes_labels(c, main, stash, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, probe.query_codes_labels_plain(c, main, stash,
+                                                             **args))
