@@ -33,6 +33,18 @@ against `--device cpu`:
   - multiprocess: two ranks of `classify --coordinator` over gloo on the
     card, and two `--num-hosts 2` runs, each pair's CSVs concatenating
     to the resident CSV.
+  - example_sh: examples/example.sh (build, golden CSV, accuracy loop,
+    abundance) with `CUCLARK_TPU=cuclark-tpu-torch`;
+  - accuracy: simulate-reads of 131,072 reads from the 16,384 genomes as
+    FASTA files, classify on the card, evaluate with floors (recall >=
+    0.95, precision >= 0.98), abundance -D and density, each timed;
+  - clark_interop: export-clark --light and import-clark of the
+    headline table (the same pairs; the imported table's CSV equal to
+    the resident one), export-ht / import-ht and set-targets on the
+    example genomes;
+  - profile: classify --profile, the trace's query and score kernel
+    events against the launch counts, the card's busy share, and the
+    kernels' durations against their launch rate.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -54,6 +66,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -435,15 +448,21 @@ def build_headline_db(n_genomes: int, tmp: Path | None):
     del parts, labs
     names = ["NA"] + [f"T{i}" for i in range(1, n_genomes + 1)]
     dbs = {}
-    for layout in ("qs", "q4", "s2"):
-        cfg = DBConfig(k=K, target_load=0.85, layout=layout,
-                       slots=S2_SLOTS, num_choices=S2_CHOICES)
-        dbs[layout] = build_table(kmers, labels, names, cfg)
-        if tmp is None:
-            continue
-        dbdir = tmp / f"db_{layout}"
-        dbdir.mkdir(parents=True, exist_ok=True)
-        dbs[layout].save(dbdir / db_name(cfg, n_genomes))
+    # the saves (zlib, which releases the GIL) run beside the next builds
+    with ThreadPoolExecutor(3) as pool:
+        saves = []
+        for layout in ("qs", "q4", "s2"):
+            cfg = DBConfig(k=K, target_load=0.85, layout=layout,
+                           slots=S2_SLOTS, num_choices=S2_CHOICES)
+            dbs[layout] = build_table(kmers, labels, names, cfg)
+            if tmp is None:
+                continue
+            dbdir = tmp / f"db_{layout}"
+            dbdir.mkdir(parents=True, exist_ok=True)
+            saves.append(pool.submit(dbs[layout].save,
+                                     dbdir / db_name(cfg, n_genomes)))
+        for f in saves:
+            f.result()
     return genomes, dbs
 
 
@@ -498,28 +517,39 @@ def head_fastq(src: Path, dst: Path, n: int) -> Path:
     return dst
 
 
-def run_cli(argv, launches_of=None):
-    """cuclark-tpu-torch with stdout and stderr captured -> (stderr,
-    kernel launches of this run).  Raises on a non-zero return."""
-    from cuclark_tpu_torch import cli, kernels
+def run_tool(argv) -> tuple[str, str, float]:
+    """cuclark-tpu-torch in this process, its output captured ->
+    (stdout, stderr, seconds).  Raises on a non-zero return."""
+    from cuclark_tpu_torch import cli
 
-    import torch
-
-    err = io.StringIO()
-    kernels.reset_launches()
-    with contextlib.redirect_stdout(io.StringIO()), \
-            contextlib.redirect_stderr(err):
+    out, err = io.StringIO(), io.StringIO()
+    t1 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    dt = time.time() - t1
     if rc:
         raise AssertionError(f"{' '.join(argv[:1] + argv[-4:])} returned "
                              f"{rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue(), dt
+
+
+def run_cli(argv, launches_of=None):
+    """run_tool with the kernel launches counted from 0 -> (stderr,
+    kernel launches of this run).  Raises on a non-zero return, and when
+    a kernel of launches_of never launched."""
+    from cuclark_tpu_torch import kernels
+
+    import torch
+
+    kernels.reset_launches()
+    _, err, _ = run_tool(argv)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
     for name in launches_of or ():
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} of the path never "
                                  f"launched: {launches}")
-    return err.getvalue(), launches
+    return err, launches
 
 
 def assigned_right(csv: Path) -> float:
@@ -1055,6 +1085,372 @@ def check_multiprocess(tmp: Path, dbdir: str, fq: Path, gpu_csv: Path,
             f"{host_launches}")
 
 
+def _launched(launches: dict) -> dict:
+    """The kernels of a run's launch counts that launched."""
+    return {name: n for name, n in launches.items() if n}
+
+
+def check_example_sh(tmp: Path) -> str:
+    """examples/example.sh, run from a copy in tmp against the port: a
+    one-word `cuclark-tpu-torch` wrapper on PATH (example.sh falls back to
+    the JAX CLI when `command -v $CUCLARK_TPU` fails).  Its classify calls
+    take the CLI's default --device cuda.  It must exit 0 and print its
+    three OK: lines."""
+    import shutil
+
+    ex = tmp / "examples_copy"
+    shutil.copytree(ROOT / "examples", ex)
+    bindir = tmp / "bin"
+    bindir.mkdir()
+    wrapper = bindir / "cuclark-tpu-torch"
+    wrapper.write_text(
+        "#!/bin/sh\n"
+        f'PYTHONPATH="{ROOT}${{PYTHONPATH:+:$PYTHONPATH}}" exec '
+        f'"{sys.executable}" -m cuclark_tpu_torch.cli "$@"\n')
+    wrapper.chmod(0o755)
+    env = {**os.environ, "CUCLARK_TPU": "cuclark-tpu-torch",
+           "PATH": f"{bindir}{os.pathsep}{os.environ.get('PATH', '')}"}
+    proc = subprocess.run(["bash", str(ex / "example.sh")], env=env,
+                          capture_output=True, text=True, timeout=600)
+    oks = [ln for ln in proc.stdout.splitlines() if ln.startswith("OK:")]
+    if proc.returncode or len(oks) != 3:
+        raise AssertionError(f"example.sh returned {proc.returncode} with "
+                             f"{len(oks)} OK: lines: {proc.stdout[-1500:]}"
+                             f"{proc.stderr[-1500:]}")
+    return "; ".join(oks)
+
+
+def write_genome_files(genomes: np.ndarray, tmp: Path) -> Path:
+    """Each genome as a FASTA file g<i>.fa (bases spelled as the reads
+    and the table spell them) and a targets.txt naming it T<i>, the
+    database's target names."""
+    gdir = tmp / "genomes"
+    gdir.mkdir()
+    ascii_ = np.frombuffer(b"TGCA", np.uint8)   # A=3 C=2 G=1 T=0
+    lines = []
+    for i, g in enumerate(genomes, 1):
+        p = gdir / f"g{i}.fa"
+        p.write_bytes(b">g%d\n" % i + ascii_[g].tobytes() + b"\n")
+        lines.append(f"{p} T{i}")
+    targets = tmp / "targets_headline.txt"
+    targets.write_text("\n".join(lines) + "\n")
+    return targets
+
+
+def check_accuracy(genomes: np.ndarray, targets: Path, tmp: Path,
+                   dbdir: str, n_reads: int, card: str):
+    """The accuracy loop at the headline size: simulate-reads at the CLI's
+    default error rates from the genome files, classify on the card
+    against the resident qs table, evaluate with floors, abundance -D
+    and density of the CSV; the first reads' rows equal to --device
+    cpu's.  Returns the phase's detail."""
+    sim, sim_csv = tmp / "sim.fq", tmp / "sim.csv"
+    secs = {}
+    _, _, secs["simulate-reads"] = run_tool([
+        "simulate-reads", "-T", str(targets), "-O", str(sim), "-n",
+        str(n_reads), "-l", str(READ_LEN)])
+    t1 = time.time()
+    _, launches = run_cli(["classify", "-D", dbdir, "-O", str(sim), "-R",
+                           str(sim_csv), "--device", "cuda"],
+                          ("query", "score"))
+    secs["classify"] = time.time() - t1
+    out, _, secs["evaluate"] = run_tool(
+        ["evaluate", "-R", str(sim_csv), "--min-recall", "0.95",
+         "--min-precision", "0.98"])
+    overall = out.splitlines()[-1].split(",")
+    if overall[:2] != ["OVERALL", str(n_reads)]:
+        raise AssertionError(f"evaluate's last line: {out.splitlines()[-1]}")
+    recall, precision = float(overall[3]), float(overall[4])
+    out, _, secs["abundance"] = run_tool(
+        ["abundance", "-R", str(sim_csv), "-D", dbdir])
+    names = [ln.split(",", 1)[0] for ln in out.splitlines()[1:]]
+    n_na = sum(r.split(",")[3] == "NA"
+               for r in sim_csv.read_text().splitlines()[1:])
+    want = {f"T{i}" for i in range(1, len(genomes) + 1)} | (
+        {"NA"} if n_na else set())
+    if len(names) != len(want) or set(names) != want:
+        raise AssertionError(f"abundance -D listed {len(names)} names, "
+                             f"expected the {len(genomes)} targets"
+                             f"{' and NA' if n_na else ''}")
+    for by in ("confidence", "gamma"):
+        out, _, secs[f"density --by {by}"] = run_tool(
+            ["density", "-R", str(sim_csv), "--by", by])
+        if len(out.splitlines()) != 21:
+            raise AssertionError(f"density --by {by}: {out[:500]}")
+    n_cpu = min(16384, n_reads)
+    cpu_csv = tmp / "sim_cpu.csv"
+    run_cli(["classify", "-D", dbdir, "-O",
+             str(head_fastq(sim, tmp / "sim_head.fq", n_cpu)), "-R",
+             str(cpu_csv), "--device", "cpu"])
+    head = sim_csv.read_bytes().split(b"\n")[:n_cpu + 1]
+    if b"\n".join(head) + b"\n" != cpu_csv.read_bytes():
+        raise AssertionError(f"the first {n_cpu} rows of the simulated "
+                             f"reads' CSV differ from --device cpu's")
+    detail = (f"{n_reads} simulated {READ_LEN} bp reads (sub 0.01, ins "
+              f"0.001, del 0.001) from {len(genomes)} genome files: "
+              f"recall {recall:.4f}, precision {precision:.4f} (floors 0.95, "
+              f"0.98), {n_na} unassigned; abundance -D lists "
+              f"{len(names)} names; first {n_cpu} rows == --device cpu; "
+              f"launches {_launched(launches)}; seconds on the "
+              f"{n_reads}-row CSV: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+              + f"; on {card}")
+    return detail
+
+
+def _mix64(z: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer on uint64 words (wrapping)."""
+    with np.errstate(over="ignore"):
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return z ^ (z >> np.uint64(31))
+
+
+def pair_fingerprint(kmers: np.ndarray, labels: np.ndarray) -> tuple:
+    """An order-free fingerprint of (k-mer, label) pairs: their count and
+    the wrapping sum of a 64-bit mix of each pair.  Two tables hold the
+    same pairs iff (up to a 2^-64 chance) their fingerprints agree,
+    whatever order their rows keep them in."""
+    with np.errstate(over="ignore"):
+        z = _mix64(_mix64(kmers.astype(np.uint64))
+                   + labels.astype(np.uint64))
+    return len(kmers), int(z.sum(dtype=np.uint64))
+
+
+def write_taxonomy(d: Path) -> None:
+    """A small NCBI taxonomy for the example genomes: phylum 2, genera 10
+    and 20, species 11, 12 and 21 named `Species 1-3` (the example's
+    labels), and the example genomes' accessions NC_EX0001-3 mapped to
+    them, the third through merged taxid 99."""
+    d.mkdir()
+    (d / "nodes.dmp").write_text(
+        "1\t|\t1\t|\tno rank\t|\n2\t|\t1\t|\tphylum\t|\n"
+        "10\t|\t2\t|\tgenus\t|\n11\t|\t10\t|\tspecies\t|\n"
+        "12\t|\t10\t|\tspecies\t|\n20\t|\t2\t|\tgenus\t|\n"
+        "21\t|\t20\t|\tspecies\t|\n")
+    (d / "names.dmp").write_text("".join(
+        f"{t}\t|\t{n}\t|\t\t|\tscientific name\t|\n" for t, n in (
+            (10, "GenusA"), (11, "Species 1"), (12, "Species 2"),
+            (20, "GenusB"), (21, "Species 3"))))
+    (d / "merged.dmp").write_text("99\t|\t21\t|\n")
+    (d / "nucl.accession2taxid").write_text(
+        "accession\taccession.version\ttaxid\tgi\n"
+        "NC_EX0001\tNC_EX0001.1\t11\t1\n"
+        "NC_EX0002\tNC_EX0002.1\t12\t2\n"
+        "NC_EX0003\tNC_EX0003.1\t99\t3\n")
+
+
+def check_clark_interop(db, dbdir: str, targets: Path, tmp: Path, fq: Path,
+                        gpu_csv: Path, card: str):
+    """export-clark --light of the headline qs database, import-clark of
+    those files: the imported table holds the same (k-mer, label) pairs
+    in the same geometry, and classify on the card against it writes the
+    resident CSV.  Then export-ht / import-ht of the example database,
+    and set-targets on a taxonomy written here, whose .settings classify
+    on the card honours.  Returns the phase's detail."""
+    import shutil
+
+    from cuclark_tpu_torch import cli
+    from cuclark_tpu_torch.hashdb import KmerDB
+    from cuclark_tpu_torch.io import clark_db
+
+    ck = tmp / "clark"
+    secs = {}
+    _, _, secs["export-clark"] = run_tool(
+        ["export-clark", "-D", dbdir, "-o", str(ck), "--light"])
+    sizes = {ext: Path(f"{ck}{ext}").stat().st_size
+             for ext in (".sz", ".ky", ".lb")}
+    if sizes[".sz"] != clark_db.HTSIZE_LIGHT:
+        raise AssertionError(f".sz holds {sizes['.sz']} buckets")
+    imp = tmp / "db_imported"
+    _, _, secs["import-clark"] = run_tool(
+        ["import-clark", "-i", str(ck), "-T", str(targets), "-D", str(imp),
+         "-k", str(K)])
+    idb = KmerDB.load(next(imp.glob("db_k*.npz")))
+    fp = pair_fingerprint(*db.items())
+    if (pair_fingerprint(*clark_db.import_clark_db(ck, K)) != fp
+            or pair_fingerprint(*idb.items()) != fp):
+        raise AssertionError("the CLARK files or the imported table hold "
+                             "other (k-mer, label) pairs than the headline "
+                             "table")
+    if ((idb.layout, idb.nb_bits, idb.stash_bits, idb.num_kmers,
+         idb.target_names) != (db.layout, db.nb_bits, db.stash_bits,
+                               db.num_kmers, db.target_names)):
+        raise AssertionError("the imported table's geometry or names differ")
+    checksum = ("equal" if idb.checksum() == db.checksum() else
+                "differs (the files list keys in bucket order)")
+    del idb
+    imp_csv = tmp / "imported.csv"
+    _, launches = run_cli(["classify", "-D", str(imp), "-O", str(fq), "-R",
+                           str(imp_csv), "--device", "cuda"],
+                          ("query", "score"))
+    if imp_csv.read_bytes() != gpu_csv.read_bytes():
+        raise AssertionError("classify on the imported table wrote another "
+                             "CSV than the resident one")
+
+    # .ht sets of the example database (built by golden_example)
+    ex = ROOT / "examples"
+    expected = (ex / "expected_results.csv").read_bytes()
+    _, _, secs["export-ht"] = run_tool(
+        ["export-ht", "-D", str(tmp / "exdb"), "-o", str(tmp / "ht")])
+    _, _, secs["import-ht"] = run_tool(
+        ["import-ht", "-i", str(tmp / "ht"), "-D", str(tmp / "exdb_ht")])
+    exdb = KmerDB.load(next((tmp / "exdb").glob("db_k*.npz")))
+    htdb = KmerDB.load(next((tmp / "exdb_ht").glob("db_k*.npz")))
+    if (pair_fingerprint(*htdb.items()) != pair_fingerprint(*exdb.items())
+            or htdb.target_names != exdb.target_names):
+        raise AssertionError("import-ht of export-ht lost pairs or names")
+    run_cli(["classify", "-D", str(tmp / "exdb_ht"), "-O",
+             str(ex / "reads.fq"), "-R", str(tmp / "ht.csv"), "--device",
+             "cuda"], ("query", "score"))
+    if (tmp / "ht.csv").read_bytes() != expected:
+        raise AssertionError(".ht round trip: CSV differs from "
+                             "expected_results.csv")
+
+    # set-targets from the example genomes under a taxonomy
+    refs = tmp / "refs"
+    refs.mkdir()
+    for g in ("genome1.fa", "genome2.fa", "genome3.fa"):
+        shutil.copy(ex / g, refs / g)
+    write_taxonomy(tmp / "taxonomy")
+    st = tmp / "db_set_targets"
+    _, _, secs["set-targets"] = run_tool(
+        ["set-targets", str(st), str(refs), "--rank", "species",
+         "--taxonomy-dir", str(tmp / "taxonomy")])
+    settings = json.loads((st / ".settings").read_text())
+    if settings["targets"] != str(st / "targets.txt"):
+        raise AssertionError(f".settings: {settings}")
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(["classify", "-D", str(st), "-T",
+                       str(ex / "targets.txt"), "-O", str(ex / "reads.fq"),
+                       "-R", str(tmp / "st_refused.csv"), "--device", "cuda"])
+    if rc != 1 or "managed by set-targets" not in err.getvalue():
+        raise AssertionError(f"classify took a -T that conflicts with "
+                             f".settings: rc {rc}")
+    run_cli(["classify", "-D", str(st), "-O", str(ex / "reads.fq"), "-R",
+             str(tmp / "st.csv"), "-k", "27", "--device", "cuda"],
+            ("query", "score"))
+    if (tmp / "st.csv").read_bytes() != expected:
+        raise AssertionError("set-targets database: CSV differs from "
+                             "expected_results.csv")
+    detail = (f"export-clark --light {fp[0]} {K}-mers: .sz "
+              f"{sizes['.sz']} B, .ky {sizes['.ky']} B, .lb {sizes['.lb']}"
+              f" B; import-clark: same pairs, geometry and names, checksum "
+              f"{checksum}; classify of the imported table == resident "
+              f"CSV, launches {_launched(launches)}; .ht round trip and "
+              f"set-targets (species, .settings honoured, conflicting -T "
+              f"refused) == "
+              f"expected_results.csv; seconds: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+              + f"; on {card}")
+    return detail
+
+
+# Kernel names in a trace, by launch count: the query kernel's template
+# instances, and the score kernel's warp and histogram entries
+TRACE_KERNELS = {"query": ("query_kernel",),
+                 "score": ("score_warp_kernel", "score_hist_kernel")}
+
+
+def trace_kernels(path: Path) -> tuple[dict, float, float]:
+    """From a Chrome trace of torch.profiler: each TRACE_KERNELS entry's
+    kernel events (start, duration in us, sorted), the card's busy share
+    of the traced window (the union of kernel, copy and memset time over
+    the first to last event of the trace), and the window in ms."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    found = {name: sorted((float(e["ts"]), float(e["dur"])) for e in events
+                          if e.get("cat") == "kernel"
+                          and any(m in e["name"] for m in marks))
+             for name, marks in TRACE_KERNELS.items()}
+    busy_iv = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in events
+                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -np.inf
+    for a, b in busy_iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    return found, busy / (hi - lo), (hi - lo) / 1e3
+
+
+def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
+                  dev, card: str):
+    """classify --device cuda --profile on the headline reads, resident:
+    the CSV is the resident one, the trace parses, and it holds as many
+    query and score kernel events as kernels.LAUNCHES counted.  Then a
+    trace of 20 back-to-back wrapper calls of each kernel on one
+    main-path batch, beside CUDA-event times of the same calls without
+    the profiler: the kernels' own durations against the rate the host
+    launches them at.  Returns the phase's detail."""
+    import torch
+
+    from cuclark_tpu_torch import codec, probe, score
+    from cuclark_tpu_torch.hashdb import table_to_device
+
+    tdir, prof_csv = tmp / "trace", tmp / "profile.csv"
+    stderr, launches = run_cli(["classify", "-D", dbdir, "-O", str(fq), "-R",
+                                str(prof_csv), "--device", "cuda",
+                                "--profile", str(tdir)], ("query", "score"))
+    if f"Profiler trace in {tdir}" not in stderr:
+        raise AssertionError(f"no profiler line on stderr: {stderr[-500:]}")
+    if prof_csv.read_bytes() != gpu_csv.read_bytes():
+        raise AssertionError("--profile changed the CSV")
+    traces = list(tdir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{len(traces)} traces in {tdir}")
+    found, share, window_ms = trace_kernels(traces[0])
+    for name, evs in found.items():
+        if len(evs) != launches[name]:
+            raise AssertionError(f"the trace holds {len(evs)} {name} kernel "
+                                 f"events for {launches[name]} launches")
+    mean = {name: np.mean([d for _, d in evs]) / 1e3
+            for name, evs in found.items()}
+
+    # launch pacing: one batch, 20 calls of each wrapper after a warm-up
+    B = min(65536, len(codes))
+    padded = np.full((B, 152), codec.INVALID, np.uint8)
+    padded[:, :READ_LEN] = codes[:B]
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(padded))
+    main_t, stash_t = table_to_device(db, dev)
+    qargs = dict(k=db.k, spec=db.spec)
+    lab = probe.query_labels(p2, vb, main_t, stash_t, **qargs)
+    calls = {"query": lambda: probe.query_labels(p2, vb, main_t, stash_t,
+                                                 **qargs),
+             "score": lambda: score.score_labels(lab)}
+    event_ms = {name: _cuda_ms(fn, 20) for name, fn in calls.items()}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        traced_ms = {name: _cuda_ms(fn, 20) for name, fn in calls.items()}
+    prof.export_chrome_trace(str(tmp / "pacing.json"))
+    paced, _, _ = trace_kernels(tmp / "pacing.json")
+    del main_t, stash_t, lab, p2, vb
+    torch.cuda.empty_cache()
+    pacing = []
+    for name, evs in paced.items():
+        evs = evs[-20:]
+        if len(evs) != 20:
+            raise AssertionError(f"the pacing trace holds {len(evs)} {name} "
+                                 f"kernels")
+        dur = np.mean([d for _, d in evs]) / 1e3
+        gap = np.mean(np.diff([t for t, _ in evs])) / 1e3
+        pacing.append(f"{name} {event_ms[name]:.4f} ms by CUDA events "
+                      f"({traced_ms[name]:.4f} traced), kernel {dur:.4f} ms,"
+                      f" one start every {gap:.4f} ms")
+    return (f"CSV == resident CSV; trace {traces[0].name}: "
+            + ", ".join(f"{len(evs)} {name} kernels of mean {mean[name]:.4f} "
+                        f"ms" for name, evs in found.items())
+            + f" (launches {_launched(launches)}); card busy {share:.4%} of "
+            f"the {window_ms:.1f} ms traced window (kernels and copies); 20 "
+            f"back-to-back wrapper calls on [{B}, 152]: "
+            + "; ".join(pacing) + f"; on {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genomes", type=int, default=16384,
@@ -1152,7 +1548,6 @@ def main(argv=None) -> int:
         codes, src = write_reads(genomes, args.reads, fq)
         write_pairs(genomes, args.reads, r1, r2)
         long_codes = write_long_reads(genomes, long_fq)
-        del genomes
         _phase("write_reads", t0, f"{args.reads} reads of {READ_LEN} bp, "
                f"{args.reads} pairs of {READ_LEN} bp mates, {N_LONG} reads "
                f"of {LONG_MIN}-{LONG_MAX} bp")
@@ -1416,6 +1811,28 @@ def main(argv=None) -> int:
          launches["score_long"], detail, bound["score_long"]) = (
             check_long_reads(tmp, db, dbdir, long_fq, long_codes, dev, card))
         _phase("long_reads", t0, detail)
+
+        # examples/example.sh against the port, through its CLI on PATH
+        t0 = time.time()
+        _phase("example_sh", t0, check_example_sh(tmp))
+
+        # the accuracy loop at the headline size, and the result tools
+        t0 = time.time()
+        targets = write_genome_files(genomes, tmp)
+        detail = check_accuracy(genomes, targets, tmp, dbdir, args.reads,
+                                card)
+        del genomes
+        _phase("accuracy", t0, detail)
+
+        # CLARK .sz/.ky/.lb and .ht round trips, set-targets
+        t0 = time.time()
+        _phase("clark_interop", t0, check_clark_interop(
+            db, dbdir, targets, tmp, fq, gpu_csv, card))
+
+        # classify --profile: the trace against the launch counts
+        t0 = time.time()
+        _phase("profile", t0, check_profile(db, dbdir, fq, gpu_csv, codes,
+                                            tmp, dev, card))
 
     kern = [
         {"name": "query", "route": "cuda",

@@ -1,11 +1,14 @@
 """Command-line interface of the PyTorch port.
 
-Counterpart of `cuclark_tpu/cli.py` for the subcommands this package
-ports, under one `cuclark-tpu-torch` entry point:
+Counterpart of `cuclark_tpu/cli.py`, with every subcommand and flag of
+`cuclark-tpu` under one `cuclark-tpu-torch` entry point:
 
   cuclark-tpu-torch build-db  -T targets.txt -D dbdir [-k 31] [--light] ...
   cuclark-tpu-torch classify  -D dbdir -O reads.fq -R out.csv [--device cuda]
-  cuclark-tpu-torch info      -D dbdir
+  cuclark-tpu-torch set-targets <dbdir> <refdir...> --rank species
+  cuclark-tpu-torch abundance -R out.csv [-D dbdir]
+  cuclark-tpu-torch density | simulate-reads | evaluate | analyze | clean
+  cuclark-tpu-torch info | export-clark | import-clark | export-ht | import-ht
 
 `classify` runs single-end (-O) or paired (-P) reads against a qs, q4
 or s2 database on one device (`--device`, default `cuda`; `cpu` runs the
@@ -15,15 +18,17 @@ fits the device's free memory (or --max-table-mb), else it streams in
 bucket-range parts.  `--num-hosts`/`--host-id` classify one host's share
 of the input; `--coordinator`/`--num-processes`/`--process-id` run one
 job over several processes (torch.distributed, gloo), each writing
-<results>.h<rank>.  It builds the database first when it is missing, as
-the reference's CuCLARK constructor does (src/CuCLARK_hh.hh:221-310).
-`--profile` is not ported yet and raises NotImplementedError naming its
-ROADMAP.md item.
+<results>.h<rank>.  `--profile DIR` writes a torch.profiler trace of the
+single-process job loop.  `classify` builds the database first when it
+is missing, as the reference's CuCLARK constructor does
+(src/CuCLARK_hh.hh:221-310).  The other subcommands are host code: the
+same output as `cuclark-tpu`'s, byte for byte.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -35,11 +40,6 @@ from cuclark_tpu_torch.config import (
     DEFAULT_GAP_LIGHT,
     DEFAULT_K_LIGHT,
 )
-
-_TODO = {
-    "profile": "--profile is not ported yet (ROADMAP.md, Queue 1: CLI "
-               "device touch points)",
-}
 
 
 def _db_path(dbdir: Path, cfg: DBConfig, num_targets: int) -> Path:
@@ -127,18 +127,29 @@ def _build_jobs(args):
     return jobs
 
 
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for any classify flag outside what this
-    package ports; none is silently ignored."""
-    if args.profile is not None:
-        raise NotImplementedError(_TODO["profile"])
+def _profiler(trace_dir: str | None, device: str):
+    """A torch.profiler context over the classify jobs (the reference's
+    jax.profiler.trace): host operations, and the card's kernels and
+    copies when `device` is a CUDA device.  On exit it writes a Chrome
+    trace (`<host>_<pid>.<ns>.pt.trace.json`) into trace_dir.  A null
+    context when trace_dir is None."""
+    if trace_dir is None:
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def cmd_classify(args) -> int:
     from cuclark_tpu_torch.hashdb import KmerDB
     from cuclark_tpu_torch.pipeline import Classifier
 
-    _refuse_unported(args)
     if args.sfactor != 1 and not 2 <= args.sfactor <= 30:
         # reference bound: [2, SFACTORMAX=30] (src/main.cc:214-218)
         print("error: the sampling factor value should be in the "
@@ -195,30 +206,32 @@ def cmd_classify(args) -> int:
             print(f" - Streaming DB in {clf.stream_parts} bucket-range "
                   f"parts ({src})", file=sys.stderr)
         jobs = _build_jobs(args)  # (path, paired_path, out_path)
-
-        for path, paired_path, out_path in jobs:
-            t0 = time.time()
-            skip = 0
-            if args.resume:
-                skip = _count_csv_rows(out_path)
-                if skip:
-                    print(f"Resuming after {skip} already-classified "
-                          f"reads.", file=sys.stderr)
-            n = clf.classify_file_to_csv(
-                path, out_path, paired_path, skip=skip,
-                num_hosts=args.num_hosts, host_id=args.host_id,
-                append=bool(skip))
-            n += skip
-            dt = time.time() - t0
-            # reference prints objects/min (src/CuCLARK_hh.hh:1940-1943)
-            print(
-                f" - Assignment time: {dt:.6g} s. Speed: "
-                f"{int(n / dt * 60.0) if dt > 0 else 0} objects/min. "
-                f"({n} objects).",
-            )
-            print(f" - Results stored in {out_path}")
+        with _profiler(args.profile, args.device):
+            for path, paired_path, out_path in jobs:
+                t0 = time.time()
+                skip = 0
+                if args.resume:
+                    skip = _count_csv_rows(out_path)
+                    if skip:
+                        print(f"Resuming after {skip} already-classified "
+                              f"reads.", file=sys.stderr)
+                n = clf.classify_file_to_csv(
+                    path, out_path, paired_path, skip=skip,
+                    num_hosts=args.num_hosts, host_id=args.host_id,
+                    append=bool(skip))
+                n += skip
+                dt = time.time() - t0
+                # reference prints objects/min (src/CuCLARK_hh.hh:1940-1943)
+                print(
+                    f" - Assignment time: {dt:.6g} s. Speed: "
+                    f"{int(n / dt * 60.0) if dt > 0 else 0} objects/min. "
+                    f"({n} objects).",
+                )
+                print(f" - Results stored in {out_path}")
     finally:
         clf.close()
+    if args.profile is not None:
+        print(f" - Profiler trace in {args.profile}", file=sys.stderr)
     return 0
 
 
@@ -387,6 +400,396 @@ def _count_csv_rows(path) -> int:
         return 0
 
 
+def _read_csv_header(path):
+    """(header fields, header byte length) of a result CSV."""
+    with open(path, "rb") as f:
+        header_b = f.readline()
+    return header_b.decode("utf-8", "replace").rstrip("\r\n").split(","), \
+        len(header_b)
+
+
+def _iter_complete_rows(path, ncols: int):
+    """Data rows of a result CSV via the csv module (the no-compiler
+    fallback shared by abundance and density): skips the header and
+    blank lines, raises ValueError on a row with the wrong field
+    count, and silently drops a crash-truncated FINAL row — matching
+    the native csv_tally/csv_values semantics.  The final row counts
+    as fully written (and is therefore validated, not dropped) when
+    the file ends with a newline."""
+    import csv as _csv
+
+    with open(path, "rb") as fb:
+        fb.seek(0, 2)
+        size = fb.tell()
+        tail_complete = True
+        if size:
+            fb.seek(size - 1)
+            tail_complete = fb.read(1) == b"\n"
+
+    def checked(row):
+        if len(row) != ncols:
+            raise ValueError("malformed result CSV row "
+                             f"(fields {len(row)} != {ncols})")
+        return row
+
+    with open(path) as f:
+        reader = _csv.reader(f)
+        next(reader, None)
+        prev = None  # delay one row so the tail rule can apply
+        for row in reader:
+            if not row:
+                continue
+            if prev is not None:
+                yield checked(prev)
+            prev = row
+        if prev is not None and (tail_complete or len(prev) == ncols):
+            yield checked(prev)
+
+
+def _csv_body_mmap(path, header_len: int):
+    """Memory-map the data rows of a result CSV (None when empty or the
+    native module is unavailable).  mmap instead of a read(): a ladder-4
+    result file is GBs — the tally streams it through page cache without
+    holding it in RSS."""
+    import os as _os
+
+    from cuclark_tpu_torch import native
+
+    if not native.available():
+        return None
+    size = _os.path.getsize(path)
+    if size <= header_len:
+        return None
+    import numpy as np
+
+    return np.memmap(path, dtype=np.uint8, mode="r", offset=header_len)
+
+
+def cmd_abundance(args) -> int:
+    """Per-target read counts + proportions from a result CSV — the
+    CLARK-side estimate_abundance summary (README.md:58-80 notes CLARK's
+    scripts consume this CSV format).  With -D, the database's full
+    target list seeds the report so unhit targets appear with count 0
+    (CLARK's estimate_abundance reports every DB target).
+
+    Ingestion is one native pass (csrc/host_ops.cpp csv_tally) —
+    per-row Python parsing would take minutes of single-core work on a
+    100M-row ladder-4 CSV downstream of a ~30 s classify; the csv
+    module path remains as the no-compiler fallback."""
+    counts: dict[str, int] = {}
+    if getattr(args, "db_dir", None):
+        dbp = _find_db(Path(args.db_dir))
+        if dbp is None:
+            print(f"no database found in {args.db_dir}", file=sys.stderr)
+            return 1
+        from cuclark_tpu_torch.hashdb import load_target_names
+
+        # meta-only read: the table array (possibly GBs) is not needed
+        counts = {name: 0 for name in load_target_names(dbp)[1:]}
+    total = 0
+    min_conf = args.min_confidence
+    min_gamma = args.min_gamma
+    if args.highconfidence:
+        # CLARK estimate_abundance --highconfidence preset:
+        # confidence >= 0.75 and gamma >= 0.03
+        min_conf = max(min_conf, 0.75)
+        min_gamma = max(min_gamma, 0.03)
+    header, header_len = _read_csv_header(args.results)
+    try:
+        col = header.index("1st_assignment")
+    except ValueError:
+        print("not a cuclark result CSV", file=sys.stderr)
+        return 1
+    conf_col = header.index("confidence") if "confidence" in header else -1
+    gamma_col = header.index("Gamma") if "Gamma" in header else -1
+    buf = _csv_body_mmap(args.results, header_len) \
+        if len(header) <= 4096 else None
+    if buf is not None:
+        from cuclark_tpu_torch import native
+
+        try:
+            names, cnts, total = native.csv_tally(
+                buf, len(header), col, conf_col, gamma_col,
+                min_conf, min_gamma, offset0=header_len)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        for name, c in zip(names, cnts.tolist()):
+            if c == 0 and name not in counts:
+                continue  # the pre-interned NA id when no row was NA
+            counts[name] = counts.get(name, 0) + c
+    else:
+        for row in _iter_complete_rows(args.results, len(header)):
+            t = row[col]
+            # low-confidence assignments are counted as unclassified,
+            # like CLARK's estimate_abundance -c
+            if t != "NA":
+                if (min_conf > 0 and conf_col >= 0
+                        and float(row[conf_col]) < min_conf):
+                    t = "NA"
+                elif (min_gamma > 0 and gamma_col >= 0
+                        and float(row[gamma_col]) < min_gamma):
+                    t = "NA"
+            counts[t] = counts.get(t, 0) + 1
+            total += 1
+    classified = total - counts.get("NA", 0)
+    print("Name,Count,Proportion_All(%),Proportion_Classified(%)")
+    # tie-break by name so the report is deterministic and identical
+    # across the native and csv-fallback paths (their dict insertion
+    # orders differ; a bare -count sort would leak that into ties)
+    for name, c in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        pc = "-" if name == "NA" else (
+            f"{100.0 * c / classified:.4f}" if classified else "0.0000")
+        pa = f"{100.0 * c / total:.4f}" if total else "0.0000"
+        print(f"{name},{c},{pa},{pc}")
+    return 0
+
+
+def cmd_density(args) -> int:
+    """Distribution of the confidence or gamma column of a result CSV —
+    the CLARK-side evaluate_density_confidence.sh /
+    evaluate_density_gamma.sh companions (reference README.md:77-80),
+    computed natively: prints `bin_start,count,fraction` histogram rows
+    for assigned reads."""
+    import numpy as np
+
+    colname = {"confidence": "confidence", "gamma": "Gamma"}[args.by]
+    header, header_len = _read_csv_header(args.results)
+    try:
+        col = header.index(colname)
+        acol = header.index("1st_assignment")
+    except ValueError:
+        print("not a cuclark result CSV", file=sys.stderr)
+        return 1
+    buf = _csv_body_mmap(args.results, header_len) \
+        if len(header) <= 4096 else None
+    if buf is not None:
+        from cuclark_tpu_torch import native
+
+        try:
+            v = native.csv_values(buf, len(header), col, acol,
+                                  offset0=header_len)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+    else:
+        vals = [float(row[col])
+                for row in _iter_complete_rows(args.results, len(header))
+                if row[acol] != "NA"]
+        v = np.asarray(vals, np.float64)
+    if len(v) == 0:
+        print("no assigned reads", file=sys.stderr)
+        return 1
+    lo, hi = (0.5, 1.0) if args.by == "confidence" else (0.0, 1.0)
+    hist, edges = np.histogram(v, bins=args.bins, range=(lo, hi))
+    print(f"{args.by}_bin,count,fraction")
+    for c, e in zip(hist, edges[:-1]):
+        print(f"{e:.4f},{c},{c / len(v):.4f}")
+    print(f"# assigned={len(v)} mean={v.mean():.4f} median="
+          f"{np.median(v):.4f}", file=sys.stderr)
+    return 0
+
+
+def cmd_simulate_reads(args) -> int:
+    """wgsim-style synthetic accuracy reads (the reference's sanctioned
+    QA inputs — data/README.md:1-21 ships HiSeq/MiSeq accuracy sets and
+    wgsim-simulated reads with truth in the names)."""
+    from cuclark_tpu_torch import simulate
+    from cuclark_tpu_torch.db_build.builder import parse_targets_file
+    from cuclark_tpu_torch.io import fast_parse
+    from cuclark_tpu_torch.pipeline import _read_file_bytes
+
+    genomes: dict[str, list[str]] = {}
+    for fpath, label, _ in parse_targets_file(args.targets):
+        buf = _read_file_bytes(fpath)
+        _, _, ss, se = fast_parse.scan_file(buf)
+        genomes.setdefault(label, []).extend(
+            buf[s:e].tobytes().decode("ascii", "replace")
+            for s, e in zip(ss, se))
+    if args.paired_output:
+        names, s1, s2 = simulate.simulate_reads(
+            genomes, args.num_reads, args.read_len, args.sub_rate,
+            args.ins_rate, args.del_rate, args.seed, paired=True)
+        simulate.write_fastq(args.output, names, s1)
+        simulate.write_fastq(args.paired_output, names, s2)
+    else:
+        names, seqs = simulate.simulate_reads(
+            genomes, args.num_reads, args.read_len, args.sub_rate,
+            args.ins_rate, args.del_rate, args.seed)
+        simulate.write_fastq(args.output, names, seqs)
+    print(f"Wrote {args.num_reads} simulated reads "
+          f"(sub={args.sub_rate}, ins={args.ins_rate}, "
+          f"del={args.del_rate}) to {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    """Classification accuracy vs name-embedded truth: per-target
+    precision/recall/unclassified of a result CSV produced from
+    simulate-reads input (or any reads whose Object_IDs end in
+    '|<truth_label>')."""
+    from cuclark_tpu_torch import simulate
+
+    res = simulate.evaluate_assignments(args.results)
+    print("Target,Reads,Assigned,Recall,Precision,Unclassified")
+    for t, d in res["per_target"].items():
+        print(f"{t},{d['reads']},{d['assigned']},{d['recall']:.4f},"
+              f"{d['precision']:.4f},{d['unclassified']:.4f}")
+    o = res["overall"]
+    print(f"OVERALL,{o['reads']},,{o['recall']:.4f},{o['precision']:.4f},"
+          f"{o['unclassified']:.4f}")
+    rc = 0
+    if args.min_recall is not None and o["recall"] < args.min_recall:
+        print(f"FAIL: overall recall {o['recall']:.4f} < "
+              f"{args.min_recall}", file=sys.stderr)
+        rc = 1
+    if args.min_precision is not None and o["precision"] < args.min_precision:
+        print(f"FAIL: overall precision {o['precision']:.4f} < "
+              f"{args.min_precision}", file=sys.stderr)
+        rc = 1
+    return rc
+
+
+def cmd_analyze(args) -> int:
+    """Spectrum bump-interval analysis (the reference's analyser,
+    src/analyser.cc:46-137, wired live): prints the multiplicity
+    histogram summary and the detected solid-kmer interval, with the
+    suggested -t for build-db on this spectrum."""
+    from cuclark_tpu_torch import analyser
+
+    freq = analyser.spectrum_histogram(args.input)
+    total = int(freq.sum())
+    found, lo, hi = analyser.bump_interval(freq, div=args.div)
+    print(f"spectrum: {total} k-mers, multiplicities 1..{len(freq) - 1}")
+    if found:
+        print(f"bump interval: [{lo}, {hi}]")
+        print(f"suggested build-db min multiplicity: -t {max(lo - 1, 0)} "
+              f"(keeps counts >= {lo})")
+    else:
+        print(f"no bump detected; nonzero range [{lo}, {hi}]")
+    return 0
+
+
+def cmd_clean(args) -> int:
+    """Remove database artifacts (resetCustomDB.sh / clean.sh analog):
+    by default keeps targets.txt and the tsk archive; --all removes
+    everything produced in the db dir."""
+    import shutil
+
+    d = Path(args.db_dir)
+    if not d.exists():
+        return 0
+    removed = []
+    for p in d.glob("db_k*.npz"):
+        p.unlink()
+        removed.append(p.name)
+    if args.all:
+        for name in ("tsk", "targets.txt", ".settings", "files_excluded.txt"):
+            p = d / name
+            if p.is_dir():
+                shutil.rmtree(p)
+                removed.append(name + "/")
+            elif p.exists():
+                p.unlink()
+                removed.append(name)
+    print(f"removed: {', '.join(removed) if removed else 'nothing'}",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_export_clark(args) -> int:
+    """Write the database in the CLARK-family .sz/.ky/.lb layout so a
+    CLARK/CuCLARK installation can cross-validate it
+    (src/hashTable_hh.hh:590-663)."""
+    from cuclark_tpu_torch.hashdb import KmerDB
+    from cuclark_tpu_torch.io import clark_db
+
+    dbp = _find_db(Path(args.db_dir))
+    if dbp is None:
+        print("no database found", file=sys.stderr)
+        return 1
+    db = KmerDB.load(dbp)
+    htsize = args.htsize or (clark_db.HTSIZE_LIGHT if args.light
+                             else clark_db.HTSIZE_FULL)
+    kmers, labels = db.items()
+    n = clark_db.export_clark_db(kmers, labels, args.output, db.k, htsize)
+    print(f"exported {n} {db.k}-mers -> {args.output}.sz/.ky/.lb "
+          f"(HTSIZE={htsize})", file=sys.stderr)
+    return 0
+
+
+def cmd_import_clark(args) -> int:
+    """Build a database from CLARK .sz/.ky/.lb files + the targets
+    definition that names its label indices."""
+    from cuclark_tpu_torch.db_build.builder import LabelSpace, db_name, parse_targets_file
+    from cuclark_tpu_torch.hashdb import build_table
+    from cuclark_tpu_torch.io import clark_db
+
+    space = LabelSpace(parse_targets_file(args.targets))
+    kmers, labels = clark_db.import_clark_db(args.input, args.k)
+    cfg = _build_cfg(args)
+    db = build_table(kmers, labels, space.names, cfg)
+    dbdir = Path(args.db_dir)
+    dbdir.mkdir(parents=True, exist_ok=True)
+    out = dbdir / db_name(cfg, db.num_targets)
+    db.save(out)
+    print(f"imported {db.num_kmers} {args.k}-mers, "
+          f"{db.num_targets} targets -> {out}", file=sys.stderr)
+    return 0
+
+
+def cmd_export_ht(args) -> int:
+    """Dump per-target `.ht` text files (reference --tsk artifacts,
+    EHashtable::SaveMultiple, src/HashTableStorage_hh.hh:295-343) that a
+    CLARK/CuCLARK install can consume or rebuild from."""
+    from cuclark_tpu_torch.hashdb import KmerDB
+    from cuclark_tpu_torch.io import clark_ht
+
+    dbp = _find_db(Path(args.db_dir))
+    if dbp is None:
+        print("no database found", file=sys.stderr)
+        return 1
+    db = KmerDB.load(dbp)
+    kmers, labels = db.items()
+    n = clark_ht.export_ht_dir(kmers, labels, db.target_names,
+                               args.output, db.k, light=args.light)
+    print(f"exported {len(kmers)} {db.k}-mers into {n} .ht files -> "
+          f"{args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_import_ht(args) -> int:
+    """Build a database from a directory of `.ht` target-specific sets
+    (the reference's rebuild-from-.ht resume path,
+    src/CuCLARK_hh.hh:638-684 + EHashtable::Load)."""
+    from cuclark_tpu_torch.db_build.builder import db_name
+    from cuclark_tpu_torch.hashdb import build_table
+    from cuclark_tpu_torch.io import clark_ht
+
+    kmers, labels, names, k_seen = clark_ht.import_ht_dir(
+        args.input, min_count=args.min_freq_target)
+    if k_seen is not None and args.k != 31 and args.k != k_seen:
+        print(f"warning: -k {args.k} overridden by .ht header k={k_seen}",
+              file=sys.stderr)
+    if k_seen is not None:
+        args.k = k_seen
+    cfg = _build_cfg(args)
+    db = build_table(kmers, labels, names, cfg)
+    dbdir = Path(args.db_dir)
+    dbdir.mkdir(parents=True, exist_ok=True)
+    out = dbdir / db_name(cfg, db.num_targets)
+    db.save(out)
+    print(f"imported {db.num_kmers} {cfg.k}-mers, {db.num_targets} "
+          f"targets from .ht -> {out}", file=sys.stderr)
+    return 0
+
+
+def cmd_set_targets(args) -> int:
+    from cuclark_tpu_torch.taxonomy.targets import set_targets
+
+    return set_targets(args)
+
+
 def cmd_info(args) -> int:
     from cuclark_tpu_torch.hashdb import KmerDB
 
@@ -507,7 +910,10 @@ def main(argv=None) -> int:
                    help="append to an existing result CSV, skipping reads "
                         "already classified (crash recovery)")
     c.add_argument("--profile", metavar="DIR", default=None,
-                   help="capture a profiler trace (not ported yet)")
+                   help="capture a torch.profiler trace of the run into "
+                        "DIR (host operations, and the card's kernels and "
+                        "copies on a CUDA device); not taken on the "
+                        "multi-process path (--coordinator)")
     c.add_argument("--num-hosts", type=int, default=1,
                    help="total hosts sharding this input for INDEPENDENT "
                         "per-host runs (no collectives) [1]")
@@ -524,9 +930,124 @@ def main(argv=None) -> int:
     _add_db_args(c)
     c.set_defaults(fn=cmd_classify)
 
+    a = sub.add_parser("abundance", help="summarize a result CSV")
+    a.add_argument("-R", "--results", required=True)
+    a.add_argument("-D", "--db-dir", default=None,
+                   help="database directory; lists every DB target "
+                        "(including unhit ones with count 0)")
+    a.add_argument("--min-confidence", type=float, default=0.0)
+    a.add_argument("--min-gamma", type=float, default=0.0)
+    a.add_argument("--highconfidence", action="store_true",
+                   help="count only assignments with confidence >= 0.75 "
+                        "and gamma >= 0.03 (CLARK estimate_abundance "
+                        "--highconfidence)")
+    a.set_defaults(fn=cmd_abundance)
+
+    de = sub.add_parser("density",
+                        help="confidence/gamma distribution of a result "
+                             "CSV (evaluate_density_* analog)")
+    de.add_argument("-R", "--results", required=True)
+    de.add_argument("--by", choices=("confidence", "gamma"),
+                    default="confidence")
+    de.add_argument("--bins", type=int, default=20)
+    de.set_defaults(fn=cmd_density)
+
+    st = sub.add_parser("set-targets", help="build targets.txt from reference dirs")
+    st.add_argument("db_dir")
+    st.add_argument("ref_dirs", nargs="+")
+    st.add_argument("--rank", default="species",
+                    choices=["species", "genus", "family", "order", "class", "phylum", "custom"])
+    st.add_argument("--taxonomy-dir", help="dir with nodes.dmp / accession2taxid")
+    st.set_defaults(fn=cmd_set_targets)
+
+    sr = sub.add_parser("simulate-reads",
+                        help="generate wgsim-style error-bearing reads "
+                             "from target genomes (truth in read names)")
+    sr.add_argument("-T", "--targets", required=True,
+                    help="targets definition file: '<seqfile> <label>'")
+    sr.add_argument("-O", "--output", required=True, help="output FASTQ")
+    sr.add_argument("--paired-output", default=None,
+                    help="mate-2 FASTQ (enables paired simulation)")
+    sr.add_argument("-n", "--num-reads", type=int, default=10000)
+    sr.add_argument("-l", "--read-len", type=int, default=100)
+    sr.add_argument("--sub-rate", type=float, default=0.01,
+                    help="per-base substitution rate [0.01]")
+    sr.add_argument("--ins-rate", type=float, default=0.001,
+                    help="per-base insertion rate [0.001]")
+    sr.add_argument("--del-rate", type=float, default=0.001,
+                    help="per-base deletion rate [0.001]")
+    sr.add_argument("--seed", type=int, default=0)
+    sr.set_defaults(fn=cmd_simulate_reads)
+
+    ev = sub.add_parser("evaluate",
+                        help="precision/recall of a result CSV against "
+                             "name-embedded truth labels")
+    ev.add_argument("-R", "--results", required=True)
+    ev.add_argument("--min-recall", type=float, default=None,
+                    help="exit 1 when overall recall is below this")
+    ev.add_argument("--min-precision", type=float, default=None,
+                    help="exit 1 when overall precision is below this")
+    ev.set_defaults(fn=cmd_evaluate)
+
+    an = sub.add_parser("analyze",
+                        help="detect the solid-kmer multiplicity bump of "
+                             "a spectrum file")
+    an.add_argument("-i", "--input", required=True,
+                    help="spectrum file: '<kmer> <count>' lines")
+    an.add_argument("--div", type=int, default=2,
+                    help="interval half-width divisor [2]")
+    an.set_defaults(fn=cmd_analyze)
+
+    cl = sub.add_parser("clean", help="remove database artifacts")
+    cl.add_argument("-D", "--db-dir", required=True)
+    cl.add_argument("--all", action="store_true",
+                    help="also remove targets.txt, settings, and tsk sets")
+    cl.set_defaults(fn=cmd_clean)
+
     i = sub.add_parser("info", help="print database info")
     i.add_argument("-D", "--db-dir", required=True)
     i.set_defaults(fn=cmd_info)
+
+    ec = sub.add_parser("export-clark",
+                        help="export database as CLARK .sz/.ky/.lb")
+    ec.add_argument("-D", "--db-dir", required=True)
+    ec.add_argument("-o", "--output", required=True,
+                    help="output path base (writes base.sz/.ky/.lb)")
+    ec.add_argument("--htsize", type=int, default=None,
+                    help="CLARK hash table size [1610612741; light "
+                         "preset 57777779]")
+    ec.add_argument("--light", action="store_true",
+                    help="use the cuCLARK-l HTSIZE")
+    ec.set_defaults(fn=cmd_export_clark)
+
+    eh = sub.add_parser("export-ht",
+                        help="dump per-target .ht text sets (--tsk "
+                             "interop)")
+    eh.add_argument("-D", "--db-dir", required=True)
+    eh.add_argument("-o", "--output", required=True,
+                    help="output directory for <label>_k<k>.ht files")
+    eh.add_argument("--light", action="store_true",
+                    help="use the _light filename suffix")
+    eh.set_defaults(fn=cmd_export_ht)
+
+    ih = sub.add_parser("import-ht",
+                        help="build database from a directory of .ht "
+                             "target-specific sets")
+    ih.add_argument("-i", "--input", required=True,
+                    help="directory holding <label>_k<k>.ht files")
+    ih.add_argument("-D", "--db-dir", required=True)
+    _add_db_args(ih)
+    ih.set_defaults(fn=cmd_import_ht)
+
+    ic = sub.add_parser("import-clark",
+                        help="build database from CLARK .sz/.ky/.lb")
+    ic.add_argument("-i", "--input", required=True,
+                    help="input path base (reads base.sz/.ky/.lb)")
+    ic.add_argument("-T", "--targets", required=True,
+                    help="targets definition naming the label indices")
+    ic.add_argument("-D", "--db-dir", required=True)
+    _add_db_args(ic)
+    ic.set_defaults(fn=cmd_import_clark)
 
     args = ap.parse_args(argv)
     try:

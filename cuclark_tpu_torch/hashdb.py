@@ -478,6 +478,17 @@ def check_q_bits(layout: str, nb_bits: int,
 WARM_STASH_MAX_BITS = 20
 
 
+def load_target_names(path) -> list[str]:
+    """Target names from a DB artifact WITHOUT materializing the table
+    array (npz members load lazily; summaries like `abundance -D` must
+    not pay a multi-GB decompress for a name list)."""
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["meta"]).decode())
+    if meta.get("format") != "cuclark-tpu-db-v1":
+        raise ValueError(f"not a cuclark-tpu database: {path}")
+    return list(meta["target_names"])
+
+
 def choose_nb_bits(n_kmers: int, cfg: DBConfig) -> int:
     """Smallest power-of-two bucket count achieving <= target_load.
 
@@ -540,11 +551,16 @@ def build_table(
     if labels.size and (labels.min() < 1 or labels.max() > MTRGTS):
         raise ValueError("labels must be 1-based and <= MTRGTS")
     # builder outputs arrive sorted ascending (sort-reduce), where
-    # uniqueness is a diff check; np.unique's full sorted copy (8 B/key
-    # — GBs at RefSeq scale) is only the fallback for unsorted callers
-    if n > 1 and not (np.all(kmers[1:] > kmers[:-1])
-                      or len(np.unique(kmers)) == n):
-        raise ValueError("k-mers must be unique (target-specific)")
+    # uniqueness is a diff check; a sorted copy (8 B/key — GBs at RefSeq
+    # scale) is only the fallback for unsorted callers (CLARK and .ht
+    # imports).  np.sort, not np.unique: the hash-based unique of newer
+    # numpy releases is many times slower than a sort on tens of
+    # millions of keys.
+    if n > 1 and not np.all(kmers[1:] > kmers[:-1]):
+        s = np.sort(kmers)
+        if not np.all(s[1:] != s[:-1]):
+            raise ValueError("k-mers must be unique (target-specific)")
+        del s
 
     if nb_bits is None:
         nb_bits = choose_nb_bits(n, cfg)

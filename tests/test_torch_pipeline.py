@@ -1,8 +1,9 @@
 """The port's slice end to end against the JAX package on the CPU:
 `classify_step_packed`, the CLI's CSV bytes (golden example and
-synthetic genomes), DB files shared both ways, and the refusals of what
-the port does not cover yet.  Every comparison is exact."""
+synthetic genomes, every classify flag), DB files shared both ways, and
+that no module of the port imports JAX.  Every comparison is exact."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -131,9 +132,11 @@ def test_port_imports_no_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import cuclark_tpu_torch\n"
-        "from cuclark_tpu_torch import (cli, codec, config, hashdb, kernels,"
-        " memplan, native, pipeline, probe, score)\n"
-        "from cuclark_tpu_torch.io import csv_out, fast_parse, fasta\n"
+        "from cuclark_tpu_torch import (analyser, cli, codec, config, hashdb,"
+        " kernels, memplan, native, pipeline, probe, score, simulate)\n"
+        "from cuclark_tpu_torch.io import (clark_db, clark_ht, csv_out,"
+        " fast_parse, fasta)\n"
+        "from cuclark_tpu_torch.taxonomy import ncbi, targets\n"
         "from cuclark_tpu_torch.db_build import builder\n"
         "from cuclark_tpu_torch.parallel import mesh, multihost\n"
         "try:\n"
@@ -166,25 +169,28 @@ def test_cuda_classifier_does_not_fall_back(inputs, monkeypatch):
     ["--profile", "trace"],
 ])
 def test_unported_flags_raise(inputs, flags):
-    """Only --profile is still refused: NotImplementedError naming its
-    ROADMAP item, nothing written.  The multi-device and multi-process
-    flags run, here on one CPU device: the whole CSV, or for --num-hosts
-    host 0's share of it."""
+    """No classify flag is refused any more (the name is kept from when
+    some were): the multi-device, multi-process and --profile flags run,
+    here on one CPU device, and write the whole CSV, or for --num-hosts
+    host 0's share of it.  --profile also leaves a Chrome trace (JSON)
+    in its directory."""
     tmp, reads, jcsv = inputs
     out = tmp / f"flags_{flags[0].strip('-')}.csv"
     argv = ["classify", "-D", str(tmp / "tdb"), "-O", str(reads), "-R",
             str(out), "--device", "cpu", *flags]
     if flags[0] == "--profile":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main(argv)
-        assert not out.exists()
-        return
+        argv[-1] = str(tmp / "trace")
     assert cli.main(argv) == 0
     got, want = out.read_bytes(), jcsv.read_bytes()
     if flags[0] == "--num-hosts":
         assert want.startswith(got) and 1 < got.count(b"\n") < 71
     else:
         assert got == want
+    if flags[0] == "--profile":
+        traces = list((tmp / "trace").glob("*.pt.trace.json"))
+        assert len(traces) == 1
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        assert any(e.get("ph") == "X" for e in events)
 
 
 def test_row_iterators_match_jax(inputs):
