@@ -13,7 +13,10 @@ golden example through the port's CLI, and classifies 131,072 simulated
 qs table) through `cuclark-tpu-torch classify --device cuda`, each path
 against `--device cpu`:
 
-  - resident: the table on the card (query and score kernels);
+  - resident: the table on the card (the fused query-and-score kernel
+    for these one-tile reads, beside the query and score kernels, and
+    the gather-only ceiling of the query's main-row gathers,
+    scripts/torch_gather_ceiling.py's kernel);
   - streamed: `--max-table-mb 600`, the table in 4 bucket-range parts of
     268 MB uploaded per group of batches (part-mode query kernel);
   - paired: 131,072 pairs of 150 bp mates from 400 bp fragments (-P);
@@ -42,9 +45,9 @@ against `--device cpu`:
     headline table (the same pairs; the imported table's CSV equal to
     the resident one), export-ht / import-ht and set-targets on the
     example genomes;
-  - profile: classify --profile, the trace's query and score kernel
-    events against the launch counts, the card's busy share, and the
-    kernels' durations against their launch rate.
+  - profile: classify --profile, the trace's kernel events against the
+    launch counts, the card's busy share, and the kernels' durations
+    against their launch rate.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -145,6 +148,40 @@ def touched_rows(codes, spec, k: int):
     return torch.unique(torch.cat(main)), stash
 
 
+def window_buckets(codes, spec, k: int):
+    """The qs main bucket l2 & (NB - 1) of every valid window of codes
+    [R, L] on the card, in window order with repeats: what the query
+    gathers, as int32."""
+    import torch
+
+    from cuclark_tpu_torch import codec
+    from cuclark_tpu_torch.hashdb import feistel_mix_torch
+
+    kmers, valid = codec.extract_kmers(codes, k)
+    km = codec.canonical(kmers, k)[valid]
+    _, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
+    return (l2 & ((1 << spec.nb_bits) - 1)).to(torch.int32)
+
+
+def gather_ceiling_ms(lib, main_t, buckets) -> float:
+    """Milliseconds of the gather-only kernel (scripts/csrc/
+    gather_ceiling.cu, gc_gather) over `buckets` in their order: each a
+    qs main row read as the query reads it, nothing else: the practical
+    ceiling of the query's main-row gathers."""
+    import torch
+
+    n = int(buckets.numel())
+    out = torch.empty(n // 128 + 1, dtype=torch.int32, device=main_t.device)
+
+    def run():
+        err = lib.gc_gather(main_t.data_ptr(), buckets.data_ptr(), n, 0,
+                            out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"gc_gather failed: CUDA error {err}")
+    return _cuda_ms(run, 20)
+
+
 def query_bytes(touched, spec, in_bytes: int, out_bytes: int,
                 parts: int = 1) -> float:
     """Least bytes of a query per call: its input (wire or codes) and its
@@ -175,7 +212,8 @@ def _planted_reads(rng, km: np.ndarray, k: int, R: int, L: int):
 
 
 def check_small_query(dev, k: int) -> int:
-    """Query kernel vs plain on a small qs table with stash entries."""
+    """Query kernel vs plain on a small qs table with stash entries, and
+    the fused query and score on the same reads."""
     import torch
 
     from cuclark_tpu_torch import codec, hashdb, probe
@@ -205,13 +243,20 @@ def check_small_query(dev, k: int) -> int:
     if n_hit < 1024 or n_stash == 0:
         raise AssertionError(f"too few hits to check k={k}: {n_hit} "
                              f"windows, {n_stash} from the stash")
+    res = probe.query_score_results(p2, vb, main, stash, **args)
+    torch.cuda.synchronize()
+    res_plain = probe.query_score_results_plain(p2, vb, main, stash, **args)
+    if not torch.equal(res, res_plain):
+        raise AssertionError(f"fused query and score != plain at k={k}")
     err = {"query": _max_abs_err(got, want),
+           "query_score": _max_abs_err(res, res_plain),
            "build_sharded_classify": check_stash_ranges(p2, vb, main, stash,
                                                         got, **args),
            "classify_step": check_codes(p2, vb, main, stash, got, **args)}
     print(f"  k={k}: {got.numel()} windows bit-identical, {n_hit} hits, "
-          f"{n_stash} from the stash; 2 and 4 db shards with stash ranges "
-          f"and the codes front half bit-identical", flush=True)
+          f"{n_stash} from the stash; the fused query and score, 2 and 4 "
+          f"db shards with stash ranges and the codes front half "
+          f"bit-identical", flush=True)
     return err
 
 
@@ -419,12 +464,14 @@ def golden_example(tmp: Path) -> None:
         raise AssertionError("example CSV differs from expected_results.csv")
 
 
-def build_headline_db(n_genomes: int, tmp: Path | None):
+def build_headline_db(n_genomes: int, tmp: Path | None,
+                      layouts=("qs", "q4", "s2")):
     """Random genomes (numpy, seed 0) -> canonical 31-mers -> keep the
     target-specific ones (builder.discriminate) -> a qs, a q4 and an s2
-    table of those k-mers through the port's build_table -> the .npz
-    files that `classify -D` loads, in tmp/db_<layout> (none when tmp is
-    None).  Returns the genomes and the tables by layout."""
+    table (or those of `layouts`) of those k-mers through the port's
+    build_table -> the .npz files that `classify -D` loads, in
+    tmp/db_<layout> (none when tmp is None).  Returns the genomes and
+    the tables by layout."""
     from cuclark_tpu_torch import codec
     from cuclark_tpu_torch.config import DBConfig
     from cuclark_tpu_torch.db_build.builder import db_name, discriminate
@@ -451,7 +498,7 @@ def build_headline_db(n_genomes: int, tmp: Path | None):
     # the saves (zlib, which releases the GIL) run beside the next builds
     with ThreadPoolExecutor(3) as pool:
         saves = []
-        for layout in ("qs", "q4", "s2"):
+        for layout in layouts:
             cfg = DBConfig(k=K, target_load=0.85, layout=layout,
                            slots=S2_SLOTS, num_choices=S2_CHOICES)
             dbs[layout] = build_table(kmers, labels, names, cfg)
@@ -1069,8 +1116,8 @@ def check_multiprocess(tmp: Path, dbdir: str, fq: Path, gpu_csv: Path,
         part = tmp / f"host{h}.csv"
         _, launches = run_cli(["classify", "-D", dbdir, "-O", str(fq), "-R",
                                str(part), "--device", "cuda", "--num-hosts",
-                               "2", "--host-id", str(h)], ("query", "score"))
-        host_launches.append(launches["query"])
+                               "2", "--host-id", str(h)], ("query_score",))
+        host_launches.append(launches["query_score"])
         lines = part.read_bytes().split(b"\n")
         rows += lines[:-1] if h == 0 else lines[1:-1]
     if b"\n".join(rows) + b"\n" != gpu_csv.read_bytes():
@@ -1081,7 +1128,7 @@ def check_multiprocess(tmp: Path, dbdir: str, fq: Path, gpu_csv: Path,
             f"reads/s per rank (each rank's file->CSV incl. its scan), "
             f"query_part/score launches "
             f"{[(x['query_part'], x['score']) for x in rank_launches]}; "
-            f"--num-hosts 2 shards == resident CSV, query launches "
+            f"--num-hosts 2 shards == resident CSV, query_score launches "
             f"{host_launches}")
 
 
@@ -1152,7 +1199,7 @@ def check_accuracy(genomes: np.ndarray, targets: Path, tmp: Path,
     t1 = time.time()
     _, launches = run_cli(["classify", "-D", dbdir, "-O", str(sim), "-R",
                            str(sim_csv), "--device", "cuda"],
-                          ("query", "score"))
+                          ("query_score",))
     secs["classify"] = time.time() - t1
     out, _, secs["evaluate"] = run_tool(
         ["evaluate", "-R", str(sim_csv), "--min-recall", "0.95",
@@ -1283,7 +1330,7 @@ def check_clark_interop(db, dbdir: str, targets: Path, tmp: Path, fq: Path,
     imp_csv = tmp / "imported.csv"
     _, launches = run_cli(["classify", "-D", str(imp), "-O", str(fq), "-R",
                            str(imp_csv), "--device", "cuda"],
-                          ("query", "score"))
+                          ("query_score",))
     if imp_csv.read_bytes() != gpu_csv.read_bytes():
         raise AssertionError("classify on the imported table wrote another "
                              "CSV than the resident one")
@@ -1302,7 +1349,7 @@ def check_clark_interop(db, dbdir: str, targets: Path, tmp: Path, fq: Path,
         raise AssertionError("import-ht of export-ht lost pairs or names")
     run_cli(["classify", "-D", str(tmp / "exdb_ht"), "-O",
              str(ex / "reads.fq"), "-R", str(tmp / "ht.csv"), "--device",
-             "cuda"], ("query", "score"))
+             "cuda"], ("query_score",))
     if (tmp / "ht.csv").read_bytes() != expected:
         raise AssertionError(".ht round trip: CSV differs from "
                              "expected_results.csv")
@@ -1331,7 +1378,7 @@ def check_clark_interop(db, dbdir: str, targets: Path, tmp: Path, fq: Path,
                              f".settings: rc {rc}")
     run_cli(["classify", "-D", str(st), "-O", str(ex / "reads.fq"), "-R",
              str(tmp / "st.csv"), "-k", "27", "--device", "cuda"],
-            ("query", "score"))
+            ("query_score",))
     if (tmp / "st.csv").read_bytes() != expected:
         raise AssertionError("set-targets database: CSV differs from "
                              "expected_results.csv")
@@ -1349,8 +1396,10 @@ def check_clark_interop(db, dbdir: str, targets: Path, tmp: Path, fq: Path,
 
 
 # Kernel names in a trace, by launch count: the query kernel's template
-# instances, and the score kernel's warp and histogram entries
+# instances, its fused query-and-score instance (one event a call), and
+# the score kernel's warp and histogram entries
 TRACE_KERNELS = {"query": ("query_kernel",),
+                 "query_score": ("query_score_kernel",),
                  "score": ("score_warp_kernel", "score_hist_kernel")}
 
 
@@ -1382,11 +1431,12 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
                   dev, card: str):
     """classify --device cuda --profile on the headline reads, resident:
     the CSV is the resident one, the trace parses, and it holds as many
-    query and score kernel events as kernels.LAUNCHES counted.  Then a
-    trace of 20 back-to-back wrapper calls of each kernel on one
-    main-path batch, beside CUDA-event times of the same calls without
-    the profiler: the kernels' own durations against the rate the host
-    launches them at.  Returns the phase's detail."""
+    events of each TRACE_KERNELS entry as kernels.LAUNCHES counted (the
+    fused query and score alone on this path).  Then a trace of 20
+    back-to-back wrapper calls of each kernel on one main-path batch,
+    beside CUDA-event times of the same calls without the profiler: the
+    kernels' own durations against the rate the host launches them at.
+    Returns the phase's detail."""
     import torch
 
     from cuclark_tpu_torch import codec, probe, score
@@ -1395,7 +1445,7 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
     tdir, prof_csv = tmp / "trace", tmp / "profile.csv"
     stderr, launches = run_cli(["classify", "-D", dbdir, "-O", str(fq), "-R",
                                 str(prof_csv), "--device", "cuda",
-                                "--profile", str(tdir)], ("query", "score"))
+                                "--profile", str(tdir)], ("query_score",))
     if f"Profiler trace in {tdir}" not in stderr:
         raise AssertionError(f"no profiler line on stderr: {stderr[-500:]}")
     if prof_csv.read_bytes() != gpu_csv.read_bytes():
@@ -1409,7 +1459,7 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
             raise AssertionError(f"the trace holds {len(evs)} {name} kernel "
                                  f"events for {launches[name]} launches")
     mean = {name: np.mean([d for _, d in evs]) / 1e3
-            for name, evs in found.items()}
+            for name, evs in found.items() if evs}
 
     # launch pacing: one batch, 20 calls of each wrapper after a warm-up
     B = min(65536, len(codes))
@@ -1421,6 +1471,8 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
     lab = probe.query_labels(p2, vb, main_t, stash_t, **qargs)
     calls = {"query": lambda: probe.query_labels(p2, vb, main_t, stash_t,
                                                  **qargs),
+             "query_score": lambda: probe.query_score_results(
+                 p2, vb, main_t, stash_t, **qargs),
              "score": lambda: score.score_labels(lab)}
     event_ms = {name: _cuda_ms(fn, 20) for name, fn in calls.items()}
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1443,8 +1495,8 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
                       f"({traced_ms[name]:.4f} traced), kernel {dur:.4f} ms,"
                       f" one start every {gap:.4f} ms")
     return (f"CSV == resident CSV; trace {traces[0].name}: "
-            + ", ".join(f"{len(evs)} {name} kernels of mean {mean[name]:.4f} "
-                        f"ms" for name, evs in found.items())
+            + ", ".join(f"{len(found[name])} {name} kernels of mean {m:.4f} "
+                        f"ms" for name, m in mean.items())
             + f" (launches {_launched(launches)}); card busy {share:.4%} of "
             f"the {window_ms:.1f} ms traced window (kernels and copies); 20 "
             f"back-to-back wrapper calls on [{B}, 152]: "
@@ -1491,13 +1543,19 @@ def main(argv=None) -> int:
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     cached = kernels.library_path().exists()
-    kernels.load()
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_gather_ceiling
+    with ThreadPoolExecutor(2) as pool:
+        ceiling_lib = pool.submit(torch_gather_ceiling.build)
+        kernels.load()
+        ceiling_lib = ceiling_lib.result()
     _phase("build", t0, f"{'loaded' if cached else 'built'} "
-           f"{kernels.library_path().relative_to(ROOT)}")
+           f"{kernels.library_path().relative_to(ROOT)} and "
+           f"{torch_gather_ceiling.SRC.relative_to(ROOT)}")
 
     # 2. each kernel against its plain version on the card
     t0 = time.time()
-    err = {"query": 0, "score": 0, "score_long": 0}
+    err = {"query": 0, "query_score": 0, "score": 0, "score_long": 0}
     for k in (27, 32):
         checks = [check_small_query(dev, k)] + [
             check_small_layout(dev, layout, k) for layout in ("q4", "s2")]
@@ -1516,8 +1574,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"score [{R}, {P}] did not take the "
                                  f"score_long entry")
     _phase("kernels_vs_plain", t0, "query (qs, q4, s2, resident, part, "
-           "qs db shards with stash ranges, codes front half) and score "
-           "(warp and histogram paths, both label ranges) bit-identical")
+           "qs db shards with stash ranges, codes front half), the fused "
+           "query and score, and score (warp and histogram paths, both "
+           "label ranges) bit-identical")
 
     with tempfile.TemporaryDirectory(prefix="cuclark_smoke_") as td:
         tmp = Path(td)
@@ -1579,22 +1638,54 @@ def main(argv=None) -> int:
             raise AssertionError("score kernel != plain on the real-size "
                                  "labels")
         err["score"] = max(err["score"], _max_abs_err(res, res_plain))
-        del lab_plain, res_plain
-        touched = touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k)
+        fused = probe.query_score_results(p2, vb, main_t, stash_t, **qargs)
+        torch.cuda.synchronize()
+        fused_plain = probe.query_score_results_plain(p2, vb, main_t,
+                                                      stash_t, **qargs)
+        if not (torch.equal(fused, fused_plain) and torch.equal(fused, res)):
+            raise AssertionError("fused query and score != plain or != the "
+                                 "query then score kernels on the real-size "
+                                 "batch")
+        err["query_score"] = max(err["query_score"],
+                                 _max_abs_err(fused, fused_plain))
+        del lab_plain, res_plain, fused, fused_plain
+        unpacked = codec.unpack_codes(p2, vb)
+        touched = touched_rows(unpacked, db.spec, db.k)
         bound = {
             "query": _bound_ms(query_bytes(touched, db.spec,
                                            p2.numel() + vb.numel(),
                                            4 * lab.numel())),
+            "query_score": _bound_ms(query_bytes(touched, db.spec,
+                                                 p2.numel() + vb.numel(),
+                                                 20 * B)),
             "score": _bound_ms(4 * lab.numel() + 20 * B),
             "classify_step": _bound_ms(query_bytes(touched, db.spec, B * L,
                                                    20 * B)),
         }
-        del touched
+        # the practical ceiling of the qs query's main-row gathers: the
+        # gather-only kernel over this batch's main buckets, window order;
+        # a part call gathers those of its range
+        buckets = window_buckets(unpacked, db.spec, db.k)
+        del touched, unpacked
+        ceiling = {"query": gather_ceiling_ms(ceiling_lib, main_t, buckets)}
+        rows = db.nb // STREAM_PARTS["qs"]
+        ceiling["query_part"] = float(np.mean([gather_ceiling_ms(
+            ceiling_lib, main_t, buckets[(buckets // rows) == j].contiguous())
+            for j in range(STREAM_PARTS["qs"])]))
+        for name in ("query_score", "classify_step", "build_sharded_classify"):
+            ceiling[name] = ceiling["query"]
+        ceiling["build_sharded_probe_part"] = ceiling["query_part"]
+        del buckets
         ms = {
             "query": _cuda_ms(lambda: probe.query_labels(
                 p2, vb, main_t, stash_t, **qargs), 20),
             "query_plain": _cuda_ms(lambda: probe.query_labels_plain(
                 p2, vb, main_t, stash_t, **qargs), 5),
+            "query_score": _cuda_ms(lambda: probe.query_score_results(
+                p2, vb, main_t, stash_t, **qargs), 20),
+            "query_score_plain": _cuda_ms(
+                lambda: probe.query_score_results_plain(
+                    p2, vb, main_t, stash_t, **qargs), 5),
             "score": _cuda_ms(lambda: score.score_labels(lab), 20),
             "score_plain": _cuda_ms(lambda: score.score_labels_plain(lab),
                                     5),
@@ -1605,13 +1696,30 @@ def main(argv=None) -> int:
                 pipeline.classify_step_packed(
                     main_t, a, b, stash=stash_t, with_labels=False, **qargs)
 
+        def two_kernels():
+            for a, b in wire:
+                score.score_labels(probe.query_labels(a, b, main_t, stash_t,
+                                                      **qargs))
+
+        kernels.reset_launches()
         step_ms = _cuda_ms(step_all, 10)
+        if kernels.LAUNCHES["query_score"] != 11 * len(wire) or (
+                kernels.LAUNCHES["query"] or kernels.LAUNCHES["score"]):
+            raise AssertionError(f"the device step did not take the fused "
+                                 f"kernel alone: {_launched(kernels.LAUNCHES)}")
         step_rps = len(wire) * B / (step_ms / 1e3)
+        two_ms = _cuda_ms(two_kernels, 10)
         _phase("real_size_kernels", t0,
                f"[{B}, {L}] batch bit-identical; query {ms['query']:.4f} ms "
                f"(plain {ms['query_plain']:.4f}), score {ms['score']:.4f} "
-               f"ms (plain {ms['score_plain']:.4f}); device step "
-               f"{step_rps:.1f} reads/s on {card}")
+               f"ms (plain {ms['score_plain']:.4f}), fused query and score "
+               f"{ms['query_score']:.4f} ms (plain "
+               f"{ms['query_score_plain']:.4f}); gather-only ceiling "
+               f"{ceiling['query']:.4f} ms resident, "
+               f"{ceiling['query_part']:.4f} ms per part of "
+               f"{STREAM_PARTS['qs']}; device step {step_rps:.1f} reads/s "
+               f"fused, {len(wire) * B / (two_ms / 1e3):.1f} reads/s as "
+               f"query then score, on {card}")
 
         # the same reads as unpacked codes through classify_step
         t0 = time.time()
@@ -1642,7 +1750,7 @@ def main(argv=None) -> int:
         gpu_csv, cpu_csv = tmp / "gpu.csv", tmp / "cpu.csv"
         _, launches = run_cli(["classify", "-D", dbdir, "-O", str(fq),
                                "-R", str(gpu_csv), "--device", "cuda"],
-                              ("query", "score"))
+                              ("query_score",))
         _phase("classify_cuda", t0, f"launches {launches}")
 
         # file -> CSV with the DB resident, timed apart from the DB load
@@ -1834,11 +1942,19 @@ def main(argv=None) -> int:
         _phase("profile", t0, check_profile(db, dbdir, fq, gpu_csv, codes,
                                             tmp, dev, card))
 
+    # the resident 150 bp path runs the fused query and score alone; the
+    # query and score kernels' own path is the paired one (P = 290)
     kern = [
+        {"name": "query_score", "route": "cuda",
+         "source": "cuclark_tpu_torch/csrc/query.cu",
+         "replaces": "cuclark_tpu/pipeline.py:71",
+         "launches": launches["query_score"],
+         "max_abs_err": err["query_score"], "ms": ms["query_score"],
+         "plain_ms": ms["query_score_plain"]},
         {"name": "query", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/query.cu",
          "replaces": "cuclark_tpu/probe.py:198",
-         "launches": launches["query"], "max_abs_err": err["query"],
+         "launches": launches_paired["query"], "max_abs_err": err["query"],
          "ms": ms["query"], "plain_ms": ms["query_plain"]},
         {"name": "query_part", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/query.cu",
@@ -1849,7 +1965,7 @@ def main(argv=None) -> int:
         {"name": "score", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/score.cu",
          "replaces": "cuclark_tpu/score.py:28",
-         "launches": launches["score"], "max_abs_err": err["score"],
+         "launches": launches_paired["score"], "max_abs_err": err["score"],
          "ms": ms["score"], "plain_ms": ms["score_plain"]},
     ]
     for name, replaces in (("query_q4", "cuclark_tpu/probe.py:236"),
@@ -1879,9 +1995,11 @@ def main(argv=None) -> int:
                      "max_abs_err": err[name], "ms": ms[name],
                      "plain_ms": ms[f"{name}_plain"]})
     for entry in kern:
-        # no single PyTorch call computes any of these functions
+        # no single PyTorch call computes any of these functions; the
+        # gather ceiling is that of the qs query's main rows
         entry.update(bound_ms=bound[entry["name"]], bound_by="bytes",
-                     library_ms=None)
+                     library_ms=None,
+                     ceiling_ms=ceiling.get(entry["name"]))
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -45,9 +45,22 @@
 // rows, 225 MB, of a [65,536, 152] batch) and one into the stash (at most
 // 2^20 rows = 33.6 MB, which L2 can hold).  Random 32 B sectors reach a
 // small share of the 3.35 TB/s that streaming does, so the resident call
-// runs at about a fifth of its bytes bound.  A part call gathers main rows
-// only for the windows whose bucket lies in its range, 1/P of them over P
+// runs at about a fifth of its bytes bound.  scripts/torch_gather_ceiling.py
+// measures the ceiling: on an H100 the same 7.86M main-row gathers alone, in
+// window order, take 0.254 ms, 0.148 ms sorted by bucket and 0.153 ms in
+// bins of 256 rows; but putting the windows in bucket order is itself a
+// random 4 B scatter (0.26 ms at best), and the labels must then go back
+// to window order, so the window-order gather is the practical ceiling and
+// the kernel keeps the window order.  A part call gathers main rows only
+// for the windows whose bucket lies in its range, 1/P of them over P
 // parts, and there the front half is the larger cost.
+//
+// What the resident qs call of one-tile reads (P <= kTile: 150 bp reads
+// in the 152 bin) does besides: query_score_kernel scores the block's
+// labels in shared memory (warp_score.cuh) and writes [R, 5] results, so
+// the [R, P] labels (32 MB a batch) are neither written nor read again
+// and the score kernel's launch goes away (pipeline.classify_step_packed
+// without labels).
 //
 // The front half (the k-mer of each window from the wire bytes, its
 // reverse complement and the Feistel rounds) is a few instructions per
@@ -117,7 +130,7 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
+#include "warp_score.cuh"
 
 // Windows per block.  A block stages kStage bases: the kTile + k - 1 <=
 // kTile + 31 its windows cover, rounded to 32, as kW2 words of 2-bit codes
@@ -280,34 +293,17 @@ __device__ __forceinline__ int32_t s2_row_label(
   return lab;
 }
 
-// A block per (read r = blockIdx.x, tile of kTile windows from t0 =
-// (tile_base + blockIdx.y) * kTile), a thread per window.  CODES: packed2
-// is codes uint8 [R, s2] (s2 = L) and vbits is unused.
-template <int LAYOUT, bool CODES>
-__global__ void __launch_bounds__(kTile) query_kernel(
-    const uint8_t* __restrict__ packed2, const uint8_t* __restrict__ vbits,
-    const void* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
-    int32_t* __restrict__ labels, int P, int s2, int s8, int k, int nb_bits,
-    int stash_bits, uint64_t bucket_start, uint64_t nb_local,
-    uint64_t stash_start, uint64_t nbs_local, int accumulate, uint32_t c1,
-    uint32_t c2, uint32_t c3, int slots, int num_choices, int tile_base) {
-  __shared__ uint32_t w2[kW2];
-  __shared__ uint32_t wv[kWv];
-  const int64_t r = blockIdx.x;
-  const int t0 = (tile_base + static_cast<int>(blockIdx.y)) * kTile;
-  if (CODES)
-    stage_codes(packed2 + r * s2, s2, t0, w2, wv);
-  else
-    stage_wire(packed2 + r * s2, vbits + r * s8, s2, s8, t0, w2, wv);
-  __syncthreads();
-  const int p = t0 + threadIdx.x;
-  if (p >= P) return;
-  const int64_t idx = r * P + p;
-  uint64_t c;
-  if (!window_kmer(w2, wv, threadIdx.x, k, &c)) {
-    if (!accumulate) labels[idx] = 0;
-    return;
-  }
+// The label of canonical k-mer c: the sum of the matching slots' labels of
+// its rows, main rows [bucket_start, bucket_start + nb_local) of `main_rows`
+// and, for qs, stash rows [stash_start, stash_start + nbs_local) of
+// `stash_rows` (null: no stash probe); 0 on a miss.
+template <int LAYOUT>
+__device__ __forceinline__ int32_t kmer_label(
+    uint64_t c, const void* __restrict__ main_rows,
+    const uint4* __restrict__ stash_rows, int nb_bits, int stash_bits,
+    uint64_t bucket_start, uint64_t nb_local, uint64_t stash_start,
+    uint64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
+    int num_choices) {
   const uint32_t hi = static_cast<uint32_t>(c >> 32);
   const uint32_t lo = static_cast<uint32_t>(c);
   const uint32_t mask = static_cast<uint32_t>((1ull << nb_bits) - 1);
@@ -361,10 +357,81 @@ __global__ void __launch_bounds__(kTile) query_kernel(
     if (in0) lab = row_label(row0, h1, l2 >> nb_bits, 0u);
     if (in1) lab += row_label(row1, l2, h1 >> bits1, 1u);
   }
+  return lab;
+}
+
+// A block per (read r = blockIdx.x, tile of kTile windows from t0 =
+// (tile_base + blockIdx.y) * kTile), a thread per window.  CODES: packed2
+// is codes uint8 [R, s2] (s2 = L) and vbits is unused.
+template <int LAYOUT, bool CODES>
+__global__ void __launch_bounds__(kTile) query_kernel(
+    const uint8_t* __restrict__ packed2, const uint8_t* __restrict__ vbits,
+    const void* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
+    int32_t* __restrict__ labels, int P, int s2, int s8, int k, int nb_bits,
+    int stash_bits, uint64_t bucket_start, uint64_t nb_local,
+    uint64_t stash_start, uint64_t nbs_local, int accumulate, uint32_t c1,
+    uint32_t c2, uint32_t c3, int slots, int num_choices, int tile_base) {
+  __shared__ uint32_t w2[kW2];
+  __shared__ uint32_t wv[kWv];
+  const int64_t r = blockIdx.x;
+  const int t0 = (tile_base + static_cast<int>(blockIdx.y)) * kTile;
+  if (CODES)
+    stage_codes(packed2 + r * s2, s2, t0, w2, wv);
+  else
+    stage_wire(packed2 + r * s2, vbits + r * s8, s2, s8, t0, w2, wv);
+  __syncthreads();
+  const int p = t0 + threadIdx.x;
+  if (p >= P) return;
+  const int64_t idx = r * P + p;
+  uint64_t c;
+  if (!window_kmer(w2, wv, threadIdx.x, k, &c)) {
+    if (!accumulate) labels[idx] = 0;
+    return;
+  }
+  const int32_t lab = kmer_label<LAYOUT>(
+      c, main_rows, stash_rows, nb_bits, stash_bits, bucket_start, nb_local,
+      stash_start, nbs_local, c1, c2, c3, slots, num_choices);
   if (!accumulate)
     labels[idx] = lab;
   else if (lab != 0)
     labels[idx] += lab;
+}
+
+// Query and score of one-tile qs reads (P <= kTile) against the resident
+// table: a block per read runs query_kernel's wire front half and gathers,
+// then its labels go to shared memory and warp 0 scores them into results
+// row r (warp_score.cuh, score.cu's warp path).  The labels never reach
+// device memory.
+__global__ void __launch_bounds__(kTile) query_score_kernel(
+    const uint8_t* __restrict__ packed2, const uint8_t* __restrict__ vbits,
+    const uint4* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
+    int32_t* __restrict__ results, int P, int s2, int s8, int k, int nb_bits,
+    int stash_bits, uint32_t c1, uint32_t c2, uint32_t c3) {
+  __shared__ uint32_t w2[kW2];
+  __shared__ uint32_t wv[kWv];
+  __shared__ int32_t lab_s[kTile];
+  const int64_t r = blockIdx.x;
+  stage_wire(packed2 + r * s2, vbits + r * s8, s2, s8, 0, w2, wv);
+  __syncthreads();
+  int32_t lab = 0;
+  uint64_t c;
+  if (static_cast<int>(threadIdx.x) < P &&
+      window_kmer(w2, wv, threadIdx.x, k, &c))
+    lab = kmer_label<kQs>(c, main_rows, stash_rows, nb_bits, stash_bits, 0,
+                          1ull << nb_bits, 0, 1ull << stash_bits, c1, c2, c3,
+                          0, 1);
+  lab_s[threadIdx.x] = lab;
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  constexpr int E = kTile / 32;
+  int32_t a[E];
+  int total = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    a[e] = lab_s[32 * e + threadIdx.x];
+    total += a[e] > 0;
+  }
+  warp_score<E>(a, total, threadIdx.x, results + r * 5);
 }
 
 // One layout's kernel over one front half.
@@ -448,4 +515,28 @@ extern "C" int cuclark_query(int layout, int codes, const void* packed2,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// results int32 [R, 5] (as cuclark_score's) of the wire batch packed2 uint8
+// [R, s2], vbits uint8 [R, s8] against a resident qs table: main int32
+// [2^nb_bits, 8] and stash int32 [2^stash_bits, 8]; P = 4*s2 - k + 1 <=
+// 128, one tile a read.  Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int cuclark_query_score(const void* packed2, const void* vbits,
+                                   const void* main_rows,
+                                   const void* stash_rows, void* results,
+                                   int64_t R, int P, int s2, int s8, int k,
+                                   int nb_bits, int stash_bits, uint32_t c1,
+                                   uint32_t c2, uint32_t c3, void* stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  if (R > 0x7FFFFFFF || P < 1 || P > kTile || k < 2 || k > 32 ||
+      stash_rows == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  query_score_kernel<<<static_cast<unsigned>(R), kTile, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed2), static_cast<const uint8_t*>(vbits),
+      static_cast<const uint4*>(main_rows),
+      static_cast<const uint4*>(stash_rows), static_cast<int32_t*>(results),
+      P, s2, s8, k, nb_bits, stash_bits, c1, c2, c3);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,27 +1,33 @@
 """Build, load and launch the hand-written Hopper kernels.
 
-The CUDA C++ sources in `csrc/` (`query.cu`, `score.cu`) have a plain C
-interface.  At first use they are compiled with nvcc for `sm_90a` into
-one shared library under `build/cuclark_tpu_torch/` at the repository
-root, named by a hash of the sources and the flags (as `native.py` keys
-its host library), and loaded with ctypes.  Nothing is built when the
-module is imported, so the CPU tests import it without nvcc.
+The CUDA C++ sources in `csrc/` (`query.cu`, `score.cu`, and the header
+`warp_score.cuh` both include) have a plain C interface.  At first use
+they are compiled with nvcc for `sm_90a`, one nvcc per source side by
+side, and linked into one shared library under `build/cuclark_tpu_torch/`
+at the repository root, named by a hash of the sources and the flags (as
+`native.py` keys its host library), and loaded with ctypes.  Nothing is
+built when the module is imported, so the CPU tests import it without
+nvcc.
 
 Each launch function takes CUDA tensors, checks them, launches on
 PyTorch's current stream, raises if the launch reports an error, and
 adds one to its entry of `LAUNCHES`.  The callers are the wrappers
-`probe.query_labels`, `probe.query_part_labels`, `probe.query_codes_labels`
-and `score.score_labels`, which take the plain PyTorch versions for CPU
-tensors.  `query`, `query_part` and `query_codes` launch the query kernel
-(`csrc/query.cu`) of the table's layout: the resident query over the
-whole table; the range query over one bucket range of main rows and one
-range of stash rows (a part of a streamed table, or the db shard of a
-mesh, `parallel/mesh.py`); and the resident query over unpacked codes
+`probe.query_labels`, `probe.query_part_labels`,
+`probe.query_codes_labels`, `probe.query_score_results` and
+`score.score_labels`, which take the plain PyTorch versions for CPU
+tensors.  `query`, `query_part` and `query_codes` launch the query
+kernel (`csrc/query.cu`) of the table's layout: the resident query over
+the whole table; the range query over one bucket range of main rows and
+one range of stash rows (a part of a streamed table, or the db shard of
+a mesh, `parallel/mesh.py`); and the resident query over unpacked codes
 (`pipeline.classify_step`).  Their counts are kept per layout: `query`,
 `query_part` and `query_codes` for qs, the same names with `_q4` or `_s2`
-for the others.  `score` launches the score kernel (`csrc/score.cu`),
-counted as `score` for rows of up to MAX_SCORE_WINDOWS windows and
-`score_long` for longer ones.
+for the others.  `query_score` launches the query kernel's fused
+instance for one-tile qs reads against the resident table, which scores
+each read's labels on chip and returns the [R, 5] results
+(`pipeline.classify_step_packed` without labels).  `score` launches the
+score kernel (`csrc/score.cu`), counted as `score` for rows of up to
+MAX_SCORE_WINDOWS windows and `score_long` for longer ones.
 
 A launch runs with its tensors' device made current, on that device's
 current stream, so the devices of a mesh may be different cards or
@@ -44,6 +50,7 @@ from cuclark_tpu_torch.hashdb import TableSpec, feistel_seed_consts
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("query.cu", "score.cu")
+HEADERS = ("warp_score.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuclark_tpu_torch"
@@ -52,11 +59,15 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuclark_tpu_torc
 # (reads over 32,798 bases at k=31) go to its `score_long` entry.
 MAX_SCORE_WINDOWS = 32768
 
+# Longest label row of `query_score`: one tile of the query kernel
+# (csrc/query.cu kTile).
+QUERY_SCORE_MAX_WINDOWS = 128
+
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"query": 0, "query_part": 0, "query_codes": 0, "query_q4": 0,
             "query_part_q4": 0, "query_codes_q4": 0, "query_s2": 0,
-            "query_part_s2": 0, "query_codes_s2": 0, "score": 0,
-            "score_long": 0}
+            "query_part_s2": 0, "query_codes_s2": 0, "query_score": 0,
+            "score": 0, "score_long": 0}
 
 # The query kernel's layout argument (csrc/query.cu, enum Layout).
 _LAYOUT_CODE = {"qs": 0, "q4": 1, "s2": 2}
@@ -81,38 +92,68 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode() + b"\0" + (_CSRC / name).read_bytes())
     return BUILD_DIR / f"libcuclark_kernels_{h.hexdigest()[:16]}.so"
 
 
 def compile_library(src_dir: Path, path: Path) -> None:
-    """nvcc SOURCES of src_dir into the shared library `path`, through a
-    per-process temp name and an atomic rename: concurrent first builds
-    never publish a half-written library."""
+    """nvcc SOURCES of src_dir into the shared library `path`: one nvcc
+    -c per source, all started together, then one link, through
+    per-process temp names and an atomic rename, so concurrent first
+    builds never publish a half-written library."""
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(src_dir / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [path.with_suffix(f".{Path(s).stem}.tmp{os.getpid()}.o")
+            for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(o),
+                               str(src_dir / s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(SOURCES, objs)]
+    try:
+        errs = [p.communicate()[1] for p in procs]
+        for p, err in zip(procs, errs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{err}")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (tmp, *objs):
+            f.unlink(missing_ok=True)
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C entries' argument and return types on a loaded library."""
-    vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                         ctypes.c_uint32)
-    lib.cuclark_query.restype = i32
-    lib.cuclark_query.argtypes = [i32, i32, vp, vp, vp, vp, vp, i64, i32,
-                                  i32, i32, i32, i32, i32, i64, i64, i64,
-                                  i64, i32, u32, u32, u32, i32, i32, vp]
-    lib.cuclark_score.restype = i32
-    lib.cuclark_score.argtypes = [vp, vp, i64, i32, vp]
-    lib.cuclark_score_long.restype = i32
-    lib.cuclark_score_long.argtypes = [vp, vp, i64, i32, vp]
+_vp, _i32, _i64, _u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_uint32)
+# The C entries' argument types; each returns a CUDA error code (int).
+ENTRIES = {
+    "cuclark_query": [_i32, _i32, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32,
+                      _i32, _i32, _i32, _i32, _i64, _i64, _i64, _i64, _i32,
+                      _u32, _u32, _u32, _i32, _i32, _vp],
+    "cuclark_query_score": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32,
+                            _i32, _i32, _i32, _u32, _u32, _u32, _vp],
+    "cuclark_score": [_vp, _vp, _i64, _i32, _vp],
+    "cuclark_score_long": [_vp, _vp, _i64, _i32, _vp],
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(ENTRIES)) -> ctypes.CDLL:
+    """Set the argument and return types of the C entries `names` on a
+    loaded library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.restype = _i32
+        fn.argtypes = ENTRIES[name]
     return lib
 
 
@@ -143,6 +184,25 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _check_reads(packed2, vbits) -> tuple[int, int, int, int]:
+    """Check a wire batch (packed2 uint8 [R, s2], vbits uint8 [R, s8]) or,
+    with vbits None, unpacked codes uint8 [R, L] on a CUDA device ->
+    (R, s2, s8, padded read length L)."""
+    dev = packed2.device
+    if dev.type != "cuda":
+        raise ValueError(f"query kernel needs CUDA tensors, got {dev}")
+    _check(packed2, "codes" if vbits is None else "packed2", torch.uint8, dev)
+    R, s2 = packed2.shape
+    if vbits is None:
+        return R, s2, 0, s2
+    _check(vbits, "vbits", torch.uint8, dev)
+    s8 = vbits.shape[1]
+    if vbits.shape[0] != R or 8 * s8 < 4 * s2:
+        raise ValueError(f"vbits {tuple(vbits.shape)} does not cover "
+                         f"packed2 {tuple(packed2.shape)}")
+    return R, s2, s8, 4 * s2
+
+
 def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
                   bucket_start, stash_start=0) -> torch.Tensor:
     """Check the query kernel's operands and launch the kernel of
@@ -155,20 +215,8 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
     half).  Returns new labels int32 [R, P], or `acc` with the labels
     added in place."""
     dev = packed2.device
-    if dev.type != "cuda":
-        raise ValueError(f"query kernel needs CUDA tensors, got {dev}")
     spec.check()
-    _check(packed2, "codes" if vbits is None else "packed2", torch.uint8, dev)
-    R, s2 = packed2.shape
-    if vbits is None:
-        L, s8 = s2, 0
-    else:
-        _check(vbits, "vbits", torch.uint8, dev)
-        s8 = vbits.shape[1]
-        L = 4 * s2
-        if vbits.shape[0] != R or 8 * s8 < L:
-            raise ValueError(f"vbits {tuple(vbits.shape)} does not cover "
-                             f"packed2 {tuple(packed2.shape)}")
+    R, s2, s8, L = _check_reads(packed2, vbits)
     _check(main, "main", torch.int32, dev)
     if not 2 <= k <= 32 or L < k:
         raise ValueError(f"padded read length {L} < k={k} or k out of range")
@@ -272,6 +320,42 @@ def query_codes(codes: torch.Tensor, main: torch.Tensor,
                            bucket_start=0)
     _count("query_codes", spec.layout)
     return labels
+
+
+def query_score(packed2: torch.Tensor, vbits: torch.Tensor,
+                main: torch.Tensor, stash: torch.Tensor, *, k: int,
+                spec: TableSpec) -> torch.Tensor:
+    """Launch the query kernel's fused instance (csrc/query.cu,
+    query_score_kernel) on a resident qs table: the wire batch's labels
+    scored on chip -> results int32 [R, 5], as score(query(...)) gives
+    them.  Rows of at most QUERY_SCORE_MAX_WINDOWS windows."""
+    dev = packed2.device
+    R, s2, s8, L = _check_reads(packed2, vbits)
+    if spec.layout != "qs" or stash is None:
+        raise ValueError("the fused query and score takes a qs table with "
+                         "its stash")
+    _check_resident(main, stash, spec)
+    _check(main, "main", torch.int32, dev)
+    _check(stash, "stash", torch.int32, dev)
+    P = L - k + 1
+    if not 2 <= k <= 32 or not 1 <= P <= QUERY_SCORE_MAX_WINDOWS:
+        raise ValueError(f"fused query and score needs 1 <= P <= "
+                         f"{QUERY_SCORE_MAX_WINDOWS} windows and k in 2..32,"
+                         f" got P={P}, k={k}")
+    if main.data_ptr() % 16 or stash.data_ptr() % 16:
+        raise ValueError("table rows must be 16-byte aligned")
+    results = torch.empty((R, 5), dtype=torch.int32, device=dev)
+    lib = load()
+    c1, c2, c3 = feistel_seed_consts(spec.seed)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib.cuclark_query_score(
+            packed2.data_ptr(), vbits.data_ptr(), main.data_ptr(),
+            stash.data_ptr(), results.data_ptr(), R, P, s2, s8, k,
+            spec.nb_bits, spec.stash_bits, c1, c2, c3, stream),
+            "query_score")
+    LAUNCHES["query_score"] += 1
+    return results
 
 
 def score(labels: torch.Tensor) -> torch.Tensor:

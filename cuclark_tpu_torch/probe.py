@@ -9,10 +9,11 @@ extraction, canonical form, hash, mask by validity), and of
 bucket-range part of a streamed table or one db shard of a mesh (a range
 of main rows and a range of stash rows, `cuclark_tpu/parallel/mesh.py`),
 and of the front of `cuclark_tpu/pipeline.py:classify_step` (:48), the
-chain from unpacked codes.  On a CUDA tensor each is one launch of the
-hand-written kernel `csrc/query.cu`; the plain PyTorch versions here are
-what the wrappers run on CPU tensors and what the kernel is held
-against.
+chain from unpacked codes.  `query_score_results` is the resident qs
+query of one-tile reads fused with `score.score_labels`.  On a CUDA
+tensor each is one launch of the hand-written kernel `csrc/query.cu`;
+the plain PyTorch versions here are what the wrappers run on CPU
+tensors and what the kernel is held against.
 
 The table's layout reaches the query as one record, `hashdb.TableSpec`
 (`KmerDB.spec`).  The port always probes the qs table in split form,
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from cuclark_tpu_torch import codec, kernels
+from cuclark_tpu_torch import codec, kernels, score
 from cuclark_tpu_torch.hashdb import (TableSpec, check_q_bits,
                                       feistel_mix_torch, mix1_torch,
                                       mix2_torch)
@@ -222,6 +223,37 @@ def query_labels(packed2: torch.Tensor, vbits: torch.Tensor,
         return query_labels_plain(packed2, vbits, main, stash, k=k,
                                   spec=spec)
     return kernels.query(packed2, vbits, main, stash, k=k, spec=spec)
+
+
+def fuses_score(spec: TableSpec, packed2: torch.Tensor, k: int) -> bool:
+    """Whether a resident step of this wire batch takes the fused query
+    and score (`query_score_results`): a qs table and reads of at most
+    kernels.QUERY_SCORE_MAX_WINDOWS windows, one tile of the query
+    kernel."""
+    return (spec.layout == "qs" and 1 <= 4 * packed2.shape[1] - k + 1
+            <= kernels.QUERY_SCORE_MAX_WINDOWS)
+
+
+def query_score_results_plain(packed2: torch.Tensor, vbits: torch.Tensor,
+                              main: torch.Tensor, stash: torch.Tensor, *,
+                              k: int, spec: TableSpec) -> torch.Tensor:
+    """Plain PyTorch version of the fused query and score: the plain
+    query's labels, scored by the plain score -> results int32 [R, 5]."""
+    return score.score_labels_plain(query_labels_plain(
+        packed2, vbits, main, stash, k=k, spec=spec))
+
+
+def query_score_results(packed2: torch.Tensor, vbits: torch.Tensor,
+                        main: torch.Tensor, stash: torch.Tensor, *, k: int,
+                        spec: TableSpec) -> torch.Tensor:
+    """Per-read results int32 [R, 5] of a wire batch of one-tile reads
+    (see `fuses_score`) against a resident qs table, the labels never
+    leaving the chip: the query kernel's fused instance for CUDA tensors,
+    its plain version for CPU tensors."""
+    if packed2.device.type == "cpu":
+        return query_score_results_plain(packed2, vbits, main, stash, k=k,
+                                         spec=spec)
+    return kernels.query_score(packed2, vbits, main, stash, k=k, spec=spec)
 
 
 def query_codes_labels_plain(codes: torch.Tensor, main: torch.Tensor,

@@ -19,8 +19,10 @@ q4 and s2 of the same 64M 31-mers) and reads:
     stash on part 0, the labels accumulated), per part call;
   - classify_step: the codes front half on the same reads as unpacked
     codes, then the score kernel;
-  - step_packed: the wire query then the score kernel (the device step of
-    `pipeline.classify_step_packed`);
+  - step_packed: the device step of `pipeline.classify_step_packed`
+    without labels: a build with the fused query and score
+    (`cuclark_query_score`) launches it alone, an earlier one the wire
+    query then the score kernel;
   - score_122, score_290: the score kernel on the labels of the 150 bp
     reads and of 65,536 joined 301 bp pairs (bin 320); score_122_many on
     [65,536, 122] random labels over 1..65,535 with 30% misses (rows of
@@ -56,13 +58,15 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def build_old(src: Path) -> tuple[ctypes.CDLL, bool]:
     """Build DIR's query.cu and score.cu into build/kernel_ab/ and bind
-    their C entries.  Returns the library and whether its score_long
-    entry takes a scratch buffer (the sorting design did)."""
+    the C entries it has (before the fused query and score, no
+    cuclark_query_score).  Returns the library and whether its
+    score_long entry takes a scratch buffer (the sorting design did)."""
     from cuclark_tpu_torch import kernels
 
     path = ROOT / "build" / "kernel_ab" / src.resolve().name / "libold.so"
     kernels.compile_library(src, path)
-    lib = kernels.bind(ctypes.CDLL(str(path)))
+    lib = ctypes.CDLL(str(path))
+    kernels.bind(lib, [n for n in kernels.ENTRIES if hasattr(lib, n)])
     scratch = "void* scratch" in (src / "score.cu").read_text()
     if scratch:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -75,6 +79,7 @@ class Kernels:
 
     def __init__(self, lib, score_scratch: bool):
         self.lib, self.score_scratch = lib, score_scratch
+        self.fused = hasattr(lib, "cuclark_query_score")
 
     def query(self, x, vb, main, stash, out, *, spec, k, bucket_start=0,
               stash_start=0, accumulate=False):
@@ -99,6 +104,26 @@ class Kernels:
             spec.num_choices, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"query launch failed: CUDA error {err}")
+        return out
+
+    def step_packed(self, p2, vb, main, stash, labels, out, *, spec, k):
+        """The device step without labels: the fused query and score where
+        the build has it, else the query into `labels` then the score."""
+        import torch
+
+        from cuclark_tpu_torch.hashdb import feistel_seed_consts
+
+        if not self.fused:
+            self.query(p2, vb, main, stash, labels, spec=spec, k=k)
+            return self.score(labels, out)
+        R, s2 = p2.shape
+        err = self.lib.cuclark_query_score(
+            p2.data_ptr(), vb.data_ptr(), main.data_ptr(), stash.data_ptr(),
+            out.data_ptr(), R, 4 * s2 - k + 1, s2, vb.shape[1], k,
+            spec.nb_bits, spec.stash_bits, *feistel_seed_consts(spec.seed),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"query_score launch failed: CUDA error {err}")
         return out
 
     def score(self, labels, out, scratch=None):
@@ -289,9 +314,8 @@ def main(argv=None) -> int:
         wire_lab = torch.empty((R, P), dtype=torch.int32, device=dev)
 
         def step_packed():
-            kern.query(p2, vb, qs_main, qs_stash, wire_lab, spec=spec["qs"],
-                       k=k)
-            return kern.score(wire_lab, packed_out)
+            return kern.step_packed(p2, vb, qs_main, qs_stash, wire_lab,
+                                    packed_out, spec=spec["qs"], k=k)
         cases["step_packed"] = (step_packed, 1, packed_out)
         for n, lab in (("122", lab122), ("290", lab290),
                        ("122_many", lab_many), ("long", lab_long)):

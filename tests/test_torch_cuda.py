@@ -526,3 +526,150 @@ def test_query_kernel_rows_past_grid_limit(dev):
     torch.cuda.synchronize()
     assert torch.equal(got_c, probe.query_codes_labels_plain(c, main, stash,
                                                              **args))
+
+
+def fused_case(k, L):
+    """For the fused query and score (here and in test_torch_fused.py):
+    a qs table at nb_bits 17 of 300,000 random k-mers (its overflow
+    fills the stash), the k-mers of 40 random reads and the poly-A k-mer,
+    each with its own label; then 48 reads of L bases: the poly-A read, a
+    read of Ns, a read shorter than k, a read whose every window is
+    stored (one label a window), and reads of random bases with stored
+    k-mers planted and a few Ns."""
+    rng = np.random.default_rng(300 + k + L)
+    R = 48
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    src = rng.integers(0, 4, size=(40, L)).astype(np.uint64)
+    W = L - k + 1
+    km = np.zeros((40, W), np.uint64)
+    for j in range(k):
+        km = (km << np.uint64(2)) | src[:, j:j + W]
+    rand = rng.integers(0, np.iinfo(np.uint64).max, size=300_000,
+                        dtype=np.uint64, endpoint=True)
+    rand >>= np.uint64(64 - 2 * k)
+    keys = np.unique(np.concatenate([codec.canonical_np(rand, k),
+                                     codec.canonical_np(km.ravel(), k),
+                                     np.zeros(1, np.uint64)]))
+    labels = rng.integers(1, 65536, size=len(keys)).astype(np.uint32)
+    names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
+    db = hashdb.build_table(keys, labels, names, DBConfig(k=k), nb_bits=17)
+    for r in range(8, R):
+        for p in range(int(rng.integers(k)), L - k + 1, k):
+            codes[r, p:p + k] = (keys[rng.integers(len(keys))] >> shifts) & 3
+    codes[0] = 3                                  # poly-A (A is 3)
+    codes[1] = codec.INVALID                      # no valid window
+    codes[2, k - 1:] = codec.INVALID              # shorter than k
+    codes[3] = src[0]                             # every window stored
+    codes[4, ::17] = codec.INVALID
+    noise = rng.random((R, L)) < 0.005
+    noise[:4] = False
+    codes[noise] = codec.INVALID
+    return db, codes
+
+
+
+# (k, L): the wire batch's P = Lp - k + 1 <= 128, Lp = L rounded up to 8
+FUSED = [(15, 128), (17, 144), (27, 152), (31, 128), (31, 152), (32, 152)]
+
+
+@pytest.mark.parametrize("k,L", FUSED)
+def test_query_score_kernel_matches_plain(dev, k, L):
+    """The fused query and score (one launch) against its plain version
+    and against the query kernel then the score kernel: a poly-A read, a
+    read of Ns, a read shorter than k, a read of one label a window."""
+    db, codes = fused_case(k, L)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    main, stash = hashdb.table_to_device(db, dev)
+    args = dict(k=k, spec=db.spec)
+    before = dict(kernels.LAUNCHES)
+    got = probe.query_score_results(p2, vb, main, stash, **args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["query_score"] == before["query_score"] + 1
+    assert kernels.LAUNCHES["query"] == before["query"]
+    want = probe.query_score_results_plain(p2, vb, main, stash, **args)
+    assert torch.equal(got, want)
+    two = score.score_labels(probe.query_labels(p2, vb, main, stash, **args))
+    assert torch.equal(got, two)
+    assert int(got[0, 2]) == 4 * p2.shape[1] - k + 1
+    assert int(got[1:3].abs().sum()) == 0
+
+
+def test_query_score_kernel_full_batch(dev):
+    """A batch of exactly 65,536 reads of 152 bases (the main path's
+    shape, a block per read), then a batch of 65,536 poly-A reads (the
+    whole batch one k-mer, one label) and one of 65,536 reads of Ns."""
+    k = 31
+    db, _ = _qs_case(dev, k, 98)
+    main, stash = hashdb.table_to_device(db, dev)
+    rng = np.random.default_rng(4)
+    km = db.items()[0]
+    R, L = 65536, 152
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    for p in (0, 40, 90):
+        codes[:, p:p + k] = (km[rng.integers(len(km), size=R)][:, None]
+                             >> shifts) & 3
+    codes[rng.random((R, L)) < 0.01] = codec.INVALID
+    args = dict(k=k, spec=db.spec)
+    hits = 0
+    for batch in (codes, np.full((R, L), 3, np.uint8),
+                  np.full((R, L), codec.INVALID, np.uint8)):
+        p2, vb = (torch.from_numpy(a).to(dev)
+                  for a in codec.pack_codes(batch))
+        got = probe.query_score_results(p2, vb, main, stash, **args)
+        torch.cuda.synchronize()
+        want = probe.query_score_results_plain(p2, vb, main, stash, **args)
+        assert torch.equal(got, want)
+        hits += int((want[:, 2] > 0).sum())
+    assert hits > R // 2
+
+
+@pytest.mark.parametrize("L,fused", [(152, True), (160, False)])
+def test_classify_step_packed_takes_fused_kernel(dev, L, fused):
+    """classify_step_packed without labels launches the fused kernel
+    alone for one-tile reads (P = 122 at L 152) and the query and score
+    kernels for wider ones (P = 130 at L 160); with labels, always the
+    two.  The results are the same."""
+    from cuclark_tpu_torch import pipeline
+
+    k = 31
+    db, codes = _qs_case(dev, k, 77)               # [256, 152]
+    codes = np.concatenate([codes, codes[:, :L - 152]], axis=1)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    main, stash = hashdb.table_to_device(db, dev)
+    args = dict(k=k, spec=db.spec, stash=stash)
+    before = dict(kernels.LAUNCHES)
+    res, lab = pipeline.classify_step_packed(main, p2, vb, with_labels=False,
+                                             **args)
+    torch.cuda.synchronize()
+    after = dict(kernels.LAUNCHES)
+    assert lab is None
+    assert after["query_score"] - before["query_score"] == int(fused)
+    assert after["query"] - before["query"] == int(not fused)
+    assert after["score"] - before["score"] == int(not fused)
+    res2, lab2 = pipeline.classify_step_packed(main, p2, vb, **args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["query"] == after["query"] + 1
+    assert lab2.shape[1] == 4 * p2.shape[1] - k + 1
+    assert torch.equal(res, res2)
+
+
+def test_query_score_refuses_what_it_does_not_take(dev):
+    """Rows over one tile, a table of another layout and a missing stash
+    raise ValueError before anything launches."""
+    k = 31
+    db, codes = _qs_case(dev, k, 12)
+    main, stash = hashdb.table_to_device(db, dev)
+    wide = np.concatenate([codes, codes[:, :8]], axis=1)      # P = 130
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(wide))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="P <= 128"):
+        kernels.query_score(p2, vb, main, stash, k=k, spec=db.spec)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    with pytest.raises(ValueError, match="stash"):
+        kernels.query_score(p2, vb, main, None, k=k, spec=db.spec)
+    q4 = hashdb.TableSpec(layout="q4", nb_bits=db.nb_bits, seed=db.seed)
+    with pytest.raises(ValueError, match="qs table"):
+        kernels.query_score(p2, vb, main, stash, k=k, spec=q4)
+    assert kernels.LAUNCHES == before
