@@ -23,8 +23,11 @@ against `--device cpu`:
   - extended: 1,024 reads with one count column per target, resident
     and streamed (--extended);
   - layouts: the same k-mers in a q4 table (1.074 GB) and an s2 table
-    (2 slots, 2 hash choices: 1.611 GB), resident and streamed (4 and 8
-    parts at `--max-table-mb 600`), each CSV equal to the qs CSV;
+    (2 slots, 2 hash choices: 1.611 GB), resident (the fused query and
+    score of that layout) and streamed (4 and 8 parts at `--max-table-mb
+    600`), each CSV equal to the qs CSV, and --extended (the layout's
+    query and score kernels); the query kernel also on an all-miss batch,
+    beside the gather-only ceiling of the rows an exact probe reads;
   - long_reads: 256 reads of 33,000 to 100,000 bases (the score
     kernel's `score_long` entry for rows over 32,768 windows);
   - classify_step: the 131,072 reads as unpacked codes through
@@ -46,8 +49,9 @@ against `--device cpu`:
     the resident one), export-ht / import-ht and set-targets on the
     example genomes;
   - profile: classify --profile, the trace's kernel events against the
-    launch counts, the card's busy share, and the kernels' durations
-    against their launch rate.
+    launch counts, the card's busy share; then one more profiler session
+    over the resident q4 and s2 runs (the fused kernel of each alone)
+    and the kernels' durations against their launch rate.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -121,13 +125,15 @@ def _bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def touched_rows(codes, spec, k: int):
-    """The rows that the valid windows of codes [R, L] on the card make a
-    query read: (distinct global main buckets, sorted; distinct stash
-    buckets of a qs table, else None), each row read once."""
+def choice_rows(codes, main, spec, k: int):
+    """For a q4 or s2 table (main rows on the card): per valid window of
+    codes [R, L], in window order, its choice-0 main row, its choice-1
+    main row, whether it has a choice 1 at all (s2: two choices and
+    another bucket than choice 0's) and whether choice 0 gave label 0.
+    The query kernel gathers the choice-1 row where both hold."""
     import torch
 
-    from cuclark_tpu_torch import codec
+    from cuclark_tpu_torch import codec, probe
     from cuclark_tpu_torch.hashdb import (feistel_mix_torch, mix1_torch,
                                           mix2_torch)
 
@@ -135,17 +141,49 @@ def touched_rows(codes, spec, k: int):
     km = codec.canonical(kmers, k)[valid]
     hi, lo = codec.shr(km, 32), km & 0xFFFFFFFF
     mask = (1 << spec.nb_bits) - 1
-    stash = None
-    if spec.layout == "s2":
-        main = [mix1_torch(hi, lo) & mask]
-        if spec.num_choices == 2:
-            main.append(mix2_torch(hi, lo) & mask)
-    else:
+    if spec.layout == "q4":
         h1, l2 = feistel_mix_torch(hi, lo, spec.seed)
-        main = [l2 & mask] + ([h1 & mask] if spec.layout == "q4" else [])
-        if spec.layout == "qs":
-            stash = torch.unique(h1 & ((1 << spec.stash_bits) - 1))
-    return torch.unique(torch.cat(main)), stash
+        rows0, rows1 = l2 & mask, h1 & mask
+        lab0 = probe._match_labels(main, rows0, l2, h1, spec.nb_bits, 0)
+        return rows0, rows1, torch.ones_like(rows0, dtype=torch.bool), \
+            lab0 == 0
+    rows0 = mix1_torch(hi, lo) & mask
+    rows1 = mix2_torch(hi, lo) & mask if spec.num_choices == 2 else rows0
+    lab0 = probe.probe_s2(main, spec.nb_bits, spec.slots, 1, km)
+    return rows0, rows1, rows1 != rows0, lab0 == 0
+
+
+def exact_rows(choices):
+    """The main rows an exact probe of a q4 or s2 table reads for
+    choice_rows' windows, in window order: each window's choice-0 row,
+    then its choice-1 row where it has one and choice 0 gave label 0."""
+    import torch
+
+    rows0, rows1, has1, zero = choices
+    return torch.stack([rows0, rows1], 1)[
+        torch.stack([torch.ones_like(has1), has1 & zero], 1)]
+
+
+def touched_rows(codes, spec, k: int, main=None):
+    """The rows that the valid windows of codes [R, L] on the card make a
+    query read: (distinct global main buckets, sorted; distinct stash
+    buckets of a qs table, else None), each row read once.  A q4 or s2
+    table's main rows `main` are needed: an exact probe reads the
+    choice-0 row of every window and the choice-1 row only of the
+    windows that choice 0 does not answer."""
+    import torch
+
+    from cuclark_tpu_torch import codec
+    from cuclark_tpu_torch.hashdb import feistel_mix_torch
+
+    if spec.layout != "qs":
+        return torch.unique(exact_rows(choice_rows(codes, main, spec,
+                                                   k))), None
+    kmers, valid = codec.extract_kmers(codes, k)
+    km = codec.canonical(kmers, k)[valid]
+    h1, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
+    return (torch.unique(l2 & ((1 << spec.nb_bits) - 1)),
+            torch.unique(h1 & ((1 << spec.stash_bits) - 1)))
 
 
 def window_buckets(codes, spec, k: int):
@@ -180,6 +218,48 @@ def gather_ceiling_ms(lib, main_t, buckets) -> float:
         if err:
             raise RuntimeError(f"gc_gather failed: CUDA error {err}")
     return _cuda_ms(run, 20)
+
+
+def layout_gathers(lib, main_t, rows, spec) -> float:
+    """Milliseconds of the gather-only kernel (scripts/csrc/
+    gather_ceiling.cu, gc_gather_layout) over q4 or s2 main rows `rows`
+    in their order, each read as the query reads it (q4: two 16 B loads;
+    s2: the low key words, 8 B loads at even slots)."""
+    import torch
+
+    n = int(rows.numel())
+    rows = rows.to(torch.int32).contiguous()
+    out = torch.empty(n // 128 + 1, dtype=torch.int32, device=main_t.device)
+    layout = {"q4": 1, "s2": 2}[spec.layout]
+
+    def run():
+        err = lib.gc_gather_layout(main_t.data_ptr(), rows.data_ptr(), n,
+                                   layout, spec.slots, out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"gc_gather_layout failed: CUDA error {err}")
+    return _cuda_ms(run, 20)
+
+
+def layout_ceilings(lib, main_t, choices, spec, parts: int):
+    """The practical ceiling of a q4 or s2 query's gathers (choice_rows'
+    output for one batch): the gather-only kernel over the rows an exact
+    probe reads, in window order (a window's choice-0 row, then its
+    choice-1 row where choice 0 gave label 0) -> (resident ms, mean ms
+    of a part call of `parts`, in which a window whose choice 0 lies in
+    another part gathers its choice-1 row too)."""
+    import torch
+
+    rows0, rows1, has1, zero = choices
+    resident = layout_gathers(lib, main_t, exact_rows(choices), spec)
+    pair = torch.stack([rows0, rows1], 1)
+    prow = main_t.shape[0] // parts
+    part_ms = []
+    for j in range(parts):
+        in0, in1 = rows0 // prow == j, rows1 // prow == j
+        part_ms.append(layout_gathers(lib, main_t, pair[torch.stack(
+            [in0, in1 & has1 & (zero | ~in0)], 1)], spec))
+    return resident, float(np.mean(part_ms))
 
 
 def query_bytes(touched, spec, in_bytes: int, out_bytes: int,
@@ -319,28 +399,10 @@ def check_codes(p2, vb, main, stash, wire_labels, *, k, spec) -> int:
     return _max_abs_err(got, want)
 
 
-def _second_choice_only(db) -> np.ndarray:
-    """A q4 or s2 table with every entry stored at its first hash choice
-    removed: what remains answers from the second choice alone."""
-    from cuclark_tpu_torch import hashdb
-
-    t = db.table.copy()
-    if db.layout == "q4":
-        first = ((t[:, 4:] >> np.uint32(16)) & np.uint32(1)) == 0
-        t[:, :4][first] = 0
-        t[:, 4:][first] = 0
-        return t
-    S = db.slots
-    with np.errstate(over="ignore"):
-        b1 = hashdb.mix1(t[:, S:2 * S], t[:, :S]) & np.uint32(db.nb - 1)
-    first = b1 == np.arange(db.nb, dtype=np.uint32)[:, None]
-    t[:, :2 * S][np.concatenate([first, first], axis=1)] = hashdb.EMPTY
-    return t
-
-
 def check_small_layout(dev, layout: str, k: int) -> dict:
     """The q4 or s2 query kernel vs plain on a small table, resident and
-    on 4 bucket-range parts written and accumulated, with hits from the
+    on 4 bucket-range parts written and accumulated, and the fused query
+    and score vs plain, on the full table and on one with hits from the
     second hash choice alone.  Returns max_abs_err per launch name."""
     import torch
 
@@ -359,9 +421,10 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
         nb_bits=nb_bits)
     p2, vb = (torch.from_numpy(a).to(dev)
               for a in _planted_reads(rng, km, k, 1024, 152))
-    err = {f"query_{layout}": 0, f"query_part_{layout}": 0}
+    fused = f"query_score_{layout}"
+    err = {f"query_{layout}": 0, f"query_part_{layout}": 0, fused: 0}
     n_second = 0
-    for table in (db.table, _second_choice_only(db)):
+    for table in (db.table, db.second_choice_only()):
         main = torch.from_numpy(table.view(np.int32)).to(dev)
         got = probe.query_labels(p2, vb, main, None, k=k, spec=db.spec)
         torch.cuda.synchronize()
@@ -371,6 +434,15 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
             raise AssertionError(f"{layout} query kernel != plain at k={k}")
         err[f"query_{layout}"] = max(err[f"query_{layout}"],
                                      _max_abs_err(got, want))
+        res = probe.query_score_results(p2, vb, main, None, k=k,
+                                        spec=db.spec)
+        torch.cuda.synchronize()
+        res_plain = probe.query_score_results_plain(p2, vb, main, None, k=k,
+                                                    spec=db.spec)
+        if not torch.equal(res, res_plain):
+            raise AssertionError(f"fused {layout} query and score != plain "
+                                 f"at k={k}")
+        err[fused] = max(err[fused], _max_abs_err(res, res_plain))
         err["classify_step"] = max(err.get("classify_step", 0), check_codes(
             p2, vb, main, None, got, k=k, spec=db.spec))
         rows = db.nb // 4
@@ -401,8 +473,8 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
         raise AssertionError(f"no {layout} hit from the second hash choice "
                              f"alone at k={k}")
     print(f"  {layout} k={k}: {got.numel()} windows bit-identical resident, "
-          f"in 4 parts and from codes, {n_second} hits from the second "
-          f"choice alone", flush=True)
+          f"in 4 parts, from codes and fused with the score, {n_second} "
+          f"hits from the second choice alone", flush=True)
     return err
 
 
@@ -671,7 +743,7 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts):
     ms = _cuda_ms(lambda: all_parts(probe.query_part_labels), 10)
     plain_ms = _cuda_ms(lambda: all_parts(probe.query_part_labels_plain), 2)
     bound = _bound_ms(query_bytes(
-        touched_rows(codec.unpack_codes(p2, vb), spec, k), spec,
+        touched_rows(codec.unpack_codes(p2, vb), spec, k, main_t), spec,
         p2.numel() + vb.numel(), 4 * acc.numel(), parts))
     return err, ms / parts, plain_ms / parts, bound
 
@@ -694,53 +766,118 @@ def write_long_reads(genomes: np.ndarray, path: Path) -> list:
     return reads
 
 
-def check_layout(db, tmp: Path, fq: Path, head: Path, wire, qs_csv: Path,
-                 dev, card: str):
-    """A q4 or s2 headline table: the query kernel on one main-path
-    batch ([65536, 152] at full size), resident and per part call,
-    against plain; then the CLI on the
-    card, resident and streamed, each CSV equal to the qs CSV; two timed
-    file->CSV passes; and --device cpu on the head of the reads.  Returns
-    (max_abs_err, ms, launches, phase detail, bound ms) keyed by launch
-    name."""
+def miss_batch(R: int):
+    """R random 150 bp reads (numpy seed 4) in the 152 bin, as wire
+    arrays: the all-miss batch (the caller checks that no window hits)."""
+    from cuclark_tpu_torch import codec
+
+    codes = np.full((R, 152), codec.INVALID, np.uint8)
+    codes[:, :READ_LEN] = np.random.default_rng(4).integers(
+        0, 4, size=(R, READ_LEN), dtype=np.uint8)
+    return codec.pack_codes(codes)
+
+
+def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
+                 ext_csv: Path, wire, qs_csv: Path, ceiling_lib, dev,
+                 card: str):
+    """A q4 or s2 headline table: on one main-path batch ([65536, 152] at
+    full size) the query kernel resident, per part call and on an
+    all-miss batch, and the fused query and score, against plain, with
+    the gather-only ceilings of the rows an exact probe reads; then the
+    CLI on the card, resident (the fused kernel alone) and streamed, each
+    CSV equal to the qs CSV; two timed file->CSV passes; --extended on
+    ext_fq (the query and score kernels) equal to the qs CSV ext_csv; and
+    --device cpu on the head of the reads.
+    Returns (max_abs_err, ms, launches, phase detail, bound ms, ceiling
+    ms) keyed by launch name."""
     import torch
 
-    from cuclark_tpu_torch import codec, pipeline, probe
+    from cuclark_tpu_torch import codec, kernels, pipeline, probe
     from cuclark_tpu_torch.config import ClassifyConfig
     from cuclark_tpu_torch.hashdb import table_to_device
 
     layout, parts = db.layout, STREAM_PARTS[db.layout]
     res_name, part_name = f"query_{layout}", f"query_part_{layout}"
+    fused_name = f"query_score_{layout}"
     dbdir = str(tmp / f"db_{layout}")
     stream_mb = stream_budget_mb(db)
     p2, vb = wire
+    qargs = dict(k=db.k, spec=db.spec)
+    t_step = time.time()
     main_t, _ = table_to_device(db, dev)
-    lab = probe.query_labels(p2, vb, main_t, None, k=db.k, spec=db.spec)
+    lab = probe.query_labels(p2, vb, main_t, None, **qargs)
     torch.cuda.synchronize()
-    lab_plain = probe.query_labels_plain(p2, vb, main_t, None, k=db.k,
-                                         spec=db.spec)
+    lab_plain = probe.query_labels_plain(p2, vb, main_t, None, **qargs)
     if not torch.equal(lab, lab_plain):
         raise AssertionError(f"{layout} query kernel != plain on the "
                              f"real-size table")
     err = {res_name: _max_abs_err(lab, lab_plain)}
+    res = probe.query_score_results(p2, vb, main_t, None, **qargs)
+    torch.cuda.synchronize()
+    res_plain = probe.query_score_results_plain(p2, vb, main_t, None,
+                                                **qargs)
+    if not torch.equal(res, res_plain):
+        raise AssertionError(f"fused {layout} query and score != plain on "
+                             f"the real-size batch")
+    err[fused_name] = _max_abs_err(res, res_plain)
     lab_shape = lab.shape
+    hits = int((lab > 0).sum())
+    del lab_plain, res, res_plain
+    unpacked = codec.unpack_codes(p2, vb)
+    choices = choice_rows(unpacked, main_t, db.spec, db.k)
+    rows0, _, has1, zero = choices
+    windows, seconds = int(rows0.numel()), int((has1 & zero).sum())
+    touched = torch.unique(exact_rows(choices)), None
     bound = {res_name: _bound_ms(query_bytes(
-        touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k), db.spec,
-        p2.numel() + vb.numel(), 4 * lab.numel()))}
-    del lab, lab_plain
+                 touched, db.spec, p2.numel() + vb.numel(), 4 * lab.numel())),
+             fused_name: _bound_ms(query_bytes(
+                 touched, db.spec, p2.numel() + vb.numel(),
+                 20 * p2.shape[0]))}
+    ceiling = {}
+    ceiling[res_name], ceiling[part_name] = layout_ceilings(
+        ceiling_lib, main_t, choices, db.spec, parts)
+    ceiling[fused_name] = ceiling[res_name]
+    stored, first = db.first_choice_slots()
+    share0 = int(first.sum()) / max(int(stored.sum()), 1)
+    del stored, first
+    del lab, unpacked, touched, choices, rows0, has1, zero
     ms = {res_name: _cuda_ms(lambda: probe.query_labels(
-              p2, vb, main_t, None, k=db.k, spec=db.spec), 20),
+              p2, vb, main_t, None, **qargs), 20),
           f"{res_name}_plain": _cuda_ms(lambda: probe.query_labels_plain(
-              p2, vb, main_t, None, k=db.k, spec=db.spec), 5)}
+              p2, vb, main_t, None, **qargs), 5),
+          fused_name: _cuda_ms(lambda: probe.query_score_results(
+              p2, vb, main_t, None, **qargs), 20),
+          f"{fused_name}_plain": _cuda_ms(
+              lambda: probe.query_score_results_plain(
+                  p2, vb, main_t, None, **qargs), 5)}
+
+    # every window misses: each takes its second gather after the first
+    m2, mv = (torch.from_numpy(a).to(dev) for a in miss_batch(p2.shape[0]))
+    miss = probe.query_labels(m2, mv, main_t, None, **qargs)
+    torch.cuda.synchronize()
+    miss_plain = probe.query_labels_plain(m2, mv, main_t, None, **qargs)
+    if not torch.equal(miss, miss_plain) or int(miss_plain.count_nonzero()):
+        raise AssertionError(f"{layout} all-miss batch: kernel != plain, or "
+                             f"a window hit")
+    ms[f"{res_name}_miss"] = _cuda_ms(lambda: probe.query_labels(
+        m2, mv, main_t, None, **qargs), 20)
+    del miss, miss_plain, m2, mv
     (err[part_name], ms[part_name], ms[f"{part_name}_plain"],
      bound[part_name]) = check_stream_kernels(main_t, None, wire, db.k,
                                               db.spec, parts)
     del main_t
     torch.cuda.empty_cache()
+    secs = {"kernels": time.time() - t_step}
 
+    t_step = time.time()
+    # the resident 150 bp run launches the fused kernel alone (phase
+    # profile traces it)
     csv, stream_csv = tmp / f"{layout}.csv", tmp / f"{layout}_stream.csv"
     _, launches = run_cli(["classify", "-D", dbdir, "-O", str(fq), "-R",
-                           str(csv), "--device", "cuda"], (res_name, "score"))
+                           str(csv), "--device", "cuda"], (fused_name,))
+    if _launched(launches).keys() != {fused_name}:
+        raise AssertionError(f"resident {layout} classify did not take the "
+                             f"fused kernel alone: {_launched(launches)}")
     if csv.read_bytes() != qs_csv.read_bytes():
         raise AssertionError(f"{layout} CSV differs from the qs CSV")
     stderr, launches_stream = run_cli(
@@ -753,6 +890,8 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, wire, qs_csv: Path,
     if stream_csv.read_bytes() != qs_csv.read_bytes():
         raise AssertionError(f"{layout} streamed CSV differs from the qs "
                              f"CSV")
+    secs["cli"] = time.time() - t_step
+    t_step = time.time()
     rates = {}
     for name, cfg in (("resident", None),
                       ("streamed", ClassifyConfig(max_table_mb=stream_mb))):
@@ -768,6 +907,25 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, wire, qs_csv: Path,
         if (tmp / "again.csv").read_bytes() != qs_csv.read_bytes():
             raise AssertionError(f"a second {layout} {name} classify wrote "
                                  f"another CSV")
+    secs["file_to_csv"] = time.time() - t_step
+    # --extended keeps the labels: the query kernel, then the score
+    t_step = time.time()
+    clf = pipeline.Classifier(db, ClassifyConfig(extended=True), device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with contextlib.redirect_stderr(io.StringIO()):
+        clf.classify_file_to_csv(ext_fq, tmp / "ext_layout.csv")
+    torch.cuda.synchronize()
+    launches_ext = dict(kernels.LAUNCHES)
+    clf.close()
+    del clf
+    if not (launches_ext[res_name] and launches_ext["score"]):
+        raise AssertionError(f"{layout} --extended never launched "
+                             f"{res_name} and score: {launches_ext}")
+    if (tmp / "ext_layout.csv").read_bytes() != ext_csv.read_bytes():
+        raise AssertionError(f"{layout} --extended CSV differs from qs's")
+    secs["extended"] = time.time() - t_step
+    t_step = time.time()
     cpu_csv = tmp / f"{layout}_cpu.csv"
     run_cli(["classify", "-D", dbdir, "-O", str(head), "-R", str(cpu_csv),
              "--device", "cpu"])
@@ -777,19 +935,34 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, wire, qs_csv: Path,
         raise AssertionError(f"{layout} --device cpu CSV of the first "
                              f"{n_head} reads differs from the card's")
     torch.cuda.empty_cache()
+    secs["cpu"] = time.time() - t_step
     part_mb = db.table.nbytes / parts / 1e6
     detail = (f"{db.table.nbytes / 1e9:.3f} GB table, nb_bits "
-              f"{db.nb_bits}; labels {list(lab_shape)} bit-identical, query "
-              f"{ms[res_name]:.4f} ms (plain {ms[res_name + '_plain']:.4f}),"
-              f" {ms[part_name]:.4f} ms per part call of {parts} (plain "
-              f"{ms[part_name + '_plain']:.4f}); resident CSV == qs CSV, "
-              f"launches {launches}; {parts} parts of {part_mb:.1f} MB, CSV "
-              f"== qs CSV, launches {launches_stream}; file->CSV resident "
+              f"{db.nb_bits}, {share0:.6f} of stored keys at choice 0; "
+              f"labels {list(lab_shape)} bit-identical, {hits} of {windows} "
+              f"valid windows hit ({hits / windows:.6f}), {seconds} took the "
+              f"second gather; query {ms[res_name]:.4f} ms (plain "
+              f"{ms[res_name + '_plain']:.4f}, ceiling "
+              f"{ceiling[res_name]:.4f}), fused query and score "
+              f"{ms[fused_name]:.4f} ms (plain "
+              f"{ms[fused_name + '_plain']:.4f}), all-miss batch "
+              f"bit-identical, query {ms[res_name + '_miss']:.4f} ms; "
+              f"{ms[part_name]:.4f} ms per part call of {parts} (plain "
+              f"{ms[part_name + '_plain']:.4f}, ceiling "
+              f"{ceiling[part_name]:.4f}); resident CSV == qs CSV, launches "
+              f"{_launched(launches)}; {parts} parts of {part_mb:.1f} MB, "
+              f"CSV == qs CSV, launches {_launched(launches_stream)}; "
+              f"--extended == qs, launches {_launched(launches_ext)}; "
+              f"file->CSV resident "
               f"{', '.join(f'{r:.1f}' for r in rates['resident'])}, streamed "
               f"{', '.join(f'{r:.1f}' for r in rates['streamed'])} reads/s; "
-              f"first {n_head} reads identical to --device cpu; on {card}")
-    return (err, ms, {res_name: launches[res_name],
-                      part_name: launches_stream[part_name]}, detail, bound)
+              f"first {n_head} reads identical to --device cpu; seconds: "
+              + ", ".join(f"{n} {t:.2f}" for n, t in secs.items())
+              + f"; on {card}")
+    return (err, ms, {fused_name: launches[fused_name],
+                      res_name: launches_ext[res_name],
+                      part_name: launches_stream[part_name]}, detail, bound,
+            ceiling)
 
 
 def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
@@ -1432,14 +1605,17 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
     """classify --device cuda --profile on the headline reads, resident:
     the CSV is the resident one, the trace parses, and it holds as many
     events of each TRACE_KERNELS entry as kernels.LAUNCHES counted (the
-    fused query and score alone on this path).  Then a trace of 20
+    fused query and score alone on this path).  Then one more profiler
+    session: the resident q4 and s2 runs of the CLI on the same reads
+    (each CSV the resident one, the layout's fused kernel alone), and 20
     back-to-back wrapper calls of each kernel on one main-path batch,
     beside CUDA-event times of the same calls without the profiler: the
     kernels' own durations against the rate the host launches them at.
-    Returns the phase's detail."""
+    That trace holds one kernel event for each launch of both.  Returns
+    the phase's detail."""
     import torch
 
-    from cuclark_tpu_torch import codec, probe, score
+    from cuclark_tpu_torch import codec, kernels, probe, score
     from cuclark_tpu_torch.hashdb import table_to_device
 
     tdir, prof_csv = tmp / "trace", tmp / "profile.csv"
@@ -1477,10 +1653,32 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
     event_ms = {name: _cuda_ms(fn, 20) for name, fn in calls.items()}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    fused = {}
     with torch.profiler.profile(activities=acts) as prof:
+        for layout in ("q4", "s2"):
+            name, lcsv = f"query_score_{layout}", tmp / f"profile_{layout}.csv"
+            _, lay = run_cli(["classify", "-D", str(tmp / f"db_{layout}"),
+                              "-O", str(fq), "-R", str(lcsv), "--device",
+                              "cuda"], (name,))
+            if (_launched(lay).keys() != {name}
+                    or lcsv.read_bytes() != gpu_csv.read_bytes()):
+                raise AssertionError(f"traced resident {layout} run: "
+                                     f"launches {_launched(lay)}, or its CSV "
+                                     f"differs from the resident one")
+            fused[name] = lay[name]
+        kernels.reset_launches()
         traced_ms = {name: _cuda_ms(fn, 20) for name, fn in calls.items()}
+        torch.cuda.synchronize()
+        paced_launches = dict(kernels.LAUNCHES)
     prof.export_chrome_trace(str(tmp / "pacing.json"))
     paced, _, _ = trace_kernels(tmp / "pacing.json")
+    for name, evs in paced.items():
+        want = paced_launches[name] + (sum(fused.values())
+                                       if name == "query_score" else 0)
+        if len(evs) != want:
+            raise AssertionError(f"the second trace holds {len(evs)} {name} "
+                                 f"kernel events for {want} launches (q4 and "
+                                 f"s2 runs {fused}, then {paced_launches})")
     del main_t, stash_t, lab, p2, vb
     torch.cuda.empty_cache()
     pacing = []
@@ -1498,7 +1696,9 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
             + ", ".join(f"{len(found[name])} {name} kernels of mean {m:.4f} "
                         f"ms" for name, m in mean.items())
             + f" (launches {_launched(launches)}); card busy {share:.4%} of "
-            f"the {window_ms:.1f} ms traced window (kernels and copies); 20 "
+            f"the {window_ms:.1f} ms traced window (kernels and copies); a "
+            f"second session: resident q4 and s2 CSVs == resident, launches "
+            f"and kernel events {fused} alone, then 20 "
             f"back-to-back wrapper calls on [{B}, 152]: "
             + "; ".join(pacing) + f"; on {card}")
 
@@ -1575,8 +1775,8 @@ def main(argv=None) -> int:
                                  f"score_long entry")
     _phase("kernels_vs_plain", t0, "query (qs, q4, s2, resident, part, "
            "qs db shards with stash ranges, codes front half), the fused "
-           "query and score, and score (warp and histogram paths, both "
-           "label ranges) bit-identical")
+           "query and score (qs, q4, s2), and score (warp and histogram "
+           "paths, both label ranges) bit-identical")
 
     with tempfile.TemporaryDirectory(prefix="cuclark_smoke_") as td:
         tmp = Path(td)
@@ -1903,10 +2103,14 @@ def main(argv=None) -> int:
         head = head_fastq(fq, tmp / "head.fq", min(16384, args.reads))
         for layout in ("q4", "s2"):
             t0 = time.time()
-            lay_err, lay_ms, lay_launches, detail, lay_bound = check_layout(
-                dbs.pop(layout), tmp, fq, head, wire0, gpu_csv, dev, card)
+            (lay_err, lay_ms, lay_launches, detail, lay_bound,
+             lay_ceiling) = check_layout(
+                dbs.pop(layout), tmp, fq, head, ext_fq, tmp / "ext_cuda.csv",
+                wire0, gpu_csv, ceiling_lib, dev, card)
             bound.update(lay_bound)
-            err.update(lay_err)
+            ceiling.update(lay_ceiling)
+            for name, e in lay_err.items():
+                err[name] = max(err.get(name, 0), e)
             ms.update(lay_ms)
             launches.update(lay_launches)
             _phase(f"layouts_{layout}", t0, detail)
@@ -1968,8 +2172,10 @@ def main(argv=None) -> int:
          "launches": launches_paired["score"], "max_abs_err": err["score"],
          "ms": ms["score"], "plain_ms": ms["score_plain"]},
     ]
-    for name, replaces in (("query_q4", "cuclark_tpu/probe.py:236"),
+    for name, replaces in (("query_score_q4", "cuclark_tpu/pipeline.py:71"),
+                           ("query_q4", "cuclark_tpu/probe.py:236"),
                            ("query_part_q4", "cuclark_tpu/probe.py:236"),
+                           ("query_score_s2", "cuclark_tpu/pipeline.py:71"),
                            ("query_s2", "cuclark_tpu/probe.py:131"),
                            ("query_part_s2", "cuclark_tpu/probe.py:131")):
         kern.append({"name": name, "route": "cuda",
@@ -1996,7 +2202,8 @@ def main(argv=None) -> int:
                      "plain_ms": ms[f"{name}_plain"]})
     for entry in kern:
         # no single PyTorch call computes any of these functions; the
-        # gather ceiling is that of the qs query's main rows
+        # gather ceiling is that of the rows an exact probe of the
+        # kernel's table gathers
         entry.update(bound_ms=bound[entry["name"]], bound_by="bytes",
                      library_ms=None,
                      ceiling_ms=ceiling.get(entry["name"]))

@@ -55,12 +55,12 @@
 // for the windows whose bucket lies in its range, 1/P of them over P
 // parts, and there the front half is the larger cost.
 //
-// What the resident qs call of one-tile reads (P <= kTile: 150 bp reads
-// in the 152 bin) does besides: query_score_kernel scores the block's
-// labels in shared memory (warp_score.cuh) and writes [R, 5] results, so
-// the [R, P] labels (32 MB a batch) are neither written nor read again
-// and the score kernel's launch goes away (pipeline.classify_step_packed
-// without labels).
+// What the resident call of one-tile reads (P <= kTile: 150 bp reads in
+// the 152 bin) does besides, for every layout: query_score_kernel<LAYOUT>
+// scores the block's labels in shared memory (warp_score.cuh) and writes
+// [R, 5] results, so the [R, P] labels (32 MB a batch) are neither written
+// nor read again and the score kernel's launch goes away
+// (pipeline.classify_step_packed without labels).
 //
 // The front half (the k-mer of each window from the wire bytes, its
 // reverse complement and the Feistel rounds) is a few instructions per
@@ -82,15 +82,17 @@
 //     the pair swap exchanging the two bits of each 2-bit field.  The
 //     window is valid when the k-bit slice of the validity bitstring from
 //     bit p is all ones.
-// A thread per window then issues the loads of both its rows (qs: main and
-// stash; q4: both main choices) before it compares either, and stores to
-// labels[r * P + p] (coalesced).  Row offsets are 64-bit: at nb_bits 28 the
-// main table is 8.6 GB.  A qs or q4 row is two 16 B loads: a qs main row
-// with the streaming hint (evict first), so that the main rows, which a
-// batch reads once, leave L2 before the stash rows do (on an H100 the
-// resident qs query ran 12% faster so; q4 ran no faster), every other row
-// through the read-only path.  Invalid windows (an N or padding inside) return before
-// any gather, which also stands in for the TPU-only probe.spread_invalid.
+// A thread per window then gathers its rows and stores to labels[r * P +
+// p] (coalesced).  Row offsets are 64-bit: at nb_bits 28 the main table is
+// 8.6 GB.  A qs or q4 row is two 16 B loads: a qs main row with the
+// streaming hint (evict first), so that the main rows, which a batch reads
+// once, leave L2 before the stash rows do (on an H100 the resident qs
+// query ran 12% faster so; q4 ran no faster), every other row through the
+// read-only path.  qs issues the loads of both its rows (main and stash)
+// before it compares either: the stash row is an L2 hit beside the cold
+// main row; so does q4 in a range call.  Invalid windows (an N or padding
+// inside) return before any gather, which also stands in for the TPU-only
+// probe.spread_invalid.
 //
 // The q4 and s2 layouts (cuclark_tpu/probe.py:_probe_q4 :236 and the s2
 // branch of probe.probe :131-155) share the front half (staging, k-mer,
@@ -98,8 +100,8 @@
 // so each layout compiles to its own kernel:
 //   - q4: the qs row format, both choices in the main rows: choice 0 row
 //     l2 & (NB-1), other h1, quotient l2 >> nb_bits; choice 1 row
-//     h1 & (NB-1), other l2, quotient h1 >> nb_bits.  Two cold 32 B gathers
-//     into a 1 GB table instead of qs's one cold and one warm.
+//     h1 & (NB-1), other l2, quotient h1 >> nb_bits.  Both are cold 32 B
+//     gathers into a 1 GB table.
 //   - s2: rows [klo x S | khi x S | label x S] of full keys, S = 1..255 at
 //     run time, buckets mix1/mix2 of the canonical k-mer's u32 halves; the
 //     labels of the slots whose two key words match are summed.  Choice 1
@@ -108,10 +110,41 @@
 //     is not 16 B aligned, so it is read with 8 B loads when S is even (4 B
 //     loads when it is odd): the S low key words first, the high words and
 //     the labels only on a match, so a miss reads only the low key words.
-//     On an H100 the 8 B loads ran faster than 4 B ones, and than issuing
-//     both choices' loads side by side.
+//     On an H100 the 8 B loads ran faster than 4 B ones.
+// Both gather choice 1 only when choice 0 gave label 0 (q4: in a resident
+// call): the reference sums
+// both choices (probe._probe_q4, the s2 loop), but once choice 0 gives a
+// nonzero label choice 1 can only add 0, because
+//   - every key of a table is unique, so a probe matches in at most one
+//     slot of one choice (cuclark_tpu/hashdb.py:16-21; build_table rejects
+//     duplicate k-mers, :493-495), and the Feistel mix is a bijection, so
+//     a q4 slot that matches reconstructs the probed key itself;
+//   - stored labels are 1-based (hashdb.py:23-24; build_table rejects
+//     labels outside 1..MTRGTS, :488-489), so a matching slot gives a
+//     nonzero label and its label alone is the row's sum;
+//   - empty and sampled-out slots cannot make choice 0 look answered: q4's
+//     are all zero (label 0; they match only a k-mer whose h1 and quotient
+//     are 0, adding 0, hashdb.py:229-230), s2's hold EMPTY keys (label 0,
+//     or EMPTY in every word when sampled out, :229-230, :730-732), and
+//     no canonical k-mer has both halves 0xFFFFFFFF.
+// So the branch is on a nonzero label, never on "a slot matched".  Both
+// builds place every key they can at its first choice before any other
+// (hashdb.py:_cuckoo_place :643-665, _try_build_np :722-745), and a
+// window that hits, most of them in a read of the database's genomes,
+// makes one cold gather instead of two.  A window that misses makes both,
+// the second after the first.  On an H100, on a batch of 150 bp reads with
+// 1% substitutions (29.5% of q4's and 35.2% of s2's windows take the
+// second gather), the q4 query went from 0.534 to 0.353 ms and s2 from
+// 0.588 to 0.420 ms; on a batch where every window misses both ran as
+// fast as with both loads in flight (enough warps hide the wait).  Holding
+// the kernel to 32 registers for 16 blocks an SM made s2 12% slower;
+// loading an s2 slot pair's key and label words together gained 1% on the
+// first batch and lost 13% on the all-miss one.
 // In part mode each choice is range-checked on its own, so a key whose two
-// buckets fall in different parts is found in exactly one of them.
+// buckets fall in different parts is found in exactly one of them; a
+// window whose choice 0 lies outside the call's range probes choice 1 as
+// before.  A q4 range call keeps both loads in flight (see kmer_label); an
+// s2 range call skips as the resident one does.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cuclark_tpu_torch/kernels.py).
@@ -311,16 +344,16 @@ __device__ __forceinline__ int32_t kmer_label(
   // b - bucket_start never wraps (bucket_start passes 2^31 at nb_bits 31).
   int32_t lab = 0;
   if (LAYOUT == kS2) {
-    // choice 1 runs after choice 0 and counts only when its global bucket
-    // differs from choice 0's
+    // choice 1 only when choice 0 gave label 0, and only when its global
+    // bucket differs from choice 0's
     const uint32_t* rows = static_cast<const uint32_t*>(main_rows);
     const uint64_t b1 = mix1(hi, lo) & mask;
     if (b1 >= bucket_start && b1 - bucket_start < nb_local)
       lab = s2_row_label(rows, b1 - bucket_start, lo, hi, slots);
-    if (num_choices == 2) {
+    if (lab == 0 && num_choices == 2) {
       const uint64_t b2 = mix2(hi, lo) & mask;
       if (b2 != b1 && b2 >= bucket_start && b2 - bucket_start < nb_local)
-        lab += s2_row_label(rows, b2 - bucket_start, lo, hi, slots);
+        lab = s2_row_label(rows, b2 - bucket_start, lo, hi, slots);
     }
   } else {
     // 3-round Feistel on the u32 halves -> (h1, l2)
@@ -347,15 +380,25 @@ __device__ __forceinline__ int32_t kmer_label(
     }
     const bool in1 = (LAYOUT == kQ4 || stash_rows != nullptr) &&
                      b1 >= start1 && b1 - start1 < local1;
-    // both rows' loads are in flight before either is compared.  A qs
-    // batch reads its main rows once, and streams them past the stash,
-    // which every batch reads and which L2 can hold; q4's two choices are
-    // alike, and gain nothing from the hint.
-    QRow row0{}, row1{};
-    if (in0) row0 = load_row<LAYOUT == kQs>(rows, b0 - bucket_start);
-    if (in1) row1 = load_row<false>(rows1, b1 - start1);
-    if (in0) lab = row_label(row0, h1, l2 >> nb_bits, 0u);
-    if (in1) lab += row_label(row1, l2, h1 >> bits1, 1u);
+    if (LAYOUT == kQ4 && nb_local == (1ull << nb_bits)) {
+      // resident q4: choice 1 only when choice 0 gave label 0
+      if (in0) lab = row_label(load_row<false>(rows, b0), h1, l2 >> nb_bits,
+                               0u);
+      if (lab == 0 && in1)
+        lab = row_label(load_row<false>(rows, b1), l2, h1 >> nb_bits, 1u);
+    } else {
+      // both rows' loads are in flight before either is compared.  A qs
+      // batch reads its main rows once, and streams them past the stash,
+      // which every batch reads and which L2 can hold.  A q4 range call
+      // (a part or a db shard) finds both choices in its range for few
+      // windows, and ran 4.5% slower on an H100 with choice 1 waiting on
+      // choice 0's label.
+      QRow row0{}, row1{};
+      if (in0) row0 = load_row<LAYOUT == kQs>(rows, b0 - bucket_start);
+      if (in1) row1 = load_row<false>(rows1, b1 - start1);
+      if (in0) lab = row_label(row0, h1, l2 >> nb_bits, 0u);
+      if (in1) lab += row_label(row1, l2, h1 >> bits1, 1u);
+    }
   }
   return lab;
 }
@@ -397,16 +440,19 @@ __global__ void __launch_bounds__(kTile) query_kernel(
     labels[idx] += lab;
 }
 
-// Query and score of one-tile qs reads (P <= kTile) against the resident
-// table: a block per read runs query_kernel's wire front half and gathers,
-// then its labels go to shared memory and warp 0 scores them into results
-// row r (warp_score.cuh, score.cu's warp path).  The labels never reach
-// device memory.
+// Query and score of one-tile reads (P <= kTile) against the resident
+// table of a layout: a block per read runs query_kernel's wire front half
+// and gathers, then its labels go to shared memory and warp 0 scores them
+// into results row r (warp_score.cuh, score.cu's warp path).  The labels
+// never reach device memory.  stash_rows and stash_bits are qs's; slots
+// and num_choices s2's.
+template <int LAYOUT>
 __global__ void __launch_bounds__(kTile) query_score_kernel(
     const uint8_t* __restrict__ packed2, const uint8_t* __restrict__ vbits,
-    const uint4* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
+    const void* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
     int32_t* __restrict__ results, int P, int s2, int s8, int k, int nb_bits,
-    int stash_bits, uint32_t c1, uint32_t c2, uint32_t c3) {
+    int stash_bits, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
+    int num_choices) {
   __shared__ uint32_t w2[kW2];
   __shared__ uint32_t wv[kWv];
   __shared__ int32_t lab_s[kTile];
@@ -417,9 +463,9 @@ __global__ void __launch_bounds__(kTile) query_score_kernel(
   uint64_t c;
   if (static_cast<int>(threadIdx.x) < P &&
       window_kmer(w2, wv, threadIdx.x, k, &c))
-    lab = kmer_label<kQs>(c, main_rows, stash_rows, nb_bits, stash_bits, 0,
-                          1ull << nb_bits, 0, 1ull << stash_bits, c1, c2, c3,
-                          0, 1);
+    lab = kmer_label<LAYOUT>(c, main_rows, stash_rows, nb_bits, stash_bits,
+                             0, 1ull << nb_bits, 0, 1ull << stash_bits, c1,
+                             c2, c3, slots, num_choices);
   lab_s[threadIdx.x] = lab;
   __syncthreads();
   if (threadIdx.x >= 32) return;
@@ -532,11 +578,47 @@ extern "C" int cuclark_query_score(const void* packed2, const void* vbits,
   if (R > 0x7FFFFFFF || P < 1 || P > kTile || k < 2 || k > 32 ||
       stash_rows == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  query_score_kernel<<<static_cast<unsigned>(R), kTile, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  query_score_kernel<kQs><<<static_cast<unsigned>(R), kTile, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed2), static_cast<const uint8_t*>(vbits),
-      static_cast<const uint4*>(main_rows),
-      static_cast<const uint4*>(stash_rows), static_cast<int32_t*>(results),
-      P, s2, s8, k, nb_bits, stash_bits, c1, c2, c3);
+      main_rows, static_cast<const uint4*>(stash_rows),
+      static_cast<int32_t*>(results), P, s2, s8, k, nb_bits, stash_bits, c1,
+      c2, c3, 0, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same against a resident table of a layout without a stash: layout 1
+// (q4) main int32 [2^nb_bits, 8], layout 2 (s2) main int32 [2^nb_bits,
+// 3*slots] with num_choices 1 or 2.
+extern "C" int cuclark_query_score_layout(int layout, const void* packed2,
+                                          const void* vbits,
+                                          const void* main_rows,
+                                          void* results, int64_t R, int P,
+                                          int s2, int s8, int k, int nb_bits,
+                                          uint32_t c1, uint32_t c2,
+                                          uint32_t c3, int slots,
+                                          int num_choices, void* stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  if (R > 0x7FFFFFFF || P < 1 || P > kTile || k < 2 || k > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* p2 = static_cast<const uint8_t*>(packed2);
+  const uint8_t* vb = static_cast<const uint8_t*>(vbits);
+  int32_t* out = static_cast<int32_t*>(results);
+  const unsigned grid = static_cast<unsigned>(R);
+  switch (layout) {
+    case kQ4:
+      query_score_kernel<kQ4><<<grid, kTile, 0, st>>>(
+          p2, vb, main_rows, nullptr, out, P, s2, s8, k, nb_bits, 0, c1, c2,
+          c3, slots, num_choices);
+      break;
+    case kS2:
+      query_score_kernel<kS2><<<grid, kTile, 0, st>>>(
+          p2, vb, main_rows, nullptr, out, P, s2, s8, k, nb_bits, 0, c1, c2,
+          c3, slots, num_choices);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -328,6 +328,39 @@ class KmerDB:
                  | klo[keep].astype(np.uint64))
         return kmers, lab[keep]
 
+    def first_choice_slots(self) -> tuple[np.ndarray, np.ndarray]:
+        """(stored, first): bool [NB, slots] masks over a q4 or s2
+        table's entries: which hold a key, and which of those sit at
+        their key's first hash choice (q4: the choice bit clear; s2: the
+        row is the key's mix1 bucket)."""
+        t = self.table
+        if self.layout == "q4":
+            meta = t[:, 4:]
+            stored = (meta & _M32(0xFFFF)) != 0
+            return stored, stored & (((meta >> _M32(16)) & _M32(1)) == 0)
+        S = self.slots
+        klo, khi = t[:, :S], t[:, S:2 * S]
+        stored = (klo != EMPTY) | (khi != EMPTY)
+        with np.errstate(over="ignore"):
+            b1 = mix1(khi, klo) & _M32(self.nb - 1)
+        return stored, stored & (b1 == np.arange(self.nb,
+                                                 dtype=np.uint32)[:, None])
+
+    def second_choice_only(self) -> np.ndarray:
+        """A copy of a q4 or s2 table with every entry at its key's first
+        hash choice emptied (q4: zeroed; s2: EMPTY keys): what remains
+        answers from the second choice alone."""
+        _, first = self.first_choice_slots()
+        t = self.table.copy()
+        if self.layout == "q4":
+            t[:, :4][first] = 0
+            t[:, 4:][first] = 0
+            return t
+        S = self.slots
+        t[:, :S][first] = EMPTY
+        t[:, S:2 * S][first] = EMPTY
+        return t
+
     # ---------- host-side probe / self-check ----------
 
     def probe_np(self, kmers: np.ndarray) -> np.ndarray:

@@ -23,11 +23,12 @@ a mesh, `parallel/mesh.py`); and the resident query over unpacked codes
 (`pipeline.classify_step`).  Their counts are kept per layout: `query`,
 `query_part` and `query_codes` for qs, the same names with `_q4` or `_s2`
 for the others.  `query_score` launches the query kernel's fused
-instance for one-tile qs reads against the resident table, which scores
-each read's labels on chip and returns the [R, 5] results
-(`pipeline.classify_step_packed` without labels).  `score` launches the
-score kernel (`csrc/score.cu`), counted as `score` for rows of up to
-MAX_SCORE_WINDOWS windows and `score_long` for longer ones.
+instance for one-tile reads against the resident table of any layout,
+which scores each read's labels on chip and returns the [R, 5] results
+(`pipeline.classify_step_packed` without labels), counted as
+`query_score` for qs and `query_score_q4` or `query_score_s2`.  `score`
+launches the score kernel (`csrc/score.cu`), counted as `score` for rows
+of up to MAX_SCORE_WINDOWS windows and `score_long` for longer ones.
 
 A launch runs with its tensors' device made current, on that device's
 current stream, so the devices of a mesh may be different cards or
@@ -67,7 +68,8 @@ QUERY_SCORE_MAX_WINDOWS = 128
 LAUNCHES = {"query": 0, "query_part": 0, "query_codes": 0, "query_q4": 0,
             "query_part_q4": 0, "query_codes_q4": 0, "query_s2": 0,
             "query_part_s2": 0, "query_codes_s2": 0, "query_score": 0,
-            "score": 0, "score_long": 0}
+            "query_score_q4": 0, "query_score_s2": 0, "score": 0,
+            "score_long": 0}
 
 # The query kernel's layout argument (csrc/query.cu, enum Layout).
 _LAYOUT_CODE = {"qs": 0, "q4": 1, "s2": 2}
@@ -142,6 +144,9 @@ ENTRIES = {
                       _u32, _u32, _u32, _i32, _i32, _vp],
     "cuclark_query_score": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32,
                             _i32, _i32, _i32, _u32, _u32, _u32, _vp],
+    "cuclark_query_score_layout": [_i32, _vp, _vp, _vp, _vp, _i64, _i32,
+                                   _i32, _i32, _i32, _i32, _u32, _u32, _u32,
+                                   _i32, _i32, _vp],
     "cuclark_score": [_vp, _vp, _i64, _i32, _vp],
     "cuclark_score_long": [_vp, _vp, _i64, _i32, _vp],
 }
@@ -245,11 +250,7 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
         if stash.data_ptr() % 16:
             raise ValueError("table rows must be 16-byte aligned")
         stash_ptr = stash.data_ptr()
-    # qs and q4 rows are read as two 16 B loads; s2 rows as 8 B loads when
-    # the slots are even, else 4 B loads
-    align = 16 if spec.layout != "s2" else 8 if spec.slots % 2 == 0 else 4
-    if main.data_ptr() % align:
-        raise ValueError(f"table rows must be {align}-byte aligned")
+    _check_align(main, spec)
     out = acc if acc is not None else torch.empty(
         (R, P), dtype=torch.int32, device=dev)
     lib = load()
@@ -264,6 +265,14 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
             int(acc is not None), c1, c2, c3, spec.slots, spec.num_choices,
             stream), "query")
     return out
+
+
+def _check_align(main: torch.Tensor, spec: TableSpec) -> None:
+    """qs and q4 rows are read as two 16 B loads; s2 rows as 8 B loads
+    when the slots are even, else 4 B loads."""
+    align = 16 if spec.layout != "s2" else 8 if spec.slots % 2 == 0 else 4
+    if main.data_ptr() % align:
+        raise ValueError(f"table rows must be {align}-byte aligned")
 
 
 def _count(name: str, layout: str) -> None:
@@ -323,38 +332,53 @@ def query_codes(codes: torch.Tensor, main: torch.Tensor,
 
 
 def query_score(packed2: torch.Tensor, vbits: torch.Tensor,
-                main: torch.Tensor, stash: torch.Tensor, *, k: int,
+                main: torch.Tensor, stash: torch.Tensor | None, *, k: int,
                 spec: TableSpec) -> torch.Tensor:
     """Launch the query kernel's fused instance (csrc/query.cu,
-    query_score_kernel) on a resident qs table: the wire batch's labels
-    scored on chip -> results int32 [R, 5], as score(query(...)) gives
-    them.  Rows of at most QUERY_SCORE_MAX_WINDOWS windows."""
-    dev = packed2.device
-    R, s2, s8, L = _check_reads(packed2, vbits)
-    if spec.layout != "qs" or stash is None:
+    query_score_kernel) on a resident table: main [2^nb_bits, row words]
+    and, for qs, stash [2^stash_bits, 8] (None for q4 and s2); the wire
+    batch's labels scored on chip -> results int32 [R, 5], as
+    score(query(...)) gives them.  Rows of at most
+    QUERY_SCORE_MAX_WINDOWS windows."""
+    spec.check()
+    if (spec.layout == "qs") != (stash is not None):
         raise ValueError("the fused query and score takes a qs table with "
-                         "its stash")
-    _check_resident(main, stash, spec)
-    _check(main, "main", torch.int32, dev)
-    _check(stash, "stash", torch.int32, dev)
-    P = L - k + 1
+                         "its stash, a q4 or s2 table without one")
+    P = 4 * packed2.shape[-1] - k + 1
     if not 2 <= k <= 32 or not 1 <= P <= QUERY_SCORE_MAX_WINDOWS:
         raise ValueError(f"fused query and score needs 1 <= P <= "
                          f"{QUERY_SCORE_MAX_WINDOWS} windows and k in 2..32,"
                          f" got P={P}, k={k}")
-    if main.data_ptr() % 16 or stash.data_ptr() % 16:
-        raise ValueError("table rows must be 16-byte aligned")
+    dev = packed2.device
+    R, s2, s8, _ = _check_reads(packed2, vbits)
+    _check_resident(main, stash, spec)
+    _check(main, "main", torch.int32, dev)
+    if main.shape[1] != spec.row_words:
+        raise ValueError(f"main rows {tuple(main.shape)}, expected "
+                         f"{spec.row_words} words a row")
+    _check_align(main, spec)
+    if stash is not None:
+        _check(stash, "stash", torch.int32, dev)
+        if stash.data_ptr() % 16:
+            raise ValueError("table rows must be 16-byte aligned")
     results = torch.empty((R, 5), dtype=torch.int32, device=dev)
     lib = load()
     c1, c2, c3 = feistel_seed_consts(spec.seed)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.cuclark_query_score(
-            packed2.data_ptr(), vbits.data_ptr(), main.data_ptr(),
-            stash.data_ptr(), results.data_ptr(), R, P, s2, s8, k,
-            spec.nb_bits, spec.stash_bits, c1, c2, c3, stream),
-            "query_score")
-    LAUNCHES["query_score"] += 1
+        if stash is not None:
+            err = lib.cuclark_query_score(
+                packed2.data_ptr(), vbits.data_ptr(), main.data_ptr(),
+                stash.data_ptr(), results.data_ptr(), R, P, s2, s8, k,
+                spec.nb_bits, spec.stash_bits, c1, c2, c3, stream)
+        else:
+            err = lib.cuclark_query_score_layout(
+                _LAYOUT_CODE[spec.layout], packed2.data_ptr(),
+                vbits.data_ptr(), main.data_ptr(), results.data_ptr(), R, P,
+                s2, s8, k, spec.nb_bits, c1, c2, c3, spec.slots,
+                spec.num_choices, stream)
+        _raise_on(err, "query_score")
+    _count("query_score", spec.layout)
     return results
 
 

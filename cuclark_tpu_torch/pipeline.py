@@ -65,10 +65,10 @@ def classify_step_packed(table, packed2, vbits, *, k, spec: TableSpec,
     int32 [R, P] or None).  `table` and `stash` are what
     hashdb.table_to_device gives for the layout `spec` (KmerDB.spec):
     the qs main rows [NB, 8] and stash rows [NBS, 8], or the q4 or s2
-    rows with stash None.  Without labels, one-tile reads against a qs
-    table take the fused query and score (`probe.fuses_score`): the same
+    rows with stash None.  Without labels, one-tile reads take the fused
+    query and score (`probe.fuses_score`), on every layout: the same
     results, the labels never leaving the chip."""
-    if not with_labels and probe.fuses_score(spec, packed2, k):
+    if not with_labels and probe.fuses_score(packed2, k):
         return probe.query_score_results(packed2, vbits, table, stash, k=k,
                                          spec=spec), None
     labels = probe.query_labels(packed2, vbits, table, stash, k=k, spec=spec)

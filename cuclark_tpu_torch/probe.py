@@ -9,9 +9,10 @@ extraction, canonical form, hash, mask by validity), and of
 bucket-range part of a streamed table or one db shard of a mesh (a range
 of main rows and a range of stash rows, `cuclark_tpu/parallel/mesh.py`),
 and of the front of `cuclark_tpu/pipeline.py:classify_step` (:48), the
-chain from unpacked codes.  `query_score_results` is the resident qs
-query of one-tile reads fused with `score.score_labels`.  On a CUDA
-tensor each is one launch of the hand-written kernel `csrc/query.cu`;
+chain from unpacked codes.  `query_score_results` is the resident query
+of one-tile reads, of any layout, fused with `score.score_labels`.  On
+a CUDA tensor each is one launch of the hand-written kernel
+`csrc/query.cu`;
 the plain PyTorch versions here are what the wrappers run on CPU
 tensors and what the kernel is held against.
 
@@ -109,9 +110,12 @@ def probe_q4(table: torch.Tensor, nb_bits: int, seed: int,
     [NB, 8] (`cuclark_tpu.probe._probe_q4`): choice 0 at main row
     l2 & (NB-1) with other h1, choice 1 at main row h1 & (NB-1) with
     other l2, both quotients against nb_bits.  Plain version of the q4
-    probe in csrc/query.cu.  For a part, `table` holds rows
-    [bucket_start, bucket_start + len(table)) and each choice counts
-    only when its own bucket lies in that range."""
+    probe in csrc/query.cu, summing both choices as the reference does
+    (the kernel gathers choice 1 only when choice 0 gives label 0, which
+    gives the same sum on a table of unique keys and 1-based labels).
+    For a part, `table` holds rows [bucket_start, bucket_start +
+    len(table)) and each choice counts only when its own bucket lies in
+    that range."""
     check_q_bits("q4", nb_bits)
     hi, lo = _split_kmers(kmers)
     h1, l2 = feistel_mix_torch(hi, lo, seed)
@@ -133,9 +137,11 @@ def probe_s2(table: torch.Tensor, nb_bits: int, slots: int,
     of `cuclark_tpu.probe.probe`): bucket mix1 & (NB-1), and with two
     choices mix2 & (NB-1) when it differs from the first as a global
     bucket; the labels of the slots whose two key words match are
-    summed.  Plain version of the s2 probe in csrc/query.cu.  For a
-    part, `table` holds rows [bucket_start, bucket_start + len(table))
-    and each choice counts only when its own bucket lies in range."""
+    summed.  Plain version of the s2 probe in csrc/query.cu, summing
+    both choices as the reference does (the kernel probes choice 1 only
+    when choice 0 gives label 0).  For a part, `table` holds rows
+    [bucket_start, bucket_start + len(table)) and each choice counts
+    only when its own bucket lies in range."""
     S = slots
     hi, lo = _split_kmers(kmers)
     mask = (1 << nb_bits) - 1
@@ -225,18 +231,18 @@ def query_labels(packed2: torch.Tensor, vbits: torch.Tensor,
     return kernels.query(packed2, vbits, main, stash, k=k, spec=spec)
 
 
-def fuses_score(spec: TableSpec, packed2: torch.Tensor, k: int) -> bool:
+def fuses_score(packed2: torch.Tensor, k: int) -> bool:
     """Whether a resident step of this wire batch takes the fused query
-    and score (`query_score_results`): a qs table and reads of at most
-    kernels.QUERY_SCORE_MAX_WINDOWS windows, one tile of the query
-    kernel."""
-    return (spec.layout == "qs" and 1 <= 4 * packed2.shape[1] - k + 1
-            <= kernels.QUERY_SCORE_MAX_WINDOWS)
+    and score (`query_score_results`), on a table of any layout: reads
+    of at most kernels.QUERY_SCORE_MAX_WINDOWS windows, one tile of the
+    query kernel."""
+    P = 4 * packed2.shape[1] - k + 1
+    return 1 <= P <= kernels.QUERY_SCORE_MAX_WINDOWS
 
 
 def query_score_results_plain(packed2: torch.Tensor, vbits: torch.Tensor,
-                              main: torch.Tensor, stash: torch.Tensor, *,
-                              k: int, spec: TableSpec) -> torch.Tensor:
+                              main: torch.Tensor, stash: torch.Tensor | None,
+                              *, k: int, spec: TableSpec) -> torch.Tensor:
     """Plain PyTorch version of the fused query and score: the plain
     query's labels, scored by the plain score -> results int32 [R, 5]."""
     return score.score_labels_plain(query_labels_plain(
@@ -244,12 +250,13 @@ def query_score_results_plain(packed2: torch.Tensor, vbits: torch.Tensor,
 
 
 def query_score_results(packed2: torch.Tensor, vbits: torch.Tensor,
-                        main: torch.Tensor, stash: torch.Tensor, *, k: int,
-                        spec: TableSpec) -> torch.Tensor:
+                        main: torch.Tensor, stash: torch.Tensor | None, *,
+                        k: int, spec: TableSpec) -> torch.Tensor:
     """Per-read results int32 [R, 5] of a wire batch of one-tile reads
-    (see `fuses_score`) against a resident qs table, the labels never
-    leaving the chip: the query kernel's fused instance for CUDA tensors,
-    its plain version for CPU tensors."""
+    (see `fuses_score`) against a resident table (main rows and, for qs,
+    the stash), the labels never leaving the chip: the query kernel's
+    fused instance for CUDA tensors, its plain version for CPU
+    tensors."""
     if packed2.device.type == "cpu":
         return query_score_results_plain(packed2, vbits, main, stash, k=k,
                                          spec=spec)

@@ -1,5 +1,5 @@
-// Gather-only kernels that measure what the qs query's main-row gathers can
-// reach on the card, for scripts/torch_gather_ceiling.py.  Not part of the
+// Gather-only kernels that measure what the query's main-row gathers can
+// reach on the card, for scripts/torch_gather_ceiling.py and chip_smoke.py.  Not part of the
 // package: the script builds this file on its own, with the package's nvcc
 // flags.
 //
@@ -16,7 +16,11 @@
 //     each job's Feistel halves (h1, l2) beside its index;
 //   - gc_gather_jobs: the gather pass over the fixed bins: per job the k-mer
 //     recomputed from the wire bytes (keys 0) or (h1, l2) read from the bins
-//     (keys 1), the main row loaded and compared, the label added.
+//     (keys 1), the main row loaded and compared, the label added;
+//   - gc_gather_layout: a thread per entry of a list of q4 or s2 main rows,
+//     each read as the query kernel reads it (load_row<false>: two 16 B
+//     loads through the read-only path; s2_row_label: the S low key words,
+//     8 B loads at even S, 4 B loads at odd S).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (cuclark_tpu_torch/kernels.py's NVCC_FLAGS).
@@ -269,6 +273,33 @@ __global__ void __launch_bounds__(kBlock)
   block_xor(x, out);
 }
 
+// q4 (layout 1) rows of 8 words, s2 (layout 2) rows of 3 * S words.
+__global__ void __launch_bounds__(kBlock)
+    gather_layout_kernel(const uint32_t* __restrict__ rows,
+                         const uint32_t* __restrict__ list, int64_t n,
+                         int layout, int S, uint32_t* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+  uint32_t x = 0;
+  if (i < n) {
+    const uint64_t b = list[i];
+    if (layout == 1) {
+      const uint4* r = reinterpret_cast<const uint4*>(rows) + 2 * b;
+      x = fold(__ldg(r)) ^ fold(__ldg(r + 1));
+    } else if ((S & 1) == 0) {
+      const uint2* r = reinterpret_cast<const uint2*>(
+          rows + b * 3 * static_cast<uint64_t>(S));
+      for (int j = 0; j < S / 2; ++j) {
+        const uint2 v = __ldg(r + j);
+        x ^= v.x ^ v.y;
+      }
+    } else {
+      const uint32_t* r = rows + b * 3 * static_cast<uint64_t>(S);
+      for (int j = 0; j < S; ++j) x ^= __ldg(r + j);
+    }
+  }
+  block_xor(x, out);
+}
+
 unsigned blocks_of(int64_t n, int per) {
   return static_cast<unsigned>((n + per - 1) / per);
 }
@@ -283,6 +314,20 @@ extern "C" int gc_gather(const void* rows, const void* buckets, int64_t n,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(rows), static_cast<const uint32_t*>(buckets),
       n, pair, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over q4 (layout 1) or s2 (layout 2, S slots) main rows list[n].
+extern "C" int gc_gather_layout(const void* rows, const void* list,
+                                int64_t n, int layout, int S, void* out,
+                                void* stream) {
+  if (n <= 0) return 0;
+  if ((layout != 1 && layout != 2) || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gather_layout_kernel<<<blocks_of(n, kBlock), kBlock, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(list),
+      n, layout, S, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The random-gather ceiling of the qs query's main rows on the card.
+"""The random-gather ceiling of the query's main rows on the card.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -25,7 +25,13 @@ checksum:
      with each job's Feistel halves written beside its index;
   6. the gather pass over the fixed bins: per job the k-mer recomputed
      from the wire bytes (jobs_wire) or read as (h1, l2) from the bins
-     (jobs_keys), the main row compared, the label added.
+     (jobs_keys), the main row compared, the label added;
+  7. for the q4 and s2 tables of the same k-mers, their main
+     rows read as their query kernels read them, in window order:
+     <layout>_exact, the rows an exact probe needs (every window's
+     choice-0 row, and its choice-1 row only where choice 0 gives label
+     0: what the kernel gathers), and <layout>_both, both choices' rows
+     of every window.
 
 Each line is the median of --timings CUDA-event timings (each the mean
 of --reps launches after a warm-up), with rows/s and useful GB/s (32 B a
@@ -74,6 +80,7 @@ def build() -> ctypes.CDLL:
                          ctypes.c_uint32)
     for fn, args in (
             ("gc_gather", [vp, vp, i64, i32, vp, vp]),
+            ("gc_gather_layout", [vp, vp, i64, i32, i32, vp, vp]),
             ("gc_partition_radix", [vp, vp, i64, i32, i32, vp, vp, vp, vp]),
             ("gc_partition_fixed", [vp, vp, vp, vp, i64, i32, i32, u32, vp,
                                     vp, vp, vp, vp, vp, vp, i32, vp]),
@@ -124,7 +131,8 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.time()
-    genomes, dbs = cs.build_headline_db(args.genomes, None, ("qs",))
+    genomes, dbs = cs.build_headline_db(args.genomes, None,
+                                        ("qs", "q4", "s2"))
     db = dbs.pop("qs")
     with tempfile.TemporaryDirectory(prefix="gather_ceiling_") as td:
         codes, _ = cs.write_reads(genomes, args.reads, Path(td) / "r.fq")
@@ -137,13 +145,13 @@ def main(argv=None) -> int:
     padded = np.full((R, L), codec.INVALID, np.uint8)
     padded[:, :cs.READ_LEN] = codes
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(padded))
+    codes_t = torch.from_numpy(padded).to(dev).to(torch.int32)
     main_t, _ = table_to_device(db, dev)
     spec, nb_bits = db.spec, db.nb_bits
     del db
 
     # every valid window's main bucket and Feistel halves, window order
-    kmers, valid = codec.extract_kmers(
-        torch.from_numpy(padded).to(dev).to(torch.int32), k)
+    kmers, valid = codec.extract_kmers(codes_t, k)
     km = codec.canonical(kmers, k)[valid]
     h1, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
     del kmers, km
@@ -189,12 +197,13 @@ def main(argv=None) -> int:
           f"{result['distinct_rows']} distinct main rows of 2^{nb_bits}",
           flush=True)
 
-    def record(name, ts, extra=""):
+    def record(name, ts, extra="", rows=n, row_bytes=32):
         med = statistics.median(ts)
-        result["cases"][name] = {"median_ms": med, "ms": ts}
+        result["cases"][name] = {"median_ms": med, "ms": ts, "rows": rows}
         print(f"{name}: {med:.4f} ms (min {min(ts):.4f}, max {max(ts):.4f})"
-              f", {n / med / 1e6:.3f}G rows/s, {32 * n / med / 1e6:.1f} GB/s "
-              f"useful{extra}", flush=True)
+              f", {rows / med / 1e6:.3f}G rows/s, "
+              f"{row_bytes * rows / med / 1e6:.1f} GB/s useful{extra}",
+              flush=True)
         return med
 
     most_slots = max((1 << (nb_bits - s)) * bin_capacity(R * P, s, nb_bits)
@@ -313,6 +322,28 @@ def main(argv=None) -> int:
           f"gather pass + binning by s: "
           + ", ".join(f"{s}: {v:.4f}" for s, v in design.items()),
           flush=True)
+    del main_t, b32, idx32, h1_32, l2_32, orders, want, xor_out
+    for lay in ("q4", "s2"):
+        ldb = dbs.pop(lay)
+        lmain, _ = table_to_device(ldb, dev)
+        choices = cs.choice_rows(codes_t, lmain, ldb.spec, k)
+        rows0, rows1, has1, zero = choices
+        lists = {"exact": cs.exact_rows(choices),
+                 "both": cs.exact_rows((rows0, rows1, has1,
+                                        torch.ones_like(zero)))}
+        # s2 reads the low key words of a row (8 B at 2 slots), q4 32 B
+        row_bytes = 32 if lay == "q4" else 4 * ldb.slots
+        for name, rows in lists.items():
+            rows = rows.to(torch.int32).contiguous()
+            m = int(rows.numel())
+            out = torch.empty(m // 128 + 1, dtype=torch.int32, device=dev)
+            record(f"{lay}_{name}", timed(
+                lambda rows=rows, m=m, out=out: check(lib.gc_gather_layout(
+                    ptr(lmain), ptr(rows), m, 1 if lay == "q4" else 2,
+                    ldb.slots, ptr(out), st()), "gc_gather_layout")),
+                f"; {int((has1 & zero).sum())} second gathers of "
+                f"{int(rows0.numel())} windows", m, row_bytes)
+        del lmain, ldb, choices, rows0, rows1, has1, zero, lists
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     print(smi)

@@ -15,14 +15,20 @@ q4 and s2 of the same 64M 31-mers) and reads:
 
   - query_qs, query_q4, query_s2: the resident query of a [65,536, 152]
     wire batch of 150 bp reads;
-  - query_part_qs: a pass over the qs table in 4 bucket-range parts (the
+  - query_part_qs, query_part_q4, query_part_s2: a pass over the table
+    in 4 bucket-range parts (s2: 8, as chip_smoke.py streams them; the qs
     stash on part 0, the labels accumulated), per part call;
   - classify_step: the codes front half on the same reads as unpacked
     codes, then the score kernel;
-  - step_packed: the device step of `pipeline.classify_step_packed`
-    without labels: a build with the fused query and score
-    (`cuclark_query_score`) launches it alone, an earlier one the wire
-    query then the score kernel;
+  - query_q4_miss, query_s2_miss: the resident q4 and s2 query of
+    65,536 random 150 bp reads, none of whose windows hits (each takes
+    both hash choices);
+  - step_packed, step_packed_q4, step_packed_s2: the device step of
+    `pipeline.classify_step_packed` without labels on the qs, q4 and s2
+    tables: a build with the fused query and score of that layout
+    (`cuclark_query_score` for qs, `cuclark_query_score_layout` for q4
+    and s2) launches it alone, an earlier one the wire query then the
+    score kernel;
   - score_122, score_290: the score kernel on the labels of the 150 bp
     reads and of 65,536 joined 301 bp pairs (bin 320); score_122_many on
     [65,536, 122] random labels over 1..65,535 with 30% misses (rows of
@@ -79,7 +85,9 @@ class Kernels:
 
     def __init__(self, lib, score_scratch: bool):
         self.lib, self.score_scratch = lib, score_scratch
-        self.fused = hasattr(lib, "cuclark_query_score")
+        self.fused = {"qs": hasattr(lib, "cuclark_query_score")}
+        self.fused["q4"] = self.fused["s2"] = hasattr(
+            lib, "cuclark_query_score_layout")
 
     def query(self, x, vb, main, stash, out, *, spec, k, bucket_start=0,
               stash_start=0, accumulate=False):
@@ -108,20 +116,30 @@ class Kernels:
 
     def step_packed(self, p2, vb, main, stash, labels, out, *, spec, k):
         """The device step without labels: the fused query and score where
-        the build has it, else the query into `labels` then the score."""
+        the build has it for the table's layout, else the query into
+        `labels` then the score."""
         import torch
 
+        from cuclark_tpu_torch import kernels
         from cuclark_tpu_torch.hashdb import feistel_seed_consts
 
-        if not self.fused:
+        if not self.fused[spec.layout]:
             self.query(p2, vb, main, stash, labels, spec=spec, k=k)
             return self.score(labels, out)
         R, s2 = p2.shape
-        err = self.lib.cuclark_query_score(
-            p2.data_ptr(), vb.data_ptr(), main.data_ptr(), stash.data_ptr(),
-            out.data_ptr(), R, 4 * s2 - k + 1, s2, vb.shape[1], k,
-            spec.nb_bits, spec.stash_bits, *feistel_seed_consts(spec.seed),
-            torch.cuda.current_stream().cuda_stream)
+        consts = feistel_seed_consts(spec.seed)
+        st = torch.cuda.current_stream().cuda_stream
+        if spec.layout == "qs":
+            err = self.lib.cuclark_query_score(
+                p2.data_ptr(), vb.data_ptr(), main.data_ptr(),
+                stash.data_ptr(), out.data_ptr(), R, 4 * s2 - k + 1, s2,
+                vb.shape[1], k, spec.nb_bits, spec.stash_bits, *consts, st)
+        else:
+            err = self.lib.cuclark_query_score_layout(
+                kernels._LAYOUT_CODE[spec.layout], p2.data_ptr(),
+                vb.data_ptr(), main.data_ptr(), out.data_ptr(), R,
+                4 * s2 - k + 1, s2, vb.shape[1], k, spec.nb_bits, *consts,
+                spec.slots, spec.num_choices, st)
         if err:
             raise RuntimeError(f"query_score launch failed: CUDA error {err}")
         return out
@@ -230,6 +248,7 @@ def main(argv=None) -> int:
     padded[:, :cs.READ_LEN] = codes
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(padded))
     codes_t = torch.from_numpy(padded).to(dev)
+    mp2, mvb = (torch.from_numpy(a).to(dev) for a in cs.miss_batch(R))
     P = 152 - k + 1
     L_long = int(np.ceil((max(len(c) for c in long_codes) + 1) / 128) * 128)
     lpad = np.full((len(long_codes), L_long), codec.INVALID, np.uint8)
@@ -262,12 +281,22 @@ def main(argv=None) -> int:
                           device=dev) if any(
         o.score_scratch for o in olds.values()) else None
 
-    touched = {lay: cs.touched_rows(codes_t, spec[lay], k) for lay in dbs}
+    touched = {lay: cs.touched_rows(codes_t, spec[lay], k, tables[lay][0])
+               for lay in dbs}
     wire_b, lab_b = p2.numel() + vb.numel(), 4 * R * P
     bound = {f"query_{lay}": cs._bound_ms(cs.query_bytes(
         touched[lay], spec[lay], wire_b, lab_b)) for lay in dbs}
-    bound["query_part_qs"] = cs._bound_ms(cs.query_bytes(
-        touched["qs"], spec["qs"], wire_b, lab_b, 4))
+    for lay in ("q4", "s2"):
+        bound[f"step_packed_{lay}"] = cs._bound_ms(cs.query_bytes(
+            touched[lay], spec[lay], wire_b, 20 * R))
+        miss = cs.touched_rows(codec.unpack_codes(mp2, mvb), spec[lay], k,
+                               tables[lay][0])
+        bound[f"query_{lay}_miss"] = cs._bound_ms(cs.query_bytes(
+            miss, spec[lay], wire_b, lab_b))
+        del miss
+    for lay in dbs:
+        bound[f"query_part_{lay}"] = cs._bound_ms(cs.query_bytes(
+            touched[lay], spec[lay], wire_b, lab_b, cs.STREAM_PARTS[lay]))
     bound["classify_step"] = cs._bound_ms(cs.query_bytes(
         touched["qs"], spec["qs"], R * 152, 20 * R))
     bound["step_packed"] = cs._bound_ms(cs.query_bytes(
@@ -291,17 +320,25 @@ def main(argv=None) -> int:
             cases[f"query_{lay}"] = (
                 lambda main=main, stash=stash, lay=lay: kern.query(
                     p2, vb, main, stash, out, spec=spec[lay], k=k), 1, out)
-        rows = qs_main.shape[0] // 4
+        for lay in ("q4", "s2"):
+            main, _ = tables[lay]
+            cases[f"query_{lay}_miss"] = (
+                lambda main=main, lay=lay: kern.query(
+                    mp2, mvb, main, None, out, spec=spec[lay], k=k), 1, out)
         acc = torch.empty((R, P), dtype=torch.int32, device=dev)
 
-        def part_pass():
-            for p in range(4):
-                kern.query(p2, vb, qs_main[p * rows:(p + 1) * rows],
-                           qs_stash if p == 0 else None, acc,
-                           spec=spec["qs"], k=k, bucket_start=p * rows,
-                           accumulate=p > 0)
+        def part_pass(lay):
+            main, stash = tables[lay]
+            parts = cs.STREAM_PARTS[lay]
+            rows = main.shape[0] // parts
+            for p in range(parts):
+                kern.query(p2, vb, main[p * rows:(p + 1) * rows],
+                           stash if p == 0 else None, acc, spec=spec[lay],
+                           k=k, bucket_start=p * rows, accumulate=p > 0)
             return acc
-        cases["query_part_qs"] = (part_pass, 4, acc)
+        for lay in dbs:
+            cases[f"query_part_{lay}"] = (
+                lambda lay=lay: part_pass(lay), cs.STREAM_PARTS[lay], acc)
         step_out = torch.empty((R, 5), dtype=torch.int32, device=dev)
         codes_lab = torch.empty((R, P), dtype=torch.int32, device=dev)
 
@@ -317,6 +354,12 @@ def main(argv=None) -> int:
             return kern.step_packed(p2, vb, qs_main, qs_stash, wire_lab,
                                     packed_out, spec=spec["qs"], k=k)
         cases["step_packed"] = (step_packed, 1, packed_out)
+        for lay in ("q4", "s2"):
+            main, _ = tables[lay]
+            cases[f"step_packed_{lay}"] = (
+                lambda main=main, lay=lay: kern.step_packed(
+                    p2, vb, main, None, wire_lab, packed_out, spec=spec[lay],
+                    k=k), 1, packed_out)
         for n, lab in (("122", lab122), ("290", lab290),
                        ("122_many", lab_many), ("long", lab_long)):
             cases[f"score_{n}"] = (
@@ -367,7 +410,8 @@ def main(argv=None) -> int:
         result["cases"][name] = case
         print(", ".join(line) + f"; bound {bound[name]:.4f} ms, new at "
               f"{bound[name] / new_med:.1%} of it", flush=True)
-    for name in ("classify_step", "step_packed"):
+    for name in ("classify_step", "step_packed", "step_packed_q4",
+                 "step_packed_s2"):
         if name not in result["cases"]:
             continue
         c = result["cases"][name]

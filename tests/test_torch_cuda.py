@@ -2,6 +2,11 @@
 the card.  Marked `cuda`: they skip on a machine without a CUDA device,
 and run there with `pytest -m cuda tests/test_torch_cuda.py`."""
 
+import contextlib
+import io
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -528,14 +533,20 @@ def test_query_kernel_rows_past_grid_limit(dev):
                                                              **args))
 
 
-def fused_case(k, L):
+# nb_bits of fused_case's table by layout: qs and q4 at 57% of 2^17 x 4
+# slots (the overflow fills the stash, or the second choice), s2 at 57%
+# of 2^18 x 2 slots with two choices
+FUSED_BITS = {"qs": 17, "q4": 17, "s2": 18}
+
+
+def fused_case(k, L, layout="qs"):
     """For the fused query and score (here and in test_torch_fused.py):
-    a qs table at nb_bits 17 of 300,000 random k-mers (its overflow
-    fills the stash), the k-mers of 40 random reads and the poly-A k-mer,
-    each with its own label; then 48 reads of L bases: the poly-A read, a
-    read of Ns, a read shorter than k, a read whose every window is
-    stored (one label a window), and reads of random bases with stored
-    k-mers planted and a few Ns."""
+    a table of `layout` (s2: 2 slots, 2 choices) of 300,000 random
+    k-mers, the k-mers of 40 random reads and the poly-A k-mer, each with
+    its own label; then 48 reads of L bases: the poly-A read, a read of
+    Ns, a read shorter than k, a read whose every window is stored (one
+    label a window), and reads of random bases with stored k-mers planted
+    and a few Ns."""
     rng = np.random.default_rng(300 + k + L)
     R = 48
     codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
@@ -553,7 +564,9 @@ def fused_case(k, L):
                                      np.zeros(1, np.uint64)]))
     labels = rng.integers(1, 65536, size=len(keys)).astype(np.uint32)
     names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
-    db = hashdb.build_table(keys, labels, names, DBConfig(k=k), nb_bits=17)
+    db = hashdb.build_table(keys, labels, names, DBConfig(
+        k=k, layout=layout, slots=2, num_choices=2),
+        nb_bits=FUSED_BITS[layout])
     for r in range(8, R):
         for p in range(int(rng.integers(k)), L - k + 1, k):
             codes[r, p:p + k] = (keys[rng.integers(len(keys))] >> shifts) & 3
@@ -673,3 +686,88 @@ def test_query_score_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="qs table"):
         kernels.query_score(p2, vb, main, stash, k=k, spec=q4)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("k,L", FUSED)
+@pytest.mark.parametrize("layout", ["q4", "s2"])
+def test_layout_query_score_kernel_matches_plain(dev, layout, k, L):
+    """The fused q4 or s2 query and score (one launch, counted as
+    query_score_<layout>) against its plain version and against the
+    query kernel then the score kernel, on the full table and on the
+    table with its first-choice entries removed, where every hit comes
+    from a second gather."""
+    db, codes = fused_case(k, L, layout)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    args = dict(k=k, spec=db.spec)
+    name = f"query_score_{layout}"
+    hits = []
+    for table in (db.table, db.second_choice_only()):
+        main = torch.from_numpy(table.view(np.int32)).to(dev)
+        before = dict(kernels.LAUNCHES)
+        got = probe.query_score_results(p2, vb, main, None, **args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before[name] + 1
+        assert kernels.LAUNCHES["score"] == before["score"]
+        want = probe.query_score_results_plain(p2, vb, main, None, **args)
+        assert torch.equal(got, want)
+        two = score.score_labels(probe.query_labels(p2, vb, main, None,
+                                                    **args))
+        assert torch.equal(got, two)
+        hits.append(int((want[:, 2] > 0).sum()))
+    assert hits[0] > hits[1] > 0
+
+
+@pytest.mark.parametrize("layout,slots,choices,n,nb_bits",
+                         [c for c in LAYOUTS if c[2] == 2])
+def test_layout_query_kernel_second_choice_only(dev, layout, slots, choices,
+                                                n, nb_bits):
+    """The q4 and s2 query kernels, resident and on 4 bucket-range parts,
+    against plain on a table that holds its second-choice entries alone:
+    every hit takes the second gather after a first-choice miss."""
+    k = 31
+    db, p2, vb = _layout_case(dev, layout, slots, choices, n, nb_bits, k)
+    main = torch.from_numpy(db.second_choice_only().view(np.int32)).to(dev)
+    got = probe.query_labels(p2, vb, main, None, k=k, spec=db.spec)
+    torch.cuda.synchronize()
+    want = probe.query_labels_plain(p2, vb, main, None, k=k, spec=db.spec)
+    assert torch.equal(got, want)
+    assert int((want > 0).sum()) > 0
+    rows = db.nb // 4
+    for p in range(4):
+        args = dict(bucket_start=p * rows, nb_local=rows, k=k, spec=db.spec)
+        part = main[p * rows:(p + 1) * rows].contiguous()
+        got = probe.query_part_labels(p2, vb, part, None, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probe.query_part_labels_plain(
+            p2, vb, part, None, **args))
+
+
+def test_profile_twice_in_one_process(dev, tmp_path):
+    """Two `classify --device cuda --profile` runs in one process: each
+    run's trace holds one kernel event for each kernel it launched (a
+    profiler session leaves nothing behind that empties the next one's
+    trace), and both write the same CSV."""
+    from cuclark_tpu_torch import cli
+
+    ex = Path(__file__).resolve().parents[1] / "examples"
+    quiet = (contextlib.redirect_stdout(io.StringIO()),
+             contextlib.redirect_stderr(io.StringIO()))
+    with quiet[0], quiet[1]:
+        assert cli.main(["build-db", "-T", str(ex / "targets.txt"), "-D",
+                         str(tmp_path / "db"), "-k", "27"]) == 0
+    for i in range(2):
+        tdir = tmp_path / f"trace{i}"
+        kernels.reset_launches()
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert cli.main(["classify", "-D", str(tmp_path / "db"), "-O",
+                             str(ex / "reads.fq"), "-R",
+                             str(tmp_path / f"{i}.csv"), "--device", "cuda",
+                             "--profile", str(tdir)]) == 0
+        torch.cuda.synchronize()
+        launched = sum(kernels.LAUNCHES.values())
+        (trace,) = tdir.glob("*.pt.trace.json")
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel"]
+        assert launched >= 1 and len(events) == launched
+    assert (tmp_path / "0.csv").read_bytes() == (tmp_path / "1.csv"
+                                                 ).read_bytes()

@@ -1,12 +1,13 @@
-"""The fused query and score of one-tile qs reads (csrc/query.cu,
-query_score_kernel; `probe.query_score_results`) against the JAX package:
-a numpy model of the kernel's epilogue (a block's labels in shared
-memory, scored by warp 0 with four labels a lane) against
-`cuclark_tpu.score.score_labels`, and `pipeline.classify_step_packed`
-without labels, which takes the fused path's plain version on the CPU,
-against `cuclark_tpu.pipeline.classify_step_packed` at k 15 to 32, with a
-poly-A read, reads without a valid window and reads of many labels.
-Every comparison is exact."""
+"""The fused query and score of one-tile reads (csrc/query.cu,
+query_score_kernel, one instance per table layout;
+`probe.query_score_results`) against the JAX package: a numpy model of
+the kernel's epilogue (a block's labels in shared memory, scored by warp
+0 with four labels a lane) against `cuclark_tpu.score.score_labels`, and
+`pipeline.classify_step_packed` without labels, which takes the fused
+path's plain version on the CPU, against
+`cuclark_tpu.pipeline.classify_step_packed` on qs, q4 and s2 tables at k
+15 to 32, with a poly-A read, reads without a valid window and reads of
+many labels.  Every comparison is exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +17,6 @@ import torch
 from cuclark_tpu import pipeline as jpipeline
 from cuclark_tpu import score as jscore
 from cuclark_tpu_torch import codec, hashdb, kernels, pipeline, probe
-from cuclark_tpu_torch.config import DBConfig
 from tests.test_torch_cuda import FUSED, fused_case
 from tests.test_torch_score import _labels, _range_labels, _warp_model
 
@@ -48,14 +48,21 @@ def test_fused_epilogue_model_matches_jax(P):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("k,L", FUSED)
-def test_classify_step_packed_fused_matches_jax(k, L):
+# qs keeps its ids (k-L); q4 and s2 cases are named by their layout
+STEP_CASES = [pytest.param("qs", k, L, id=f"{k}-{L}") for k, L in FUSED] + [
+    pytest.param(layout, k, L, id=f"{layout}-{k}-{L}")
+    for layout in ("q4", "s2") for k, L in FUSED]
+
+
+@pytest.mark.parametrize("layout,k,L", STEP_CASES)
+def test_classify_step_packed_fused_matches_jax(layout, k, L):
     """classify_step_packed without labels (the fused query and score's
     plain version here) against the JAX step's results, and against the
-    port's own query then score."""
-    db, codes = fused_case(k, L)
+    port's own query then score; hits come from the qs stash alone, or
+    from the second hash choice alone."""
+    db, codes = fused_case(k, L, layout)
     p2, vb = codec.pack_codes(codes)
-    assert probe.fuses_score(db.spec, torch.from_numpy(p2), k)
+    assert probe.fuses_score(torch.from_numpy(p2), k)
     jres, _ = jpipeline.classify_step_packed(
         jnp.asarray(db.table), jnp.asarray(p2), jnp.asarray(vb), k=db.k,
         nb_bits=db.nb_bits, slots=db.slots, num_choices=db.num_choices,
@@ -76,34 +83,46 @@ def test_classify_step_packed_fused_matches_jax(k, L):
     assert (got[1] == 0).all() and (got[2] == 0).all()
     assert got[3, 0] == P and got[3, 2] < P       # many labels
     assert (got[8:, 2] > 0).all()
-    stash_only = probe.query_labels_plain(
-        torch.from_numpy(p2), torch.from_numpy(vb), torch.zeros_like(main),
-        stash, k=k, spec=db.spec)
-    assert int((stash_only > 0).sum()) > 0
+    if layout == "qs":
+        alone = (torch.zeros_like(main), stash)
+    else:
+        alone = (torch.from_numpy(db.second_choice_only().view(np.int32)),
+                 None)
+    only = probe.query_labels_plain(
+        torch.from_numpy(p2), torch.from_numpy(vb), *alone, k=k,
+        spec=db.spec)
+    assert int((only > 0).sum()) > 0
 
 
 def test_fused_dispatch():
-    """Which steps fuse: qs reads of 1 to TILE windows only."""
-    spec = hashdb.TableSpec(layout="qs", nb_bits=17, stash_bits=17)
+    """Which steps fuse: reads of 1 to TILE windows, on a table of any
+    layout (qs, q4 and s2 alike), and no wider ones."""
     for L, k, fused in ((128, 15, True), (152, 31, True), (160, 31, False),
                         (144, 17, True), (152, 24, False), (24, 31, False),
-                        (32, 31, True)):
+                        (32, 31, True), (320, 31, False)):
         p2 = torch.zeros((2, L // 4), dtype=torch.uint8)
-        assert probe.fuses_score(spec, p2, k) == fused, (L, k)
-    for layout in ("q4", "s2"):
-        other = hashdb.TableSpec(layout=layout, nb_bits=17)
-        assert not probe.fuses_score(other, torch.zeros((2, 38),
-                                                        dtype=torch.uint8), 31)
+        assert probe.fuses_score(p2, k) == fused, (L, k)
 
 
 def test_fused_kernel_refuses_cpu_and_wide_rows():
     """The kernel's wrapper takes CUDA tensors only, and refuses rows
-    wider than one tile before it launches anything."""
-    spec = hashdb.TableSpec(layout="qs", nb_bits=17, stash_bits=17)
-    main = torch.zeros((1 << 17, 8), dtype=torch.int32)
-    p2 = torch.zeros((2, 40), dtype=torch.uint8)
+    wider than one tile, and a stash passed with a q4 or s2 table, before
+    it launches anything."""
+    p2 = torch.zeros((2, 38), dtype=torch.uint8)            # P = 122
     vb = torch.zeros((2, 20), dtype=torch.uint8)
+    wide = torch.zeros((2, 40), dtype=torch.uint8)          # P = 130
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.query_score(p2, vb, main, main, k=31, spec=spec)
+    for layout, words in (("qs", 8), ("q4", 8), ("s2", 6)):
+        spec = hashdb.TableSpec(layout=layout, nb_bits=17, slots=2,
+                                stash_bits=17 if layout == "qs" else 0)
+        main = torch.zeros((1 << 17, words), dtype=torch.int32)
+        stash = main if layout == "qs" else None
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.query_score(p2, vb, main, stash, k=31, spec=spec)
+        with pytest.raises(ValueError, match="P <= 128"):
+            kernels.query_score(wide, vb, main, stash, k=31, spec=spec)
+    q4 = hashdb.TableSpec(layout="q4", nb_bits=17)
+    main = torch.zeros((1 << 17, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="without one"):
+        kernels.query_score(p2, vb, main, main, k=31, spec=q4)
     assert kernels.LAUNCHES == before

@@ -199,30 +199,12 @@ def test_probe_parts_match_jax(tables, name, parts):
     np.testing.assert_array_equal(total, _port_probe(db.table, db, keys))
 
 
-def _choice0_removed(db) -> np.ndarray:
-    """The table with every entry stored at its first hash choice
-    removed: only second-choice entries remain."""
-    t = db.table.copy()
-    if db.layout == "q4":
-        first = ((t[:, 4:] >> np.uint32(16)) & np.uint32(1)) == 0
-        t[:, :4][first] = 0
-        t[:, 4:][first] = 0
-        return t
-    S = db.slots
-    with np.errstate(over="ignore"):
-        b1 = jhashdb.mix1(t[:, S:2 * S], t[:, :S]) & np.uint32(db.nb - 1)
-    first = b1 == np.arange(db.nb, dtype=np.uint32)[:, None]
-    t[:, :S][first] = jhashdb.EMPTY
-    t[:, S:2 * S][first] = jhashdb.EMPTY
-    return t
-
-
 @pytest.mark.parametrize("name", ["q4", "s2_2x2", "s2_4x2"])
 def test_probe_second_choice_alone(tables, name):
     """Hits from second-choice rows alone, resident and in parts."""
     k, out = tables
     km, lab, db = out[name]
-    t = _choice0_removed(db)
+    t = db.second_choice_only()
     keys = _probe_keys(km, k, 3)
     got = _port_probe(t, db, keys)
     np.testing.assert_array_equal(got, _jax_probe(t, db, keys))

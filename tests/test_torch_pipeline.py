@@ -193,6 +193,21 @@ def test_unported_flags_raise(inputs, flags):
         assert any(e.get("ph") == "X" for e in events)
 
 
+def test_profile_twice_in_one_process(inputs):
+    """Two classify --profile runs in one process each write the JAX
+    package's CSV and a trace of their own, in their own directory."""
+    tmp, reads, jcsv = inputs
+    for i in range(2):
+        out, tdir = tmp / f"prof{i}.csv", tmp / f"prof_trace{i}"
+        assert cli.main(["classify", "-D", str(tmp / "tdb"), "-O",
+                         str(reads), "-R", str(out), "--device", "cpu",
+                         "--profile", str(tdir)]) == 0
+        assert out.read_bytes() == jcsv.read_bytes()
+        (trace,) = tdir.glob("*.pt.trace.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+        assert any(e.get("ph") == "X" for e in events)
+
+
 def test_row_iterators_match_jax(inputs):
     """classify_file and classify_records yield the JAX package's rows."""
     tmp, reads, _ = inputs
