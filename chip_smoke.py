@@ -33,12 +33,19 @@ against `--device cpu`:
   - classify_step: the 131,072 reads as unpacked codes through
     `pipeline.classify_step` (the query kernel's codes front half);
   - mesh: a 2 data x 2 db mesh of four handles of the one card, each db
-    shard (a main range and a stash range) against plain, and
+    shard (a main range and a stash range) against plain; the sharded
+    steps, each block ending in the fused range launch of the query and
+    score (resident, and a streamed batch's last part) or in the score
+    kernel (with labels), against plain and the resident results; a
+    1 x 1 mesh's step timed in turns with the resident fused step; and
     `Classifier(db, mesh=...)` resident and streamed (each device's
     shard in 4 parts), each CSV equal to the resident CSV;
   - multiprocess: two ranks of `classify --coordinator` over gloo on the
-    card, and two `--num-hosts 2` runs, each pair's CSVs concatenating
-    to the resident CSV.
+    card (each a 1 x 1 mesh: one fused launch a batch), then in the same
+    two processes the host-spanning step (a db axis of 2 across them,
+    half the table each, its labels all-reduced over gloo) on one
+    batch, equal to the resident results; and two `--num-hosts 2` runs,
+    each pair's CSVs concatenating to the resident CSV.
   - example_sh: examples/example.sh (build, golden CSV, accuracy loop,
     abundance) with `CUCLARK_TPU=cuclark-tpu-torch`;
   - accuracy: simulate-reads of 131,072 reads from the 16,384 genomes as
@@ -332,11 +339,14 @@ def check_small_query(dev, k: int) -> int:
            "query_score": _max_abs_err(res, res_plain),
            "build_sharded_classify": check_stash_ranges(p2, vb, main, stash,
                                                         got, **args),
-           "classify_step": check_codes(p2, vb, main, stash, got, **args)}
+           "classify_step": check_codes(p2, vb, main, stash, got, **args),
+           "query_score_part": check_fused_range(p2, vb, main, stash,
+                                                 **args)}
     print(f"  k={k}: {got.numel()} windows bit-identical, {n_hit} hits, "
-          f"{n_stash} from the stash; the fused query and score, 2 and 4 "
-          f"db shards with stash ranges and the codes front half "
-          f"bit-identical", flush=True)
+          f"{n_stash} from the stash; the fused query and score, resident "
+          f"and over parts and db shards with acc_in, 2 and 4 db shards "
+          f"with stash ranges and the codes front half bit-identical",
+          flush=True)
     return err
 
 
@@ -374,6 +384,71 @@ def check_stash_ranges(p2, vb, main, stash, resident, *, k, spec) -> int:
             total = got if total is None else total + got
         if not torch.equal(total, resident):
             raise AssertionError(f"{num_db} db shards != resident at k={k}")
+    return err
+
+
+def check_fused_range(p2, vb, main, stash, *, k, spec) -> int:
+    """The fused range entry (`probe.query_score_part_results`, the last
+    launch of a mesh block) against its plain version: each of 4 parts
+    (a qs stash on part 0, a null stash after) and each of 2 db shards
+    (its stash range), acc_in None or random labels on half the windows
+    the range misses (a key lives in one range, so the other launches
+    give 0 where it hits), each call one launch; then 3 parts accumulated
+    by the range kernel and the last one fused with their sum give the
+    resident fused results."""
+    import torch
+
+    from cuclark_tpu_torch import kernels, probe
+
+    rng = np.random.default_rng(spec.nb_bits + k)
+    R, P = p2.shape[0], 4 * p2.shape[1] - k + 1
+    a = rng.integers(1, 65536, size=(R, P)).astype(np.int32)
+    a[rng.random(a.shape) < 0.5] = 0
+    rand = torch.from_numpy(a).to(p2.device)
+    nb = main.shape[0]
+    nbs = 0 if stash is None else stash.shape[0]
+    ranges = [(p * nb // 4, nb // 4, stash if p == 0 else None, 0)
+              for p in range(4)]
+    ranges += [(j * nb // 2, nb // 2, None if stash is None else
+                stash[j * nbs // 2:(j + 1) * nbs // 2], j * nbs // 2)
+               for j in range(2)]
+    err = 0
+    for start, rows, s, sstart in ranges:
+        own = probe.query_part_labels_plain(
+            p2, vb, main[start:start + rows], s, bucket_start=start,
+            nb_local=rows, k=k, spec=spec, stash_start=sstart)
+        missed = torch.where(own > 0, 0, rand)
+        for acc_in in (None, missed):
+            args = dict(bucket_start=start, nb_local=rows, k=k, spec=spec,
+                        stash_start=sstart, acc_in=acc_in)
+            before = sum(kernels.LAUNCHES.values())
+            got = probe.query_score_part_results(
+                p2, vb, main[start:start + rows], s, **args)
+            torch.cuda.synchronize()
+            want = probe.query_score_part_results_plain(
+                p2, vb, main[start:start + rows], s, **args)
+            if (not torch.equal(got, want)
+                    or sum(kernels.LAUNCHES.values()) != before + 1):
+                raise AssertionError(f"{spec.layout} fused range entry != "
+                                     f"plain on rows [{start}, "
+                                     f"{start + rows}) at k={k}")
+            err = max(err, _max_abs_err(got, want))
+        if not torch.equal(missed, torch.where(own > 0, 0, rand)):
+            raise AssertionError("the fused range entry wrote its acc_in")
+    rows = nb // 4
+    acc = None
+    for p in range(3):
+        acc = probe.query_part_labels(
+            p2, vb, main[p * rows:(p + 1) * rows], stash if p == 0 else None,
+            bucket_start=p * rows, nb_local=rows, k=k, spec=spec, acc=acc)
+    last = probe.query_score_part_results(
+        p2, vb, main[3 * rows:], None, bucket_start=3 * rows, nb_local=rows,
+        k=k, spec=spec, acc_in=acc)
+    resident = probe.query_score_results(p2, vb, main, stash, k=k, spec=spec)
+    torch.cuda.synchronize()
+    if not torch.equal(last, resident):
+        raise AssertionError(f"{spec.layout} parts ending in the fused range "
+                             f"entry != resident at k={k}")
     return err
 
 
@@ -445,6 +520,9 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
         err[fused] = max(err[fused], _max_abs_err(res, res_plain))
         err["classify_step"] = max(err.get("classify_step", 0), check_codes(
             p2, vb, main, None, got, k=k, spec=db.spec))
+        err["query_score_part"] = max(
+            err.get("query_score_part", 0),
+            check_fused_range(p2, vb, main, None, k=k, spec=db.spec))
         rows = db.nb // 4
         acc = acc_plain = None
         for p in range(4):
@@ -473,8 +551,9 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
         raise AssertionError(f"no {layout} hit from the second hash choice "
                              f"alone at k={k}")
     print(f"  {layout} k={k}: {got.numel()} windows bit-identical resident, "
-          f"in 4 parts, from codes and fused with the score, {n_second} "
-          f"hits from the second choice alone", flush=True)
+          f"in 4 parts, from codes and fused with the score (resident and "
+          f"over parts and db shards with acc_in), {n_second} hits from "
+          f"the second choice alone", flush=True)
     return err
 
 
@@ -1077,17 +1156,36 @@ def mesh_stream_budget_mb(db, num_db: int, parts: int) -> float:
     return round((stash_mb + 2.4 * main.nbytes / 1e6 / parts) / num_db, 3)
 
 
+def _turns(fns: dict, reps: int, rounds: int = 3) -> dict:
+    """CUDA-event ms of each callable in turns (a, b, b, a, ...), `rounds`
+    times -> name -> list of times."""
+    names = list(fns)
+    order = names + names[::-1]
+    out = {n: [] for n in names}
+    for _ in range(rounds):
+        for n in order:
+            out[n].append(_cuda_ms(fns[n], reps))
+    return out
+
+
 def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
                card: str):
     """A 2 data x 2 db mesh of four handles of the card: each db shard's
     labels of the main-path batch against plain, their sum against the
-    resident labels; the sharded resident step and the sharded part step
-    (4 parts, the stash on part 0) against their plain versions; then
+    resident labels; the sharded resident step without labels (each
+    block's shard 1, then its shard 0 as the fused range launch with the
+    sum) and with labels (range launches, sum, score), and the sharded
+    part step (4 parts, the stash on part 0) with its last part fused or
+    accumulated then scored, each against its plain version and the
+    resident results; a 1 x 1 mesh's step (one fused launch over the
+    whole table) timed in turns with the resident fused step; then
     `Classifier(db, mesh=...)` file->CSV, resident and with each device's
     shard streamed in 4 parts, twice each, every CSV equal to the
-    resident one.  The counts reset just before each Classifier's runs.
-    Returns (max_abs_err, ms, launches, phase detail, bound ms) keyed by
-    the JAX function."""
+    resident one, the counts reset just before each Classifier's runs and
+    held to the fused route's.  Returns (max_abs_err, ms, launches,
+    phase detail, bound ms) keyed by the JAX function."""
+    import statistics
+
     import torch
 
     from cuclark_tpu_torch import codec, kernels, pipeline, probe, score
@@ -1097,18 +1195,23 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
 
     m = mesh.make_mesh(2, 2, [dev] * 4)
     p2, vb = wire
+    B = p2.shape[0]
     main_t, stash_t = table_to_device(db, dev)
     qargs = dict(k=db.k, spec=db.spec)
     resident = probe.query_labels(p2, vb, main_t, stash_t, **qargs)
+    resident_res = probe.query_score_results(p2, vb, main_t, stash_t,
+                                             **qargs)
     nb, nbs = main_t.shape[0], stash_t.shape[0]
     touched = touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k)
     wire_b, lab_b = p2.numel() + vb.numel(), 4 * resident.numel()
-    bound = {"build_sharded_classify": _bound_ms(query_bytes(
-                 touched, db.spec, wire_b, lab_b + 20 * p2.shape[0])),
+    fused_bound = _bound_ms(query_bytes(touched, db.spec, wire_b, 20 * B))
+    bound = {"build_sharded_classify": fused_bound,
+             "query_score_part": fused_bound,
              "build_sharded_probe_part": _bound_ms(query_bytes(
                  touched, db.spec, wire_b, lab_b, 4))}
     smain, sstash = mesh.shard_db_table(db, m)
-    err = {"build_sharded_classify": 0, "build_sharded_probe_part": 0}
+    err = {"build_sharded_classify": 0, "build_sharded_probe_part": 0,
+           "query_score_part": 0}
     ms = {}
     total = None
     for j in range(2):
@@ -1128,28 +1231,75 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
         raise AssertionError("the 2 db shards' labels != resident labels")
     del got, want, total
 
+    def launched_by(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _launched(kernels.LAUNCHES)
+
+    # the sharded resident step: fused without labels, range with them
     wires = mesh.place_wire(m, p2.cpu().numpy(), vb.cpu().numpy())
-    step, plain_step = (mesh.build_sharded_classify(
-        m, nb_total=nb, nbs_total=nbs, plain=plain, **qargs)
-        for plain in (False, True))
-    res, lab = step(smain, sstash, wires)
-    torch.cuda.synchronize()
-    pres, plab = plain_step(smain, sstash, wires)
+    steps = {(labels, plain): mesh.build_sharded_classify(
+        m, nb_total=nb, nbs_total=nbs, with_labels=labels, plain=plain,
+        **qargs) for labels in (False, True) for plain in (False, True)}
+    (res, lab), route_f = launched_by(
+        lambda: steps[(False, False)](smain, sstash, wires))
+    if lab is not None or route_f != {"query_part": 2, "query_score_part": 2}:
+        raise AssertionError(f"sharded step without labels: {route_f}")
+    pres, _ = steps[(False, True)](smain, sstash, wires)
+    res, pres = torch.cat(res), torch.cat(pres)
+    if not (torch.equal(res, pres) and torch.equal(res, resident_res)):
+        raise AssertionError("fused sharded step != plain or != resident")
+    err["build_sharded_classify"] = max(err["build_sharded_classify"],
+                                        _max_abs_err(res, pres))
+    (res, lab), route_l = launched_by(
+        lambda: steps[(True, False)](smain, sstash, wires))
+    pres, plab = steps[(True, True)](smain, sstash, wires)
     lab, plab = torch.cat(lab), torch.cat(plab)
     res, pres = torch.cat(res), torch.cat(pres)
     if not (torch.equal(lab, plab) and torch.equal(res, pres)
             and torch.equal(lab, resident)
-            and torch.equal(res, score.score_labels(resident))):
-        raise AssertionError("sharded step != plain or != resident")
+            and torch.equal(res, resident_res)):
+        raise AssertionError("sharded step with labels != plain or != "
+                             "resident")
     err["build_sharded_classify"] = max(err["build_sharded_classify"],
                                         _max_abs_err(lab, plab),
                                         _max_abs_err(res, pres))
     del lab, plab, res, pres
-    ms["build_sharded_classify"] = _cuda_ms(
-        lambda: step(smain, sstash, wires), 20)
+    t = _turns({"fused": lambda: steps[(False, False)](smain, sstash, wires),
+                "range": lambda: steps[(True, False)](smain, sstash, wires)},
+               20)
+    ms["build_sharded_classify"] = statistics.median(t["fused"])
+    ms["build_sharded_classify_range"] = statistics.median(t["range"])
     ms["build_sharded_classify_plain"] = _cuda_ms(
-        lambda: plain_step(smain, sstash, wires), 3)
+        lambda: steps[(False, True)](smain, sstash, wires), 3)
 
+    # a 1 x 1 mesh: one fused launch over the whole table, in turns with
+    # the resident fused step
+    m1 = mesh.make_mesh(1, 1, [dev])
+    w1 = mesh.place_wire(m1, p2.cpu().numpy(), vb.cpu().numpy())
+    one, one_plain = (mesh.build_sharded_classify(
+        m1, nb_total=nb, nbs_total=nbs, with_labels=False, plain=plain,
+        **qargs) for plain in (False, True))
+    (res1, _), route_1 = launched_by(lambda: one([[main_t]], [[stash_t]], w1))
+    pres1, _ = one_plain([[main_t]], [[stash_t]], w1)
+    if route_1 != {"query_score_part": 1} or not (
+            torch.equal(res1[0], resident_res)
+            and torch.equal(res1[0], pres1[0])):
+        raise AssertionError(f"1 x 1 mesh step: launches {route_1}, or != "
+                             f"resident or != plain")
+    err["query_score_part"] = _max_abs_err(res1[0], pres1[0])
+    del res1, pres1
+    t_one = _turns({"resident": lambda: probe.query_score_results(
+                     p2, vb, main_t, stash_t, **qargs),
+                 "mesh_1x1": lambda: one([[main_t]], [[stash_t]], w1)}, 20)
+    ms["query_score_part"] = statistics.median(t_one["mesh_1x1"])
+    ms["query_score_part_plain"] = _cuda_ms(
+        lambda: one_plain([[main_t]], [[stash_t]], w1), 3)
+    one_vs = {n: statistics.median(v) for n, v in t_one.items()}
+
+    # the sharded part step: the last part fused, or accumulated then
+    # scored (the route before the fused one)
     rows = nb // 4
     pstep, plain_pstep = (mesh.build_sharded_probe_part(
         m, nb_part=rows, plain=plain, **qargs) for plain in (False, True))
@@ -1158,12 +1308,18 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
         return [[main_t[p * rows + j * rows // 2:p * rows + (j + 1) * rows
                         // 2] for j in range(2)] for _ in range(2)]
 
-    def all_parts(fn):
+    def all_parts(fn, route="accumulate"):
         acc = None
         for p in range(4):
-            acc = fn(part(p), wires, p * rows,
-                     stash=sstash if p == 0 else None, acc=acc)
-        return acc
+            last = p == 3
+            out = fn(part(p), wires, p * rows,
+                     stash=sstash if p == 0 else None, acc=acc,
+                     scored=last and route == "fused")
+            if last and route == "fused":
+                return out
+            acc = out
+        return acc if route == "accumulate" else [
+            score.score_labels(a) for a in acc]
 
     for p in range(4):
         got = pstep(part(p), wires, p * rows, stash=sstash if p == 0 else None)
@@ -1177,18 +1333,37 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
                 err["build_sharded_probe_part"], _max_abs_err(a, b))
     if not torch.equal(torch.cat(all_parts(pstep)), resident):
         raise AssertionError("sharded parts' sum != resident labels")
-    ms["build_sharded_probe_part"] = _cuda_ms(lambda: all_parts(pstep), 10) / 4
+    fres, route_p = launched_by(lambda: all_parts(pstep, "fused"))
+    pfres = all_parts(plain_pstep, "fused")
+    fres, pfres = torch.cat(fres), torch.cat(pfres)
+    if route_p != {"query_part": 14, "query_score_part": 2} or not (
+            torch.equal(fres, pfres) and torch.equal(fres, resident_res)):
+        raise AssertionError(f"sharded parts ending in the fused launch: "
+                             f"launches {route_p}, or != plain or != "
+                             f"resident")
+    err["build_sharded_probe_part"] = max(err["build_sharded_probe_part"],
+                                          _max_abs_err(fres, pfres))
+    del fres, pfres
+    tp = _turns({"fused": lambda: all_parts(pstep, "fused"),
+                 "range": lambda: all_parts(pstep, "range"),
+                 "accumulate": lambda: all_parts(pstep)}, 10)
+    ms["build_sharded_probe_part"] = statistics.median(tp["fused"]) / 4
+    ms["build_sharded_probe_part_range"] = statistics.median(tp["range"]) / 4
+    ms["build_sharded_probe_part_accumulate"] = statistics.median(
+        tp["accumulate"]) / 4
     ms["build_sharded_probe_part_plain"] = _cuda_ms(
-        lambda: all_parts(plain_pstep), 2) / 4
-    del main_t, stash_t, smain, sstash, resident, wires
+        lambda: all_parts(plain_pstep, "fused"), 2) / 4
+    del main_t, stash_t, smain, sstash, resident, wires, w1
     torch.cuda.empty_cache()
 
     launches, rates, gbps = {}, {}, []
     budget = mesh_stream_budget_mb(db, 2, 4)
-    for name, cfg, jax_fn in (
-            ("resident", None, "build_sharded_classify"),
+    n_reads = len(gpu_csv.read_text().splitlines()) - 1
+    batches = 2 * -(-n_reads // ClassifyConfig().batch_reads)
+    for name, cfg, jax_fn, route in (
+            ("resident", None, "build_sharded_classify", route_f),
             ("streamed", ClassifyConfig(max_table_mb=budget),
-             "build_sharded_probe_part")):
+             "build_sharded_probe_part", route_p)):
         out = tmp / f"mesh_{name}.csv"
         kernels.reset_launches()
         clf = pipeline.Classifier(db, cfg, mesh=m)
@@ -1206,19 +1381,28 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
         gbps = gbps or clf.part_upload_gbps()
         clf.close()
         del clf
-        launches[jax_fn] = dict(kernels.LAUNCHES)
-        if (launches[jax_fn]["query_part"] < 1 or launches[jax_fn]["score"] < 1
-                or launches[jax_fn]["query"]):
-            raise AssertionError(f"mesh {name} launches {launches[jax_fn]}")
+        launches[jax_fn] = _launched(kernels.LAUNCHES)
+        if launches[jax_fn] != {n: batches * c for n, c in route.items()}:
+            raise AssertionError(f"mesh {name}: launches {launches[jax_fn]} "
+                                 f"for {batches} batches of {route}")
         torch.cuda.empty_cache()
     detail = (f"2 data x 2 db, four handles of the one card ({card}); db "
-              f"shards of [{p2.shape[0]}, {4 * p2.shape[1]}] bit-identical, "
-              f"sum == resident; sharded step "
-              f"{ms['build_sharded_classify']:.4f} ms (plain "
-              f"{ms['build_sharded_classify_plain']:.4f}), sharded part "
-              f"step {ms['build_sharded_probe_part']:.4f} ms per part of 4 "
-              f"(plain {ms['build_sharded_probe_part_plain']:.4f}); "
-              f"Classifier(mesh) CSV == resident CSV, file->CSV "
+              f"shards of [{B}, {4 * p2.shape[1]}] bit-identical, sum == "
+              f"resident; sharded step, route fused ({route_f} a batch) "
+              f"{ms['build_sharded_classify']:.4f} ms, route range + score "
+              f"({route_l}) {ms['build_sharded_classify_range']:.4f} ms "
+              f"(plain {ms['build_sharded_classify_plain']:.4f}); 1 x 1 "
+              f"mesh step ({route_1}) {one_vs['mesh_1x1']:.4f} ms against "
+              f"the resident fused step {one_vs['resident']:.4f} ms in turns "
+              f"({', '.join(f'{x:.4f}' for x in t_one['mesh_1x1'])} against "
+              f"{', '.join(f'{x:.4f}' for x in t_one['resident'])}); sharded "
+              f"part step per part of 4, last part fused ({route_p} a "
+              f"batch) {ms['build_sharded_probe_part']:.4f} ms, accumulated "
+              f"then scored {ms['build_sharded_probe_part_range']:.4f}, "
+              f"accumulation alone "
+              f"{ms['build_sharded_probe_part_accumulate']:.4f} (plain "
+              f"{ms['build_sharded_probe_part_plain']:.4f}); all == resident "
+              f"results; Classifier(mesh) CSV == resident CSV, file->CSV "
               f"{', '.join(f'{r:.1f}' for r in rates['resident'])} reads/s, "
               f"launches {launches['build_sharded_classify']}; streamed at "
               f"--max-table-mb {budget} (4 parts per device), CSV == "
@@ -1226,36 +1410,118 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
               f" reads/s, part uploads "
               f"{', '.join(f'{g:.2f}' for g in gbps)} GB/s, launches "
               f"{launches['build_sharded_probe_part']}")
-    return (err, ms, {k: v["query_part"] for k, v in launches.items()},
-            detail, bound)
+    counts = {k: v.get("query_part", 0) for k, v in launches.items()}
+    counts["query_score_part"] = launches["build_sharded_classify"][
+        "query_score_part"]
+    return err, ms, counts, detail, bound, resident_res
 
 
-_RANK_MAIN = ("import json, sys\n"
-                "from cuclark_tpu_torch import cli, kernels\n"
-                "rc = cli.main(sys.argv[1:])\n"
-                "print(json.dumps(kernels.LAUNCHES))\n"
-                "raise SystemExit(rc)\n")
+# A rank of phase multiprocess: `classify --coordinator` through the CLI,
+# then the host-spanning step on the table that run loaded (kept here so
+# that a rank loads it once): the same batch on a mesh whose db axis
+# spans both ranks (num_db 2, each rank one column, half the table), over
+# a second gloo group.  argv: the second group's port, the batch's .npz,
+# the .npz to write, then the CLI's arguments.  The last stdout line is a
+# JSON object: the CLI run's kernel launches and the step's numbers.
+_RANK_MAIN = """
+import json, statistics, sys, time
+import numpy as np
+import torch
+from cuclark_tpu_torch import cli, kernels
+from cuclark_tpu_torch.hashdb import KmerDB
+from cuclark_tpu_torch.parallel import mesh, multihost
+
+loaded = []
+_load = KmerDB.load
+KmerDB.load = staticmethod(
+    lambda path, **kw: loaded.append(_load(path, **kw)) or loaded[-1])
+port, wire_npz, out_npz, *argv = sys.argv[1:]
+rc = cli.main(argv)
+torch.cuda.synchronize()
+launches = dict(kernels.LAUNCHES)
+multihost.initialize(f"127.0.0.1:{port}", 2,
+                     int(argv[argv.index("--process-id") + 1]))
+db = loaded[0]
+m = mesh.make_global_mesh(2, [torch.device("cuda")])
+assert m.spans_processes
+sc = mesh.ShardedClassifier(db, m, with_labels=False)
+z = np.load(wire_npz)
+wires = sc.put_wire(z["p2"], z["vb"])
+sc.step_placed(wires)
+torch.cuda.synchronize()
+kernels.reset_launches()
+res = sc.step_placed(wires)[0][0]
+torch.cuda.synchronize()
+step_launches = {n: c for n, c in kernels.LAUNCHES.items() if c}
+
+
+def timed(fn, reps=5):
+    ts = []
+    for _ in range(reps):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts
+
+
+step_ms = timed(lambda: sc.step_placed(wires))
+labels = torch.zeros((z["p2"].shape[0], 4 * z["p2"].shape[1] - db.k + 1),
+                     dtype=torch.int32, device="cuda")
+allreduce_ms = timed(lambda: torch.distributed.all_reduce(labels))
+main_np, stash_np = db.split_tables()
+plain = mesh.build_sharded_classify(
+    m, k=db.k, spec=db.spec, nb_total=main_np.shape[0],
+    nbs_total=0 if stash_np is None else stash_np.shape[0],
+    with_labels=False, plain=True)
+plain_res = []
+plain_ms = timed(lambda: plain_res.append(
+    plain(sc.table, sc.stash, wires)[0][0]), 1)
+np.savez(out_npz, res=res.cpu().numpy(), plain=plain_res[0].cpu().numpy())
+multihost.shutdown()
+print(json.dumps({"launches": launches, "step_launches": step_launches,
+                  "step_ms": step_ms, "allreduce_ms": allreduce_ms,
+                  "plain_ms": plain_ms[0], "column": m.db_start}))
+raise SystemExit(rc)
+"""
 
 
 def check_multiprocess(tmp: Path, dbdir: str, fq: Path, gpu_csv: Path,
-                       card: str) -> str:
+                       card: str, wire, resident_res):
     """Two ranks of `classify --device cuda --coordinator` on the card,
-    over gloo: .h000 + .h001 must equal the resident CSV, and each rank
-    (whose last stdout line is its kernel launches) must have launched
-    the query and score kernels.  Then `--num-hosts 2 --host-id 0|1`:
-    the two CSVs' rows concatenate to the resident CSV's."""
+    over gloo: .h000 + .h001 must equal the resident CSV, and each rank,
+    a 1 x 1 mesh of the card, must have launched the fused range launch
+    once a batch and nothing else.  Then, in the same two processes, on
+    the table each loaded once: the host-spanning step, a db axis of 2
+    across the ranks (`make_global_mesh(2)`: each holds half the table),
+    on the main-path batch `wire`: each rank's results must equal the
+    resident results `resident_res` and the step's plain version; its
+    time, and the gloo all_reduce of the [R, P] labels alone, are
+    recorded.  Then `--num-hosts 2 --host-id 0|1`: the two CSVs' rows
+    concatenate to the resident CSV's.  Returns (phase detail, the
+    host-spanning step's numbers)."""
     import re
     import socket
+    import statistics
 
-    with socket.socket() as sk:
+    ports = []
+    socks = [socket.socket() for _ in range(2)]
+    for sk in socks:
         sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
+        ports.append(sk.getsockname()[1])
+    for sk in socks:
+        sk.close()
+    wire_npz = tmp / "span_wire.npz"
+    np.savez(wire_npz, p2=wire[0].cpu().numpy(), vb=wire[1].cpu().numpy())
     out = tmp / "mp.csv"
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK_MAIN, "classify", "-D", dbdir, "-O",
+        [sys.executable, "-c", _RANK_MAIN, str(ports[1]), str(wire_npz),
+         str(tmp / f"span{r}.npz"), "classify", "-D", dbdir, "-O",
          str(fq), "-R", str(out), "--device", "cuda", "--coordinator",
-         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         f"127.0.0.1:{ports[0]}", "--num-processes", "2", "--process-id",
          str(r)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(2)]
     outs = []
@@ -1267,18 +1533,36 @@ def check_multiprocess(tmp: Path, dbdir: str, fq: Path, gpu_csv: Path,
             if pr.poll() is None:
                 pr.kill()
                 pr.wait()
-    rank_rates, rank_launches = [], []
+    want = resident_res.cpu().numpy()
+    rank_rates, rank_launches, spans = [], [], []
     for r, (pr, (so, se)) in enumerate(zip(procs, outs)):
         if pr.returncode:
             raise AssertionError(f"rank {r} returned {pr.returncode}: "
                                  f"{se[-2000:]}")
-        launches = json.loads(so.strip().splitlines()[-1])
-        if launches["query_part"] < 1 or launches["score"] < 1:
-            raise AssertionError(f"rank {r} launches {launches}")
-        rank_launches.append(launches)
+        info = json.loads(so.strip().splitlines()[-1])
         t = re.search(r"Assignment time: ([\d.e+-]+) s\..*\((\d+) objects",
                       so)
-        rank_rates.append(int(t.group(2)) / float(t.group(1)))
+        n = int(t.group(2))
+        rank_rates.append(n / float(t.group(1)))
+        batches = -(-n // 65536)
+        launched = _launched(info["launches"])
+        if launched != {"query_score_part": batches}:
+            raise AssertionError(f"rank {r} ({n} reads, {batches} batches, "
+                                 f"a 1 x 1 mesh) launches {launched}")
+        rank_launches.append(launched)
+        got = np.load(tmp / f"span{r}.npz")
+        if not (np.array_equal(got["res"], want)
+                and np.array_equal(got["plain"], want)):
+            raise AssertionError(f"host-spanning step on rank {r} != "
+                                 f"resident results or != plain")
+        info["max_abs_err"] = int(np.abs(got["res"].astype(np.int64)
+                                         - got["plain"]).max())
+        if info["step_launches"] != {"query_part": 1, "score": 1} or (
+                info["column"] != r):
+            raise AssertionError(f"host-spanning step on rank {r}: "
+                                 f"launches {info['step_launches']}, "
+                                 f"column {info['column']}")
+        spans.append(info)
     merged = (tmp / "mp.csv.h000").read_bytes() + (
         tmp / "mp.csv.h001").read_bytes()
     if merged != gpu_csv.read_bytes():
@@ -1296,13 +1580,28 @@ def check_multiprocess(tmp: Path, dbdir: str, fq: Path, gpu_csv: Path,
     if b"\n".join(rows) + b"\n" != gpu_csv.read_bytes():
         raise AssertionError("--num-hosts 2 shards differ from the resident "
                              "CSV")
-    return (f"two ranks on one card ({card}) over gloo: .h000 + .h001 == "
-            f"resident CSV, {', '.join(f'{x:.1f}' for x in rank_rates)} "
-            f"reads/s per rank (each rank's file->CSV incl. its scan), "
-            f"query_part/score launches "
-            f"{[(x['query_part'], x['score']) for x in rank_launches]}; "
-            f"--num-hosts 2 shards == resident CSV, query_score launches "
-            f"{host_launches}")
+    span = {"ms": statistics.median(t for x in spans for t in x["step_ms"]),
+            "allreduce_ms": statistics.median(
+                t for x in spans for t in x["allreduce_ms"]),
+            "plain_ms": statistics.median(x["plain_ms"] for x in spans),
+            "launches": spans[0]["step_launches"]["query_part"],
+            "max_abs_err": max(x["max_abs_err"] for x in spans)}
+    detail = (f"two ranks on one card ({card}) over gloo: .h000 + .h001 == "
+              f"resident CSV, {', '.join(f'{x:.1f}' for x in rank_rates)} "
+              f"reads/s per rank (each rank's file->CSV incl. its scan), "
+              f"launches {rank_launches} (a 1 x 1 mesh each); host-spanning "
+              f"step (db 2 across the ranks, half the table each, "
+              f"[{wire[0].shape[0]}, {4 * wire[0].shape[1]}]): results == "
+              f"resident and plain on both ranks, launches "
+              f"{spans[0]['step_launches']} a rank, step "
+              f"{', '.join(f'{t:.3f}' for t in spans[0]['step_ms'])} ms "
+              f"(rank 0), {', '.join(f'{t:.3f}' for t in spans[1]['step_ms'])}"
+              f" ms (rank 1), gloo all_reduce of the [R, P] labels alone "
+              f"{', '.join(f'{t:.3f}' for t in spans[0]['allreduce_ms'])} "
+              f"ms, plain step {span['plain_ms']:.3f} ms; --num-hosts 2 "
+              f"shards == resident CSV, query_score launches "
+              f"{host_launches}")
+    return detail, span
 
 
 def _launched(launches: dict) -> dict:
@@ -1872,7 +2171,8 @@ def main(argv=None) -> int:
         ceiling["query_part"] = float(np.mean([gather_ceiling_ms(
             ceiling_lib, main_t, buckets[(buckets // rows) == j].contiguous())
             for j in range(STREAM_PARTS["qs"])]))
-        for name in ("query_score", "classify_step", "build_sharded_classify"):
+        for name in ("query_score", "classify_step", "build_sharded_classify",
+                     "query_score_part", "build_sharded_classify_spanning"):
             ceiling[name] = ceiling["query"]
         ceiling["build_sharded_probe_part"] = ceiling["query_part"]
         del buckets
@@ -2085,8 +2385,8 @@ def main(argv=None) -> int:
         # a 2 x 2 mesh of four handles of the card: the sharded steps,
         # then Classifier(mesh) resident and streamed
         t0 = time.time()
-        mesh_err, mesh_ms, launches_mesh, detail, mesh_bound = check_mesh(
-            db, tmp, fq, wire0, gpu_csv, dev, card)
+        (mesh_err, mesh_ms, launches_mesh, detail, mesh_bound,
+         resident_res) = check_mesh(db, tmp, fq, wire0, gpu_csv, dev, card)
         bound.update(mesh_bound)
         for name, e in mesh_err.items():
             err[name] = max(err.get(name, 0), e)
@@ -2095,8 +2395,10 @@ def main(argv=None) -> int:
 
         # two ranks over gloo, and two --num-hosts shards
         t0 = time.time()
-        _phase("multiprocess", t0, check_multiprocess(tmp, dbdir, fq,
-                                                      gpu_csv, card))
+        detail, span = check_multiprocess(tmp, dbdir, fq, gpu_csv, card,
+                                          wire0, resident_res)
+        del resident_res
+        _phase("multiprocess", t0, detail)
 
         # the q4 and s2 tables of the same k-mers: kernels at real size,
         # then resident and streamed classify through the CLI
@@ -2189,11 +2491,23 @@ def main(argv=None) -> int:
                  "launches": launches["score_long"],
                  "max_abs_err": err["score_long"], "ms": ms["score_long"],
                  "plain_ms": ms["score_long_plain"]})
+    # the mesh's steps: launches are their range launches on the main
+    # path's mesh run; query_score_part is each block's last launch there,
+    # timed as the 1 x 1 mesh's one launch over the whole table
+    ms["build_sharded_classify_spanning"] = span["ms"]
+    ms["build_sharded_classify_spanning_plain"] = span["plain_ms"]
+    err["build_sharded_classify_spanning"] = span["max_abs_err"]
+    # the two ranks together query the whole table into labels, once
+    bound["build_sharded_classify_spanning"] = bound["query"]
     for name, replaces, n in (
+            ("query_score_part", "cuclark_tpu/parallel/mesh.py:96",
+             launches_mesh["query_score_part"]),
             ("build_sharded_classify", "cuclark_tpu/parallel/mesh.py:96",
              launches_mesh["build_sharded_classify"]),
             ("build_sharded_probe_part", "cuclark_tpu/parallel/mesh.py:164",
              launches_mesh["build_sharded_probe_part"]),
+            ("build_sharded_classify_spanning",
+             "cuclark_tpu/parallel/mesh.py:96", span["launches"]),
             ("classify_step", "cuclark_tpu/pipeline.py:48", launches_codes)):
         kern.append({"name": name, "route": "cuda",
                      "source": "cuclark_tpu_torch/csrc/query.cu",

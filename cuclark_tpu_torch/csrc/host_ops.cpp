@@ -1,0 +1,1038 @@
+// Native host-side hot loops for cuclark_tpu.
+//
+// TPU-framework equivalents of the reference's native host components:
+//  - record boundary scanning  (src/CuCLARK_hh.hh:1335-1551, OpenMP scanner)
+//  - 2-bit read packing        (src/CuCLARK_hh.hh:1608-1763, container packer)
+//  - rolling canonical k-mer extraction for DB build
+//    (src/CuCLARK_hh.hh:1149-1163 rolling walk + Jellyfish revcomp,
+//     src/kmersConversion.cc:39-47)
+//
+// Exposed as a plain C ABI consumed through ctypes (no pybind11 in this
+// environment).  Single pass over bytes, no large temporaries.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+
+#ifdef _OPENMP
+#include <omp.h>
+#endif
+
+extern "C" {
+
+// Base code table: A=3 C=2 G=1 T=0 (reference getKmers encoding,
+// src/kmersConversion.cc:49-68); 4 = invalid.  Initialized via a
+// function-local static (C++11 thread-safe static init): ctypes calls
+// release the GIL, so two Python threads can race a first use.
+struct BaseLut {
+    uint8_t t[256];
+    BaseLut() {
+        memset(t, 4, sizeof(t));
+        t[(int)'A'] = 3; t[(int)'a'] = 3;
+        t[(int)'C'] = 2; t[(int)'c'] = 2;
+        t[(int)'G'] = 1; t[(int)'g'] = 1;
+        t[(int)'T'] = 0; t[(int)'t'] = 0;
+        t[(int)'U'] = 0; t[(int)'u'] = 0;  // RNA: U == T (CuCLARK_hh.hh:287)
+    }
+};
+static const uint8_t* base_lut() {
+    static const BaseLut lut;
+    return lut.t;
+}
+#define LUT (base_lut())
+// hoist `const uint8_t* lut = LUT;` before hot loops: the macro
+// re-executes the C++11 static-init acquire guard per expansion
+#define init_lut() ((void)0)
+
+// Scan a FASTQ buffer: fill per-record offsets.  Returns record count
+// (capped at max_rec).  Name = token after '@' up to space/tab/CR/EOL.
+// A trailing record is kept only if its quality line START exists
+// (matching the numpy scanner's 4-newline rule); *consumed receives
+// the byte offset where scanning stopped so the caller can detect
+// malformed input (consumed < n with bytes remaining).
+int64_t scan_fastq(const uint8_t* buf, int64_t n,
+                   int64_t* name_s, int64_t* name_e,
+                   int64_t* seq_s, int64_t* seq_e, int64_t max_rec,
+                   int64_t* consumed) {
+    int64_t i = 0, r = 0;
+    while (i < n && r < max_rec) {
+        if (buf[i] != '@') break;
+        int64_t hs = ++i;
+        while (i < n && buf[i] != '\n' && buf[i] != ' '
+               && buf[i] != '\t' && buf[i] != '\r') i++;
+        int64_t he = i;
+        while (i < n && buf[i] != '\n') i++;
+        i++;
+        int64_t ss = i;
+        while (i < n && buf[i] != '\n') i++;
+        int64_t se = i;
+        if (se > ss && buf[se - 1] == '\r') se--;  // CRLF sequences
+        i++;
+        while (i < n && buf[i] != '\n') i++;  // '+' line
+        i++;
+        if (i >= n) break;  // no quality line start: drop partial tail
+        while (i < n && buf[i] != '\n') i++;  // quality line
+        i++;
+        name_s[r] = hs; name_e[r] = he; seq_s[r] = ss; seq_e[r] = se;
+        r++;
+    }
+    if (consumed) *consumed = i < n ? i : n;
+    return r;
+}
+
+// Scan a FASTA buffer (multi-line sequences).  seq range may contain
+// newlines; the packer drops them.
+int64_t scan_fasta(const uint8_t* buf, int64_t n,
+                   int64_t* name_s, int64_t* name_e,
+                   int64_t* seq_s, int64_t* seq_e, int64_t max_rec,
+                   int64_t* consumed) {
+    int64_t i = 0, r = 0;
+    while (i < n && buf[i] != '>') i++;
+    while (i < n && r < max_rec) {
+        int64_t hs = ++i;
+        while (i < n && buf[i] != '\n' && buf[i] != ' '
+               && buf[i] != '\t' && buf[i] != '\r') i++;
+        int64_t he = i;
+        while (i < n && buf[i] != '\n') i++;
+        i++;
+        int64_t ss = i;
+        while (i < n && !(buf[i] == '>' && buf[i - 1] == '\n')) i++;
+        int64_t se = i;
+        // trim trailing newline(s)
+        while (se > ss && (buf[se - 1] == '\n' || buf[se - 1] == '\r')) se--;
+        // final header-only record without its newline: i ran past n,
+        // leaving ss (and se) > n; clamp to an empty in-bounds range
+        // (matches the numpy scanner's seq_s = min(hdr_e + 1, seq_e))
+        if (se > n) se = n;
+        if (ss > se) ss = se;
+        name_s[r] = hs; name_e[r] = he; seq_s[r] = ss; seq_e[r] = se;
+        r++;
+    }
+    if (consumed) *consumed = i < n ? i : n;
+    return r;
+}
+
+// Pack records into a [nrec, L] code matrix (pre-filled by caller or
+// filled here with 4).  Newlines/CR are skipped (multi-line FASTA);
+// lengths receive true sequence char counts (may exceed L).
+void pack_block(const uint8_t* buf,
+                const int64_t* seq_s, const int64_t* seq_e, int64_t nrec,
+                uint8_t* codes, int64_t L, int64_t* lengths) {
+    const uint8_t* lut = LUT;
+    // rows are disjoint -> embarrassingly parallel (the reference packs
+    // with an OpenMP team too, src/CuCLARK_hh.hh:1609-1763)
+#pragma omp parallel for schedule(static) if (nrec >= 256)
+    for (int64_t r = 0; r < nrec; r++) {
+        uint8_t* row = codes + r * L;
+        memset(row, 4, L);
+        int64_t w = 0, len = 0;
+        for (int64_t i = seq_s[r]; i < seq_e[r]; i++) {
+            uint8_t ch = buf[i];
+            if (ch == '\n' || ch == '\r') continue;
+            if (w < L) row[w++] = lut[ch];
+            len++;
+        }
+        lengths[r] = len;
+    }
+}
+
+// Pack records straight into the 2-bit wire format the device step
+// consumes: packed2 [nrec, Lp/4] (4 bases/byte, little-endian 2-bit
+// lanes) + vbits [nrec, Lp/8] (validity bitmask, little-endian),
+// Lp a multiple of 8.  Fuses pack_block + the host bit-packing pass
+// (codec.pack_codes) into one sweep with no [R, L] byte matrix —
+// the same single-pass packing role as the reference's container
+// encoder (src/CuCLARK_hh.hh:1608-1763).  Non-ACGT chars occupy a
+// position with valid bit 0; newlines/CR are skipped.
+void pack_block2(const uint8_t* buf,
+                 const int64_t* seq_s, const int64_t* seq_e, int64_t nrec,
+                 uint8_t* packed2, uint8_t* vbits, int64_t Lp,
+                 int64_t maxw, int64_t* lengths) {
+    const uint8_t* lut = LUT;
+    const int64_t W2 = Lp / 4, WV = Lp / 8;
+    if (maxw > Lp) maxw = Lp;
+#pragma omp parallel for schedule(static) if (nrec >= 256)
+    for (int64_t r = 0; r < nrec; r++) {
+        uint8_t* p2 = packed2 + r * W2;
+        uint8_t* vb = vbits + r * WV;
+        memset(p2, 0, W2);
+        memset(vb, 0, WV);
+        int64_t w = 0, len = 0;
+        for (int64_t i = seq_s[r]; i < seq_e[r]; i++) {
+            uint8_t ch = buf[i];
+            if (ch == '\n' || ch == '\r') continue;
+            if (w < maxw) {
+                uint8_t c = lut[ch];
+                if (c != 4) {
+                    p2[w >> 2] |= (uint8_t)(c << ((w & 3) * 2));
+                    vb[w >> 3] |= (uint8_t)(1u << (w & 7));
+                }
+                w++;
+            }
+            len++;
+        }
+        lengths[r] = len;
+    }
+}
+
+// Fused paired-end wire packing: mate 1, ONE joining invalid position
+// (the 'N' of the reference's mergePairedFiles, src/file.cc:205-268),
+// then mate 2 — straight into the 2-bit wire format, replacing the
+// pack + numpy shift-merge + re-pack detour.  Same layout rules as
+// pack_block2; lengths receive len1 + 1 + len2 (true char counts).
+void pack_block2_paired(const uint8_t* buf1,
+                        const int64_t* s1, const int64_t* e1,
+                        const uint8_t* buf2,
+                        const int64_t* s2, const int64_t* e2,
+                        int64_t nrec, uint8_t* packed2, uint8_t* vbits,
+                        int64_t Lp, int64_t maxw, int64_t* lengths) {
+    const uint8_t* lut = LUT;
+    const int64_t W2 = Lp / 4, WV = Lp / 8;
+    if (maxw > Lp) maxw = Lp;
+#pragma omp parallel for schedule(static) if (nrec >= 256)
+    for (int64_t r = 0; r < nrec; r++) {
+        uint8_t* p2 = packed2 + r * W2;
+        uint8_t* vb = vbits + r * WV;
+        memset(p2, 0, W2);
+        memset(vb, 0, WV);
+        int64_t w = 0, len = 0;
+        for (int pass = 0; pass < 2; pass++) {
+            const uint8_t* buf = pass ? buf2 : buf1;
+            const int64_t lo = pass ? s2[r] : s1[r];
+            const int64_t hi = pass ? e2[r] : e1[r];
+            for (int64_t i = lo; i < hi; i++) {
+                uint8_t ch = buf[i];
+                if (ch == '\n' || ch == '\r') continue;
+                if (w < maxw) {
+                    uint8_t c = lut[ch];
+                    if (c != 4) {
+                        p2[w >> 2] |= (uint8_t)(c << ((w & 3) * 2));
+                        vb[w >> 3] |= (uint8_t)(1u << (w & 7));
+                    }
+                }
+                w++;
+                len++;
+            }
+            if (pass == 0) { w++; len++; }  // joining 'N' (invalid)
+        }
+        lengths[r] = len;
+    }
+}
+
+// Rolling canonical k-mer extraction over one sequence (bytes may
+// include newlines, skipped).  Non-ACGT resets the window (part
+// semantics).  Every overlapping k-mer — the full-mode build walk
+// (src/CuCLARK_hh.hh:1100-1163).  Returns number of k-mers written.
+int64_t extract_canonical(const uint8_t* seq, int64_t n, int32_t k,
+                          uint64_t* out) {
+    const uint8_t* lut = LUT;
+    const int shift = 2 * (k - 1);
+    const uint64_t mask = (k == 32) ? ~0ULL : ((1ULL << (2 * k)) - 1);
+    uint64_t fwd = 0, rev = 0;
+    int64_t fill = 0, cnt = 0;
+    for (int64_t i = 0; i < n; i++) {
+        uint8_t ch = seq[i];
+        if (ch == '\n' || ch == '\r') continue;
+        uint8_t c = lut[ch];
+        if (c == 4) { fill = 0; fwd = 0; rev = 0; continue; }
+        fwd = ((fwd << 2) | c) & mask;
+        rev = (rev >> 2) | ((uint64_t)(3 - c) << shift);
+        if (++fill >= k)
+            out[cnt++] = fwd < rev ? fwd : rev;
+    }
+    return cnt;
+}
+
+// Light-mode build walk: NON-overlapping k-mer blocks, keeping every
+// gap-th block; the block counter persists across parts/sequences of a
+// genome file (src/CuCLARK_hh.hh:710-731: kmer resets after each emit;
+// `iter` is per-file).  iter_io is read and updated.  Returns count.
+int64_t extract_canonical_light(const uint8_t* seq, int64_t n, int32_t k,
+                                int32_t gap, int64_t* iter_io,
+                                uint64_t* out) {
+    const uint8_t* lut = LUT;
+    const uint64_t mask = (k == 32) ? ~0ULL : ((1ULL << (2 * k)) - 1);
+    uint64_t fwd = 0;
+    int64_t fill = 0, cnt = 0, iter = *iter_io;
+    for (int64_t i = 0; i < n; i++) {
+        uint8_t ch = seq[i];
+        if (ch == '\n' || ch == '\r') continue;
+        uint8_t c = lut[ch];
+        if (c == 4) { fill = 0; fwd = 0; continue; }
+        fwd = ((fwd << 2) | c) & mask;
+        if (++fill == k) {
+            if (iter % gap == 0) {
+                // canonicalize: Jellyfish revcomp (src/kmersConversion.cc:39-47)
+                uint64_t r = fwd;
+                r = ((r >> 2) & 0x3333333333333333ULL) | ((r & 0x3333333333333333ULL) << 2);
+                r = ((r >> 4) & 0x0F0F0F0F0F0F0F0FULL) | ((r & 0x0F0F0F0F0F0F0F0FULL) << 4);
+                r = ((r >> 8) & 0x00FF00FF00FF00FFULL) | ((r & 0x00FF00FF00FF00FFULL) << 8);
+                r = ((r >> 16) & 0x0000FFFF0000FFFFULL) | ((r & 0x0000FFFF0000FFFFULL) << 16);
+                r = (r >> 32) | (r << 32);
+                r = (~r) >> (64 - 2 * k);
+                out[cnt++] = fwd < r ? fwd : r;
+            }
+            iter++;
+            fill = 0;
+            fwd = 0;
+        }
+    }
+    *iter_io = iter;
+    return cnt;
+}
+
+// Count upper bound of k-mers for buffer allocation.
+int64_t kmer_bound(int64_t n, int32_t k, int32_t gap) {
+    if (n < k) return 0;
+    return (n - k + 1) / gap + 1;
+}
+
+// ---- two-choice bucketed-cuckoo table construction ----
+// Exact counterparts of hashdb.mix1/mix2 (murmur3 fmix32 math).
+
+static inline uint32_t fmix(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
+}
+static inline uint32_t mix1(uint32_t hi, uint32_t lo) {
+    return fmix(lo ^ (hi * 0x9E3779B9u));
+}
+static inline uint32_t mix2(uint32_t hi, uint32_t lo) {
+    return fmix(hi ^ (lo * 0x85EBCA6Bu) ^ 0x5BD1E995u);
+}
+
+// Build the [NB, S] planar key/label arrays (caller pre-fills keys with
+// the EMPTY sentinel 0xFFFFFFFF and labels with 0).  Greedy two-choice
+// insert with bounded random-walk eviction.  Returns 0 on success, -1
+// if the table is effectively full (caller grows nb_bits and retries).
+int64_t build_cuckoo(const uint64_t* kmers, const uint32_t* labels,
+                     int64_t n, int32_t nb_bits, int32_t slots,
+                     int32_t num_choices,
+                     uint32_t* keys_lo, uint32_t* keys_hi, uint32_t* labs,
+                     uint8_t* occ, int64_t max_kicks) {
+    const uint32_t mask = (uint32_t)((1ull << nb_bits) - 1);
+    const int S = slots;
+    uint64_t rng = 0x5EEDC0FFEEull;
+    for (int64_t i = 0; i < n; i++) {
+        uint64_t km = kmers[i];
+        uint32_t lb = labels[i];
+        for (int64_t kick = 0; kick <= max_kicks; kick++) {
+            uint32_t lo = (uint32_t)km, hi = (uint32_t)(km >> 32);
+            uint32_t b1 = mix1(hi, lo) & mask;
+            uint32_t b = b1;
+            if (kick > 0 && num_choices == 2 && (kick & 1))
+                b = mix2(hi, lo) & mask;
+            if (occ[b] < S) {
+                int64_t idx = (int64_t)b * S + occ[b];
+                keys_lo[idx] = lo; keys_hi[idx] = hi; labs[idx] = lb;
+                occ[b]++;
+                goto placed;
+            }
+            if (num_choices == 2 && kick == 0) {
+                uint32_t b2 = mix2(hi, lo) & mask;
+                if (occ[b2] < S) {
+                    int64_t idx = (int64_t)b2 * S + occ[b2];
+                    keys_lo[idx] = lo; keys_hi[idx] = hi; labs[idx] = lb;
+                    occ[b2]++;
+                    goto placed;
+                }
+            }
+            if (num_choices == 1) return -1;  // single-choice: no eviction
+            // evict a random victim from bucket b and continue with it
+            rng ^= rng << 13; rng ^= rng >> 7; rng ^= rng << 17;
+            {
+                int s = (int)(rng % (uint64_t)S);
+                int64_t idx = (int64_t)b * S + s;
+                uint64_t ev = ((uint64_t)keys_hi[idx] << 32) | keys_lo[idx];
+                uint32_t evlb = labs[idx];
+                keys_lo[idx] = (uint32_t)km;
+                keys_hi[idx] = (uint32_t)(km >> 32);
+                labs[idx] = lb;
+                km = ev; lb = evlb;
+            }
+        }
+        return -1;  // kick budget exhausted
+      placed:;
+    }
+    return 0;
+}
+
+// ---- q4 / qs layout build ----
+// Two-choice C=4 cuckoo over Feistel-mixed keys; entries are
+// quotient-compressed [other u32 | (q15|choice1|label16) u32] pairs in
+// 32 B rows (see cuclark_tpu/hashdb.py KmerDB docs).  Replaces the
+// vectorized-numpy + Python-eviction build for large databases.
+//
+// stash_bits == 0: classic q4 — both choices hash over the same [NB]
+// row range.  stash_bits > 0: qs — choice 1 hashes into a SMALL stash
+// section of NBS = 1<<stash_bits rows appended at global rows
+// [NB, NB+NBS), so the online probe pays one cold main-table gather
+// plus one warm stash gather (BENCHNOTES.md round 3).  table/occ then
+// cover NB+NBS rows; stash entries quotient against stash_bits.
+
+int64_t build_q4(const uint64_t* kmers, const uint32_t* labels, int64_t n,
+                 int32_t nb_bits, int32_t stash_bits,
+                 uint32_t c1, uint32_t c2, uint32_t c3,
+                 uint32_t* table /* [NB(+NBS), 8] zero-initialized */,
+                 uint8_t* occ, int64_t max_kicks) {
+    const uint32_t mask = (uint32_t)((1ull << nb_bits) - 1);
+    const uint32_t nb = (uint32_t)(1ull << nb_bits);
+    const uint32_t smask =
+        stash_bits ? (uint32_t)((1ull << stash_bits) - 1) : mask;
+    const uint32_t soff = stash_bits ? nb : 0;
+    const int32_t sbits = stash_bits ? stash_bits : nb_bits;
+    uint64_t rng = 0x5EEDC0FFEEull;
+    for (int64_t i = 0; i < n; i++) {
+        uint32_t lo = (uint32_t)kmers[i], hi = (uint32_t)(kmers[i] >> 32);
+        uint32_t l1 = lo ^ fmix(hi + c1);
+        uint32_t h1 = hi ^ fmix(l1 + c2);
+        uint32_t l2 = l1 ^ fmix(h1 + c3);
+        uint32_t lb = labels[i];
+        uint32_t choice = 0;
+        for (int64_t kick = 0; kick <= max_kicks; kick++) {
+            // try both buckets when fresh, else only the current choice
+            for (int c = (kick == 0 ? 0 : (int)choice);
+                 c <= (kick == 0 ? 1 : (int)choice); c++) {
+                uint32_t b = c == 0 ? (l2 & mask) : (soff + (h1 & smask));
+                if (occ[b] < 4) {
+                    int64_t row = (int64_t)b * 8;
+                    int s = occ[b];
+                    uint32_t own = c == 0 ? l2 : h1;
+                    int32_t qsh = c == 0 ? nb_bits : sbits;
+                    table[row + s] = c == 0 ? h1 : l2;
+                    table[row + 4 + s] =
+                        ((own >> qsh) << 17) | ((uint32_t)c << 16) | lb;
+                    occ[b]++;
+                    goto placed;
+                }
+            }
+            {
+                // evict a random slot of the current-choice bucket
+                uint32_t b = choice == 0 ? (l2 & mask)
+                                         : (soff + (h1 & smask));
+                rng ^= rng << 13; rng ^= rng >> 7; rng ^= rng << 17;
+                int s = (int)(rng & 3);
+                int64_t row = (int64_t)b * 8;
+                uint32_t v_other = table[row + s];
+                uint32_t v_meta = table[row + 4 + s];
+                uint32_t own = choice == 0 ? l2 : h1;
+                int32_t qsh = choice == 0 ? nb_bits : sbits;
+                table[row + s] = choice == 0 ? h1 : l2;
+                table[row + 4 + s] =
+                    ((own >> qsh) << 17) | (choice << 16) | lb;
+                // reconstruct the victim and retry it at its other choice
+                uint32_t v_c = (v_meta >> 16) & 1u;
+                uint32_t v_local = v_c == 0 ? b : (b - soff);
+                uint32_t v_own = v_c == 0
+                    ? (((v_meta >> 17) << nb_bits) | v_local)
+                    : (((v_meta >> 17) << sbits) | v_local);
+                l2 = v_c == 0 ? v_own : v_other;
+                h1 = v_c == 0 ? v_other : v_own;
+                lb = v_meta & 0xFFFFu;
+                choice = 1u - v_c;
+            }
+        }
+        return -1;  // kick budget exhausted
+      placed:;
+    }
+    return 0;
+}
+
+// ---- occurrence reduction (RemoveCommon analog) ----
+// Sorts (kmer, label, count) occurrence records by k-mer, then a
+// single run sweep keeping k-mers whose occurrences all carry one
+// label (target-specific, multiplicity==1 semantics of
+// src/HashTableStorage_hh.hh:242-292) with total count > min_count.
+// Replaces numpy argsort + fancy-gather + reduceat for the hot
+// non-centromere path; the centromere (label2) path stays in numpy.
+//
+// Sort strategy: a multi-pass LSD radix is memory-latency-bound here
+// (measured no faster than argsort on this host) — instead do ONE
+// MSD counting-partition on the top bits so each partition fits L2,
+// then sort partitions in cache with std::sort, OpenMP across
+// partitions.  Record order within equal k-mers is irrelevant: the
+// sweep only needs "all labels equal?" + the count total, both
+// order-independent.
+//
+// A and B are caller-allocated scratch of 2*n u64 each, holding
+// interleaved records {km, (lb<<32)|ct}.  has_ct == 0 means every
+// occurrence counts 1 (ct pointer ignored).  Returns the number of
+// surviving k-mers written to out_km/out_lb/out_ct.
+
+struct OccRec {
+    uint64_t km, pay;
+};
+
+int64_t reduce_occurrences(const uint64_t* km, const uint32_t* lb,
+                           const uint32_t* ct, int32_t has_ct, int64_t n,
+                           int32_t key_bits, int32_t min_count,
+                           uint64_t* A, uint64_t* B,
+                           uint64_t* out_km, uint32_t* out_lb,
+                           uint32_t* out_ct) {
+    if (n == 0) return 0;
+    OccRec* recs = (OccRec*)A;
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n; i++) {
+        recs[i].km = km[i];
+        recs[i].pay = ((uint64_t)lb[i] << 32) | (has_ct ? ct[i] : 1u);
+    }
+    // partition width: aim for ~32K records (512 KB) per partition
+    int pbits = 0;
+    while ((n >> pbits) > 32768 && pbits < 14) pbits++;
+    if (pbits > key_bits) pbits = key_bits;
+    const auto by_km = [](const OccRec& a, const OccRec& b) {
+        return a.km < b.km;
+    };
+    OccRec* srt;
+    if (pbits == 0) {
+        std::sort(recs, recs + n, by_km);
+        srt = recs;
+    } else {
+        OccRec* part = (OccRec*)B;
+        const int D = 1 << pbits;
+        const int sh = key_bits - pbits;
+        int nt = 1;
+#ifdef _OPENMP
+        nt = omp_get_max_threads();
+#endif
+        int64_t* hist = new int64_t[(int64_t)nt * D]();
+        int64_t* bounds = new int64_t[D + 1];
+#pragma omp parallel num_threads(nt)
+        {
+            // Per-thread ranges derive from the ACTUAL team size (the
+            // num_threads clause is a cap, not a guarantee: OMP_DYNAMIC
+            // or nesting may deliver fewer threads; T <= nt always, so
+            // the nt-row hist allocation stays sufficient).
+            int t = 0, T = 1;
+#ifdef _OPENMP
+            t = omp_get_thread_num();
+            T = omp_get_num_threads();
+#endif
+            const int64_t lo = n * t / T, hi = n * (t + 1) / T;
+            int64_t* h = hist + (int64_t)t * D;
+            for (int64_t i = lo; i < hi; i++)
+                h[recs[i].km >> sh]++;
+#pragma omp barrier
+#pragma omp single
+            {
+                // digit-major exclusive prefix across threads
+                int64_t acc = 0;
+                for (int d = 0; d < D; d++) {
+                    bounds[d] = acc;
+                    for (int tt = 0; tt < T; tt++) {
+                        int64_t c = hist[(int64_t)tt * D + d];
+                        hist[(int64_t)tt * D + d] = acc;
+                        acc += c;
+                    }
+                }
+                bounds[D] = acc;
+            }
+            for (int64_t i = lo; i < hi; i++)
+                part[h[recs[i].km >> sh]++] = recs[i];
+#pragma omp barrier
+#pragma omp for schedule(dynamic, 1)
+            for (int d = 0; d < D; d++)
+                std::sort(part + bounds[d], part + bounds[d + 1], by_km);
+        }
+        delete[] hist;
+        delete[] bounds;
+        srt = part;
+    }
+    // run sweep: keep single-label runs with count > min_count
+    int64_t out = 0;
+    int64_t i = 0;
+    while (i < n) {
+        const uint64_t key = srt[i].km;
+        const uint32_t first = (uint32_t)(srt[i].pay >> 32);
+        uint64_t total = srt[i].pay & 0xFFFFFFFFull;
+        bool specific = true;
+        int64_t j = i + 1;
+        for (; j < n && srt[j].km == key; j++) {
+            if ((uint32_t)(srt[j].pay >> 32) != first) specific = false;
+            total += srt[j].pay & 0xFFFFFFFFull;
+        }
+        if (total > 0xFFFFFFFFull) total = 0xFFFFFFFFull;
+        if (specific && (min_count <= 0 || total > (uint64_t)min_count)) {
+            out_km[out] = key;
+            out_lb[out] = first;
+            out_ct[out] = (uint32_t)total;
+            out++;
+        }
+        i = j;
+    }
+    return out;
+}
+
+// ---- spill-shard partition (out-of-core DB build) ----
+// Orders (kmer, label, count) occurrence records by their k-mer-range
+// shard (top bits) in one count + one scatter pass — replacing a
+// numpy argsort in _SpillStore.add (the disk-shard stage of the
+// external-sort answer to the reference's in-RAM mother table,
+// src/hashTable_hh.hh / README.md:93-94).  out is [n] interleaved
+// {km, (lb<<32)|ct} records; bounds[D+1] receives exclusive prefix
+// offsets per shard.
+
+void spill_partition(const uint64_t* km, const uint32_t* lb,
+                     const uint32_t* ct, int32_t has_ct, int64_t n,
+                     int32_t shift, int32_t nshards,
+                     uint64_t* out, int64_t* bounds) {
+    for (int s = 0; s <= nshards; s++) bounds[s] = 0;
+    for (int64_t i = 0; i < n; i++)
+        bounds[(km[i] >> shift) + 1]++;
+    for (int s = 0; s < nshards; s++) bounds[s + 1] += bounds[s];
+    int64_t* off = new int64_t[nshards];
+    memcpy(off, bounds, nshards * sizeof(int64_t));
+    for (int64_t i = 0; i < n; i++) {
+        int64_t p = off[km[i] >> shift]++;
+        out[2 * p] = km[i];
+        out[2 * p + 1] =
+            ((uint64_t)lb[i] << 32) | (has_ct ? ct[i] : 1u);
+    }
+    delete[] off;
+}
+
+// ---- CLARK CSV row formatting ----
+// Exact row format of printExtendedResultsSynced (normal mode),
+// src/CuCLARK_hh.hh:2127-2135: "%s,%u,%g,%s,%u,%s,%u,%g\n" with the
+// read name truncated to OBJECTNAMEMAX-1 = 39 chars.
+
+#include <cstdio>
+#include <cstdlib>
+#include <locale.h>
+
+// Numeric formatting/parsing must be locale-INDEPENDENT: an embedding
+// application may set LC_NUMERIC (e.g. de_DE), which would turn %g
+// decimal points into commas (corrupting the CSV column count) and
+// make strtod reject '0.75'.  uselocale() is per-thread; each worker
+// switches to a cached "C" locale for the duration of its work.
+static locale_t c_locale() {
+    static locale_t l = newlocale(LC_ALL_MASK, "C", (locale_t)0);
+    return l;
+}
+struct CLocaleScope {
+    locale_t old;
+    CLocaleScope() : old(uselocale(c_locale())) {}
+    ~CLocaleScope() { uselocale(old); }
+};
+
+static int64_t fmt_rows_range(int64_t lo_r, int64_t hi_r,
+                              const int64_t* norm, const double* gamma,
+                              const int32_t* ibest, const int32_t* best,
+                              const int32_t* isecond, const int32_t* second,
+                              const double* conf,
+                              const uint8_t* buf,
+                              const int64_t* name_s, const int64_t* name_e,
+                              const uint8_t* tnames, const int64_t* tname_off,
+                              char* out, int64_t cap) {
+    CLocaleScope cls;
+    int64_t w = 0;
+    for (int64_t i = lo_r; i < hi_r; i++) {
+        int64_t nl = name_e[i] - name_s[i];
+        if (nl > 39) nl = 39;
+        int64_t t1 = ibest[i], t2 = isecond[i];
+        int tl1 = (int)(tname_off[t1 + 1] - tname_off[t1]);
+        int tl2 = (int)(tname_off[t2 + 1] - tname_off[t2]);
+        if (w + nl + tl1 + tl2 + 160 > cap) return -1;
+        int m = snprintf(out + w, cap - w,
+                         "%.*s,%lld,%g,%.*s,%d,%.*s,%d,%g\n",
+                         (int)nl, (const char*)(buf + name_s[i]),
+                         (long long)norm[i], gamma[i],
+                         tl1, (const char*)(tnames + tname_off[t1]), best[i],
+                         tl2, (const char*)(tnames + tname_off[t2]), second[i],
+                         conf[i]);
+        if (m < 0) return -1;
+        w += m;
+    }
+    return w;
+}
+
+// OpenMP row formatting: per-thread contiguous record ranges format
+// into private scratch, then concatenate in order — the parallel
+// counterpart of the reference's threaded result writing
+// (src/CuCLARK_hh.hh:1755-1761, printExtendedResultsSynced).
+#define FMT_MAX_THREADS 16
+
+int64_t format_rows(int64_t n,
+                    const int64_t* norm, const double* gamma,
+                    const int32_t* ibest, const int32_t* best,
+                    const int32_t* isecond, const int32_t* second,
+                    const double* conf,
+                    const uint8_t* buf,
+                    const int64_t* name_s, const int64_t* name_e,
+                    const uint8_t* tnames, const int64_t* tname_off,
+                    char* out, int64_t cap) {
+    int nt = 1;
+#ifdef _OPENMP
+    if (n >= 4096) {
+        nt = omp_get_max_threads();
+        if (nt > FMT_MAX_THREADS) nt = FMT_MAX_THREADS;
+    }
+#endif
+    if (nt <= 1)
+        return fmt_rows_range(0, n, norm, gamma, ibest, best, isecond,
+                              second, conf, buf, name_s, name_e, tnames,
+                              tname_off, out, cap);
+    char* bufs[FMT_MAX_THREADS] = {nullptr};
+    int64_t lens[FMT_MAX_THREADS] = {0};
+    int T_sh = 1;
+#pragma omp parallel num_threads(nt)
+    {
+        int t = omp_get_thread_num(), T = omp_get_num_threads();
+#pragma omp single
+        T_sh = T;
+        const int64_t rlo = n * t / T, rhi = n * (t + 1) / T;
+        int64_t c = 64;
+        for (int64_t i = rlo; i < rhi; i++) {
+            int64_t nl = name_e[i] - name_s[i];
+            if (nl > 39) nl = 39;
+            c += nl + 160
+                 + (tname_off[ibest[i] + 1] - tname_off[ibest[i]])
+                 + (tname_off[isecond[i] + 1] - tname_off[isecond[i]]);
+        }
+        char* b = (char*)malloc((size_t)c);
+        bufs[t] = b;
+        lens[t] = b ? fmt_rows_range(rlo, rhi, norm, gamma, ibest, best,
+                                     isecond, second, conf, buf, name_s,
+                                     name_e, tnames, tname_off, b, c)
+                    : -1;
+    }
+    int64_t w = 0;
+    for (int t = 0; t < T_sh; t++) {
+        if (w >= 0) {
+            if (lens[t] < 0 || w + lens[t] > cap) w = -1;
+            else { memcpy(out + w, bufs[t], (size_t)lens[t]); w += lens[t]; }
+        }
+        free(bufs[t]);
+    }
+    return w;
+}
+
+// Extended-mode rows: one dense per-target hit-count column between
+// the name and Length (src/CuCLARK_hh.hh:2014-2031 reconstructs the
+// dense columns from sparse rows; here the host hands us the dense
+// [n, n_targets] counts matrix directly).
+static int64_t fmt_rows_ext_range(int64_t lo_r, int64_t hi_r,
+                                  int64_t n_targets, const uint32_t* counts,
+                                  const int64_t* norm, const double* gamma,
+                                  const int32_t* ibest, const int32_t* best,
+                                  const int32_t* isecond,
+                                  const int32_t* second, const double* conf,
+                                  const uint8_t* buf,
+                                  const int64_t* name_s,
+                                  const int64_t* name_e,
+                                  const uint8_t* tnames,
+                                  const int64_t* tname_off,
+                                  char* out, int64_t cap) {
+    CLocaleScope cls;
+    int64_t w = 0;
+    for (int64_t i = lo_r; i < hi_r; i++) {
+        int64_t nl = name_e[i] - name_s[i];
+        if (nl > 39) nl = 39;
+        int64_t t1 = ibest[i], t2 = isecond[i];
+        int tl1 = (int)(tname_off[t1 + 1] - tname_off[t1]);
+        int tl2 = (int)(tname_off[t2 + 1] - tname_off[t2]);
+        if (w + nl + 12 * (n_targets + 1) + tl1 + tl2 + 160 > cap) return -1;
+        int m = snprintf(out + w, cap - w, "%.*s",
+                         (int)nl, (const char*)(buf + name_s[i]));
+        if (m < 0) return -1;
+        w += m;
+        const uint32_t* row = counts + i * n_targets;
+        for (int64_t t = 0; t < n_targets; t++) {
+            m = snprintf(out + w, cap - w, ",%u", row[t]);
+            if (m < 0) return -1;
+            w += m;
+        }
+        m = snprintf(out + w, cap - w,
+                     ",%lld,%g,%.*s,%d,%.*s,%d,%g\n",
+                     (long long)norm[i], gamma[i],
+                     tl1, (const char*)(tnames + tname_off[t1]), best[i],
+                     tl2, (const char*)(tnames + tname_off[t2]), second[i],
+                     conf[i]);
+        if (m < 0) return -1;
+        w += m;
+    }
+    return w;
+}
+
+int64_t format_rows_ext(int64_t n, int64_t n_targets,
+                        const uint32_t* counts,
+                        const int64_t* norm, const double* gamma,
+                        const int32_t* ibest, const int32_t* best,
+                        const int32_t* isecond, const int32_t* second,
+                        const double* conf,
+                        const uint8_t* buf,
+                        const int64_t* name_s, const int64_t* name_e,
+                        const uint8_t* tnames, const int64_t* tname_off,
+                        char* out, int64_t cap) {
+    int nt = 1;
+#ifdef _OPENMP
+    if (n * (n_targets + 8) >= 65536) {
+        nt = omp_get_max_threads();
+        if (nt > FMT_MAX_THREADS) nt = FMT_MAX_THREADS;
+    }
+#endif
+    if (nt <= 1)
+        return fmt_rows_ext_range(0, n, n_targets, counts, norm, gamma,
+                                  ibest, best, isecond, second, conf, buf,
+                                  name_s, name_e, tnames, tname_off, out,
+                                  cap);
+    char* bufs[FMT_MAX_THREADS] = {nullptr};
+    int64_t lens[FMT_MAX_THREADS] = {0};
+    int T_sh = 1;
+#pragma omp parallel num_threads(nt)
+    {
+        int t = omp_get_thread_num(), T = omp_get_num_threads();
+#pragma omp single
+        T_sh = T;
+        const int64_t rlo = n * t / T, rhi = n * (t + 1) / T;
+        int64_t c = 64;
+        for (int64_t i = rlo; i < rhi; i++) {
+            int64_t nl = name_e[i] - name_s[i];
+            if (nl > 39) nl = 39;
+            c += nl + 12 * (n_targets + 1) + 160
+                 + (tname_off[ibest[i] + 1] - tname_off[ibest[i]])
+                 + (tname_off[isecond[i] + 1] - tname_off[isecond[i]]);
+        }
+        char* b = (char*)malloc((size_t)c);
+        bufs[t] = b;
+        lens[t] = b ? fmt_rows_ext_range(rlo, rhi, n_targets, counts, norm,
+                                         gamma, ibest, best, isecond,
+                                         second, conf, buf, name_s, name_e,
+                                         tnames, tname_off, b, c)
+                    : -1;
+    }
+    int64_t w = 0;
+    for (int t = 0; t < T_sh; t++) {
+        if (w >= 0) {
+            if (lens[t] < 0 || w + lens[t] > cap) w = -1;
+            else { memcpy(out + w, bufs[t], (size_t)lens[t]); w += lens[t]; }
+        }
+        free(bufs[t]);
+    }
+    return w;
+}
+
+// ---- result-CSV ingestion (abundance / density summarization) ----
+// The downstream of CLARK's estimate_abundance / density scripts
+// (reference README.md:58-80 consumes the classify CSV).  A 100M-row
+// ladder-4 result file must not be re-parsed row-by-row in Python;
+// one native pass tallies per-target counts (interning assignment
+// names on the fly) or extracts a float column for assigned rows.
+
+// Parse one CSV line in [i, n): records up to ncols field (start,end)
+// pairs, returns the byte offset just past the line's '\n' (or n).
+// *nf receives the field count.  A '\r' immediately before the '\n'
+// (CRLF file) is excluded from the final field.  No quoting: CLARK
+// CSVs are never quoted (format_rows writes raw names).
+static inline int64_t csv_line(const uint8_t* buf, int64_t n, int64_t i,
+                               int64_t* fs, int64_t* fe, int32_t ncols,
+                               int32_t* nf) {
+    int32_t f = 0;
+    int64_t s = i;
+    while (i < n) {
+        uint8_t c = buf[i];
+        if (c == ',' || c == '\n') {
+            int64_t e = (c == '\n' && i > s && buf[i - 1] == '\r')
+                            ? i - 1 : i;
+            if (f < ncols) { fs[f] = s; fe[f] = e; }
+            f++;
+            s = i + 1;
+            if (c == '\n') { *nf = f; return i + 1; }
+        }
+        i++;
+    }
+    // final line without '\n' (crash-truncated tail): report its
+    // fields; the caller decides whether a complete field set counts
+    if (s < i || f) { if (f < ncols) { fs[f] = s; fe[f] = i; } f++; }
+    *nf = f;
+    return n;
+}
+
+// Locale-safe float field parse (field is NOT null-terminated and may
+// abut a page boundary at EOF: copy to a stack buffer first).  *ok is
+// cleared when the field is empty, oversized, or not fully numeric —
+// a corrupt confidence/gamma value must surface as a malformed-row
+// error, not silently compare as 0.0 (the csv-module fallback raises
+// on float('garbage'); the native path must match).
+static inline double csv_f64(const uint8_t* buf, int64_t s, int64_t e,
+                             bool* ok) {
+    char tmp[64];
+    int64_t len = e - s;
+    if (len <= 0 || len >= (int64_t)sizeof(tmp)) { *ok = false; return 0.0; }
+    memcpy(tmp, buf + s, (size_t)len);
+    tmp[len] = 0;
+    char* end = tmp;
+    double v = strtod(tmp, &end);
+    if (end != tmp + len) *ok = false;
+    return v;
+}
+
+// Open-addressing name interner over (offset,len) byte slices.
+struct NameIntern {
+    const uint8_t* buf;
+    int64_t* slot_off;   // [cap_slots] offset into names blob, -1 empty
+    int32_t* slot_id;
+    int64_t cap_slots;   // power of two
+    uint8_t* names;      // caller blob
+    int64_t names_cap, names_w;
+    int64_t* name_off;   // [max_names + 1]
+    int32_t max_names, n_names;
+};
+
+static uint64_t ni_hash(const uint8_t* p, int64_t len) {
+    uint64_t h = 1469598103934665603ull;  // FNV-1a
+    for (int64_t i = 0; i < len; i++) { h ^= p[i]; h *= 1099511628211ull; }
+    return h;
+}
+
+// Returns the id for the name bytes, interning on first sight;
+// -1 on capacity overflow (max_names or names blob).
+static int32_t ni_get(NameIntern* ni, const uint8_t* p, int64_t len) {
+    uint64_t h = ni_hash(p, len);
+    int64_t m = ni->cap_slots - 1;
+    for (int64_t j = h & m;; j = (j + 1) & m) {
+        if (ni->slot_off[j] < 0) {
+            if (ni->n_names >= ni->max_names
+                || ni->names_w + len > ni->names_cap)
+                return -1;
+            memcpy(ni->names + ni->names_w, p, (size_t)len);
+            ni->slot_off[j] = ni->names_w;
+            ni->slot_id[j] = ni->n_names;
+            ni->names_w += len;
+            ni->name_off[ni->n_names + 1] = ni->names_w;
+            return ni->n_names++;
+        }
+        int64_t off = ni->slot_off[j];
+        int32_t id = ni->slot_id[j];
+        if (ni->name_off[id + 1] - ni->name_off[id] == len
+            && memcmp(ni->names + off, p, (size_t)len) == 0)
+            return id;
+    }
+}
+
+// One-pass abundance tally.  buf starts AFTER the header line.  Column
+// indices are from the header (col_conf / col_gamma -1 when absent).
+// Id 0 is pre-interned as "NA"; low-confidence / low-gamma assignments
+// count as NA (CLARK estimate_abundance -c / --highconfidence filter).
+// counts[max_names] int64 must be zeroed by the caller.  Returns the
+// number of distinct names (>= 1), or -(byte_offset+1) of the first
+// malformed line (wrong field count), or -(n+2) on interner overflow.
+// *total_out receives the data row count.  A trailing line without
+// '\n' is counted only when it has the full field set.
+int64_t csv_tally(const uint8_t* buf, int64_t n,
+                  int32_t ncols, int32_t col_assign,
+                  int32_t col_conf, int32_t col_gamma,
+                  double min_conf, double min_gamma,
+                  int64_t* counts, int32_t max_names,
+                  uint8_t* names, int64_t names_cap, int64_t* name_off,
+                  int64_t* total_out) {
+    CLocaleScope cls;
+    if (ncols > 4096 || col_assign < 0 || col_assign >= ncols
+        || col_conf >= ncols || col_gamma >= ncols)
+        return -(n + 2);
+    int64_t* fs = new int64_t[ncols];
+    int64_t* fe = new int64_t[ncols];
+    int64_t cap_slots = 64;
+    while (cap_slots < (int64_t)max_names * 2) cap_slots <<= 1;
+    int64_t* slot_off = new int64_t[cap_slots];
+    int32_t* slot_id = new int32_t[cap_slots];
+    for (int64_t j = 0; j < cap_slots; j++) slot_off[j] = -1;
+    NameIntern ni = {buf, slot_off, slot_id, cap_slots,
+                     names, names_cap, 0, name_off, max_names, 0};
+    name_off[0] = 0;
+    ni_get(&ni, (const uint8_t*)"NA", 2);  // id 0
+    int64_t i = 0, total = 0, err = 0;
+    while (i < n && !err) {
+        int32_t nf = 0;
+        int64_t line_s = i;
+        i = csv_line(buf, n, i, fs, fe, ncols, &nf);
+        if (nf == 1 && fe[0] == fs[0]) continue;  // blank line
+        if (nf != ncols) {
+            // only a final line WITHOUT its '\n' is a crash-truncated
+            // tail; a newline-terminated last row was fully written
+            // and a wrong field count there is real corruption
+            if (i >= n && buf[n - 1] != '\n') break;
+            err = -(line_s + 1);
+            break;
+        }
+        int64_t as = fs[col_assign], ae = fe[col_assign];
+        bool ok = true;
+        int32_t id;
+        if (ae - as == 2 && buf[as] == 'N' && buf[as + 1] == 'A') {
+            id = 0;
+        } else if (min_conf > 0 && col_conf >= 0
+                   && csv_f64(buf, fs[col_conf], fe[col_conf], &ok)
+                          < min_conf) {
+            id = 0;
+        } else if (min_gamma > 0 && col_gamma >= 0
+                   && csv_f64(buf, fs[col_gamma], fe[col_gamma], &ok)
+                          < min_gamma) {
+            id = 0;
+        } else {
+            id = ni_get(&ni, buf + as, ae - as);
+            if (id < 0) { err = -(n + 2); break; }
+        }
+        if (!ok) { err = -(line_s + 1); break; }
+        counts[id]++;
+        total++;
+    }
+    int32_t n_names = ni.n_names;
+    delete[] fs; delete[] fe; delete[] slot_off; delete[] slot_id;
+    *total_out = total;
+    return err ? err : n_names;
+}
+
+// Number of '\n' bytes (row-count upper bound for csv_values).
+int64_t count_lines(const uint8_t* buf, int64_t n) {
+    int64_t c = 0;
+    const uint8_t* p = buf;
+    const uint8_t* end = buf + n;
+    while (p < end) {
+        const uint8_t* q = (const uint8_t*)memchr(p, '\n', end - p);
+        if (!q) break;
+        c++;
+        p = q + 1;
+    }
+    return c;
+}
+
+// Extract float column col_val for rows whose col_assign != "NA"
+// (density histogram input).  Same conventions as csv_tally.  Returns
+// values written, or -(byte_offset+1) on a malformed line.
+int64_t csv_values(const uint8_t* buf, int64_t n,
+                   int32_t ncols, int32_t col_val, int32_t col_assign,
+                   double* out, int64_t cap) {
+    CLocaleScope cls;
+    if (ncols > 4096 || col_val < 0 || col_val >= ncols
+        || col_assign < 0 || col_assign >= ncols)
+        return -(n + 2);
+    int64_t* fs = new int64_t[ncols];
+    int64_t* fe = new int64_t[ncols];
+    int64_t i = 0, w = 0, err = 0;
+    while (i < n && !err) {
+        int32_t nf = 0;
+        int64_t line_s = i;
+        i = csv_line(buf, n, i, fs, fe, ncols, &nf);
+        if (nf == 1 && fe[0] == fs[0]) continue;
+        if (nf != ncols) {
+            if (i >= n && buf[n - 1] != '\n') break;  // truncated tail
+            err = -(line_s + 1);
+            break;
+        }
+        int64_t as = fs[col_assign], ae = fe[col_assign];
+        if (ae - as == 2 && buf[as] == 'N' && buf[as + 1] == 'A') continue;
+        if (w >= cap) { err = -(n + 2); break; }
+        bool ok = true;
+        out[w] = csv_f64(buf, fs[col_val], fe[col_val], &ok);
+        if (!ok) { err = -(line_s + 1); break; }
+        w++;
+    }
+    delete[] fs; delete[] fe;
+    return err ? err : w;
+}
+
+}  // extern "C"

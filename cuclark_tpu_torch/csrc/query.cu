@@ -60,7 +60,12 @@
 // scores the block's labels in shared memory (warp_score.cuh) and writes
 // [R, 5] results, so the [R, P] labels (32 MB a batch) are neither written
 // nor read again and the score kernel's launch goes away
-// (pipeline.classify_step_packed without labels).
+// (pipeline.classify_step_packed without labels).  The same kernel ends a
+// data block of a mesh step (cuclark_tpu/parallel/mesh.py:96) and the last
+// part of a streamed mesh step (:164): it takes the ranges of the block's
+// column-0 shard and the other launches' label sum (acc_in), which it reads
+// once and adds before the score, so neither that sum's write-back nor the
+// score kernel's launch is paid.
 //
 // The front half (the k-mer of each window from the wire bytes, its
 // reverse complement and the Feistel rounds) is a few instructions per
@@ -440,44 +445,53 @@ __global__ void __launch_bounds__(kTile) query_kernel(
     labels[idx] += lab;
 }
 
-// Query and score of one-tile reads (P <= kTile) against the resident
-// table of a layout: a block per read runs query_kernel's wire front half
-// and gathers, then its labels go to shared memory and warp 0 scores them
-// into results row r (warp_score.cuh, score.cu's warp path).  The labels
-// never reach device memory.  stash_rows and stash_bits are qs's; slots
-// and num_choices s2's.
+// Query and score of one-tile reads (P <= kTile): a block per read runs
+// query_kernel's wire front half and gathers over the call's ranges, then
+// its labels go to shared memory and warp 0 scores them into results row
+// r (warp_score.cuh, score.cu's warp path).  The labels never reach device
+// memory.  stash_rows and stash_bits are qs's (null: no stash probe, as in
+// query_kernel's part mode); slots and num_choices s2's.  The ranges are
+// query_kernel's: the whole table for the resident step, one db shard (of
+// one part) for the last launch of a data block of a mesh step.  acc_in,
+// when not null, is the int32 [R, P] sum of the block's other launches
+// (the other db shards, the earlier parts): window p's label is
+// acc_in[r, p] plus its own, read once, coalesced, and never written back.
+// An invalid window adds nothing to acc_in's value (0 there: no launch
+// gives it a label).
 template <int LAYOUT>
 __global__ void __launch_bounds__(kTile) query_score_kernel(
     const uint8_t* __restrict__ packed2, const uint8_t* __restrict__ vbits,
     const void* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
-    int32_t* __restrict__ results, int P, int s2, int s8, int k, int nb_bits,
-    int stash_bits, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
-    int num_choices) {
+    const int32_t* __restrict__ acc_in, int32_t* __restrict__ results, int P,
+    int s2, int s8, int k, int nb_bits, int stash_bits, uint64_t bucket_start,
+    uint64_t nb_local, uint64_t stash_start, uint64_t nbs_local, uint32_t c1,
+    uint32_t c2, uint32_t c3, int slots, int num_choices) {
   __shared__ uint32_t w2[kW2];
   __shared__ uint32_t wv[kWv];
   __shared__ int32_t lab_s[kTile];
   const int64_t r = blockIdx.x;
+  const int p = threadIdx.x;
+  // the incoming sum's load goes out before the staging and the gathers
+  int32_t lab = acc_in != nullptr && p < P ? __ldg(acc_in + r * P + p) : 0;
   stage_wire(packed2 + r * s2, vbits + r * s8, s2, s8, 0, w2, wv);
   __syncthreads();
-  int32_t lab = 0;
   uint64_t c;
-  if (static_cast<int>(threadIdx.x) < P &&
-      window_kmer(w2, wv, threadIdx.x, k, &c))
-    lab = kmer_label<LAYOUT>(c, main_rows, stash_rows, nb_bits, stash_bits,
-                             0, 1ull << nb_bits, 0, 1ull << stash_bits, c1,
-                             c2, c3, slots, num_choices);
-  lab_s[threadIdx.x] = lab;
+  if (p < P && window_kmer(w2, wv, p, k, &c))
+    lab += kmer_label<LAYOUT>(c, main_rows, stash_rows, nb_bits, stash_bits,
+                              bucket_start, nb_local, stash_start, nbs_local,
+                              c1, c2, c3, slots, num_choices);
+  lab_s[p] = lab;
   __syncthreads();
-  if (threadIdx.x >= 32) return;
+  if (p >= 32) return;
   constexpr int E = kTile / 32;
   int32_t a[E];
   int total = 0;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    a[e] = lab_s[32 * e + threadIdx.x];
+    a[e] = lab_s[32 * e + p];
     total += a[e] > 0;
   }
-  warp_score<E>(a, total, threadIdx.x, results + r * 5);
+  warp_score<E>(a, total, p, results + r * 5);
 }
 
 // One layout's kernel over one front half.
@@ -564,58 +578,53 @@ extern "C" int cuclark_query(int layout, int codes, const void* packed2,
 }
 
 // results int32 [R, 5] (as cuclark_score's) of the wire batch packed2 uint8
-// [R, s2], vbits uint8 [R, s8] against a resident qs table: main int32
-// [2^nb_bits, 8] and stash int32 [2^stash_bits, 8]; P = 4*s2 - k + 1 <=
-// 128, one tile a read.  Launches on `stream` and returns
-// cudaGetLastError().
-extern "C" int cuclark_query_score(const void* packed2, const void* vbits,
-                                   const void* main_rows,
-                                   const void* stash_rows, void* results,
-                                   int64_t R, int P, int s2, int s8, int k,
-                                   int nb_bits, int stash_bits, uint32_t c1,
-                                   uint32_t c2, uint32_t c3, void* stream) {
+// [R, s2], vbits uint8 [R, s8], P = 4*s2 - k + 1 <= 128 (one tile a read),
+// against main rows [bucket_start, bucket_start + nb_local) of a table of
+// 2^nb_bits rows of a layout (as cuclark_query's: qs and q4 int32
+// [nb_local, 8], s2 int32 [nb_local, 3*slots]) and, for qs, stash rows
+// [stash_start, stash_start + nbs_local) of 2^stash_bits, int32
+// [nbs_local, 8], or null (no stash probe; q4 and s2 pass null).  acc_in:
+// int32 [R, P] added to the labels before they are scored, or null.  The
+// resident step passes the whole table and a null acc_in.  Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int cuclark_query_score_range(
+    int layout, const void* packed2, const void* vbits, const void* main_rows,
+    const void* stash_rows, const void* acc_in, void* results, int64_t R,
+    int P, int s2, int s8, int k, int nb_bits, int stash_bits,
+    int64_t bucket_start, int64_t nb_local, int64_t stash_start,
+    int64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
+    int num_choices, void* stream) {
   if (R == 0) return static_cast<int>(cudaSuccess);
   if (R > 0x7FFFFFFF || P < 1 || P > kTile || k < 2 || k > 32 ||
-      stash_rows == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  query_score_kernel<kQs><<<static_cast<unsigned>(R), kTile, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed2), static_cast<const uint8_t*>(vbits),
-      main_rows, static_cast<const uint4*>(stash_rows),
-      static_cast<int32_t*>(results), P, s2, s8, k, nb_bits, stash_bits, c1,
-      c2, c3, 0, 1);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same against a resident table of a layout without a stash: layout 1
-// (q4) main int32 [2^nb_bits, 8], layout 2 (s2) main int32 [2^nb_bits,
-// 3*slots] with num_choices 1 or 2.
-extern "C" int cuclark_query_score_layout(int layout, const void* packed2,
-                                          const void* vbits,
-                                          const void* main_rows,
-                                          void* results, int64_t R, int P,
-                                          int s2, int s8, int k, int nb_bits,
-                                          uint32_t c1, uint32_t c2,
-                                          uint32_t c3, int slots,
-                                          int num_choices, void* stream) {
-  if (R == 0) return static_cast<int>(cudaSuccess);
-  if (R > 0x7FFFFFFF || P < 1 || P > kTile || k < 2 || k > 32)
+      (layout != kQs && stash_rows != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* p2 = static_cast<const uint8_t*>(packed2);
   const uint8_t* vb = static_cast<const uint8_t*>(vbits);
+  const uint4* stash = static_cast<const uint4*>(stash_rows);
+  const int32_t* acc = static_cast<const int32_t*>(acc_in);
   int32_t* out = static_cast<int32_t*>(results);
+  const uint64_t start = static_cast<uint64_t>(bucket_start);
+  const uint64_t local = static_cast<uint64_t>(nb_local);
+  const uint64_t sstart = static_cast<uint64_t>(stash_start);
+  const uint64_t slocal = static_cast<uint64_t>(nbs_local);
   const unsigned grid = static_cast<unsigned>(R);
   switch (layout) {
+    case kQs:
+      query_score_kernel<kQs><<<grid, kTile, 0, st>>>(
+          p2, vb, main_rows, stash, acc, out, P, s2, s8, k, nb_bits,
+          stash_bits, start, local, sstart, slocal, c1, c2, c3, slots,
+          num_choices);
+      break;
     case kQ4:
       query_score_kernel<kQ4><<<grid, kTile, 0, st>>>(
-          p2, vb, main_rows, nullptr, out, P, s2, s8, k, nb_bits, 0, c1, c2,
-          c3, slots, num_choices);
+          p2, vb, main_rows, nullptr, acc, out, P, s2, s8, k, nb_bits, 0,
+          start, local, 0, 0, c1, c2, c3, slots, num_choices);
       break;
     case kS2:
       query_score_kernel<kS2><<<grid, kTile, 0, st>>>(
-          p2, vb, main_rows, nullptr, out, P, s2, s8, k, nb_bits, 0, c1, c2,
-          c3, slots, num_choices);
+          p2, vb, main_rows, nullptr, acc, out, P, s2, s8, k, nb_bits, 0,
+          start, local, 0, 0, c1, c2, c3, slots, num_choices);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -13,10 +13,11 @@ Each launch function takes CUDA tensors, checks them, launches on
 PyTorch's current stream, raises if the launch reports an error, and
 adds one to its entry of `LAUNCHES`.  The callers are the wrappers
 `probe.query_labels`, `probe.query_part_labels`,
-`probe.query_codes_labels`, `probe.query_score_results` and
-`score.score_labels`, which take the plain PyTorch versions for CPU
-tensors.  `query`, `query_part` and `query_codes` launch the query
-kernel (`csrc/query.cu`) of the table's layout: the resident query over
+`probe.query_codes_labels`, `probe.query_score_results`,
+`probe.query_score_part_results` and `score.score_labels`, which take
+the plain PyTorch versions for CPU tensors.  `query`, `query_part` and
+`query_codes` launch the query kernel (`csrc/query.cu`) of the table's
+layout: the resident query over
 the whole table; the range query over one bucket range of main rows and
 one range of stash rows (a part of a streamed table, or the db shard of
 a mesh, `parallel/mesh.py`); and the resident query over unpacked codes
@@ -26,7 +27,13 @@ for the others.  `query_score` launches the query kernel's fused
 instance for one-tile reads against the resident table of any layout,
 which scores each read's labels on chip and returns the [R, 5] results
 (`pipeline.classify_step_packed` without labels), counted as
-`query_score` for qs and `query_score_q4` or `query_score_s2`.  `score`
+`query_score` for qs and `query_score_q4` or `query_score_s2`.
+`query_score_part` launches the same instance over one range of rows,
+with the int32 [R, P] label sum of the batch's other range launches
+added before the score: the last launch of a data block of a mesh step,
+or of the last part of a streamed mesh step (`parallel/mesh.py`),
+counted as `query_score_part[_q4|_s2]`.  Both go through one C entry,
+`cuclark_query_score_range`.  `score`
 launches the score kernel (`csrc/score.cu`), counted as `score` for rows
 of up to MAX_SCORE_WINDOWS windows and `score_long` for longer ones.
 
@@ -68,7 +75,8 @@ QUERY_SCORE_MAX_WINDOWS = 128
 LAUNCHES = {"query": 0, "query_part": 0, "query_codes": 0, "query_q4": 0,
             "query_part_q4": 0, "query_codes_q4": 0, "query_s2": 0,
             "query_part_s2": 0, "query_codes_s2": 0, "query_score": 0,
-            "query_score_q4": 0, "query_score_s2": 0, "score": 0,
+            "query_score_q4": 0, "query_score_s2": 0, "query_score_part": 0,
+            "query_score_part_q4": 0, "query_score_part_s2": 0, "score": 0,
             "score_long": 0}
 
 # The query kernel's layout argument (csrc/query.cu, enum Layout).
@@ -142,11 +150,10 @@ ENTRIES = {
     "cuclark_query": [_i32, _i32, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32,
                       _i32, _i32, _i32, _i32, _i64, _i64, _i64, _i64, _i32,
                       _u32, _u32, _u32, _i32, _i32, _vp],
-    "cuclark_query_score": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32,
-                            _i32, _i32, _i32, _u32, _u32, _u32, _vp],
-    "cuclark_query_score_layout": [_i32, _vp, _vp, _vp, _vp, _i64, _i32,
-                                   _i32, _i32, _i32, _i32, _u32, _u32, _u32,
-                                   _i32, _i32, _vp],
+    "cuclark_query_score_range": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
+                                  _i32, _i32, _i32, _i32, _i32, _i32, _i64,
+                                  _i64, _i64, _i64, _u32, _u32, _u32, _i32,
+                                  _i32, _vp],
     "cuclark_score": [_vp, _vp, _i64, _i32, _vp],
     "cuclark_score_long": [_vp, _vp, _i64, _i32, _vp],
 }
@@ -208,49 +215,62 @@ def _check_reads(packed2, vbits) -> tuple[int, int, int, int]:
     return R, s2, s8, 4 * s2
 
 
-def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
-                  bucket_start, stash_start=0) -> torch.Tensor:
-    """Check the query kernel's operands and launch the kernel of
-    `spec.layout` on the current stream: main holds global main rows
-    [bucket_start, bucket_start + len(main)) of a table of 2^nb_bits
-    rows, [rows, 8] for qs and q4 and [rows, 3 * slots] for s2; a qs
-    stash holds global stash rows [stash_start, stash_start + len(stash))
-    of 2^stash_bits, and None skips the stash probe; q4 and s2 have none.
-    vbits None: packed2 is unpacked codes uint8 [R, L] (the codes front
-    half).  Returns new labels int32 [R, P], or `acc` with the labels
-    added in place."""
-    dev = packed2.device
-    spec.check()
-    R, s2, s8, L = _check_reads(packed2, vbits)
+def _check_table_range(main, stash, *, dev, spec: TableSpec,
+                       bucket_start: int, stash_start: int):
+    """Check a range of a table on `dev`: main holds global main rows
+    [bucket_start, bucket_start + len(main)) of 2^nb_bits rows, [rows, 8]
+    for qs and q4 and [rows, 3 * slots] for s2; a qs stash holds global
+    stash rows [stash_start, stash_start + len(stash)) of 2^stash_bits,
+    and None skips the stash probe; q4 and s2 have none.  Returns
+    (nb_local, stash pointer or None, nbs_local)."""
     _check(main, "main", torch.int32, dev)
-    if not 2 <= k <= 32 or L < k:
-        raise ValueError(f"padded read length {L} < k={k} or k out of range")
-    P = L - k + 1
-    if acc is not None:
-        _check(acc, "acc", torch.int32, dev)
-        if acc.shape != (R, P):
-            raise ValueError(f"acc {tuple(acc.shape)}, expected {(R, P)}")
     nb_local = main.shape[0]
     if (main.shape[1] != spec.row_words or nb_local < 1 or bucket_start < 0
             or bucket_start + nb_local > 1 << spec.nb_bits):
         raise ValueError(f"main rows {tuple(main.shape)} from bucket "
                          f"{bucket_start} do not lie in 2^{spec.nb_bits} "
                          f"rows of {spec.row_words} words")
-    stash_ptr, nbs_local = None, 0
-    if stash is not None:
-        if spec.layout != "qs":
-            raise ValueError(f"a {spec.layout} table has no stash")
-        _check(stash, "stash", torch.int32, dev)
-        nbs_local = stash.shape[0]
-        if (stash.shape[1] != 8 or nbs_local < 1 or stash_start < 0
-                or stash_start + nbs_local > 1 << spec.stash_bits):
-            raise ValueError(f"stash rows {tuple(stash.shape)} from "
-                             f"{stash_start} do not lie in "
-                             f"2^{spec.stash_bits} rows of 8 words")
-        if stash.data_ptr() % 16:
-            raise ValueError("table rows must be 16-byte aligned")
-        stash_ptr = stash.data_ptr()
     _check_align(main, spec)
+    if stash is None:
+        return nb_local, None, 0
+    if spec.layout != "qs":
+        raise ValueError(f"a {spec.layout} table has no stash")
+    _check(stash, "stash", torch.int32, dev)
+    nbs_local = stash.shape[0]
+    if (stash.shape[1] != 8 or nbs_local < 1 or stash_start < 0
+            or stash_start + nbs_local > 1 << spec.stash_bits):
+        raise ValueError(f"stash rows {tuple(stash.shape)} from "
+                         f"{stash_start} do not lie in "
+                         f"2^{spec.stash_bits} rows of 8 words")
+    if stash.data_ptr() % 16:
+        raise ValueError("table rows must be 16-byte aligned")
+    return nb_local, stash.data_ptr(), nbs_local
+
+
+def _check_acc(acc, name: str, dev, R: int, P: int) -> None:
+    _check(acc, name, torch.int32, dev)
+    if acc.shape != (R, P):
+        raise ValueError(f"{name} {tuple(acc.shape)}, expected {(R, P)}")
+
+
+def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
+                  bucket_start, stash_start=0) -> torch.Tensor:
+    """Check the query kernel's operands and launch the kernel of
+    `spec.layout` on the current stream over the table range that main
+    and stash hold (`_check_table_range`).  vbits None: packed2 is
+    unpacked codes uint8 [R, L] (the codes front half).  Returns new
+    labels int32 [R, P], or `acc` with the labels added in place."""
+    dev = packed2.device
+    spec.check()
+    R, s2, s8, L = _check_reads(packed2, vbits)
+    if not 2 <= k <= 32 or L < k:
+        raise ValueError(f"padded read length {L} < k={k} or k out of range")
+    P = L - k + 1
+    if acc is not None:
+        _check_acc(acc, "acc", dev, R, P)
+    nb_local, stash_ptr, nbs_local = _check_table_range(
+        main, stash, dev=dev, spec=spec, bucket_start=bucket_start,
+        stash_start=stash_start)
     out = acc if acc is not None else torch.empty(
         (R, P), dtype=torch.int32, device=dev)
     lib = load()
@@ -331,6 +351,43 @@ def query_codes(codes: torch.Tensor, main: torch.Tensor,
     return labels
 
 
+def _launch_query_score(packed2, vbits, main, stash, acc_in, *, k,
+                        spec: TableSpec, bucket_start: int,
+                        stash_start: int) -> torch.Tensor:
+    """Check the fused query and score's operands and launch it
+    (`cuclark_query_score_range`) on the current stream over the table
+    range that main and stash hold (`_check_table_range`), acc_in int32
+    [R, P] or None -> results int32 [R, 5]."""
+    spec.check()
+    P = 4 * packed2.shape[-1] - k + 1
+    if not 2 <= k <= 32 or not 1 <= P <= QUERY_SCORE_MAX_WINDOWS:
+        raise ValueError(f"fused query and score needs 1 <= P <= "
+                         f"{QUERY_SCORE_MAX_WINDOWS} windows and k in 2..32,"
+                         f" got P={P}, k={k}")
+    dev = packed2.device
+    R, s2, s8, _ = _check_reads(packed2, vbits)
+    if vbits is None:
+        raise ValueError("the fused query and score takes a wire batch")
+    nb_local, stash_ptr, nbs_local = _check_table_range(
+        main, stash, dev=dev, spec=spec, bucket_start=bucket_start,
+        stash_start=stash_start)
+    if acc_in is not None:
+        _check_acc(acc_in, "acc_in", dev, R, P)
+    results = torch.empty((R, 5), dtype=torch.int32, device=dev)
+    lib = load()
+    c1, c2, c3 = feistel_seed_consts(spec.seed)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib.cuclark_query_score_range(
+            _LAYOUT_CODE[spec.layout], packed2.data_ptr(), vbits.data_ptr(),
+            main.data_ptr(), stash_ptr,
+            None if acc_in is None else acc_in.data_ptr(),
+            results.data_ptr(), R, P, s2, s8, k, spec.nb_bits,
+            spec.stash_bits, bucket_start, nb_local, stash_start, nbs_local,
+            c1, c2, c3, spec.slots, spec.num_choices, stream), "query_score")
+    return results
+
+
 def query_score(packed2: torch.Tensor, vbits: torch.Tensor,
                 main: torch.Tensor, stash: torch.Tensor | None, *, k: int,
                 spec: TableSpec) -> torch.Tensor:
@@ -340,45 +397,33 @@ def query_score(packed2: torch.Tensor, vbits: torch.Tensor,
     batch's labels scored on chip -> results int32 [R, 5], as
     score(query(...)) gives them.  Rows of at most
     QUERY_SCORE_MAX_WINDOWS windows."""
-    spec.check()
     if (spec.layout == "qs") != (stash is not None):
         raise ValueError("the fused query and score takes a qs table with "
                          "its stash, a q4 or s2 table without one")
-    P = 4 * packed2.shape[-1] - k + 1
-    if not 2 <= k <= 32 or not 1 <= P <= QUERY_SCORE_MAX_WINDOWS:
-        raise ValueError(f"fused query and score needs 1 <= P <= "
-                         f"{QUERY_SCORE_MAX_WINDOWS} windows and k in 2..32,"
-                         f" got P={P}, k={k}")
-    dev = packed2.device
-    R, s2, s8, _ = _check_reads(packed2, vbits)
     _check_resident(main, stash, spec)
-    _check(main, "main", torch.int32, dev)
-    if main.shape[1] != spec.row_words:
-        raise ValueError(f"main rows {tuple(main.shape)}, expected "
-                         f"{spec.row_words} words a row")
-    _check_align(main, spec)
-    if stash is not None:
-        _check(stash, "stash", torch.int32, dev)
-        if stash.data_ptr() % 16:
-            raise ValueError("table rows must be 16-byte aligned")
-    results = torch.empty((R, 5), dtype=torch.int32, device=dev)
-    lib = load()
-    c1, c2, c3 = feistel_seed_consts(spec.seed)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if stash is not None:
-            err = lib.cuclark_query_score(
-                packed2.data_ptr(), vbits.data_ptr(), main.data_ptr(),
-                stash.data_ptr(), results.data_ptr(), R, P, s2, s8, k,
-                spec.nb_bits, spec.stash_bits, c1, c2, c3, stream)
-        else:
-            err = lib.cuclark_query_score_layout(
-                _LAYOUT_CODE[spec.layout], packed2.data_ptr(),
-                vbits.data_ptr(), main.data_ptr(), results.data_ptr(), R, P,
-                s2, s8, k, spec.nb_bits, c1, c2, c3, spec.slots,
-                spec.num_choices, stream)
-        _raise_on(err, "query_score")
+    results = _launch_query_score(packed2, vbits, main, stash, None, k=k,
+                                  spec=spec, bucket_start=0, stash_start=0)
     _count("query_score", spec.layout)
+    return results
+
+
+def query_score_part(packed2: torch.Tensor, vbits: torch.Tensor,
+                     main_part: torch.Tensor, stash: torch.Tensor | None, *,
+                     bucket_start: int, k: int, spec: TableSpec,
+                     stash_start: int = 0,
+                     acc_in: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the query kernel's fused instance on one range of rows
+    (query_part's ranges: main_part holds main rows [bucket_start,
+    bucket_start + len(main_part)), a qs stash holds stash rows
+    [stash_start, stash_start + len(stash)) and None skips the stash
+    probe), with acc_in, int32 [R, P] or None, added to the labels before
+    the score -> results int32 [R, 5], as score(query_part(..., acc=
+    acc_in)) gives them; acc_in is only read.  Rows of at most
+    QUERY_SCORE_MAX_WINDOWS windows."""
+    results = _launch_query_score(packed2, vbits, main_part, stash, acc_in,
+                                  k=k, spec=spec, bucket_start=bucket_start,
+                                  stash_start=stash_start)
+    _count("query_score_part", spec.layout)
     return results
 
 

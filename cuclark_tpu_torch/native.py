@@ -1,12 +1,16 @@
-"""ctypes bindings to the native host module (csrc/host_ops.cpp).
+"""ctypes bindings to the port's native host module (csrc/host_ops.cpp).
 
-Counterpart of `cuclark_tpu/native.py`, carried over unchanged: it
-compiles the same `csrc/host_ops.cpp` at the repository root, in place,
-and caches the library under its own `cuclark_tpu_torch` subdirectory.
+Counterpart of `cuclark_tpu/native.py`, carried over unchanged but for
+its source: it compiles the port's own copy of the host module,
+`cuclark_tpu_torch/csrc/host_ops.cpp` (the JAX package's
+`csrc/host_ops.cpp` byte for byte when it was taken, free to change
+alone since), and caches the library under its own `cuclark_tpu_torch`
+subdirectory.
 
-Compiled lazily with g++ on first use and cached next to the package;
-everything degrades gracefully to the numpy implementations when no
-compiler is available (`native.available()` -> False).
+Compiled lazily with g++ on first use and cached in the user's cache
+directory (`_cache_dir`); everything degrades gracefully to the numpy
+implementations when no compiler is available (`native.available()` ->
+False).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "host_ops.cpp"
+_SRC = Path(__file__).resolve().parent / "csrc" / "host_ops.cpp"
 _LIB = None
 _TRIED = False
 

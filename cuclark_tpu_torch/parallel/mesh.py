@@ -18,15 +18,33 @@ devices and the sharded steps are loops over it:
                the sum in place; one on another card is copied across (a
                peer copy) and added.
   axis "data": a read batch splits into num_data contiguous row blocks;
-               the score kernel runs once per block, on its column-0
+               each block's results are scored once, on its column-0
                device (the JAX results are replicated along db; here
                each block's results exist once).
+
+Without labels (default CSV output), a block of one-tile reads
+(`probe.fuses_score`: 150 bp reads) ends in one launch of the query
+kernel's fused instance: shards 1..num_db-1 run first and sum on the
+column-0 device, then column 0's own shard runs as the fused range
+launch (`probe.query_score_part_results`), which adds that sum to its
+labels and scores them on chip.  A block so costs num_db - 1 range
+launches and one fused launch, and no score launch; a 1 x 1 mesh makes
+one launch a batch.  A streamed table's last part ends the same way.
+Extended output and wider rows (paired reads, long reads) keep the
+range launches, the sum and the score kernel.
 
 The devices of a mesh may repeat: eight handles of `cpu` stand in for
 the JAX tests' eight CPU devices, and four handles of `cuda:0` make a
 2 x 2 mesh on one card.  Nothing here assumes that the devices differ,
 or that they are the same: a table shard or a wire block is placed once
 for each distinct device that needs it.
+
+The db axis may also span the processes of a job (`make_global_mesh`
+with num_db equal to the job's device count, a data axis of 1): each
+process holds its own columns and feeds every batch whole, the reads
+replicated, and `build_sharded_classify` sums its local shards, then
+all-reduces the [R, P] labels over the process group (gloo), then
+scores; every process gets the full results.
 
 The JAX package shards a fused main+stash qs table below 256 MB of main
 rows (its fused-vs-split switch); the port always shards the split form,
@@ -49,13 +67,18 @@ from cuclark_tpu_torch.hashdb import KmerDB, TableSpec
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A (data, db) grid of torch devices: devices[d][j] is the device of
-    data block d and db shard j."""
+    data block d and db shard db_start + j.  On a db axis that spans
+    processes (`make_global_mesh`) a process holds columns db_start ..
+    db_start + len(devices[0]) of db_total; otherwise db_start is 0 and
+    db_total 0 (every column is here)."""
 
     devices: tuple[tuple[torch.device, ...], ...]
+    db_start: int = 0
+    db_total: int = 0
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"data": len(self.devices), "db": len(self.devices[0])}
+        return {"data": self.num_data, "db": self.num_db}
 
     @property
     def num_data(self) -> int:
@@ -63,7 +86,12 @@ class Mesh:
 
     @property
     def num_db(self) -> int:
-        return len(self.devices[0])
+        """The db shards of the table, over every process."""
+        return self.db_total or len(self.devices[0])
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.num_db != len(self.devices[0])
 
 
 def local_devices(kind: str) -> list[torch.device]:
@@ -101,32 +129,50 @@ def make_mesh(num_db: int, num_data: int | None = None,
 
 
 def make_global_mesh(num_db: int = 1, devices=None) -> Mesh:
-    """The mesh of one process of a multi-process job: its own devices
-    (default: every visible card) as data x num_db.  The db axis stays
-    inside the process, so the only traffic between processes is a few
-    integers (`multihost`).  The JAX package also allows a db axis over
-    every process's devices (num_db == the total device count), which
-    needs a labels all_reduce across processes; that is not ported."""
-    devices = list(devices) if devices is not None else local_devices("cuda")
-    if num_db < 1 or len(devices) % num_db:
+    """The mesh of one process of a multi-process job
+    (`cuclark_tpu.parallel.mesh.make_global_mesh`): its own devices
+    (default: every visible card) as data x num_db, so that the db axis
+    and its sum stay inside the process.  The one host-spanning case of
+    the reference: num_db equal to the job's device count (the process
+    count times this process's devices, the same on every process), a
+    data axis of 1, and this process's devices as global db columns
+    process_index * local ..; every process then feeds the same
+    (replicated) reads (`ShardedClassifier`; the lockstep
+    `multihost.GlobalClassifier` rejects it)."""
+    from cuclark_tpu_torch.parallel import multihost
+
+    devices = [torch.device(d) for d in (
+        devices if devices is not None else local_devices("cuda"))]
+    local = len(devices)
+    nproc = multihost.process_count()
+    total = local * nproc
+    if nproc > 1 and num_db == total:
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"a mesh holds devices of one type, got "
+                             f"{devices}")
+        return Mesh((tuple(devices),),
+                    db_start=multihost.process_index() * local,
+                    db_total=total)
+    if num_db < 1 or local % num_db:
         raise ValueError(
-            f"num_db={num_db} must divide this process's {len(devices)} "
-            f"devices: a db axis that spans processes is not ported yet "
-            f"(ROADMAP.md, Queue 1: host-spanning db axis)")
-    return make_mesh(num_db, len(devices) // num_db, devices)
+            f"num_db={num_db} must divide per-process devices {local} or "
+            f"equal the total device count {total} (a host-spanning db "
+            f"axis takes num_db == the total device count, data axis 1)")
+    return make_mesh(num_db, local // num_db, devices)
 
 
 def place_columns(mesh: Mesh, column_rows) -> list[list[torch.Tensor]]:
-    """[d][j] -> the int32 view of the uint32 rows `column_rows(j)` on
-    device (d, j), placed once for each distinct (column, device); on
-    the CPU they share memory with the host rows."""
+    """[d][j] -> the int32 view of the uint32 rows `column_rows(global
+    column db_start + j)` on device (d, j), placed once for each distinct
+    (column, device); on the CPU they share memory with the host rows."""
     placed: dict = {}
     grid = []
     for row in mesh.devices:
         out = []
         for j, dev in enumerate(row):
             if (j, dev) not in placed:
-                rows = np.ascontiguousarray(column_rows(j)).view(np.int32)
+                rows = np.ascontiguousarray(
+                    column_rows(mesh.db_start + j)).view(np.int32)
                 placed[(j, dev)] = torch.from_numpy(rows).to(dev)
             out.append(placed[(j, dev)])
         grid.append(out)
@@ -135,7 +181,8 @@ def place_columns(mesh: Mesh, column_rows) -> list[list[torch.Tensor]]:
 
 def shard_rows(arr: np.ndarray, mesh: Mesh) -> list[list[torch.Tensor]]:
     """Row-shard a host table over 'db', repeated down 'data': [d][j]
-    holds rows [j * n, (j + 1) * n), n = rows / num_db."""
+    holds rows [g * n, (g + 1) * n) of global column g = db_start + j,
+    n = rows / num_db."""
     num_db = mesh.num_db
     if arr.shape[0] % num_db:
         raise ValueError(f"table rows {arr.shape[0]} not divisible by "
@@ -180,32 +227,51 @@ def place_wire(mesh: Mesh, packed2, vbits) -> list[list[tuple]]:
 
 def _sum_shards(query, mesh: Mesh, wires, main, stash, *, k: int,
                 spec: TableSpec, nb_local: int, nbs_local: int,
-                part_start: int, acc):
-    """Per data block: the db shards' labels summed on the block's
-    column-0 device (added into acc[d] when acc is given)."""
+                part_start: int, acc, first: int = 0):
+    """Per data block: the labels of its db shards from local column
+    `first` on summed on the block's column-0 device (added into acc[d]
+    when acc is given; None for a block with neither)."""
     out = []
     for d, row in enumerate(mesh.devices):
         home = row[0]
         a = None if acc is None else acc[d]
-        for j, dev in enumerate(row):
-            p2, vb = wires[d][j]
-            args = dict(bucket_start=part_start + j * nb_local,
+        for j in range(first, len(row)):
+            dev, (p2, vb) = row[j], wires[d][j]
+            g = mesh.db_start + j
+            args = dict(bucket_start=part_start + g * nb_local,
                         nb_local=nb_local, k=k, spec=spec,
-                        stash_start=j * nbs_local)
+                        stash_start=g * nbs_local)
             s = None if stash is None else stash[d][j]
             if dev == home:
                 a = query(p2, vb, main[d][j], s, acc=a, **args)
             else:
-                a = a.add_(query(p2, vb, main[d][j], s, **args).to(
-                    home, non_blocking=True))
+                lab = query(p2, vb, main[d][j], s, **args).to(
+                    home, non_blocking=True)
+                a = lab if a is None else a.add_(lab)
         out.append(a)
     return out
 
 
+def _fused_blocks(fused, wires, main, stash, sums, *, k: int,
+                  spec: TableSpec, nb_local: int, part_start: int):
+    """Per data block: column 0's shard as the fused range launch, which
+    adds the block's sum of the other launches (sums[d], None: none) to
+    its labels and scores them -> results [Rb, 5] on the column-0
+    device.  Not for a db axis that spans processes."""
+    return [fused(p2, vb, main[d][0], None if stash is None else stash[d][0],
+                  bucket_start=part_start, nb_local=nb_local, k=k, spec=spec,
+                  acc_in=sums[d])
+            for d, (p2, vb) in enumerate(w[0] for w in wires)]
+
+
 def _step_fns(plain: bool):
+    """(range query, score, fused range query and score): the kernels'
+    wrappers, or with plain=True their plain versions."""
     if plain:
-        return probe.query_part_labels_plain, score.score_labels_plain
-    return probe.query_part_labels, score.score_labels
+        return (probe.query_part_labels_plain, score.score_labels_plain,
+                probe.query_score_part_results_plain)
+    return (probe.query_part_labels, score.score_labels,
+            probe.query_score_part_results)
 
 
 def build_sharded_classify(mesh: Mesh, *, k: int, spec: TableSpec,
@@ -217,20 +283,35 @@ def build_sharded_classify(mesh: Mesh, *, k: int, spec: TableSpec,
     [R/num_data, 5] and [R/num_data, P] on the block's column-0 device.
     main and stash (qs; None for q4 and s2) are `shard_db_table`'s, nb_total
     and nbs_total the table's main and stash rows, wires `place_wire`'s.
-    with_labels=False drops the labels (only extended output needs them).
+    with_labels=False drops the labels (only extended output needs them);
+    a batch of one-tile reads then ends each block in the fused range
+    launch (the module's docstring), any other in the score kernel.
+    On a db axis that spans processes the local shards' sum is
+    all-reduced over the process group before the score, so every
+    process gets the whole results; the fused launch cannot end such a
+    step, because the sum must be whole before the score.
     plain=True runs the kernels' plain versions on the same devices, the
     version the step is held against on the card."""
     num_db = mesh.num_db
     if nb_total % num_db or nbs_total % num_db:
         raise ValueError(f"table rows {nb_total} (+{nbs_total} stash) not "
                          f"divisible by db={num_db}")
-    nb_local, nbs_local = nb_total // num_db, nbs_total // num_db
-    query, score_fn = _step_fns(plain)
+    kw = dict(k=k, spec=spec, nb_local=nb_total // num_db, part_start=0)
+    nbs_local = nbs_total // num_db
+    query, score_fn, fused = _step_fns(plain)
 
     def step(main, stash, wires):
-        labels = _sum_shards(query, mesh, wires, main, stash, k=k,
-                             spec=spec, nb_local=nb_local,
-                             nbs_local=nbs_local, part_start=0, acc=None)
+        if (not with_labels and not mesh.spans_processes
+                and probe.fuses_score(wires[0][0][0], k)):
+            sums = _sum_shards(query, mesh, wires, main, stash, acc=None,
+                               first=1, nbs_local=nbs_local, **kw)
+            return _fused_blocks(fused, wires, main, stash, sums,
+                                 **kw), None
+        labels = _sum_shards(query, mesh, wires, main, stash, acc=None,
+                             nbs_local=nbs_local, **kw)
+        if mesh.spans_processes:
+            for lab in labels:
+                torch.distributed.all_reduce(lab)
         results = [score_fn(lab) for lab in labels]
         return results, (labels if with_labels else None)
 
@@ -241,22 +322,45 @@ def build_sharded_probe_part(mesh: Mesh, *, k: int, spec: TableSpec,
                              nb_part: int, plain: bool = False):
     """The sharded step of one streamed part (`cuclark_tpu.parallel.mesh.
     build_sharded_probe_part`, mesh.py:164): step(part, wires, part_start,
-    stash=None, acc=None) -> labels, a list of num_data blocks.  `part` is
-    [d][j] main rows: global rows [part_start, part_start + nb_part)
-    row-sharded over 'db'.  A qs stash ([d][j], `shard_rows`) is probed on
-    one part per batch only.  With acc (a list of blocks), the labels add
-    into it in place.  plain as for build_sharded_classify."""
+    stash=None, acc=None, scored=False) -> labels, a list of num_data
+    blocks.  `part` is [d][j] main rows: global rows [part_start,
+    part_start + nb_part) row-sharded over 'db'.  A qs stash ([d][j],
+    `shard_rows`) is probed on one part per batch only.  With acc (a list
+    of blocks), the labels add into it in place.  scored=True, for the last
+    part of a batch of one-tile reads whose labels nobody needs
+    (`probe.fuses_score`), ends each block in the fused range launch and
+    returns its results [Rb, 5] instead: the other shards add into acc
+    (or a new sum), column 0's shard adds that sum and scores.  On a db
+    axis that spans processes each part's local sum is all-reduced over
+    the process group before it adds into acc (the reference's psum of
+    each part), and scored=True is refused: the sum must be whole before
+    the score.  plain as for build_sharded_classify."""
     num_db = mesh.num_db
     if nb_part % num_db:
         raise ValueError(f"part rows {nb_part} not divisible by db={num_db}")
     nb_local = nb_part // num_db
-    query, _ = _step_fns(plain)
+    query, _, fused = _step_fns(plain)
 
-    def step(part, wires, part_start: int, stash=None, acc=None):
+    def step(part, wires, part_start: int, stash=None, acc=None,
+             scored=False):
+        kw = dict(k=k, spec=spec, nb_local=nb_local, part_start=part_start)
         nbs_local = stash[0][0].shape[0] if stash is not None else 0
-        return _sum_shards(query, mesh, wires, part, stash, k=k, spec=spec,
-                           nb_local=nb_local, nbs_local=nbs_local,
-                           part_start=part_start, acc=acc)
+        if mesh.spans_processes:
+            if scored:
+                raise ValueError("a db axis that spans processes cannot end "
+                                 "in the fused launch")
+            labels = _sum_shards(query, mesh, wires, part, stash, acc=None,
+                                 nbs_local=nbs_local, **kw)
+            for lab in labels:
+                torch.distributed.all_reduce(lab)
+            return labels if acc is None else [
+                a.add_(lab) for a, lab in zip(acc, labels)]
+        if not scored:
+            return _sum_shards(query, mesh, wires, part, stash, acc=acc,
+                               nbs_local=nbs_local, **kw)
+        sums = _sum_shards(query, mesh, wires, part, stash, acc=acc,
+                           first=1, nbs_local=nbs_local, **kw)
+        return _fused_blocks(fused, wires, part, stash, sums, **kw)
 
     return step
 
@@ -266,7 +370,9 @@ class ShardedClassifier:
     (`cuclark_tpu.parallel.mesh.ShardedClassifier`): the table sharded on
     the mesh once, and the sharded resident step on wire batches.  In a
     multi-process job each process has a mesh of its own devices and feeds
-    it only its own reads (`multihost.GlobalClassifier`)."""
+    it only its own reads (`multihost.GlobalClassifier`); on a db axis
+    that spans the processes (`make_global_mesh`) every process feeds the
+    same reads and gets the whole results."""
 
     def __init__(self, db: KmerDB, mesh: Mesh, with_labels: bool = True):
         self.db = db

@@ -16,7 +16,11 @@ batch needs another process, and the only traffic between processes is
 a few numbers: the agreed memory budget and the extended-mode hit
 statistics.  Those go over `torch.distributed` with the gloo backend, as
 all_gathers of small CPU tensors, on the main thread only and in the
-same order on every rank.  No NCCL is needed.
+same order on every rank.  No NCCL is needed.  The one mesh whose db
+axis spans processes (`make_global_mesh` with num_db equal to the job's
+device count) all-reduces each batch's labels over the same group; it
+serves `mesh.ShardedClassifier` with replicated reads, and the engine
+here rejects it, as the reference's does.
 """
 
 from __future__ import annotations
@@ -254,6 +258,13 @@ class GlobalClassifier:
         if mesh is None:
             mesh = make_global_mesh(
                 num_db, local_devices(torch.device(device).type))
+        if mesh.spans_processes:
+            raise ValueError(
+                f"data axis {mesh.num_data} not divisible by {self.nproc} "
+                f"processes: the lockstep engine feeds per-process data "
+                f"rows, so num_db must not exceed the per-process device "
+                f"count (the host-spanning num_db == total-devices mesh "
+                f"is for replicated-read ShardedClassifier use only)")
         self.mesh = mesh
         self.clf = Classifier(db, cfg, mesh=mesh)
 

@@ -29,7 +29,10 @@ On a mesh the table's rows shard over the db axis and each batch's rows
 over the data axis (`parallel.mesh`); when even a device's shard exceeds
 the budget, each device streams its shard of every part (the reference's
 cycles x devices x parts).  A batch's device results are then a list of
-blocks, one per data index, which the readback concatenates.
+blocks, one per data index, which the readback concatenates.  Without
+labels, a mesh batch of one-tile reads ends each block in the fused
+query and score, resident or on a streamed table's last part; a single
+device's streamed batches end in the score kernel.
 """
 
 from __future__ import annotations
@@ -378,7 +381,8 @@ class Classifier:
                                      for j, dev in enumerate(row))
                 self._streams = [(key, _PartStream(
                     self._pinned.rows, self.stream_parts, key[0],
-                    key[1] * nb_local, nb_local)) for key in keys]
+                    (mesh.db_start + key[1]) * nb_local, nb_local))
+                    for key in keys]
 
     def close(self) -> None:
         """Wait for the card, then release the streamed table's device
@@ -518,14 +522,27 @@ class Classifier:
         if self.mesh is not None:
             # each part row-sharded over 'db', each batch over 'data'
             # (cycles x devices x parts): the sharded part step sums a
-            # batch's shards into its blocks' accumulators
+            # batch's shards into its blocks' accumulators; the last part
+            # of a batch of one-tile reads without labels ends each block
+            # in the fused launch, which scores the sum
+            last = self.stream_parts - 1
+            fused = [not ext and not self.mesh.spans_processes
+                     and probe.fuses_score(w[0][0][0], self.db.k)
+                     for w in wires]
+            out = [None] * len(wires)
             for p, part in self._mesh_parts():
                 for gi, w in enumerate(wires):
-                    acc[gi] = self._mesh_part_step(
+                    res = self._mesh_part_step(
                         part, w, p * rows,
-                        stash=self.stash if p == 0 else None, acc=acc[gi])
-            return [([score.score_labels(a) for a in blocks],
-                     blocks if ext else None) for blocks in acc]
+                        stash=self.stash if p == 0 else None, acc=acc[gi],
+                        scored=p == last and fused[gi])
+                    if p == last and fused[gi]:
+                        out[gi] = (res, None)
+                    else:
+                        acc[gi] = res
+            return [out[gi] or ([score.score_labels(a) for a in blocks],
+                                blocks if ext else None)
+                    for gi, blocks in enumerate(acc)]
         if self._streams:
             parts = self._streams[0][1].parts_on_device()
         else:

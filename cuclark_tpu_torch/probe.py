@@ -10,7 +10,10 @@ bucket-range part of a streamed table or one db shard of a mesh (a range
 of main rows and a range of stash rows, `cuclark_tpu/parallel/mesh.py`),
 and of the front of `cuclark_tpu/pipeline.py:classify_step` (:48), the
 chain from unpacked codes.  `query_score_results` is the resident query
-of one-tile reads, of any layout, fused with `score.score_labels`.  On
+of one-tile reads, of any layout, fused with `score.score_labels`, and
+`query_score_part_results` the same over one range of rows with the
+label sum of the batch's other range calls added before the score (the
+last launch of a mesh step's data block).  On
 a CUDA tensor each is one launch of the hand-written kernel
 `csrc/query.cu`;
 the plain PyTorch versions here are what the wrappers run on CPU
@@ -232,10 +235,11 @@ def query_labels(packed2: torch.Tensor, vbits: torch.Tensor,
 
 
 def fuses_score(packed2: torch.Tensor, k: int) -> bool:
-    """Whether a resident step of this wire batch takes the fused query
-    and score (`query_score_results`), on a table of any layout: reads
-    of at most kernels.QUERY_SCORE_MAX_WINDOWS windows, one tile of the
-    query kernel."""
+    """Whether a step of this wire batch without labels ends in the fused
+    query and score (`query_score_results`, or `query_score_part_results`
+    on a mesh), on a table of any layout: reads of at most
+    kernels.QUERY_SCORE_MAX_WINDOWS windows, one tile of the query
+    kernel."""
     P = 4 * packed2.shape[1] - k + 1
     return 1 <= P <= kernels.QUERY_SCORE_MAX_WINDOWS
 
@@ -261,6 +265,47 @@ def query_score_results(packed2: torch.Tensor, vbits: torch.Tensor,
         return query_score_results_plain(packed2, vbits, main, stash, k=k,
                                          spec=spec)
     return kernels.query_score(packed2, vbits, main, stash, k=k, spec=spec)
+
+
+def query_score_part_results_plain(
+        packed2: torch.Tensor, vbits: torch.Tensor, main_part: torch.Tensor,
+        stash: torch.Tensor | None, *, bucket_start: int, nb_local: int,
+        k: int, spec: TableSpec, stash_start: int = 0,
+        acc_in: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the fused query and score over one range
+    of rows: the plain range query's labels plus acc_in (left as it is),
+    scored by the plain score -> results int32 [R, 5]."""
+    labels = query_part_labels_plain(
+        packed2, vbits, main_part, stash, bucket_start=bucket_start,
+        nb_local=nb_local, k=k, spec=spec, stash_start=stash_start)
+    if acc_in is not None:
+        labels += acc_in
+    return score.score_labels_plain(labels)
+
+
+def query_score_part_results(
+        packed2: torch.Tensor, vbits: torch.Tensor, main_part: torch.Tensor,
+        stash: torch.Tensor | None, *, bucket_start: int, nb_local: int,
+        k: int, spec: TableSpec, stash_start: int = 0,
+        acc_in: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-read results int32 [R, 5] of a wire batch of one-tile reads
+    (see `fuses_score`) against one range of a table (the ranges of
+    `query_part_labels`), the labels of the batch's other range calls,
+    acc_in (int32 [R, P], only read; None: none), added before the
+    score: the last launch of a data block of a mesh step, whose labels
+    never leave the chip.  A qs stash of None skips the stash probe, which
+    is exact only when another call of the same batch probes it.  The
+    query kernel's fused instance for CUDA tensors, its plain version for
+    CPU tensors."""
+    if packed2.device.type == "cpu":
+        return query_score_part_results_plain(
+            packed2, vbits, main_part, stash, bucket_start=bucket_start,
+            nb_local=nb_local, k=k, spec=spec, stash_start=stash_start,
+            acc_in=acc_in)
+    _check_part(main_part, stash, spec, bucket_start, nb_local, stash_start)
+    return kernels.query_score_part(
+        packed2, vbits, main_part, stash, bucket_start=bucket_start, k=k,
+        spec=spec, stash_start=stash_start, acc_in=acc_in)
 
 
 def query_codes_labels_plain(codes: torch.Tensor, main: torch.Tensor,

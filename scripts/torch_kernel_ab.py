@@ -26,9 +26,10 @@ q4 and s2 of the same 64M 31-mers) and reads:
   - step_packed, step_packed_q4, step_packed_s2: the device step of
     `pipeline.classify_step_packed` without labels on the qs, q4 and s2
     tables: a build with the fused query and score of that layout
-    (`cuclark_query_score` for qs, `cuclark_query_score_layout` for q4
-    and s2) launches it alone, an earlier one the wire query then the
-    score kernel;
+    launches it alone (`cuclark_query_score_range` over the whole table;
+    in an older build `cuclark_query_score` for qs and
+    `cuclark_query_score_layout` for q4 and s2), a build without it the
+    wire query then the score kernel;
   - score_122, score_290: the score kernel on the labels of the 150 bp
     reads and of 65,536 joined 301 bp pairs (bin 320); score_122_many on
     [65,536, 122] random labels over 1..65,535 with 30% misses (rows of
@@ -62,17 +63,35 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 
 
+_vp, _i32, _i64, _u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_uint32)
+# The fused query and score's entries of earlier builds, which the
+# package's one entry (cuclark_query_score_range) replaced.
+OLD_ENTRIES = {
+    "cuclark_query_score": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32,
+                            _i32, _i32, _i32, _u32, _u32, _u32, _vp],
+    "cuclark_query_score_layout": [_i32, _vp, _vp, _vp, _vp, _i64, _i32,
+                                   _i32, _i32, _i32, _i32, _u32, _u32, _u32,
+                                   _i32, _i32, _vp],
+}
+
+
 def build_old(src: Path) -> tuple[ctypes.CDLL, bool]:
     """Build DIR's query.cu and score.cu into build/kernel_ab/ and bind
-    the C entries it has (before the fused query and score, no
-    cuclark_query_score).  Returns the library and whether its
-    score_long entry takes a scratch buffer (the sorting design did)."""
+    the C entries it has, the package's and those of OLD_ENTRIES (before
+    the fused query and score, none of them).  Returns the library and
+    whether its score_long entry takes a scratch buffer (the sorting
+    design did)."""
     from cuclark_tpu_torch import kernels
 
     path = ROOT / "build" / "kernel_ab" / src.resolve().name / "libold.so"
     kernels.compile_library(src, path)
     lib = ctypes.CDLL(str(path))
     kernels.bind(lib, [n for n in kernels.ENTRIES if hasattr(lib, n)])
+    for name, argtypes in OLD_ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = _i32, argtypes
     scratch = "void* scratch" in (src / "score.cu").read_text()
     if scratch:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -85,9 +104,6 @@ class Kernels:
 
     def __init__(self, lib, score_scratch: bool):
         self.lib, self.score_scratch = lib, score_scratch
-        self.fused = {"qs": hasattr(lib, "cuclark_query_score")}
-        self.fused["q4"] = self.fused["s2"] = hasattr(
-            lib, "cuclark_query_score_layout")
 
     def query(self, x, vb, main, stash, out, *, spec, k, bucket_start=0,
               stash_start=0, accumulate=False):
@@ -123,23 +139,33 @@ class Kernels:
         from cuclark_tpu_torch import kernels
         from cuclark_tpu_torch.hashdb import feistel_seed_consts
 
-        if not self.fused[spec.layout]:
-            self.query(p2, vb, main, stash, labels, spec=spec, k=k)
-            return self.score(labels, out)
         R, s2 = p2.shape
+        P, s8 = 4 * s2 - k + 1, vb.shape[1]
         consts = feistel_seed_consts(spec.seed)
         st = torch.cuda.current_stream().cuda_stream
-        if spec.layout == "qs":
+        lay = kernels._LAYOUT_CODE[spec.layout]
+        if hasattr(self.lib, "cuclark_query_score_range"):
+            err = self.lib.cuclark_query_score_range(
+                lay, p2.data_ptr(), vb.data_ptr(), main.data_ptr(),
+                None if stash is None else stash.data_ptr(), None,
+                out.data_ptr(), R, P, s2, s8, k, spec.nb_bits,
+                spec.stash_bits, 0, main.shape[0], 0,
+                0 if stash is None else stash.shape[0], *consts, spec.slots,
+                spec.num_choices, st)
+        elif spec.layout == "qs" and hasattr(self.lib, "cuclark_query_score"):
             err = self.lib.cuclark_query_score(
                 p2.data_ptr(), vb.data_ptr(), main.data_ptr(),
-                stash.data_ptr(), out.data_ptr(), R, 4 * s2 - k + 1, s2,
-                vb.shape[1], k, spec.nb_bits, spec.stash_bits, *consts, st)
-        else:
+                stash.data_ptr(), out.data_ptr(), R, P, s2, s8, k,
+                spec.nb_bits, spec.stash_bits, *consts, st)
+        elif spec.layout != "qs" and hasattr(self.lib,
+                                             "cuclark_query_score_layout"):
             err = self.lib.cuclark_query_score_layout(
-                kernels._LAYOUT_CODE[spec.layout], p2.data_ptr(),
-                vb.data_ptr(), main.data_ptr(), out.data_ptr(), R,
-                4 * s2 - k + 1, s2, vb.shape[1], k, spec.nb_bits, *consts,
+                lay, p2.data_ptr(), vb.data_ptr(), main.data_ptr(),
+                out.data_ptr(), R, P, s2, s8, k, spec.nb_bits, *consts,
                 spec.slots, spec.num_choices, st)
+        else:
+            self.query(p2, vb, main, stash, labels, spec=spec, k=k)
+            return self.score(labels, out)
         if err:
             raise RuntimeError(f"query_score launch failed: CUDA error {err}")
         return out

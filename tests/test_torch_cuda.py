@@ -771,3 +771,135 @@ def test_profile_twice_in_one_process(dev, tmp_path):
         assert launched >= 1 and len(events) == launched
     assert (tmp_path / "0.csv").read_bytes() == (tmp_path / "1.csv"
                                                  ).read_bytes()
+
+
+# (P, k, L) of the fused range entry's card tests
+FUSED_RANGE_P = [(1, 32, 32), (64, 25, 88), (122, 31, 152), (128, 25, 152)]
+
+
+@pytest.mark.parametrize("acc", ["random", "none"])
+@pytest.mark.parametrize("P_,k,L", FUSED_RANGE_P)
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+def test_query_score_part_kernel_matches_plain(dev, layout, P_, k, L, acc):
+    """The fused range entry (`cuclark_query_score_range` through
+    kernels.query_score_part) against its plain version: the whole
+    table; each of 4 parts, the qs stash on part 0 and a null stash on
+    the others; each of 2 db shards with its stash range; acc_in None,
+    or random labels on half the windows the range misses (a key lives
+    in one range only, so where the range hits the other launches give
+    0); one launch a call, counted as query_score_part[_q4|_s2].  Then 3
+    parts accumulated by the range kernel and the last one fused with
+    their sum give the resident fused results."""
+    db, codes = fused_case(k, L, layout)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    assert 4 * p2.shape[1] - k + 1 == P_
+    main, stash = hashdb.table_to_device(db, dev)
+    spec = db.spec
+    name = "query_score_part" + ("" if layout == "qs" else f"_{layout}")
+    rng = np.random.default_rng(P_)
+    a = rng.integers(1, 65536, size=(p2.shape[0], P_)).astype(np.int32)
+    a[rng.random(a.shape) < 0.5] = 0
+    nbs = 0 if stash is None else stash.shape[0]
+    ranges = [(0, db.nb, stash, 0)]
+    ranges += [(p * db.nb // 4, db.nb // 4, stash if p == 0 else None, 0)
+               for p in range(4)]
+    ranges += [(j * db.nb // 2, db.nb // 2,
+                None if stash is None else stash[j * nbs // 2:
+                                                 (j + 1) * nbs // 2],
+                j * nbs // 2) for j in range(2)]
+    for start, rows, s, sstart in ranges:
+        part = main[start:start + rows]
+        acc_in = None
+        if acc == "random":
+            own = probe.query_part_labels_plain(
+                p2, vb, part, s, bucket_start=start, nb_local=rows, k=k,
+                spec=spec, stash_start=sstart).cpu().numpy()
+            acc_np = np.where(own > 0, 0, a)
+            acc_in = torch.from_numpy(acc_np).to(dev)
+        args = dict(bucket_start=start, nb_local=rows, k=k, spec=spec,
+                    stash_start=sstart, acc_in=acc_in)
+        before = dict(kernels.LAUNCHES)
+        got = probe.query_score_part_results(p2, vb, part, s, **args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before[name] + 1
+        assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+        want = probe.query_score_part_results_plain(p2, vb, part, s, **args)
+        assert torch.equal(got, want), (start, rows)
+        if acc_in is not None:
+            assert torch.equal(acc_in.cpu(), torch.from_numpy(acc_np))
+    rows = db.nb // 4
+    sums = None
+    for p in range(3):
+        sums = probe.query_part_labels(
+            p2, vb, main[p * rows:(p + 1) * rows], stash if p == 0 else None,
+            bucket_start=p * rows, nb_local=rows, k=k, spec=spec, acc=sums)
+    got = probe.query_score_part_results(
+        p2, vb, main[3 * rows:], None, bucket_start=3 * rows, nb_local=rows,
+        k=k, spec=spec, acc_in=sums)
+    resident = probe.query_score_results(p2, vb, main, stash, k=k, spec=spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, resident)
+    assert int((resident[:, 2] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+def test_resident_fused_step_unchanged(dev, layout):
+    """The resident fused step (query_score, counted as before) is bit
+    for bit the query kernel then the score kernel, and the fused range
+    entry over the whole table without acc_in (or with a zero acc_in)
+    gives the same results."""
+    k, L = 31, 152
+    db, codes = fused_case(k, L, layout)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    main, stash = hashdb.table_to_device(db, dev)
+    args = dict(k=k, spec=db.spec)
+    name = "query_score" + ("" if layout == "qs" else f"_{layout}")
+    before = dict(kernels.LAUNCHES)
+    got = probe.query_score_results(p2, vb, main, stash, **args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    two = score.score_labels(probe.query_labels(p2, vb, main, stash, **args))
+    assert torch.equal(got, two)
+    rng = dict(bucket_start=0, nb_local=db.nb, **args)
+    zero = torch.zeros((p2.shape[0], 4 * p2.shape[1] - k + 1),
+                       dtype=torch.int32, device=dev)
+    for acc_in in (None, zero):
+        part = probe.query_score_part_results(p2, vb, main, stash,
+                                              acc_in=acc_in, **rng)
+        torch.cuda.synchronize()
+        assert torch.equal(part, got)
+
+
+@pytest.mark.parametrize("num_data,num_db", [(1, 1), (2, 2), (1, 4)])
+def test_mesh_step_launches_fused(dev, num_data, num_db):
+    """On a num_data x num_db mesh of handles of the card, a one-tile
+    batch without labels launches (num_db - 1) x num_data range kernels
+    and num_data fused ones, and no score kernel; with labels, range
+    kernels and a score a block.  Both give the resident results."""
+    from cuclark_tpu_torch.parallel import mesh
+
+    k = 31
+    db, codes = _qs_case(dev, k, 55)
+    p2, vb = codec.pack_codes(codes)
+    main_t, stash_t = hashdb.table_to_device(db, dev)
+    want = probe.query_score_results(*(torch.from_numpy(a).to(dev)
+                                       for a in (p2, vb)), main_t, stash_t,
+                                     k=k, spec=db.spec)
+    m = mesh.make_mesh(num_db, num_data, [dev] * (num_data * num_db))
+    sc = mesh.ShardedClassifier(db, m, with_labels=False)
+    kernels.reset_launches()
+    res, lab = sc.step_packed(p2, vb)
+    torch.cuda.synchronize()
+    assert lab is None
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
+        "query_score_part": num_data, "query_part": (num_db - 1) * num_data
+    } or (num_db == 1 and {n: c for n, c in kernels.LAUNCHES.items() if c}
+          == {"query_score_part": num_data})
+    assert torch.equal(torch.cat(res), want)
+    kernels.reset_launches()
+    res, lab = mesh.ShardedClassifier(db, m).step_packed(p2, vb)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["query_part"] == num_db * num_data
+    assert kernels.LAUNCHES["score"] == num_data
+    assert kernels.LAUNCHES["query_score_part"] == 0
+    assert torch.equal(torch.cat(res), want)

@@ -126,3 +126,58 @@ def test_fused_kernel_refuses_cpu_and_wide_rows():
     with pytest.raises(ValueError, match="without one"):
         kernels.query_score(p2, vb, main, main, k=31, spec=q4)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("acc", ["random", "none"])
+@pytest.mark.parametrize("part", [None, 0, 1, 3])
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+def test_fused_range_epilogue_matches_jax(layout, part, acc):
+    """The fused query and score over one range of rows with an incoming
+    label sum (`probe.query_score_part_results`, the last launch of a
+    mesh block; its plain version here): the whole table, or part 0 (with
+    the qs stash), 1 or 3 of 4 (without it), and acc_in None or labels on
+    windows the range misses (a key lives in one range only): random
+    ones, and the row's own best label on others (sums that merge with
+    the range's hits), against cuclark_tpu.score.score_labels of acc_in
+    plus cuclark_tpu.pipeline.probe_part_step's labels; the kernel's
+    epilogue model on the same sums agrees, and acc_in is left as it
+    was."""
+    db, codes = fused_case(31, 152, layout)
+    p2, vb = codec.pack_codes(codes)
+    main, stash = hashdb.table_to_device(db, "cpu")
+    parts = 1 if part is None else 4
+    rows = db.nb // parts
+    p = part or 0
+    with_stash = stash is not None and p == 0
+    jlab = jpipeline.probe_part_step(
+        jnp.asarray(db.table[:db.nb][p * rows:(p + 1) * rows]),
+        jnp.asarray(p2), jnp.asarray(vb), jnp.int32(p * rows), k=31,
+        nb_bits=db.nb_bits, slots=db.slots, num_choices=db.num_choices,
+        nb_local=rows, layout=layout, seed=db.seed,
+        stash_bits=db.stash_bits,
+        stash=jnp.asarray(db.table[db.nb:]) if with_stash else None,
+        skip_stash=stash is not None and not with_stash)
+    jlab = np.asarray(jlab)
+    rng = np.random.default_rng(7 + p)
+    acc_in = None
+    if acc == "random":
+        acc_in = rng.integers(1, 65536, size=jlab.shape).astype(np.int32)
+        acc_in[rng.random(jlab.shape) < 0.4] = 0
+        same = rng.random(jlab.shape) < 0.3      # the row's best label
+        acc_in[same] = np.broadcast_to(jlab.max(axis=1)[:, None],
+                                       jlab.shape)[same]
+        acc_in[jlab > 0] = 0
+    total = jlab if acc_in is None else jlab + acc_in
+    want = np.asarray(jscore.score_labels(jnp.asarray(total)))
+    acc_t = None if acc_in is None else torch.from_numpy(acc_in.copy())
+    got = probe.query_score_part_results(
+        torch.from_numpy(p2), torch.from_numpy(vb),
+        main[p * rows:(p + 1) * rows], stash if with_stash else None,
+        bucket_start=p * rows, nb_local=rows, k=31, spec=db.spec,
+        acc_in=acc_t)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if acc_t is not None:
+        np.testing.assert_array_equal(acc_t.numpy(), acc_in)
+    model = np.array([_epilogue_model(row) for row in total])
+    np.testing.assert_array_equal(model, want)
+    assert int((jlab > 0).sum()) > 0

@@ -4,7 +4,9 @@ with a stash range, `pipeline.classify_step` and the mesh branches of
 runs on the eight XLA CPU devices of tests/conftest.py; the torch side
 on eight handles of `cpu`.  Every comparison is exact."""
 
+import collections
 import copy
+import functools
 import random
 
 import jax
@@ -17,14 +19,17 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from cuclark_tpu import cli as jcli
 from cuclark_tpu import pipeline as jpipeline
 from cuclark_tpu import probe as jprobe
+from cuclark_tpu import score as jscore
 from cuclark_tpu.config import ClassifyConfig as JClassifyConfig
 from cuclark_tpu.config import DBConfig as JDBConfig
 from cuclark_tpu.db_build.builder import build_db as jbuild_db
 from cuclark_tpu.parallel import mesh as jmesh
-from cuclark_tpu_torch import cli, codec, hashdb, pipeline, probe
+from cuclark_tpu_torch import (cli, codec, hashdb, kernels, pipeline, probe,
+                               score)
 from cuclark_tpu_torch.config import ClassifyConfig, DBConfig
 from cuclark_tpu_torch.db_build.builder import build_db, db_name
 from cuclark_tpu_torch.parallel import mesh
+from tests.test_torch_cuda import fused_case
 
 K = 21
 CPU8 = ["cpu"] * 8
@@ -529,3 +534,212 @@ def test_mesh_shapes_and_errors():
         mesh.build_sharded_probe_part(mesh.make_mesh(4, 2, CPU8), k=K,
                                       spec=hashdb.TableSpec("q4", 17),
                                       nb_part=6)
+
+
+# (num_data, num_db) of the fused route's meshes
+FUSED_SHAPES = [(1, 1), (1, 2), (2, 1), (2, 2), (2, 4), (4, 2)]
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_case(layout, k, L):
+    """tests/test_torch_cuda.fused_case's table and 48 reads of L bases,
+    and the wire batch of the reads."""
+    db, codes = fused_case(k, L, layout)
+    return db, codes, codec.pack_codes(codes)
+
+
+def _counting(monkeypatch):
+    """Count the calls of the wrappers a mesh step can take (patched
+    before the step is built, which looks them up)."""
+    calls = collections.Counter()
+    for mod, name in ((probe, "query_part_labels"),
+                      (probe, "query_score_part_results"),
+                      (score, "score_labels")):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+    return calls
+
+
+def _jax_sharded_results(db, p2, vb, num_data, num_db):
+    """cuclark_tpu.parallel.mesh.build_sharded_classify(with_labels=False)
+    on a num_data x num_db mesh of the XLA CPU devices."""
+    jm = jmesh.make_mesh(num_db=num_db, num_data=num_data,
+                         devices=jax.devices()[:num_data * num_db])
+    main_np, stash_np = db.split_tables()
+    nbs = stash_np.shape[0] if stash_np is not None else 0
+    jstep = jmesh.build_sharded_classify(
+        jm, k=db.k, nb_bits=db.nb_bits, slots=db.slots,
+        num_choices=db.num_choices, layout=db.layout, seed=db.seed,
+        stash_bits=db.stash_bits, nb_total=main_np.shape[0], nbs_total=nbs,
+        with_labels=False)
+    rows_sh, data_sh = P("db", None), P("data", None)
+    args = [_jax_put(jm, main_np, rows_sh)]
+    if nbs:
+        args.append(_jax_put(jm, stash_np, rows_sh))
+    (res,) = jstep(*args, _jax_put(jm, p2, data_sh), _jax_put(jm, vb, data_sh))
+    return np.asarray(res)
+
+
+def _port_sharded(db, p2, vb, m, **kw):
+    main_np, stash_np = db.split_tables()
+    main, stash = mesh.shard_db_table(db, m)
+    step = mesh.build_sharded_classify(
+        m, k=db.k, spec=db.spec, nb_total=main_np.shape[0],
+        nbs_total=stash_np.shape[0] if stash_np is not None else 0, **kw)
+    return step(main, stash, mesh.place_wire(m, p2, vb))
+
+
+@pytest.mark.parametrize("k", [27, 31, 32])
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+@pytest.mark.parametrize("handles", ["same", "mixed"])
+@pytest.mark.parametrize("num_data,num_db", FUSED_SHAPES)
+def test_fused_sharded_step_matches_jax(num_data, num_db, handles, layout, k,
+                                        monkeypatch):
+    """Without labels, a batch of one-tile reads (150 bp, P 121-126) ends
+    each data block in the fused range launch (num_db - 1 range calls and
+    one fused call a block, no score call), and the results equal the JAX
+    package's build_sharded_classify(with_labels=False) on a mesh of the
+    same shape, and the port's step with labels."""
+    db, codes, (p2, vb) = _fused_case(layout, k, 152)
+    m = mesh.make_mesh(num_db, num_data,
+                       HANDLES[handles][:num_data * num_db])
+    calls = _counting(monkeypatch)
+    res, lab = _port_sharded(db, p2, vb, m, with_labels=False)
+    assert lab is None and len(res) == num_data
+    assert calls == {"query_part_labels": (num_db - 1) * num_data,
+                     "query_score_part_results": num_data} or (
+        num_db == 1 and calls == {"query_score_part_results": num_data})
+    got = np.concatenate([b.numpy() for b in res])
+    np.testing.assert_array_equal(
+        got, _jax_sharded_results(db, p2, vb, num_data, num_db))
+    two, _ = _port_sharded(db, p2, vb, m)
+    np.testing.assert_array_equal(got, np.concatenate([b.numpy()
+                                                       for b in two]))
+    assert (got[8:, 2] > 0).all()
+
+
+# (P, k, L): the fused route's edges, and the first width past one tile
+EDGE_P = [(1, 32, 32), (122, 31, 152), (128, 25, 152), (129, 24, 152)]
+
+
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+@pytest.mark.parametrize("P_,k,L", EDGE_P)
+def test_sharded_step_route_by_width(P_, k, L, layout, monkeypatch):
+    """On a 2 x 2 mesh of mixed handles, rows of 1, 122 and 128 windows
+    take the fused range launch and 129 the range launches, the sum and
+    the score; the results equal the JAX package's either way."""
+    db, codes, (p2, vb) = _fused_case(layout, k, L)
+    assert 4 * p2.shape[1] - k + 1 == P_
+    m = mesh.make_mesh(2, 2, MIXED8[:4])
+    calls = _counting(monkeypatch)
+    res, _ = _port_sharded(db, p2, vb, m, with_labels=False)
+    fused = P_ <= kernels.QUERY_SCORE_MAX_WINDOWS
+    assert calls == ({"query_part_labels": 2, "query_score_part_results": 2}
+                     if fused else {"query_part_labels": 4,
+                                    "score_labels": 2})
+    np.testing.assert_array_equal(np.concatenate([b.numpy() for b in res]),
+                                  _jax_sharded_results(db, p2, vb, 2, 2))
+
+
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+@pytest.mark.parametrize("handles", ["same", "mixed"])
+@pytest.mark.parametrize("num_data,num_db", [(2, 2), (1, 4)])
+def test_fused_stream_last_part_matches_jax(num_data, num_db, handles,
+                                            layout, monkeypatch):
+    """The sharded part step over 4 parts (the stash on part 0), the last
+    part ending each block in the fused range launch (scored=True),
+    against the JAX package's build_sharded_probe_part on each part,
+    summed, then cuclark_tpu.score.score_labels."""
+    db, codes, (p2, vb) = _fused_case(layout, 31, 152)
+    m = mesh.make_mesh(num_db, num_data, HANDLES[handles][:num_data * num_db])
+    jm = jmesh.make_mesh(num_db=num_db, num_data=num_data,
+                         devices=jax.devices()[:num_data * num_db])
+    main_np, stash_np = db.split_tables()
+    nbs = stash_np.shape[0] if stash_np is not None else 0
+    jkw = dict(k=db.k, nb_bits=db.nb_bits, slots=db.slots,
+               num_choices=db.num_choices, layout=db.layout, seed=db.seed,
+               stash_bits=db.stash_bits)
+    rows_sh, data_sh = P("db", None), P("data", None)
+    jp2, jvb = _jax_put(jm, p2, data_sh), _jax_put(jm, vb, data_sh)
+    parts = 4
+    rows = main_np.shape[0] // parts
+    jpart = jmesh.build_sharded_probe_part(jm, nb_part=rows,
+                                           skip_stash=bool(nbs), **jkw)
+    jpart0 = (jmesh.build_sharded_probe_part(jm, nb_part=rows,
+                                             with_stash=True, **jkw)
+              if nbs else jpart)
+    jstash = _jax_put(jm, stash_np, rows_sh) if nbs else None
+    want = 0
+    for p in range(parts):
+        jp = _jax_put(jm, main_np[p * rows:(p + 1) * rows], rows_sh)
+        if p == 0 and nbs:
+            (lab,) = jpart0(jp, jstash, jp2, jvb, jnp.int32(0))
+        else:
+            (lab,) = jpart(jp, jp2, jvb, jnp.int32(p * rows))
+        want = want + np.asarray(lab)
+    want = np.asarray(jscore.score_labels(jnp.asarray(want)))
+
+    _, stash = mesh.shard_db_table(db, m)
+    wires = mesh.place_wire(m, p2, vb)
+    calls = _counting(monkeypatch)
+    pstep = mesh.build_sharded_probe_part(m, k=db.k, spec=db.spec,
+                                          nb_part=rows)
+    acc = None
+    for p in range(parts - 1):
+        acc = pstep(mesh.shard_rows(main_np[p * rows:(p + 1) * rows], m),
+                    wires, p * rows, stash=stash if p == 0 else None,
+                    acc=acc)
+    res = pstep(mesh.shard_rows(main_np[(parts - 1) * rows:], m), wires,
+                (parts - 1) * rows, acc=acc, scored=True)
+    assert calls == {"query_part_labels": (parts * num_db - 1) * num_data,
+                     "query_score_part_results": num_data}
+    np.testing.assert_array_equal(np.concatenate([b.numpy() for b in res]),
+                                  want)
+
+
+def _short_reads_file(path, genomes, n, seed):
+    """n FASTQ reads of 80-127 bases (the 128 bin: one tile at K = 21),
+    Ns in every 5th."""
+    rng = random.Random(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            g = genomes[rng.randrange(len(genomes))]
+            ln = rng.randint(80, 127)
+            pos = rng.randrange(0, len(g) - ln)
+            seq = list(g[pos:pos + ln])
+            if i % 5 == 0:
+                seq[rng.randrange(ln)] = "N"
+            f.write(f"@s{i}\n{''.join(seq)}\n+\n{'I' * ln}\n")
+    return path
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("num_db,num_data", [(1, 1), (2, 2), (4, 2)])
+def test_mesh_classifier_fused_matches_jax(dbs, tmp_path, num_db, num_data,
+                                           streamed, monkeypatch):
+    """Classifier(mesh=...) on one-tile reads, resident and streamed in
+    parts, ends every batch's blocks in the fused launch and writes the
+    JAX package's CSV (a 1 x 1 mesh: one fused call a batch)."""
+    db, jdb, genomes = dbs
+    reads = _short_reads_file(tmp_path / "short.fq", genomes, 53, 37)
+    budget = db.table.nbytes / num_db / 4 / 1e6 if streamed else None
+    cfg = ClassifyConfig(batch_reads=16, stream_group=2, max_table_mb=budget)
+    calls = _counting(monkeypatch)
+    clf = pipeline.Classifier(db, cfg, mesh=mesh.make_mesh(
+        num_db, num_data, CPU8[:num_db * num_data]))
+    assert (clf.stream_parts > 1) == streamed
+    out = tmp_path / "mesh.csv"
+    assert clf.classify_file_to_csv(str(reads), out) == 53
+    batches = 4
+    assert calls["query_score_part_results"] == batches * num_data
+    assert calls["score_labels"] == 0
+    assert calls["query_part_labels"] == batches * num_data * (
+        clf.stream_parts * num_db - 1)
+    jout = tmp_path / "jax.csv"
+    jpipeline.Classifier(jdb, JClassifyConfig(batch_reads=16)
+                         ).classify_file_to_csv(str(reads), jout)
+    assert out.read_bytes() == jout.read_bytes()

@@ -5,6 +5,7 @@ on the CPU.  The two-rank tests spawn real processes that meet over
 torch.distributed (gloo) on a port picked by binding to port 0."""
 
 import gzip
+import json
 import os
 import random
 import re
@@ -18,7 +19,7 @@ import pytest
 
 from cuclark_tpu import cli as jcli
 from cuclark_tpu.parallel import multihost as jmultihost
-from cuclark_tpu_torch import cli
+from cuclark_tpu_torch import cli, codec
 from cuclark_tpu_torch.config import ClassifyConfig
 from cuclark_tpu_torch.io import fast_parse
 from cuclark_tpu_torch.parallel import mesh, multihost
@@ -409,3 +410,172 @@ def test_two_process_divergent_budgets_agree(job, tmp_path):
     assert merged == (job / "plain.csv").read_bytes()
     meshes = {re.search(rb"Global mesh: .*", o[2]).group(0) for o in outs}
     assert len(meshes) == 1
+
+
+_SPAN_MAIN = """
+import json, sys
+from pathlib import Path
+import numpy as np
+from cuclark_tpu_torch.config import ClassifyConfig
+from cuclark_tpu_torch.hashdb import KmerDB
+from cuclark_tpu_torch.parallel import mesh, multihost
+from cuclark_tpu_torch.pipeline import Classifier
+
+db_path, codes_path, reads, out, port, rank = sys.argv[1:7]
+rank, out = int(rank), Path(out)
+multihost.initialize(f"127.0.0.1:{port}", 2, rank)
+db = KmerDB.load(db_path)
+devs = mesh.local_devices("cpu")
+total = 2 * len(devs)
+m = mesh.make_global_mesh(total, devs)
+assert m.spans_processes and m.shape == {"data": 1, "db": total}
+assert m.db_start == rank * len(devs)
+codes = np.load(codes_path)
+res, lab = mesh.ShardedClassifier(db, m).classify_codes(codes)
+res2, lab2 = mesh.ShardedClassifier(db, m, with_labels=False).classify_codes(
+    codes)
+assert lab2 is None
+errors = {}
+for bad in (0, 3, 2 * total):
+    try:
+        mesh.make_global_mesh(bad, devs)
+        errors[bad] = None
+    except ValueError as e:
+        errors[bad] = str(e)
+try:
+    multihost.GlobalClassifier(db, ClassifyConfig(), num_db=total,
+                               device="cpu")
+    rejected = None
+except ValueError as e:
+    rejected = str(e)
+cfg = ClassifyConfig(batch_reads=16)
+Classifier(db, cfg, mesh=m).classify_file_to_csv(reads, out / f"res{rank}.csv")
+tiny = db.table.nbytes / total / 4 / 1e6
+scfg = ClassifyConfig(batch_reads=16, stream_group=2, max_table_mb=tiny)
+clf = Classifier(db, scfg, mesh=m)
+assert clf.stream_parts > 1
+clf.classify_file_to_csv(reads, out / f"str{rank}.csv")
+np.savez(out / f"rank{rank}.npz", res=res, lab=lab, res2=res2)
+(out / f"rank{rank}.json").write_text(json.dumps(
+    {"errors": {str(k): v for k, v in errors.items()}, "rejected": rejected,
+     "parts": clf.stream_parts}))
+multihost.shutdown()
+"""
+
+
+@pytest.fixture(scope="module", params=[1, 2])
+def spanning(request, job, tmp_path_factory):
+    """Two processes over gloo, each with CUCLARK_CPU_DEVICES handles of
+    the CPU, on the mesh whose db axis spans both (num_db = 2 x the
+    handles, data 1): each classifies the same 48 reads of unpacked codes
+    through ShardedClassifier (with and without labels), tries bad num_db
+    values and the lockstep engine, and writes the plain CSV of the job's
+    reads through Classifier on that mesh, resident and streamed ->
+    (handles, codes, each rank's outputs, the tmp dir)."""
+    ndev = request.param
+    tmp = tmp_path_factory.mktemp(f"span{ndev}")
+    rng = random.Random(5 + ndev)
+    genomes = [(job / f"g{t}.fa").read_text().split("\n")[1] for t in (1, 2)]
+    codes = np.full((48, 96), codec.INVALID, np.uint8)
+    for i in range(48):
+        n = rng.randrange(30, 96)
+        pos = rng.randrange(0, 2500 - n)
+        seq = genomes[i % 2][pos:pos + n]
+        if i % 6 == 0:
+            seq = seq[:n // 2] + "N" + seq[n // 2 + 1:]
+        codes[i, :n] = codec.encode_ascii(seq.encode())
+    np.save(tmp / "codes.npy", codes)
+    db_path = next((job / "db").glob("db_k*.npz"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUCLARK_CPU_DEVICES"] = str(ndev)
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SPAN_MAIN, str(db_path),
+         str(tmp / "codes.npy"), str(job / "r.fq"), str(tmp), str(port),
+         str(rank)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err.decode(errors="replace")[-3000:]
+    ranks = [(dict(np.load(tmp / f"rank{r}.npz")),
+              json.loads((tmp / f"rank{r}.json").read_text()))
+             for r in range(2)]
+    return ndev, codes, ranks, tmp, db_path
+
+
+def test_spanning_mesh_results_match_jax(spanning):
+    """Every process's results and labels equal the JAX package's
+    single-process ShardedClassifier on a num_db mesh and its resident
+    classify_step; without labels the results are the same."""
+    import jax
+    import jax.numpy as jnp
+
+    from cuclark_tpu import pipeline as jpipeline
+    from cuclark_tpu.hashdb import KmerDB as JKmerDB
+    from cuclark_tpu.parallel import mesh as jmesh
+
+    ndev, codes, ranks, _, db_path = spanning
+    jdb = JKmerDB.load(db_path)
+    total = 2 * ndev
+    jres, jlab = jmesh.ShardedClassifier(jdb, jmesh.make_mesh(
+        num_db=total, num_data=1, devices=jax.devices()[:total])
+    ).classify_codes(codes)
+    rres, rlab = jpipeline.classify_step(
+        jnp.asarray(jdb.table), jnp.asarray(codes), k=jdb.k,
+        nb_bits=jdb.nb_bits, slots=jdb.slots, num_choices=jdb.num_choices,
+        layout=jdb.layout, seed=jdb.seed, stash_bits=jdb.stash_bits)
+    np.testing.assert_array_equal(jres, np.asarray(rres))
+    for arrays, _ in ranks:
+        np.testing.assert_array_equal(arrays["res"], jres)
+        np.testing.assert_array_equal(arrays["lab"], jlab)
+        np.testing.assert_array_equal(arrays["lab"], np.asarray(rlab))
+        np.testing.assert_array_equal(arrays["res2"], jres)
+    assert int((jlab > 0).sum()) > 100
+
+
+def test_spanning_mesh_bad_num_db_raises(spanning):
+    """num_db 0, 3 and twice the job's devices raise the reference's
+    error (cuclark_tpu/parallel/mesh.py make_global_mesh) on every
+    process."""
+    ndev, _, ranks, _, _ = spanning
+    for _, info in ranks:
+        for bad, msg in info["errors"].items():
+            assert msg is not None and msg.startswith(
+                f"num_db={bad} must divide per-process devices {ndev} or "
+                f"equal the total device count {2 * ndev}"), msg
+
+
+def test_global_classifier_rejects_spanning_mesh(spanning):
+    """The lockstep engine refuses the db axis across processes, with the
+    reference's reason (cuclark_tpu/parallel/multihost.py)."""
+    _, _, ranks, _, _ = spanning
+    for _, info in ranks:
+        assert info["rejected"].startswith(
+            "data axis 1 not divisible by 2 processes")
+        assert "replicated-read ShardedClassifier use only" in info[
+            "rejected"]
+
+
+def test_spanning_mesh_classifier_csv(job, spanning):
+    """Classifier on the spanning mesh, every process reading the whole
+    file: resident (labels all-reduced each batch) and streamed in parts
+    (each part's labels all-reduced), each process's CSV is the
+    single-process CSV."""
+    _, _, ranks, tmp, _ = spanning
+    want = (job / "plain.csv").read_bytes()
+    for r, (_, info) in enumerate(ranks):
+        assert info["parts"] > 1
+        assert (tmp / f"res{r}.csv").read_bytes() == want
+        assert (tmp / f"str{r}.csv").read_bytes() == want
