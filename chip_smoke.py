@@ -16,12 +16,16 @@ against `--device cpu`:
   - resident: the table on the card (the fused query-and-score kernel
     for these one-tile reads, beside the query and score kernels, and
     the gather-only ceiling of the query's main-row gathers,
-    scripts/torch_gather_ceiling.py's kernel);
+    scripts/torch_gather_ceiling.py's kernel); the fused kernel also at
+    the paired shape (65,536 joined pairs, three tiles a read), and on
+    small tables at every width of two to eight tiles;
   - streamed: `--max-table-mb 600`, the table in 4 bucket-range parts of
-    268 MB uploaded per group of batches (part-mode query kernel);
-  - paired: 131,072 pairs of 150 bp mates from 400 bp fragments (-P);
+    268 MB uploaded per group of batches (part-mode query kernel, each
+    batch's last part the fused range launch);
+  - paired: 131,072 pairs of 150 bp mates from 400 bp fragments (-P),
+    the fused query and score alone;
   - extended: 1,024 reads with one count column per target, resident
-    and streamed (--extended);
+    and streamed (--extended: the query and score kernels);
   - layouts: the same k-mers in a q4 table (1.074 GB) and an s2 table
     (2 slots, 2 hash choices: 1.611 GB), resident (the fused query and
     score of that layout) and streamed (4 and 8 parts at `--max-table-mb
@@ -35,11 +39,13 @@ against `--device cpu`:
   - mesh: a 2 data x 2 db mesh of four handles of the one card, each db
     shard (a main range and a stash range) against plain; the sharded
     steps, each block ending in the fused range launch of the query and
-    score (resident, and a streamed batch's last part) or in the score
-    kernel (with labels), against plain and the resident results; a
+    score (resident, and a streamed batch's last part; 150 bp reads and
+    paired reads) or in the score kernel (with labels), against plain
+    and the resident results; a
     1 x 1 mesh's step timed in turns with the resident fused step; and
     `Classifier(db, mesh=...)` resident and streamed (each device's
-    shard in 4 parts), each CSV equal to the resident CSV;
+    shard in 4 parts), and on the mate files, each CSV equal to the
+    resident CSV;
   - multiprocess: two ranks of `classify --coordinator` over gloo on the
     card (each a 1 x 1 mesh: one fused launch a batch), then in the same
     two processes the host-spanning step (a db axis of 2 across them,
@@ -557,6 +563,71 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
     return err
 
 
+# (k, read length): the fused kernel's widths past one tile, P = L - k + 1
+# (L a multiple of 8): the 160, 192, 256, 320, 512 and 1024 bins at k 27
+# and 31 (P 130 to 998; 290 the joined pairs at k 31), then P 129, 256 and
+# 1,024 (the first width past one tile, two tiles full, the widest)
+FUSED_WIDTHS = [(k, L) for k in (27, 31)
+                for L in (160, 192, 256, 320, 512, 1024)] + [
+    (32, 160), (25, 280), (25, 1048)]
+
+
+def check_fused_widths(dev) -> int:
+    """The fused query and score on reads of two to eight tiles against its
+    plain version and against the query then score kernels, on a small qs
+    (with stash entries), q4 and s2 table at each k of FUSED_WIDTHS:
+    resident, then in range mode (check_fused_range: 4 parts and 2 db
+    shards, acc_in None or random labels on the windows each range
+    misses, and 3 parts accumulated ending in the fused range launch ==
+    resident).  Returns the largest error."""
+    import torch
+
+    from cuclark_tpu_torch import codec, hashdb, probe, score
+    from cuclark_tpu_torch.config import DBConfig
+
+    names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
+    err, checked = 0, 0
+    for k in sorted({k for k, _ in FUSED_WIDTHS}):
+        rng = np.random.default_rng(500 + k)
+        for layout, n, nb_bits in (("qs", 300_000, 17), ("q4", 300_000, 17),
+                                   ("s2", 90_000, 16)):
+            km = rng.integers(0, np.iinfo(np.uint64).max, size=n + 10_000,
+                              dtype=np.uint64, endpoint=True)
+            km = np.unique(codec.canonical_np(km >> np.uint64(64 - 2 * k),
+                                              k))[:n]
+            labels = rng.integers(1, 65536, size=len(km)).astype(np.uint32)
+            db = hashdb.build_table(km, labels, names, DBConfig(
+                k=k, layout=layout, slots=S2_SLOTS, num_choices=S2_CHOICES),
+                nb_bits=nb_bits)
+            main, stash = hashdb.table_to_device(db, dev)
+            args = dict(k=k, spec=db.spec)
+            for _, L in (c for c in FUSED_WIDTHS if c[0] == k):
+                p2, vb = (torch.from_numpy(a).to(dev)
+                          for a in _planted_reads(rng, km, k, 256, L))
+                got = probe.query_score_results(p2, vb, main, stash, **args)
+                torch.cuda.synchronize()
+                want = probe.query_score_results_plain(p2, vb, main, stash,
+                                                       **args)
+                two = score.score_labels(probe.query_labels(
+                    p2, vb, main, stash, **args))
+                torch.cuda.synchronize()
+                P = 4 * p2.shape[1] - k + 1
+                if not (torch.equal(got, want) and torch.equal(got, two)):
+                    raise AssertionError(f"fused {layout} query and score != "
+                                         f"plain or != query then score at "
+                                         f"P={P}, k={k}")
+                if int((want[:, 2] > 0).sum()) < 64:
+                    raise AssertionError(f"too few hits to check {layout} at "
+                                         f"P={P}, k={k}")
+                err = max(err, _max_abs_err(got, want),
+                          check_fused_range(p2, vb, main, stash, **args))
+                checked += 1
+    print(f"  fused query and score at {checked} (layout, width) pairs of "
+          f"2 to 8 tiles (P 129 to 1,024): resident, and over parts and db "
+          f"shards with acc_in, bit-identical", flush=True)
+    return err
+
+
 def check_score(dev, R: int, P: int, seed: int) -> int:
     """Score kernel vs plain on random labels with ties and empty rows,
     and, where R allows, rows across both label ranges of the histogram
@@ -707,6 +778,41 @@ def write_pairs(genomes: np.ndarray, n_pairs: int, r1: Path, r2: Path):
                             enumerate(src)), codes)
 
 
+def joined_pairs(genomes: np.ndarray, n: int) -> np.ndarray:
+    """The first n pairs of write_pairs (the same seed and draws) joined as
+    the pipeline packs them: mate 1, an N, mate 2 as the file holds it
+    (the reverse complement of the fragment's last 150 bases), padded
+    with Ns to the 320 bin (P = 290 at k=31)."""
+    from cuclark_tpu_torch import codec
+
+    rng = np.random.default_rng(2)
+    src = rng.integers(0, len(genomes), size=n)
+    pos = rng.integers(0, GENOME_LEN - FRAGMENT + 1, size=n)
+    frag = genomes[src[:, None], pos[:, None] + np.arange(FRAGMENT)]
+    m1 = _substitute(rng, frag[:, :READ_LEN].copy())
+    m2 = _substitute(rng, (3 - frag[:, FRAGMENT - READ_LEN:])[:, ::-1].copy())
+    out = np.full((n, 320), codec.INVALID, np.uint8)
+    out[:, :READ_LEN] = m1
+    out[:, READ_LEN + 1:2 * READ_LEN + 1] = m2
+    return out
+
+
+def bin_reads(genomes: np.ndarray, n: int, length_bin: int) -> np.ndarray:
+    """n reads of length_bin - 1 bases (the longest reads of that length
+    bin) sampled from the genomes with 1% substitutions, padded with an N
+    to the bin."""
+    from cuclark_tpu_torch import codec
+
+    rng = np.random.default_rng(length_bin)
+    ln = length_bin - 1
+    src = rng.integers(0, len(genomes), size=n)
+    pos = rng.integers(0, GENOME_LEN - ln + 1, size=n)
+    out = np.full((n, length_bin), codec.INVALID, np.uint8)
+    out[:, :ln] = _substitute(rng, genomes[src[:, None],
+                                           pos[:, None] + np.arange(ln)])
+    return out
+
+
 def head_fastq(src: Path, dst: Path, n: int) -> Path:
     """The first n records of a 4-line FASTQ file."""
     with open(src) as f:
@@ -845,15 +951,39 @@ def write_long_reads(genomes: np.ndarray, path: Path) -> list:
     return reads
 
 
-def miss_batch(R: int):
-    """R random 150 bp reads (numpy seed 4) in the 152 bin, as wire
-    arrays: the all-miss batch (the caller checks that no window hits)."""
+def miss_batch(R: int, length_bin: int = 152):
+    """R random reads (numpy seed 4) as wire arrays: 150 bp reads in the
+    152 bin, or in the 320 bin two 150 bp mates joined by an N: the
+    all-miss batch (the caller checks that no window hits)."""
     from cuclark_tpu_torch import codec
 
-    codes = np.full((R, 152), codec.INVALID, np.uint8)
-    codes[:, :READ_LEN] = np.random.default_rng(4).integers(
-        0, 4, size=(R, READ_LEN), dtype=np.uint8)
+    codes = np.full((R, length_bin), codec.INVALID, np.uint8)
+    ln = 2 * READ_LEN + 1 if length_bin == 320 else READ_LEN
+    codes[:, :ln] = np.random.default_rng(4).integers(
+        0, 4, size=(R, ln), dtype=np.uint8)
+    if length_bin == 320:
+        codes[:, READ_LEN] = codec.INVALID
     return codec.pack_codes(codes)
+
+
+def chimeric_pairs(genomes: np.ndarray, n: int) -> np.ndarray:
+    """n joined pairs in the 320 bin (numpy seed 6) whose mates are random
+    bases with 8 pieces of 32 bases from random genomes laid in, 4 a
+    mate: 8 distinct labels of 2 windows a pair, the most that windows of
+    31 bases from different genomes give, beside windows that miss: the
+    busiest table of the fused kernel's realistic inputs."""
+    from cuclark_tpu_torch import codec
+
+    rng = np.random.default_rng(6)
+    out = rng.integers(0, 4, size=(n, 320), dtype=np.uint8)
+    out[:, READ_LEN] = codec.INVALID
+    out[:, 2 * READ_LEN + 1:] = codec.INVALID
+    for lo in (0, 32, 64, 96, 151, 183, 215, 247):
+        src = rng.integers(0, len(genomes), size=n)
+        pos = rng.integers(0, GENOME_LEN - 32 + 1, size=n)
+        out[:, lo:lo + 32] = genomes[src[:, None],
+                                     pos[:, None] + np.arange(32)]
+    return out
 
 
 def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
@@ -962,7 +1092,10 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
     stderr, launches_stream = run_cli(
         ["classify", "-D", dbdir, "-O", str(fq), "-R", str(stream_csv),
          "--device", "cuda", "--max-table-mb", str(stream_mb)],
-        (part_name, "score"))
+        (part_name, f"query_score_part_{layout}"))
+    if launches_stream["score"]:
+        raise AssertionError(f"{layout} streamed batches did not end in the "
+                             f"fused last part: {launches_stream}")
     if f"{parts} bucket-range parts" not in stderr:
         raise AssertionError(f"{layout} --max-table-mb {stream_mb} did not "
                              f"stream in {parts} parts: {stderr}")
@@ -1168,8 +1301,8 @@ def _turns(fns: dict, reps: int, rounds: int = 3) -> dict:
     return out
 
 
-def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
-               card: str):
+def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
+               dev, card: str):
     """A 2 data x 2 db mesh of four handles of the card: each db shard's
     labels of the main-path batch against plain, their sum against the
     resident labels; the sharded resident step without labels (each
@@ -1182,8 +1315,13 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
     `Classifier(db, mesh=...)` file->CSV, resident and with each device's
     shard streamed in 4 parts, twice each, every CSV equal to the
     resident one, the counts reset just before each Classifier's runs and
-    held to the fused route's.  Returns (max_abs_err, ms, launches,
-    phase detail, bound ms) keyed by the JAX function."""
+    held to the fused route's.  The paired batch (`paired`: its wire
+    arrays, its resident fused results, the mate files and the resident
+    paired CSV) takes the sharded step and the sharded part step, each
+    block ending fused (P = 290, three tiles), == plain and resident, and
+    Classifier(mesh) on the mate files writes the paired CSV with range
+    and fused launches only.  Returns (max_abs_err, ms, launches, phase
+    detail, bound ms) keyed by the JAX function."""
     import statistics
 
     import torch
@@ -1266,6 +1404,19 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
                                         _max_abs_err(lab, plab),
                                         _max_abs_err(res, pres))
     del lab, plab, res, pres
+    (pp2, pvb), pair_res, r1, r2, paired_csv = paired
+    pwires = mesh.place_wire(m, pp2.cpu().numpy(), pvb.cpu().numpy())
+    (res, _), route_pf = launched_by(
+        lambda: steps[(False, False)](smain, sstash, pwires))
+    pres, _ = steps[(False, True)](smain, sstash, pwires)
+    res, pres = torch.cat(res), torch.cat(pres)
+    if route_pf != {"query_part": 2, "query_score_part": 2} or not (
+            torch.equal(res, pres) and torch.equal(res, pair_res)):
+        raise AssertionError(f"sharded step of the paired batch: launches "
+                             f"{route_pf}, or != plain or != resident")
+    err["build_sharded_classify"] = max(err["build_sharded_classify"],
+                                        _max_abs_err(res, pres))
+    del res, pres
     t = _turns({"fused": lambda: steps[(False, False)](smain, sstash, wires),
                 "range": lambda: steps[(True, False)](smain, sstash, wires)},
                20)
@@ -1308,11 +1459,11 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
         return [[main_t[p * rows + j * rows // 2:p * rows + (j + 1) * rows
                         // 2] for j in range(2)] for _ in range(2)]
 
-    def all_parts(fn, route="accumulate"):
+    def all_parts(fn, route="accumulate", batch=None):
         acc = None
         for p in range(4):
             last = p == 3
-            out = fn(part(p), wires, p * rows,
+            out = fn(part(p), batch or wires, p * rows,
                      stash=sstash if p == 0 else None, acc=acc,
                      scored=last and route == "fused")
             if last and route == "fused":
@@ -1343,7 +1494,17 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
                              f"resident")
     err["build_sharded_probe_part"] = max(err["build_sharded_probe_part"],
                                           _max_abs_err(fres, pfres))
-    del fres, pfres
+    fres, route_pp = launched_by(lambda: all_parts(pstep, "fused", pwires))
+    pfres = all_parts(plain_pstep, "fused", pwires)
+    fres, pfres = torch.cat(fres), torch.cat(pfres)
+    if route_pp != route_p or not (torch.equal(fres, pfres)
+                                   and torch.equal(fres, pair_res)):
+        raise AssertionError(f"sharded parts of the paired batch ending in "
+                             f"the fused launch: launches {route_pp}, or != "
+                             f"plain or != resident")
+    err["build_sharded_probe_part"] = max(err["build_sharded_probe_part"],
+                                          _max_abs_err(fres, pfres))
+    del fres, pfres, pwires
     tp = _turns({"fused": lambda: all_parts(pstep, "fused"),
                  "range": lambda: all_parts(pstep, "range"),
                  "accumulate": lambda: all_parts(pstep)}, 10)
@@ -1386,6 +1547,20 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
             raise AssertionError(f"mesh {name}: launches {launches[jax_fn]} "
                                  f"for {batches} batches of {route}")
         torch.cuda.empty_cache()
+    kernels.reset_launches()
+    clf = pipeline.Classifier(db, mesh=m)
+    out = tmp / "mesh_paired.csv"
+    clf.classify_file_to_csv(r1, out, r2)
+    torch.cuda.synchronize()
+    clf.close()
+    del clf
+    paired_launches = _launched(kernels.LAUNCHES)
+    if out.read_bytes() != paired_csv.read_bytes() or (
+            paired_launches.keys() != {"query_part", "query_score_part"}
+            or paired_launches["query_part"]
+            != paired_launches["query_score_part"]):
+        raise AssertionError(f"mesh paired CSV differs from the resident "
+                             f"paired CSV, or launches {paired_launches}")
     detail = (f"2 data x 2 db, four handles of the one card ({card}); db "
               f"shards of [{B}, {4 * p2.shape[1]}] bit-identical, sum == "
               f"resident; sharded step, route fused ({route_f} a batch) "
@@ -1409,7 +1584,11 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, dev,
               f"resident CSV, {', '.join(f'{r:.1f}' for r in rates['streamed'])}"
               f" reads/s, part uploads "
               f"{', '.join(f'{g:.2f}' for g in gbps)} GB/s, launches "
-              f"{launches['build_sharded_probe_part']}")
+              f"{launches['build_sharded_probe_part']}; paired [{B}, "
+              f"{4 * pp2.shape[1]}] batch: sharded step ({route_pf}) and "
+              f"parts ending fused ({route_pp}) == plain and resident, "
+              f"Classifier(mesh) paired CSV == resident paired CSV, "
+              f"launches {paired_launches}")
     counts = {k: v.get("query_part", 0) for k, v in launches.items()}
     counts["query_score_part"] = launches["build_sharded_classify"][
         "query_score_part"]
@@ -2061,6 +2240,7 @@ def main(argv=None) -> int:
         for one in checks:
             for name, e in one.items():
                 err[name] = max(err.get(name, 0), e)
+    err["query_score"] = max(err["query_score"], check_fused_widths(dev))
     for i, (R, P) in enumerate(((65536, 122), (65536, 290), (64, 16354),
                                 (33, 1000), (64, 1), (5, 2), (16, 1025),
                                 (8, 32768))):
@@ -2074,7 +2254,8 @@ def main(argv=None) -> int:
                                  f"score_long entry")
     _phase("kernels_vs_plain", t0, "query (qs, q4, s2, resident, part, "
            "qs db shards with stash ranges, codes front half), the fused "
-           "query and score (qs, q4, s2), and score (warp and histogram "
+           "query and score (qs, q4, s2; one to eight tiles, resident and "
+           "in range mode with acc_in), and score (warp and histogram "
            "paths, both label ranges) bit-identical")
 
     with tempfile.TemporaryDirectory(prefix="cuclark_smoke_") as td:
@@ -2221,6 +2402,48 @@ def main(argv=None) -> int:
                f"fused, {len(wire) * B / (two_ms / 1e3):.1f} reads/s as "
                f"query then score, on {card}")
 
+        # the paired shape: the first pairs of r1/r2 joined in the 320 bin
+        # (P = 290, three tiles), the fused kernel of the paired path
+        t0 = time.time()
+        pwire = tuple(torch.from_numpy(a).to(dev)
+                      for a in codec.pack_codes(joined_pairs(genomes, B)))
+        pp2, pvb = pwire
+        pres = probe.query_score_results(pp2, pvb, main_t, stash_t, **qargs)
+        torch.cuda.synchronize()
+        pres_plain = probe.query_score_results_plain(pp2, pvb, main_t,
+                                                     stash_t, **qargs)
+        ptwo = score.score_labels(probe.query_labels(pp2, pvb, main_t,
+                                                     stash_t, **qargs))
+        torch.cuda.synchronize()
+        if not (torch.equal(pres, pres_plain) and torch.equal(pres, ptwo)):
+            raise AssertionError("fused query and score != plain or != the "
+                                 "query then score kernels on the paired "
+                                 "batch")
+        err["query_score_290"] = _max_abs_err(pres, pres_plain)
+        del pres_plain, ptwo
+        unpacked = codec.unpack_codes(pp2, pvb)
+        bound["query_score_290"] = _bound_ms(query_bytes(
+            touched_rows(unpacked, db.spec, db.k), db.spec,
+            pp2.numel() + pvb.numel(), 20 * B))
+        ceiling["query_score_290"] = gather_ceiling_ms(
+            ceiling_lib, main_t, window_buckets(unpacked, db.spec, db.k))
+        del unpacked
+        ms["query_score_290"] = _cuda_ms(lambda: probe.query_score_results(
+            pp2, pvb, main_t, stash_t, **qargs), 20)
+        ms["query_score_290_plain"] = _cuda_ms(
+            lambda: probe.query_score_results_plain(pp2, pvb, main_t,
+                                                    stash_t, **qargs), 3)
+        two_290 = _cuda_ms(lambda: score.score_labels(probe.query_labels(
+            pp2, pvb, main_t, stash_t, **qargs)), 20)
+        _phase("real_size_paired", t0,
+               f"[{B}, 320] joined pairs (P = {4 * pp2.shape[1] - db.k + 1})"
+               f" bit-identical to plain and to query then score; fused "
+               f"query and score {ms['query_score_290']:.4f} ms (plain "
+               f"{ms['query_score_290_plain']:.4f}), query then score "
+               f"{two_290:.4f} ms; gather-only ceiling "
+               f"{ceiling['query_score_290']:.4f} ms, bytes bound "
+               f"{bound['query_score_290']:.4f} ms; on {card}")
+
         # the same reads as unpacked codes through classify_step
         t0 = time.time()
         (err["classify_step"], ms["classify_step"],
@@ -2291,7 +2514,12 @@ def main(argv=None) -> int:
         stderr, launches_stream = run_cli(
             ["classify", "-D", dbdir, "-O", str(fq), "-R", str(stream_csv),
              "--device", "cuda", "--max-table-mb", str(stream_mb)],
-            ("query_part", "score"))
+            ("query_part", "query_score_part"))
+        if launches_stream["score"] or launches_stream[
+                "query_score_part"] != -(-args.reads
+                                         // ClassifyConfig().batch_reads):
+            raise AssertionError(f"the streamed batches did not end in the "
+                                 f"fused last part: {launches_stream}")
         if f"{STREAM_PARTS['qs']} bucket-range parts" not in stderr:
             raise AssertionError(f"--max-table-mb {stream_mb} did not stream "
                                  f"in {STREAM_PARTS['qs']} parts: {stderr}")
@@ -2321,12 +2549,16 @@ def main(argv=None) -> int:
                f"{', '.join(f'{r:.1f}' for r in stream_e2e)} reads/s on "
                f"{card}")
 
-        # paired: mate 1 + N + mate 2 in the 320 bin, P = 290
+        # paired: mate 1 + N + mate 2 in the 320 bin, P = 290: the fused
+        # query and score alone
         t0 = time.time()
         paired_csv = tmp / "paired.csv"
         _, launches_paired = run_cli(
             ["classify", "-D", dbdir, "-P", str(r1), str(r2),
-             "-R", str(paired_csv), "--device", "cuda"], ("query", "score"))
+             "-R", str(paired_csv), "--device", "cuda"], ("query_score",))
+        if _launched(launches_paired).keys() != {"query_score"}:
+            raise AssertionError(f"the paired run did not take the fused "
+                                 f"kernel alone: {launches_paired}")
         acc_paired = assigned_right(paired_csv)
         if acc_paired < 0.99:
             raise AssertionError(f"only {acc_paired:.4%} of pairs assigned "
@@ -2355,7 +2587,7 @@ def main(argv=None) -> int:
         _phase("classify_paired", t0,
                f"{acc_paired:.6f} of {args.reads} pairs assigned to their "
                f"source genome, first {n_cpu} identical to --device cpu, "
-               f"launches {launches_paired}; file->CSV "
+               f"launches {_launched(launches_paired)}; file->CSV "
                f"{', '.join(f'{r:.1f}' for r in paired_e2e)} pairs/s on "
                f"{card}")
 
@@ -2363,16 +2595,16 @@ def main(argv=None) -> int:
         t0 = time.time()
         n_ext = min(1024, args.reads)
         ext_fq = head_fastq(fq, tmp / "ext.fq", n_ext)
-        ext = {}
+        ext, ext_launches = {}, {}
         for name, device, flags, path_kernels in (
                 ("cuda", "cuda", [], ("query", "score")),
                 ("cuda_stream", "cuda", ["--max-table-mb", str(stream_mb)],
                  ("query_part", "score")),
                 ("cpu", "cpu", [], ())):
             out = tmp / f"ext_{name}.csv"
-            run_cli(["classify", "-D", dbdir, "-O", str(ext_fq), "-R",
-                     str(out), "--device", device, "--extended", *flags],
-                    path_kernels)
+            _, ext_launches[name] = run_cli(
+                ["classify", "-D", dbdir, "-O", str(ext_fq), "-R", str(out),
+                 "--device", device, "--extended", *flags], path_kernels)
             ext[name] = out.read_bytes()
         if not ext["cuda"] == ext["cuda_stream"] == ext["cpu"]:
             raise AssertionError("--extended CSVs differ between resident, "
@@ -2386,7 +2618,10 @@ def main(argv=None) -> int:
         # then Classifier(mesh) resident and streamed
         t0 = time.time()
         (mesh_err, mesh_ms, launches_mesh, detail, mesh_bound,
-         resident_res) = check_mesh(db, tmp, fq, wire0, gpu_csv, dev, card)
+         resident_res) = check_mesh(
+            db, tmp, fq, wire0, gpu_csv,
+            (pwire, pres, r1, r2, paired_csv), dev, card)
+        del pwire, pres
         bound.update(mesh_bound)
         for name, e in mesh_err.items():
             err[name] = max(err.get(name, 0), e)
@@ -2448,8 +2683,8 @@ def main(argv=None) -> int:
         _phase("profile", t0, check_profile(db, dbdir, fq, gpu_csv, codes,
                                             tmp, dev, card))
 
-    # the resident 150 bp path runs the fused query and score alone; the
-    # query and score kernels' own path is the paired one (P = 290)
+    # the resident 150 bp and the paired paths run the fused query and
+    # score alone; the query and score kernels' own path is --extended
     kern = [
         {"name": "query_score", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/query.cu",
@@ -2457,10 +2692,18 @@ def main(argv=None) -> int:
          "launches": launches["query_score"],
          "max_abs_err": err["query_score"], "ms": ms["query_score"],
          "plain_ms": ms["query_score_plain"]},
+        {"name": "query_score_290", "route": "cuda",
+         "source": "cuclark_tpu_torch/csrc/query.cu",
+         "replaces": "cuclark_tpu/pipeline.py:71",
+         "launches": launches_paired["query_score"],
+         "max_abs_err": err["query_score_290"],
+         "ms": ms["query_score_290"],
+         "plain_ms": ms["query_score_290_plain"]},
         {"name": "query", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/query.cu",
          "replaces": "cuclark_tpu/probe.py:198",
-         "launches": launches_paired["query"], "max_abs_err": err["query"],
+         "launches": ext_launches["cuda"]["query"],
+         "max_abs_err": err["query"],
          "ms": ms["query"], "plain_ms": ms["query_plain"]},
         {"name": "query_part", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/query.cu",
@@ -2471,7 +2714,8 @@ def main(argv=None) -> int:
         {"name": "score", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/score.cu",
          "replaces": "cuclark_tpu/score.py:28",
-         "launches": launches_paired["score"], "max_abs_err": err["score"],
+         "launches": ext_launches["cuda"]["score"],
+         "max_abs_err": err["score"],
          "ms": ms["score"], "plain_ms": ms["score_plain"]},
     ]
     for name, replaces in (("query_score_q4", "cuclark_tpu/pipeline.py:71"),

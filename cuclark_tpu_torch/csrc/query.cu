@@ -55,18 +55,34 @@
 // for the windows whose bucket lies in its range, 1/P of them over P
 // parts, and there the front half is the larger cost.
 //
-// What the resident call of one-tile reads (P <= kTile: 150 bp reads in
-// the 152 bin) does besides, for every layout: query_score_kernel<LAYOUT>
-// scores the block's labels in shared memory (warp_score.cuh) and writes
-// [R, 5] results, so the [R, P] labels (32 MB a batch) are neither written
-// nor read again and the score kernel's launch goes away
+// What the call without labels of reads of up to 1,024 windows (every
+// short-read bin up to 1024: 150 bp reads at P = 122, joined 2 x 150 bp
+// pairs at P = 290) does besides, for every layout:
+// query_score_kernel<LAYOUT, T>, a block of T = ceil(P / kTile) tiles per
+// read, scores the block's labels on chip and writes [R, 5] results, so the
+// [R, P] labels (32 MB a batch at P = 122, 76 MB at P = 290) are neither
+// written nor read again and the score kernel's launch goes away
 // (pipeline.classify_step_packed without labels).  The same kernel ends a
 // data block of a mesh step (cuclark_tpu/parallel/mesh.py:96) and the last
-// part of a streamed mesh step (:164): it takes the ranges of the block's
-// column-0 shard and the other launches' label sum (acc_in), which it reads
-// once and adds before the score, so neither that sum's write-back nor the
-// score kernel's launch is paid.
-//
+// part of a streamed step, on a mesh (:164) or on one device: it takes the
+// ranges of the block's column-0 shard (or of the last part) and the other
+// launches' label sum (acc_in), which it reads once and adds before the
+// score, so neither that sum's write-back nor the score kernel's launch is
+// paid.  One tile is scored by warp 0 (warp_score.cuh) as before; wider
+// reads count their labels into a distinct-label table in shared memory
+// (count_label: a warp's lanes of one label add once; score_table: the top
+// two of the table's exact counts), whose registers are the gathers':
+// score.cu's warp path would hold the row in registers, 16 or 32 labels a
+// lane.  On an H100 (nvcc 12.8, -Xptxas -v) the fused instances use qs 30,
+// q4 28 (32-38 at five to eight tiles), s2 38-40 (32 past four tiles)
+// registers a thread, no more than query_kernel's qs 30, q4 28, s2 40, so
+// the gathers keep its occupancy (by the register count, 48 to 64 warps
+// an SM).  A block takes the whole warps its P windows need (a paired
+// block is 10 warps, not 12).
+// On an H100 80GB HBM3 at 700 W a [65,536, 320] batch of pairs takes the
+// fused step 0.674 ms (qs), 0.641 (q4) and 0.774 (s2) against 0.837,
+// 0.770 and 0.920 as the query kernel then the score kernel, and the
+// one-tile step kept its time (scripts/torch_kernel_ab.py).
 // The front half (the k-mer of each window from the wire bytes, its
 // reverse complement and the Feistel rounds) is a few instructions per
 // window, so that a part call, or a db shard of a mesh step, which repeats
@@ -170,25 +186,31 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
 
 #include "warp_score.cuh"
 
-// Windows per block.  A block stages kStage bases: the kTile + k - 1 <=
-// kTile + 31 its windows cover, rounded to 32, as kW2 words of 2-bit codes
-// and kWv words of validity bits.  Window kTile - 1 reads 2-bit words up
-// to kW2 - 1 and validity words up to kWv - 1.
+// Windows per tile.  The windows of T tiles from a tile's start cover
+// T * kTile + k - 1 <= T * kTile + 31 bases, staged rounded to 32 as
+// w2_words(T) words of 2-bit codes and v_words(T) words of validity bits:
+// window T * kTile - 1 reads 2-bit words up to w2_words(T) - 1 and
+// validity words up to v_words(T) - 1.
 constexpr int kTile = 128;
-constexpr int kStage = kTile + 32;
-constexpr int kW2 = kStage / 16;
-constexpr int kWv = kStage / 32;
 static_assert(kTile % 32 == 0, "tiles start on a validity word");
+__host__ __device__ constexpr int w2_words(int tiles) {
+  return (tiles * kTile + 32) / 16;
+}
+__host__ __device__ constexpr int v_words(int tiles) {
+  return (tiles * kTile + 32) / 32;
+}
 
-// Stage bases [t0, t0 + kStage) of one wire row (packed2 row pr of s2
-// bytes, vbits row vr of s8 bytes): a tile starts on a byte of both, so
-// the words are the row's bytes from t0 / 4 and t0 / 8.  Bytes past the
+// Stage the bases of T tiles from base t0 of one wire row (packed2 row pr
+// of s2 bytes, vbits row vr of s8 bytes): a tile starts on a byte of both,
+// so the words are the row's bytes from t0 / 4 and t0 / 8.  Bytes past the
 // row stage as 0; only windows past P, which store nothing, or the bits
 // above a window's 2k, which are masked off, read them.
+template <int T>
 __device__ __forceinline__ void stage_wire(const uint8_t* __restrict__ pr,
                                            const uint8_t* __restrict__ vr,
                                            int s2, int s8, int t0,
                                            uint32_t* w2, uint32_t* wv) {
+  constexpr int kW2 = w2_words(T), kWv = v_words(T);
   uint8_t* b2 = reinterpret_cast<uint8_t*>(w2);
   uint8_t* bv = reinterpret_cast<uint8_t*>(wv);
   for (int i = threadIdx.x; i < 4 * (kW2 + kWv); i += blockDim.x) {
@@ -210,7 +232,7 @@ __device__ __forceinline__ void stage_codes(const uint8_t* __restrict__ cr,
                                             int L, int t0, uint32_t* w2,
                                             uint32_t* wv) {
   const int lane = threadIdx.x & 31;
-  for (int c = threadIdx.x >> 5; c < kWv; c += kTile / 32) {
+  for (int c = threadIdx.x >> 5; c < v_words(1); c += kTile / 32) {
     const int q = t0 + 32 * c + lane;
     const uint32_t b = q < L ? __ldg(cr + q) : 4u;
     const uint32_t valid = __ballot_sync(kFull, b < 4u);
@@ -419,14 +441,14 @@ __global__ void __launch_bounds__(kTile) query_kernel(
     int stash_bits, uint64_t bucket_start, uint64_t nb_local,
     uint64_t stash_start, uint64_t nbs_local, int accumulate, uint32_t c1,
     uint32_t c2, uint32_t c3, int slots, int num_choices, int tile_base) {
-  __shared__ uint32_t w2[kW2];
-  __shared__ uint32_t wv[kWv];
+  __shared__ uint32_t w2[w2_words(1)];
+  __shared__ uint32_t wv[v_words(1)];
   const int64_t r = blockIdx.x;
   const int t0 = (tile_base + static_cast<int>(blockIdx.y)) * kTile;
   if (CODES)
     stage_codes(packed2 + r * s2, s2, t0, w2, wv);
   else
-    stage_wire(packed2 + r * s2, vbits + r * s8, s2, s8, t0, w2, wv);
+    stage_wire<1>(packed2 + r * s2, vbits + r * s8, s2, s8, t0, w2, wv);
   __syncthreads();
   const int p = t0 + threadIdx.x;
   if (p >= P) return;
@@ -445,54 +467,240 @@ __global__ void __launch_bounds__(kTile) query_kernel(
     labels[idx] += lab;
 }
 
-// Query and score of one-tile reads (P <= kTile): a block per read runs
-// query_kernel's wire front half and gathers over the call's ranges, then
-// its labels go to shared memory and warp 0 scores them into results row
-// r (warp_score.cuh, score.cu's warp path).  The labels never reach device
-// memory.  stash_rows and stash_bits are qs's (null: no stash probe, as in
-// query_kernel's part mode); slots and num_choices s2's.  The ranges are
-// query_kernel's: the whole table for the resident step, one db shard (of
-// one part) for the last launch of a data block of a mesh step.  acc_in,
-// when not null, is the int32 [R, P] sum of the block's other launches
-// (the other db shards, the earlier parts): window p's label is
-// acc_in[r, p] plus its own, read once, coalesced, and never written back.
-// An invalid window adds nothing to acc_in's value (0 there: no launch
-// gives it a label).
-template <int LAYOUT>
-__global__ void __launch_bounds__(kTile) query_score_kernel(
-    const uint8_t* __restrict__ packed2, const uint8_t* __restrict__ vbits,
-    const void* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
-    const int32_t* __restrict__ acc_in, int32_t* __restrict__ results, int P,
-    int s2, int s8, int k, int nb_bits, int stash_bits, uint64_t bucket_start,
-    uint64_t nb_local, uint64_t stash_start, uint64_t nbs_local, uint32_t c1,
-    uint32_t c2, uint32_t c3, int slots, int num_choices) {
-  __shared__ uint32_t w2[kW2];
-  __shared__ uint32_t wv[kWv];
-  __shared__ int32_t lab_s[kTile];
-  const int64_t r = blockIdx.x;
-  const int p = threadIdx.x;
-  // the incoming sum's load goes out before the staging and the gathers
-  int32_t lab = acc_in != nullptr && p < P ? __ldg(acc_in + r * P + p) : 0;
-  stage_wire(packed2 + r * s2, vbits + r * s8, s2, s8, 0, w2, wv);
-  __syncthreads();
-  uint64_t c;
-  if (p < P && window_kmer(w2, wv, p, k, &c))
-    lab += kmer_label<LAYOUT>(c, main_rows, stash_rows, nb_bits, stash_bits,
-                              bucket_start, nb_local, stash_start, nbs_local,
-                              c1, c2, c3, slots, num_choices);
-  lab_s[p] = lab;
-  __syncthreads();
-  if (p >= 32) return;
-  constexpr int E = kTile / 32;
-  int32_t a[E];
-  int total = 0;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    a[e] = lab_s[32 * e + p];
-    total += a[e] > 0;
-  }
-  warp_score<E>(a, total, p, results + r * 5);
+// The fused query and score takes reads of up to kMaxTiles tiles, the
+// rows of score.cu's warp path (kWarpMax = 1,024 windows).
+constexpr int kMaxTiles = 8;
+
+// Slots of a block's distinct-label table for T tiles: a power of two of at
+// least twice the block's windows, so linear probing finds a free slot in
+// a step or two.
+__host__ __device__ constexpr int table_slots(int tiles) {
+  int n = 1;
+  while (n < 2 * kTile * tiles) n <<= 1;
+  return n;
 }
+__host__ __device__ constexpr int log2_of(int n) {
+  return n <= 1 ? 0 : 1 + log2_of(n >> 1);
+}
+
+// Counts the label of the calling thread's window into the block's table
+// of SLOTS slots (keys[i] a label, 0 a free slot; counts[i] its windows):
+// the warp's lanes of one positive label are grouped by __match_any_sync
+// and the lowest of them adds the group's size once.  Every lane of the
+// warp calls it.
+template <int SLOTS>
+__device__ __forceinline__ void count_label(int32_t* keys, uint32_t* counts,
+                                            int32_t lab) {
+  const unsigned peers = __match_any_sync(kFull, lab > 0 ? lab : 0);
+  if (lab <= 0 || static_cast<int>(threadIdx.x & 31) != __ffs(peers) - 1)
+    return;
+  uint32_t h =
+      (static_cast<uint32_t>(lab) * 0x9E3779B1u) >> (32 - log2_of(SLOTS));
+  for (;; h = (h + 1) & (SLOTS - 1)) {
+    const int32_t prev = atomicCAS(keys + h, 0, lab);
+    if (prev == 0 || prev == lab) {
+      atomicAdd(counts + h, static_cast<uint32_t>(__popc(peers)));
+      return;
+    }
+  }
+}
+
+// b1, b2 := the top two of {b1, b2, c1, c2}: two sets of keys of distinct
+// labels, each given by its top two (b1 >= b2, c1 >= c2; 0 for none).
+__device__ __forceinline__ void merge_top2(unsigned long long& b1,
+                                           unsigned long long& b2,
+                                           unsigned long long c1,
+                                           unsigned long long c2) {
+  if (c1 > b1) {
+    b2 = b1 > c2 ? b1 : c2;
+    b1 = c1;
+  } else if (c1 > b2) {
+    b2 = c1;
+  }
+}
+
+// The warp's top two keys, in every lane (a butterfly: the lanes merged
+// at each step hold disjoint sets).
+__device__ __forceinline__ void warp_top2(unsigned long long& b1,
+                                          unsigned long long& b2) {
+  for (int o = 16; o > 0; o >>= 1)
+    merge_top2(b1, b2, __shfl_xor_sync(kFull, b1, o),
+               __shfl_xor_sync(kFull, b2, o));
+}
+
+// Scores the block's table into out[0..5): every label of the table has
+// its exact count, so the best is the largest run_key (count, label) of its
+// slots and the second the next largest, which is of another label; total
+// is the sum of the counts.  Each thread keeps the top two of the slots it
+// reads, each warp merges them, then warp 0 merges the warps' (red and
+// red_total hold a slot a warp).
+template <int SLOTS>
+__device__ __forceinline__ void score_table(const int32_t* keys,
+                                            const uint32_t* counts,
+                                            unsigned long long* red,
+                                            int* red_total, int32_t* out) {
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long b1 = 0, b2 = 0;
+  int total = 0;
+  for (int i = threadIdx.x; i < SLOTS; i += blockDim.x) {
+    const int32_t v = keys[i];
+    if (v > 0) {
+      const uint32_t n = counts[i];
+      total += static_cast<int>(n);
+      keep_top2(run_key(n, v), b1, b2);
+    }
+  }
+  warp_top2(b1, b2);
+  total = warp_sum(total);
+  if (lane == 0) {
+    red[2 * warp] = b1;
+    red[2 * warp + 1] = b2;
+    red_total[warp] = total;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  b1 = lane < warps ? red[2 * lane] : 0ull;
+  b2 = lane < warps ? red[2 * lane + 1] : 0ull;
+  warp_top2(b1, b2);
+  total = warp_sum(lane < warps ? red_total[lane] : 0);
+  if (lane == 0) write_result(out, total, b1, b2);
+}
+
+// Windows a thread of the fused kernel takes for reads of T tiles of a
+// layout: one for qs and q4; for s2 three at three tiles (the paired 320
+// bin: a thread's three windows, their dependent gathers in flight
+// together, ran 14% faster than a window a thread on an H100) and two
+// past four tiles (a block of one thread a window, at 38 registers a
+// thread, would take an SM's registers alone), else one.  fused_threads
+// is a block's most threads; a launch takes whole warps enough for its P
+// windows (fused_block), so the empty end of a read's last tile holds no
+// warps, and one tile keeps its kTile threads.
+__host__ __device__ constexpr int fused_windows(int layout, int tiles) {
+  return layout != kS2 ? 1 : tiles == 3 ? 3 : tiles > 4 ? 2 : 1;
+}
+__host__ __device__ constexpr int fused_threads(int layout, int tiles) {
+  return kTile * tiles / fused_windows(layout, tiles);
+}
+int fused_block(int layout, int tiles, int P) {
+  if (tiles == 1) return kTile;
+  const int per = fused_windows(layout, tiles);
+  return 32 * ((P + 32 * per - 1) / (32 * per));
+}
+
+// Query and score of reads of T tiles (P <= T * kTile windows, T <=
+// kMaxTiles): a block per read stages the read's bases [0, T * kTile + 32)
+// once; each thread runs query_kernel's wire front half and gathers over
+// the call's ranges for its windows p = threadIdx.x + i * blockDim.x
+// (fused_windows of them), then the labels are scored into results row r.
+// One tile (T = 1) is scored by warp 0 from shared memory (warp_score.cuh,
+// score.cu's warp path); wider reads count each label into the block's
+// distinct-label table in shared memory (count_label) and score the table
+// (score_table).  The labels never reach device memory.  stash_rows and
+// stash_bits are qs's (null: no stash probe, as in query_kernel's part
+// mode); slots and num_choices s2's.  The ranges are query_kernel's: the
+// whole table for the resident step, one db shard (of one part) for the
+// last launch of a data block of a mesh step or of a streamed batch's last
+// part.  acc_in, when not null, is the int32 [R, P] sum of the block's
+// other launches (the other db shards, the earlier parts): window p's
+// label is acc_in[r, p] plus its own, read once, coalesced, and never
+// written back.  An invalid window adds nothing to acc_in's value (0
+// there: no launch gives it a label).
+template <int LAYOUT, int T>
+__global__ void __launch_bounds__(fused_threads(LAYOUT, T))
+    query_score_kernel(
+        const uint8_t* __restrict__ packed2,
+        const uint8_t* __restrict__ vbits, const void* __restrict__ main_rows,
+        const uint4* __restrict__ stash_rows,
+        const int32_t* __restrict__ acc_in, int32_t* __restrict__ results,
+        int P, int s2, int s8, int k, int nb_bits, int stash_bits,
+        uint64_t bucket_start, uint64_t nb_local, uint64_t stash_start,
+        uint64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
+        int num_choices) {
+  constexpr int kWin = fused_windows(LAYOUT, T);
+  constexpr int kSlots = table_slots(T);
+  __shared__ uint32_t w2[w2_words(T)];
+  __shared__ uint32_t wv[v_words(T)];
+  __shared__ int32_t keys[kSlots];
+  __shared__ uint32_t counts[kSlots];
+  const int64_t r = blockIdx.x;
+  // the incoming sum's loads go out before the staging and the gathers
+  int32_t lab[kWin];
+#pragma unroll
+  for (int i = 0; i < kWin; ++i) {
+    const int p = threadIdx.x + i * blockDim.x;
+    lab[i] = acc_in != nullptr && p < P ? __ldg(acc_in + r * P + p) : 0;
+  }
+  if constexpr (T > 1) {
+    for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
+      keys[i] = 0;
+      counts[i] = 0;
+    }
+  }
+  stage_wire<T>(packed2 + r * s2, vbits + r * s8, s2, s8, 0, w2, wv);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kWin; ++i) {
+    const int p = threadIdx.x + i * blockDim.x;
+    uint64_t c;
+    if (p < P && window_kmer(w2, wv, p, k, &c))
+      lab[i] += kmer_label<LAYOUT>(c, main_rows, stash_rows, nb_bits,
+                                   stash_bits, bucket_start, nb_local,
+                                   stash_start, nbs_local, c1, c2, c3, slots,
+                                   num_choices);
+  }
+  if constexpr (T == 1) {
+    __shared__ int32_t lab_s[kTile];
+    const int p = threadIdx.x;
+    lab_s[p] = lab[0];
+    __syncthreads();
+    if (p >= 32) return;
+    constexpr int E = kTile / 32;
+    int32_t a[E];
+    int total = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      a[e] = lab_s[32 * e + p];
+      total += a[e] > 0;
+    }
+    warp_score<E>(a, total, p, results + r * 5);
+  } else {
+    constexpr int kWarps = fused_threads(LAYOUT, T) / 32;
+    __shared__ unsigned long long red[2 * kWarps];
+    __shared__ int red_total[kWarps];
+#pragma unroll
+    for (int i = 0; i < kWin; ++i) count_label<kSlots>(keys, counts, lab[i]);
+    __syncthreads();
+    score_table<kSlots>(keys, counts, red, red_total, results + r * 5);
+  }
+}
+
+// The fused kernel of one layout for reads of T tiles, and of `tiles`,
+// in blocks of `threads`.
+template <int LAYOUT, int T, typename... Args>
+void launch_tiles(unsigned grid, int threads, cudaStream_t st,
+                  Args... args) {
+  query_score_kernel<LAYOUT, T><<<grid, threads, 0, st>>>(args...);
+}
+
+template <int LAYOUT, typename... Args>
+bool launch_fused(int tiles, int P, unsigned grid, cudaStream_t st,
+                  Args... args) {
+  const int b = fused_block(LAYOUT, tiles, P);
+  switch (tiles) {
+    case 1: launch_tiles<LAYOUT, 1>(grid, b, st, args...); break;
+    case 2: launch_tiles<LAYOUT, 2>(grid, b, st, args...); break;
+    case 3: launch_tiles<LAYOUT, 3>(grid, b, st, args...); break;
+    case 4: launch_tiles<LAYOUT, 4>(grid, b, st, args...); break;
+    case 5: launch_tiles<LAYOUT, 5>(grid, b, st, args...); break;
+    case 6: launch_tiles<LAYOUT, 6>(grid, b, st, args...); break;
+    case 7: launch_tiles<LAYOUT, 7>(grid, b, st, args...); break;
+    case 8: launch_tiles<LAYOUT, 8>(grid, b, st, args...); break;
+    default: return false;
+  }
+  return true;
+}
+static_assert(kMaxTiles == 8, "launch_fused has a case per tile count");
 
 // One layout's kernel over one front half.
 template <int LAYOUT>
@@ -578,15 +786,16 @@ extern "C" int cuclark_query(int layout, int codes, const void* packed2,
 }
 
 // results int32 [R, 5] (as cuclark_score's) of the wire batch packed2 uint8
-// [R, s2], vbits uint8 [R, s8], P = 4*s2 - k + 1 <= 128 (one tile a read),
-// against main rows [bucket_start, bucket_start + nb_local) of a table of
-// 2^nb_bits rows of a layout (as cuclark_query's: qs and q4 int32
-// [nb_local, 8], s2 int32 [nb_local, 3*slots]) and, for qs, stash rows
-// [stash_start, stash_start + nbs_local) of 2^stash_bits, int32
-// [nbs_local, 8], or null (no stash probe; q4 and s2 pass null).  acc_in:
-// int32 [R, P] added to the labels before they are scored, or null.  The
-// resident step passes the whole table and a null acc_in.  Launches on
-// `stream` and returns cudaGetLastError().
+// [R, s2], vbits uint8 [R, s8], P = 4*s2 - k + 1 <= kMaxTiles * kTile =
+// 1,024 windows a read (a block of ceil(P / kTile) tiles), against main
+// rows [bucket_start, bucket_start + nb_local) of a table of 2^nb_bits rows
+// of a layout (as cuclark_query's: qs and q4 int32 [nb_local, 8], s2 int32
+// [nb_local, 3*slots]) and, for qs, stash rows [stash_start, stash_start +
+// nbs_local) of 2^stash_bits, int32 [nbs_local, 8], or null (no stash
+// probe; q4 and s2 pass null).  acc_in: int32 [R, P] added to the labels
+// before they are scored, or null.  The resident step passes the whole
+// table and a null acc_in.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int cuclark_query_score_range(
     int layout, const void* packed2, const void* vbits, const void* main_rows,
     const void* stash_rows, const void* acc_in, void* results, int64_t R,
@@ -595,7 +804,7 @@ extern "C" int cuclark_query_score_range(
     int64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
     int num_choices, void* stream) {
   if (R == 0) return static_cast<int>(cudaSuccess);
-  if (R > 0x7FFFFFFF || P < 1 || P > kTile || k < 2 || k > 32 ||
+  if (R > 0x7FFFFFFF || P < 1 || P > kMaxTiles * kTile || k < 2 || k > 32 ||
       (layout != kQs && stash_rows != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -609,25 +818,30 @@ extern "C" int cuclark_query_score_range(
   const uint64_t sstart = static_cast<uint64_t>(stash_start);
   const uint64_t slocal = static_cast<uint64_t>(nbs_local);
   const unsigned grid = static_cast<unsigned>(R);
+  const int tiles = (P + kTile - 1) / kTile;
+  bool launched = false;
   switch (layout) {
     case kQs:
-      query_score_kernel<kQs><<<grid, kTile, 0, st>>>(
-          p2, vb, main_rows, stash, acc, out, P, s2, s8, k, nb_bits,
-          stash_bits, start, local, sstart, slocal, c1, c2, c3, slots,
-          num_choices);
+      launched = launch_fused<kQs>(tiles, P, grid, st, p2, vb, main_rows,
+                                   stash, acc, out, P, s2, s8, k, nb_bits,
+                                   stash_bits, start, local, sstart, slocal,
+                                   c1, c2, c3, slots, num_choices);
       break;
     case kQ4:
-      query_score_kernel<kQ4><<<grid, kTile, 0, st>>>(
-          p2, vb, main_rows, nullptr, acc, out, P, s2, s8, k, nb_bits, 0,
-          start, local, 0, 0, c1, c2, c3, slots, num_choices);
+      launched = launch_fused<kQ4>(tiles, P, grid, st, p2, vb, main_rows,
+                                   nullptr, acc, out, P, s2, s8, k, nb_bits,
+                                   0, start, local, uint64_t{0}, uint64_t{0},
+                                   c1, c2, c3, slots, num_choices);
       break;
     case kS2:
-      query_score_kernel<kS2><<<grid, kTile, 0, st>>>(
-          p2, vb, main_rows, nullptr, acc, out, P, s2, s8, k, nb_bits, 0,
-          start, local, 0, 0, c1, c2, c3, slots, num_choices);
+      launched = launch_fused<kS2>(tiles, P, grid, st, p2, vb, main_rows,
+                                   nullptr, acc, out, P, s2, s8, k, nb_bits,
+                                   0, start, local, uint64_t{0}, uint64_t{0},
+                                   c1, c2, c3, slots, num_choices);
       break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

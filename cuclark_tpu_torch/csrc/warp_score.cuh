@@ -1,9 +1,10 @@
 // One warp scores one read's labels: [total, best label, best count, second
-// label, second count], as cuclark_tpu/score.py:score_labels does.  Shared
-// by the score kernel's warp path (score.cu, score_warp_kernel) and the
-// fused query-and-score kernel of one-tile qs reads (query.cu,
-// query_score_kernel); score.cu's note says how it works.  Included inside
-// each file's anonymous namespace.
+// label, second count], as cuclark_tpu/score.py:score_labels does: the
+// score kernel's warp path (score.cu, score_warp_kernel); score.cu's note
+// says how it works.  The fused query-and-score kernel (query.cu,
+// query_score_kernel) scores its distinct-label table with the run keys,
+// top-two and reductions here.  Included inside each file's anonymous
+// namespace.
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 

@@ -24,15 +24,16 @@ a mesh, `parallel/mesh.py`); and the resident query over unpacked codes
 (`pipeline.classify_step`).  Their counts are kept per layout: `query`,
 `query_part` and `query_codes` for qs, the same names with `_q4` or `_s2`
 for the others.  `query_score` launches the query kernel's fused
-instance for one-tile reads against the resident table of any layout,
-which scores each read's labels on chip and returns the [R, 5] results
-(`pipeline.classify_step_packed` without labels), counted as
-`query_score` for qs and `query_score_q4` or `query_score_s2`.
-`query_score_part` launches the same instance over one range of rows,
-with the int32 [R, P] label sum of the batch's other range launches
-added before the score: the last launch of a data block of a mesh step,
-or of the last part of a streamed mesh step (`parallel/mesh.py`),
-counted as `query_score_part[_q4|_s2]`.  Both go through one C entry,
+instance for reads of up to QUERY_SCORE_MAX_WINDOWS windows against the
+resident table of any layout, which scores each read's labels on chip
+and returns the [R, 5] results (`pipeline.classify_step_packed` without
+labels), counted as `query_score` for qs and `query_score_q4` or
+`query_score_s2`.  `query_score_part` launches the same instance over
+one range of rows, with the int32 [R, P] label sum of the batch's other
+range launches added before the score: the last launch of a data block
+of a mesh step, or of the last part of a streamed step, on a mesh
+(`parallel/mesh.py`) or on one device (`pipeline.Classifier`), counted
+as `query_score_part[_q4|_s2]`.  Both go through one C entry,
 `cuclark_query_score_range`.  `score`
 launches the score kernel (`csrc/score.cu`), counted as `score` for rows
 of up to MAX_SCORE_WINDOWS windows and `score_long` for longer ones.
@@ -67,9 +68,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuclark_tpu_torc
 # (reads over 32,798 bases at k=31) go to its `score_long` entry.
 MAX_SCORE_WINDOWS = 32768
 
-# Longest label row of `query_score`: one tile of the query kernel
-# (csrc/query.cu kTile).
-QUERY_SCORE_MAX_WINDOWS = 128
+# Longest label row of `query_score`: kMaxTiles tiles of the query kernel
+# (csrc/query.cu), the rows of the score kernel's warp path (csrc/score.cu
+# kWarpMax): every read length bin up to 1024, paired 2 x 150 bp reads
+# (P = 290) among them.
+QUERY_SCORE_MAX_WINDOWS = 1024
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"query": 0, "query_part": 0, "query_codes": 0, "query_q4": 0,
@@ -396,7 +399,8 @@ def query_score(packed2: torch.Tensor, vbits: torch.Tensor,
     and, for qs, stash [2^stash_bits, 8] (None for q4 and s2); the wire
     batch's labels scored on chip -> results int32 [R, 5], as
     score(query(...)) gives them.  Rows of at most
-    QUERY_SCORE_MAX_WINDOWS windows."""
+    QUERY_SCORE_MAX_WINDOWS windows (a block of ceil(P / 128) tiles per
+    read)."""
     if (spec.layout == "qs") != (stash is not None):
         raise ValueError("the fused query and score takes a qs table with "
                          "its stash, a q4 or s2 table without one")

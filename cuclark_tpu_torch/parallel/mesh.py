@@ -22,15 +22,16 @@ devices and the sharded steps are loops over it:
                device (the JAX results are replicated along db; here
                each block's results exist once).
 
-Without labels (default CSV output), a block of one-tile reads
-(`probe.fuses_score`: 150 bp reads) ends in one launch of the query
+Without labels (default CSV output), a block of reads of up to 1,024
+windows (`probe.fuses_score`: 150 bp reads, paired 2 x 150 bp reads)
+ends in one launch of the query
 kernel's fused instance: shards 1..num_db-1 run first and sum on the
 column-0 device, then column 0's own shard runs as the fused range
 launch (`probe.query_score_part_results`), which adds that sum to its
 labels and scores them on chip.  A block so costs num_db - 1 range
 launches and one fused launch, and no score launch; a 1 x 1 mesh makes
 one launch a batch.  A streamed table's last part ends the same way.
-Extended output and wider rows (paired reads, long reads) keep the
+Extended output and wider rows (reads over 1,024 windows) keep the
 range launches, the sum and the score kernel.
 
 The devices of a mesh may repeat: eight handles of `cpu` stand in for
@@ -284,7 +285,7 @@ def build_sharded_classify(mesh: Mesh, *, k: int, spec: TableSpec,
     main and stash (qs; None for q4 and s2) are `shard_db_table`'s, nb_total
     and nbs_total the table's main and stash rows, wires `place_wire`'s.
     with_labels=False drops the labels (only extended output needs them);
-    a batch of one-tile reads then ends each block in the fused range
+    a batch that fuses then ends each block in the fused range
     launch (the module's docstring), any other in the score kernel.
     On a db axis that spans processes the local shards' sum is
     all-reduced over the process group before the score, so every
@@ -327,7 +328,7 @@ def build_sharded_probe_part(mesh: Mesh, *, k: int, spec: TableSpec,
     part_start + nb_part) row-sharded over 'db'.  A qs stash ([d][j],
     `shard_rows`) is probed on one part per batch only.  With acc (a list
     of blocks), the labels add into it in place.  scored=True, for the last
-    part of a batch of one-tile reads whose labels nobody needs
+    part of a batch that fuses and whose labels nobody needs
     (`probe.fuses_score`), ends each block in the fused range launch and
     returns its results [Rb, 5] instead: the other shards add into acc
     (or a new sum), column 0's shard adds that sum and scores.  On a db

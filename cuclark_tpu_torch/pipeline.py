@@ -30,9 +30,9 @@ over the data axis (`parallel.mesh`); when even a device's shard exceeds
 the budget, each device streams its shard of every part (the reference's
 cycles x devices x parts).  A batch's device results are then a list of
 blocks, one per data index, which the readback concatenates.  Without
-labels, a mesh batch of one-tile reads ends each block in the fused
-query and score, resident or on a streamed table's last part; a single
-device's streamed batches end in the score kernel.
+labels, a batch of reads of up to 1,024 windows (`probe.fuses_score`)
+ends in the fused query and score: resident, in each block of a mesh,
+and on a streamed table's last part, on a mesh or on one device.
 """
 
 from __future__ import annotations
@@ -68,9 +68,9 @@ def classify_step_packed(table, packed2, vbits, *, k, spec: TableSpec,
     int32 [R, P] or None).  `table` and `stash` are what
     hashdb.table_to_device gives for the layout `spec` (KmerDB.spec):
     the qs main rows [NB, 8] and stash rows [NBS, 8], or the q4 or s2
-    rows with stash None.  Without labels, one-tile reads take the fused
-    query and score (`probe.fuses_score`), on every layout: the same
-    results, the labels never leaving the chip."""
+    rows with stash None.  Without labels, reads of up to 1,024 windows
+    take the fused query and score (`probe.fuses_score`), on every
+    layout: the same results, the labels never leaving the chip."""
     if not with_labels and probe.fuses_score(packed2, k):
         return probe.query_score_results(packed2, vbits, table, stash, k=k,
                                          spec=spec), None
@@ -514,18 +514,21 @@ class Classifier:
         choice is range-checked on its own), and a qs table's resident
         stash is probed on part 0's call only.  The labels
         accumulate in place on the device, and on the card part p+1
-        uploads while part p probes (_PartStream).  Returns (results,
-        labels in extended mode else None) per batch, on the device."""
+        uploads while part p probes (_PartStream).  Without labels, the
+        last part of a batch that fuses (`probe.fuses_score`) is the
+        fused range launch, which adds the earlier parts' sum and scores
+        it: no score launch for that batch.  Returns (results, labels in
+        extended mode else None) per batch, on the device."""
         rows = self.np_table.shape[0] // self.stream_parts
         ext = self.cfg.extended
         acc = [None] * len(wires)
+        last = self.stream_parts - 1
         if self.mesh is not None:
             # each part row-sharded over 'db', each batch over 'data'
             # (cycles x devices x parts): the sharded part step sums a
             # batch's shards into its blocks' accumulators; the last part
-            # of a batch of one-tile reads without labels ends each block
-            # in the fused launch, which scores the sum
-            last = self.stream_parts - 1
+            # of a batch that fuses, without labels, ends each block in
+            # the fused launch, which scores the sum
             fused = [not ext and not self.mesh.spans_processes
                      and probe.fuses_score(w[0][0][0], self.db.k)
                      for w in wires]
@@ -549,13 +552,22 @@ class Classifier:
             parts = ((p, torch.from_numpy(
                 self.np_table[p * rows:(p + 1) * rows].view(np.int32)))
                 for p in range(self.stream_parts))
+        fused = [not ext and probe.fuses_score(p2, self.db.k)
+                 for p2, _ in wires]
+        out = [None] * len(wires)
         for p, part in parts:
             for gi, (p2, vb) in enumerate(wires):
-                acc[gi] = probe.query_part_labels(
-                    p2, vb, part, self.stash if p == 0 else None,
-                    bucket_start=p * rows, nb_local=rows, k=self.db.k,
-                    spec=self.spec, acc=acc[gi])
-        return [(score.score_labels(a), a if ext else None) for a in acc]
+                args = dict(bucket_start=p * rows, nb_local=rows,
+                            k=self.db.k, spec=self.spec)
+                stash = self.stash if p == 0 else None
+                if p == last and fused[gi]:
+                    out[gi] = (probe.query_score_part_results(
+                        p2, vb, part, stash, acc_in=acc[gi], **args), None)
+                else:
+                    acc[gi] = probe.query_part_labels(p2, vb, part, stash,
+                                                      acc=acc[gi], **args)
+        return [out[gi] or (score.score_labels(a), a if ext else None)
+                for gi, a in enumerate(acc)]
 
     def _mesh_parts(self):
         """Yield (part index, [d][j] device rows of the part's db shards)

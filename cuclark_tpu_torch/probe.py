@@ -10,10 +10,11 @@ bucket-range part of a streamed table or one db shard of a mesh (a range
 of main rows and a range of stash rows, `cuclark_tpu/parallel/mesh.py`),
 and of the front of `cuclark_tpu/pipeline.py:classify_step` (:48), the
 chain from unpacked codes.  `query_score_results` is the resident query
-of one-tile reads, of any layout, fused with `score.score_labels`, and
-`query_score_part_results` the same over one range of rows with the
-label sum of the batch's other range calls added before the score (the
-last launch of a mesh step's data block).  On
+of reads of up to `kernels.QUERY_SCORE_MAX_WINDOWS` windows, of any
+layout, fused with `score.score_labels`, and `query_score_part_results`
+the same over one range of rows with the label sum of the batch's other
+range calls added before the score (the last launch of a mesh step's
+data block, or of a streamed batch's last part).  On
 a CUDA tensor each is one launch of the hand-written kernel
 `csrc/query.cu`;
 the plain PyTorch versions here are what the wrappers run on CPU
@@ -237,9 +238,9 @@ def query_labels(packed2: torch.Tensor, vbits: torch.Tensor,
 def fuses_score(packed2: torch.Tensor, k: int) -> bool:
     """Whether a step of this wire batch without labels ends in the fused
     query and score (`query_score_results`, or `query_score_part_results`
-    on a mesh), on a table of any layout: reads of at most
-    kernels.QUERY_SCORE_MAX_WINDOWS windows, one tile of the query
-    kernel."""
+    on a mesh or at a streamed batch's last part), on a table of any
+    layout: reads of at most kernels.QUERY_SCORE_MAX_WINDOWS windows
+    (every length bin up to 1024, paired 2 x 150 bp reads among them)."""
     P = 4 * packed2.shape[1] - k + 1
     return 1 <= P <= kernels.QUERY_SCORE_MAX_WINDOWS
 
@@ -256,7 +257,7 @@ def query_score_results_plain(packed2: torch.Tensor, vbits: torch.Tensor,
 def query_score_results(packed2: torch.Tensor, vbits: torch.Tensor,
                         main: torch.Tensor, stash: torch.Tensor | None, *,
                         k: int, spec: TableSpec) -> torch.Tensor:
-    """Per-read results int32 [R, 5] of a wire batch of one-tile reads
+    """Per-read results int32 [R, 5] of a wire batch of reads that fuse
     (see `fuses_score`) against a resident table (main rows and, for qs,
     the stash), the labels never leaving the chip: the query kernel's
     fused instance for CUDA tensors, its plain version for CPU
@@ -288,12 +289,12 @@ def query_score_part_results(
         stash: torch.Tensor | None, *, bucket_start: int, nb_local: int,
         k: int, spec: TableSpec, stash_start: int = 0,
         acc_in: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-read results int32 [R, 5] of a wire batch of one-tile reads
+    """Per-read results int32 [R, 5] of a wire batch of reads that fuse
     (see `fuses_score`) against one range of a table (the ranges of
     `query_part_labels`), the labels of the batch's other range calls,
     acc_in (int32 [R, P], only read; None: none), added before the
-    score: the last launch of a data block of a mesh step, whose labels
-    never leave the chip.  A qs stash of None skips the stash probe, which
+    score: the last launch of a data block of a mesh step, or of a
+    streamed batch's last part, whose labels never leave the chip.  A qs stash of None skips the stash probe, which
     is exact only when another call of the same batch probes it.  The
     query kernel's fused instance for CUDA tensors, its plain version for
     CPU tensors."""

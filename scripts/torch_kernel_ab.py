@@ -25,11 +25,23 @@ q4 and s2 of the same 64M 31-mers) and reads:
     both hash choices);
   - step_packed, step_packed_q4, step_packed_s2: the device step of
     `pipeline.classify_step_packed` without labels on the qs, q4 and s2
-    tables: a build with the fused query and score of that layout
-    launches it alone (`cuclark_query_score_range` over the whole table;
-    in an older build `cuclark_query_score` for qs and
+    tables: a build with the fused query and score of that layout for
+    the batch's width launches it alone (`cuclark_query_score_range` over
+    the whole table; in an older build `cuclark_query_score` for qs and
     `cuclark_query_score_layout` for q4 and s2), a build without it the
     wire query then the score kernel;
+  - query_290_qs, query_290_q4, query_290_s2, step_packed_290,
+    step_packed_290_q4, step_packed_290_s2: the same at the paired shape,
+    65,536 joined 2 x 150 bp pairs from 400 bp fragments in the 320 bin
+    (P = 290, three tiles a read); step_packed_290_many: pairs of 8
+    pieces of 32 bases from random genomes (8 labels a pair: the busiest
+    distinct-label table), step_packed_290_miss[_q4|_s2]: random pairs
+    that miss every table; step_packed_160[_q4|_s2] to
+    step_packed_1024[_q4|_s2]: steps of single-end reads one base
+    shorter than the bins 160, 192, 256, 320, 512 and 1024 (P = 130 to
+    994).  A build's fused entry takes the widths its source allows
+    (kMaxTiles tiles of 128 windows, one tile before it); wider rows
+    take the query then the score;
   - score_122, score_290: the score kernel on the labels of the 150 bp
     reads and of 65,536 joined 301 bp pairs (bin 320); score_122_many on
     [65,536, 122] random labels over 1..65,535 with 30% misses (rows of
@@ -51,6 +63,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -76,12 +89,20 @@ OLD_ENTRIES = {
 }
 
 
-def build_old(src: Path) -> tuple[ctypes.CDLL, bool]:
+def fused_max(query_cu: str) -> int:
+    """The widest row (windows) a build's fused query and score takes: its
+    kMaxTiles tiles of 128 windows, or one tile in a source without
+    kMaxTiles."""
+    m = re.search(r"constexpr int kMaxTiles = (\d+);", query_cu)
+    return 128 * (int(m.group(1)) if m else 1)
+
+
+def build_old(src: Path) -> tuple[ctypes.CDLL, bool, int]:
     """Build DIR's query.cu and score.cu into build/kernel_ab/ and bind
     the C entries it has, the package's and those of OLD_ENTRIES (before
-    the fused query and score, none of them).  Returns the library and
+    the fused query and score, none of them).  Returns the library,
     whether its score_long entry takes a scratch buffer (the sorting
-    design did)."""
+    design did) and the widest row of its fused entry."""
     from cuclark_tpu_torch import kernels
 
     path = ROOT / "build" / "kernel_ab" / src.resolve().name / "libold.so"
@@ -96,14 +117,15 @@ def build_old(src: Path) -> tuple[ctypes.CDLL, bool]:
     if scratch:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.cuclark_score_long.argtypes = [vp, vp, vp, i64, i32, i32, vp]
-    return lib, scratch
+    return lib, scratch, fused_max((src / "query.cu").read_text())
 
 
 class Kernels:
     """The C entries of one build, called on torch tensors on the card."""
 
-    def __init__(self, lib, score_scratch: bool):
+    def __init__(self, lib, score_scratch: bool, fused_windows: int):
         self.lib, self.score_scratch = lib, score_scratch
+        self.fused_windows = fused_windows
 
     def query(self, x, vb, main, stash, out, *, spec, k, bucket_start=0,
               stash_start=0, accumulate=False):
@@ -132,8 +154,8 @@ class Kernels:
 
     def step_packed(self, p2, vb, main, stash, labels, out, *, spec, k):
         """The device step without labels: the fused query and score where
-        the build has it for the table's layout, else the query into
-        `labels` then the score."""
+        the build has it for the table's layout and the batch's width,
+        else the query into `labels` then the score."""
         import torch
 
         from cuclark_tpu_torch import kernels
@@ -144,6 +166,9 @@ class Kernels:
         consts = feistel_seed_consts(spec.seed)
         st = torch.cuda.current_stream().cuda_stream
         lay = kernels._LAYOUT_CODE[spec.layout]
+        if P > self.fused_windows:
+            self.query(p2, vb, main, stash, labels, spec=spec, k=k)
+            return self.score(labels, out)
         if hasattr(self.lib, "cuclark_query_score_range"):
             err = self.lib.cuclark_query_score_range(
                 lay, p2.data_ptr(), vb.data_ptr(), main.data_ptr(),
@@ -206,24 +231,8 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def joined_pairs(genomes: np.ndarray, n: int) -> np.ndarray:
-    """n joined pairs as the pipeline packs them: mate 1 (the first 150
-    bases of a 400 bp fragment), an N, mate 2 (the reverse complement of
-    its last 150), 1% substitutions, padded with Ns to the 320 bin."""
-    import chip_smoke as cs
-    from cuclark_tpu_torch import codec
-
-    rng = np.random.default_rng(2)
-    src = rng.integers(0, len(genomes), size=n)
-    pos = rng.integers(0, cs.GENOME_LEN - cs.FRAGMENT + 1, size=n)
-    frag = genomes[src[:, None], pos[:, None] + np.arange(cs.FRAGMENT)]
-    m1 = cs._substitute(rng, frag[:, :cs.READ_LEN].copy())
-    m2 = cs._substitute(rng, (3 - frag[:, cs.FRAGMENT - cs.READ_LEN:])
-                        [:, ::-1].copy())
-    out = np.full((n, 320), codec.INVALID, np.uint8)
-    out[:, :cs.READ_LEN] = m1
-    out[:, cs.READ_LEN + 1:2 * cs.READ_LEN + 1] = m2
-    return out
+# single-end bins of the wide step cases (reads one base shorter)
+WIDE_BINS = (160, 192, 256, 320, 512, 1024)
 
 
 def main(argv=None) -> int:
@@ -254,7 +263,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    new = Kernels(kernels.load(), False)
+    new = Kernels(kernels.load(), False, kernels.QUERY_SCORE_MAX_WINDOWS)
     olds = {d.resolve().name: Kernels(*build_old(d)) for d in args.old}
     print(f"built {len(olds) + 1} sets in {time.time() - t0:.1f} s",
           flush=True)
@@ -264,7 +273,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as td:
         codes, _ = cs.write_reads(genomes, args.reads, Path(td) / "r.fq")
         long_codes = cs.write_long_reads(genomes, Path(td) / "l.fq")
-    pairs = joined_pairs(genomes, args.reads)
+    pairs = cs.joined_pairs(genomes, args.reads)
+    wide = {"290": pairs, "290_many": cs.chimeric_pairs(genomes,
+                                                         args.reads)}
+    wide.update((str(b), cs.bin_reads(genomes, args.reads, b))
+                for b in WIDE_BINS)
     del genomes
     print(f"tables and reads in {time.time() - t0:.1f} s", flush=True)
 
@@ -282,6 +295,11 @@ def main(argv=None) -> int:
         lpad[i, :len(c)] = c
     lp2, lvb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(lpad))
     pp2, pvb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(pairs))
+    # the wide batches: name -> (packed2, vbits, codes on the card)
+    wide = {n: (*(torch.from_numpy(a).to(dev) for a in codec.pack_codes(c)),
+                torch.from_numpy(c).to(dev)) for n, c in wide.items()}
+    wide["290_miss"] = (*(torch.from_numpy(a).to(dev)
+                          for a in cs.miss_batch(R, 320)), None)
     del lpad, pairs
 
     tables = {lay: table_to_device(db, dev) for lay, db in dbs.items()}
@@ -301,7 +319,7 @@ def main(argv=None) -> int:
     lab_many = torch.from_numpy(many).to(dev)
     del many
     lab_long = labels_of(lp2, lvb, L_long)
-    del lp2, lvb, pp2, pvb
+    del lp2, lvb
     Pp_long = 1 << (lab_long.shape[1] - 1).bit_length()
     scratch = torch.empty((lab_long.shape[0], Pp_long), dtype=torch.int32,
                           device=dev) if any(
@@ -323,6 +341,22 @@ def main(argv=None) -> int:
     for lay in dbs:
         bound[f"query_part_{lay}"] = cs._bound_ms(cs.query_bytes(
             touched[lay], spec[lay], wire_b, lab_b, cs.STREAM_PARTS[lay]))
+    # the wide batches' touched rows: the pairs on every table, the rest
+    # on qs's; an all-miss batch reads each window's rows as a miss does
+    for n, (x, v, c) in wide.items():
+        lays = ("qs",) if n == "290_many" else dbs
+        cw = c if c is not None else codec.unpack_codes(x, v)
+        P_w = 4 * x.shape[1] - k + 1
+        for lay in lays:
+            t = cs.touched_rows(cw, spec[lay], k, tables[lay][0])
+            suffix = "" if lay == "qs" else f"_{lay}"
+            if n == "290":
+                bound[f"query_290_{lay}"] = cs._bound_ms(cs.query_bytes(
+                    t, spec[lay], x.numel() + v.numel(), 4 * R * P_w))
+            bound[f"step_packed_{n}{suffix}"] = cs._bound_ms(
+                cs.query_bytes(t, spec[lay], x.numel() + v.numel(), 20 * R))
+            del t
+        del cw
     bound["classify_step"] = cs._bound_ms(cs.query_bytes(
         touched["qs"], spec["qs"], R * 152, 20 * R))
     bound["step_packed"] = cs._bound_ms(cs.query_bytes(
@@ -386,6 +420,23 @@ def main(argv=None) -> int:
                 lambda main=main, lay=lay: kern.step_packed(
                     p2, vb, main, None, wire_lab, packed_out, spec=spec[lay],
                     k=k), 1, packed_out)
+        for n, (x, v, _) in wide.items():
+            P_w = 4 * x.shape[1] - k + 1
+            w_lab = torch.empty((R, P_w), dtype=torch.int32, device=dev)
+            w_out = torch.empty((R, 5), dtype=torch.int32, device=dev)
+            for lay in (("qs",) if n == "290_many" else dbs):
+                main, stash = tables[lay]
+                suffix = "" if lay == "qs" else f"_{lay}"
+                if n == "290":
+                    cases[f"query_290_{lay}"] = (
+                        lambda x=x, v=v, main=main, stash=stash, lay=lay,
+                        o=w_lab: kern.query(x, v, main, stash, o,
+                                            spec=spec[lay], k=k), 1, w_lab)
+                cases[f"step_packed_{n}{suffix}"] = (
+                    lambda x=x, v=v, main=main, stash=stash, lay=lay,
+                    lab=w_lab, o=w_out: kern.step_packed(
+                        x, v, main, stash, lab, o, spec=spec[lay], k=k), 1,
+                    w_out)
         for n, lab in (("122", lab122), ("290", lab290),
                        ("122_many", lab_many), ("long", lab_long)):
             cases[f"score_{n}"] = (
@@ -436,11 +487,9 @@ def main(argv=None) -> int:
         result["cases"][name] = case
         print(", ".join(line) + f"; bound {bound[name]:.4f} ms, new at "
               f"{bound[name] / new_med:.1%} of it", flush=True)
-    for name in ("classify_step", "step_packed", "step_packed_q4",
-                 "step_packed_s2"):
-        if name not in result["cases"]:
+    for name, c in result["cases"].items():
+        if not name.startswith(("classify_step", "step_packed")):
             continue
-        c = result["cases"][name]
         c["new_reads_per_s"] = R / (c["new_median_ms"] / 1e3)
         for o in olds:
             c[o]["reads_per_s"] = R / (c[o]["median_ms"] / 1e3)

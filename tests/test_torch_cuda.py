@@ -584,9 +584,12 @@ def fused_case(k, L, layout="qs"):
 
 # (k, L): the wire batch's P = Lp - k + 1 <= 128, Lp = L rounded up to 8
 FUSED = [(15, 128), (17, 144), (27, 152), (31, 128), (31, 152), (32, 152)]
+# reads of two to eight tiles: the 160, 256, 320 (joined 2 x 150 bp pairs)
+# and 1024 bins at k 27 and 31 (P 130 to 998)
+FUSED_WIDE = [(k, L) for L in (160, 256, 320, 1024) for k in (27, 31)]
 
 
-@pytest.mark.parametrize("k,L", FUSED)
+@pytest.mark.parametrize("k,L", FUSED + FUSED_WIDE)
 def test_query_score_kernel_matches_plain(dev, k, L):
     """The fused query and score (one launch) against its plain version
     and against the query kernel then the score kernel: a poly-A read, a
@@ -638,17 +641,47 @@ def test_query_score_kernel_full_batch(dev):
     assert hits > R // 2
 
 
-@pytest.mark.parametrize("L,fused", [(152, True), (160, False)])
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+def test_query_score_kernel_paired_full_batch(dev, layout):
+    """A batch of exactly 65,536 joined pairs in the 320 bin (mate 1, an
+    N, mate 2: P = 290, three tiles a read), fused_case's reads repeated
+    with 1% of their bases changed, one launch against plain and against
+    the query kernel then the score kernel."""
+    k, L, R = 31, 320, 65536
+    db, codes = fused_case(k, L, layout)
+    rng = np.random.default_rng(11)
+    batch = np.resize(codes, (R, L))
+    change = rng.random((R, L)) < 0.01
+    batch[change] = rng.integers(0, 4, size=int(change.sum()))
+    batch[:, 150] = codec.INVALID                  # the joining N
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(batch))
+    main, stash = hashdb.table_to_device(db, dev)
+    args = dict(k=k, spec=db.spec)
+    name = "query_score" + ("" if layout == "qs" else f"_{layout}")
+    before = dict(kernels.LAUNCHES)
+    got = probe.query_score_results(p2, vb, main, stash, **args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(got, probe.query_score_results_plain(
+        p2, vb, main, stash, **args))
+    assert torch.equal(got, score.score_labels(probe.query_labels(
+        p2, vb, main, stash, **args)))
+    assert int((got[:, 2] > 0).sum()) > R // 2
+
+
+@pytest.mark.parametrize("L,fused", [(152, True), (160, True), (320, True),
+                                     (1024, True), (1088, False)])
 def test_classify_step_packed_takes_fused_kernel(dev, L, fused):
     """classify_step_packed without labels launches the fused kernel
-    alone for one-tile reads (P = 122 at L 152) and the query and score
-    kernels for wider ones (P = 130 at L 160); with labels, always the
-    two.  The results are the same."""
+    alone for reads of up to 1,024 windows (P = 122 at L 152, 130 at
+    160, 290 at 320, 994 at 1024) and the query and score kernels for
+    wider ones (P = 1,058 at L 1088); with labels, always the two.  The
+    results are the same."""
     from cuclark_tpu_torch import pipeline
 
     k = 31
     db, codes = _qs_case(dev, k, 77)               # [256, 152]
-    codes = np.concatenate([codes, codes[:, :L - 152]], axis=1)
+    codes = np.concatenate([codes] * 8, axis=1)[:, :L]
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
     main, stash = hashdb.table_to_device(db, dev)
     args = dict(k=k, spec=db.spec, stash=stash)
@@ -669,15 +702,15 @@ def test_classify_step_packed_takes_fused_kernel(dev, L, fused):
 
 
 def test_query_score_refuses_what_it_does_not_take(dev):
-    """Rows over one tile, a table of another layout and a missing stash
-    raise ValueError before anything launches."""
+    """Rows over 1,024 windows, a table of another layout and a missing
+    stash raise ValueError before anything launches."""
     k = 31
     db, codes = _qs_case(dev, k, 12)
     main, stash = hashdb.table_to_device(db, dev)
-    wide = np.concatenate([codes, codes[:, :8]], axis=1)      # P = 130
+    wide = np.concatenate([codes] * 7, axis=1)                # P = 1,034
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(wide))
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="P <= 128"):
+    with pytest.raises(ValueError, match="P <= 1024"):
         kernels.query_score(p2, vb, main, stash, k=k, spec=db.spec)
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
     with pytest.raises(ValueError, match="stash"):
@@ -688,7 +721,7 @@ def test_query_score_refuses_what_it_does_not_take(dev):
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("k,L", FUSED)
+@pytest.mark.parametrize("k,L", FUSED + FUSED_WIDE)
 @pytest.mark.parametrize("layout", ["q4", "s2"])
 def test_layout_query_score_kernel_matches_plain(dev, layout, k, L):
     """The fused q4 or s2 query and score (one launch, counted as
@@ -773,8 +806,13 @@ def test_profile_twice_in_one_process(dev, tmp_path):
                                                  ).read_bytes()
 
 
-# (P, k, L) of the fused range entry's card tests
-FUSED_RANGE_P = [(1, 32, 32), (64, 25, 88), (122, 31, 152), (128, 25, 152)]
+# (P, k, L) of the fused range entry's card tests: one tile, then two to
+# eight (129 to 1,024 windows; 290 the joined 2 x 150 bp pairs)
+FUSED_RANGE_P = [(1, 32, 32), (64, 25, 88), (122, 31, 152), (128, 25, 152),
+                 (129, 32, 160), (130, 31, 160), (162, 31, 192),
+                 (226, 31, 256), (256, 25, 280), (290, 31, 320),
+                 (294, 27, 320), (482, 31, 512), (994, 31, 1024),
+                 (998, 27, 1024), (1024, 25, 1048)]
 
 
 @pytest.mark.parametrize("acc", ["random", "none"])

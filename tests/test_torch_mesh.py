@@ -622,16 +622,18 @@ def test_fused_sharded_step_matches_jax(num_data, num_db, handles, layout, k,
     assert (got[8:, 2] > 0).all()
 
 
-# (P, k, L): the fused route's edges, and the first width past one tile
-EDGE_P = [(1, 32, 32), (122, 31, 152), (128, 25, 152), (129, 24, 152)]
+# (P, k, L): the fused route's edges (one window, one tile, two tiles,
+# the joined pairs' three, the widest) and the first width past it
+EDGE_P = [(1, 32, 32), (122, 31, 152), (128, 25, 152), (129, 24, 152),
+          (290, 31, 320), (1024, 25, 1048), (1025, 32, 1056)]
 
 
 @pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
 @pytest.mark.parametrize("P_,k,L", EDGE_P)
 def test_sharded_step_route_by_width(P_, k, L, layout, monkeypatch):
-    """On a 2 x 2 mesh of mixed handles, rows of 1, 122 and 128 windows
-    take the fused range launch and 129 the range launches, the sum and
-    the score; the results equal the JAX package's either way."""
+    """On a 2 x 2 mesh of mixed handles, rows of 1 to 1,024 windows take
+    the fused range launch and 1,025 the range launches, the sum and the
+    score; the results equal the JAX package's either way."""
     db, codes, (p2, vb) = _fused_case(layout, k, L)
     assert 4 * p2.shape[1] - k + 1 == P_
     m = mesh.make_mesh(2, 2, MIXED8[:4])
@@ -699,6 +701,58 @@ def test_fused_stream_last_part_matches_jax(num_data, num_db, handles,
                      "query_score_part_results": num_data}
     np.testing.assert_array_equal(np.concatenate([b.numpy() for b in res]),
                                   want)
+
+
+def _pairs_files(tmp, genomes, n, seed):
+    """n FASTQ pairs of 150 bp mates from 400 bp fragments of the genomes
+    (mate 2 reverse-complemented; joined, 301 bases in the 320 bin: P =
+    300 at K = 21, three tiles), an N in every 5th fragment."""
+    rng = random.Random(seed)
+    comp = str.maketrans("ACGT", "TGCA")
+    r1, r2 = tmp / "r1.fq", tmp / "r2.fq"
+    with open(r1, "w") as f1, open(r2, "w") as f2:
+        for i in range(n):
+            g = genomes[rng.randrange(len(genomes))]
+            pos = rng.randrange(0, len(g) - 400)
+            frag = list(g[pos:pos + 400])
+            if i % 5 == 0:
+                frag[rng.randrange(400)] = "N"
+            m1 = "".join(frag[:150])
+            m2 = "".join(frag[250:]).translate(comp)[::-1]
+            f1.write(f"@p{i}/1\n{m1}\n+\n{'I' * 150}\n")
+            f2.write(f"@p{i}/2\n{m2}\n+\n{'I' * 150}\n")
+    return r1, r2
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_mesh_classifier_paired_matches_resident(dbs, tmp_path, streamed,
+                                                 monkeypatch):
+    """Classifier on a 2 x 2 mesh of CPU handles on paired reads (three
+    tiles a pair), resident and streamed in parts: every batch's blocks
+    end in the fused range launch, no score call runs, and the CSV equals
+    the single-device resident CSV and the JAX package's."""
+    db, jdb, genomes = dbs
+    r1, r2 = _pairs_files(tmp_path, genomes, 37, 41)
+    budget = db.table.nbytes / 2 / 4 / 1e6 if streamed else None
+    cfg = ClassifyConfig(batch_reads=16, stream_group=2, max_table_mb=budget)
+    single = tmp_path / "single.csv"
+    pipeline.Classifier(db, ClassifyConfig(batch_reads=16),
+                        device="cpu").classify_file_to_csv(str(r1), single,
+                                                           str(r2))
+    calls = _counting(monkeypatch)
+    clf = pipeline.Classifier(db, cfg, mesh=mesh.make_mesh(2, 2, CPU8[:4]))
+    assert (clf.stream_parts > 1) == streamed
+    out = tmp_path / "mesh.csv"
+    assert clf.classify_file_to_csv(str(r1), out, str(r2)) == 37
+    batches = 3
+    assert calls["query_score_part_results"] == batches * 2
+    assert calls["score_labels"] == 0
+    assert calls["query_part_labels"] == batches * 2 * (
+        clf.stream_parts * 2 - 1)
+    jout = tmp_path / "jax.csv"
+    jpipeline.Classifier(jdb, JClassifyConfig(batch_reads=16)
+                         ).classify_file_to_csv(str(r1), jout, str(r2))
+    assert out.read_bytes() == single.read_bytes() == jout.read_bytes()
 
 
 def _short_reads_file(path, genomes, n, seed):

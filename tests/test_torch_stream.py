@@ -152,6 +152,76 @@ def test_cli_streamed_csv_matches_jax(setup, tmp_path, capsys, flags):
     assert out.read_bytes() == jout.read_bytes()
 
 
+@pytest.fixture(scope="module")
+def wide_reads(setup):
+    """Reads of the 320 bin from the setup's genomes: 40 pairs of 150 bp
+    mates from 400 bp fragments (mate 2 reverse-complemented; joined with
+    an N, 301 bases: P = 300 at k = 21, three tiles) and 40 single-end
+    reads of 300 bp, an N in every 7th."""
+    tmp = setup[0]
+    genomes = [(tmp / f"g{t}.fa").read_text().split("\n")[1]
+               for t in (1, 2, 3)]
+    comp = str.maketrans("ACGT", "TGCA")
+    rng = random.Random(5)
+    files = {n: tmp / f"{n}.fq" for n in ("r1", "r2", "long")}
+    recs = {n: [] for n in files}
+    for i in range(40):
+        g = genomes[rng.randrange(3)]
+        pos = rng.randrange(0, len(g) - 400)
+        frag = list(g[pos:pos + 400])
+        if i % 7 == 0:
+            frag[rng.randrange(400)] = "N"
+        m2 = "".join(frag[250:]).translate(comp)[::-1]
+        recs["r1"].append((f"p{i}/1", "".join(frag[:150])))
+        recs["r2"].append((f"p{i}/2", m2))
+        recs["long"].append((f"l{i}", "".join(frag[:300])))
+    for n, path in files.items():
+        path.write_text("".join(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n"
+                                for name, seq in recs[n]))
+    return files
+
+
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("reads", ["paired", "300bp"])
+def test_streaming_wide_reads_csv_matches_jax(setup, wide_reads, tmp_path,
+                                              monkeypatch, reads, extended):
+    """Paired 2 x 150 bp reads and single-end 300 bp reads (the 320 bin,
+    three tiles), streamed in 4 parts on one device: without --extended
+    each batch's last part is the fused range launch
+    (`probe.query_score_part_results`, with the earlier parts' sum) and
+    no score call runs; with it, the part query and the score.  The CSV
+    equals the JAX package's resident and streamed bytes."""
+    from cuclark_tpu_torch import score
+
+    _, db, jdb, _, _ = setup
+    path, mate = ((wide_reads["r1"], wide_reads["r2"]) if reads == "paired"
+                  else (wide_reads["long"], None))
+    jres, jstr, out = (tmp_path / n for n in ("jres.csv", "jstr.csv",
+                                               "torch.csv"))
+    jpipeline.Classifier(jdb, JClassifyConfig(
+        batch_reads=16, extended=extended)).classify_file_to_csv(
+        path, jres, mate)
+    jpipeline.Classifier(jdb, JClassifyConfig(
+        batch_reads=16, extended=extended,
+        max_table_mb=jdb.table.nbytes / 4e6,
+        stream_group=2)).classify_file_to_csv(path, jstr, mate)
+    calls = {"query_score_part_results": 0, "score_labels": 0}
+    for mod, name in ((probe, "query_score_part_results"),
+                      (score, "score_labels")):
+        def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    clf = _streaming(db, 4, batch_reads=16, extended=extended,
+                     stream_group=2)
+    assert clf.classify_file_to_csv(path, out, mate) == 40
+    assert out.read_bytes() == jres.read_bytes() == jstr.read_bytes()
+    batches = 3
+    assert calls == ({"query_score_part_results": 0, "score_labels": batches}
+                     if extended else
+                     {"query_score_part_results": batches, "score_labels": 0})
+
+
 def test_effective_stream_group(setup, monkeypatch):
     """At least cfg.stream_group, grown to fill the device budget, capped
     at 512 unless the configured group is larger ("NOT np.clip")."""
