@@ -20,8 +20,13 @@ against `--device cpu`:
     the paired shape (65,536 joined pairs, three tiles a read), and on
     small tables at every width of two to eight tiles;
   - streamed: `--max-table-mb 600`, the table in 4 bucket-range parts of
-    268 MB uploaded per group of batches (part-mode query kernel, each
-    batch's last part the fused range launch);
+    268 MB uploaded per group of batches (the range query kernel, the qs
+    stash split over the parts, each batch's last part the fused range
+    launch); the range kernel against plain on every part of 2, 4 and 8
+    (q4 too; s2 in 8) and every db shard of 2 and 4, and one streamed
+    group of `stream_group_eff` batches (the group a file streams in)
+    taken apart: its wall time, the part uploads' time and the part
+    calls' device time;
   - paired: 131,072 pairs of 150 bp mates from 400 bp fragments (-P),
     the fused query and score alone;
   - extended: 1,024 reads with one count column per target, resident
@@ -199,10 +204,10 @@ def touched_rows(codes, spec, k: int, main=None):
             torch.unique(h1 & ((1 << spec.stash_bits) - 1)))
 
 
-def window_buckets(codes, spec, k: int):
-    """The qs main bucket l2 & (NB - 1) of every valid window of codes
-    [R, L] on the card, in window order with repeats: what the query
-    gathers, as int32."""
+def window_buckets(codes, spec, k: int, stash: bool = False):
+    """The qs main bucket l2 & (NB - 1) (stash=True: the stash bucket
+    h1 & (NBS - 1)) of every valid window of codes [R, L] on the card, in
+    window order with repeats: what the query gathers, as int32."""
     import torch
 
     from cuclark_tpu_torch import codec
@@ -210,7 +215,9 @@ def window_buckets(codes, spec, k: int):
 
     kmers, valid = codec.extract_kmers(codes, k)
     km = codec.canonical(kmers, k)[valid]
-    _, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
+    h1, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
+    if stash:
+        return (h1 & ((1 << spec.stash_bits) - 1)).to(torch.int32)
     return (l2 & ((1 << spec.nb_bits) - 1)).to(torch.int32)
 
 
@@ -260,7 +267,8 @@ def layout_ceilings(lib, main_t, choices, spec, parts: int):
     probe reads, in window order (a window's choice-0 row, then its
     choice-1 row where choice 0 gave label 0) -> (resident ms, mean ms
     of a part call of `parts`, in which a window whose choice 0 lies in
-    another part gathers its choice-1 row too)."""
+    another part gathers its choice-1 row too, ms of the last part's
+    call)."""
     import torch
 
     rows0, rows1, has1, zero = choices
@@ -272,20 +280,50 @@ def layout_ceilings(lib, main_t, choices, spec, parts: int):
         in0, in1 = rows0 // prow == j, rows1 // prow == j
         part_ms.append(layout_gathers(lib, main_t, pair[torch.stack(
             [in0, in1 & has1 & (zero | ~in0)], 1)], spec))
-    return resident, float(np.mean(part_ms))
+    return resident, float(np.mean(part_ms)), part_ms[-1]
 
 
 def query_bytes(touched, spec, in_bytes: int, out_bytes: int,
-                parts: int = 1) -> float:
+                parts: int = 1, later_hits: int = 0) -> float:
     """Least bytes of a query per call: its input (wire or codes) and its
     output once, and each table row it needs once (qs stash rows 32 B).
-    Over a pass of `parts` part calls, every call reads the input and
-    the first writes the labels, each later one reads and writes them
-    (the accumulator); the table rows split over the parts."""
+    Over a pass of `parts` range calls, every call reads the input and
+    the first writes the labels; a later call adds into them and leaves
+    every window it does not answer as it is, so it reads and writes the
+    4 B accumulator of its hits only (later_hits: the windows that calls
+    1.. answer, summed); the table rows split over the calls."""
     main, stash = touched
     rows = spec.row_words * 4 * len(main) + (32 * len(stash)
                                              if stash is not None else 0)
-    return (parts * in_bytes + (2 * parts - 1) * out_bytes + rows) / parts
+    return (parts * in_bytes + out_bytes + 8 * later_hits + rows) / parts
+
+
+def range_calls(main_t, stash_t, n: int):
+    """The calls of a pass over a resident table's main rows in n bucket
+    ranges, [(main rows, stash rows or None, bucket_start, stash_start)],
+    a qs stash split over them (`probe.stash_range`): the parts of a table
+    that one device streams in n parts, and the db shards of a mesh of
+    n."""
+    from cuclark_tpu_torch import probe
+
+    rows = main_t.shape[0] // n
+    calls = []
+    for j in range(n):
+        s, sstart = probe.stash_range(stash_t, j, n)
+        calls.append((main_t[j * rows:(j + 1) * rows], s, j * rows, sstart))
+    return calls
+
+
+def later_hits(p2, vb, calls, k: int, spec) -> int:
+    """The windows that the calls after the first of a pass (range_calls)
+    answer, summed: what their accumulator reads and writes (the plain
+    range query's labels)."""
+    from cuclark_tpu_torch import probe
+
+    return sum(int((probe.query_part_labels_plain(
+        p2, vb, m, s, bucket_start=start, nb_local=m.shape[0], k=k,
+        spec=spec, stash_start=sstart) != 0).sum())
+        for m, s, start, sstart in calls[1:])
 
 
 def _planted_reads(rng, km: np.ndarray, k: int, R: int, L: int):
@@ -396,8 +434,8 @@ def check_stash_ranges(p2, vb, main, stash, resident, *, k, spec) -> int:
 def check_fused_range(p2, vb, main, stash, *, k, spec) -> int:
     """The fused range entry (`probe.query_score_part_results`, the last
     launch of a mesh block) against its plain version: each of 4 parts
-    (a qs stash on part 0, a null stash after) and each of 2 db shards
-    (its stash range), acc_in None or random labels on half the windows
+    and each of 2 db shards (`range_calls`: a qs stash split over them),
+    acc_in None or random labels on half the windows
     the range misses (a key lives in one range, so the other launches
     give 0 where it hits), each call one launch; then 3 parts accumulated
     by the range kernel and the last one fused with their sum give the
@@ -411,45 +449,37 @@ def check_fused_range(p2, vb, main, stash, *, k, spec) -> int:
     a = rng.integers(1, 65536, size=(R, P)).astype(np.int32)
     a[rng.random(a.shape) < 0.5] = 0
     rand = torch.from_numpy(a).to(p2.device)
-    nb = main.shape[0]
-    nbs = 0 if stash is None else stash.shape[0]
-    ranges = [(p * nb // 4, nb // 4, stash if p == 0 else None, 0)
-              for p in range(4)]
-    ranges += [(j * nb // 2, nb // 2, None if stash is None else
-                stash[j * nbs // 2:(j + 1) * nbs // 2], j * nbs // 2)
-               for j in range(2)]
     err = 0
-    for start, rows, s, sstart in ranges:
-        own = probe.query_part_labels_plain(
-            p2, vb, main[start:start + rows], s, bucket_start=start,
-            nb_local=rows, k=k, spec=spec, stash_start=sstart)
+    for m, s, start, sstart in (range_calls(main, stash, 4)
+                                + range_calls(main, stash, 2)):
+        args = dict(bucket_start=start, nb_local=m.shape[0], k=k, spec=spec,
+                    stash_start=sstart)
+        own = probe.query_part_labels_plain(p2, vb, m, s, **args)
         missed = torch.where(own > 0, 0, rand)
         for acc_in in (None, missed):
-            args = dict(bucket_start=start, nb_local=rows, k=k, spec=spec,
-                        stash_start=sstart, acc_in=acc_in)
             before = sum(kernels.LAUNCHES.values())
-            got = probe.query_score_part_results(
-                p2, vb, main[start:start + rows], s, **args)
+            got = probe.query_score_part_results(p2, vb, m, s, **args,
+                                                 acc_in=acc_in)
             torch.cuda.synchronize()
-            want = probe.query_score_part_results_plain(
-                p2, vb, main[start:start + rows], s, **args)
+            want = probe.query_score_part_results_plain(p2, vb, m, s, **args,
+                                                        acc_in=acc_in)
             if (not torch.equal(got, want)
                     or sum(kernels.LAUNCHES.values()) != before + 1):
                 raise AssertionError(f"{spec.layout} fused range entry != "
                                      f"plain on rows [{start}, "
-                                     f"{start + rows}) at k={k}")
+                                     f"{start + m.shape[0]}) at k={k}")
             err = max(err, _max_abs_err(got, want))
         if not torch.equal(missed, torch.where(own > 0, 0, rand)):
             raise AssertionError("the fused range entry wrote its acc_in")
-    rows = nb // 4
     acc = None
-    for p in range(3):
-        acc = probe.query_part_labels(
-            p2, vb, main[p * rows:(p + 1) * rows], stash if p == 0 else None,
-            bucket_start=p * rows, nb_local=rows, k=k, spec=spec, acc=acc)
-    last = probe.query_score_part_results(
-        p2, vb, main[3 * rows:], None, bucket_start=3 * rows, nb_local=rows,
-        k=k, spec=spec, acc_in=acc)
+    for j, (m, s, start, sstart) in enumerate(range_calls(main, stash, 4)):
+        args = dict(bucket_start=start, nb_local=m.shape[0], k=k, spec=spec,
+                    stash_start=sstart)
+        if j < 3:
+            acc = probe.query_part_labels(p2, vb, m, s, acc=acc, **args)
+        else:
+            last = probe.query_score_part_results(p2, vb, m, s, acc_in=acc,
+                                                  **args)
     resident = probe.query_score_results(p2, vb, main, stash, k=k, spec=spec)
     torch.cuda.synchronize()
     if not torch.equal(last, resident):
@@ -881,56 +911,157 @@ def stream_budget_mb(db) -> float:
     return round(stash_mb + 2.4 * main.nbytes / 1e6 / parts, 3)
 
 
-def check_stream_kernels(main_t, stash_t, wire, k, spec, parts):
-    """The part-mode query kernel against its plain version on each of
-    `parts` bucket-range parts of a resident headline table, a qs stash
-    on part 0 only, writing and accumulating; the accumulated parts equal
-    the resident query.  Returns (max_abs_err, ms, plain ms, bound ms)
-    per part call, the times over a whole pass of the parts."""
+def check_stream_kernels(main_t, stash_t, wire, k, spec, parts, more=()):
+    """The range query kernel against its plain version on each call of a
+    pass over a resident headline table in n bucket ranges, a qs stash
+    split over them (`range_calls`), for n = `parts` (as one device
+    streams the table), each count of `more`, and 2 and 4 (the db shards
+    of meshes of 2 and 4), each call written and accumulated; every
+    pass's accumulated labels equal the resident query.  Then the fused last
+    part: the fused range launch over part parts-1 with the other parts'
+    sum (acc_in) against plain and the resident results.  Returns
+    (max_abs_err, ms, plain ms, bound ms) per part call of the `parts`
+    pass (the times over a whole pass), and (max_abs_err, ms, plain ms,
+    bound ms) of the fused last part."""
     import torch
 
     from cuclark_tpu_torch import codec, probe
 
     p2, vb = wire
-    rows = main_t.shape[0] // parts
-    pieces = [main_t[p * rows:(p + 1) * rows] for p in range(parts)]
 
-    def one(fn, p, acc=None):
-        return fn(p2, vb, pieces[p], stash_t if p == 0 else None,
-                  bucket_start=p * rows, nb_local=rows, acc=acc, k=k,
-                  spec=spec)
+    def one(fn, call, acc=None):
+        m, s, start, sstart = call
+        return fn(p2, vb, m, s, bucket_start=start, nb_local=m.shape[0],
+                  stash_start=sstart, acc=acc, k=k, spec=spec)
 
-    def all_parts(fn):
+    def all_calls(fn, calls):
         acc = None
-        for p in range(parts):
-            acc = one(fn, p, acc)
+        for c in calls:
+            acc = one(fn, c, acc)
         return acc
 
-    err = 0
-    for p in range(parts):
-        got = one(probe.query_part_labels, p)
-        torch.cuda.synchronize()
-        want = one(probe.query_part_labels_plain, p)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{spec.layout} part kernel != plain on "
-                                 f"part {p}: {int((got != want).sum())} "
-                                 f"windows differ")
-        err = max(err, _max_abs_err(got, want))
-    acc = all_parts(probe.query_part_labels)
-    torch.cuda.synchronize()
-    acc_plain = all_parts(probe.query_part_labels_plain)
     resident = probe.query_labels(p2, vb, main_t, stash_t, k=k, spec=spec)
-    torch.cuda.synchronize()
-    if not (torch.equal(acc, acc_plain) and torch.equal(acc, resident)):
-        raise AssertionError(f"{spec.layout} accumulated parts != plain or "
-                             f"!= resident labels")
-    err = max(err, _max_abs_err(acc, acc_plain))
-    ms = _cuda_ms(lambda: all_parts(probe.query_part_labels), 10)
-    plain_ms = _cuda_ms(lambda: all_parts(probe.query_part_labels_plain), 2)
+    err = 0
+    for n in sorted({parts, *more, 2, 4}):
+        calls = range_calls(main_t, stash_t, n)
+        what = f"{spec.layout} range {{}} of {n}"
+        for j, c in enumerate(calls):
+            got = one(probe.query_part_labels, c)
+            torch.cuda.synchronize()
+            want = one(probe.query_part_labels_plain, c)
+            if not torch.equal(got, want):
+                raise AssertionError(f"range kernel != plain on "
+                                     f"{what.format(j)}: "
+                                     f"{int((got != want).sum())} windows "
+                                     f"differ")
+            err = max(err, _max_abs_err(got, want))
+        acc = all_calls(probe.query_part_labels, calls)
+        torch.cuda.synchronize()
+        acc_plain = all_calls(probe.query_part_labels_plain, calls)
+        if not (torch.equal(acc, acc_plain) and torch.equal(acc, resident)):
+            raise AssertionError(f"{spec.layout}: accumulated ranges of "
+                                 f"{n} != plain or != resident labels")
+        err = max(err, _max_abs_err(acc, acc_plain))
+    calls = range_calls(main_t, stash_t, parts)
+    ms = _cuda_ms(lambda: all_calls(probe.query_part_labels, calls), 10)
+    plain_ms = _cuda_ms(lambda: all_calls(probe.query_part_labels_plain,
+                                          calls), 2)
+    unpacked = codec.unpack_codes(p2, vb)
+    touched = touched_rows(unpacked, spec, k, main_t)
     bound = _bound_ms(query_bytes(
-        touched_rows(codec.unpack_codes(p2, vb), spec, k, main_t), spec,
-        p2.numel() + vb.numel(), 4 * acc.numel(), parts))
-    return err, ms / parts, plain_ms / parts, bound
+        touched, spec, p2.numel() + vb.numel(), 4 * resident.numel(), parts,
+        later_hits(p2, vb, calls, k, spec)))
+
+    # the fused last part: acc_in is the earlier parts' sum
+    m, s, start, sstart = calls[-1]
+    acc_in = all_calls(probe.query_part_labels, calls[:-1])
+    fargs = dict(bucket_start=start, nb_local=m.shape[0], k=k, spec=spec,
+                 stash_start=sstart, acc_in=acc_in)
+    fused = probe.query_score_part_results(p2, vb, m, s, **fargs)
+    torch.cuda.synchronize()
+    fused_plain = probe.query_score_part_results_plain(p2, vb, m, s, **fargs)
+    whole = probe.query_score_results_plain(p2, vb, main_t, stash_t, k=k,
+                                            spec=spec)
+    if not (torch.equal(fused, fused_plain) and torch.equal(fused, whole)):
+        raise AssertionError(f"{spec.layout} fused last part != plain or != "
+                             f"the resident results")
+    fused_ms = _cuda_ms(lambda: probe.query_score_part_results(
+        p2, vb, m, s, **fargs), 20)
+    fused_plain_ms = _cuda_ms(lambda: probe.query_score_part_results_plain(
+        p2, vb, m, s, **fargs), 2)
+    # it reads the wire and acc_in, writes [R, 5], and its ranges' rows
+    main_rows, stash_rows = touched
+    in_range = (main_rows[(main_rows >= start)
+                          & (main_rows < start + m.shape[0])],
+                None if s is None else stash_rows[
+                    (stash_rows >= sstart)
+                    & (stash_rows < sstart + s.shape[0])])
+    fused_bound = _bound_ms(query_bytes(
+        in_range, spec, p2.numel() + vb.numel() + 4 * resident.numel(),
+        20 * p2.shape[0]))
+    return (err, ms / parts, plain_ms / parts, bound,
+            (_max_abs_err(fused, fused_plain), fused_ms, fused_plain_ms,
+             fused_bound))
+
+
+def stream_group_breakdown(clf, wires) -> dict:
+    """One streamed group at the size that classify_file_to_csv streams
+    the table over, `clf.stream_group_eff` batches (the wire batches
+    `wires`, on the card, repeated to that count), through a streaming
+    Classifier's `_stream_group_dev`: its wall time on the host clock (to
+    the card's last result), the part uploads' summed time (copy-stream
+    events), and the summed device time of its part calls (CUDA events
+    around each probe.query_part_labels and query_score_part_results
+    call, on the compute stream after each part's upload wait).  The
+    uploads and the calls run on two streams, so the larger sum sets the
+    group's device time.  Each batch's results must equal the resident
+    fused step's."""
+    import torch
+
+    from cuclark_tpu_torch import probe
+
+    n = clf.stream_group_eff
+    group = [wires[i % len(wires)] for i in range(n)]
+    events = []
+
+    def timed(fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+        return call
+
+    saved = probe.query_part_labels, probe.query_score_part_results
+    probe.query_part_labels, probe.query_score_part_results = map(timed,
+                                                                  saved)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = clf._stream_group_dev(group)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    finally:
+        probe.query_part_labels, probe.query_score_part_results = saved
+    main = torch.from_numpy(clf.np_table.view(np.int32)).to(
+        wires[0][0].device)
+    want = [probe.query_score_results(p2, vb, main, clf.stash, k=clf.db.k,
+                                      spec=clf.spec) for p2, vb in wires]
+    del main
+    for i, (res, _) in enumerate(out):
+        if not torch.equal(res, want[i % len(wires)]):
+            raise AssertionError(f"batch {i} of a streamed group's results "
+                                 f"!= the resident results")
+    del out
+    uploads = [s.elapsed_time(e) for _, st in clf._streams
+               for s, e in st._uploads]
+    call_ms = float(sum(s.elapsed_time(e) for s, e in events))
+    return {"batches": n, "wall_ms": wall, "uploads": len(uploads),
+            "upload_ms": float(sum(uploads)), "calls": len(events),
+            "call_ms": call_ms, "call_ms_per_batch": call_ms / n}
 
 
 def write_long_reads(genomes: np.ndarray, path: Path) -> list:
@@ -1043,8 +1174,9 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
                  touched, db.spec, p2.numel() + vb.numel(),
                  20 * p2.shape[0]))}
     ceiling = {}
-    ceiling[res_name], ceiling[part_name] = layout_ceilings(
-        ceiling_lib, main_t, choices, db.spec, parts)
+    last_name = f"query_score_part_stream_{layout}"
+    ceiling[res_name], ceiling[part_name], ceiling[last_name] = (
+        layout_ceilings(ceiling_lib, main_t, choices, db.spec, parts))
     ceiling[fused_name] = ceiling[res_name]
     stored, first = db.first_choice_slots()
     share0 = int(first.sum()) / max(int(stored.sum()), 1)
@@ -1072,8 +1204,11 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
         m2, mv, main_t, None, **qargs), 20)
     del miss, miss_plain, m2, mv
     (err[part_name], ms[part_name], ms[f"{part_name}_plain"],
-     bound[part_name]) = check_stream_kernels(main_t, None, wire, db.k,
-                                              db.spec, parts)
+     bound[part_name], last) = check_stream_kernels(
+        main_t, None, wire, db.k, db.spec, parts,
+        more=(2, 8) if layout == "q4" else ())
+    (err[last_name], ms[last_name], ms[f"{last_name}_plain"],
+     bound[last_name]) = last
     del main_t
     torch.cuda.empty_cache()
     secs = {"kernels": time.time() - t_step}
@@ -1159,9 +1294,14 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
               f"{ms[fused_name]:.4f} ms (plain "
               f"{ms[fused_name + '_plain']:.4f}), all-miss batch "
               f"bit-identical, query {ms[res_name + '_miss']:.4f} ms; "
-              f"{ms[part_name]:.4f} ms per part call of {parts} (plain "
-              f"{ms[part_name + '_plain']:.4f}, ceiling "
-              f"{ceiling[part_name]:.4f}); resident CSV == qs CSV, launches "
+              f"range kernel == plain on each part of "
+              f"{'2, 4 and 8' if layout == 'q4' else parts} and each db "
+              f"shard of 2 and 4; {ms[part_name]:.4f} ms per part call of "
+              f"{parts} (plain {ms[part_name + '_plain']:.4f}, ceiling "
+              f"{ceiling[part_name]:.4f}); fused last part "
+              f"{ms[last_name]:.4f} ms (plain {ms[last_name + '_plain']:.4f},"
+              f" ceiling {ceiling[last_name]:.4f}); resident CSV == qs CSV, "
+              f"launches "
               f"{_launched(launches)}; {parts} parts of {part_mb:.1f} MB, "
               f"CSV == qs CSV, launches {_launched(launches_stream)}; "
               f"--extended == qs, launches {_launched(launches_ext)}; "
@@ -1173,7 +1313,9 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
               + f"; on {card}")
     return (err, ms, {fused_name: launches[fused_name],
                       res_name: launches_ext[res_name],
-                      part_name: launches_stream[part_name]}, detail, bound,
+                      part_name: launches_stream[part_name],
+                      last_name: launches_stream[
+                          f"query_score_part_{layout}"]}, detail, bound,
             ceiling)
 
 
@@ -1308,10 +1450,11 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
     resident labels; the sharded resident step without labels (each
     block's shard 1, then its shard 0 as the fused range launch with the
     sum) and with labels (range launches, sum, score), and the sharded
-    part step (4 parts, the stash on part 0) with its last part fused or
-    accumulated then scored, each against its plain version and the
-    resident results; a 1 x 1 mesh's step (one fused launch over the
-    whole table) timed in turns with the resident fused step; then
+    part step (4 parts, each shard's stash split over them) with its
+    last part fused or accumulated then scored, each against its plain
+    version and the resident results; a 1 x 1 mesh's step (one fused
+    launch over the whole table) timed in turns with the resident fused
+    step; then
     `Classifier(db, mesh=...)` file->CSV, resident and with each device's
     shard streamed in 4 parts, twice each, every CSV equal to the
     resident one, the counts reset just before each Classifier's runs and
@@ -1346,7 +1489,9 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
     bound = {"build_sharded_classify": fused_bound,
              "query_score_part": fused_bound,
              "build_sharded_probe_part": _bound_ms(query_bytes(
-                 touched, db.spec, wire_b, lab_b, 4))}
+                 touched, db.spec, wire_b, lab_b, 4, later_hits(
+                     p2, vb, range_calls(main_t, stash_t, 4), db.k,
+                     db.spec)))}
     smain, sstash = mesh.shard_db_table(db, m)
     err = {"build_sharded_classify": 0, "build_sharded_probe_part": 0,
            "query_score_part": 0}
@@ -1463,9 +1608,9 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
         acc = None
         for p in range(4):
             last = p == 3
-            out = fn(part(p), batch or wires, p * rows,
-                     stash=sstash if p == 0 else None, acc=acc,
-                     scored=last and route == "fused")
+            out = fn(part(p), batch or wires, p * rows, stash=sstash,
+                     acc=acc, scored=last and route == "fused",
+                     split=(p, 4))
             if last and route == "fused":
                 return out
             acc = out
@@ -1473,10 +1618,10 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
             score.score_labels(a) for a in acc]
 
     for p in range(4):
-        got = pstep(part(p), wires, p * rows, stash=sstash if p == 0 else None)
+        got = pstep(part(p), wires, p * rows, stash=sstash, split=(p, 4))
         torch.cuda.synchronize()
-        want = plain_pstep(part(p), wires, p * rows,
-                           stash=sstash if p == 0 else None)
+        want = plain_pstep(part(p), wires, p * rows, stash=sstash,
+                           split=(p, 4))
         for a, b in zip(got, want):
             if not torch.equal(a, b):
                 raise AssertionError(f"sharded part step != plain on part {p}")
@@ -2346,12 +2491,23 @@ def main(argv=None) -> int:
         # gather-only kernel over this batch's main buckets, window order;
         # a part call gathers those of its range
         buckets = window_buckets(unpacked, db.spec, db.k)
-        del touched, unpacked
         ceiling = {"query": gather_ceiling_ms(ceiling_lib, main_t, buckets)}
         rows = db.nb // STREAM_PARTS["qs"]
-        ceiling["query_part"] = float(np.mean([gather_ceiling_ms(
+        part_main = [gather_ceiling_ms(
             ceiling_lib, main_t, buckets[(buckets // rows) == j].contiguous())
-            for j in range(STREAM_PARTS["qs"])]))
+            for j in range(STREAM_PARTS["qs"])]
+        # the parts also gather every valid window's stash row once (the
+        # same gather-only kernel over the stash rows, window order), split
+        # over the parts as a table streams: a part's share is in
+        # its ceiling
+        stash_ms = gather_ceiling_ms(ceiling_lib, stash_t, window_buckets(
+            unpacked, db.spec, db.k, stash=True))
+        ceiling["query_part_main"] = float(np.mean(part_main))
+        ceiling["query_part"] = ceiling["query_part_main"] + (
+            stash_ms / STREAM_PARTS["qs"])
+        ceiling["query_score_part_stream"] = part_main[-1] + (
+            stash_ms / STREAM_PARTS["qs"])
+        del touched, unpacked
         for name in ("query_score", "classify_step", "build_sharded_classify",
                      "query_score_part", "build_sharded_classify_spanning"):
             ceiling[name] = ceiling["query"]
@@ -2398,7 +2554,10 @@ def main(argv=None) -> int:
                f"{ms['query_score_plain']:.4f}); gather-only ceiling "
                f"{ceiling['query']:.4f} ms resident, "
                f"{ceiling['query_part']:.4f} ms per part of "
-               f"{STREAM_PARTS['qs']}; device step {step_rps:.1f} reads/s "
+               f"{STREAM_PARTS['qs']} with its share of the stash "
+               f"gathers ({stash_ms:.4f} ms in all), "
+               f"{ceiling['query_part_main']:.4f} ms of main rows alone; "
+               f"device step {step_rps:.1f} reads/s "
                f"fused, {len(wire) * B / (two_ms / 1e3):.1f} reads/s as "
                f"query then score, on {card}")
 
@@ -2453,20 +2612,34 @@ def main(argv=None) -> int:
         del padded
         _phase("classify_step", t0, detail)
 
-        # the part-mode query on the headline table cut in 4 parts
+        # the range query on the headline table cut in 4 parts (and in 2
+        # and 8, and in db shards of 2 and 4), and the fused last part
         t0 = time.time()
         (err["query_part"], ms["query_part"], ms["query_part_plain"],
-         bound["query_part"]) = check_stream_kernels(
-            main_t, stash_t, wire[0], db.k, db.spec, STREAM_PARTS["qs"])
+         bound["query_part"], last) = check_stream_kernels(
+            main_t, stash_t, wire[0], db.k, db.spec, STREAM_PARTS["qs"],
+            more=(2, 8))
+        (err["query_score_part_stream"], ms["query_score_part_stream"],
+         ms["query_score_part_stream_plain"],
+         bound["query_score_part_stream"]) = last
         wire0 = wire[0]
-        del main_t, stash_t, wire, lab, res
+        del main_t, stash_t, lab, res
         torch.cuda.empty_cache()
         _phase("stream_kernels_vs_plain", t0,
-               f"{STREAM_PARTS['qs']} parts of [{B}, {L}] bit-identical, "
-               f"stash on "
-               f"part 0, accumulated parts == resident labels; "
-               f"{ms['query_part']:.4f} ms per part call (plain "
-               f"{ms['query_part_plain']:.4f}) on {card}")
+               f"range kernel bit-identical to plain on each part of "
+               f"{STREAM_PARTS['qs']}, 2 and 8 of [{B}, {L}] (the stash "
+               f"split over the parts, as a table streams; 2 and 4 are "
+               f"also the db shards of a mesh), accumulated "
+               f"== resident labels; {ms['query_part']:.4f} ms per part call "
+               f"of {STREAM_PARTS['qs']} (plain "
+               f"{ms['query_part_plain']:.4f}, bound "
+               f"{bound['query_part']:.4f}, ceiling "
+               f"{ceiling['query_part']:.4f}); fused last part "
+               f"{ms['query_score_part_stream']:.4f} ms (plain "
+               f"{ms['query_score_part_stream_plain']:.4f}, bound "
+               f"{bound['query_score_part_stream']:.4f}, ceiling "
+               f"{ceiling['query_score_part_stream']:.4f}) == the resident "
+               f"results; on {card}")
 
         # the resident main path, through the CLI: counts from this run
         t0 = time.time()
@@ -2535,8 +2708,11 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             stream_e2e.append(n / (time.time() - t1))
         gbps = sclf.part_upload_gbps()
+        group = [stream_group_breakdown(sclf, wire) for _ in range(2)][-1]
+        sets = ("part calls" if group["call_ms"] > group["upload_ms"]
+                else "part uploads")
         sclf.close()
-        del sclf
+        del sclf, wire
         if (tmp / "stream_again.csv").read_bytes() != gpu_csv.read_bytes():
             raise AssertionError("a second streamed classify wrote another "
                                  "CSV")
@@ -2545,7 +2721,16 @@ def main(argv=None) -> int:
                f"{db.nb // STREAM_PARTS['qs'] * 32 / 1e6:.1f}"
                f" MB, CSV identical to the resident CSV, launches "
                f"{launches_stream}; part upload "
-               f"{', '.join(f'{g:.2f}' for g in gbps)} GB/s; file->CSV "
+               f"{', '.join(f'{g:.2f}' for g in gbps)} GB/s; one group of "
+               f"{group['batches']} batches (stream_group_eff): wall "
+               f"{group['wall_ms']:.4f} ms, {group['uploads']} part uploads "
+               f"{group['upload_ms']:.4f} ms, {group['calls']} part calls "
+               f"{group['call_ms']:.4f} ms on the card "
+               f"({group['call_ms_per_batch']:.4f} ms a batch, "
+               f"{group['call_ms'] / group['wall_ms']:.2%} of the wall): "
+               f"the {sets} set the group's device time; results == "
+               f"resident; "
+               f"file->CSV "
                f"{', '.join(f'{r:.1f}' for r in stream_e2e)} reads/s on "
                f"{card}")
 
@@ -2711,6 +2896,15 @@ def main(argv=None) -> int:
          "launches": launches_stream["query_part"],
          "max_abs_err": err["query_part"],
          "ms": ms["query_part"], "plain_ms": ms["query_part_plain"]},
+        # each streamed batch's last part: the fused range launch with the
+        # earlier parts' sum (acc_in)
+        {"name": "query_score_part_stream", "route": "cuda",
+         "source": "cuclark_tpu_torch/csrc/query.cu",
+         "replaces": "cuclark_tpu/pipeline.py:96",
+         "launches": launches_stream["query_score_part"],
+         "max_abs_err": err["query_score_part_stream"],
+         "ms": ms["query_score_part_stream"],
+         "plain_ms": ms["query_score_part_stream_plain"]},
         {"name": "score", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/score.cu",
          "replaces": "cuclark_tpu/score.py:28",
@@ -2721,9 +2915,13 @@ def main(argv=None) -> int:
     for name, replaces in (("query_score_q4", "cuclark_tpu/pipeline.py:71"),
                            ("query_q4", "cuclark_tpu/probe.py:236"),
                            ("query_part_q4", "cuclark_tpu/probe.py:236"),
+                           ("query_score_part_stream_q4",
+                            "cuclark_tpu/pipeline.py:96"),
                            ("query_score_s2", "cuclark_tpu/pipeline.py:71"),
                            ("query_s2", "cuclark_tpu/probe.py:131"),
-                           ("query_part_s2", "cuclark_tpu/probe.py:131")):
+                           ("query_part_s2", "cuclark_tpu/probe.py:131"),
+                           ("query_score_part_stream_s2",
+                            "cuclark_tpu/pipeline.py:96")):
         kern.append({"name": name, "route": "cuda",
                      "source": "cuclark_tpu_torch/csrc/query.cu",
                      "replaces": replaces, "launches": launches[name],

@@ -51,9 +51,28 @@
 // bins of 256 rows; but putting the windows in bucket order is itself a
 // random 4 B scatter (0.26 ms at best), and the labels must then go back
 // to window order, so the window-order gather is the practical ceiling and
-// the kernel keeps the window order.  A part call gathers main rows only
-// for the windows whose bucket lies in its range, 1/P of them over P
-// parts, and there the front half is the larger cost.
+// the kernel keeps the window order.
+//
+// A range call (a part of a streamed table, a db shard of a mesh) gathers
+// only for the windows with a row in its range, about 1/parts of them, but
+// runs the front half for all of them.  With a thread a window, as
+// query_kernel, only that share of a warp's lanes gathered.  A range of at
+// most half the table takes range_query_kernel instead: a block runs the
+// front half for W = 2 or 4 tiles (the table's rows over the range's,
+// capped at 4), queues the windows with a row in range in shared memory,
+// and then every thread gathers from the queue.  On an H100 80GB HBM3 at
+// 700 W (scripts/torch_kernel_ab.py, [65,536, 152] batches of the 64M-k-mer
+// tables, per call; PERF.md section 6) that took a pass of 4 qs parts from
+// 0.1280 to 0.1156 ms (0.1074 with the stash split over the parts, as a
+// table is streamed), 4 q4 parts from 0.1522 to 0.1469 and 8 s2 parts from
+// 0.1700 to 0.1089.
+// The front half alone (the gathers cut out) takes 0.054 ms a call, bound
+// by the instructions it issues, and the call takes about that plus the
+// gathers' own time: the two did not overlap, with the block's barriers
+// or without them (a block of warps that stage, queue and gather alone
+// ran 1-3% slower), nor when a block issued one group's gathers before the
+// next group's front half (the rows held across it took 48-96 registers a
+// thread, and every layout ran slower).
 //
 // What the call without labels of reads of up to 1,024 windows (every
 // short-read bin up to 1024: 150 bp reads at P = 122, joined 2 x 150 bp
@@ -84,9 +103,8 @@
 // 0.770 and 0.920 as the query kernel then the score kernel, and the
 // one-tile step kept its time (scripts/torch_kernel_ab.py).
 // The front half (the k-mer of each window from the wire bytes, its
-// reverse complement and the Feistel rounds) is a few instructions per
-// window, so that a part call, or a db shard of a mesh step, which repeats
-// it for a fraction of the gathers, costs little more than its gathers:
+// reverse complement and the Feistel rounds), which every call runs for
+// every window:
 //   - a block per (read, tile of kTile windows): reads on gridDim.x (a
 //     batch holds 65,536 of them, past gridDim.y's 65,535), tiles on
 //     gridDim.y (65,535 tiles a launch), so no thread divides;
@@ -164,8 +182,11 @@
 // In part mode each choice is range-checked on its own, so a key whose two
 // buckets fall in different parts is found in exactly one of them; a
 // window whose choice 0 lies outside the call's range probes choice 1 as
-// before.  A q4 range call keeps both loads in flight (see kmer_label); an
-// s2 range call skips as the resident one does.
+// before.  In query_kernel's range mode (a range of more than half the
+// table, or a row of codes) a q4 call keeps both loads in flight (see
+// kmer_label) and an s2 call skips as the resident one does;
+// range_query_kernel gathers choice 1 after a choice-0 miss in a second
+// round of its queue.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cuclark_tpu_torch/kernels.py).
@@ -467,6 +488,241 @@ __global__ void __launch_bounds__(kTile) query_kernel(
     labels[idx] += lab;
 }
 
+// Bytes of one staged tile: w2_words(1) words of 2-bit codes and v_words(1)
+// of validity bits.
+constexpr int kUnitBytes = 4 * (w2_words(1) + v_words(1));
+
+// A window's entry in range_query_kernel's gather queue: its window in the
+// block (bits 0-9), whether its choice-0 row (qs: main row) lies in the
+// call's range (bit 10) and whether its choice-1 row (qs: stash row) does
+// (bit 11); the two words a and b are qs's and q4's Feistel halves (h1,
+// l2), s2's key halves (lo, hi).
+constexpr uint32_t kIn0 = 1u << 10, kIn1 = 1u << 11;
+
+// The range flags and queue words of canonical k-mer c (0: no row of the
+// window lies in the call's ranges, and it gathers nothing).  A range is
+// (first global row, rows) in 32 bits: buckets and both ends lie in
+// [0, 2^31] (cuclark_query_range takes nb_bits and stash_bits up to 31), so
+// b - start wraps past every row count when b < start.
+template <int LAYOUT>
+__device__ __forceinline__ uint32_t range_entry(
+    uint64_t c, bool stash, uint32_t mask, uint32_t smask, uint32_t start,
+    uint32_t local, uint32_t sstart, uint32_t slocal, uint32_t c1,
+    uint32_t c2, uint32_t c3, int num_choices, uint32_t* a, uint32_t* b) {
+  const uint32_t hi = static_cast<uint32_t>(c >> 32);
+  const uint32_t lo = static_cast<uint32_t>(c);
+  uint32_t b0, b1, start1 = start, local1 = local;
+  bool has1 = true;
+  if (LAYOUT == kS2) {
+    *a = lo;
+    *b = hi;
+    b0 = mix1(hi, lo) & mask;
+    b1 = mix2(hi, lo) & mask;
+    has1 = num_choices == 2 && b1 != b0;
+  } else {
+    const uint32_t l1 = lo ^ fmix32(hi + c1);
+    const uint32_t h1 = hi ^ fmix32(l1 + c2);
+    const uint32_t l2 = l1 ^ fmix32(h1 + c3);
+    *a = h1;
+    *b = l2;
+    b0 = l2 & mask;
+    b1 = h1 & mask;
+    if (LAYOUT == kQs) {
+      b1 = h1 & smask;
+      start1 = sstart;
+      local1 = slocal;
+      has1 = stash;
+    }
+  }
+  const bool in0 = b0 - start < local;
+  const bool in1 = has1 && b1 - start1 < local1;
+  return (in0 ? kIn0 : 0u) | (in1 ? kIn1 : 0u);
+}
+
+// The range query for calls that read a small share of the table (a part
+// of a streamed table, a db shard of a mesh): a block of kTile threads
+// stages W tile-units, reads_per_block reads of tiles_per_block tiles from
+// tile (tile_base + blockIdx.y) * tiles_per_block (reads_per_block *
+// tiles_per_block <= W), runs the front half for every window of them
+// (W a thread), and queues in shared memory the windows that have a row in
+// the call's ranges, a warp's slots found by a ballot and one shared
+// atomic.  Then every thread drains the queue, a stride of kTile apart, so
+// every lane gathers, not the 1/parts of them whose window's row lies in
+// the range as in query_kernel.  qs loads a window's main and stash rows
+// before it compares either.  A q4 or s2 window gathers its choice-0 row
+// when that lies in the range, else its choice-1 row; one whose choice-0
+// row misses (label 0) while its choice-1 row lies in the range too goes
+// into a second queue and gathers that row after a barrier.  Windows that
+// queue nothing store label 0 (or leave their accumulator as it is); a
+// queued one stores its label once, after its last gather.  The front half
+// is bound by the instructions it issues, so a unit's read and tile are
+// stepped without a division, its labels' offset is kept in shared memory
+// for the drain, and ranges are compared in 32 bits.  s2 is held to 40
+// registers a thread (12 blocks an SM; at 48 its pass of 8 parts ran 7%
+// slower on an H100), qs and q4 to 32 (16 blocks, their count without the
+// bound).
+template <int LAYOUT, int W>
+__global__ void __launch_bounds__(kTile, LAYOUT == kS2 ? 12 : 16)
+    range_query_kernel(
+        const uint8_t* __restrict__ packed2,
+        const uint8_t* __restrict__ vbits, const void* __restrict__ main_rows,
+        const uint4* __restrict__ stash_rows, int32_t* __restrict__ labels,
+        int64_t R, int P, int s2, int s8, int k, int nb_bits, int stash_bits,
+        uint64_t bucket_start, uint64_t nb_local, uint64_t stash_start,
+        uint64_t nbs_local, int accumulate, uint32_t c1, uint32_t c2,
+        uint32_t c3, int slots, int num_choices, int reads_per_block,
+        int tiles_per_block, int tile_base) {
+  __shared__ uint32_t w2[W][w2_words(1)];
+  __shared__ uint32_t wv[W][v_words(1)];
+  __shared__ int64_t ubase[W];
+  __shared__ uint16_t q_id[W * kTile];
+  __shared__ uint32_t q_a[W * kTile], q_b[W * kTile];
+  __shared__ uint16_t q2[LAYOUT == kQs ? 1 : W * kTile];
+  __shared__ int q_n, q2_n;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int Tb = tiles_per_block;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * reads_per_block;
+  const int tb0 = (tile_base + static_cast<int>(blockIdx.y)) * Tb;
+  const int T = (P + kTile - 1) / kTile;
+  const uint32_t mask = static_cast<uint32_t>((1ull << nb_bits) - 1);
+  const uint32_t smask = static_cast<uint32_t>((1ull << stash_bits) - 1);
+  const uint32_t start = static_cast<uint32_t>(bucket_start);
+  const uint32_t local = static_cast<uint32_t>(nb_local);
+  if (tid == 0) {
+    q_n = 0;
+    q2_n = 0;
+  }
+  // stage each unit's tile as stage_wire<1> does: unit u = g * Tb + tt is
+  // tile tb0 + tt of read r0 + g, stepped without a division; a unit past
+  // the batch stages zeros and stores nothing
+  {
+    int g = 0, tt = 0;
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      const int64_t r = r0 + g;
+      const int t = tb0 + tt;
+      const bool live = g < reads_per_block && r < R && t < T;
+      if (tid < 4 * w2_words(1)) {
+        const int q = t * (kTile / 4) + tid;
+        reinterpret_cast<uint8_t*>(w2[u])[tid] =
+            live && q < s2 ? __ldg(packed2 + r * s2 + q) : 0;
+      } else if (tid < kUnitBytes) {
+        const int j = tid - 4 * w2_words(1), q = t * (kTile / 8) + j;
+        reinterpret_cast<uint8_t*>(wv[u])[j] =
+            live && q < s8 ? __ldg(vbits + r * s8 + q) : 0;
+      }
+      if (++tt == Tb) {
+        tt = 0;
+        ++g;
+      }
+    }
+  }
+  __syncthreads();
+  {
+    int g = 0, tt = 0;
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      const int64_t r = r0 + g;
+      const int t0 = (tb0 + tt) * kTile;
+      const int64_t base = r * P + t0;
+      const bool here = g < reads_per_block && r < R && t0 + tid < P;
+      if (tid == 0) ubase[u] = base;
+      uint32_t flags = 0, a = 0, b = 0;
+      uint64_t c;
+      if (here && window_kmer(w2[u], wv[u], tid, k, &c))
+        flags = range_entry<LAYOUT>(
+            c, stash_rows != nullptr, mask, smask, start, local,
+            static_cast<uint32_t>(stash_start),
+            static_cast<uint32_t>(nbs_local), c1, c2, c3, num_choices, &a,
+            &b);
+      if (here && flags == 0 && !accumulate) labels[base + tid] = 0;
+      const unsigned m = __ballot_sync(kFull, flags != 0);
+      if (m != 0) {
+        int slot = 0;
+        if (lane == 0) slot = atomicAdd(&q_n, __popc(m));
+        slot = __shfl_sync(kFull, slot, 0) + __popc(m & ((1u << lane) - 1));
+        if (flags != 0) {
+          q_id[slot] = static_cast<uint16_t>((u * kTile + tid) | flags);
+          q_a[slot] = a;
+          q_b[slot] = b;
+        }
+      }
+      if (++tt == Tb) {
+        tt = 0;
+        ++g;
+      }
+    }
+  }
+  __syncthreads();
+  // a queued window's label: written once, or added to its accumulator
+  auto store = [&](uint32_t id, int32_t lab) {
+    int32_t* out = labels + ubase[(id >> 7) & (W - 1)] + (id & 127u);
+    if (!accumulate)
+      *out = lab;
+    else if (lab != 0)
+      *out += lab;
+  };
+  const int n = q_n;
+  const uint4* rows4 = static_cast<const uint4*>(main_rows);
+  const uint32_t* rows_s2 = static_cast<const uint32_t*>(main_rows);
+  for (int e0 = 0; e0 < n; e0 += kTile) {
+    const int e = e0 + tid;
+    bool again = false;
+    if (e < n) {
+      const uint32_t id = q_id[e], a = q_a[e], b = q_b[e];
+      const bool in0 = id & kIn0, in1 = id & kIn1;
+      int32_t lab = 0;
+      if (LAYOUT == kQs) {
+        // main row l2 & (NB-1) (streamed past the stash), stash row
+        // h1 & (NBS-1): both loads in flight before either compares
+        QRow row0{}, row1{};
+        if (in0) row0 = load_row<true>(rows4, (b & mask) - start);
+        if (in1)
+          row1 = load_row<false>(
+              stash_rows, (a & smask) - static_cast<uint32_t>(stash_start));
+        if (in0) lab = row_label(row0, a, b >> nb_bits, 0u);
+        if (in1) lab += row_label(row1, b, a >> stash_bits, 1u);
+      } else if (LAYOUT == kQ4) {
+        if (in0)
+          lab = row_label(load_row<false>(rows4, (b & mask) - start), a,
+                          b >> nb_bits, 0u);
+        else
+          lab = row_label(load_row<false>(rows4, (a & mask) - start), b,
+                          a >> nb_bits, 1u);
+      } else {
+        const uint32_t row = (in0 ? mix1(b, a) : mix2(b, a)) & mask;
+        lab = s2_row_label(rows_s2, row - start, a, b, slots);
+      }
+      again = LAYOUT != kQs && in0 && in1 && lab == 0;
+      if (!again) store(id, lab);
+    }
+    if (LAYOUT != kQs) {
+      const unsigned m = __ballot_sync(kFull, again);
+      if (m != 0) {
+        int slot = 0;
+        if (lane == 0) slot = atomicAdd(&q2_n, __popc(m));
+        slot = __shfl_sync(kFull, slot, 0) + __popc(m & ((1u << lane) - 1));
+        if (again) q2[slot] = static_cast<uint16_t>(e);
+      }
+    }
+  }
+  if (LAYOUT == kQs) return;
+  __syncthreads();
+  // the second round: choice 1 of the windows whose choice 0 missed
+  const int n2 = q2_n;
+  for (int i = tid; i < n2; i += kTile) {
+    const int e = q2[i];
+    const uint32_t id = q_id[e], a = q_a[e], b = q_b[e];
+    int32_t lab;
+    if (LAYOUT == kQ4)
+      lab = row_label(load_row<false>(rows4, (a & mask) - start), b,
+                      a >> nb_bits, 1u);
+    else
+      lab = s2_row_label(rows_s2, (mix2(b, a) & mask) - start, a, b, slots);
+    store(id, lab);
+  }
+}
+
 // The fused query and score takes reads of up to kMaxTiles tiles, the
 // rows of score.cu's warp path (kWarpMax = 1,024 windows).
 constexpr int kMaxTiles = 8;
@@ -722,6 +978,18 @@ void launch(bool codes, dim3 grid, cudaStream_t st, const uint8_t* p2,
         num_choices, tile_base);
 }
 
+// range_query_kernel of one layout at W tile-units a block.
+template <int LAYOUT, typename... Args>
+bool launch_range(int W, dim3 grid, cudaStream_t st, Args... args) {
+  switch (W) {
+    case 2: range_query_kernel<LAYOUT, 2><<<grid, kTile, 0, st>>>(args...);
+      return true;
+    case 4: range_query_kernel<LAYOUT, 4><<<grid, kTile, 0, st>>>(args...);
+      return true;
+    default: return false;
+  }
+}
+
 }  // namespace
 
 // labels int32 [R, P] from packed2 uint8 [R, s2], vbits uint8 [R, s8] and
@@ -783,6 +1051,70 @@ extern "C" int cuclark_query(int layout, int codes, const void* packed2,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// The range query (cuclark_query's operands, wire front half only) through
+// range_query_kernel: one launch of grid (grid_x, grid_y) blocks, each of W
+// = `windows` (2 or 4) tile-units, reads_per_block reads of
+// tiles_per_block tiles (their product at most W) from tile (tile_base +
+// blockIdx.y) * tiles_per_block.  The caller's geometry
+// (cuclark_tpu_torch/kernels.py:range_geometry) covers every (read, tile)
+// once over its launches.  Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int cuclark_query_range(
+    int layout, const void* packed2, const void* vbits, const void* main_rows,
+    const void* stash_rows, void* labels, int64_t R, int P, int s2, int s8,
+    int k, int nb_bits, int stash_bits, int64_t bucket_start,
+    int64_t nb_local, int64_t stash_start, int64_t nbs_local, int accumulate,
+    uint32_t c1, uint32_t c2, uint32_t c3, int slots, int num_choices,
+    int windows, int reads_per_block, int tiles_per_block, int64_t grid_x,
+    int grid_y, int tile_base, void* stream) {
+  if (R == 0 || P == 0) return static_cast<int>(cudaSuccess);
+  if (R > 0x7FFFFFFF || k < 2 || k > 32 || reads_per_block < 1 ||
+      tiles_per_block < 1 || reads_per_block * tiles_per_block > windows ||
+      grid_x < 1 || grid_x > 0x7FFFFFFF || grid_y < 1 || grid_y > 65535 ||
+      tile_base < 0 || nb_bits > 31 || stash_bits > 31 ||
+      (layout != kQs && stash_rows != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(grid_x),
+                  static_cast<unsigned>(grid_y));
+  const uint8_t* p2 = static_cast<const uint8_t*>(packed2);
+  const uint8_t* vb = static_cast<const uint8_t*>(vbits);
+  const uint4* stash = static_cast<const uint4*>(stash_rows);
+  int32_t* out = static_cast<int32_t*>(labels);
+  const uint64_t start = static_cast<uint64_t>(bucket_start);
+  const uint64_t local = static_cast<uint64_t>(nb_local);
+  const uint64_t sstart = static_cast<uint64_t>(stash_start);
+  const uint64_t slocal = static_cast<uint64_t>(nbs_local);
+  bool launched = false;
+  switch (layout) {
+    case kQs:
+      launched = launch_range<kQs>(
+          windows, grid, st, p2, vb, main_rows, stash, out, R, P, s2, s8, k,
+          nb_bits, stash_bits, start, local, sstart, slocal, accumulate, c1,
+          c2, c3, slots, num_choices, reads_per_block, tiles_per_block,
+          tile_base);
+      break;
+    case kQ4:
+      launched = launch_range<kQ4>(
+          windows, grid, st, p2, vb, main_rows, stash, out, R, P, s2, s8, k,
+          nb_bits, 0, start, local, uint64_t{0}, uint64_t{0}, accumulate, c1,
+          c2, c3, slots, num_choices, reads_per_block, tiles_per_block,
+          tile_base);
+      break;
+    case kS2:
+      launched = launch_range<kS2>(
+          windows, grid, st, p2, vb, main_rows, stash, out, R, P, s2, s8, k,
+          nb_bits, 0, start, local, uint64_t{0}, uint64_t{0}, accumulate, c1,
+          c2, c3, slots, num_choices, reads_per_block, tiles_per_block,
+          tile_base);
+      break;
+    default:
+      break;
+  }
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // results int32 [R, 5] (as cuclark_score's) of the wire batch packed2 uint8

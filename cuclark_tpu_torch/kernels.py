@@ -20,8 +20,10 @@ the plain PyTorch versions for CPU tensors.  `query`, `query_part` and
 layout: the resident query over
 the whole table; the range query over one bucket range of main rows and
 one range of stash rows (a part of a streamed table, or the db shard of
-a mesh, `parallel/mesh.py`); and the resident query over unpacked codes
-(`pipeline.classify_step`).  Their counts are kept per layout: `query`,
+a mesh, `parallel/mesh.py`), through the kernel's queued range instance
+(`range_query_kernel`, its blocks laid out by `range_geometry`) where
+the range holds at most half the table; and the resident query over
+unpacked codes (`pipeline.classify_step`).  Their counts are kept per layout: `query`,
 `query_part` and `query_codes` for qs, the same names with `_q4` or `_s2`
 for the others.  `query_score` launches the query kernel's fused
 instance for reads of up to QUERY_SCORE_MAX_WINDOWS windows against the
@@ -46,11 +48,13 @@ handles of one.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -73,6 +77,73 @@ MAX_SCORE_WINDOWS = 32768
 # kWarpMax): every read length bin up to 1024, paired 2 x 150 bp reads
 # (P = 290) among them.
 QUERY_SCORE_MAX_WINDOWS = 1024
+
+# The query kernel's tile (csrc/query.cu kTile) and gridDim.y's limit.
+TILE = 128
+GRID_Y_MAX = 65535
+
+# Most tile-units a block of the range query (csrc/query.cu,
+# range_query_kernel) covers: W windows a lane.  On an H100 the s2 pass of
+# 8 parts ran 11% faster at 4 than at 8 (and qs's 4% faster): a warp's
+# queue of W * 32 windows holds about one gather a lane at 4 parts.
+RANGE_MAX_WINDOWS = 4
+
+
+@dataclass(frozen=True)
+class RangeGeometry:
+    """The blocks of a range query launch over R reads of P windows:
+    each block covers reads_per_block reads of tiles_per_block tiles of
+    TILE windows (their product at most `windows`, the tile-units a block
+    covers, W windows a thread), grid_x blocks on x over the reads, and
+    on y the tile groups, in launches of (tile_base, grid_y) with grid_y
+    at most GRID_Y_MAX; block (x, y) of a launch covers reads from x *
+    reads_per_block and tiles from (tile_base + y) * tiles_per_block.
+    windows 1 is query_kernel's geometry: a block a (read, tile)."""
+
+    windows: int
+    reads_per_block: int
+    tiles_per_block: int
+    grid_x: int
+    launches: tuple[tuple[int, int], ...]
+
+
+# The least W at which a layout's range calls take range_query_kernel:
+# on an H100 qs's db shards of 2 ran 0.5% slower in it than in
+# query_kernel (0 of 12 timings), q4's and s2's faster (12 of 12).
+RANGE_MIN_WINDOWS = {"qs": 4, "q4": 2, "s2": 2}
+
+
+def range_windows(nb_bits: int, nb_local: int, layout: str) -> int:
+    """W of a range call of `layout` over nb_local of the table's
+    2^nb_bits main rows: the table's rows over the range's, floored to a
+    power of two and capped at RANGE_MAX_WINDOWS, so that about one window
+    a thread has a row in the range (a streamed part of 4 or more: 4; a
+    2-shard mesh's shard: 2).  1, query_kernel's geometry, below the
+    layout's RANGE_MIN_WINDOWS (a range of more than half the table
+    always)."""
+    share = min((1 << nb_bits) // max(nb_local, 1), RANGE_MAX_WINDOWS)
+    w = 1
+    while 2 * w <= share:
+        w *= 2
+    return w if w >= RANGE_MIN_WINDOWS[layout] else 1
+
+
+@functools.lru_cache(maxsize=64)
+def range_geometry(R: int, P: int, windows: int) -> RangeGeometry:
+    """The launches of a range query of R reads of P windows at W =
+    `windows` tile-units a block: reads of at least W tiles take W of
+    their tiles a block, shorter ones W // tiles whole reads (a 122-window
+    read: W reads a block; a 290-window read of 3 tiles at W 4: one)."""
+    T = -(-P // TILE)
+    if T >= windows:
+        G, Tb = 1, windows
+    else:
+        G, Tb = windows // T, T
+    gy = -(-T // Tb)
+    return RangeGeometry(windows, G, Tb, -(-R // G), tuple(
+        (base, min(GRID_Y_MAX, gy - base))
+        for base in range(0, gy, GRID_Y_MAX)))
+
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"query": 0, "query_part": 0, "query_codes": 0, "query_q4": 0,
@@ -153,6 +224,10 @@ ENTRIES = {
     "cuclark_query": [_i32, _i32, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32,
                       _i32, _i32, _i32, _i32, _i64, _i64, _i64, _i64, _i32,
                       _u32, _u32, _u32, _i32, _i32, _vp],
+    "cuclark_query_range": [_i32, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32,
+                            _i32, _i32, _i32, _i32, _i64, _i64, _i64, _i64,
+                            _i32, _u32, _u32, _u32, _i32, _i32, _i32, _i32,
+                            _i32, _i64, _i32, _i32, _vp],
     "cuclark_query_score_range": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
                                   _i32, _i32, _i32, _i32, _i32, _i32, _i64,
                                   _i64, _i64, _i64, _u32, _u32, _u32, _i32,
@@ -278,15 +353,27 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
         (R, P), dtype=torch.int32, device=dev)
     lib = load()
     c1, c2, c3 = feistel_seed_consts(spec.seed)
+    W = (1 if vbits is None
+         else range_windows(spec.nb_bits, nb_local, spec.layout))
+    args = (main.data_ptr(), stash_ptr, out.data_ptr(), R, P, s2, s8, k,
+            spec.nb_bits, spec.stash_bits, bucket_start, nb_local,
+            stash_start, nbs_local, int(acc is not None), c1, c2, c3,
+            spec.slots, spec.num_choices)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.cuclark_query(
-            _LAYOUT_CODE[spec.layout], int(vbits is None), packed2.data_ptr(),
-            None if vbits is None else vbits.data_ptr(), main.data_ptr(),
-            stash_ptr, out.data_ptr(), R, P, s2, s8, k, spec.nb_bits,
-            spec.stash_bits, bucket_start, nb_local, stash_start, nbs_local,
-            int(acc is not None), c1, c2, c3, spec.slots, spec.num_choices,
-            stream), "query")
+        if W == 1:
+            _raise_on(lib.cuclark_query(
+                _LAYOUT_CODE[spec.layout], int(vbits is None),
+                packed2.data_ptr(),
+                None if vbits is None else vbits.data_ptr(), *args, stream),
+                "query")
+            return out
+        g = range_geometry(R, P, W)
+        for base, gy in g.launches:
+            _raise_on(lib.cuclark_query_range(
+                _LAYOUT_CODE[spec.layout], packed2.data_ptr(),
+                vbits.data_ptr(), *args, W, g.reads_per_block,
+                g.tiles_per_block, g.grid_x, gy, base, stream), "query")
     return out
 
 
@@ -333,7 +420,13 @@ def query_part(packed2: torch.Tensor, vbits: torch.Tensor,
     len(main_part)), a qs stash holds stash rows [stash_start,
     stash_start + len(stash)) and None skips the stash probe.  Returns
     new labels int32 [R, P], or adds them into `acc` in place and
-    returns it."""
+    returns it.  A range of at most half the table's main rows (a
+    streamed part, a db shard) takes `range_query_kernel` at W =
+    `range_windows` tile-units a block (`range_geometry`): each warp's
+    front half of W windows a lane queues its windows with a row in the
+    range, and all its lanes then gather from the queue; a wider range
+    takes `query_kernel`, a thread a window.  One launch a call, past
+    65,535 tile groups a row one a group of them."""
     out = _launch_query(packed2, vbits, main_part, stash, acc, k=k,
                         spec=spec, bucket_start=bucket_start,
                         stash_start=stash_start)

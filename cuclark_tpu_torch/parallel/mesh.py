@@ -228,10 +228,12 @@ def place_wire(mesh: Mesh, packed2, vbits) -> list[list[tuple]]:
 
 def _sum_shards(query, mesh: Mesh, wires, main, stash, *, k: int,
                 spec: TableSpec, nb_local: int, nbs_local: int,
-                part_start: int, acc, first: int = 0):
+                part_start: int, acc, first: int = 0, stash_offset: int = 0):
     """Per data block: the labels of its db shards from local column
     `first` on summed on the block's column-0 device (added into acc[d]
-    when acc is given; None for a block with neither)."""
+    when acc is given; None for a block with neither).  stash[d][j] holds
+    shard g's stash rows from stash_offset on (g * nbs_local + its
+    offset in the table's stash)."""
     out = []
     for d, row in enumerate(mesh.devices):
         home = row[0]
@@ -241,7 +243,7 @@ def _sum_shards(query, mesh: Mesh, wires, main, stash, *, k: int,
             g = mesh.db_start + j
             args = dict(bucket_start=part_start + g * nb_local,
                         nb_local=nb_local, k=k, spec=spec,
-                        stash_start=g * nbs_local)
+                        stash_start=g * nbs_local + stash_offset)
             s = None if stash is None else stash[d][j]
             if dev == home:
                 a = query(p2, vb, main[d][j], s, acc=a, **args)
@@ -254,14 +256,16 @@ def _sum_shards(query, mesh: Mesh, wires, main, stash, *, k: int,
 
 
 def _fused_blocks(fused, wires, main, stash, sums, *, k: int,
-                  spec: TableSpec, nb_local: int, part_start: int):
+                  spec: TableSpec, nb_local: int, part_start: int,
+                  stash_offset: int = 0):
     """Per data block: column 0's shard as the fused range launch, which
     adds the block's sum of the other launches (sums[d], None: none) to
     its labels and scores them -> results [Rb, 5] on the column-0
-    device.  Not for a db axis that spans processes."""
+    device.  Not for a db axis that spans processes (column 0 is shard
+    0, its stash rows from stash_offset on)."""
     return [fused(p2, vb, main[d][0], None if stash is None else stash[d][0],
                   bucket_start=part_start, nb_local=nb_local, k=k, spec=spec,
-                  acc_in=sums[d])
+                  stash_start=stash_offset, acc_in=sums[d])
             for d, (p2, vb) in enumerate(w[0] for w in wires)]
 
 
@@ -323,10 +327,14 @@ def build_sharded_probe_part(mesh: Mesh, *, k: int, spec: TableSpec,
                              nb_part: int, plain: bool = False):
     """The sharded step of one streamed part (`cuclark_tpu.parallel.mesh.
     build_sharded_probe_part`, mesh.py:164): step(part, wires, part_start,
-    stash=None, acc=None, scored=False) -> labels, a list of num_data
-    blocks.  `part` is [d][j] main rows: global rows [part_start,
+    stash=None, acc=None, scored=False, split=(0, 1)) -> labels, a list of
+    num_data blocks.  `part` is [d][j] main rows: global rows [part_start,
     part_start + nb_part) row-sharded over 'db'.  A qs stash ([d][j],
-    `shard_rows`) is probed on one part per batch only.  With acc (a list
+    `shard_rows`) is probed over each shard's range p of `parts`
+    (`probe.stash_range`, split=(p, parts)), as one device splits its
+    stash over the parts: the parts' sum equals the reference's, which
+    probes the stash on part 0 only; split=(0, 1) probes each shard's
+    whole stash.  With acc (a list
     of blocks), the labels add into it in place.  scored=True, for the last
     part of a batch that fuses and whose labels nobody needs
     (`probe.fuses_score`), ends each block in the fused range launch and
@@ -343,9 +351,15 @@ def build_sharded_probe_part(mesh: Mesh, *, k: int, spec: TableSpec,
     query, _, fused = _step_fns(plain)
 
     def step(part, wires, part_start: int, stash=None, acc=None,
-             scored=False):
+             scored=False, split=(0, 1)):
         kw = dict(k=k, spec=spec, nb_local=nb_local, part_start=part_start)
-        nbs_local = stash[0][0].shape[0] if stash is not None else 0
+        nbs_local = 0 if stash is None else stash[0][0].shape[0]
+        if stash is not None:
+            kw["stash_offset"] = probe.stash_range(stash[0][0], *split)[1]
+            stash = [[probe.stash_range(s, *split)[0] for s in row]
+                     for row in stash]
+            if stash[0][0] is None:  # a part past the shard's stash rows
+                stash = None
         if mesh.spans_processes:
             if scored:
                 raise ValueError("a db axis that spans processes cannot end "

@@ -512,7 +512,8 @@ class Classifier:
         every batch, src/CuCLARK_hh.hh:1766-1774) and merge partial
         labels by sum: every k-mer lives in exactly one part (each hash
         choice is range-checked on its own), and a qs table's resident
-        stash is probed on part 0's call only.  The labels
+        stash is split over the parts (`probe.stash_range`; on a mesh
+        each db shard's stash range).  The labels
         accumulate in place on the device, and on the card part p+1
         uploads while part p probes (_PartStream).  Without labels, the
         last part of a batch that fuses (`probe.fuses_score`) is the
@@ -536,9 +537,9 @@ class Classifier:
             for p, part in self._mesh_parts():
                 for gi, w in enumerate(wires):
                     res = self._mesh_part_step(
-                        part, w, p * rows,
-                        stash=self.stash if p == 0 else None, acc=acc[gi],
-                        scored=p == last and fused[gi])
+                        part, w, p * rows, stash=self.stash, acc=acc[gi],
+                        scored=p == last and fused[gi],
+                        split=(p, self.stream_parts))
                     if p == last and fused[gi]:
                         out[gi] = (res, None)
                     else:
@@ -556,10 +557,12 @@ class Classifier:
                  for p2, _ in wires]
         out = [None] * len(wires)
         for p, part in parts:
+            stash, stash_start = probe.stash_range(self.stash, p,
+                                                   self.stream_parts)
             for gi, (p2, vb) in enumerate(wires):
                 args = dict(bucket_start=p * rows, nb_local=rows,
-                            k=self.db.k, spec=self.spec)
-                stash = self.stash if p == 0 else None
+                            k=self.db.k, spec=self.spec,
+                            stash_start=stash_start)
                 if p == last and fused[gi]:
                     out[gi] = (probe.query_score_part_results(
                         p2, vb, part, stash, acc_in=acc[gi], **args), None)

@@ -332,6 +332,26 @@ def query_codes_labels(codes: torch.Tensor, main: torch.Tensor,
     return kernels.query_codes(codes, main, stash, k=k, spec=spec)
 
 
+def stash_range(stash: torch.Tensor | None, p: int, parts: int):
+    """(stash rows, offset of its first row) that part p of a streamed qs
+    table's `parts` probes: rows [p * n // parts, (p + 1) * n // parts) of
+    the n stash rows given (the whole stash on one device, a db shard's
+    on a mesh), so every part call gathers about as many stash rows (a
+    pass of 4 parts on an H100 80GB HBM3 at 700 W: 0.1157 -> 0.1074 ms a
+    part call against the whole stash on part 0, PERF.md section 6);
+    where the parts outnumber the stash rows, the whole stash on part 0.
+    Every key lives in one stash row, so the parts' labels sum to those
+    of the reference's part-0 stash probe (cuclark_tpu/pipeline.py:
+    808-810).  (None, 0) without a stash."""
+    if stash is None:
+        return None, 0
+    n = stash.shape[0]
+    if parts > n:
+        return (stash if p == 0 else None), 0
+    lo, hi = p * n // parts, (p + 1) * n // parts
+    return stash[lo:hi], lo
+
+
 def query_part_labels_plain(packed2: torch.Tensor, vbits: torch.Tensor,
                             main_part: torch.Tensor,
                             stash: torch.Tensor | None, *, bucket_start: int,

@@ -17,7 +17,11 @@ q4 and s2 of the same 64M 31-mers) and reads:
     wire batch of 150 bp reads;
   - query_part_qs, query_part_q4, query_part_s2: a pass over the table
     in 4 bucket-range parts (s2: 8, as chip_smoke.py streams them; the qs
-    stash on part 0, the labels accumulated), per part call;
+    stash split over the parts, the labels accumulated), per part call;
+    query_part_qs_2, query_part_qs_8: the same in 2 and 8 parts, which
+    are also the ranges of a qs table's db shards on a mesh of 2 and 4;
+    query_shard_{q4,s2}_{2,4}: a pass over the db shards of a mesh of 2
+    and 4;
   - classify_step: the codes front half on the same reads as unpacked
     codes, then the score kernel;
   - query_q4_miss, query_s2_miss: the resident q4 and s2 query of
@@ -47,6 +51,10 @@ q4 and s2 of the same 64M 31-mers) and reads:
     [65,536, 122] random labels over 1..65,535 with 30% misses (rows of
     many distinct labels: the warp path's sort);
   - score_long: the labels of 256 reads of 33-100 kb, [256, 98,402].
+
+`--pair A B` times cases A and B of the new build against each other in
+turns (A, B, B, A).  `nvcc -Xptxas -v` prints each build's kernels'
+registers and shared memory first.
 
 Each case runs old, new, new, old for each old build, `--turns` times
 (12 timings of each old build at the default 6), a timing being the mean
@@ -140,14 +148,32 @@ class Kernels:
         s8 = 0 if vb is None else vb.shape[1]
         P = out.shape[1]
         c1, c2, c3 = feistel_seed_consts(spec.seed)
-        err = self.lib.cuclark_query(
-            kernels._LAYOUT_CODE[spec.layout], int(vb is None), x.data_ptr(),
-            None if vb is None else vb.data_ptr(), main.data_ptr(),
-            None if stash is None else stash.data_ptr(), out.data_ptr(), R,
-            P, s2, s8, k, spec.nb_bits, spec.stash_bits, bucket_start,
-            main.shape[0], stash_start, 0 if stash is None else
-            stash.shape[0], int(accumulate), c1, c2, c3, spec.slots,
-            spec.num_choices, torch.cuda.current_stream().cuda_stream)
+        lay = kernels._LAYOUT_CODE[spec.layout]
+        st = torch.cuda.current_stream().cuda_stream
+        common = (main.data_ptr(), None if stash is None else
+                  stash.data_ptr(), out.data_ptr(), R, P, s2, s8, k,
+                  spec.nb_bits, spec.stash_bits, bucket_start, main.shape[0],
+                  stash_start, 0 if stash is None else stash.shape[0],
+                  int(accumulate), c1, c2, c3, spec.slots, spec.num_choices)
+        # a build with the range kernel takes it as kernels._launch_query
+        # does: wire batches over a range of at most half the table
+        W = (kernels.range_windows(spec.nb_bits, main.shape[0],
+                                   spec.layout)
+             if vb is not None and hasattr(self.lib, "cuclark_query_range")
+             else 1)
+        if W == 1:
+            err = self.lib.cuclark_query(
+                lay, int(vb is None), x.data_ptr(),
+                None if vb is None else vb.data_ptr(), *common, st)
+        else:
+            g = kernels.range_geometry(R, P, W)
+            for base, gy in g.launches:
+                err = self.lib.cuclark_query_range(
+                    lay, x.data_ptr(), vb.data_ptr(), *common, W,
+                    g.reads_per_block, g.tiles_per_block, g.grid_x, gy, base,
+                    st)
+                if err:
+                    break
         if err:
             raise RuntimeError(f"query launch failed: CUDA error {err}")
         return out
@@ -215,6 +241,42 @@ class Kernels:
         return out
 
 
+def ptxas_report(src: Path) -> dict:
+    """Registers and static shared memory of each kernel of src/query.cu
+    and src/score.cu, from nvcc -Xptxas -v with the package's flags:
+    {kernel (demangled by c++filt where it exists): (registers, smem
+    bytes)}."""
+    import shutil
+
+    from cuclark_tpu_torch import kernels
+
+    flags = [f for f in kernels.NVCC_FLAGS if f != "-shared"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ptxas_") as td:
+        for name in kernels.SOURCES:
+            proc = subprocess.run(
+                [kernels._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                 str(Path(td) / "k.o"), str(src / name)],
+                capture_output=True, text=True, check=True)
+            entry = None
+            for line in proc.stderr.splitlines():
+                m = re.search(r"Compiling entry function '([^']+)'", line)
+                if m:
+                    entry = m.group(1)
+                m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
+                              line)
+                if m and entry:
+                    out[entry] = (int(m.group(1)), int(m.group(2)))
+                    entry = None
+    if shutil.which("c++filt") and out:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True).stdout
+        out = dict(zip((n.replace("(anonymous namespace)::", "")
+                        .removeprefix("void ").split("(")[0]
+                        for n in names.splitlines()), out.values()))
+    return out
+
+
 def timed(fn, reps: int) -> float:
     """Mean ms per call over reps calls, after one warm-up call."""
     import torch
@@ -237,7 +299,7 @@ WIDE_BINS = (160, 192, 256, 320, 512, 1024)
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", type=Path, nargs="+", required=True,
+    ap.add_argument("--old", type=Path, nargs="*", default=[],
                     help="directories of earlier query.cu and score.cu")
     ap.add_argument("--genomes", type=int, default=16384)
     ap.add_argument("--reads", type=int, default=65536)
@@ -245,6 +307,14 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--cases", nargs="*", default=None,
                     help="time only these cases (default: all)")
+    ap.add_argument("--unchecked", type=Path, nargs="*", default=[],
+                    help="old dirs timed without comparing their outputs: "
+                         "timing-only copies of a kernel with a stage cut "
+                         "out, which no path runs")
+    ap.add_argument("--pair", nargs=2, action="append", default=[],
+                    metavar=("A", "B"),
+                    help="also time cases A and B of the new build in "
+                         "turns (A, B, B, A), 2 x --turns timings each")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "kernel_ab.json")
     args = ap.parse_args(argv)
@@ -264,9 +334,18 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     new = Kernels(kernels.load(), False, kernels.QUERY_SCORE_MAX_WINDOWS)
-    olds = {d.resolve().name: Kernels(*build_old(d)) for d in args.old}
+    olds = {d.resolve().name: Kernels(*build_old(d))
+            for d in [*args.old, *args.unchecked]}
+    unchecked = {d.resolve().name for d in args.unchecked}
     print(f"built {len(olds) + 1} sets in {time.time() - t0:.1f} s",
           flush=True)
+    ptxas = {"new": ptxas_report(kernels._CSRC)}
+    ptxas.update((d.resolve().name, ptxas_report(d))
+                 for d in [*args.old, *args.unchecked])
+    for which, rep in ptxas.items():
+        for name, (regs, smem) in rep.items():
+            print(f"ptxas {which}: {name}: {regs} registers, {smem} bytes "
+                  f"smem", flush=True)
 
     t0 = time.time()
     genomes, dbs = cs.build_headline_db(args.genomes, None)
@@ -338,9 +417,21 @@ def main(argv=None) -> int:
         bound[f"query_{lay}_miss"] = cs._bound_ms(cs.query_bytes(
             miss, spec[lay], wire_b, lab_b))
         del miss
-    for lay in dbs:
-        bound[f"query_part_{lay}"] = cs._bound_ms(cs.query_bytes(
-            touched[lay], spec[lay], wire_b, lab_b, cs.STREAM_PARTS[lay]))
+    # the range passes (`chip_smoke.range_calls`: a qs stash split over
+    # the ranges): streamed parts of each layout as chip_smoke.py streams
+    # them, qs in 2 and 8 parts too, and q4 and s2 db shards at 2 and 4
+    passes = {f"query_part_{lay}": (lay, cs.STREAM_PARTS[lay])
+              for lay in dbs}
+    passes.update({"query_part_qs_2": ("qs", 2),
+                   "query_part_qs_8": ("qs", 8)})
+    passes.update((f"query_shard_{lay}_{n}", (lay, n))
+                  for lay in ("q4", "s2") for n in (2, 4))
+    pass_calls = {name: cs.range_calls(*tables[lay], n)
+                  for name, (lay, n) in passes.items()}
+    for name, (lay, n) in passes.items():
+        hits = cs.later_hits(p2, vb, pass_calls[name], k, spec[lay])
+        bound[name] = cs._bound_ms(cs.query_bytes(
+            touched[lay], spec[lay], wire_b, lab_b, n, hits))
     # the wide batches' touched rows: the pairs on every table, the rest
     # on qs's; an all-miss batch reads each window's rows as a miss does
     for n, (x, v, c) in wide.items():
@@ -387,18 +478,16 @@ def main(argv=None) -> int:
                     mp2, mvb, main, None, out, spec=spec[lay], k=k), 1, out)
         acc = torch.empty((R, P), dtype=torch.int32, device=dev)
 
-        def part_pass(lay):
-            main, stash = tables[lay]
-            parts = cs.STREAM_PARTS[lay]
-            rows = main.shape[0] // parts
-            for p in range(parts):
-                kern.query(p2, vb, main[p * rows:(p + 1) * rows],
-                           stash if p == 0 else None, acc, spec=spec[lay],
-                           k=k, bucket_start=p * rows, accumulate=p > 0)
+        def range_pass(name):
+            lay = passes[name][0]
+            for i, (m, s, start, sstart) in enumerate(pass_calls[name]):
+                kern.query(p2, vb, m, s, acc, spec=spec[lay], k=k,
+                           bucket_start=start, stash_start=sstart,
+                           accumulate=i > 0)
             return acc
-        for lay in dbs:
-            cases[f"query_part_{lay}"] = (
-                lambda lay=lay: part_pass(lay), cs.STREAM_PARTS[lay], acc)
+        for name in passes:
+            cases[name] = (lambda name=name: range_pass(name),
+                           len(pass_calls[name]), acc)
         step_out = torch.empty((R, 5), dtype=torch.int32, device=dev)
         codes_lab = torch.empty((R, P), dtype=torch.int32, device=dev)
 
@@ -456,7 +545,8 @@ def main(argv=None) -> int:
             fn()
             torch.cuda.synchronize()
             outs[which] = out.clone()
-            if not torch.equal(outs[which], outs["new"]):
+            if which not in unchecked and not torch.equal(outs[which],
+                                                          outs["new"]):
                 raise AssertionError(f"{name}: {which} and new outputs "
                                      f"differ")
         # per old build: its timings and the new build's beside them
@@ -487,6 +577,21 @@ def main(argv=None) -> int:
         result["cases"][name] = case
         print(", ".join(line) + f"; bound {bound[name]:.4f} ms, new at "
               f"{bound[name] / new_med:.1%} of it", flush=True)
+    result["ptxas"] = ptxas
+    result["pairs"] = {}
+    for a, b in args.pair:
+        times = {a: [], b: []}
+        for _ in range(args.turns):
+            for name in (a, b, b, a):
+                fn, per_call, _ = builds["new"][name]
+                times[name].append(timed(fn, args.reps) / per_call)
+        wins = sum(tb < ta for ta, tb in zip(times[a], times[b]))
+        med = {n: statistics.median(t) for n, t in times.items()}
+        result["pairs"][f"{a} vs {b}"] = {
+            "ms": times, "median_ms": med, "b_faster_in": wins}
+        print(f"pair {a} {med[a]:.4f} ms vs {b} {med[b]:.4f} ms (new build, "
+              f"in turns): {b} faster in {wins} of {len(times[a])}",
+              flush=True)
     for name, c in result["cases"].items():
         if not name.startswith(("classify_step", "step_packed")):
             continue

@@ -9,7 +9,8 @@ It builds chip_smoke.py's headline qs table (k=31, 64M 31-mers, 1.107
 GB) and its 150 bp reads, puts the table on the card, and makes a 2 data
 x 2 db mesh of four handles of `cuda:0` (`parallel.mesh`).  A streamed
 batch there is 4 part steps of `mesh.build_sharded_probe_part` over the
-table in 4 bucket-range parts (the stash on part 0), each part step 4
+table in 4 bucket-range parts (each db shard's stash split over the
+parts, as `pipeline.Classifier` streams on a mesh), each part step 4
 range launches of the query kernel (one per data block and db shard).
 Two routes of a batch's last part are traced, 5 batches of 4 part steps
 each (20 part steps a route), in one `torch.profiler` session:
@@ -99,9 +100,9 @@ def main(argv=None) -> int:
         acc = None
         for p in range(PARTS):
             last = p == PARTS - 1
-            out = pstep(parts[p], wires, p * rows,
-                        stash=sstash if p == 0 else None, acc=acc,
-                        scored=last and route == "fused")
+            out = pstep(parts[p], wires, p * rows, stash=sstash, acc=acc,
+                        scored=last and route == "fused",
+                        split=(p, PARTS))
             if last and route == "fused":
                 return out
             acc = out

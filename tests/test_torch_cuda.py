@@ -169,22 +169,25 @@ def test_layout_query_kernel_matches_plain(dev, layout, slots, choices, n,
     assert int((want > 0).sum()) > 256
 
 
+@pytest.mark.parametrize("parts", [2, 4, 8, 16])
 @pytest.mark.parametrize("accumulate", [False, True])
 @pytest.mark.parametrize("layout,slots,choices,n,nb_bits", LAYOUTS)
 def test_layout_query_part_kernel_matches_plain(dev, layout, slots, choices,
-                                                n, nb_bits, accumulate):
-    """The part-mode q4 or s2 query kernel on each of 4 bucket-range
-    parts, writing or adding into an accumulator; the parts add up to
-    the resident labels."""
+                                                n, nb_bits, accumulate,
+                                                parts):
+    """The part-mode q4 or s2 query kernel on each of 2 to 16
+    bucket-range parts (the range kernel at W 2 and 4), writing or
+    adding into an accumulator; the parts add up to the resident
+    labels."""
     k = 31
     db, p2, vb = _layout_case(dev, layout, slots, choices, n, nb_bits, k)
     main, _ = hashdb.table_to_device(db, dev)
-    rows = db.nb // 4
+    rows = db.nb // parts
     rng = np.random.default_rng(9)
     name = f"query_part_{layout}"
     total = torch.zeros((p2.shape[0], 4 * p2.shape[1] - k + 1),
                         dtype=torch.int32, device=dev)
-    for p in range(4):
+    for p in range(parts):
         part = main[p * rows:(p + 1) * rows].contiguous()
         acc = (torch.from_numpy(rng.integers(0, 1000, size=tuple(total.shape),
                                              dtype=np.int32)).to(dev)
@@ -227,12 +230,14 @@ def test_classifier_rows_match_cpu(dev, tmp_path):
         cpu.classify_records(iter(recs)))
 
 
+@pytest.mark.parametrize("parts", [2, 4, 8, 16])
 @pytest.mark.parametrize("with_stash", [True, False])
 @pytest.mark.parametrize("accumulate", [False, True])
-def test_query_part_kernel_matches_plain(dev, with_stash, accumulate):
-    """The part-mode query kernel on each of 4 bucket-range parts, with
-    or without the stash, writing or adding into an accumulator whose
-    invalid windows must keep their values."""
+def test_query_part_kernel_matches_plain(dev, with_stash, accumulate, parts):
+    """The part-mode query kernel on each of 2 to 16 bucket-range parts
+    (the range kernel at W 2 and 4), with or without the stash,
+    writing or adding into an accumulator whose invalid windows must keep
+    their values."""
     k = 31
     rng = np.random.default_rng(5)
     km = rng.integers(0, 1 << 62, size=301_000, dtype=np.uint64)
@@ -250,10 +255,10 @@ def test_query_part_kernel_matches_plain(dev, with_stash, accumulate):
     codes[3, 90:] = codec.INVALID
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
     main, stash = hashdb.table_to_device(db, dev)
-    rows = db.nb // 4
+    rows = db.nb // parts
     args = dict(nb_local=rows, k=k, spec=db.spec)
     hits = 0
-    for p in range(4):
+    for p in range(parts):
         part = main[p * rows:(p + 1) * rows].contiguous()
         s = stash if with_stash else None
         acc = (torch.from_numpy(rng.integers(0, 1000, size=(R, L - k + 1),
@@ -750,13 +755,34 @@ def test_layout_query_score_kernel_matches_plain(dev, layout, k, L):
     assert hits[0] > hits[1] > 0
 
 
+def _choice_buckets(p2, vb, spec, k):
+    """The choice-0 and choice-1 main buckets of every window of a wire
+    batch (q4: l2 and h1; s2: mix1 and mix2 of the canonical k-mer),
+    int64 [R, P] each, and the windows' validity."""
+    kmers, valid = codec.extract_kmers(codec.unpack_codes(p2, vb), k)
+    km = codec.canonical(kmers, k)
+    hi, lo = codec.shr(km, 32), km & 0xFFFFFFFF
+    mask = (1 << spec.nb_bits) - 1
+    if spec.layout == "q4":
+        h1, l2 = hashdb.feistel_mix_torch(hi, lo, spec.seed)
+        return l2 & mask, h1 & mask, valid
+    return (hashdb.mix1_torch(hi, lo) & mask,
+            hashdb.mix2_torch(hi, lo) & mask, valid)
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("parts", [2, 4, 8])
 @pytest.mark.parametrize("layout,slots,choices,n,nb_bits",
                          [c for c in LAYOUTS if c[2] == 2])
 def test_layout_query_kernel_second_choice_only(dev, layout, slots, choices,
-                                                n, nb_bits):
-    """The q4 and s2 query kernels, resident and on 4 bucket-range parts,
-    against plain on a table that holds its second-choice entries alone:
-    every hit takes the second gather after a first-choice miss."""
+                                                n, nb_bits, parts,
+                                                accumulate):
+    """The q4 and s2 query kernels, resident and on 2 to 8 bucket-range
+    parts, against plain on a table that holds its second-choice entries
+    alone: every hit takes the second gather after a first-choice miss,
+    in the range kernel's second round where both choices lie in the
+    part, in its first where only choice 1 does; both kinds of hit
+    occur."""
     k = 31
     db, p2, vb = _layout_case(dev, layout, slots, choices, n, nb_bits, k)
     main = torch.from_numpy(db.second_choice_only().view(np.int32)).to(dev)
@@ -765,14 +791,129 @@ def test_layout_query_kernel_second_choice_only(dev, layout, slots, choices,
     want = probe.query_labels_plain(p2, vb, main, None, k=k, spec=db.spec)
     assert torch.equal(got, want)
     assert int((want > 0).sum()) > 0
-    rows = db.nb // 4
-    for p in range(4):
+    rows = db.nb // parts
+    b0, b1, _ = _choice_buckets(p2, vb, db.spec, k)
+    same = (b0 // rows) == (b1 // rows)
+    assert int((same & (want > 0)).sum()) > 0
+    assert int((~same & (want > 0)).sum()) > 0
+    rng = np.random.default_rng(parts)
+    for p in range(parts):
         args = dict(bucket_start=p * rows, nb_local=rows, k=k, spec=db.spec)
         part = main[p * rows:(p + 1) * rows].contiguous()
-        got = probe.query_part_labels(p2, vb, part, None, **args)
+        acc = (torch.from_numpy(rng.integers(0, 1000, size=tuple(want.shape),
+                                             dtype=np.int32)).to(dev)
+               if accumulate else None)
+        expect = probe.query_part_labels_plain(
+            p2, vb, part, None, acc=None if acc is None else acc.clone(),
+            **args)
+        got = probe.query_part_labels(p2, vb, part, None, acc=acc, **args)
         torch.cuda.synchronize()
-        assert torch.equal(got, probe.query_part_labels_plain(
-            p2, vb, part, None, **args))
+        assert torch.equal(got, expect)
+
+
+# fused_case's table of each layout, built once for the width cases
+_RANGE_DBS = {}
+
+# read lengths of 1 to 9 tiles of range windows at k = 31 (P = L - 30):
+# 122, 128 and 129 windows, paired 290, the 512 and 1024 bins, past 1,024
+RANGE_WIDTHS = [152, 158, 159, 320, 542, 1054, 1100]
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("parts", [4, 8])
+@pytest.mark.parametrize("L", RANGE_WIDTHS)
+@pytest.mark.parametrize("layout,split", [("qs", False), ("qs", True),
+                                          ("q4", False), ("s2", False)],
+                         ids=["qs", "qs-split", "q4", "s2"])
+def test_range_query_kernel_widths(dev, layout, split, L, parts, accumulate):
+    """The range kernel at reads of one to nine tiles (several reads a
+    block, a read a block, several blocks a read) on each part of a
+    table of every layout (qs with its stash on part 0, or split over the
+    parts as a table is streamed: `probe.stash_range`, stash ranges that
+    start past row 0), against plain, written and accumulated; the parts
+    add up to the resident labels."""
+    k = 31
+    if layout not in _RANGE_DBS:
+        _RANGE_DBS[layout] = fused_case(k, 152, layout)[0]
+    db = _RANGE_DBS[layout]
+    main, stash = hashdb.table_to_device(db, dev)
+    rng = np.random.default_rng(L + parts)
+    km = db.items()[0]
+    R = 300
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    for r in range(0, R, 2):
+        for p in range(int(rng.integers(k)), L - k + 1, k):
+            codes[r, p:p + k] = (km[rng.integers(len(km))] >> shifts) & 3
+    codes[rng.random((R, L)) < 0.01] = codec.INVALID
+    codes[5, L // 2:] = codec.INVALID
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    P = 4 * p2.shape[1] - k + 1
+    rows = db.nb // parts
+    total = None
+    for p in range(parts):
+        s, sstart = (probe.stash_range(stash, p, parts) if split
+                     else (stash if p == 0 else None, 0))
+        args = dict(bucket_start=p * rows, nb_local=rows, k=k, spec=db.spec,
+                    stash_start=sstart)
+        part = main[p * rows:(p + 1) * rows]
+        acc = (torch.from_numpy(rng.integers(0, 1000, size=(R, P),
+                                             dtype=np.int32)).to(dev)
+               if accumulate else None)
+        want = probe.query_part_labels_plain(
+            p2, vb, part, s, acc=None if acc is None else acc.clone(),
+            **args)
+        got = probe.query_part_labels(p2, vb, part, s, acc=acc, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), p
+        total = probe.query_part_labels(p2, vb, part, s, acc=total, **args)
+    torch.cuda.synchronize()
+    resident = probe.query_labels(p2, vb, main, stash, k=k, spec=db.spec)
+    assert torch.equal(total, resident)
+    assert int((resident > 0).sum()) > R
+
+
+@pytest.mark.parametrize("layout,parts", [("qs", 4), ("q4", 2), ("s2", 4)])
+def test_range_query_rows_past_grid_limit(dev, layout, parts):
+    """A row of more than 65,535 tile groups of the range kernel (W
+    tiles a group) takes several launches; each part against plain,
+    written and accumulated, with hits past the first launch's tiles."""
+    k = 31
+    if layout == "qs":
+        db, _ = _qs_case(dev, k, 124)
+    else:
+        db = _layout_case(dev, *next(c for c in LAYOUTS if c[0] == layout),
+                          k)[0]
+    main, stash = hashdb.table_to_device(db, dev)
+    rng = np.random.default_rng(parts)
+    km = db.items()[0]
+    first = 65535 * parts * TILE
+    L = first + k + 1500
+    codes = rng.integers(0, 4, size=(1, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    pos = np.arange(0, L - k + 1, 997)
+    planted = (km[rng.integers(len(km), size=len(pos))][:, None]
+               >> shifts) & 3
+    codes[0, pos[:, None] + np.arange(k)] = planted
+    codes[rng.random((1, L)) < 0.001] = codec.INVALID
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+    rows = db.nb // parts
+    assert kernels.range_windows(db.nb_bits, rows, layout) == parts
+    assert len(kernels.range_geometry(1, L - k + 1, parts).launches) == 2
+    acc = None
+    for p in range(parts):
+        args = dict(bucket_start=p * rows, nb_local=rows, k=k, spec=db.spec)
+        s = stash if p == 0 else None
+        part = main[p * rows:(p + 1) * rows]
+        want = probe.query_part_labels_plain(
+            p2, vb, part, s, acc=None if acc is None else acc.clone(),
+            **args)
+        acc = probe.query_part_labels(p2, vb, part, s, acc=acc, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, want), p
+    assert int((acc[:, first:] > 0).sum()) > 0
+    assert torch.equal(acc, probe.query_labels(p2, vb, main, stash, k=k,
+                                               spec=db.spec))
 
 
 def test_profile_twice_in_one_process(dev, tmp_path):

@@ -301,6 +301,63 @@ def test_stash_range_rejects_bad_range(stash_case, start, rows):
                                 stash_start=start)
 
 
+@pytest.mark.parametrize("num_db,parts", [(2, 2), (2, 8), (4, 4)])
+def test_part_step_splits_stash_matches_jax(stash_case, num_db, parts):
+    """The sharded part step with each shard's stash split over the parts
+    (split=(p, parts), as `Classifier` streams on a mesh): with the main
+    rows zeroed every part answers stash hits of its own; the parts'
+    labels sum to the JAX package's build_sharded_probe_part steps (the
+    stash on part 0), and a last part that ends in the fused launch
+    (scored=True) equals their score."""
+    db, codes = stash_case
+    p2, vb = codec.pack_codes(codes)
+    m = mesh.make_mesh(num_db, 1, CPU8[:num_db])
+    jm = jmesh.make_mesh(num_db=num_db, num_data=1,
+                         devices=jax.devices()[:num_db])
+    main_np, stash_np = db.split_tables()
+    jkw = dict(k=db.k, nb_bits=db.nb_bits, slots=db.slots,
+               num_choices=db.num_choices, layout=db.layout, seed=db.seed,
+               stash_bits=db.stash_bits)
+    rows = main_np.shape[0] // parts
+    jpart = jmesh.build_sharded_probe_part(jm, nb_part=rows, skip_stash=True,
+                                           **jkw)
+    jpart0 = jmesh.build_sharded_probe_part(jm, nb_part=rows,
+                                            with_stash=True, **jkw)
+    jp2, jvb = (_jax_put(jm, a, P("data", None)) for a in (p2, vb))
+    jstash = _jax_put(jm, stash_np, P("db", None))
+    want = 0
+    for p in range(parts):
+        jp = _jax_put(jm, main_np[p * rows:(p + 1) * rows], P("db", None))
+        (lab,) = (jpart0(jp, jstash, jp2, jvb, jnp.int32(0)) if p == 0
+                  else jpart(jp, jp2, jvb, jnp.int32(p * rows)))
+        want = want + np.asarray(lab)
+
+    _, stash = mesh.shard_db_table(db, m)
+    wires = mesh.place_wire(m, p2, vb)
+    pstep = mesh.build_sharded_probe_part(m, k=db.k, spec=db.spec,
+                                          nb_part=rows)
+    zero = mesh.shard_rows(np.zeros_like(main_np[:rows]), m)
+    acc, only = None, None
+    for p in range(parts):
+        part = mesh.shard_rows(main_np[p * rows:(p + 1) * rows], m)
+        (got,) = pstep(zero, wires, p * rows, stash=stash, split=(p, parts))
+        assert int((got > 0).sum()) > 0, p
+        only = got if only is None else only + got
+        if p < parts - 1:
+            acc = pstep(part, wires, p * rows, stash=stash, acc=acc,
+                        split=(p, parts))
+    (whole,) = pstep(zero, wires, 0, stash=stash)
+    assert torch.equal(only, whole)
+    (res,) = pstep(part, wires, (parts - 1) * rows, stash=stash,
+                   acc=[a.clone() for a in acc], scored=True,
+                   split=(parts - 1, parts))
+    (lab,) = pstep(part, wires, (parts - 1) * rows, stash=stash, acc=acc,
+                   split=(parts - 1, parts))
+    np.testing.assert_array_equal(lab.numpy(), want)
+    np.testing.assert_array_equal(
+        res.numpy(), np.asarray(jscore.score_labels(jnp.asarray(want))))
+
+
 @pytest.mark.parametrize("R", [30, 53])
 def test_uneven_batch_padding(dbs, R):
     """Batches that the data axis does not divide pad and trim."""

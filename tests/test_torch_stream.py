@@ -312,6 +312,57 @@ def test_query_part_labels_match_probe_part_step(part_case, parts):
     assert int((resident > 0).sum()) > 100
 
 
+@pytest.mark.parametrize("parts", [2, 4, 16])
+def test_stash_split_over_parts_matches_probe_part_step(part_case, parts):
+    """The qs stash split over the parts (`probe.stash_range`, as one
+    device streams a table): the parts' labels, written and accumulated,
+    sum to the JAX part steps' with the stash on part 0 and to the
+    resident labels, at the smallest stash_bits (17)."""
+    db, p2, vb = part_case
+    assert db.stash_bits == 17
+    main, stash = hashdb.table_to_device(db, "cpu")
+    rows = db.nb // parts
+    args = dict(k=K, spec=db.spec)
+    tp2, tvb = torch.from_numpy(p2), torch.from_numpy(vb)
+    total, acc, want = None, None, None
+    for p in range(parts):
+        part = main[p * rows:(p + 1) * rows]
+        s, sstart = probe.stash_range(stash, p, parts)
+        assert s.shape[0] == stash.shape[0] // parts
+        assert sstart == p * s.shape[0]
+        got = probe.query_part_labels(tp2, tvb, part, s,
+                                      bucket_start=p * rows, nb_local=rows,
+                                      stash_start=sstart, **args)
+        total = got if total is None else total + got
+        acc = probe.query_part_labels(tp2, tvb, part, s,
+                                      bucket_start=p * rows, nb_local=rows,
+                                      stash_start=sstart, acc=acc, **args)
+        j = np.asarray(jpipeline.probe_part_step(
+            jnp.asarray(db.table[p * rows:(p + 1) * rows]), jnp.asarray(p2),
+            jnp.asarray(vb), jnp.int32(p * rows), k=K, nb_bits=db.nb_bits,
+            slots=db.slots, num_choices=db.num_choices, nb_local=rows,
+            layout="qs", seed=db.seed, stash_bits=db.stash_bits,
+            stash=jnp.asarray(db.table[db.nb:]) if p == 0 else None,
+            skip_stash=p > 0))
+        want = j if want is None else want + j
+    np.testing.assert_array_equal(total.numpy(), want)
+    resident = probe.query_labels(tp2, tvb, main, stash, **args)
+    assert torch.equal(total, resident) and torch.equal(acc, resident)
+    assert int((resident > 0).sum()) > 100
+
+
+def test_stash_range_edges():
+    """The whole stash on part 0 where the parts outnumber its rows; no
+    stash, no range."""
+    stash = torch.zeros((4, 8), dtype=torch.int32)
+    assert probe.stash_range(None, 1, 4) == (None, 0)
+    s, start = probe.stash_range(stash, 0, 8)
+    assert s is stash and start == 0
+    assert probe.stash_range(stash, 3, 8) == (None, 0)
+    s, start = probe.stash_range(stash, 3, 4)
+    assert s.shape == (1, 8) and start == 3
+
+
 def test_query_part_labels_stash_side(part_case):
     """A part of zeroed main rows answers the stash side alone, and a
     part without the stash answers none of it."""
