@@ -28,7 +28,8 @@ against `--device cpu`:
     taken apart: its wall time, the part uploads' time and the part
     calls' device time;
   - paired: 131,072 pairs of 150 bp mates from 400 bp fragments (-P),
-    the fused query and score alone;
+    the fused query and score alone; the joined batch and the mate files
+    also on the q4 and s2 tables (each CSV equal to the qs CSV);
   - extended: 1,024 reads with one count column per target, resident
     and streamed (--extended: the query and score kernels);
   - layouts: the same k-mers in a q4 table (1.074 GB) and an s2 table
@@ -69,7 +70,9 @@ against `--device cpu`:
   - profile: classify --profile, the trace's kernel events against the
     launch counts, the card's busy share; then one more profiler session
     over the resident q4 and s2 runs (the fused kernel of each alone)
-    and the kernels' durations against their launch rate.
+    and the kernels' durations against their launch rate;
+  - bench: bench_torch.py in a subprocess at reduced knobs (BENCH_KNOBS),
+    every block of bench.py, its exactness checks passing.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -97,6 +100,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+if str(ROOT / "scripts") not in sys.path:
+    sys.path.insert(0, str(ROOT / "scripts"))
+try:
+    import torch_measure as tm  # the kernel rows' measures
+except ImportError:  # not a checkout: main() says so
+    tm = None
 K = 31
 READ_LEN = 150
 FRAGMENT = 400             # paired: mate 1 = [0, 150), mate 2 = [250, 400)
@@ -111,191 +120,6 @@ N_LONG, LONG_MIN, LONG_MAX = 256, 33_000, 100_000
 def _phase(name: str, t0: float, detail: str) -> None:
     print(f"phase {name}: ok, {detail} ({time.time() - t0:.2f} s)",
           flush=True)
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the card, after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _max_abs_err(a, b) -> int:
-    return int((a.to(dtype=b.dtype) - b).abs().max().item()) if a.numel() else 0
-
-
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-
-
-def _bound_ms(nbytes: float) -> float:
-    """The least time to move nbytes through device memory, in ms: the
-    bound of every kernel here (bytes; their integer operations need far
-    less time at the card's rates)."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def choice_rows(codes, main, spec, k: int):
-    """For a q4 or s2 table (main rows on the card): per valid window of
-    codes [R, L], in window order, its choice-0 main row, its choice-1
-    main row, whether it has a choice 1 at all (s2: two choices and
-    another bucket than choice 0's) and whether choice 0 gave label 0.
-    The query kernel gathers the choice-1 row where both hold."""
-    import torch
-
-    from cuclark_tpu_torch import codec, probe
-    from cuclark_tpu_torch.hashdb import (feistel_mix_torch, mix1_torch,
-                                          mix2_torch)
-
-    kmers, valid = codec.extract_kmers(codes, k)
-    km = codec.canonical(kmers, k)[valid]
-    hi, lo = codec.shr(km, 32), km & 0xFFFFFFFF
-    mask = (1 << spec.nb_bits) - 1
-    if spec.layout == "q4":
-        h1, l2 = feistel_mix_torch(hi, lo, spec.seed)
-        rows0, rows1 = l2 & mask, h1 & mask
-        lab0 = probe._match_labels(main, rows0, l2, h1, spec.nb_bits, 0)
-        return rows0, rows1, torch.ones_like(rows0, dtype=torch.bool), \
-            lab0 == 0
-    rows0 = mix1_torch(hi, lo) & mask
-    rows1 = mix2_torch(hi, lo) & mask if spec.num_choices == 2 else rows0
-    lab0 = probe.probe_s2(main, spec.nb_bits, spec.slots, 1, km)
-    return rows0, rows1, rows1 != rows0, lab0 == 0
-
-
-def exact_rows(choices):
-    """The main rows an exact probe of a q4 or s2 table reads for
-    choice_rows' windows, in window order: each window's choice-0 row,
-    then its choice-1 row where it has one and choice 0 gave label 0."""
-    import torch
-
-    rows0, rows1, has1, zero = choices
-    return torch.stack([rows0, rows1], 1)[
-        torch.stack([torch.ones_like(has1), has1 & zero], 1)]
-
-
-def touched_rows(codes, spec, k: int, main=None):
-    """The rows that the valid windows of codes [R, L] on the card make a
-    query read: (distinct global main buckets, sorted; distinct stash
-    buckets of a qs table, else None), each row read once.  A q4 or s2
-    table's main rows `main` are needed: an exact probe reads the
-    choice-0 row of every window and the choice-1 row only of the
-    windows that choice 0 does not answer."""
-    import torch
-
-    from cuclark_tpu_torch import codec
-    from cuclark_tpu_torch.hashdb import feistel_mix_torch
-
-    if spec.layout != "qs":
-        return torch.unique(exact_rows(choice_rows(codes, main, spec,
-                                                   k))), None
-    kmers, valid = codec.extract_kmers(codes, k)
-    km = codec.canonical(kmers, k)[valid]
-    h1, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
-    return (torch.unique(l2 & ((1 << spec.nb_bits) - 1)),
-            torch.unique(h1 & ((1 << spec.stash_bits) - 1)))
-
-
-def window_buckets(codes, spec, k: int, stash: bool = False):
-    """The qs main bucket l2 & (NB - 1) (stash=True: the stash bucket
-    h1 & (NBS - 1)) of every valid window of codes [R, L] on the card, in
-    window order with repeats: what the query gathers, as int32."""
-    import torch
-
-    from cuclark_tpu_torch import codec
-    from cuclark_tpu_torch.hashdb import feistel_mix_torch
-
-    kmers, valid = codec.extract_kmers(codes, k)
-    km = codec.canonical(kmers, k)[valid]
-    h1, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
-    if stash:
-        return (h1 & ((1 << spec.stash_bits) - 1)).to(torch.int32)
-    return (l2 & ((1 << spec.nb_bits) - 1)).to(torch.int32)
-
-
-def gather_ceiling_ms(lib, main_t, buckets) -> float:
-    """Milliseconds of the gather-only kernel (scripts/csrc/
-    gather_ceiling.cu, gc_gather) over `buckets` in their order: each a
-    qs main row read as the query reads it, nothing else: the practical
-    ceiling of the query's main-row gathers."""
-    import torch
-
-    n = int(buckets.numel())
-    out = torch.empty(n // 128 + 1, dtype=torch.int32, device=main_t.device)
-
-    def run():
-        err = lib.gc_gather(main_t.data_ptr(), buckets.data_ptr(), n, 0,
-                            out.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"gc_gather failed: CUDA error {err}")
-    return _cuda_ms(run, 20)
-
-
-def layout_gathers(lib, main_t, rows, spec) -> float:
-    """Milliseconds of the gather-only kernel (scripts/csrc/
-    gather_ceiling.cu, gc_gather_layout) over q4 or s2 main rows `rows`
-    in their order, each read as the query reads it (q4: two 16 B loads;
-    s2: the low key words, 8 B loads at even slots)."""
-    import torch
-
-    n = int(rows.numel())
-    rows = rows.to(torch.int32).contiguous()
-    out = torch.empty(n // 128 + 1, dtype=torch.int32, device=main_t.device)
-    layout = {"q4": 1, "s2": 2}[spec.layout]
-
-    def run():
-        err = lib.gc_gather_layout(main_t.data_ptr(), rows.data_ptr(), n,
-                                   layout, spec.slots, out.data_ptr(),
-                                   torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"gc_gather_layout failed: CUDA error {err}")
-    return _cuda_ms(run, 20)
-
-
-def layout_ceilings(lib, main_t, choices, spec, parts: int):
-    """The practical ceiling of a q4 or s2 query's gathers (choice_rows'
-    output for one batch): the gather-only kernel over the rows an exact
-    probe reads, in window order (a window's choice-0 row, then its
-    choice-1 row where choice 0 gave label 0) -> (resident ms, mean ms
-    of a part call of `parts`, in which a window whose choice 0 lies in
-    another part gathers its choice-1 row too, ms of the last part's
-    call)."""
-    import torch
-
-    rows0, rows1, has1, zero = choices
-    resident = layout_gathers(lib, main_t, exact_rows(choices), spec)
-    pair = torch.stack([rows0, rows1], 1)
-    prow = main_t.shape[0] // parts
-    part_ms = []
-    for j in range(parts):
-        in0, in1 = rows0 // prow == j, rows1 // prow == j
-        part_ms.append(layout_gathers(lib, main_t, pair[torch.stack(
-            [in0, in1 & has1 & (zero | ~in0)], 1)], spec))
-    return resident, float(np.mean(part_ms)), part_ms[-1]
-
-
-def query_bytes(touched, spec, in_bytes: int, out_bytes: int,
-                parts: int = 1, later_hits: int = 0) -> float:
-    """Least bytes of a query per call: its input (wire or codes) and its
-    output once, and each table row it needs once (qs stash rows 32 B).
-    Over a pass of `parts` range calls, every call reads the input and
-    the first writes the labels; a later call adds into them and leaves
-    every window it does not answer as it is, so it reads and writes the
-    4 B accumulator of its hits only (later_hits: the windows that calls
-    1.. answer, summed); the table rows split over the calls."""
-    main, stash = touched
-    rows = spec.row_words * 4 * len(main) + (32 * len(stash)
-                                             if stash is not None else 0)
-    return (parts * in_bytes + out_bytes + 8 * later_hits + rows) / parts
 
 
 def range_calls(main_t, stash_t, n: int):
@@ -379,8 +203,8 @@ def check_small_query(dev, k: int) -> int:
     res_plain = probe.query_score_results_plain(p2, vb, main, stash, **args)
     if not torch.equal(res, res_plain):
         raise AssertionError(f"fused query and score != plain at k={k}")
-    err = {"query": _max_abs_err(got, want),
-           "query_score": _max_abs_err(res, res_plain),
+    err = {"query": tm.max_abs_err(got, want),
+           "query_score": tm.max_abs_err(res, res_plain),
            "build_sharded_classify": check_stash_ranges(p2, vb, main, stash,
                                                         got, **args),
            "classify_step": check_codes(p2, vb, main, stash, got, **args),
@@ -421,7 +245,7 @@ def check_stash_ranges(p2, vb, main, stash, resident, *, k, spec) -> int:
                 if not torch.equal(a, want):
                     raise AssertionError(f"range kernel != plain on shard "
                                          f"{j} of {num_db} at k={k}")
-                err = max(err, _max_abs_err(a, want))
+                err = max(err, tm.max_abs_err(a, want))
             if int((only > 0).sum()) == 0:
                 raise AssertionError(f"no hit from the stash range of shard "
                                      f"{j} of {num_db} at k={k}")
@@ -468,7 +292,7 @@ def check_fused_range(p2, vb, main, stash, *, k, spec) -> int:
                 raise AssertionError(f"{spec.layout} fused range entry != "
                                      f"plain on rows [{start}, "
                                      f"{start + m.shape[0]}) at k={k}")
-            err = max(err, _max_abs_err(got, want))
+            err = max(err, tm.max_abs_err(got, want))
         if not torch.equal(missed, torch.where(own > 0, 0, rand)):
             raise AssertionError("the fused range entry wrote its acc_in")
     acc = None
@@ -507,7 +331,7 @@ def check_codes(p2, vb, main, stash, wire_labels, *, k, spec) -> int:
     want = probe.query_codes_labels_plain(codes, main, stash, k=k, spec=spec)
     if not torch.equal(got, want):
         raise AssertionError(f"{spec.layout} codes kernel != plain at k={k}")
-    return _max_abs_err(got, want)
+    return tm.max_abs_err(got, want)
 
 
 def check_small_layout(dev, layout: str, k: int) -> dict:
@@ -544,7 +368,7 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"{layout} query kernel != plain at k={k}")
         err[f"query_{layout}"] = max(err[f"query_{layout}"],
-                                     _max_abs_err(got, want))
+                                     tm.max_abs_err(got, want))
         res = probe.query_score_results(p2, vb, main, None, k=k,
                                         spec=db.spec)
         torch.cuda.synchronize()
@@ -553,7 +377,7 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
         if not torch.equal(res, res_plain):
             raise AssertionError(f"fused {layout} query and score != plain "
                                  f"at k={k}")
-        err[fused] = max(err[fused], _max_abs_err(res, res_plain))
+        err[fused] = max(err[fused], tm.max_abs_err(res, res_plain))
         err["classify_step"] = max(err.get("classify_step", 0), check_codes(
             p2, vb, main, None, got, k=k, spec=db.spec))
         err["query_score_part"] = max(
@@ -578,8 +402,8 @@ def check_small_layout(dev, layout: str, k: int) -> dict:
                 raise AssertionError(f"{layout} part kernel != plain at "
                                      f"k={k} on part {p}")
             err[f"query_part_{layout}"] = max(
-                err[f"query_part_{layout}"], _max_abs_err(one, one_plain),
-                _max_abs_err(acc, acc_plain))
+                err[f"query_part_{layout}"], tm.max_abs_err(one, one_plain),
+                tm.max_abs_err(acc, acc_plain))
         if not torch.equal(acc, got):
             raise AssertionError(f"{layout} parts != resident at k={k}")
         n_second = int((want > 0).sum())
@@ -649,7 +473,7 @@ def check_fused_widths(dev) -> int:
                 if int((want[:, 2] > 0).sum()) < 64:
                     raise AssertionError(f"too few hits to check {layout} at "
                                          f"P={P}, k={k}")
-                err = max(err, _max_abs_err(got, want),
+                err = max(err, tm.max_abs_err(got, want),
                           check_fused_range(p2, vb, main, stash, **args))
                 checked += 1
     print(f"  fused query and score at {checked} (layout, width) pairs of "
@@ -693,7 +517,7 @@ def check_score(dev, R: int, P: int, seed: int) -> int:
     if not torch.equal(got, want):
         raise AssertionError(f"score kernel != plain at [{R}, {P}]")
     print(f"  score [{R}, {P}]: bit-identical", flush=True)
-    return _max_abs_err(got, want)
+    return tm.max_abs_err(got, want)
 
 
 def golden_example(tmp: Path) -> None:
@@ -954,21 +778,21 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts, more=()):
                                      f"{what.format(j)}: "
                                      f"{int((got != want).sum())} windows "
                                      f"differ")
-            err = max(err, _max_abs_err(got, want))
+            err = max(err, tm.max_abs_err(got, want))
         acc = all_calls(probe.query_part_labels, calls)
         torch.cuda.synchronize()
         acc_plain = all_calls(probe.query_part_labels_plain, calls)
         if not (torch.equal(acc, acc_plain) and torch.equal(acc, resident)):
             raise AssertionError(f"{spec.layout}: accumulated ranges of "
                                  f"{n} != plain or != resident labels")
-        err = max(err, _max_abs_err(acc, acc_plain))
+        err = max(err, tm.max_abs_err(acc, acc_plain))
     calls = range_calls(main_t, stash_t, parts)
-    ms = _cuda_ms(lambda: all_calls(probe.query_part_labels, calls), 10)
-    plain_ms = _cuda_ms(lambda: all_calls(probe.query_part_labels_plain,
+    ms = tm.cuda_ms(lambda: all_calls(probe.query_part_labels, calls), 10)
+    plain_ms = tm.cuda_ms(lambda: all_calls(probe.query_part_labels_plain,
                                           calls), 2)
     unpacked = codec.unpack_codes(p2, vb)
-    touched = touched_rows(unpacked, spec, k, main_t)
-    bound = _bound_ms(query_bytes(
+    touched = tm.touched_rows(unpacked, spec, k, main_t)
+    bound = tm.bound_ms(tm.query_bytes(
         touched, spec, p2.numel() + vb.numel(), 4 * resident.numel(), parts,
         later_hits(p2, vb, calls, k, spec)))
 
@@ -985,9 +809,9 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts, more=()):
     if not (torch.equal(fused, fused_plain) and torch.equal(fused, whole)):
         raise AssertionError(f"{spec.layout} fused last part != plain or != "
                              f"the resident results")
-    fused_ms = _cuda_ms(lambda: probe.query_score_part_results(
+    fused_ms = tm.cuda_ms(lambda: probe.query_score_part_results(
         p2, vb, m, s, **fargs), 20)
-    fused_plain_ms = _cuda_ms(lambda: probe.query_score_part_results_plain(
+    fused_plain_ms = tm.cuda_ms(lambda: probe.query_score_part_results_plain(
         p2, vb, m, s, **fargs), 2)
     # it reads the wire and acc_in, writes [R, 5], and its ranges' rows
     main_rows, stash_rows = touched
@@ -996,11 +820,11 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts, more=()):
                 None if s is None else stash_rows[
                     (stash_rows >= sstart)
                     & (stash_rows < sstart + s.shape[0])])
-    fused_bound = _bound_ms(query_bytes(
+    fused_bound = tm.bound_ms(tm.query_bytes(
         in_range, spec, p2.numel() + vb.numel() + 4 * resident.numel(),
         20 * p2.shape[0]))
     return (err, ms / parts, plain_ms / parts, bound,
-            (_max_abs_err(fused, fused_plain), fused_ms, fused_plain_ms,
+            (tm.max_abs_err(fused, fused_plain), fused_ms, fused_plain_ms,
              fused_bound))
 
 
@@ -1117,6 +941,33 @@ def chimeric_pairs(genomes: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
+def check_paired_layout(db, pwire, qs_res, r1: Path, r2: Path, out: Path,
+                        ceiling_lib, dev) -> dict:
+    """The paired batch ([65536, 320] joined pairs at full size) on a q4 or
+    s2 headline table: a resident Classifier on the mate files (the fused
+    query and score of the layout alone, its launches counted, its CSV
+    written to `out`), then the fused kernel's row on the batch
+    (`torch_measure.fused_row`: against plain, against the layout's query
+    then score and against the qs results qs_res, timed, with its bytes
+    bound and the gather-only ceiling of the rows an exact probe reads).
+    Returns the row."""
+    from cuclark_tpu_torch import kernels, pipeline
+
+    fused_name = f"query_score_{db.layout}"
+    clf = pipeline.Classifier(db, device=dev)
+    kernels.reset_launches()
+    clf.classify_file_to_csv(r1, out, r2)
+    launches = _launched(kernels.LAUNCHES)
+    if launches.keys() != {fused_name}:
+        raise AssertionError(f"the paired {db.layout} run did not take the "
+                             f"fused kernel alone: {launches}")
+    row, _ = tm.fused_row(*pwire, clf.table, None, k=db.k, spec=db.spec,
+                          ceiling_lib=ceiling_lib, two=True, also=(qs_res,))
+    row["launches"] = launches[fused_name]
+    clf.close()
+    return row
+
+
 def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
                  ext_csv: Path, wire, qs_csv: Path, ceiling_lib, dev,
                  card: str):
@@ -1151,7 +1002,7 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
     if not torch.equal(lab, lab_plain):
         raise AssertionError(f"{layout} query kernel != plain on the "
                              f"real-size table")
-    err = {res_name: _max_abs_err(lab, lab_plain)}
+    err = {res_name: tm.max_abs_err(lab, lab_plain)}
     res = probe.query_score_results(p2, vb, main_t, None, **qargs)
     torch.cuda.synchronize()
     res_plain = probe.query_score_results_plain(p2, vb, main_t, None,
@@ -1159,36 +1010,36 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
     if not torch.equal(res, res_plain):
         raise AssertionError(f"fused {layout} query and score != plain on "
                              f"the real-size batch")
-    err[fused_name] = _max_abs_err(res, res_plain)
+    err[fused_name] = tm.max_abs_err(res, res_plain)
     lab_shape = lab.shape
     hits = int((lab > 0).sum())
     del lab_plain, res, res_plain
     unpacked = codec.unpack_codes(p2, vb)
-    choices = choice_rows(unpacked, main_t, db.spec, db.k)
+    choices = tm.choice_rows(unpacked, main_t, db.spec, db.k)
     rows0, _, has1, zero = choices
     windows, seconds = int(rows0.numel()), int((has1 & zero).sum())
-    touched = torch.unique(exact_rows(choices)), None
-    bound = {res_name: _bound_ms(query_bytes(
+    touched = torch.unique(tm.exact_rows(choices)), None
+    bound = {res_name: tm.bound_ms(tm.query_bytes(
                  touched, db.spec, p2.numel() + vb.numel(), 4 * lab.numel())),
-             fused_name: _bound_ms(query_bytes(
+             fused_name: tm.bound_ms(tm.query_bytes(
                  touched, db.spec, p2.numel() + vb.numel(),
                  20 * p2.shape[0]))}
     ceiling = {}
     last_name = f"query_score_part_stream_{layout}"
     ceiling[res_name], ceiling[part_name], ceiling[last_name] = (
-        layout_ceilings(ceiling_lib, main_t, choices, db.spec, parts))
+        tm.layout_ceilings(ceiling_lib, main_t, choices, db.spec, parts))
     ceiling[fused_name] = ceiling[res_name]
     stored, first = db.first_choice_slots()
     share0 = int(first.sum()) / max(int(stored.sum()), 1)
     del stored, first
     del lab, unpacked, touched, choices, rows0, has1, zero
-    ms = {res_name: _cuda_ms(lambda: probe.query_labels(
+    ms = {res_name: tm.cuda_ms(lambda: probe.query_labels(
               p2, vb, main_t, None, **qargs), 20),
-          f"{res_name}_plain": _cuda_ms(lambda: probe.query_labels_plain(
+          f"{res_name}_plain": tm.cuda_ms(lambda: probe.query_labels_plain(
               p2, vb, main_t, None, **qargs), 5),
-          fused_name: _cuda_ms(lambda: probe.query_score_results(
+          fused_name: tm.cuda_ms(lambda: probe.query_score_results(
               p2, vb, main_t, None, **qargs), 20),
-          f"{fused_name}_plain": _cuda_ms(
+          f"{fused_name}_plain": tm.cuda_ms(
               lambda: probe.query_score_results_plain(
                   p2, vb, main_t, None, **qargs), 5)}
 
@@ -1200,7 +1051,7 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
     if not torch.equal(miss, miss_plain) or int(miss_plain.count_nonzero()):
         raise AssertionError(f"{layout} all-miss batch: kernel != plain, or "
                              f"a window hit")
-    ms[f"{res_name}_miss"] = _cuda_ms(lambda: probe.query_labels(
+    ms[f"{res_name}_miss"] = tm.cuda_ms(lambda: probe.query_labels(
         m2, mv, main_t, None, **qargs), 20)
     del miss, miss_plain, m2, mv
     (err[part_name], ms[part_name], ms[f"{part_name}_plain"],
@@ -1346,11 +1197,11 @@ def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
     if not torch.equal(res, res_plain):
         raise AssertionError(f"score_long kernel != plain at "
                              f"{list(lab.shape)}")
-    err = _max_abs_err(res, res_plain)
-    ms = _cuda_ms(lambda: score.score_labels(lab), 5)
-    plain_ms = _cuda_ms(lambda: score.score_labels_plain(lab), 2)
+    err = tm.max_abs_err(res, res_plain)
+    ms = tm.cuda_ms(lambda: score.score_labels(lab), 5)
+    plain_ms = tm.cuda_ms(lambda: score.score_labels_plain(lab), 2)
     shape = list(lab.shape)
-    bound = _bound_ms(4 * lab.numel() + 20 * lab.shape[0])
+    bound = tm.bound_ms(4 * lab.numel() + 20 * lab.shape[0])
     del lab, res, res_plain
     torch.cuda.empty_cache()
     gpu_csv, cpu_csv = tmp / "long_gpu.csv", tmp / "long_cpu.csv"
@@ -1407,11 +1258,11 @@ def check_classify_step(codes_np: np.ndarray, B: int, main_t, stash_t,
     want = probe.query_codes_labels_plain(codes[0], main_t, stash_t, **qargs)
     if not torch.equal(outs[0][1], want):
         raise AssertionError("codes kernel != plain at real size")
-    err = _max_abs_err(outs[0][1], want)
+    err = tm.max_abs_err(outs[0][1], want)
     del outs, want
-    ms = _cuda_ms(lambda: pipeline.classify_step(
+    ms = tm.cuda_ms(lambda: pipeline.classify_step(
         main_t, codes[0], stash=stash_t, with_labels=False, **qargs), 20)
-    plain_ms = _cuda_ms(lambda: score.score_labels_plain(
+    plain_ms = tm.cuda_ms(lambda: score.score_labels_plain(
         probe.query_codes_labels_plain(codes[0], main_t, stash_t, **qargs)),
         5)
     detail = (f"{len(codes)} batches of {list(codes[0].shape)} codes, "
@@ -1439,7 +1290,7 @@ def _turns(fns: dict, reps: int, rounds: int = 3) -> dict:
     out = {n: [] for n in names}
     for _ in range(rounds):
         for n in order:
-            out[n].append(_cuda_ms(fns[n], reps))
+            out[n].append(tm.cuda_ms(fns[n], reps))
     return out
 
 
@@ -1483,12 +1334,12 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
     resident_res = probe.query_score_results(p2, vb, main_t, stash_t,
                                              **qargs)
     nb, nbs = main_t.shape[0], stash_t.shape[0]
-    touched = touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k)
+    touched = tm.touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k)
     wire_b, lab_b = p2.numel() + vb.numel(), 4 * resident.numel()
-    fused_bound = _bound_ms(query_bytes(touched, db.spec, wire_b, 20 * B))
+    fused_bound = tm.bound_ms(tm.query_bytes(touched, db.spec, wire_b, 20 * B))
     bound = {"build_sharded_classify": fused_bound,
              "query_score_part": fused_bound,
-             "build_sharded_probe_part": _bound_ms(query_bytes(
+             "build_sharded_probe_part": tm.bound_ms(tm.query_bytes(
                  touched, db.spec, wire_b, lab_b, 4, later_hits(
                      p2, vb, range_calls(main_t, stash_t, 4), db.k,
                      db.spec)))}
@@ -1508,7 +1359,7 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
         if not torch.equal(got, want):
             raise AssertionError(f"db shard {j} of 2 != plain")
         err["build_sharded_classify"] = max(err["build_sharded_classify"],
-                                            _max_abs_err(got, want))
+                                            tm.max_abs_err(got, want))
         total = got if total is None else total + got
     if not torch.equal(total, resident):
         raise AssertionError("the 2 db shards' labels != resident labels")
@@ -1534,7 +1385,7 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
     if not (torch.equal(res, pres) and torch.equal(res, resident_res)):
         raise AssertionError("fused sharded step != plain or != resident")
     err["build_sharded_classify"] = max(err["build_sharded_classify"],
-                                        _max_abs_err(res, pres))
+                                        tm.max_abs_err(res, pres))
     (res, lab), route_l = launched_by(
         lambda: steps[(True, False)](smain, sstash, wires))
     pres, plab = steps[(True, True)](smain, sstash, wires)
@@ -1546,8 +1397,8 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
         raise AssertionError("sharded step with labels != plain or != "
                              "resident")
     err["build_sharded_classify"] = max(err["build_sharded_classify"],
-                                        _max_abs_err(lab, plab),
-                                        _max_abs_err(res, pres))
+                                        tm.max_abs_err(lab, plab),
+                                        tm.max_abs_err(res, pres))
     del lab, plab, res, pres
     (pp2, pvb), pair_res, r1, r2, paired_csv = paired
     pwires = mesh.place_wire(m, pp2.cpu().numpy(), pvb.cpu().numpy())
@@ -1560,14 +1411,14 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
         raise AssertionError(f"sharded step of the paired batch: launches "
                              f"{route_pf}, or != plain or != resident")
     err["build_sharded_classify"] = max(err["build_sharded_classify"],
-                                        _max_abs_err(res, pres))
+                                        tm.max_abs_err(res, pres))
     del res, pres
     t = _turns({"fused": lambda: steps[(False, False)](smain, sstash, wires),
                 "range": lambda: steps[(True, False)](smain, sstash, wires)},
                20)
     ms["build_sharded_classify"] = statistics.median(t["fused"])
     ms["build_sharded_classify_range"] = statistics.median(t["range"])
-    ms["build_sharded_classify_plain"] = _cuda_ms(
+    ms["build_sharded_classify_plain"] = tm.cuda_ms(
         lambda: steps[(False, True)](smain, sstash, wires), 3)
 
     # a 1 x 1 mesh: one fused launch over the whole table, in turns with
@@ -1584,13 +1435,13 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
             and torch.equal(res1[0], pres1[0])):
         raise AssertionError(f"1 x 1 mesh step: launches {route_1}, or != "
                              f"resident or != plain")
-    err["query_score_part"] = _max_abs_err(res1[0], pres1[0])
+    err["query_score_part"] = tm.max_abs_err(res1[0], pres1[0])
     del res1, pres1
     t_one = _turns({"resident": lambda: probe.query_score_results(
                      p2, vb, main_t, stash_t, **qargs),
                  "mesh_1x1": lambda: one([[main_t]], [[stash_t]], w1)}, 20)
     ms["query_score_part"] = statistics.median(t_one["mesh_1x1"])
-    ms["query_score_part_plain"] = _cuda_ms(
+    ms["query_score_part_plain"] = tm.cuda_ms(
         lambda: one_plain([[main_t]], [[stash_t]], w1), 3)
     one_vs = {n: statistics.median(v) for n, v in t_one.items()}
 
@@ -1626,7 +1477,7 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
             if not torch.equal(a, b):
                 raise AssertionError(f"sharded part step != plain on part {p}")
             err["build_sharded_probe_part"] = max(
-                err["build_sharded_probe_part"], _max_abs_err(a, b))
+                err["build_sharded_probe_part"], tm.max_abs_err(a, b))
     if not torch.equal(torch.cat(all_parts(pstep)), resident):
         raise AssertionError("sharded parts' sum != resident labels")
     fres, route_p = launched_by(lambda: all_parts(pstep, "fused"))
@@ -1638,7 +1489,7 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
                              f"launches {route_p}, or != plain or != "
                              f"resident")
     err["build_sharded_probe_part"] = max(err["build_sharded_probe_part"],
-                                          _max_abs_err(fres, pfres))
+                                          tm.max_abs_err(fres, pfres))
     fres, route_pp = launched_by(lambda: all_parts(pstep, "fused", pwires))
     pfres = all_parts(plain_pstep, "fused", pwires)
     fres, pfres = torch.cat(fres), torch.cat(pfres)
@@ -1648,7 +1499,7 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
                              f"the fused launch: launches {route_pp}, or != "
                              f"plain or != resident")
     err["build_sharded_probe_part"] = max(err["build_sharded_probe_part"],
-                                          _max_abs_err(fres, pfres))
+                                          tm.max_abs_err(fres, pfres))
     del fres, pfres, pwires
     tp = _turns({"fused": lambda: all_parts(pstep, "fused"),
                  "range": lambda: all_parts(pstep, "range"),
@@ -1657,7 +1508,7 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
     ms["build_sharded_probe_part_range"] = statistics.median(tp["range"]) / 4
     ms["build_sharded_probe_part_accumulate"] = statistics.median(
         tp["accumulate"]) / 4
-    ms["build_sharded_probe_part_plain"] = _cuda_ms(
+    ms["build_sharded_probe_part_plain"] = tm.cuda_ms(
         lambda: all_parts(plain_pstep, "fused"), 2) / 4
     del main_t, stash_t, smain, sstash, resident, wires, w1
     torch.cuda.empty_cache()
@@ -2191,6 +2042,68 @@ def check_clark_interop(db, dbdir: str, targets: Path, tmp: Path, fq: Path,
     return detail
 
 
+# bench_torch.py's knobs for the smoke: every block of bench.py runs, each
+# at a size that takes seconds
+BENCH_KNOBS = {"READS": 65536, "CHUNK": 16384, "KMERS": 1_000_000,
+               "SCALE_KMERS": 4_000_000, "4G_KMERS": 8_000_000,
+               "E2E_READS": 65536, "ACC_READS": 5000, "PAIRED_READS": 65536,
+               "LIGHT_KMERS": 2_000_000, "BUILD_MB": 16, "BUILD_RAM_MB": 64,
+               "REPS": 3, "CACHE": 0}
+BENCH_BLOCKS = ("scaling_model", "small", "e2e_scale", "e2e_small",
+                "host_pipeline", "accuracy", "stream_ratio", "mesh_e2e",
+                "light_paired", "scale4g", "build_spill")
+BENCH_EXACT = ("at-scale_step_vs_plain", "small_step_vs_plain",
+               "stream_csv_eq_resident", "mesh_csv_eq_e2e_scale",
+               "light_paired_step_vs_plain", "scale4g_step_vs_plain")
+
+
+def check_bench(tmp: Path, card: str) -> str:
+    """bench_torch.py on the card at BENCH_KNOBS, in a subprocess: its
+    last line must hold every block of bench.py, no build error, every
+    exactness check, the card's name, and in each device-step block fused
+    launches and a hit in every read of its planted chunk."""
+    env = dict(os.environ, TMPDIR=str(tmp),
+               **{f"CUCLARK_BENCH_{k}": str(v)
+                  for k, v in BENCH_KNOBS.items()})
+    env.pop("CUCLARK_BENCH_DEVICE", None)
+    proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    d = line["detail"]
+    missing = [b for b in BENCH_BLOCKS if b not in d]
+    if missing or "error" in d["build_spill"]:
+        raise AssertionError(f"bench_torch.py: blocks missing {missing}, "
+                             f"build_spill {d.get('build_spill')}")
+    if [c for c in BENCH_EXACT if d["exact"].get(c) is not True]:
+        raise AssertionError(f"bench_torch.py exactness: {d['exact']}")
+    if d["device"]["name"] != card:
+        raise AssertionError(f"bench_torch.py ran on {d['device']}")
+    for name, blk in (("at-scale", d), ("small", d["small"]),
+                      ("scale4g", d["scale4g"]),
+                      ("light_paired", d["light_paired"])):
+        if not blk["launches"].get("query_score"):
+            raise AssertionError(f"bench_torch.py {name}: no fused launch, "
+                                 f"{blk['launches']}")
+        planted = blk["planted"]
+        if not 0 < planted["hit_reads"] == planted["reads"]:
+            raise AssertionError(f"bench_torch.py {name}: planted reads "
+                                 f"missed, {planted}")
+    return (f"every block of bench.py and {len(BENCH_EXACT)} exactness "
+            f"checks; step {line['value']} reads/s (small "
+            f"{d['small']['reads_per_sec']}, scale4g "
+            f"{d['scale4g']['reads_per_sec']}), e2e "
+            f"{d['e2e_scale']['reads_per_sec']} reads/s, light paired "
+            f"{d['light_paired']['reads_per_sec']} pairs/s, stream "
+            f"{d['stream_ratio']['reads_per_sec']} reads/s in "
+            f"{d['stream_ratio']['stream_parts']} parts, host chain "
+            f"{d['host_pipeline']['serial_chain_reads_per_sec']} reads/s, "
+            f"{d['device']['nvidia_smi']}")
+
+
 # Kernel names in a trace, by launch count: the query kernel's template
 # instances, its fused query-and-score instance (one event a call), and
 # the score kernel's warp and histogram entries
@@ -2273,7 +2186,7 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
              "query_score": lambda: probe.query_score_results(
                  p2, vb, main_t, stash_t, **qargs),
              "score": lambda: score.score_labels(lab)}
-    event_ms = {name: _cuda_ms(fn, 20) for name, fn in calls.items()}
+    event_ms = {name: tm.cuda_ms(fn, 20) for name, fn in calls.items()}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fused = {}
@@ -2290,7 +2203,7 @@ def check_profile(db, dbdir: str, fq: Path, gpu_csv: Path, codes, tmp: Path,
                                      f"differs from the resident one")
             fused[name] = lay[name]
         kernels.reset_launches()
-        traced_ms = {name: _cuda_ms(fn, 20) for name, fn in calls.items()}
+        traced_ms = {name: tm.cuda_ms(fn, 20) for name, fn in calls.items()}
         torch.cuda.synchronize()
         paced_launches = dict(kernels.LAUNCHES)
     prof.export_chrome_trace(str(tmp / "pacing.json"))
@@ -2340,7 +2253,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not (ROOT / "cuclark_tpu_torch" / "__init__.py").is_file():
+    if tm is None or not (ROOT / "cuclark_tpu_torch" / "__init__.py"
+                          ).is_file():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
               f"(no cuclark_tpu_torch package)", file=sys.stderr)
         return 2
@@ -2366,7 +2280,6 @@ def main(argv=None) -> int:
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     cached = kernels.library_path().exists()
-    sys.path.insert(0, str(ROOT / "scripts"))
     import torch_gather_ceiling
     with ThreadPoolExecutor(2) as pool:
         ceiling_lib = pool.submit(torch_gather_ceiling.build)
@@ -2455,14 +2368,14 @@ def main(argv=None) -> int:
         if not torch.equal(lab, lab_plain):
             raise AssertionError("query kernel != plain on the real-size "
                                  "table")
-        err["query"] = max(err["query"], _max_abs_err(lab, lab_plain))
+        err["query"] = max(err["query"], tm.max_abs_err(lab, lab_plain))
         res = score.score_labels(lab)
         torch.cuda.synchronize()
         res_plain = score.score_labels_plain(lab)
         if not torch.equal(res, res_plain):
             raise AssertionError("score kernel != plain on the real-size "
                                  "labels")
-        err["score"] = max(err["score"], _max_abs_err(res, res_plain))
+        err["score"] = max(err["score"], tm.max_abs_err(res, res_plain))
         fused = probe.query_score_results(p2, vb, main_t, stash_t, **qargs)
         torch.cuda.synchronize()
         fused_plain = probe.query_score_results_plain(p2, vb, main_t,
@@ -2472,36 +2385,37 @@ def main(argv=None) -> int:
                                  "query then score kernels on the real-size "
                                  "batch")
         err["query_score"] = max(err["query_score"],
-                                 _max_abs_err(fused, fused_plain))
+                                 tm.max_abs_err(fused, fused_plain))
         del lab_plain, res_plain, fused, fused_plain
         unpacked = codec.unpack_codes(p2, vb)
-        touched = touched_rows(unpacked, db.spec, db.k)
+        touched = tm.touched_rows(unpacked, db.spec, db.k)
         bound = {
-            "query": _bound_ms(query_bytes(touched, db.spec,
+            "query": tm.bound_ms(tm.query_bytes(touched, db.spec,
                                            p2.numel() + vb.numel(),
                                            4 * lab.numel())),
-            "query_score": _bound_ms(query_bytes(touched, db.spec,
+            "query_score": tm.bound_ms(tm.query_bytes(touched, db.spec,
                                                  p2.numel() + vb.numel(),
                                                  20 * B)),
-            "score": _bound_ms(4 * lab.numel() + 20 * B),
-            "classify_step": _bound_ms(query_bytes(touched, db.spec, B * L,
-                                                   20 * B)),
+            "score": tm.bound_ms(4 * lab.numel() + 20 * B),
+            "classify_step": tm.bound_ms(tm.query_bytes(
+                touched, db.spec, B * L, 20 * B)),
         }
         # the practical ceiling of the qs query's main-row gathers: the
         # gather-only kernel over this batch's main buckets, window order;
         # a part call gathers those of its range
-        buckets = window_buckets(unpacked, db.spec, db.k)
-        ceiling = {"query": gather_ceiling_ms(ceiling_lib, main_t, buckets)}
+        buckets = tm.window_buckets(unpacked, db.spec, db.k)
+        ceiling = {"query": tm.gather_ceiling_ms(ceiling_lib, main_t, buckets)}
         rows = db.nb // STREAM_PARTS["qs"]
-        part_main = [gather_ceiling_ms(
+        part_main = [tm.gather_ceiling_ms(
             ceiling_lib, main_t, buckets[(buckets // rows) == j].contiguous())
             for j in range(STREAM_PARTS["qs"])]
         # the parts also gather every valid window's stash row once (the
         # same gather-only kernel over the stash rows, window order), split
         # over the parts as a table streams: a part's share is in
         # its ceiling
-        stash_ms = gather_ceiling_ms(ceiling_lib, stash_t, window_buckets(
-            unpacked, db.spec, db.k, stash=True))
+        stash_ms = tm.gather_ceiling_ms(
+            ceiling_lib, stash_t,
+            tm.window_buckets(unpacked, db.spec, db.k, stash=True))
         ceiling["query_part_main"] = float(np.mean(part_main))
         ceiling["query_part"] = ceiling["query_part_main"] + (
             stash_ms / STREAM_PARTS["qs"])
@@ -2514,17 +2428,17 @@ def main(argv=None) -> int:
         ceiling["build_sharded_probe_part"] = ceiling["query_part"]
         del buckets
         ms = {
-            "query": _cuda_ms(lambda: probe.query_labels(
+            "query": tm.cuda_ms(lambda: probe.query_labels(
                 p2, vb, main_t, stash_t, **qargs), 20),
-            "query_plain": _cuda_ms(lambda: probe.query_labels_plain(
+            "query_plain": tm.cuda_ms(lambda: probe.query_labels_plain(
                 p2, vb, main_t, stash_t, **qargs), 5),
-            "query_score": _cuda_ms(lambda: probe.query_score_results(
+            "query_score": tm.cuda_ms(lambda: probe.query_score_results(
                 p2, vb, main_t, stash_t, **qargs), 20),
-            "query_score_plain": _cuda_ms(
+            "query_score_plain": tm.cuda_ms(
                 lambda: probe.query_score_results_plain(
                     p2, vb, main_t, stash_t, **qargs), 5),
-            "score": _cuda_ms(lambda: score.score_labels(lab), 20),
-            "score_plain": _cuda_ms(lambda: score.score_labels_plain(lab),
+            "score": tm.cuda_ms(lambda: score.score_labels(lab), 20),
+            "score_plain": tm.cuda_ms(lambda: score.score_labels_plain(lab),
                                     5),
         }
 
@@ -2539,13 +2453,13 @@ def main(argv=None) -> int:
                                                       **qargs))
 
         kernels.reset_launches()
-        step_ms = _cuda_ms(step_all, 10)
+        step_ms = tm.cuda_ms(step_all, 10)
         if kernels.LAUNCHES["query_score"] != 11 * len(wire) or (
                 kernels.LAUNCHES["query"] or kernels.LAUNCHES["score"]):
             raise AssertionError(f"the device step did not take the fused "
                                  f"kernel alone: {_launched(kernels.LAUNCHES)}")
         step_rps = len(wire) * B / (step_ms / 1e3)
-        two_ms = _cuda_ms(two_kernels, 10)
+        two_ms = tm.cuda_ms(two_kernels, 10)
         _phase("real_size_kernels", t0,
                f"[{B}, {L}] batch bit-identical; query {ms['query']:.4f} ms "
                f"(plain {ms['query_plain']:.4f}), score {ms['score']:.4f} "
@@ -2566,42 +2480,43 @@ def main(argv=None) -> int:
         t0 = time.time()
         pwire = tuple(torch.from_numpy(a).to(dev)
                       for a in codec.pack_codes(joined_pairs(genomes, B)))
-        pp2, pvb = pwire
-        pres = probe.query_score_results(pp2, pvb, main_t, stash_t, **qargs)
-        torch.cuda.synchronize()
-        pres_plain = probe.query_score_results_plain(pp2, pvb, main_t,
-                                                     stash_t, **qargs)
-        ptwo = score.score_labels(probe.query_labels(pp2, pvb, main_t,
-                                                     stash_t, **qargs))
-        torch.cuda.synchronize()
-        if not (torch.equal(pres, pres_plain) and torch.equal(pres, ptwo)):
-            raise AssertionError("fused query and score != plain or != the "
-                                 "query then score kernels on the paired "
-                                 "batch")
-        err["query_score_290"] = _max_abs_err(pres, pres_plain)
-        del pres_plain, ptwo
-        unpacked = codec.unpack_codes(pp2, pvb)
-        bound["query_score_290"] = _bound_ms(query_bytes(
-            touched_rows(unpacked, db.spec, db.k), db.spec,
-            pp2.numel() + pvb.numel(), 20 * B))
-        ceiling["query_score_290"] = gather_ceiling_ms(
-            ceiling_lib, main_t, window_buckets(unpacked, db.spec, db.k))
-        del unpacked
-        ms["query_score_290"] = _cuda_ms(lambda: probe.query_score_results(
-            pp2, pvb, main_t, stash_t, **qargs), 20)
-        ms["query_score_290_plain"] = _cuda_ms(
-            lambda: probe.query_score_results_plain(pp2, pvb, main_t,
-                                                    stash_t, **qargs), 3)
-        two_290 = _cuda_ms(lambda: score.score_labels(probe.query_labels(
-            pp2, pvb, main_t, stash_t, **qargs)), 20)
+        # the fused kernel's row on the qs table, then on the q4 and s2
+        # tables of the same k-mers, each beside the mate files through a
+        # resident Classifier of the layout
+        paired_rows = {}
+        paired_rows["qs"], pres = tm.fused_row(
+            *pwire, main_t, stash_t, k=db.k, spec=db.spec,
+            ceiling_lib=ceiling_lib, two=True)
+        for layout in ("q4", "s2"):
+            paired_rows[layout] = check_paired_layout(
+                dbs[layout], pwire, pres, r1, r2,
+                tmp / f"paired_{layout}.csv", ceiling_lib, dev)
+        layout_paired_launches = {}
+        for layout, row in paired_rows.items():
+            name = "query_score_290" + ("" if layout == "qs"
+                                        else f"_{layout}")
+            if layout != "qs":
+                layout_paired_launches[name] = row["launches"]
+            err[name] = row["max_abs_err"]
+            ms[name], ms[f"{name}_plain"] = row["ms"], row["plain_ms"]
+            bound[name], ceiling[name] = row["bound_ms"], row["ceiling_ms"]
+        torch.cuda.empty_cache()
         _phase("real_size_paired", t0,
-               f"[{B}, 320] joined pairs (P = {4 * pp2.shape[1] - db.k + 1})"
+               f"[{B}, 320] joined pairs (P = "
+               f"{4 * pwire[0].shape[1] - db.k + 1})"
                f" bit-identical to plain and to query then score; fused "
                f"query and score {ms['query_score_290']:.4f} ms (plain "
                f"{ms['query_score_290_plain']:.4f}), query then score "
-               f"{two_290:.4f} ms; gather-only ceiling "
+               f"{paired_rows['qs']['two_ms']:.4f} ms; gather-only ceiling "
                f"{ceiling['query_score_290']:.4f} ms, bytes bound "
-               f"{bound['query_score_290']:.4f} ms; on {card}")
+               f"{bound['query_score_290']:.4f} ms; " + "; ".join(
+                   f"{lay}: == qs, fused {r['ms']:.4f} ms (plain "
+                   f"{r['plain_ms']:.4f}), query then score "
+                   f"{r['two_ms']:.4f}, ceiling {r['ceiling_ms']:.4f}, "
+                   f"bound {r['bound_ms']:.4f}, {r['launches']} launches on "
+                   f"the mate files" for lay, r in paired_rows.items()
+                   if lay != "qs")
+               + f"; on {card}")
 
         # the same reads as unpacked codes through classify_step
         t0 = time.time()
@@ -2648,6 +2563,7 @@ def main(argv=None) -> int:
                                "-R", str(gpu_csv), "--device", "cuda"],
                               ("query_score",))
         _phase("classify_cuda", t0, f"launches {launches}")
+        launches.update(layout_paired_launches)
 
         # file -> CSV with the DB resident, timed apart from the DB load
         t0 = time.time()
@@ -2754,6 +2670,11 @@ def main(argv=None) -> int:
                  str(head_fastq(r1, tmp / "s1.fq", n_cpu)),
                  str(head_fastq(r2, tmp / "s2.fq", n_cpu)),
                  "-R", str(sub_csv), "--device", "cpu"])
+        for layout in ("q4", "s2"):
+            if (tmp / f"paired_{layout}.csv").read_bytes() != (
+                    paired_csv.read_bytes()):
+                raise AssertionError(f"the paired CSV of the {layout} table "
+                                     f"differs from the qs table's")
         head = paired_csv.read_bytes().split(b"\n")[:n_cpu + 1]
         if b"\n".join(head) + b"\n" != sub_csv.read_bytes():
             raise AssertionError(f"paired CSV of the first {n_cpu} pairs "
@@ -2772,6 +2693,7 @@ def main(argv=None) -> int:
         _phase("classify_paired", t0,
                f"{acc_paired:.6f} of {args.reads} pairs assigned to their "
                f"source genome, first {n_cpu} identical to --device cpu, "
+               f"the q4 and s2 tables' paired CSVs identical, "
                f"launches {_launched(launches_paired)}; file->CSV "
                f"{', '.join(f'{r:.1f}' for r in paired_e2e)} pairs/s on "
                f"{card}")
@@ -2868,6 +2790,12 @@ def main(argv=None) -> int:
         _phase("profile", t0, check_profile(db, dbdir, fq, gpu_csv, codes,
                                             tmp, dev, card))
 
+        # bench_torch.py at reduced knobs, in a process of its own
+        t0 = time.time()
+        del db, dbs
+        torch.cuda.empty_cache()
+        _phase("bench", t0, check_bench(tmp, card))
+
     # the resident 150 bp and the paired paths run the fused query and
     # score alone; the query and score kernels' own path is --extended
     kern = [
@@ -2913,11 +2841,15 @@ def main(argv=None) -> int:
          "ms": ms["score"], "plain_ms": ms["score_plain"]},
     ]
     for name, replaces in (("query_score_q4", "cuclark_tpu/pipeline.py:71"),
+                           ("query_score_290_q4",
+                            "cuclark_tpu/pipeline.py:71"),
                            ("query_q4", "cuclark_tpu/probe.py:236"),
                            ("query_part_q4", "cuclark_tpu/probe.py:236"),
                            ("query_score_part_stream_q4",
                             "cuclark_tpu/pipeline.py:96"),
                            ("query_score_s2", "cuclark_tpu/pipeline.py:71"),
+                           ("query_score_290_s2",
+                            "cuclark_tpu/pipeline.py:71"),
                            ("query_s2", "cuclark_tpu/probe.py:131"),
                            ("query_part_s2", "cuclark_tpu/probe.py:131"),
                            ("query_score_part_stream_s2",

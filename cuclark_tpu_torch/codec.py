@@ -1,12 +1,12 @@
 """2-bit nucleotide codec and canonical k-mer extraction.
 
 Counterpart of `cuclark_tpu/codec.py`.  The host half (`INVALID`,
-`BASE_LUT`, `encode_ascii`, `string_to_kmer`, `revcomp_np`,
-`canonical_np`, `pack_codes`) is carried over unchanged.  The device
-half (`unpack_codes`, `extract_kmers`, `revcomp`, `canonical`) is plain
-PyTorch on int64 tensors: a k-mer (k <= 32) is one int64 holding the
-unsigned 64-bit bit pattern, so `cuclark_tpu/u64.py`'s (hi, lo) pairs
-fold away.  These are the plain versions that the query kernel
+`BASE_LUT`, `encode_ascii`, `kmer_to_string`, `string_to_kmer`,
+`revcomp_np`, `canonical_np`, `pack_codes`) is carried over unchanged.
+The device half (`unpack_codes`, `extract_kmers`, `revcomp`,
+`canonical`) is plain PyTorch on int64 tensors: a k-mer (k <= 32) is
+one int64 holding the unsigned 64-bit bit pattern, so
+`cuclark_tpu/u64.py`'s (hi, lo) pairs fold away.  These are the plain versions that the query kernel
 (`csrc/query.cu`) is held against; CPU torch lacks most `torch.uint32`
 operations, so every shift and compare here is int64 with explicit
 masks where a logical shift or an unsigned compare is meant.
@@ -33,11 +33,18 @@ for _ch, _code in (("A", 3), ("C", 2), ("G", 1), ("T", 0), ("U", 0)):
     BASE_LUT[ord(_ch)] = _code
     BASE_LUT[ord(_ch.lower())] = _code
 
+_CODE_TO_BASE = {3: "A", 2: "C", 1: "G", 0: "T"}
+
 
 def encode_ascii(buf: bytes | np.ndarray) -> np.ndarray:
     """ASCII sequence bytes -> uint8 codes (0..3, INVALID for non-ACGT)."""
     arr = np.frombuffer(buf, dtype=np.uint8) if isinstance(buf, (bytes, bytearray)) else np.asarray(buf, dtype=np.uint8)
     return BASE_LUT[arr]
+
+
+def kmer_to_string(kmer: int, k: int) -> str:
+    """Integer k-mer -> base string (debug/tests)."""
+    return "".join(_CODE_TO_BASE[(int(kmer) >> (2 * (k - 1 - i))) & 3] for i in range(k))
 
 
 def string_to_kmer(s: str) -> int:

@@ -282,20 +282,28 @@ class KmerDB:
     def checksum(self) -> int:
         return zlib.crc32(self.table.tobytes())
 
-    def items(self) -> tuple[np.ndarray, np.ndarray]:
-        """Recover every stored (canonical k-mer, label) pair.
+    def items(self, rows: tuple[int, int] | None = None
+              ) -> tuple[np.ndarray, np.ndarray]:
+        """Recover every stored (canonical k-mer, label) pair, or those of
+        table rows [lo, hi) where rows = (lo, hi) (a qs table's stash rows
+        follow its main rows).
 
         s2 rows store full keys; q4/qs entries reconstruct (h1, l2) from
         (bucket, other, quotient, choice) and run the Feistel backwards
         (it is a bijection)."""
+        lo_row, hi_row = rows if rows is not None else (0, self.total_rows)
+        if not 0 <= lo_row <= hi_row <= self.total_rows:
+            raise ValueError(f"rows {rows} outside the table's "
+                             f"{self.total_rows}")
+        table = self.table[lo_row:hi_row]
         if self.layout in ("q4", "qs"):
-            rows = self.total_rows
-            other = self.table[:, :4].ravel()
-            meta = self.table[:, 4:].ravel()
+            other = table[:, :4].ravel()
+            meta = table[:, 4:].ravel()
             lab = (meta & _M32(0xFFFF)).astype(np.uint32)
             keep = lab > 0
             other, meta, lab = other[keep], meta[keep], lab[keep]
-            bidx = np.repeat(np.arange(rows, dtype=np.uint32), 4)[keep]
+            bidx = np.repeat(np.arange(lo_row, hi_row, dtype=np.uint32),
+                             4)[keep]
             q = meta >> _M32(17)
             choice = (meta >> _M32(16)) & _M32(1)
             if self.layout == "qs":
@@ -320,9 +328,9 @@ class KmerDB:
                      | lo.astype(np.uint64))
             return kmers, lab
         S = self.slots
-        klo = self.table[:, :S].ravel()
-        khi = self.table[:, S:2 * S].ravel()
-        lab = self.table[:, 2 * S:].ravel().astype(np.uint32)
+        klo = table[:, :S].ravel()
+        khi = table[:, S:2 * S].ravel()
+        lab = table[:, 2 * S:].ravel().astype(np.uint32)
         keep = (klo != EMPTY) | (khi != EMPTY)
         kmers = ((khi[keep].astype(np.uint64) << np.uint64(32))
                  | klo[keep].astype(np.uint64))

@@ -117,6 +117,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
+    import torch_measure as tm
     from cuclark_tpu_torch import codec, probe
     from cuclark_tpu_torch.hashdb import (feistel_mix_torch,
                                           feistel_seed_consts,
@@ -326,10 +327,10 @@ def main(argv=None) -> int:
     for lay in ("q4", "s2"):
         ldb = dbs.pop(lay)
         lmain, _ = table_to_device(ldb, dev)
-        choices = cs.choice_rows(codes_t, lmain, ldb.spec, k)
+        choices = tm.choice_rows(codes_t, lmain, ldb.spec, k)
         rows0, rows1, has1, zero = choices
-        lists = {"exact": cs.exact_rows(choices),
-                 "both": cs.exact_rows((rows0, rows1, has1,
+        lists = {"exact": tm.exact_rows(choices),
+                 "both": tm.exact_rows((rows0, rows1, has1,
                                         torch.ones_like(zero)))}
         # s2 reads the low key words of a row (8 B at 2 slots), q4 32 B
         row_bytes = 32 if lay == "q4" else 4 * ldb.slots

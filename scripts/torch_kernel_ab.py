@@ -60,7 +60,7 @@ Each case runs old, new, new, old for each old build, `--turns` times
 (12 timings of each old build at the default 6), a timing being the mean
 of CUDA events over `--reps` launches after a warm-up; every build's
 outputs must equal the new one's.  Each case's least time (device-memory
-bytes at 3.35 TB/s, counted as chip_smoke.py counts them) stands beside
+bytes at 3.35 TB/s, `torch_measure.query_bytes`) stands beside
 its medians.  Prints a line per
 case, the card's name and power limit, and one JSON object last, also
 written to `--out`.
@@ -326,6 +326,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
+    import torch_measure as tm
     from cuclark_tpu_torch import codec, kernels
     from cuclark_tpu_torch.hashdb import table_to_device
 
@@ -404,17 +405,17 @@ def main(argv=None) -> int:
                           device=dev) if any(
         o.score_scratch for o in olds.values()) else None
 
-    touched = {lay: cs.touched_rows(codes_t, spec[lay], k, tables[lay][0])
+    touched = {lay: tm.touched_rows(codes_t, spec[lay], k, tables[lay][0])
                for lay in dbs}
     wire_b, lab_b = p2.numel() + vb.numel(), 4 * R * P
-    bound = {f"query_{lay}": cs._bound_ms(cs.query_bytes(
+    bound = {f"query_{lay}": tm.bound_ms(tm.query_bytes(
         touched[lay], spec[lay], wire_b, lab_b)) for lay in dbs}
     for lay in ("q4", "s2"):
-        bound[f"step_packed_{lay}"] = cs._bound_ms(cs.query_bytes(
+        bound[f"step_packed_{lay}"] = tm.bound_ms(tm.query_bytes(
             touched[lay], spec[lay], wire_b, 20 * R))
-        miss = cs.touched_rows(codec.unpack_codes(mp2, mvb), spec[lay], k,
+        miss = tm.touched_rows(codec.unpack_codes(mp2, mvb), spec[lay], k,
                                tables[lay][0])
-        bound[f"query_{lay}_miss"] = cs._bound_ms(cs.query_bytes(
+        bound[f"query_{lay}_miss"] = tm.bound_ms(tm.query_bytes(
             miss, spec[lay], wire_b, lab_b))
         del miss
     # the range passes (`chip_smoke.range_calls`: a qs stash split over
@@ -430,7 +431,7 @@ def main(argv=None) -> int:
                   for name, (lay, n) in passes.items()}
     for name, (lay, n) in passes.items():
         hits = cs.later_hits(p2, vb, pass_calls[name], k, spec[lay])
-        bound[name] = cs._bound_ms(cs.query_bytes(
+        bound[name] = tm.bound_ms(tm.query_bytes(
             touched[lay], spec[lay], wire_b, lab_b, n, hits))
     # the wide batches' touched rows: the pairs on every table, the rest
     # on qs's; an all-miss batch reads each window's rows as a miss does
@@ -439,23 +440,23 @@ def main(argv=None) -> int:
         cw = c if c is not None else codec.unpack_codes(x, v)
         P_w = 4 * x.shape[1] - k + 1
         for lay in lays:
-            t = cs.touched_rows(cw, spec[lay], k, tables[lay][0])
+            t = tm.touched_rows(cw, spec[lay], k, tables[lay][0])
             suffix = "" if lay == "qs" else f"_{lay}"
             if n == "290":
-                bound[f"query_290_{lay}"] = cs._bound_ms(cs.query_bytes(
+                bound[f"query_290_{lay}"] = tm.bound_ms(tm.query_bytes(
                     t, spec[lay], x.numel() + v.numel(), 4 * R * P_w))
-            bound[f"step_packed_{n}{suffix}"] = cs._bound_ms(
-                cs.query_bytes(t, spec[lay], x.numel() + v.numel(), 20 * R))
+            bound[f"step_packed_{n}{suffix}"] = tm.bound_ms(
+                tm.query_bytes(t, spec[lay], x.numel() + v.numel(), 20 * R))
             del t
         del cw
-    bound["classify_step"] = cs._bound_ms(cs.query_bytes(
+    bound["classify_step"] = tm.bound_ms(tm.query_bytes(
         touched["qs"], spec["qs"], R * 152, 20 * R))
-    bound["step_packed"] = cs._bound_ms(cs.query_bytes(
+    bound["step_packed"] = tm.bound_ms(tm.query_bytes(
         touched["qs"], spec["qs"], wire_b, 20 * R))
     for name, lab in (("score_122", lab122), ("score_290", lab290),
                       ("score_122_many", lab_many),
                       ("score_long", lab_long)):
-        bound[name] = cs._bound_ms(4 * lab.numel() + 20 * lab.shape[0])
+        bound[name] = tm.bound_ms(4 * lab.numel() + 20 * lab.shape[0])
     del touched
 
     def make_cases(kern: Kernels):

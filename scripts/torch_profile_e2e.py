@@ -1,0 +1,108 @@
+"""Where the host time of cuclark_tpu_torch's file -> CSV path goes:
+cProfile over `Classifier.classify_file_to_csv` on a synthetic FASTQ.
+
+Counterpart of `scripts/profile_e2e.py`, with its knobs: N reads of
+150 bp (substrings of a random 2 Mb genome, numpy seed 0) against a
+synthetic qs table of KMERS random k-mers (k=31, load 0.85) over TARGETS
+targets.  It prints the table, one timed pass's rate, and the 25 most
+expensive calls by cumulative time.  cProfile adds a cost to every
+Python call and none to native code or the card, so the shares it
+prints are for finding candidates; `bench_torch.py` measures.
+
+Run from the repository root, on the card (the default) or on the CPU:
+
+    N=500000 python3 scripts/torch_profile_e2e.py
+    N=20000 KMERS=100000 python3 scripts/torch_profile_e2e.py --device cpu
+
+Without a card and without `--device cpu` (or CUCLARK_BENCH_DEVICE=cpu)
+it exits 2.
+"""
+
+import argparse
+import cProfile
+import io
+import os
+import pstats
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device",
+                    default=os.environ.get("CUCLARK_BENCH_DEVICE", "cuda"),
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print("torch_profile_e2e: no CUDA device (torch.cuda.is_available() "
+              "is False); pass --device cpu to profile the CPU path",
+              file=sys.stderr)
+        return 2
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from cuclark_tpu_torch import codec
+    from cuclark_tpu_torch.config import ClassifyConfig, DBConfig
+    from cuclark_tpu_torch.hashdb import build_table
+    from cuclark_tpu_torch.pipeline import Classifier
+
+    n_reads = int(os.environ.get("N", 200_000))
+    n_kmers = int(os.environ.get("KMERS", 4_000_000))
+    n_targets = int(os.environ.get("TARGETS", 1024))
+    rng = np.random.default_rng(0)
+    km = np.unique(codec.canonical_np(
+        rng.integers(0, 1 << 62, size=int(n_kmers * 1.05), dtype=np.uint64),
+        31))[:n_kmers]
+    labels = rng.integers(1, n_targets + 1, size=len(km)).astype(np.uint32)
+    db = build_table(km, labels,
+                     ["NA"] + [f"T{i}" for i in range(1, n_targets + 1)],
+                     DBConfig(k=31, target_load=0.85))
+    print(f"db: {db.table.nbytes / 1e6:.0f} MB, layout {db.layout}, "
+          f"nb_bits {db.nb_bits}, stash_bits {db.stash_bits}; device "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}",
+          flush=True)
+
+    genome = rng.integers(0, 4, size=2_000_000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - 150, size=n_reads)
+    rows = genome[starts[:, None] + np.arange(150)[None, :]]
+    seq = np.frombuffer(b"ACGT", np.uint8)[rows]
+
+    with tempfile.TemporaryDirectory() as td:
+        fq = Path(td) / "r.fq"
+        qual = b"I" * 150
+        with open(fq, "wb") as f:
+            f.write(b"".join(b"@r%d\n%s\n+\n%s\n"
+                             % (i, seq[i].tobytes(), qual)
+                             for i in range(n_reads)))
+        clf = Classifier(db, ClassifyConfig(batch_reads=16384), device=dev)
+        out = Path(td) / "o.csv"
+        clf.classify_file_to_csv(fq, out)  # warm-up: kernels' build, pools
+
+        t0 = time.time()
+        pr = cProfile.Profile()
+        pr.enable()
+        n = clf.classify_file_to_csv(fq, out)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        pr.disable()
+        dt = time.time() - t0
+        clf.close()
+    print(f"e2e: {n} reads in {dt:.4f} s = {n / dt:,.1f} reads/s "
+          f"(under cProfile)", flush=True)
+    s = io.StringIO()
+    pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(25)
+    print(s.getvalue())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

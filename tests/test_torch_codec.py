@@ -30,6 +30,16 @@ def _u64(hi, lo):
             | np.asarray(lo).astype(np.uint64))
 
 
+@pytest.mark.parametrize("s", ["ACGTTGCAAACGT", "A", "T" * 32, "GATTACA" * 4])
+def test_kmer_to_string_matches_jax(s):
+    """kmer_to_string inverts string_to_kmer, as in tests/test_codec.py,
+    and equals the JAX package's function on the same k-mer."""
+    v = tcodec.string_to_kmer(s)
+    assert v == jcodec.string_to_kmer(s)
+    assert tcodec.kmer_to_string(v, len(s)) == s
+    assert tcodec.kmer_to_string(v, len(s)) == jcodec.kmer_to_string(v, len(s))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_unpack_codes_matches_jax(seed):
     p2, vb = jcodec.pack_codes(_codes(seed))
