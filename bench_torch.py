@@ -143,6 +143,38 @@ def _device_info(dev) -> dict:
     return info
 
 
+def synth_kmers(num_kmers: int, num_targets: int, k: int):
+    """bench.py's synthetic k-mers and labels: a config-seeded draw of
+    random canonical k-mers, sorted and unique, each with a random label
+    in 1..num_targets.  Returns (k-mers uint64, labels uint32, target
+    names)."""
+    from cuclark_tpu_torch import codec
+
+    t0 = time.time()
+    rng_db = np.random.default_rng((num_kmers, num_targets, k))
+    km = rng_db.integers(0, 1 << 62, size=int(num_kmers * 1.05),
+                         dtype=np.uint64)
+    km = codec.canonical_np(km, k)
+    t1 = time.time()
+    km = np.unique(km)[:num_kmers]
+    labels = rng_db.integers(1, num_targets + 1,
+                             size=len(km)).astype(np.uint32)
+    names = ["NA"] + [f"T{i}" for i in range(1, num_targets + 1)]
+    _log(f"drew {len(km)} canonical k-mers in {time.time() - t0:.1f} s "
+         f"(draw and canonical form {t1 - t0:.1f}, unique and labels "
+         f"{time.time() - t1:.1f})")
+    return km, labels, names
+
+
+def bench_reads(rng, n_reads: int, read_len: int):
+    """bench.py's reads: substrings of a random 2 Mb genome, drawn from
+    the bench's shared generator `rng` (seed 0, its first draws) ->
+    (genome, codes uint8 [n_reads, read_len])."""
+    genome = rng.integers(0, 4, size=2_000_000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - read_len, size=n_reads)
+    return genome, genome[starts[:, None] + np.arange(read_len)[None, :]]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device",
@@ -215,9 +247,7 @@ def main(argv=None) -> int:
     exact = {}
 
     # --- synthetic reads: substrings of a synthetic genome ---
-    genome = rng.integers(0, 4, size=2_000_000).astype(np.uint8)
-    starts = rng.integers(0, len(genome) - read_len, size=n_reads)
-    codes = genome[starts[:, None] + np.arange(read_len)[None, :]]
+    genome, codes = bench_reads(rng, n_reads, read_len)
     # every window of these reads is valid (no N): the hit share's base
     windows = n_reads * max(read_len - k + 1, 0)
     # the production wire format: 2-bit packed codes + validity bitmask
@@ -321,19 +351,7 @@ def main(argv=None) -> int:
                     cache.unlink()
         # a dedicated, config-seeded rng: a cache hit skips the draws, so
         # the shared stream stays the same for every later block
-        t0 = time.time()
-        rng_db = np.random.default_rng((num_kmers, num_targets, cfg.k))
-        km = rng_db.integers(0, 1 << 62, size=int(num_kmers * 1.05),
-                             dtype=np.uint64)
-        km = codec.canonical_np(km, cfg.k)
-        t1 = time.time()
-        km = np.unique(km)[:num_kmers]
-        labels = rng_db.integers(1, num_targets + 1,
-                                 size=len(km)).astype(np.uint32)
-        names = ["NA"] + [f"T{i}" for i in range(1, num_targets + 1)]
-        _log(f"drew {len(km)} canonical k-mers in {time.time() - t0:.1f} s "
-             f"(draw and canonical form {t1 - t0:.1f}, unique and labels "
-             f"{time.time() - t1:.1f})")
+        km, labels, names = synth_kmers(num_kmers, num_targets, cfg.k)
         t0 = time.time()
         db = build_table(km, labels, names, cfg)
         dt = time.time() - t0

@@ -15,8 +15,9 @@ against `--device cpu`:
 
   - resident: the table on the card (the fused query-and-score kernel
     for these one-tile reads, beside the query and score kernels, and
-    the gather-only ceiling of the query's main-row gathers,
-    scripts/torch_gather_ceiling.py's kernel); the fused kernel also at
+    the gather-only ceiling of the query's main-row gathers, alone and
+    with the stash rows it reads, scripts/torch_gather_ceiling.py's
+    kernel); the fused kernel also at
     the paired shape (65,536 joined pairs, three tiles a read), and on
     small tables at every width of two to eight tiles;
   - streamed: `--max-table-mb 600`, the table in 4 bucket-range parts of
@@ -791,7 +792,9 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts, more=()):
     plain_ms = tm.cuda_ms(lambda: all_calls(probe.query_part_labels_plain,
                                           calls), 2)
     unpacked = codec.unpack_codes(p2, vb)
-    touched = tm.touched_rows(unpacked, spec, k, main_t)
+    # a part call reads the stash row of every window it holds one of
+    touched = tm.touched_rows(unpacked, spec, k,
+                              None if spec.layout == "qs" else main_t)
     bound = tm.bound_ms(tm.query_bytes(
         touched, spec, p2.numel() + vb.numel(), 4 * resident.numel(), parts,
         later_hits(p2, vb, calls, k, spec)))
@@ -1334,11 +1337,17 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
     resident_res = probe.query_score_results(p2, vb, main_t, stash_t,
                                              **qargs)
     nb, nbs = main_t.shape[0], stash_t.shape[0]
-    touched = tm.touched_rows(codec.unpack_codes(p2, vb), db.spec, db.k)
+    unpacked = codec.unpack_codes(p2, vb)
+    # the shard and part launches read every window's stash row in their
+    # range; the 1 x 1 mesh's fused launch holds every main row and reads
+    # a stash row only where its main row needs it, as the resident step
+    touched = tm.touched_rows(unpacked, db.spec, db.k)
     wire_b, lab_b = p2.numel() + vb.numel(), 4 * resident.numel()
     fused_bound = tm.bound_ms(tm.query_bytes(touched, db.spec, wire_b, 20 * B))
     bound = {"build_sharded_classify": fused_bound,
-             "query_score_part": fused_bound,
+             "query_score_part": tm.bound_ms(tm.query_bytes(
+                 tm.touched_rows(unpacked, db.spec, db.k, main_t), db.spec,
+                 wire_b, 20 * B)),
              "build_sharded_probe_part": tm.bound_ms(tm.query_bytes(
                  touched, db.spec, wire_b, lab_b, 4, later_hits(
                      p2, vb, range_calls(main_t, stash_t, 4), db.k,
@@ -2092,6 +2101,18 @@ def check_bench(tmp: Path, card: str) -> str:
         if not 0 < planted["hit_reads"] == planted["reads"]:
             raise AssertionError(f"bench_torch.py {name}: planted reads "
                                  f"missed, {planted}")
+        if not {"ms", "ceiling_ms", "ceiling_stash_ms",
+                "stash_share"} <= set(blk["kernel"]):
+            raise AssertionError(f"bench_torch.py {name}: kernel row "
+                                 f"{blk['kernel']}")
+    rows = "; ".join(
+        f"{name} kernel {blk['kernel']['ms']:.4f} ms, ceiling "
+        f"{blk['kernel']['ceiling_ms']:.4f} (main rows), "
+        f"{blk['kernel']['ceiling_stash_ms']:.4f} (with the stash rows, "
+        f"read for {blk['kernel']['stash_share']:.2%} of the windows)"
+        for name, blk in (("at-scale", d), ("small", d["small"]),
+                          ("scale4g", d["scale4g"]),
+                          ("light_paired", d["light_paired"])))
     return (f"every block of bench.py and {len(BENCH_EXACT)} exactness "
             f"checks; step {line['value']} reads/s (small "
             f"{d['small']['reads_per_sec']}, scale4g "
@@ -2100,8 +2121,8 @@ def check_bench(tmp: Path, card: str) -> str:
             f"{d['light_paired']['reads_per_sec']} pairs/s, stream "
             f"{d['stream_ratio']['reads_per_sec']} reads/s in "
             f"{d['stream_ratio']['stream_parts']} parts, host chain "
-            f"{d['host_pipeline']['serial_chain_reads_per_sec']} reads/s, "
-            f"{d['device']['nvidia_smi']}")
+            f"{d['host_pipeline']['serial_chain_reads_per_sec']} reads/s; "
+            f"{rows}; {d['device']['nvidia_smi']}")
 
 
 # Kernel names in a trace, by launch count: the query kernel's template
@@ -2388,7 +2409,7 @@ def main(argv=None) -> int:
                                  tm.max_abs_err(fused, fused_plain))
         del lab_plain, res_plain, fused, fused_plain
         unpacked = codec.unpack_codes(p2, vb)
-        touched = tm.touched_rows(unpacked, db.spec, db.k)
+        touched = tm.touched_rows(unpacked, db.spec, db.k, main_t)
         bound = {
             "query": tm.bound_ms(tm.query_bytes(touched, db.spec,
                                            p2.numel() + vb.numel(),
@@ -2402,20 +2423,26 @@ def main(argv=None) -> int:
         }
         # the practical ceiling of the qs query's main-row gathers: the
         # gather-only kernel over this batch's main buckets, window order;
-        # a part call gathers those of its range
-        buckets = tm.window_buckets(unpacked, db.spec, db.k)
+        # a part call gathers those of its range.  ceiling_stash: the same
+        # over the main rows and the stash rows the query reads
+        qs_rows = tm.qs_window_rows(unpacked, db.spec, db.k)
+        buckets = qs_rows[:, 0].contiguous()
         ceiling = {"query": tm.gather_ceiling_ms(ceiling_lib, main_t, buckets)}
+        read_rows = tm.qs_window_rows(unpacked, db.spec, db.k, main_t)
+        stash_share = float((read_rows[:, 1] >= 0).float().mean())
+        ceiling_stash = {"query": tm.gather_ceiling_stash_ms(
+            ceiling_lib, main_t, stash_t, read_rows)}
+        del read_rows
         rows = db.nb // STREAM_PARTS["qs"]
         part_main = [tm.gather_ceiling_ms(
             ceiling_lib, main_t, buckets[(buckets // rows) == j].contiguous())
             for j in range(STREAM_PARTS["qs"])]
-        # the parts also gather every valid window's stash row once (the
-        # same gather-only kernel over the stash rows, window order), split
-        # over the parts as a table streams: a part's share is in
-        # its ceiling
-        stash_ms = tm.gather_ceiling_ms(
-            ceiling_lib, stash_t,
-            tm.window_buckets(unpacked, db.spec, db.k, stash=True))
+        # the parts also gather the stash row of nearly every valid window
+        # (a part holds both rows of few windows; the same gather-only
+        # kernel over the stash rows, window order), split over the parts
+        # as a table streams: a part's share is in its ceiling
+        stash_ms = tm.gather_ceiling_ms(ceiling_lib, stash_t,
+                                        qs_rows[:, 1].contiguous())
         ceiling["query_part_main"] = float(np.mean(part_main))
         ceiling["query_part"] = ceiling["query_part_main"] + (
             stash_ms / STREAM_PARTS["qs"])
@@ -2425,8 +2452,11 @@ def main(argv=None) -> int:
         for name in ("query_score", "classify_step", "build_sharded_classify",
                      "query_score_part", "build_sharded_classify_spanning"):
             ceiling[name] = ceiling["query"]
+        # the calls over every main row read the stash as the query does
+        for name in ("query_score", "classify_step", "query_score_part"):
+            ceiling_stash[name] = ceiling_stash["query"]
         ceiling["build_sharded_probe_part"] = ceiling["query_part"]
-        del buckets
+        del buckets, qs_rows
         ms = {
             "query": tm.cuda_ms(lambda: probe.query_labels(
                 p2, vb, main_t, stash_t, **qargs), 20),
@@ -2466,7 +2496,9 @@ def main(argv=None) -> int:
                f"ms (plain {ms['score_plain']:.4f}), fused query and score "
                f"{ms['query_score']:.4f} ms (plain "
                f"{ms['query_score_plain']:.4f}); gather-only ceiling "
-               f"{ceiling['query']:.4f} ms resident, "
+               f"{ceiling['query']:.4f} ms resident (main rows; "
+               f"{ceiling_stash['query']:.4f} ms with the stash rows, read "
+               f"for {stash_share:.2%} of the windows), "
                f"{ceiling['query_part']:.4f} ms per part of "
                f"{STREAM_PARTS['qs']} with its share of the stash "
                f"gathers ({stash_ms:.4f} ms in all), "
@@ -2500,6 +2532,8 @@ def main(argv=None) -> int:
             err[name] = row["max_abs_err"]
             ms[name], ms[f"{name}_plain"] = row["ms"], row["plain_ms"]
             bound[name], ceiling[name] = row["bound_ms"], row["ceiling_ms"]
+            if "ceiling_stash_ms" in row:
+                ceiling_stash[name] = row["ceiling_stash_ms"]
         torch.cuda.empty_cache()
         _phase("real_size_paired", t0,
                f"[{B}, 320] joined pairs (P = "
@@ -2508,7 +2542,10 @@ def main(argv=None) -> int:
                f"query and score {ms['query_score_290']:.4f} ms (plain "
                f"{ms['query_score_290_plain']:.4f}), query then score "
                f"{paired_rows['qs']['two_ms']:.4f} ms; gather-only ceiling "
-               f"{ceiling['query_score_290']:.4f} ms, bytes bound "
+               f"{ceiling['query_score_290']:.4f} ms (main rows; "
+               f"{ceiling_stash['query_score_290']:.4f} ms with the stash "
+               f"rows, read for {paired_rows['qs']['stash_share']:.2%} of "
+               f"the windows), bytes bound "
                f"{bound['query_score_290']:.4f} ms; " + "; ".join(
                    f"{lay}: == qs, fused {r['ms']:.4f} ms (plain "
                    f"{r['plain_ms']:.4f}), query then score "
@@ -2891,10 +2928,12 @@ def main(argv=None) -> int:
     for entry in kern:
         # no single PyTorch call computes any of these functions; the
         # gather ceiling is that of the rows an exact probe of the
-        # kernel's table gathers
+        # kernel's table gathers (a resident qs step's main rows, and
+        # with ceiling_stash_ms both its rows a window)
         entry.update(bound_ms=bound[entry["name"]], bound_by="bytes",
                      library_ms=None,
-                     ceiling_ms=ceiling.get(entry["name"]))
+                     ceiling_ms=ceiling.get(entry["name"]),
+                     ceiling_stash_ms=ceiling_stash.get(entry["name"]))
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -42,8 +42,7 @@
 // What bounds it on the card: the random 32 B row gathers.  One per window
 // goes into the main table (1.07 GB at the 64M-k-mer configuration, 22x
 // the 50 MB L2, so nearly every one goes to device memory: 7.0M distinct
-// rows, 225 MB, of a [65,536, 152] batch) and one into the stash (at most
-// 2^20 rows = 33.6 MB, which L2 can hold).  Random 32 B sectors reach a
+// rows, 225 MB, of a [65,536, 152] batch).  Random 32 B sectors reach a
 // small share of the 3.35 TB/s that streaming does, so the resident call
 // runs at about a fifth of its bytes bound.  scripts/torch_gather_ceiling.py
 // measures the ceiling: on an H100 the same 7.86M main-row gathers alone, in
@@ -52,6 +51,47 @@
 // random 4 B scatter (0.26 ms at best), and the labels must then go back
 // to window order, so the window-order gather is the practical ceiling and
 // the kernel keeps the window order.
+//
+// The qs stash (2^20 rows = 33.6 MB at that configuration) does not stay
+// in L2 beside the main rows' stream either.  On an H100 80GB HBM3 at
+// 700 W (scripts/torch_stage_cut.py: copies of this file with a stage cut
+// out, timed against it; PERF.md section 6), the fused step of a
+// [65,536, 152] batch that read every window's stash row took 0.340 ms:
+// 0.249 ms without the stash loads (under the main rows' gather-only
+// ceiling, 0.254), 0.344 ms with them rotated over 8 copies of the stash
+// (cold on purpose), and 0.262, 0.257 and 0.253 ms with the stash bucket
+// masked to 19, 18 and 17 bits (16.8, 8.4 and 4.2 MB): a stash of 2^19
+// rows stays in L2, one of 2^20 does not.  The score cut out saved
+// nothing, and an evict_last L2 policy on the stash loads cost 4%.  So a
+// qs call that holds every main row (the resident step, query_kernel's
+// resident call, a 1 x 1 mesh's fused launch: the LATE instances, chosen
+// by the C entries) reads a window's main row first and its stash row
+// only where that row can hide the key (qs_label):
+//   - every key of a table is stored once (cuclark_tpu/hashdb.py:493-495
+//     rejects duplicates) with a 1-based label (:488-489), so an occupied
+//     slot has a nonzero label field and an empty one is all zero;
+//   - a key goes to the stash only when its main row is full, and no
+//     placement ever empties a main slot: both builds only add to a row's
+//     count (cuclark_tpu_torch/csrc/host_ops.cpp build_q4, occ[b]++;
+//     cuclark_tpu_torch/hashdb.py _cuckoo_place, occ[cb] += 1; the same in
+//     cuclark_tpu), so every stash key's main row is full;
+//   - a load with a sample factor (cuclark_tpu_torch/hashdb.py
+//     KmerDB.load, cuclark_tpu/hashdb.py:224-230) zeroes whole rows, main
+//     and stash alike: a main row it keeps is as built, one it drops is
+//     empty, and the table is marked `sampled` (TableSpec.sampled, the C
+//     entries' `sampled` argument);
+// so a main row that is not full holds every key of its bucket (in a
+// sampled table, a main row that is neither full nor empty), and a window
+// that misses it misses the stash too; a window that hits its main row
+// gets 0 from the stash (its key is stored once).
+// tests/test_torch_qs_stash.py holds both builds and both packages'
+// sampled loads to this.  A window reads the stash only behind a full
+// main row (or an empty one in a sampled table) that gives label 0 (the
+// share of windows that do is torch_measure.fused_row's stash_share;
+// PERF.md section 6).
+// A range call (a part, a db shard) keeps both loads in flight: it holds
+// both rows of few windows, and with the stash read late a warp's stash
+// loads waited on its lanes' main rows (a pass of 4 parts ran 5% slower).
 //
 // A range call (a part of a streamed table, a db shard of a mesh) gathers
 // only for the windows with a row in its range, about 1/parts of them, but
@@ -126,12 +166,16 @@
 // 8.6 GB.  A qs or q4 row is two 16 B loads: a qs main row with the
 // streaming hint (evict first), so that the main rows, which a batch reads
 // once, leave L2 before the stash rows do (on an H100 the resident qs
-// query ran 12% faster so; q4 ran no faster), every other row through the
-// read-only path.  qs issues the loads of both its rows (main and stash)
-// before it compares either: the stash row is an L2 hit beside the cold
-// main row; so does q4 in a range call.  Invalid windows (an N or padding
-// inside) return before any gather, which also stands in for the TPU-only
-// probe.spread_invalid.
+// query ran 12% faster so, when it read every stash row; q4 ran no
+// faster), every other row through the read-only path.  qs reads its
+// stash row after its main row, and only where qs_label needs it (above);
+// q4 in a range call issues the loads of both its rows before it compares
+// either.  Invalid windows (an N or padding inside) return before any
+// gather, which also stands in for the TPU-only probe.spread_invalid.
+//
+// Lines between "// cut <tag> begin" and "// cut <tag> end" are the stages
+// that scripts/torch_stage_cut.py replaces in timing-only copies of this
+// file; no path of the package runs such a copy.
 //
 // The q4 and s2 layouts (cuclark_tpu/probe.py:_probe_q4 :236 and the s2
 // branch of probe.probe :131-155) share the front half (staging, k-mer,
@@ -332,6 +376,55 @@ __device__ __forceinline__ int32_t row_label(const QRow& row, uint32_t other,
          slot_label(o.w, m.w, other, quot, choice);
 }
 
+// Whether a key whose main bucket is a qs row's can lie in the stash: a
+// key is stored in the stash only when its main row is full (an occupied
+// slot has a nonzero label field; see the header), and in a table loaded
+// with a sample factor (`sampled`) a zeroed main row may hide stash keys
+// too.
+__device__ __forceinline__ bool stash_may_hold(const QRow& row,
+                                               bool sampled) {
+  const uint4 m = row.m;
+  const int used = ((m.x & 0xFFFFu) != 0) + ((m.y & 0xFFFFu) != 0) +
+                   ((m.z & 0xFFFFu) != 0) + ((m.w & 0xFFFFu) != 0);
+  return used == 4 || (sampled && used == 0);
+}
+
+// The label of a qs window from its main row (row r0 of `rows`, when in0)
+// and its stash row (row r1 of `stash`, when in1), as
+// cuclark_tpu/probe.py:_probe_qs_split sums them.  LATE (the instances of
+// calls that hold every main row): the stash row after the main row, and
+// only where the main row neither answers nor rules the stash out
+// (stash_may_hold).  Otherwise (a range call, which holds both rows of
+// few windows) both loads go out before either row is compared: with the
+// stash read late a warp waits on its lanes' main rows before any stash
+// load, and on an H100 a pass of 4 parts ran 5% slower so.
+template <bool LATE>
+__device__ __forceinline__ int32_t qs_label(const uint4* __restrict__ rows,
+                                            uint64_t r0, bool in0,
+                                            const uint4* __restrict__ stash,
+                                            uint64_t r1, bool in1,
+                                            uint32_t h1, uint32_t l2,
+                                            int nb_bits, int stash_bits,
+                                            bool sampled) {
+  int32_t lab = 0;
+  if (LATE) {
+    if (in0) {
+      const QRow row = load_row<true>(rows, r0);
+      lab = row_label(row, h1, l2 >> nb_bits, 0u);
+      in1 = in1 && lab == 0 && stash_may_hold(row, sampled);
+    }
+    if (in1)
+      lab = row_label(load_row<false>(stash, r1), l2, h1 >> stash_bits, 1u);
+    return lab;
+  }
+  QRow row0{}, row1{};
+  if (in0) row0 = load_row<true>(rows, r0);
+  if (in1) row1 = load_row<false>(stash, r1);
+  if (in0) lab = row_label(row0, h1, l2 >> nb_bits, 0u);
+  if (in1) lab += row_label(row1, l2, h1 >> stash_bits, 1u);
+  return lab;
+}
+
 enum Layout { kQs = 0, kQ4 = 1, kS2 = 2 };
 
 // s2 bucket hashes (cuclark_tpu/hashdb.py:mix1/mix2, :55-62).
@@ -359,10 +452,12 @@ __device__ __forceinline__ int32_t s2_row_label(
       const uint2 kl = __ldg(v + j);
       const bool m0 = kl.x == lo, m1 = kl.y == lo;
       if (m0 || m1) {
+        // cut s2_high begin
         const uint2 kh = __ldg(v + H + j);
         const uint2 lb = __ldg(v + 2 * H + j);
         if (m0 && kh.x == hi) lab += static_cast<int32_t>(lb.x);
         if (m1 && kh.y == hi) lab += static_cast<int32_t>(lb.y);
+        // cut s2_high end
       }
     }
     return lab;
@@ -377,14 +472,14 @@ __device__ __forceinline__ int32_t s2_row_label(
 // The label of canonical k-mer c: the sum of the matching slots' labels of
 // its rows, main rows [bucket_start, bucket_start + nb_local) of `main_rows`
 // and, for qs, stash rows [stash_start, stash_start + nbs_local) of
-// `stash_rows` (null: no stash probe); 0 on a miss.
-template <int LAYOUT>
+// `stash_rows` (null: no stash probe); 0 on a miss.  LATE: qs_label's.
+template <int LAYOUT, bool LATE>
 __device__ __forceinline__ int32_t kmer_label(
     uint64_t c, const void* __restrict__ main_rows,
     const uint4* __restrict__ stash_rows, int nb_bits, int stash_bits,
     uint64_t bucket_start, uint64_t nb_local, uint64_t stash_start,
     uint64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
-    int num_choices) {
+    int num_choices, bool sampled) {
   const uint32_t hi = static_cast<uint32_t>(c >> 32);
   const uint32_t lo = static_cast<uint32_t>(c);
   const uint32_t mask = static_cast<uint32_t>((1ull << nb_bits) - 1);
@@ -396,6 +491,7 @@ __device__ __forceinline__ int32_t kmer_label(
     // bucket differs from choice 0's
     const uint32_t* rows = static_cast<const uint32_t*>(main_rows);
     const uint64_t b1 = mix1(hi, lo) & mask;
+    // cut s2_gathers begin
     if (b1 >= bucket_start && b1 - bucket_start < nb_local)
       lab = s2_row_label(rows, b1 - bucket_start, lo, hi, slots);
     if (lab == 0 && num_choices == 2) {
@@ -403,6 +499,7 @@ __device__ __forceinline__ int32_t kmer_label(
       if (b2 != b1 && b2 >= bucket_start && b2 - bucket_start < nb_local)
         lab = s2_row_label(rows, b2 - bucket_start, lo, hi, slots);
     }
+    // cut s2_gathers end
   } else {
     // 3-round Feistel on the u32 halves -> (h1, l2)
     const uint32_t l1 = lo ^ fmix32(hi + c1);
@@ -421,7 +518,9 @@ __device__ __forceinline__ int32_t kmer_label(
     int bits1 = nb_bits;
     if (LAYOUT == kQs) {
       rows1 = stash_rows;
+      // cut stash_bucket begin
       b1 = h1 & static_cast<uint32_t>((1ull << stash_bits) - 1);
+      // cut stash_bucket end
       start1 = stash_start;
       local1 = nbs_local;
       bits1 = stash_bits;
@@ -434,15 +533,18 @@ __device__ __forceinline__ int32_t kmer_label(
                                0u);
       if (lab == 0 && in1)
         lab = row_label(load_row<false>(rows, b1), l2, h1 >> nb_bits, 1u);
+    } else if (LAYOUT == kQs) {
+      // cut gathers begin
+      lab = qs_label<LATE>(rows, b0 - bucket_start, in0, rows1, b1 - start1,
+                           in1, h1, l2, nb_bits, bits1, sampled);
+      // cut gathers end
     } else {
-      // both rows' loads are in flight before either is compared.  A qs
-      // batch reads its main rows once, and streams them past the stash,
-      // which every batch reads and which L2 can hold.  A q4 range call
-      // (a part or a db shard) finds both choices in its range for few
-      // windows, and ran 4.5% slower on an H100 with choice 1 waiting on
-      // choice 0's label.
+      // a q4 range call (a part or a db shard) finds both choices in its
+      // range for few windows: both rows' loads are in flight before
+      // either is compared (on an H100 it ran 4.5% slower with choice 1
+      // waiting on choice 0's label)
       QRow row0{}, row1{};
-      if (in0) row0 = load_row<LAYOUT == kQs>(rows, b0 - bucket_start);
+      if (in0) row0 = load_row<false>(rows, b0 - bucket_start);
       if (in1) row1 = load_row<false>(rows1, b1 - start1);
       if (in0) lab = row_label(row0, h1, l2 >> nb_bits, 0u);
       if (in1) lab += row_label(row1, l2, h1 >> bits1, 1u);
@@ -453,15 +555,16 @@ __device__ __forceinline__ int32_t kmer_label(
 
 // A block per (read r = blockIdx.x, tile of kTile windows from t0 =
 // (tile_base + blockIdx.y) * kTile), a thread per window.  CODES: packed2
-// is codes uint8 [R, s2] (s2 = L) and vbits is unused.
-template <int LAYOUT, bool CODES>
+// is codes uint8 [R, s2] (s2 = L) and vbits is unused.  LATE: qs_label's.
+template <int LAYOUT, bool CODES, bool LATE>
 __global__ void __launch_bounds__(kTile) query_kernel(
     const uint8_t* __restrict__ packed2, const uint8_t* __restrict__ vbits,
     const void* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
     int32_t* __restrict__ labels, int P, int s2, int s8, int k, int nb_bits,
     int stash_bits, uint64_t bucket_start, uint64_t nb_local,
     uint64_t stash_start, uint64_t nbs_local, int accumulate, uint32_t c1,
-    uint32_t c2, uint32_t c3, int slots, int num_choices, int tile_base) {
+    uint32_t c2, uint32_t c3, int slots, int num_choices, int tile_base,
+    int sampled) {
   __shared__ uint32_t w2[w2_words(1)];
   __shared__ uint32_t wv[v_words(1)];
   const int64_t r = blockIdx.x;
@@ -479,9 +582,9 @@ __global__ void __launch_bounds__(kTile) query_kernel(
     if (!accumulate) labels[idx] = 0;
     return;
   }
-  const int32_t lab = kmer_label<LAYOUT>(
+  const int32_t lab = kmer_label<LAYOUT, LATE>(
       c, main_rows, stash_rows, nb_bits, stash_bits, bucket_start, nb_local,
-      stash_start, nbs_local, c1, c2, c3, slots, num_choices);
+      stash_start, nbs_local, c1, c2, c3, slots, num_choices, sampled != 0);
   if (!accumulate)
     labels[idx] = lab;
   else if (lab != 0)
@@ -673,15 +776,11 @@ __global__ void __launch_bounds__(kTile, LAYOUT == kS2 ? 12 : 16)
       const bool in0 = id & kIn0, in1 = id & kIn1;
       int32_t lab = 0;
       if (LAYOUT == kQs) {
-        // main row l2 & (NB-1) (streamed past the stash), stash row
-        // h1 & (NBS-1): both loads in flight before either compares
-        QRow row0{}, row1{};
-        if (in0) row0 = load_row<true>(rows4, (b & mask) - start);
-        if (in1)
-          row1 = load_row<false>(
-              stash_rows, (a & smask) - static_cast<uint32_t>(stash_start));
-        if (in0) lab = row_label(row0, a, b >> nb_bits, 0u);
-        if (in1) lab += row_label(row1, b, a >> stash_bits, 1u);
+        // main row l2 & (NB-1), stash row h1 & (NBS-1)
+        lab = qs_label<false>(
+            rows4, (b & mask) - start, in0, stash_rows,
+            (a & smask) - static_cast<uint32_t>(stash_start), in1, a, b,
+            nb_bits, stash_bits, true);
       } else if (LAYOUT == kQ4) {
         if (in0)
           lab = row_label(load_row<false>(rows4, (b & mask) - start), a,
@@ -862,7 +961,7 @@ int fused_block(int layout, int tiles, int P) {
 // label is acc_in[r, p] plus its own, read once, coalesced, and never
 // written back.  An invalid window adds nothing to acc_in's value (0
 // there: no launch gives it a label).
-template <int LAYOUT, int T>
+template <int LAYOUT, int T, bool LATE>
 __global__ void __launch_bounds__(fused_threads(LAYOUT, T))
     query_score_kernel(
         const uint8_t* __restrict__ packed2,
@@ -872,7 +971,7 @@ __global__ void __launch_bounds__(fused_threads(LAYOUT, T))
         int P, int s2, int s8, int k, int nb_bits, int stash_bits,
         uint64_t bucket_start, uint64_t nb_local, uint64_t stash_start,
         uint64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
-        int num_choices) {
+        int num_choices, int sampled) {
   constexpr int kWin = fused_windows(LAYOUT, T);
   constexpr int kSlots = table_slots(T);
   __shared__ uint32_t w2[w2_words(T)];
@@ -900,11 +999,12 @@ __global__ void __launch_bounds__(fused_threads(LAYOUT, T))
     const int p = threadIdx.x + i * blockDim.x;
     uint64_t c;
     if (p < P && window_kmer(w2, wv, p, k, &c))
-      lab[i] += kmer_label<LAYOUT>(c, main_rows, stash_rows, nb_bits,
-                                   stash_bits, bucket_start, nb_local,
-                                   stash_start, nbs_local, c1, c2, c3, slots,
-                                   num_choices);
+      lab[i] += kmer_label<LAYOUT, LATE>(
+          c, main_rows, stash_rows, nb_bits, stash_bits, bucket_start,
+          nb_local, stash_start, nbs_local, c1, c2, c3, slots, num_choices,
+          sampled != 0);
   }
+  // cut score begin
   if constexpr (T == 1) {
     __shared__ int32_t lab_s[kTile];
     const int p = threadIdx.x;
@@ -929,29 +1029,30 @@ __global__ void __launch_bounds__(fused_threads(LAYOUT, T))
     __syncthreads();
     score_table<kSlots>(keys, counts, red, red_total, results + r * 5);
   }
+  // cut score end
 }
 
 // The fused kernel of one layout for reads of T tiles, and of `tiles`,
 // in blocks of `threads`.
-template <int LAYOUT, int T, typename... Args>
+template <int LAYOUT, int T, bool LATE, typename... Args>
 void launch_tiles(unsigned grid, int threads, cudaStream_t st,
                   Args... args) {
-  query_score_kernel<LAYOUT, T><<<grid, threads, 0, st>>>(args...);
+  query_score_kernel<LAYOUT, T, LATE><<<grid, threads, 0, st>>>(args...);
 }
 
-template <int LAYOUT, typename... Args>
+template <int LAYOUT, bool LATE, typename... Args>
 bool launch_fused(int tiles, int P, unsigned grid, cudaStream_t st,
                   Args... args) {
   const int b = fused_block(LAYOUT, tiles, P);
   switch (tiles) {
-    case 1: launch_tiles<LAYOUT, 1>(grid, b, st, args...); break;
-    case 2: launch_tiles<LAYOUT, 2>(grid, b, st, args...); break;
-    case 3: launch_tiles<LAYOUT, 3>(grid, b, st, args...); break;
-    case 4: launch_tiles<LAYOUT, 4>(grid, b, st, args...); break;
-    case 5: launch_tiles<LAYOUT, 5>(grid, b, st, args...); break;
-    case 6: launch_tiles<LAYOUT, 6>(grid, b, st, args...); break;
-    case 7: launch_tiles<LAYOUT, 7>(grid, b, st, args...); break;
-    case 8: launch_tiles<LAYOUT, 8>(grid, b, st, args...); break;
+    case 1: launch_tiles<LAYOUT, 1, LATE>(grid, b, st, args...); break;
+    case 2: launch_tiles<LAYOUT, 2, LATE>(grid, b, st, args...); break;
+    case 3: launch_tiles<LAYOUT, 3, LATE>(grid, b, st, args...); break;
+    case 4: launch_tiles<LAYOUT, 4, LATE>(grid, b, st, args...); break;
+    case 5: launch_tiles<LAYOUT, 5, LATE>(grid, b, st, args...); break;
+    case 6: launch_tiles<LAYOUT, 6, LATE>(grid, b, st, args...); break;
+    case 7: launch_tiles<LAYOUT, 7, LATE>(grid, b, st, args...); break;
+    case 8: launch_tiles<LAYOUT, 8, LATE>(grid, b, st, args...); break;
     default: return false;
   }
   return true;
@@ -959,23 +1060,24 @@ bool launch_fused(int tiles, int P, unsigned grid, cudaStream_t st,
 static_assert(kMaxTiles == 8, "launch_fused has a case per tile count");
 
 // One layout's kernel over one front half.
-template <int LAYOUT>
+template <int LAYOUT, bool LATE>
 void launch(bool codes, dim3 grid, cudaStream_t st, const uint8_t* p2,
             const uint8_t* vb, const void* main_rows, const uint4* stash,
             int32_t* out, int P, int s2, int s8, int k, int nb_bits,
             int stash_bits, uint64_t start, uint64_t local, uint64_t sstart,
             uint64_t slocal, int accumulate, uint32_t c1, uint32_t c2,
-            uint32_t c3, int slots, int num_choices, int tile_base) {
+            uint32_t c3, int slots, int num_choices, int tile_base,
+            int sampled) {
   if (codes)
-    query_kernel<LAYOUT, true><<<grid, kTile, 0, st>>>(
+    query_kernel<LAYOUT, true, LATE><<<grid, kTile, 0, st>>>(
         p2, vb, main_rows, stash, out, P, s2, s8, k, nb_bits, stash_bits,
         start, local, sstart, slocal, accumulate, c1, c2, c3, slots,
-        num_choices, tile_base);
+        num_choices, tile_base, sampled);
   else
-    query_kernel<LAYOUT, false><<<grid, kTile, 0, st>>>(
+    query_kernel<LAYOUT, false, LATE><<<grid, kTile, 0, st>>>(
         p2, vb, main_rows, stash, out, P, s2, s8, k, nb_bits, stash_bits,
         start, local, sstart, slocal, accumulate, c1, c2, c3, slots,
-        num_choices, tile_base);
+        num_choices, tile_base, sampled);
 }
 
 // range_query_kernel of one layout at W tile-units a block.
@@ -999,7 +1101,9 @@ bool launch_range(int W, dim3 grid, cudaStream_t st, Args... args) {
 // [nb_local, 8], layout 2 (s2) int32 [nb_local, 3*slots] with num_choices 1
 // or 2; P = 4*s2 - k + 1.  With codes != 0, packed2 is codes uint8 [R, s2],
 // vbits is unused and P = s2 - k + 1.  With accumulate != 0 the labels are
-// added into `labels`.  Launches on `stream` and returns cudaGetLastError().
+// added into `labels`.  sampled != 0: a qs table loaded with a sample
+// factor, whose zeroed main rows may hide stash keys (qs_label).  Launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int cuclark_query(int layout, int codes, const void* packed2,
                              const void* vbits, const void* main_rows,
                              const void* stash_rows, void* labels, int64_t R,
@@ -1008,7 +1112,8 @@ extern "C" int cuclark_query(int layout, int codes, const void* packed2,
                              int64_t nb_local, int64_t stash_start,
                              int64_t nbs_local, int accumulate, uint32_t c1,
                              uint32_t c2, uint32_t c3, int slots,
-                             int num_choices, void* stream) {
+                             int num_choices, int sampled,
+                             void* stream) {
   if (R == 0 || P == 0) return static_cast<int>(cudaSuccess);
   if (R > 0x7FFFFFFF || k < 2 || k > 32)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1024,25 +1129,34 @@ extern "C" int cuclark_query(int layout, int codes, const void* packed2,
   // gridDim.y stops at 65,535 tiles (8.4M windows): a longer row, such as
   // an assembled genome classified as one record, takes several launches
   const int tiles = (P + kTile - 1) / kTile;
+  // a qs call over every main row reads the stash late (qs_label)
+  const bool late = local == (1ull << nb_bits);
   for (int base = 0; base < tiles; base += 65535) {
     const dim3 grid(static_cast<unsigned>(R),
                     static_cast<unsigned>(tiles - base < 65535 ? tiles - base
                                                                : 65535));
     switch (layout) {
       case kQs:
-        launch<kQs>(codes != 0, grid, st, p2, vb, main_rows, stash, out, P,
-                    s2, s8, k, nb_bits, stash_bits, start, local, sstart,
-                    slocal, accumulate, c1, c2, c3, slots, num_choices, base);
+        if (late)
+          launch<kQs, true>(codes != 0, grid, st, p2, vb, main_rows, stash,
+                            out, P, s2, s8, k, nb_bits, stash_bits, start,
+                            local, sstart, slocal, accumulate, c1, c2, c3,
+                            slots, num_choices, base, sampled);
+        else
+          launch<kQs, false>(codes != 0, grid, st, p2, vb, main_rows, stash,
+                             out, P, s2, s8, k, nb_bits, stash_bits, start,
+                             local, sstart, slocal, accumulate, c1, c2, c3,
+                             slots, num_choices, base, sampled);
         break;
       case kQ4:
-        launch<kQ4>(codes != 0, grid, st, p2, vb, main_rows, nullptr, out, P,
-                    s2, s8, k, nb_bits, 0, start, local, 0, 0, accumulate, c1,
-                    c2, c3, slots, num_choices, base);
+        launch<kQ4, false>(codes != 0, grid, st, p2, vb, main_rows, nullptr,
+                           out, P, s2, s8, k, nb_bits, 0, start, local, 0, 0,
+                           accumulate, c1, c2, c3, slots, num_choices, base, 0);
         break;
       case kS2:
-        launch<kS2>(codes != 0, grid, st, p2, vb, main_rows, nullptr, out, P,
-                    s2, s8, k, nb_bits, 0, start, local, 0, 0, accumulate, c1,
-                    c2, c3, slots, num_choices, base);
+        launch<kS2, false>(codes != 0, grid, st, p2, vb, main_rows, nullptr,
+                           out, P, s2, s8, k, nb_bits, 0, start, local, 0, 0,
+                           accumulate, c1, c2, c3, slots, num_choices, base, 0);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
@@ -1125,16 +1239,16 @@ extern "C" int cuclark_query_range(
 // [nb_local, 3*slots]) and, for qs, stash rows [stash_start, stash_start +
 // nbs_local) of 2^stash_bits, int32 [nbs_local, 8], or null (no stash
 // probe; q4 and s2 pass null).  acc_in: int32 [R, P] added to the labels
-// before they are scored, or null.  The resident step passes the whole
-// table and a null acc_in.  Launches on `stream` and returns
-// cudaGetLastError().
+// before they are scored, or null.  sampled: as cuclark_query's.  The
+// resident step passes the whole table and a null acc_in.  Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int cuclark_query_score_range(
     int layout, const void* packed2, const void* vbits, const void* main_rows,
     const void* stash_rows, const void* acc_in, void* results, int64_t R,
     int P, int s2, int s8, int k, int nb_bits, int stash_bits,
     int64_t bucket_start, int64_t nb_local, int64_t stash_start,
     int64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
-    int num_choices, void* stream) {
+    int num_choices, int sampled, void* stream) {
   if (R == 0) return static_cast<int>(cudaSuccess);
   if (R > 0x7FFFFFFF || P < 1 || P > kMaxTiles * kTile || k < 2 || k > 32 ||
       (layout != kQs && stash_rows != nullptr))
@@ -1154,22 +1268,29 @@ extern "C" int cuclark_query_score_range(
   bool launched = false;
   switch (layout) {
     case kQs:
-      launched = launch_fused<kQs>(tiles, P, grid, st, p2, vb, main_rows,
-                                   stash, acc, out, P, s2, s8, k, nb_bits,
-                                   stash_bits, start, local, sstart, slocal,
-                                   c1, c2, c3, slots, num_choices);
+      // every main row (the resident step, a 1 x 1 mesh): qs_label's LATE
+      if (local == (1ull << nb_bits))
+        launched = launch_fused<kQs, true>(
+            tiles, P, grid, st, p2, vb, main_rows, stash, acc, out, P, s2,
+            s8, k, nb_bits, stash_bits, start, local, sstart, slocal, c1, c2,
+            c3, slots, num_choices, sampled);
+      else
+        launched = launch_fused<kQs, false>(
+            tiles, P, grid, st, p2, vb, main_rows, stash, acc, out, P, s2,
+            s8, k, nb_bits, stash_bits, start, local, sstart, slocal, c1, c2,
+            c3, slots, num_choices, sampled);
       break;
     case kQ4:
-      launched = launch_fused<kQ4>(tiles, P, grid, st, p2, vb, main_rows,
-                                   nullptr, acc, out, P, s2, s8, k, nb_bits,
-                                   0, start, local, uint64_t{0}, uint64_t{0},
-                                   c1, c2, c3, slots, num_choices);
+      launched = launch_fused<kQ4, false>(
+          tiles, P, grid, st, p2, vb, main_rows, nullptr, acc, out, P, s2,
+          s8, k, nb_bits, 0, start, local, uint64_t{0}, uint64_t{0}, c1,
+          c2, c3, slots, num_choices, 0);
       break;
     case kS2:
-      launched = launch_fused<kS2>(tiles, P, grid, st, p2, vb, main_rows,
-                                   nullptr, acc, out, P, s2, s8, k, nb_bits,
-                                   0, start, local, uint64_t{0}, uint64_t{0},
-                                   c1, c2, c3, slots, num_choices);
+      launched = launch_fused<kS2, false>(
+          tiles, P, grid, st, p2, vb, main_rows, nullptr, acc, out, P, s2,
+          s8, k, nb_bits, 0, start, local, uint64_t{0}, uint64_t{0}, c1,
+          c2, c3, slots, num_choices, 0);
       break;
     default:
       break;

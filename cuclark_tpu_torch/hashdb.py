@@ -146,8 +146,10 @@ def _split64(kmers: np.ndarray):
 class TableSpec:
     """The fields of a table's layout that a probe reads besides its
     rows (built from a database by `KmerDB.spec`): the layout, its
-    bucket bits, the qs stash bits, the Feistel seed (qs, q4), and the
-    s2 slots and hash choices."""
+    bucket bits, the qs stash bits, the Feistel seed (qs, q4), the s2
+    slots and hash choices, and whether a load with a sample factor
+    zeroed rows (a qs query then reads the stash behind an empty main
+    row too: csrc/query.cu, qs_label)."""
 
     layout: str
     nb_bits: int
@@ -155,6 +157,7 @@ class TableSpec:
     seed: int = 0
     slots: int = 4
     num_choices: int = 2
+    sampled: bool = False
 
     @property
     def row_words(self) -> int:
@@ -190,6 +193,7 @@ class KmerDB:
     layout: str = "s2"
     seed: int = 0                # q4/qs Feistel seed
     stash_bits: int = 0          # qs: NBS = 1 << stash_bits stash rows
+    sampled: bool = False        # rows zeroed by a load's sample factor
 
     @property
     def nb(self) -> int:
@@ -204,7 +208,8 @@ class KmerDB:
     def spec(self) -> TableSpec:
         """The layout fields the probes read, as one record."""
         return TableSpec(self.layout, self.nb_bits, self.stash_bits,
-                         self.seed, self.slots, self.num_choices)
+                         self.seed, self.slots, self.num_choices,
+                         self.sampled)
 
     def split_tables(self) -> tuple[np.ndarray, np.ndarray | None]:
         """(main, stash) host views: rows [0, NB) and [NB, NB + NBS) of
@@ -225,6 +230,9 @@ class KmerDB:
     COMPRESS_MAX_BYTES = int(1.5e9)
 
     def save(self, path: str | Path) -> None:
+        if self.sampled:
+            raise ValueError("a table loaded with a sample factor is not "
+                             "saved: its zeroed rows would read as built")
         meta = {
             "format": "cuclark-tpu-db-v1",
             "k": self.k,
@@ -269,6 +277,7 @@ class KmerDB:
             layout=meta.get("layout", "s2"),
             seed=meta.get("seed", 0),
             stash_bits=meta.get("stash_bits", 0),
+            sampled=sample_factor > 1,
         )
         if sample_factor > 1:
             keep = (np.arange(db.total_rows) % sample_factor) == 0
@@ -514,8 +523,16 @@ def check_q_bits(layout: str, nb_bits: int,
 
 
 # Largest stash (log2 rows) the build allows before widening the main
-# table instead: 2^20 rows = 33.6 MB.  Part of the shared DB build, so
-# both packages choose the same geometry.
+# table instead: 2^20 rows = 33.6 MB, the reference's limit
+# (cuclark_tpu/hashdb.py:410-414, set where its stash gathers stayed
+# warm).  Part of the shared DB build, so both packages choose the same
+# geometry.  On an H100 (50 MB L2) a 2^20-row stash does not stay in L2
+# beside the main rows' stream, and a 2^19-row one does: reading every
+# window's stash row cost the headline step 0.091 ms of 0.340, as much
+# as a stash made cold on purpose, and 0.014 ms at 2^19 rows
+# (scripts/torch_stage_cut.py, PERF.md section 6).  So the query reads a
+# stash row only where the main row cannot answer (csrc/query.cu,
+# qs_label), and the limit stays the reference's.
 WARM_STASH_MAX_BITS = 20
 
 

@@ -223,7 +223,7 @@ _vp, _i32, _i64, _u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 ENTRIES = {
     "cuclark_query": [_i32, _i32, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32,
                       _i32, _i32, _i32, _i32, _i64, _i64, _i64, _i64, _i32,
-                      _u32, _u32, _u32, _i32, _i32, _vp],
+                      _u32, _u32, _u32, _i32, _i32, _i32, _vp],
     "cuclark_query_range": [_i32, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32,
                             _i32, _i32, _i32, _i32, _i64, _i64, _i64, _i64,
                             _i32, _u32, _u32, _u32, _i32, _i32, _i32, _i32,
@@ -231,7 +231,7 @@ ENTRIES = {
     "cuclark_query_score_range": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
                                   _i32, _i32, _i32, _i32, _i32, _i32, _i64,
                                   _i64, _i64, _i64, _u32, _u32, _u32, _i32,
-                                  _i32, _vp],
+                                  _i32, _i32, _vp],
     "cuclark_score": [_vp, _vp, _i64, _i32, _vp],
     "cuclark_score_long": [_vp, _vp, _i64, _i32, _vp],
 }
@@ -365,8 +365,8 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
             _raise_on(lib.cuclark_query(
                 _LAYOUT_CODE[spec.layout], int(vbits is None),
                 packed2.data_ptr(),
-                None if vbits is None else vbits.data_ptr(), *args, stream),
-                "query")
+                None if vbits is None else vbits.data_ptr(), *args,
+                int(spec.sampled), stream), "query")
             return out
         g = range_geometry(R, P, W)
         for base, gy in g.launches:
@@ -480,7 +480,8 @@ def _launch_query_score(packed2, vbits, main, stash, acc_in, *, k,
             None if acc_in is None else acc_in.data_ptr(),
             results.data_ptr(), R, P, s2, s8, k, spec.nb_bits,
             spec.stash_bits, bucket_start, nb_local, stash_start, nbs_local,
-            c1, c2, c3, spec.slots, spec.num_choices, stream), "query_score")
+            c1, c2, c3, spec.slots, spec.num_choices, int(spec.sampled),
+            stream), "query_score")
     return results
 
 

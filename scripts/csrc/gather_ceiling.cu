@@ -20,7 +20,12 @@
 //   - gc_gather_layout: a thread per entry of a list of q4 or s2 main rows,
 //     each read as the query kernel reads it (load_row<false>: two 16 B
 //     loads through the read-only path; s2_row_label: the S low key words,
-//     8 B loads at even S, 4 B loads at odd S).
+//     8 B loads at even S, 4 B loads at odd S);
+//   - gc_gather_qs: a thread per entry of a list of qs (main bucket, stash
+//     bucket) pairs, in window order: the main row read as gc_gather reads
+//     it and the stash row as the query kernel reads it (kmer_label: two
+//     16 B loads through the read-only path), both loads issued before
+//     either is folded; a stash bucket of 0xFFFFFFFF reads no stash row.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (cuclark_tpu_torch/kernels.py's NVCC_FLAGS).
@@ -300,6 +305,27 @@ __global__ void __launch_bounds__(kBlock)
   block_xor(x, out);
 }
 
+__global__ void __launch_bounds__(kBlock)
+    gather_qs_kernel(const uint4* __restrict__ rows,
+                     const uint4* __restrict__ stash,
+                     const uint2* __restrict__ pairs, int64_t n,
+                     uint32_t* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+  uint32_t x = 0;
+  if (i < n) {
+    const uint2 p = pairs[i];
+    const uint64_t b = p.x, s = p.y;
+    const uint4 a0 = __ldcs(rows + 2 * b), a1 = __ldcs(rows + 2 * b + 1);
+    uint4 s0{}, s1{};
+    if (p.y != 0xFFFFFFFFu) {
+      s0 = __ldg(stash + 2 * s);
+      s1 = __ldg(stash + 2 * s + 1);
+    }
+    x = fold(a0) ^ fold(a1) ^ fold(s0) ^ fold(s1);
+  }
+  block_xor(x, out);
+}
+
 unsigned blocks_of(int64_t n, int per) {
   return static_cast<unsigned>((n + per - 1) / per);
 }
@@ -328,6 +354,19 @@ extern "C" int gc_gather_layout(const void* rows, const void* list,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(list),
       n, layout, S, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over qs main and stash rows: pairs uint32 [n, 2] of (main
+// bucket, stash bucket or 0xFFFFFFFF).
+extern "C" int gc_gather_qs(const void* rows, const void* stash,
+                            const void* pairs, int64_t n, void* out,
+                            void* stream) {
+  if (n <= 0) return 0;
+  gather_qs_kernel<<<blocks_of(n, kBlock), kBlock, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(rows), static_cast<const uint4*>(stash),
+      static_cast<const uint2*>(pairs), n, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -81,6 +81,7 @@ def build() -> ctypes.CDLL:
     for fn, args in (
             ("gc_gather", [vp, vp, i64, i32, vp, vp]),
             ("gc_gather_layout", [vp, vp, i64, i32, i32, vp, vp]),
+            ("gc_gather_qs", [vp, vp, vp, i64, vp, vp]),
             ("gc_partition_radix", [vp, vp, i64, i32, i32, vp, vp, vp, vp]),
             ("gc_partition_fixed", [vp, vp, vp, vp, i64, i32, i32, u32, vp,
                                     vp, vp, vp, vp, vp, vp, i32, vp]),

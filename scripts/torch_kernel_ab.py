@@ -34,6 +34,14 @@ q4 and s2 of the same 64M 31-mers) and reads:
     the whole table; in an older build `cuclark_query_score` for qs and
     `cuclark_query_score_layout` for q4 and s2), a build without it the
     wire query then the score kernel;
+  - step_packed_miss: the qs step on 16,384 random 150 bp reads, none of
+    whose windows hits: bench_torch.py's headline chunk (its reads take
+    the miss path) on a table of its geometry (64M k-mers, 2^25 main and
+    2^20 stash rows);
+  - step_packed_wide, step_packed_miss_wide: the same reads and the
+    150 bp batch on the headline k-mers in a qs table one main bit wider
+    (0.95 keys a main row, a small stash: the geometry the build widens
+    large tables to, bench_torch.py's scale4g);
   - query_290_qs, query_290_q4, query_290_s2, step_packed_290,
     step_packed_290_q4, step_packed_290_s2: the same at the paired shape,
     65,536 joined 2 x 150 bp pairs from 400 bp fragments in the 320 bin
@@ -105,18 +113,36 @@ def fused_max(query_cu: str) -> int:
     return 128 * (int(m.group(1)) if m else 1)
 
 
-def build_old(src: Path) -> tuple[ctypes.CDLL, bool, int]:
+# The entries that take a table's `sampled` flag before the stream.
+SAMPLED_ENTRIES = ("cuclark_query", "cuclark_query_score_range")
+
+
+def takes_sampled(query_cu: str) -> bool:
+    """Whether a build's query and fused entries take the `sampled` flag
+    (sources before it end their arguments with num_choices, stream)."""
+    return "int num_choices, int sampled" in query_cu
+
+
+def build_old(src: Path) -> tuple[ctypes.CDLL, bool, int, bool]:
     """Build DIR's query.cu and score.cu into build/kernel_ab/ and bind
     the C entries it has, the package's and those of OLD_ENTRIES (before
     the fused query and score, none of them).  Returns the library,
     whether its score_long entry takes a scratch buffer (the sorting
-    design did) and the widest row of its fused entry."""
+    design did), the widest row of its fused entry and whether its
+    entries take the `sampled` flag."""
     from cuclark_tpu_torch import kernels
 
     path = ROOT / "build" / "kernel_ab" / src.resolve().name / "libold.so"
     kernels.compile_library(src, path)
     lib = ctypes.CDLL(str(path))
     kernels.bind(lib, [n for n in kernels.ENTRIES if hasattr(lib, n)])
+    query_cu = (src / "query.cu").read_text()
+    sampled = takes_sampled(query_cu)
+    if not sampled:
+        for name in SAMPLED_ENTRIES:
+            if hasattr(lib, name):
+                types = kernels.ENTRIES[name]
+                getattr(lib, name).argtypes = types[:-2] + types[-1:]
     for name, argtypes in OLD_ENTRIES.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
@@ -125,15 +151,21 @@ def build_old(src: Path) -> tuple[ctypes.CDLL, bool, int]:
     if scratch:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.cuclark_score_long.argtypes = [vp, vp, vp, i64, i32, i32, vp]
-    return lib, scratch, fused_max((src / "query.cu").read_text())
+    return lib, scratch, fused_max(query_cu), sampled
 
 
 class Kernels:
     """The C entries of one build, called on torch tensors on the card."""
 
-    def __init__(self, lib, score_scratch: bool, fused_windows: int):
+    def __init__(self, lib, score_scratch: bool, fused_windows: int,
+                 sampled_arg: bool = True):
         self.lib, self.score_scratch = lib, score_scratch
         self.fused_windows = fused_windows
+        self.sampled_arg = sampled_arg
+
+    def _sampled(self, spec) -> tuple:
+        """The `sampled` argument where the build takes it."""
+        return (int(spec.sampled),) if self.sampled_arg else ()
 
     def query(self, x, vb, main, stash, out, *, spec, k, bucket_start=0,
               stash_start=0, accumulate=False):
@@ -164,7 +196,8 @@ class Kernels:
         if W == 1:
             err = self.lib.cuclark_query(
                 lay, int(vb is None), x.data_ptr(),
-                None if vb is None else vb.data_ptr(), *common, st)
+                None if vb is None else vb.data_ptr(), *common,
+                *self._sampled(spec), st)
         else:
             g = kernels.range_geometry(R, P, W)
             for base, gy in g.launches:
@@ -202,7 +235,7 @@ class Kernels:
                 out.data_ptr(), R, P, s2, s8, k, spec.nb_bits,
                 spec.stash_bits, 0, main.shape[0], 0,
                 0 if stash is None else stash.shape[0], *consts, spec.slots,
-                spec.num_choices, st)
+                spec.num_choices, *self._sampled(spec), st)
         elif spec.layout == "qs" and hasattr(self.lib, "cuclark_query_score"):
             err = self.lib.cuclark_query_score(
                 p2.data_ptr(), vb.data_ptr(), main.data_ptr(),
@@ -328,7 +361,8 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     import torch_measure as tm
     from cuclark_tpu_torch import codec, kernels
-    from cuclark_tpu_torch.hashdb import table_to_device
+    from cuclark_tpu_torch.config import DBConfig
+    from cuclark_tpu_torch.hashdb import build_table, table_to_device
 
     t0 = time.time()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -368,6 +402,9 @@ def main(argv=None) -> int:
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(padded))
     codes_t = torch.from_numpy(padded).to(dev)
     mp2, mvb = (torch.from_numpy(a).to(dev) for a in cs.miss_batch(R))
+    # the bench's chunk of all-miss reads
+    R16 = min(R, 16384)
+    m16p2, m16vb = (t[:R16].contiguous() for t in (mp2, mvb))
     P = 152 - k + 1
     L_long = int(np.ceil((max(len(c) for c in long_codes) + 1) / 128) * 128)
     lpad = np.full((len(long_codes), L_long), codec.INVALID, np.uint8)
@@ -385,6 +422,16 @@ def main(argv=None) -> int:
     tables = {lay: table_to_device(db, dev) for lay, db in dbs.items()}
     spec = {lay: db.spec for lay, db in dbs.items()}
     qs_main, qs_stash = tables["qs"]
+    # the headline k-mers in a qs table one main bit wider
+    km_w, lab_w = dbs["qs"].items()
+    order = np.argsort(km_w)
+    wide_db = build_table(km_w[order], lab_w[order], dbs["qs"].target_names,
+                          DBConfig(k=k, target_load=0.85),
+                          nb_bits=dbs["qs"].nb_bits + 1)
+    del km_w, lab_w, order
+    wide_main, wide_stash = table_to_device(wide_db, dev)
+    print(f"wide qs table: nb_bits {wide_db.nb_bits}, stash_bits "
+          f"{wide_db.stash_bits}", flush=True)
 
     def labels_of(x, v, L):
         out = torch.empty((x.shape[0], L - k + 1), dtype=torch.int32,
@@ -429,10 +476,12 @@ def main(argv=None) -> int:
                   for lay in ("q4", "s2") for n in (2, 4))
     pass_calls = {name: cs.range_calls(*tables[lay], n)
                   for name, (lay, n) in passes.items()}
+    # a qs part call reads the stash row of every window it holds one of
+    touched_parts = dict(touched, qs=tm.touched_rows(codes_t, spec["qs"], k))
     for name, (lay, n) in passes.items():
         hits = cs.later_hits(p2, vb, pass_calls[name], k, spec[lay])
         bound[name] = tm.bound_ms(tm.query_bytes(
-            touched[lay], spec[lay], wire_b, lab_b, n, hits))
+            touched_parts[lay], spec[lay], wire_b, lab_b, n, hits))
     # the wide batches' touched rows: the pairs on every table, the rest
     # on qs's; an all-miss batch reads each window's rows as a miss does
     for n, (x, v, c) in wide.items():
@@ -453,11 +502,19 @@ def main(argv=None) -> int:
         touched["qs"], spec["qs"], R * 152, 20 * R))
     bound["step_packed"] = tm.bound_ms(tm.query_bytes(
         touched["qs"], spec["qs"], wire_b, 20 * R))
+    for suffix, (main_, sp_) in (("", (qs_main, spec["qs"])),
+                                 ("_wide", (wide_main, wide_db.spec))):
+        bound[f"step_packed_miss{suffix}"] = tm.bound_ms(tm.query_bytes(
+            tm.touched_rows(codec.unpack_codes(m16p2, m16vb), sp_, k, main_),
+            sp_, m16p2.numel() + m16vb.numel(), 20 * R16))
+    bound["step_packed_wide"] = tm.bound_ms(tm.query_bytes(
+        tm.touched_rows(codes_t, wide_db.spec, k, wide_main), wide_db.spec,
+        wire_b, 20 * R))
     for name, lab in (("score_122", lab122), ("score_290", lab290),
                       ("score_122_many", lab_many),
                       ("score_long", lab_long)):
         bound[name] = tm.bound_ms(4 * lab.numel() + 20 * lab.shape[0])
-    del touched
+    del touched, touched_parts
 
     def make_cases(kern: Kernels):
         """name -> (callable, launches per call, output tensor)."""
@@ -504,6 +561,21 @@ def main(argv=None) -> int:
             return kern.step_packed(p2, vb, qs_main, qs_stash, wire_lab,
                                     packed_out, spec=spec["qs"], k=k)
         cases["step_packed"] = (step_packed, 1, packed_out)
+        miss_lab = torch.empty((R16, P), dtype=torch.int32, device=dev)
+        miss_out = torch.empty((R16, 5), dtype=torch.int32, device=dev)
+        cases["step_packed_miss"] = (
+            lambda: kern.step_packed(m16p2, m16vb, qs_main, qs_stash,
+                                     miss_lab, miss_out, spec=spec["qs"],
+                                     k=k), 1, miss_out)
+        cases["step_packed_miss_wide"] = (
+            lambda: kern.step_packed(m16p2, m16vb, wide_main, wide_stash,
+                                     miss_lab, miss_out, spec=wide_db.spec,
+                                     k=k), 1, miss_out)
+        wide_out = torch.empty((R, 5), dtype=torch.int32, device=dev)
+        cases["step_packed_wide"] = (
+            lambda: kern.step_packed(p2, vb, wide_main, wide_stash, wire_lab,
+                                     wide_out, spec=wide_db.spec, k=k), 1,
+            wide_out)
         for lay in ("q4", "s2"):
             main, _ = tables[lay]
             cases[f"step_packed_{lay}"] = (
@@ -596,9 +668,10 @@ def main(argv=None) -> int:
     for name, c in result["cases"].items():
         if not name.startswith(("classify_step", "step_packed")):
             continue
-        c["new_reads_per_s"] = R / (c["new_median_ms"] / 1e3)
+        n = R16 if name.startswith("step_packed_miss") else R
+        c["new_reads_per_s"] = n / (c["new_median_ms"] / 1e3)
         for o in olds:
-            c[o]["reads_per_s"] = R / (c[o]["median_ms"] / 1e3)
+            c[o]["reads_per_s"] = n / (c[o]["median_ms"] / 1e3)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     print(smi)

@@ -96,7 +96,9 @@ def touched_rows(codes, spec, k: int, main=None):
     buckets of a qs table, else None), each row read once.  A q4 or s2
     table's main rows `main` are needed: an exact probe reads the
     choice-0 row of every window and the choice-1 row only of the
-    windows that choice 0 does not answer."""
+    windows that choice 0 does not answer.  Given a qs table's `main`,
+    the stash rows are those a resident query reads (`qs_window_rows`);
+    without it, every window's (a range call's)."""
     import torch
 
     from cuclark_tpu_torch import codec
@@ -105,28 +107,34 @@ def touched_rows(codes, spec, k: int, main=None):
     if spec.layout != "qs":
         return torch.unique(exact_rows(choice_rows(codes, main, spec,
                                                    k))), None
-    kmers, valid = codec.extract_kmers(codes, k)
-    km = codec.canonical(kmers, k)[valid]
-    h1, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
-    return (torch.unique(l2 & ((1 << spec.nb_bits) - 1)),
-            torch.unique(h1 & ((1 << spec.stash_bits) - 1)))
+    rows = qs_window_rows(codes, spec, k, main)
+    return torch.unique(rows[:, 0]), torch.unique(rows[rows[:, 1] >= 0, 1])
 
 
-def window_buckets(codes, spec, k: int, stash: bool = False):
-    """The qs main bucket l2 & (NB - 1) (stash=True: the stash bucket
-    h1 & (NBS - 1)) of every valid window of codes [R, L] on the card, in
-    window order with repeats: what the query gathers, as int32."""
+def qs_window_rows(codes, spec, k: int, main=None):
+    """The rows of a qs table that every valid window of codes [R, L]
+    has, in window order with repeats: int32 [n, 2] of (main bucket
+    l2 & (NB - 1), stash bucket h1 & (NBS - 1)).  Given the table's main
+    rows `main`, the stash bucket is -1 where a query over every main row
+    reads no stash row (csrc/query.cu, qs_label): the main row gives a
+    label or is not full (in a `spec.sampled` table: neither full nor
+    empty)."""
     import torch
 
-    from cuclark_tpu_torch import codec
+    from cuclark_tpu_torch import codec, probe
     from cuclark_tpu_torch.hashdb import feistel_mix_torch
 
     kmers, valid = codec.extract_kmers(codes, k)
     km = codec.canonical(kmers, k)[valid]
     h1, l2 = feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF, spec.seed)
-    if stash:
-        return (h1 & ((1 << spec.stash_bits) - 1)).to(torch.int32)
-    return (l2 & ((1 << spec.nb_bits) - 1)).to(torch.int32)
+    b0 = l2 & ((1 << spec.nb_bits) - 1)
+    b1 = h1 & ((1 << spec.stash_bits) - 1)
+    if main is not None:
+        lab = probe._match_labels(main, b0, l2, h1, spec.nb_bits, 0)
+        used = ((main[b0][:, 4:] & 0xFFFF) != 0).sum(1)
+        may_hold = (used == 4) | ((used == 0) & spec.sampled)
+        b1 = torch.where((lab == 0) & may_hold, b1, -1)
+    return torch.stack([b0, b1], 1).to(torch.int32)
 
 
 def gather_ceiling_ms(lib, main_t, buckets) -> float:
@@ -145,6 +153,28 @@ def gather_ceiling_ms(lib, main_t, buckets) -> float:
                             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"gc_gather failed: CUDA error {err}")
+    return cuda_ms(run, 20)
+
+
+def gather_ceiling_stash_ms(lib, main_t, stash_t, rows) -> float:
+    """Milliseconds of the gather-only kernel (scripts/csrc/
+    gather_ceiling.cu, gc_gather_qs) over `rows`, int32 [n, 2] of (main
+    bucket, stash bucket or -1) in their order (`qs_window_rows`): each
+    window's main row read as gather_ceiling_ms reads it and its stash
+    row, where it has one, as the query reads it, nothing else: the
+    practical ceiling of the qs query's gathers of both tables."""
+    import torch
+
+    n = int(rows.shape[0])
+    rows = rows.contiguous()
+    out = torch.empty(n // 128 + 1, dtype=torch.int32, device=main_t.device)
+
+    def run():
+        err = lib.gc_gather_qs(main_t.data_ptr(), stash_t.data_ptr(),
+                               rows.data_ptr(), n, out.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"gc_gather_qs failed: CUDA error {err}")
     return cuda_ms(run, 20)
 
 
@@ -245,6 +275,10 @@ def fused_row(p2, vb, main_t, stash_t, *, k: int, spec, ceiling_lib,
     and each table row it needs once (`query_bytes`); ceiling_ms, the
     gather-only kernel over the rows the probe reads, in window order (a
     qs table's main buckets; a q4 or s2 table's rows of an exact probe);
+    for qs also ceiling_stash_ms, the same over the main row of every
+    window and the stash rows the query reads (`qs_window_rows` with the
+    table, `gather_ceiling_stash_ms`), and stash_share, the share of valid
+    windows whose stash row it reads;
     ms and plain_ms by CUDA events (reps, plain_reps calls), and two_ms,
     the query then score kernels, where two.  Returns (row, results)."""
     import torch
@@ -254,10 +288,16 @@ def fused_row(p2, vb, main_t, stash_t, *, k: int, spec, ceiling_lib,
     res, err = check_fused(p2, vb, main_t, stash_t, k=k, spec=spec, two=two,
                            also=also)
     unpacked = codec.unpack_codes(p2, vb)
+    extra = {}
     if spec.layout == "qs":
-        touched = touched_rows(unpacked, spec, k)
+        touched = touched_rows(unpacked, spec, k, main_t)
+        rows = qs_window_rows(unpacked, spec, k, main_t)
         ceiling = gather_ceiling_ms(ceiling_lib, main_t,
-                                    window_buckets(unpacked, spec, k))
+                                    rows[:, 0].contiguous())
+        extra["ceiling_stash_ms"] = gather_ceiling_stash_ms(
+            ceiling_lib, main_t, stash_t, rows)
+        extra["stash_share"] = float((rows[:, 1] >= 0).float().mean())
+        del rows
     else:
         rows = exact_rows(choice_rows(unpacked, main_t, spec, k))
         touched = (torch.unique(rows), None)
@@ -267,7 +307,7 @@ def fused_row(p2, vb, main_t, stash_t, *, k: int, spec, ceiling_lib,
            "bound_ms": bound_ms(query_bytes(touched, spec,
                                             p2.numel() + vb.numel(),
                                             20 * p2.shape[0])),
-           "ceiling_ms": ceiling}
+           "ceiling_ms": ceiling, **extra}
     del unpacked, touched
     qargs = dict(k=k, spec=spec)
     row["ms"] = cuda_ms(lambda: probe.query_score_results(

@@ -1082,3 +1082,114 @@ def test_mesh_step_launches_fused(dev, num_data, num_db):
     assert kernels.LAUNCHES["score"] == num_data
     assert kernels.LAUNCHES["query_score_part"] == 0
     assert torch.equal(torch.cat(res), want)
+
+
+@pytest.fixture(scope="module")
+def stash20(dev):
+    """A qs table of 2^17 main rows and 2^20 stash rows (the headline
+    table's stash) holding 650,000 31-mers, the overflow of the main
+    rows in the stash; the k-mers stored in the stash, and the table on
+    the card."""
+    k = 31
+    rng = np.random.default_rng(20)
+    km = rng.integers(0, 1 << 62, size=700_000, dtype=np.uint64)
+    km = np.unique(codec.canonical_np(km, k))[:650_000]
+    labels = rng.integers(1, 65536, size=len(km)).astype(np.uint32)
+    names = ["NA"] + [f"T{i}" for i in range(1, 65536)]
+    db = hashdb._try_build_qs(km, labels, names, DBConfig(k=k), 17, 20, 0)
+    assert db is not None and db.stash_bits == 20
+    stash_km, _ = db.items(rows=(db.nb, db.total_rows))
+    assert len(stash_km) > 50_000
+    return db, stash_km, hashdb.table_to_device(db, dev)
+
+
+def _stash_reads(km, k, R, L, seed):
+    """R reads of L bases, every other one with stored k-mers planted on
+    the forward strand a k-mer apart, 1% Ns."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    shifts = 2 * (k - 1 - np.arange(k, dtype=np.uint64))
+    for r in range(0, R, 2):
+        for p in range(0, L - 2 * k, k):
+            v = km[rng.integers(len(km))]
+            codes[r, p:p + k] = (v >> shifts) & np.uint64(3)
+    codes[rng.random((R, L)) < 0.01] = codec.INVALID
+    return codec.pack_codes(codes)
+
+
+def _qs_paths_match_plain(db, main, stash, p2, vb):
+    """The resident fused step, the query kernel, the range kernel on
+    each of 4 parts with the stash split over them (as a streamed table
+    and a mesh's db shards split it) and a streamed batch's last part
+    fused with the earlier parts' sum, each bit-identical to plain.
+    Returns the plain labels."""
+    k, spec = db.k, db.spec
+    args = dict(k=k, spec=spec)
+    labels = probe.query_labels_plain(p2, vb, main, stash, **args)
+    before = dict(kernels.LAUNCHES)
+    fused = probe.query_score_results(p2, vb, main, stash, **args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["query_score"] == before["query_score"] + 1
+    want = probe.query_score_results_plain(p2, vb, main, stash, **args)
+    assert torch.equal(fused, want)
+    assert torch.equal(probe.query_labels(p2, vb, main, stash, **args),
+                       labels)
+    rows, srows = db.nb // 4, (1 << db.stash_bits) // 4
+    acc = None
+    for p in range(4):
+        part = dict(bucket_start=p * rows, nb_local=rows,
+                    stash_start=p * srows, **args)
+        m, s = main[p * rows:(p + 1) * rows], stash[p * srows:(p + 1) * srows]
+        got = probe.query_part_labels(p2, vb, m, s, **part)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probe.query_part_labels_plain(p2, vb, m, s,
+                                                              **part)), p
+        if p == 3:
+            last = probe.query_score_part_results(p2, vb, m, s, acc_in=acc,
+                                                  **part)
+            torch.cuda.synchronize()
+            assert torch.equal(last, probe.query_score_part_results_plain(
+                p2, vb, m, s, acc_in=acc, **part))
+            assert torch.equal(last, want)
+        acc = got if acc is None else acc + got
+    assert torch.equal(acc, labels)
+    return labels
+
+
+@pytest.mark.parametrize("L", [152, 320])
+def test_stash_only_hits_match_plain(dev, stash20, L):
+    """Hits that only the 2^20-row stash answers (a main-row miss whose
+    row is full), bit-identical to plain on every qs path
+    (`_qs_paths_match_plain`; one tile at L 152, three at L 320)."""
+    db, stash_km, (main, stash) = stash20
+    p2, vb = (torch.from_numpy(a).to(dev)
+              for a in _stash_reads(stash_km, db.k, 2048, L, L))
+    no_stash = probe.query_part_labels_plain(
+        p2, vb, main, None, bucket_start=0, nb_local=db.nb, k=db.k,
+        spec=db.spec)
+    assert int((no_stash > 0).sum()) == 0
+    labels = _qs_paths_match_plain(db, main, stash, p2, vb)
+    assert int((labels > 0).sum()) >= 2048 // 2
+
+
+@pytest.mark.parametrize("L", [152, 320])
+def test_sampled_table_matches_plain(dev, stash20, tmp_path, L):
+    """A table loaded with a sample factor (`KmerDB.load` zeroes every
+    row but each third, main and stash alike) keeps stash keys whose
+    main row it zeroed: the kernels read the stash behind an empty main
+    row, bit-identical to plain on every qs path."""
+    db, stash_km, _ = stash20
+    path = tmp_path / "stash20.npz"
+    db.save(path)
+    sampled = hashdb.KmerDB.load(path, sample_factor=3)
+    main, stash = hashdb.table_to_device(sampled, dev)
+    p2, vb = (torch.from_numpy(a).to(dev)
+              for a in _stash_reads(stash_km, db.k, 2048, L, L + 1))
+    labels = _qs_paths_match_plain(sampled, main, stash, p2, vb)
+    # some of those hits come from stash rows behind zeroed main rows
+    kmers, valid = codec.extract_kmers(codec.unpack_codes(p2, vb), db.k)
+    km = codec.canonical(kmers, db.k)
+    _, l2 = hashdb.feistel_mix_torch(codec.shr(km, 32), km & 0xFFFFFFFF,
+                                     db.seed)
+    empty = (main[l2 & (db.nb - 1)] == 0).all(-1)
+    assert int((valid & empty & (labels > 0)).sum()) > 0
