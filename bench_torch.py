@@ -621,6 +621,9 @@ def main(argv=None) -> int:
                 nrec / chain_s / detail["step_reads_per_sec"], 2),
             "stage_s": {"scan": scan_s, "pack": pack_s, "format": fmt_s},
             "threads": os.cpu_count(),
+            # the record scan's OpenMP team on this file (scan_team)
+            "scan_team": (_native.scan_team(len(raw)) if use_native_h
+                          else None),
         }
         # downstream summarization rate (the abundance tally over the
         # e2e CSV written above)

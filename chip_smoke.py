@@ -73,7 +73,12 @@ against `--device cpu`:
     over the resident q4 and s2 runs (the fused kernel of each alone)
     and the kernels' durations against their launch rate;
   - bench: bench_torch.py in a subprocess at reduced knobs (BENCH_KNOBS),
-    every block of bench.py, its exactness checks passing.
+    every block of bench.py, its exactness checks passing;
+  - host_scan (first, before the tables): a seeded 1,048,576-read 150 bp
+    FASTQ, its CRLF copy and a multi-line FASTA, each read as classify
+    reads it and scanned by the one-thread scan_fastq/scan_fasta and by
+    the parallel scan on the OpenMP team (equal offsets required), both
+    times printed with the team and the host's cores.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -116,6 +121,8 @@ STREAM_MB = 600            # cuCLARK-l's "< 600 MB DB" budget: 4 parts
 STREAM_PARTS = {"qs": 4, "q4": 4, "s2": 8}   # at STREAM_MB, full size
 S2_SLOTS, S2_CHOICES = 2, 2
 N_LONG, LONG_MIN, LONG_MAX = 256, 33_000, 100_000
+HOST_SCAN_READS = 1 << 20
+PHRED = bytes(range(33, 75))  # '!'..'J': quality lines may open '@', '+'
 
 
 def _phase(name: str, t0: float, detail: str) -> None:
@@ -519,6 +526,38 @@ def check_score(dev, R: int, P: int, seed: int) -> int:
         raise AssertionError(f"score kernel != plain at [{R}, {P}]")
     print(f"  score [{R}, {P}]: bit-identical", flush=True)
     return tm.max_abs_err(got, want)
+
+
+def check_host_scan(tmp: Path, n: int = HOST_SCAN_READS) -> str:
+    """The record scan of classify's input: a seeded n-read 150 bp FASTQ
+    (Phred quality bytes), its CRLF copy and a multi-line FASTA of n
+    sequences, each written, read back as classify reads it
+    (`pipeline._read_file_bytes`) and scanned by the one-thread entry
+    and the parallel scan, whose offsets must be equal; both times (min
+    of 3, in turns), the team and the host's cores."""
+    import torch_host_scan as hs
+    from cuclark_tpu_torch.pipeline import _read_file_bytes
+
+    fq = hs.fastq_bytes(n, 11, READ_LEN, PHRED)
+    inputs = (("fastq", lambda: fq, False),
+              ("fastq_crlf", lambda: fq.replace(b"\n", b"\r\n"), False),
+              ("fasta", lambda: hs.fasta_bytes(n, 12, READ_LEN), True))
+    out = []
+    for name, data, fasta in inputs:
+        path = tmp / f"host_scan_{name}"
+        path.write_bytes(data())
+        buf = _read_file_bytes(path)
+        recs, serial_ms, par_ms, team = hs.scan_serial_vs_parallel(buf,
+                                                                    fasta)
+        if recs != n:
+            raise AssertionError(f"{name}: {recs} records of {n}")
+        out.append(f"{name} {recs} records, {len(buf)} bytes: serial "
+                   f"{serial_ms:.3f} ms, parallel {par_ms:.3f} ms "
+                   f"({serial_ms / par_ms:.2f}x)")
+        del buf
+        path.unlink()
+    return (f"{'; '.join(out)}; parallel == serial offsets; team {team}, "
+            f"{len(os.sched_getaffinity(0))} host cores")
 
 
 def golden_example(tmp: Path) -> None:
@@ -2339,6 +2378,10 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="cuclark_smoke_") as td:
         tmp = Path(td)
+
+        # the host feed's record scan, before the tables fill the host
+        t0 = time.time()
+        _phase("host_scan", t0, check_host_scan(tmp))
 
         # 3. golden example through the CLI on the card
         t0 = time.time()

@@ -10,6 +10,9 @@
 // Exposed as a plain C ABI consumed through ctypes (no pybind11 in this
 // environment).  Single pass over bytes, no large temporaries.
 
+#include <fcntl.h>
+#include <unistd.h>
+
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
@@ -110,6 +113,239 @@ int64_t scan_fasta(const uint8_t* buf, int64_t n,
     }
     if (consumed) *consumed = i < n ? i : n;
     return r;
+}
+
+// ---- The record scan on the OpenMP team --------------------------------
+//
+// scan_fastq_par / scan_fasta_par give scan_fastq's / scan_fasta's
+// offsets, count and *consumed exactly, for every input and team size.
+// The buffer is cut into T byte ranges ("chunks"), one a thread.
+// scan_plan (pass 1) counts each chunk's record-start markers; the fill
+// (pass 2) then knows each chunk's first record index and writes its
+// records, reading past the chunk's end for a record's last lines.
+// Record starts follow from the serial loops' own rules, with no
+// guessing from line contents (the reference's resync on a run of
+// newlines, src/CuCLARK_hh.hh:1335-1551, can take an '@'-led quality
+// line for a header):
+//  - FASTQ: scan_fastq consumes exactly four lines a record, so record
+//    r starts at line 4r: after newline 4r-1.  Record 0 starts at 0.
+//  - FASTA: scan_fasta starts a record at the first '>' and at every
+//    later '>' right after a '\n' (a header line holds no '\n', so none
+//    lies between a record's '>' and its sequence start).
+//
+// plan: int64[plan_len], plan_len >= 3.  plan[0] = T, plan[1] = the
+// first '>' (FASTA; n if none), plan[2 + t] = chunk t's marker count.
+
+static const int64_t kScanParMinBytes = 1 << 20;  // below: one thread
+
+// Chunks for a buffer of n bytes: nthreads when > 0 (tests pin it),
+// else the OpenMP team (OMP_NUM_THREADS) from kScanParMinBytes up.
+int64_t scan_team(int64_t n, int64_t nthreads) {
+    int64_t t = nthreads;
+    if (t <= 0) {
+        t = 1;
+#ifdef _OPENMP
+        if (n >= kScanParMinBytes) t = omp_get_max_threads();
+#endif
+    }
+    return t < 1 ? 1 : t;
+}
+
+static inline int64_t chunk_lo(int64_t n, int64_t T, int64_t t) {
+    return (int64_t)((__int128)n * t / T);
+}
+
+// first '\n' at or after i, else n; i itself when i >= n (as the serial
+// loops' `while (i < n && buf[i] != '\n') i++`)
+static inline int64_t line_end(const uint8_t* buf, int64_t n, int64_t i) {
+    if (i >= n) return i;
+    const void* p = memchr(buf + i, '\n', (size_t)(n - i));
+    return p ? (const uint8_t*)p - buf : n;
+}
+
+// Pass 1.  Returns the capacity the fill needs: FASTA's record count
+// exactly; FASTQ's candidate records (one more than the records only
+// when the input ends early or malformed).
+int64_t scan_plan(const uint8_t* buf, int64_t n, int32_t fasta,
+                  int64_t nthreads, int64_t* plan, int64_t plan_len) {
+    int64_t T = scan_team(n, nthreads);
+    if (T > plan_len - 2) T = plan_len - 2;
+    plan[0] = T;
+    int64_t first[T];
+#pragma omp parallel for schedule(static, 1) num_threads(T) if (T > 1)
+    for (int64_t t = 0; t < T; t++) {
+        int64_t a = chunk_lo(n, T, t), b = chunk_lo(n, T, t + 1), c = 0;
+        if (fasta) {
+            const void* p = b > a ? memchr(buf + a, '>', (size_t)(b - a))
+                                  : nullptr;
+            first[t] = p ? (const uint8_t*)p - buf : n;
+            for (int64_t i = a > 0 ? a : 1; i < b; i++)
+                c += (buf[i] == '>') & (buf[i - 1] == '\n');
+        } else {
+            for (int64_t i = a; i < b; i++) c += buf[i] == '\n';
+        }
+        plan[2 + t] = c;
+    }
+    int64_t total = 0;
+    for (int64_t t = 0; t < T; t++) total += plan[2 + t];
+    if (fasta) {
+        int64_t p0 = n;
+        for (int64_t t = 0; t < T && p0 == n; t++) p0 = first[t];
+        plan[1] = p0;
+        // the first '>' is a record start even without a '\n' before it
+        return total + (p0 < n && !(p0 > 0 && buf[p0 - 1] == '\n'));
+    }
+    plan[1] = n;
+    if (n == 0) return 0;
+    // record r follows newline 4r-1; one whose start would be n is none
+    int64_t cand = 1 + total / 4;
+    if (total > 0 && total % 4 == 0 && buf[n - 1] == '\n') cand--;
+    return cand;
+}
+
+// One FASTQ record from line start s, by scan_fastq's steps: 0 = kept
+// (offsets in o, *next = the next record's start, past n when its
+// quality line has no '\n'), 1 = no '@' at s (the scan stops at s),
+// 2 = the buffer ends first (the scan stops at n).
+static inline int fastq_record(const uint8_t* buf, int64_t n, int64_t s,
+                               int64_t* o, int64_t* next) {
+    if (s >= n) return 2;
+    if (buf[s] != '@') return 1;
+    int64_t i = s + 1;
+    o[0] = i;
+    while (i < n && buf[i] != '\n' && buf[i] != ' '
+           && buf[i] != '\t' && buf[i] != '\r') i++;
+    o[1] = i;
+    i = line_end(buf, n, i) + 1;
+    int64_t ss = i, se = line_end(buf, n, i);
+    o[2] = ss;
+    o[3] = se > ss && buf[se - 1] == '\r' ? se - 1 : se;  // CRLF
+    i = line_end(buf, n, se + 1) + 1;  // '+' line
+    if (i >= n) return 2;  // no quality line start: drop partial tail
+    *next = line_end(buf, n, i) + 1;
+    return 0;
+}
+
+int64_t scan_fastq_par(const uint8_t* buf, int64_t n, const int64_t* plan,
+                       int64_t* name_s, int64_t* name_e,
+                       int64_t* seq_s, int64_t* seq_e, int64_t max_rec,
+                       int64_t* consumed) {
+    const int64_t T = plan[0];
+    if (max_rec < 0) max_rec = 0;
+    int64_t before[T + 1];  // newlines before chunk t
+    before[0] = 0;
+    for (int64_t t = 0; t < T; t++) before[t + 1] = before[t] + plan[2 + t];
+    // per chunk: its first record the serial loop would not keep, where
+    // that stop leaves *consumed, and the end of record max_rec - 1
+    int64_t stop_r[T], stop_at[T], cap_at[T];
+#pragma omp parallel for schedule(static, 1) num_threads(T) if (T > 1)
+    for (int64_t t = 0; t < T; t++) {
+        int64_t a = chunk_lo(n, T, t), b = chunk_lo(n, T, t + 1);
+        stop_r[t] = INT64_MAX; stop_at[t] = n; cap_at[t] = -1;
+        int64_t r, s;
+        if (t == 0) {  // record 0 has no newline before it: chunk 0's
+            r = 0; s = 0;
+        } else {       // the chunk's first newline of index 4r - 1
+            int64_t skip = (3 - before[t] % 4) % 4, p = a - 1;
+            for (int64_t k = 0; k <= skip && p < b; k++)
+                p = line_end(buf, b, p + 1);
+            if (p >= b) continue;
+            r = (before[t] + skip + 1) / 4; s = p + 1;
+        }
+        while (r < max_rec) {
+            int64_t o[4], next;
+            int st = fastq_record(buf, n, s, o, &next);
+            if (st) { stop_r[t] = r; stop_at[t] = st == 1 ? s : n; break; }
+            name_s[r] = o[0]; name_e[r] = o[1];
+            seq_s[r] = o[2]; seq_e[r] = o[3];
+            if (r + 1 == max_rec) cap_at[t] = next < n ? next : n;
+            if (next - 1 >= b) break;  // the next record is a later chunk's
+            s = next; r++;
+        }
+    }
+    int64_t stop = INT64_MAX, at = n, cap = max_rec == 0 ? 0 : n;
+    for (int64_t t = 0; t < T; t++) {
+        if (stop_r[t] < stop) { stop = stop_r[t]; at = stop_at[t]; }
+        if (cap_at[t] >= 0) cap = cap_at[t];
+    }
+    if (stop == INT64_MAX)  // every candidate kept: the last one ran to n
+        stop = (n > 0) + before[T] / 4;
+    int64_t r = stop < max_rec ? stop : max_rec;
+    if (consumed) *consumed = max_rec <= stop ? cap : at;
+    return r;
+}
+
+int64_t scan_fasta_par(const uint8_t* buf, int64_t n, const int64_t* plan,
+                       int64_t* name_s, int64_t* name_e,
+                       int64_t* seq_s, int64_t* seq_e, int64_t max_rec,
+                       int64_t* consumed) {
+    const int64_t T = plan[0], p0 = plan[1];
+    if (max_rec < 0) max_rec = 0;
+    // record 0 is the first '>' alone when no '\n' precedes it
+    const int64_t lone = p0 < n && !(p0 > 0 && buf[p0 - 1] == '\n');
+    int64_t total = lone;
+    for (int64_t t = 0; t < T; t++) total += plan[2 + t];
+    const int64_t cnt = total < max_rec ? total : max_rec;
+    int64_t cap_at = cnt < total ? -1 : n;  // record cnt's '>', else n
+    if (lone) {
+        if (cnt > 0) name_s[0] = p0 + 1; else cap_at = p0;
+    }
+    int64_t first_r[T + 1];
+    first_r[0] = lone;
+    for (int64_t t = 0; t < T; t++) first_r[t + 1] = first_r[t] + plan[2 + t];
+    // pass 2: each chunk's record starts ("\n>") into name_s
+#pragma omp parallel for schedule(static, 1) num_threads(T) if (T > 1)
+    for (int64_t t = 0; t < T; t++) {
+        int64_t a = chunk_lo(n, T, t), b = chunk_lo(n, T, t + 1);
+        int64_t r = first_r[t];
+        for (int64_t i = a > 0 ? a : 1; i < b && r <= cnt; i++) {
+            const void* p = memchr(buf + i, '>', (size_t)(b - i));
+            if (!p) break;
+            i = (const uint8_t*)p - buf;
+            if (buf[i - 1] != '\n') continue;
+            if (r < cnt) name_s[r] = i + 1;
+            else cap_at = i;  // one chunk holds record cnt
+            r++;
+        }
+    }
+    // pass 3: each record's header and sequence by scan_fasta's steps
+#pragma omp parallel for schedule(static) num_threads(T) if (T > 1)
+    for (int64_t r = 0; r < cnt; r++) {
+        int64_t i = name_s[r];
+        while (i < n && buf[i] != '\n' && buf[i] != ' '
+               && buf[i] != '\t' && buf[i] != '\r') i++;
+        name_e[r] = i;
+        int64_t ss = line_end(buf, n, i) + 1;
+        int64_t se = ss >= n ? ss : r + 1 < cnt ? name_s[r + 1] - 1 : cap_at;
+        while (se > ss && (buf[se - 1] == '\n' || buf[se - 1] == '\r')) se--;
+        if (se > n) se = n;
+        if (ss > se) ss = se;
+        seq_s[r] = ss; seq_e[r] = se;
+    }
+    if (consumed) *consumed = total == 0 ? n : cap_at;
+    return cnt;
+}
+
+// Read a whole file into out[0, n) with pread by byte range on the
+// team (nthreads as scan_team).  Returns the bytes read, or -1.
+int64_t read_file_par(const char* path, uint8_t* out, int64_t n,
+                      int64_t nthreads) {
+    int fd = open(path, O_RDONLY);
+    if (fd < 0) return -1;
+    const int64_t T = scan_team(n, nthreads);
+    int64_t got = 0;
+#pragma omp parallel for schedule(static, 1) num_threads(T) if (T > 1) \
+    reduction(+ : got)
+    for (int64_t t = 0; t < T; t++) {
+        int64_t a = chunk_lo(n, T, t), b = chunk_lo(n, T, t + 1);
+        while (a < b) {
+            ssize_t k = pread(fd, out + a, (size_t)(b - a), (off_t)a);
+            if (k <= 0) break;
+            a += k; got += k;
+        }
+    }
+    close(fd);
+    return got;
 }
 
 // Pack records into a [nrec, L] code matrix (pre-filled by caller or

@@ -1,11 +1,12 @@
 """ctypes bindings to the port's native host module (csrc/host_ops.cpp).
 
-Counterpart of `cuclark_tpu/native.py`, carried over unchanged but for
-its source: it compiles the port's own copy of the host module,
-`cuclark_tpu_torch/csrc/host_ops.cpp` (the JAX package's
-`csrc/host_ops.cpp` byte for byte when it was taken, free to change
-alone since), and caches the library under its own `cuclark_tpu_torch`
-subdirectory.
+Counterpart of `cuclark_tpu/native.py`. It compiles the port's own copy
+of the host module, `cuclark_tpu_torch/csrc/host_ops.cpp` (the JAX
+package's `csrc/host_ops.cpp` plus a record scan on the OpenMP team),
+and caches the library under its own `cuclark_tpu_torch` subdirectory.
+`scan` runs that parallel scan (`scan_records`); the JAX package's
+one-thread scan stays beside it as the plain version
+(`scan_records_serial`), and both give the same offsets.
 
 Compiled lazily with g++ on first use and cached in the user's cache
 directory (`_cache_dir`); everything degrades gracefully to the numpy
@@ -91,6 +92,20 @@ def _build() -> ctypes.CDLL | None:
                                ctypes.POINTER(ctypes.c_int64)]
     lib.scan_fasta.restype = ctypes.c_int64
     lib.scan_fasta.argtypes = lib.scan_fastq.argtypes
+    lib.scan_team.restype = ctypes.c_int64
+    lib.scan_team.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    lib.scan_plan.restype = ctypes.c_int64
+    lib.scan_plan.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int32,
+                              ctypes.c_int64, _I64P, ctypes.c_int64]
+    lib.scan_fastq_par.restype = ctypes.c_int64
+    lib.scan_fastq_par.argtypes = [_U8P, ctypes.c_int64, _I64P, _I64P,
+                                   _I64P, _I64P, _I64P, ctypes.c_int64,
+                                   ctypes.POINTER(ctypes.c_int64)]
+    lib.scan_fasta_par.restype = ctypes.c_int64
+    lib.scan_fasta_par.argtypes = lib.scan_fastq_par.argtypes
+    lib.read_file_par.restype = ctypes.c_int64
+    lib.read_file_par.argtypes = [ctypes.c_char_p, _U8P, ctypes.c_int64,
+                                  ctypes.c_int64]
     lib.pack_block.restype = None
     lib.pack_block.argtypes = [_U8P, _I64P, _I64P, ctypes.c_int64, _U8P,
                                ctypes.c_int64, _I64P]
@@ -179,45 +194,103 @@ def available() -> bool:
     return _lib() is not None
 
 
-def scan(buf: np.ndarray):
-    """Scan FASTA/FASTQ bytes -> (name_s, name_e, seq_s, seq_e).
+# chunks a scan may cut its buffer into (scan_plan's plan length - 2)
+_SCAN_MAX_CHUNKS = 1024
+
+
+def scan_team(n: int, threads: int = 0) -> int:
+    """Chunks (one a thread) the scanner cuts an n-byte buffer into:
+    `threads` when > 0, else one below 1 MiB and the OpenMP team
+    (OMP_NUM_THREADS, else every core) from there up."""
+    return min(int(_lib().scan_team(n, threads)), _SCAN_MAX_CHUNKS)
+
+
+def scan_records(buf: np.ndarray, fasta: bool, threads: int = 0,
+                 max_rec: int | None = None):
+    """The record scan on the OpenMP team, unchecked: (name_s, name_e,
+    seq_s, seq_e, consumed) of at most max_rec records, equal to the
+    one-thread scan_fastq/scan_fasta's (`scan_records_serial`) for
+    every input and team size.  A first pass counts each chunk's
+    record starts, so the offset arrays are allocated once."""
+    lib = _lib()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    n = len(buf)
+    plan = np.zeros(_SCAN_MAX_CHUNKS + 2, np.int64)
+    cap = lib.scan_plan(buf, n, int(fasta), threads, plan, len(plan))
+    if max_rec is not None:
+        cap = max(0, min(cap, max_rec))
+    ns, ne, ss, se = (np.empty(cap, np.int64) for _ in range(4))
+    consumed = ctypes.c_int64(0)
+    fn = lib.scan_fasta_par if fasta else lib.scan_fastq_par
+    r = fn(buf, n, plan, ns, ne, ss, se, cap, ctypes.byref(consumed))
+    return ns[:r], ne[:r], ss[:r], se[:r], consumed.value
+
+
+def scan_records_serial(buf: np.ndarray, fasta: bool,
+                        max_rec: int | None = None):
+    """`scan_records` through the one-thread scan_fastq/scan_fasta, the
+    plain versions the parallel scan is held to (tests, chip_smoke.py).
+    The offset arrays grow when the minimum-record-size guess
+    undershoots (header-only records)."""
+    lib = _lib()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    n = len(buf)
+    limit = max(0, max_rec) if max_rec is not None else None
+    cap = n // 4 + 2 if fasta else n // 8 + 2
+    if limit is not None:
+        cap = min(cap, limit)
+    fn = lib.scan_fasta if fasta else lib.scan_fastq
+    consumed = ctypes.c_int64(0)
+    while True:
+        ns, ne, ss, se = (np.empty(cap, np.int64) for _ in range(4))
+        r = fn(buf, n, ns, ne, ss, se, cap, ctypes.byref(consumed))
+        if r < cap or cap == limit:
+            break
+        cap *= 4  # tiny records beat the size guess: rescan larger
+        if limit is not None:
+            cap = min(cap, limit)
+    return ns[:r], ne[:r], ss[:r], se[:r], consumed.value
+
+
+def scan(buf: np.ndarray, threads: int = 0):
+    """Scan FASTA/FASTQ bytes -> (name_s, name_e, seq_s, seq_e), on the
+    OpenMP team (`scan_records`; `threads` as `scan_team`).
 
     Raises ValueError on malformed FASTQ (a mid-file line that is not a
     record header) instead of silently dropping the remainder; a
     trailing partial record (truncated file) is dropped like the numpy
-    scanner's.  The offset arrays grow when the minimum-record-size
-    guess undershoots (header-only records)."""
-    lib = _lib()
+    scanner's."""
     n = len(buf)
     if n == 0:
         z = np.zeros(0, np.int64)
         return z, z, z, z
-    # upper bound on record count (grown below if records are smaller)
     if buf[0] == ord("@"):
-        cap = n // 8 + 2
-        fn = lib.scan_fastq
+        fasta = False
     elif buf[0] == ord(">"):
-        cap = n // 4 + 2
-        fn = lib.scan_fasta
+        fasta = True
     else:
         raise ValueError("Failed to recognize the format of the file.")
-    buf = np.ascontiguousarray(buf)
-    consumed = ctypes.c_int64(0)
-    while True:
-        ns = np.empty(cap, np.int64)
-        ne = np.empty(cap, np.int64)
-        ss = np.empty(cap, np.int64)
-        se = np.empty(cap, np.int64)
-        r = fn(buf, n, ns, ne, ss, se, cap, ctypes.byref(consumed))
-        if r < cap:
-            break
-        cap *= 4  # tiny records beat the size guess: rescan larger
-    c = consumed.value
+    *offsets, c = scan_records(buf, fasta, threads)
     if c < n and buf[c:].tobytes().strip():
         raise ValueError(
             f"malformed FASTQ record at byte {c}: line does not start "
             f"with '@' (remainder would be silently skipped)")
-    return ns[:r], ne[:r], ss[:r], se[:r]
+    return tuple(offsets)
+
+
+def read_file(path, threads: int = 0) -> np.ndarray:
+    """A plain file's bytes, read by byte range on the team (pread a
+    chunk a thread into one array; `threads` as `scan_team`).  Not on
+    classify's path: on the H100's 8-core host it did not beat
+    `np.fromfile` in 11 of 12 pairs (`scripts/torch_host_scan.py`, the
+    instrument that times it)."""
+    n = os.path.getsize(path)
+    out = np.empty(n, np.uint8)
+    got = _lib().read_file_par(os.fsencode(os.fspath(path)), out, n,
+                               scan_team(n, threads))
+    if got != n:
+        raise OSError(f"read {got} of {n} bytes of {path}")
+    return out
 
 
 def pack_block(buf: np.ndarray, seq_s, seq_e, max_len: int,

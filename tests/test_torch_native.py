@@ -14,14 +14,28 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "cuclark_tpu_torch"
 
 
+def _function(src: str, name: str) -> str:
+    """The text of C function `name` in src: its signature line to the
+    first line that is a lone closing brace."""
+    start = src.index(f"int64_t {name}(")
+    return src[start:src.index("\n}\n", start) + 3]
+
+
 def test_source_is_the_ports_own_copy():
-    """native._SRC lies in the port's package, and today the copy equals
-    the JAX package's csrc/host_ops.cpp byte for byte (the state it was
-    taken in; a change to the port's copy alone updates this test)."""
+    """native._SRC lies in the port's package and is the port's own copy
+    (it holds the parallel scan the JAX package's lacks); the JAX
+    package's scan_fastq and scan_fasta, the plain versions the parallel
+    scan is held to, stand in it verbatim."""
     assert native._SRC.resolve().is_relative_to(PKG.resolve())
     assert native._SRC == PKG / "csrc" / "host_ops.cpp"
-    assert native._SRC.read_bytes() == (ROOT / "csrc" /
-                                        "host_ops.cpp").read_bytes()
+    mine = native._SRC.read_text()
+    jax_src = (ROOT / "csrc" / "host_ops.cpp").read_text()
+    assert mine != jax_src
+    assert "scan_fastq_par" in mine and "scan_fastq_par" not in jax_src
+    for name in ("scan_fastq", "scan_fasta"):
+        body = _function(jax_src, name)
+        assert body.count("\n") > 20
+        assert body in mine, name
 
 
 def _reads(rng, n):
