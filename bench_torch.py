@@ -15,7 +15,10 @@ targets).  The blocks of `detail`:
   small         the same step on a 4M-k-mer table
   e2e_scale,    file -> CSV through `Classifier.classify_file_to_csv`,
   e2e_small     500,000 reads, median of 3 passes
-  host_pipeline the host stages alone: scan, pack, CSV formatting, tally
+  host_pipeline the host stages alone: scan, the read with the scan
+                (np.fromfile, and the read-only map classify takes),
+                pack, CSV formatting (the row writer, and its printf
+                plain version), tally
   accuracy      8 random genomes of 200 kb, 50,000 reads with 1%
                 substitutions and 0.2% indels, built and classified
   stream_ratio  the headline table streamed in parts against resident
@@ -570,6 +573,14 @@ def main(argv=None) -> int:
 
         scan_s = _min_time(lambda: fast_parse.scan_file(raw))
         ns_h, ne_h, ss_h, se_h = fast_parse.scan_file(raw)
+        # the read with the scan: a copy, or the read-only map classify
+        # takes (pipeline._read_file_bytes), whose page faults land in
+        # the scan's threads
+        read_scan_s = {
+            "fromfile": _min_time(lambda: fast_parse.scan_file(
+                np.fromfile(fq, np.uint8))),
+            "map": _min_time(lambda: fast_parse.scan_file(
+                np.memmap(fq, np.uint8, mode="r")))}
         nrec = len(ss_h)
 
         def _pack_all():
@@ -595,17 +606,30 @@ def main(argv=None) -> int:
         if use_native_h:
             tnb, tno = _native.pack_target_names(db_s.target_names)
 
-            def _format_all():
+            def _format_all(fn):
+                out = []
                 for i in range(0, nrec, chunk):
                     s = slice(i, min(i + chunk, nrec))
-                    _native.format_rows(
+                    out.append(fn(
                         norm_h[s], gamma_h[s], ibest_h[s], best_h[s],
                         isecond_h[s], second_h[s], conf_h[s],
-                        raw, ns_h[s], ne_h[s], tnb, tno)
+                        raw, ns_h[s], ne_h[s], tnb, tno))
+                return out
 
-            fmt_s = _min_time(_format_all)
+            # the row writer (the production formatter) and its printf
+            # plain version, whose bytes it must equal
+            fmt_s = _min_time(lambda: _format_all(_native.format_rows))
+            printf_s = _min_time(
+                lambda: _format_all(_native.format_rows_printf))
+            new_rows = _format_all(_native.format_rows)
+            if (b"".join(r.tobytes() for r, _ in new_rows)
+                    != b"".join(r.tobytes() for r in _format_all(
+                        _native.format_rows_printf))):
+                raise AssertionError("format_rows != format_rows_printf")
+            printf_values = sum(c for _, c in new_rows)
         else:
-            fmt_s = float("inf")
+            fmt_s = printf_s = float("inf")
+            printf_values = None
 
         chain_s = scan_s + pack_s + fmt_s
         host_block = {
@@ -614,12 +638,25 @@ def main(argv=None) -> int:
             "scan_reads_per_sec": round(nrec / scan_s, 1),
             "pack_reads_per_sec": round(nrec / pack_s, 1),
             "format_rows_per_sec": round(nrec / fmt_s, 1),
+            "format_printf_rows_per_sec": round(nrec / printf_s, 1),
+            # values the row writer handed to snprintf (outside the
+            # magnitudes its exact rounding covers)
+            "format_printf_values": printf_values,
+            "format_team": (_native.format_team(chunk) if use_native_h
+                            else None),
+            "read_scan_fromfile_reads_per_sec": round(
+                nrec / read_scan_s["fromfile"], 1),
+            "read_scan_map_reads_per_sec": round(
+                nrec / read_scan_s["map"], 1),
             # serial worst case: the pipeline overlaps these stages
             # across threads, so its capacity is at least this
             "serial_chain_reads_per_sec": round(nrec / chain_s, 1),
             "vs_device_step": round(
                 nrec / chain_s / detail["step_reads_per_sec"], 2),
-            "stage_s": {"scan": scan_s, "pack": pack_s, "format": fmt_s},
+            "stage_s": {"scan": scan_s, "pack": pack_s, "format": fmt_s,
+                        "format_printf": printf_s,
+                        "read_fromfile_scan": read_scan_s["fromfile"],
+                        "read_map_scan": read_scan_s["map"]},
             "threads": os.cpu_count(),
             # the record scan's OpenMP team on this file (scan_team)
             "scan_team": (_native.scan_team(len(raw)) if use_native_h

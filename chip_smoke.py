@@ -78,7 +78,12 @@ against `--device cpu`:
     FASTQ, its CRLF copy and a multi-line FASTA, each read as classify
     reads it and scanned by the one-thread scan_fastq/scan_fasta and by
     the parallel scan on the OpenMP team (equal offsets required), both
-    times printed with the team and the host's cores.
+    times printed with the team and the host's cores;
+  - host_format (after host_scan): 1,048,576 seeded result rows (ratios,
+    -nan, -0, +-inf, ties at the sixth digit and their neighbours,
+    doubles of every magnitude) through the CSV row writer and its
+    snprintf plain version in classify's batches: equal bytes required,
+    both times, the values handed to snprintf, the team and the cores.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -122,6 +127,7 @@ STREAM_PARTS = {"qs": 4, "q4": 4, "s2": 8}   # at STREAM_MB, full size
 S2_SLOTS, S2_CHOICES = 2, 2
 N_LONG, LONG_MIN, LONG_MAX = 256, 33_000, 100_000
 HOST_SCAN_READS = 1 << 20
+HOST_FORMAT_ROWS = 1 << 20
 PHRED = bytes(range(33, 75))  # '!'..'J': quality lines may open '@', '+'
 
 
@@ -557,6 +563,92 @@ def check_host_scan(tmp: Path, n: int = HOST_SCAN_READS) -> str:
         del buf
         path.unlink()
     return (f"{'; '.join(out)}; parallel == serial offsets; team {team}, "
+            f"{len(os.sched_getaffinity(0))} host cores")
+
+
+def host_format_fields(n: int, seed: int = 13):
+    """n seeded result rows whose gamma and confidence hold what the row
+    writer must print as glibc's %g does: ratios t/d (d up to 2,048),
+    0/0 (-nan on x86), -0, +-inf, exact ties at the sixth significant
+    digit (123456.5, 12345.25, ... 999999.5) and their neighbours,
+    neighbours of 1e-4, 1e-5 and 9.999995e-5, and doubles of every
+    magnitude (subnormals too); names of 1-60 bytes (cut at 39), target
+    names of 0-24 bytes, norms up to 2^40.  The fields
+    `native.format_rows` takes."""
+    from cuclark_tpu_torch import native
+
+    rng = np.random.default_rng(seed)
+    d = rng.integers(1, 2049, n)
+    ratio = rng.integers(0, d + 1) / d
+    with np.errstate(divide="ignore", invalid="ignore"):
+        special = np.array([0.0, -0.0, np.inf, -np.inf,
+                            np.float64(0) / np.float64(0), -0.0 / 1.0])
+    ties = np.array([123456.5, 12345.25, 1234.125, 123.0625, 12.03125,
+                     1.015625, 999999.5, 999998.5, 100000.5, 9999995.0,
+                     1234565.0, 0.5, 1e-4, 1e-5, 9.999995e-5, 1e6])
+    near = np.concatenate([np.nextafter(ties, np.inf),
+                           np.nextafter(ties, -np.inf), ties, -ties])
+    bits = rng.integers(0, 1 << 63, n, dtype=np.int64).astype(np.uint64)
+    anyd = (bits | (rng.integers(0, 2, n).astype(np.uint64) << 63)).view(
+        np.float64)
+    pool = np.concatenate([special, near])
+
+    def column():
+        kind = rng.integers(0, 8, n)
+        v = ratio.copy()
+        v[kind == 5] = pool[rng.integers(0, len(pool), (kind == 5).sum())]
+        v[kind == 6] = anyd[kind == 6]
+        v[kind == 7] = (ratio * 10.0 ** rng.integers(-8, 9, n))[kind == 7]
+        return v
+
+    names = [b"r%d" % i + b"x" * int(rng.integers(0, 58)) for i in
+             range(n)]
+    buf = np.frombuffer(b"".join(names), np.uint8)
+    ne = np.cumsum([len(x) for x in names], dtype=np.int64)
+    ns = ne - np.array([len(x) for x in names], np.int64)
+    tnb, tno = native.pack_target_names(
+        ["NA", ""] + ["T" * int(rng.integers(1, 25)) for _ in range(62)])
+    return (rng.integers(0, 1 << 40, n), column(),
+            rng.integers(0, 64, n).astype(np.int32),
+            rng.integers(0, 1 << 31, n).astype(np.int32),
+            rng.integers(0, 64, n).astype(np.int32),
+            rng.integers(0, 1000, n).astype(np.int32), column(),
+            buf, ns, ne, tnb, tno)
+
+
+def check_host_format(n: int = HOST_FORMAT_ROWS,
+                      chunk: int = 16384) -> str:
+    """The CSV row writer against its printf plain version: n seeded
+    rows (`host_format_fields`) formatted in chunks of `chunk` rows (a
+    classify batch) by `native.format_rows` and by
+    `native.format_rows_printf` must give equal bytes; both times (min
+    of 3, in turns), the values the writer handed to snprintf, the team
+    and the host's cores."""
+    import torch_host_scan as hs
+    from cuclark_tpu_torch import native
+
+    fields = host_format_fields(n)
+    new = hs.format_chunks(native.format_rows, fields, chunk)
+    plain = hs.format_chunks(native.format_rows_printf, fields, chunk)
+    got = b"".join(a.tobytes() for a in new)
+    if got != b"".join(a.tobytes() for a in plain):
+        raise AssertionError("format_rows != format_rows_printf")
+    handed = sum(c for _, c in (native.format_rows(
+        *(f[i:i + chunk] for f in fields[:7]), fields[7],
+        fields[8][i:i + chunk], fields[9][i:i + chunk], *fields[10:])
+        for i in range(0, n, chunk)))
+    t = hs.times_ms({
+        "printf": lambda: hs.format_chunks(native.format_rows_printf,
+                                           fields, chunk),
+        "writer": lambda: hs.format_chunks(native.format_rows, fields,
+                                           chunk)}, 3)
+    nan_rows = got.count(b",-nan,") + got.count(b",-nan\n")
+    return (f"{n} rows, {len(got)} bytes ({nan_rows} -nan fields): "
+            f"printf {min(t['printf']):.3f} ms, writer "
+            f"{min(t['writer']):.3f} ms "
+            f"({min(t['printf']) / min(t['writer']):.2f}x), equal bytes; "
+            f"{handed} values handed to snprintf; team "
+            f"{native.format_team(chunk)}, "
             f"{len(os.sched_getaffinity(0))} host cores")
 
 
@@ -2382,6 +2474,8 @@ def main(argv=None) -> int:
         # the host feed's record scan, before the tables fill the host
         t0 = time.time()
         _phase("host_scan", t0, check_host_scan(tmp))
+        t0 = time.time()
+        _phase("host_format", t0, check_host_format())
 
         # 3. golden example through the CLI on the card
         t0 = time.time()

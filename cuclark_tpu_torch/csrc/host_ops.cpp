@@ -890,17 +890,19 @@ static int64_t fmt_rows_range(int64_t lo_r, int64_t hi_r,
 // into private scratch, then concatenate in order — the parallel
 // counterpart of the reference's threaded result writing
 // (src/CuCLARK_hh.hh:1755-1761, printExtendedResultsSynced).
+// format_rows_printf and format_rows_ext_printf are the plain versions
+// the row writer below (format_rows, format_rows_ext) is held to.
 #define FMT_MAX_THREADS 16
 
-int64_t format_rows(int64_t n,
-                    const int64_t* norm, const double* gamma,
-                    const int32_t* ibest, const int32_t* best,
-                    const int32_t* isecond, const int32_t* second,
-                    const double* conf,
-                    const uint8_t* buf,
-                    const int64_t* name_s, const int64_t* name_e,
-                    const uint8_t* tnames, const int64_t* tname_off,
-                    char* out, int64_t cap) {
+int64_t format_rows_printf(int64_t n,
+                           const int64_t* norm, const double* gamma,
+                           const int32_t* ibest, const int32_t* best,
+                           const int32_t* isecond, const int32_t* second,
+                           const double* conf,
+                           const uint8_t* buf,
+                           const int64_t* name_s, const int64_t* name_e,
+                           const uint8_t* tnames, const int64_t* tname_off,
+                           char* out, int64_t cap) {
     int nt = 1;
 #ifdef _OPENMP
     if (n >= 4096) {
@@ -994,16 +996,18 @@ static int64_t fmt_rows_ext_range(int64_t lo_r, int64_t hi_r,
     return w;
 }
 
-int64_t format_rows_ext(int64_t n, int64_t n_targets,
-                        const uint32_t* counts,
-                        const int64_t* norm, const double* gamma,
-                        const int32_t* ibest, const int32_t* best,
-                        const int32_t* isecond, const int32_t* second,
-                        const double* conf,
-                        const uint8_t* buf,
-                        const int64_t* name_s, const int64_t* name_e,
-                        const uint8_t* tnames, const int64_t* tname_off,
-                        char* out, int64_t cap) {
+int64_t format_rows_ext_printf(int64_t n, int64_t n_targets,
+                               const uint32_t* counts,
+                               const int64_t* norm, const double* gamma,
+                               const int32_t* ibest, const int32_t* best,
+                               const int32_t* isecond,
+                               const int32_t* second, const double* conf,
+                               const uint8_t* buf,
+                               const int64_t* name_s,
+                               const int64_t* name_e,
+                               const uint8_t* tnames,
+                               const int64_t* tname_off,
+                               char* out, int64_t cap) {
     int nt = 1;
 #ifdef _OPENMP
     if (n * (n_targets + 8) >= 65536) {
@@ -1050,6 +1054,377 @@ int64_t format_rows_ext(int64_t n, int64_t n_targets,
         free(bufs[t]);
     }
     return w;
+}
+
+// ---- The CSV row writer without printf ----
+//
+// format_rows / format_rows_ext write the rows of format_rows_printf /
+// format_rows_ext_printf byte for byte, each field directly: the name
+// and the target names by memcpy (cut at a NUL byte, as "%.*s" is),
+// the integers from a two-digit table, and gamma and confidence by
+// put_g, glibc's "%g" at precision 6.  Each thread writes a contiguous
+// range of rows: thread 0 straight into the output, the others into a
+// scratch buffer of their own kept across calls; after a barrier the
+// others copy their pieces to prefix-summed offsets, in parallel.
+
+typedef unsigned __int128 u128;
+
+struct Pow10Table {
+    u128 v[39];
+    constexpr Pow10Table() : v() {
+        v[0] = 1;
+        for (int i = 1; i < 39; i++) v[i] = v[i - 1] * 10;
+    }
+};
+static constexpr Pow10Table kPow10{};
+
+struct Digits2 {
+    char c[200];
+    constexpr Digits2() : c() {
+        for (int i = 0; i < 100; i++) {
+            c[2 * i] = (char)('0' + i / 10);
+            c[2 * i + 1] = (char)('0' + i % 10);
+        }
+    }
+};
+static constexpr Digits2 kDigits2{};
+
+static inline char* put_u64(char* p, uint64_t v) {
+    char tmp[20];
+    char* s = tmp + 20;
+    while (v >= 100) {
+        const uint64_t r = v % 100;
+        v /= 100;
+        s -= 2;
+        memcpy(s, kDigits2.c + 2 * r, 2);
+    }
+    if (v >= 10) {
+        s -= 2;
+        memcpy(s, kDigits2.c + 2 * v, 2);
+    } else {
+        *--s = (char)('0' + v);
+    }
+    const size_t len = (size_t)(tmp + 20 - s);
+    memcpy(p, s, len);
+    return p + len;
+}
+
+static inline char* put_i64(char* p, int64_t v) {
+    if (v < 0) {
+        *p++ = '-';
+        return put_u64(p, 0 - (uint64_t)v);
+    }
+    return put_u64(p, (uint64_t)v);
+}
+
+// m * 2^q (2^52 <= m < 2^53) rounded to 6 significant digits on its
+// exact binary value, ties to even: *N in [10^5, 10^6) and the decimal
+// exponent *X after the rounding, value N * 10^(X-5).  Exact in 128-bit
+// integers for q in [-105, 20] (about 1.1e-16 to 9.4e21); false
+// outside.  E starts near log10 2^(q+52) (78913 / 2^18 ~ log10 2, off
+// by at most one here) and moves until floor(m 2^q 10^(5-E)) has 6
+// digits, so the exponent is decided on the integer, never on a
+// rounded logarithm.
+static inline bool round6(uint64_t m, int q, uint32_t* N, int* X) {
+    if (q < -105 || q > 20) return false;
+    int E = ((q + 52) * 78913) >> 18;
+    for (;;) {
+        const int p = 5 - E;
+        u128 I;
+        int cmp;  // the remainder against half a unit: -1, 0, 1
+        if (p >= 0 && q < 0) {  // m 10^p / 2^-q: a shift
+            const u128 num = p <= 19
+                ? (u128)m * (uint64_t)kPow10.v[p]
+                : (u128)m * kPow10.v[p];
+            const int s = -q;
+            I = num >> s;
+            const u128 r = num & (((u128)1 << s) - 1);
+            const u128 h = (u128)1 << (s - 1);
+            cmp = r < h ? -1 : (r > h ? 1 : 0);
+        } else {
+            u128 num = m, den = 1;
+            if (p >= 0) num *= kPow10.v[p]; else den = kPow10.v[-p];
+            if (q >= 0) num <<= q; else den <<= -q;
+            I = num / den;
+            const u128 r2 = (num - I * den) * 2;
+            cmp = r2 < den ? -1 : (r2 > den ? 1 : 0);
+        }
+        if (I >= 1000000) { E++; continue; }
+        if (I < 100000) { E--; continue; }
+        uint32_t n = (uint32_t)I;
+        if (cmp > 0 || (cmp == 0 && (n & 1))) n++;
+        if (n == 1000000) { n = 100000; E++; }
+        *N = n;
+        *X = E;
+        return true;
+    }
+}
+
+// x as glibc's printf("%g", x) prints it in the C locale: X the decimal
+// exponent after rounding to 6 significant digits; for -4 <= X < 6
+// fixed notation with 5 - X decimals, else d.ddddde+XX (two exponent
+// digits at least); trailing zeros and a trailing point stripped.  The
+// sign of -0 and of a NaN is printed (0/0 on x86 is a NaN with the sign
+// bit set: "-nan").  Subnormals and the magnitudes round6 does not
+// cover go to snprintf; *n_printf counts them.
+static inline char* put_g(char* p, double x, int64_t* n_printf) {
+    uint64_t bits;
+    memcpy(&bits, &x, 8);
+    const bool neg = bits >> 63;
+    const int be = (int)((bits >> 52) & 0x7FF);
+    const uint64_t frac = bits & ((1ull << 52) - 1);
+    if (be == 0x7FF) {
+        if (neg) *p++ = '-';
+        memcpy(p, frac ? "nan" : "inf", 3);
+        return p + 3;
+    }
+    if (be == 0 && frac == 0) {
+        if (neg) *p++ = '-';
+        *p++ = '0';
+        return p;
+    }
+    uint32_t N;
+    int X;
+    if (be == 0 || !round6(frac | (1ull << 52), be - 1075, &N, &X)) {
+        ++*n_printf;
+        CLocaleScope cls;
+        return p + snprintf(p, 16, "%g", x);
+    }
+    if (neg) *p++ = '-';
+    char d[6];
+    for (int i = 5; i >= 0; i--) {
+        d[i] = (char)('0' + N % 10);
+        N /= 10;
+    }
+    int last = 6;  // the digits left once trailing zeros go
+    while (last > 1 && d[last - 1] == '0') last--;
+    if (X >= -4 && X < 6) {
+        if (X >= 0) {
+            const int ip = X + 1;  // integer digits
+            memcpy(p, d, ip);
+            p += ip;
+            if (last > ip) {
+                *p++ = '.';
+                memcpy(p, d + ip, last - ip);
+                p += last - ip;
+            }
+        } else {
+            *p++ = '0';
+            *p++ = '.';
+            for (int i = 0; i < -X - 1; i++) *p++ = '0';
+            memcpy(p, d, last);
+            p += last;
+        }
+        return p;
+    }
+    *p++ = d[0];
+    if (last > 1) {
+        *p++ = '.';
+        memcpy(p, d + 1, last - 1);
+        p += last - 1;
+    }
+    *p++ = 'e';
+    *p++ = X < 0 ? '-' : '+';
+    const int ax = X < 0 ? -X : X;
+    if (ax < 10) *p++ = '0';
+    return put_u64(p, (uint64_t)ax);
+}
+
+// "%.*s" of (s, len): stops at a NUL byte
+static inline char* put_str(char* p, const uint8_t* s, int64_t len) {
+    const void* z = memchr(s, 0, (size_t)len);
+    if (z) len = (const uint8_t*)z - s;
+    memcpy(p, s, (size_t)len);
+    return p + len;
+}
+
+struct RowFields {
+    int64_t n_targets;  // count columns a row (counts null: none)
+    const uint32_t* counts;
+    const int64_t* norm;
+    const double* gamma;
+    const int32_t* ibest;
+    const int32_t* best;
+    const int32_t* isecond;
+    const int32_t* second;
+    const double* conf;
+    const uint8_t* buf;
+    const int64_t* name_s;
+    const int64_t* name_e;
+    const uint8_t* tnames;
+    const int64_t* tname_off;
+};
+
+// the printf versions' room check for row i
+static inline int64_t row_bound(const RowFields& a, int64_t i) {
+    int64_t nl = a.name_e[i] - a.name_s[i];
+    if (nl > 39) nl = 39;
+    const int64_t t1 = a.ibest[i], t2 = a.isecond[i];
+    return nl + (a.counts ? 12 * (a.n_targets + 1) : 0) + 160
+           + (a.tname_off[t1 + 1] - a.tname_off[t1])
+           + (a.tname_off[t2 + 1] - a.tname_off[t2]);
+}
+
+// rows [lo, hi) at out (cap bytes): the bytes written, or -1 when a
+// row's bound passes cap
+static int64_t write_rows(const RowFields& a, int64_t lo, int64_t hi,
+                          char* out, int64_t cap, int64_t* n_printf) {
+    char* p = out;
+    for (int64_t i = lo; i < hi; i++) {
+        if ((p - out) + row_bound(a, i) > cap) return -1;
+        int64_t nl = a.name_e[i] - a.name_s[i];
+        if (nl > 39) nl = 39;
+        p = put_str(p, a.buf + a.name_s[i], nl);
+        if (a.counts) {
+            const uint32_t* row = a.counts + i * a.n_targets;
+            for (int64_t t = 0; t < a.n_targets; t++) {
+                *p++ = ',';
+                p = put_u64(p, row[t]);
+            }
+        }
+        *p++ = ',';
+        p = put_i64(p, a.norm[i]);
+        *p++ = ',';
+        p = put_g(p, a.gamma[i], n_printf);
+        const int64_t t1 = a.ibest[i], t2 = a.isecond[i];
+        *p++ = ',';
+        p = put_str(p, a.tnames + a.tname_off[t1],
+                    a.tname_off[t1 + 1] - a.tname_off[t1]);
+        *p++ = ',';
+        p = put_i64(p, a.best[i]);
+        *p++ = ',';
+        p = put_str(p, a.tnames + a.tname_off[t2],
+                    a.tname_off[t2 + 1] - a.tname_off[t2]);
+        *p++ = ',';
+        p = put_i64(p, a.second[i]);
+        *p++ = ',';
+        p = put_g(p, a.conf[i], n_printf);
+        *p++ = '\n';
+    }
+    return p - out;
+}
+
+// a thread's piece of the rows, kept across calls (grown, never shrunk)
+struct RowScratch {
+    char* p = nullptr;
+    int64_t cap = 0;
+    ~RowScratch() { free(p); }
+    bool reserve(int64_t need) {
+        if (need <= cap) return true;
+        char* q = (char*)realloc(p, (size_t)need);
+        if (!q) return false;
+        p = q;
+        cap = need;
+        return true;
+    }
+};
+static thread_local RowScratch tl_rows;
+
+static const int kFmtMaxTeam = 256;
+
+// rows [0, n) on a team of at most T threads (the team OpenMP gives
+// may be smaller; the ranges follow the team's actual size)
+static int64_t write_rows_team(const RowFields& a, int64_t n, int64_t T,
+                               char* out, int64_t cap, int64_t* n_printf) {
+    *n_printf = 0;
+    if (T <= 1) return write_rows(a, 0, n, out, cap, n_printf);
+    if (T > kFmtMaxTeam) T = kFmtMaxTeam;
+    int64_t len[kFmtMaxTeam], off[kFmtMaxTeam], cnt[kFmtMaxTeam];
+    int64_t total = 0;
+#pragma omp parallel num_threads((int)T)
+    {
+        int t = 0, Tr = 1;
+#ifdef _OPENMP
+        t = omp_get_thread_num();
+        Tr = omp_get_num_threads();
+#endif
+        const int64_t lo = n * t / Tr, hi = n * (t + 1) / Tr;
+        int64_t c = 0, w;
+        if (t == 0) {
+            w = write_rows(a, lo, hi, out, cap, &c);
+        } else {
+            int64_t need = 0;
+            for (int64_t i = lo; i < hi; i++) need += row_bound(a, i);
+            w = tl_rows.reserve(need)
+                    ? write_rows(a, lo, hi, tl_rows.p, need, &c) : -1;
+        }
+        len[t] = w;
+        cnt[t] = c;
+#pragma omp barrier
+#pragma omp single
+        {
+            for (int u = 0; u < Tr && total >= 0; u++) {
+                off[u] = total;
+                total = len[u] < 0 ? -1 : total + len[u];
+                *n_printf += cnt[u];
+            }
+            if (total > cap) total = -1;
+        }
+        if (t > 0 && total >= 0)
+            memcpy(out + off[t], tl_rows.p, (size_t)len[t]);
+    }
+    return total;
+}
+
+// The team for n rows: nthreads when > 0 (tests pin it), else one
+// thread below min_rows and the OpenMP team (at most FMT_MAX_THREADS)
+// from there up, as the printf versions choose.
+static int64_t format_team(int64_t n, int64_t min_rows, int64_t nthreads) {
+    if (nthreads > 0) return nthreads;
+    int64_t nt = 1;
+#ifdef _OPENMP
+    if (n >= min_rows) {
+        nt = omp_get_max_threads();
+        if (nt > FMT_MAX_THREADS) nt = FMT_MAX_THREADS;
+    }
+#endif
+    return nt;
+}
+
+// The team format_rows runs n rows on (nthreads as format_team).
+int64_t format_rows_team(int64_t n, int64_t nthreads) {
+    return format_team(n, 4096, nthreads);
+}
+
+// The rows of format_rows_printf; nthreads as format_team; *n_printf
+// receives the count of values put_g handed to snprintf.  Returns the
+// bytes written, or -1 when cap is too small.
+int64_t format_rows(int64_t n,
+                    const int64_t* norm, const double* gamma,
+                    const int32_t* ibest, const int32_t* best,
+                    const int32_t* isecond, const int32_t* second,
+                    const double* conf,
+                    const uint8_t* buf,
+                    const int64_t* name_s, const int64_t* name_e,
+                    const uint8_t* tnames, const int64_t* tname_off,
+                    char* out, int64_t cap, int64_t nthreads,
+                    int64_t* n_printf) {
+    const RowFields a = {0, nullptr, norm, gamma, ibest, best, isecond,
+                         second, conf, buf, name_s, name_e, tnames,
+                         tname_off};
+    return write_rows_team(a, n, format_team(n, 4096, nthreads), out, cap,
+                           n_printf);
+}
+
+// The rows of format_rows_ext_printf (n_targets count columns a row).
+int64_t format_rows_ext(int64_t n, int64_t n_targets,
+                        const uint32_t* counts,
+                        const int64_t* norm, const double* gamma,
+                        const int32_t* ibest, const int32_t* best,
+                        const int32_t* isecond, const int32_t* second,
+                        const double* conf,
+                        const uint8_t* buf,
+                        const int64_t* name_s, const int64_t* name_e,
+                        const uint8_t* tnames, const int64_t* tname_off,
+                        char* out, int64_t cap, int64_t nthreads,
+                        int64_t* n_printf) {
+    const RowFields a = {n_targets, counts, norm, gamma, ibest, best,
+                         isecond, second, conf, buf, name_s, name_e,
+                         tnames, tname_off};
+    // one thread while n * (n_targets + 8) < 65536, as the printf version
+    const int64_t min_rows = (65536 + n_targets + 7) / (n_targets + 8);
+    return write_rows_team(a, n, format_team(n, min_rows, nthreads), out,
+                           cap, n_printf);
 }
 
 // ---- result-CSV ingestion (abundance / density summarization) ----

@@ -7,6 +7,10 @@ and caches the library under its own `cuclark_tpu_torch` subdirectory.
 `scan` runs that parallel scan (`scan_records`); the JAX package's
 one-thread scan stays beside it as the plain version
 (`scan_records_serial`), and both give the same offsets.
+`format_rows`/`format_rows_ext` write classify's CSV rows without
+printf, byte for byte the rows of the JAX package's snprintf formatter,
+which stays beside them as the plain version (`format_rows_printf`,
+`format_rows_ext_printf`).
 
 Compiled lazily with g++ on first use and cached in the user's cache
 directory (`_cache_dir`); everything degrades gracefully to the numpy
@@ -136,11 +140,13 @@ def _build() -> ctypes.CDLL | None:
         _U8P, ctypes.c_int64]
     _F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
     _I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    rows = [ctypes.c_int64, _I64P, _F64P, _I32P, _I32P, _I32P, _I32P,
+            _F64P, _U8P, _I64P, _I64P, _U8P, _I64P, _U8P, ctypes.c_int64]
+    lib.format_rows_printf.restype = ctypes.c_int64
+    lib.format_rows_printf.argtypes = rows
     lib.format_rows.restype = ctypes.c_int64
-    lib.format_rows.argtypes = [
-        ctypes.c_int64, _I64P, _F64P, _I32P, _I32P, _I32P, _I32P, _F64P,
-        _U8P, _I64P, _I64P, _U8P, _I64P,
-        ctypes.c_char_p, ctypes.c_int64]
+    lib.format_rows.argtypes = rows + [ctypes.c_int64,
+                                       ctypes.POINTER(ctypes.c_int64)]
     _U32P = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
     lib.build_q4.restype = ctypes.c_int64
     lib.build_q4.argtypes = [
@@ -158,12 +164,14 @@ def _build() -> ctypes.CDLL | None:
         _U64P, _U32P, _U32P, ctypes.c_int32, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32,
         _U64P, _U64P, _U64P, _U32P, _U32P]
+    lib.format_rows_team.restype = ctypes.c_int64
+    lib.format_rows_team.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    rows_ext = [ctypes.c_int64, ctypes.c_int64, _U32P] + rows[1:]
+    lib.format_rows_ext_printf.restype = ctypes.c_int64
+    lib.format_rows_ext_printf.argtypes = rows_ext
     lib.format_rows_ext.restype = ctypes.c_int64
-    lib.format_rows_ext.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, _U32P,
-        _I64P, _F64P, _I32P, _I32P, _I32P, _I32P, _F64P,
-        _U8P, _I64P, _I64P, _U8P, _I64P,
-        ctypes.c_char_p, ctypes.c_int64]
+    lib.format_rows_ext.argtypes = rows_ext + [
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
     lib.csv_tally.restype = ctypes.c_int64
     lib.csv_tally.argtypes = [
         _U8P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
@@ -407,69 +415,111 @@ def pack_target_names(target_names) -> tuple[np.ndarray, np.ndarray]:
     return np.frombuffer(b"".join(blobs), np.uint8).copy(), offs
 
 
-def format_rows(norm, gamma, ibest, best, isecond, second, conf,
-                buf, name_s, name_e, tname_bytes, tname_off) -> bytes:
-    """CLARK CSV rows for one batch via the native printf formatter."""
-    lib = _lib()
-    n = len(norm)
-    name_s = np.ascontiguousarray(name_s, np.int64)
-    name_e = np.ascontiguousarray(name_e, np.int64)
+def _row_args(norm, gamma, ibest, best, isecond, second, conf, buf,
+              name_s, name_e, tname_bytes, tname_off):
+    """The row fields as the C entries take them (contiguous, typed)."""
+    return (np.ascontiguousarray(norm, np.int64),
+            np.ascontiguousarray(gamma, np.float64),
+            np.ascontiguousarray(ibest, np.int32),
+            np.ascontiguousarray(best, np.int32),
+            np.ascontiguousarray(isecond, np.int32),
+            np.ascontiguousarray(second, np.int32),
+            np.ascontiguousarray(conf, np.float64),
+            np.ascontiguousarray(buf, np.uint8),
+            np.ascontiguousarray(name_s, np.int64),
+            np.ascontiguousarray(name_e, np.int64),
+            np.ascontiguousarray(tname_bytes, np.uint8),
+            np.ascontiguousarray(tname_off, np.int64))
+
+
+def _row_cap(n: int, n_targets: int, tname_off) -> int:
+    """Bytes that hold n rows by the C entries' room check: at most 39
+    name bytes, 12 a count column, 160 and the two target names."""
     max_tl = int(np.diff(tname_off).max(initial=0))
-    cap = int((192 + 2 * max_tl) * n + (name_e - name_s).sum() + 64)
-    out = ctypes.create_string_buffer(cap)
-    w = lib.format_rows(
-        n,
-        np.ascontiguousarray(norm, np.int64),
-        np.ascontiguousarray(gamma, np.float64),
-        np.ascontiguousarray(ibest, np.int32),
-        np.ascontiguousarray(best, np.int32),
-        np.ascontiguousarray(isecond, np.int32),
-        np.ascontiguousarray(second, np.int32),
-        np.ascontiguousarray(conf, np.float64),
-        np.ascontiguousarray(buf, np.uint8),
-        name_s, name_e,
-        np.ascontiguousarray(tname_bytes, np.uint8),
-        np.ascontiguousarray(tname_off, np.int64),
-        out, cap,
-    )
+    return n * (39 + 12 * (n_targets + 1) + 160 + 2 * max_tl) + 64
+
+
+def _format(fn, lead: tuple, n_targets: int, fields: tuple,
+            extra: tuple = ()) -> np.ndarray:
+    """Run one formatter (leading arguments `lead`, n = lead[0]; the
+    `_row_args` fields) into an uninitialised buffer; a view of the
+    bytes it wrote."""
+    cap = _row_cap(lead[0], n_targets, fields[-1])
+    out = np.empty(cap, np.uint8)
+    w = fn(*lead, *fields, out, cap, *extra)
     if w < 0:
-        raise RuntimeError("format_rows buffer overflow")
-    return out.raw[:w]
+        raise RuntimeError(f"{fn.__name__} buffer overflow")
+    return out[:w]
+
+
+def format_team(n: int, threads: int = 0) -> int:
+    """Threads `format_rows` runs n rows on: `threads` when > 0, else
+    one below 4,096 rows and the OpenMP team (at most 16) from there
+    up."""
+    return int(_lib().format_rows_team(n, threads))
+
+
+def format_rows(norm, gamma, ibest, best, isecond, second, conf,
+                buf, name_s, name_e, tname_bytes, tname_off,
+                threads: int = 0) -> tuple[np.ndarray, int]:
+    """CLARK CSV rows for one batch through the native row writer
+    (`format_rows` in host_ops.cpp, no printf): (a uint8 view of the
+    rows, for `f.write`; the count of gamma and confidence values it
+    handed to snprintf, those outside the magnitudes its exact rounding
+    covers).  The bytes equal `format_rows_printf`'s.  `threads`: the
+    team, 0 = one thread below 4,096 rows, else the OpenMP team."""
+    n_printf = ctypes.c_int64(0)
+    rows = _format(_lib().format_rows, (len(norm),), 0,
+                   _row_args(norm, gamma, ibest, best, isecond, second,
+                             conf, buf, name_s, name_e, tname_bytes,
+                             tname_off),
+                   (threads, ctypes.byref(n_printf)))
+    return rows, n_printf.value
+
+
+def format_rows_printf(norm, gamma, ibest, best, isecond, second, conf,
+                       buf, name_s, name_e, tname_bytes,
+                       tname_off) -> np.ndarray:
+    """`format_rows`' rows through the one-snprintf-a-row formatter, the
+    plain version it is held to (tests, chip_smoke.py)."""
+    return _format(_lib().format_rows_printf, (len(norm),), 0,
+                   _row_args(norm, gamma, ibest, best, isecond, second,
+                             conf, buf, name_s, name_e, tname_bytes,
+                             tname_off))
+
+
+def _ext_lead(counts, n: int) -> tuple:
+    """(n, n_targets, counts) of the extended entries."""
+    counts = np.ascontiguousarray(counts, np.uint32)
+    return n, (counts.shape[1] if counts.ndim == 2 else 0), counts
 
 
 def format_rows_ext(counts, norm, gamma, ibest, best, isecond, second,
-                    conf, buf, name_s, name_e, tname_bytes,
-                    tname_off) -> bytes:
+                    conf, buf, name_s, name_e, tname_bytes, tname_off,
+                    threads: int = 0) -> tuple[np.ndarray, int]:
     """Extended-mode CSV rows: dense per-target count columns between
-    the name and Length (reference --extended)."""
-    lib = _lib()
-    n = len(norm)
-    counts = np.ascontiguousarray(counts, np.uint32)
-    n_targets = counts.shape[1] if counts.ndim == 2 else 0
-    name_s = np.ascontiguousarray(name_s, np.int64)
-    name_e = np.ascontiguousarray(name_e, np.int64)
-    max_tl = int(np.diff(tname_off).max(initial=0))
-    cap = int(n * (12 * (n_targets + 1) + 192 + 2 * max_tl)
-              + (name_e - name_s).sum() + 64)
-    out = ctypes.create_string_buffer(cap)
-    w = lib.format_rows_ext(
-        n, n_targets, counts,
-        np.ascontiguousarray(norm, np.int64),
-        np.ascontiguousarray(gamma, np.float64),
-        np.ascontiguousarray(ibest, np.int32),
-        np.ascontiguousarray(best, np.int32),
-        np.ascontiguousarray(isecond, np.int32),
-        np.ascontiguousarray(second, np.int32),
-        np.ascontiguousarray(conf, np.float64),
-        np.ascontiguousarray(buf, np.uint8),
-        name_s, name_e,
-        np.ascontiguousarray(tname_bytes, np.uint8),
-        np.ascontiguousarray(tname_off, np.int64),
-        out, cap,
-    )
-    if w < 0:
-        raise RuntimeError("format_rows_ext buffer overflow")
-    return out.raw[:w]
+    the name and Length (reference --extended), through the row writer;
+    returns and `threads` as `format_rows` (one thread while rows x
+    (targets + 8) < 65,536)."""
+    lead = _ext_lead(counts, len(norm))
+    n_printf = ctypes.c_int64(0)
+    rows = _format(_lib().format_rows_ext, lead, lead[1],
+                   _row_args(norm, gamma, ibest, best, isecond, second,
+                             conf, buf, name_s, name_e, tname_bytes,
+                             tname_off),
+                   (threads, ctypes.byref(n_printf)))
+    return rows, n_printf.value
+
+
+def format_rows_ext_printf(counts, norm, gamma, ibest, best, isecond,
+                           second, conf, buf, name_s, name_e, tname_bytes,
+                           tname_off) -> np.ndarray:
+    """`format_rows_ext`' rows through snprintf, its plain version."""
+    lead = _ext_lead(counts, len(norm))
+    return _format(_lib().format_rows_ext_printf, lead, lead[1],
+                   _row_args(norm, gamma, ibest, best, isecond, second,
+                             conf, buf, name_s, name_e, tname_bytes,
+                             tname_off))
 
 
 def spill_partition(kmers: np.ndarray, labels: np.ndarray,

@@ -37,6 +37,9 @@ and on a streamed table's last part, on a mesh or on one device.
 
 from __future__ import annotations
 
+import os
+import stat
+
 import numpy as np
 import torch
 
@@ -80,7 +83,7 @@ def classify_step_packed(table, packed2, vbits, *, k, spec: TableSpec,
 
 
 class CsvSink:
-    """CLARK-CSV output sink: native OpenMP row formatting
+    """CLARK-CSV output sink: native OpenMP row writing without printf
     (csrc/host_ops.cpp format_rows/format_rows_ext), extended-mode
     hit-stat accumulation, and the reference header
     (src/CuCLARK_hh.hh:1956-1972).  The file handle must be opened in
@@ -120,13 +123,14 @@ class CsvSink:
             counts = dense_counts(labels_np[:cnt],
                                   self.db.num_targets)[:, 1:]
             accumulate_hit_stats(self.hstats, (counts > 0).sum(axis=1))
-            self.f.write(native.format_rows_ext(
+            rows, _ = native.format_rows_ext(
                 counts, norm, gamma, ibest, best, isecond, second, conf,
-                buf, ns[:cnt], ne[:cnt], self.tname_bytes, self.tname_off))
+                buf, ns[:cnt], ne[:cnt], self.tname_bytes, self.tname_off)
         else:
-            self.f.write(native.format_rows(
+            rows, _ = native.format_rows(
                 norm, gamma, ibest, best, isecond, second, conf,
-                buf, ns[:cnt], ne[:cnt], self.tname_bytes, self.tname_off))
+                buf, ns[:cnt], ne[:cnt], self.tname_bytes, self.tname_off)
+        self.f.write(rows)
         self.total_rows += cnt
 
 def print_hit_stats(hstats, rows: int) -> None:
@@ -1036,12 +1040,29 @@ def _prefetch(gen, depth: int = 2):
 
 
 def _read_file_bytes(path) -> np.ndarray:
-    # plain files read straight into the array (one copy less than
-    # read()+frombuffer); gzip goes through the decompressing reader
+    """A classify input's bytes, read-only.  A regular uncompressed file
+    is mapped (`np.memmap`, no copy: the scan's threads take its page
+    faults), an empty one is an empty array (a map of 0 bytes raises),
+    gzip goes through the inflating reader, and a FIFO or a device is
+    read whole in one pass (it can be read only once: no probe, and
+    `np.fromfile` cannot size it).  The choice follows `os.stat`.  A
+    mapped file that is truncated while the array lives ends the
+    process with SIGBUS."""
+    st = os.stat(path)
+    if not stat.S_ISREG(st.st_mode):
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:2] == b"\x1f\x8b":
+            import gzip
+
+            data = gzip.decompress(data)
+        return np.frombuffer(data, dtype=np.uint8)
+    if st.st_size == 0:
+        return np.zeros(0, np.uint8)
     with open(path, "rb") as probe_f:
         is_gz = probe_f.read(2) == b"\x1f\x8b"
     if not is_gz:
-        return np.fromfile(path, dtype=np.uint8)
+        return np.memmap(path, np.uint8, mode="r")
     from cuclark_tpu_torch.io.fasta import _open
 
     with _open(path) as f:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The host feed of classify timed on the machine it runs on: the
-record scan (`cuclark_tpu_torch.native`) by team size, and the file
-read, `np.fromfile` against the threaded read by byte range.
+"""The host feed and drain of classify timed on the machine it runs on:
+the record scan (`cuclark_tpu_torch.native`) by team size, the file
+read with the scan, and the CSV row writer by team size.
 
     python3 scripts/torch_host_scan.py [--reads 500000] [--pairs 12]
         [--out FILE]
@@ -17,9 +17,20 @@ page cache holds it, then:
     equal the plain version's;
   - read: `--pairs` pairs of `np.fromfile` and `native.read_file`
     (default team), the order alternating from pair to pair; each
-    pair's two times and which was faster.  The threaded read replaces
-    np.fromfile in `pipeline._read_file_bytes` only if it wins at least
-    11 of 12 pairs.
+    pair's two times and which was faster (the same 11-of-12 gate;
+    the threaded read did not pass it on the H100's host);
+  - map: `--pairs` pairs of read + scan, `np.fromfile` then the scan
+    against a read-only `np.memmap` then the scan (the map moves the
+    page faults into the scan's threads, so the two are timed
+    together), in turns; `pipeline._read_file_bytes` maps a plain file
+    only if the map wins at least 11 of 12 pairs;
+  - format: the CSV rows of every read (bench_torch.py's synthetic
+    results, chunks of `--chunk` rows) through the row writer
+    (`native.format_rows`) at teams 1, 2, 4, 8 and the default, and
+    through the snprintf plain version (`format_rows_printf`) at its
+    own default team and at teams 1 and 8 (omp_set_num_threads); every
+    team's bytes must equal the plain version's; the minor page faults
+    of one more pass of each.
 
 Prints the host's cores, the default team, the card's name and power
 limit where `nvidia-smi` answers, and one JSON line last.
@@ -30,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -112,6 +124,37 @@ def scan_serial_vs_parallel(buf: np.ndarray, fasta: bool, reps: int = 3):
             native.scan_team(len(buf)))
 
 
+def format_inputs(buf: np.ndarray, n_targets: int = 120, seed: int = 7):
+    """bench_torch.py host_pipeline's synthetic results for the records
+    of `buf` (150 bp reads, gamma and confidence uniform in [0, 1),
+    targets `T<i>`): the fields `native.format_rows` takes, whole."""
+    from cuclark_tpu_torch import native
+
+    ns, ne, _, _ = native.scan(buf)
+    n = len(ns)
+    rng = np.random.default_rng(seed)
+    tnb, tno = native.pack_target_names(["NA"] + [f"T{i}" for i in
+                                                  range(n_targets)])
+    return (np.full(n, 150, np.int64), rng.random(n),
+            rng.integers(0, n_targets + 1, n).astype(np.int32),
+            rng.integers(0, 120, n).astype(np.int32),
+            np.zeros(n, np.int32), np.zeros(n, np.int32), rng.random(n),
+            buf, ns, ne, tnb, tno)
+
+
+def format_chunks(fn, fields, chunk: int, **kw) -> list:
+    """`fn` (format_rows or format_rows_printf) over the rows in chunks
+    of `chunk`, as CsvSink writes batches: each chunk's bytes."""
+    n = len(fields[0])
+    out = []
+    for i in range(0, n, chunk):
+        s = slice(i, i + chunk)
+        got = fn(*(f[s] for f in fields[:7]), fields[7], fields[8][s],
+                 fields[9][s], *fields[10:], **kw)
+        out.append(got[0] if isinstance(got, tuple) else got)
+    return out
+
+
 def card() -> str | None:
     try:
         return subprocess.run(
@@ -122,11 +165,101 @@ def card() -> str | None:
         return None
 
 
+def map_gate(path: Path, want, pairs: int) -> list:
+    """`pairs` pairs of read + scan (default team) of the page-cached
+    file at `path`: `np.fromfile` then the scan against a read-only map
+    then the scan, the first of each pair alternating; each pair's two
+    times.  Both must give `want`'s offsets."""
+    from cuclark_tpu_torch import native
+
+    reads = {"fromfile": lambda: np.fromfile(path, np.uint8),
+             "map": lambda: np.memmap(path, np.uint8, mode="r")}
+    out = []
+    for i in range(pairs):
+        order = ("fromfile", "map")[::1 if i % 2 == 0 else -1]
+        t = {}
+        for name in order:
+            t0 = time.perf_counter()
+            b = reads[name]()
+            got = native.scan_records(b, False)
+            t[name] = (time.perf_counter() - t0) * 1e3
+            if not _same(got, want):
+                raise AssertionError(f"{name} + scan: offsets differ")
+            del b, got
+        out.append({"first": order[0], **{f"{k}_ms": v
+                                           for k, v in t.items()}})
+        print(f"map pair {i + 1}: {order[0]} first, np.fromfile + scan "
+              f"{t['fromfile']:.3f} ms, map + scan {t['map']:.3f} ms",
+              flush=True)
+    return out
+
+
+def _printf_on(team: int, fn):
+    """`fn` with the OpenMP team of this thread's parallel regions set to
+    `team` (the printf version takes no team of its own: it runs
+    omp_get_max_threads() threads), restored after."""
+    import ctypes
+
+    gomp = ctypes.CDLL("libgomp.so.1")
+    before = gomp.omp_get_max_threads()
+
+    def run():
+        gomp.omp_set_num_threads(team)
+        try:
+            return fn()
+        finally:
+            gomp.omp_set_num_threads(before)
+    return run
+
+
+def format_rates(buf: np.ndarray, chunk: int, reps: int) -> dict:
+    """Rows a second of the row writer at teams 1, 2, 4, 8 and the
+    default, and of the printf plain version at teams 1, 8 and its
+    default, over every record of `buf` in chunks of `chunk` (min and
+    median of `reps` in turns); raises unless every team's bytes equal
+    the plain version's."""
+    from cuclark_tpu_torch import native
+
+    fields = format_inputs(buf)
+    n = len(fields[0])
+    want = b"".join(a.tobytes() for a in format_chunks(
+        native.format_rows_printf, fields, chunk))
+
+    def printf():
+        return format_chunks(native.format_rows_printf, fields, chunk)
+
+    fns = {"printf": printf, "printf_team_1": _printf_on(1, printf),
+           "printf_team_8": _printf_on(8, printf)}
+    for t in TEAMS + (0,):
+        got = format_chunks(native.format_rows, fields, chunk, threads=t)
+        if b"".join(a.tobytes() for a in got) != want:
+            raise AssertionError(f"format_rows at team {t} differs from "
+                                 f"format_rows_printf")
+        fns[f"team_{t or 'default'}"] = (
+            lambda t=t: format_chunks(native.format_rows, fields, chunk,
+                                      threads=t))
+    out = {"default_team": native.format_team(chunk)}
+    for name, ts in times_ms(fns, reps).items():
+        faults = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+        fns[name]()
+        faults = resource.getrusage(resource.RUSAGE_SELF).ru_minflt - faults
+        out[name] = {"min_ms": min(ts), "median_ms": statistics.median(ts),
+                     "rows_per_sec": n / min(ts) * 1e3,
+                     "minor_faults": faults}
+        print(f"format {name}: min {min(ts):.3f} ms, median "
+              f"{statistics.median(ts):.3f} ms, "
+              f"{out[name]['rows_per_sec']:,.0f} rows/s; {faults} minor "
+              f"page faults in one more pass", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reads", type=int, default=500_000)
     ap.add_argument("--pairs", type=int, default=12)
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--chunk", type=int, default=16384,
+                    help="rows a format call (bench_torch.py's chunk)")
     ap.add_argument("--out", help="also write the JSON line here")
     args = ap.parse_args(argv)
 
@@ -186,11 +319,24 @@ def main(argv=None) -> int:
                   f"{t['fromfile']:.3f} ms, threaded {t['threaded']:.3f} "
                   f"ms", flush=True)
         wins = sum(p["threaded_ms"] < p["fromfile_ms"] for p in pairs)
+        print(f"threaded read won {wins} of {args.pairs} pairs",
+              flush=True)
+
+        map_pairs = map_gate(path, want, args.pairs)
+        map_wins = sum(p["map_ms"] < p["fromfile_ms"] for p in map_pairs)
+        print(f"map + scan won {map_wins} of {args.pairs} pairs",
+              flush=True)
+
+        fmt = format_rates(buf, args.chunk, args.reps)
     line = {"card": smi, "cores": cores, "default_team": team,
             "reads": args.reads, "bytes": int(len(buf)), "scan": scan,
             "read_pairs": pairs, "threaded_read_wins": wins,
-            "threaded_read_passes_gate": wins >= 11 * args.pairs / 12}
-    print(f"threaded read won {wins} of {args.pairs} pairs", flush=True)
+            "threaded_read_passes_gate": wins >= 11 * args.pairs / 12,
+            "map_pairs": map_pairs, "map_wins": map_wins,
+            "map_passes_gate": map_wins >= 11 * args.pairs / 12,
+            "format_chunk": args.chunk,
+            "format_default_team": fmt.pop("default_team"),
+            "format": fmt}
     if args.out:
         Path(args.out).write_text(json.dumps(line) + "\n")
     print(json.dumps(line))
