@@ -14,11 +14,14 @@ targets).  The blocks of `detail`:
   scaling_model the db-axis merge's payload against an assumed link rate
   small         the same step on a 4M-k-mer table
   e2e_scale,    file -> CSV through `Classifier.classify_file_to_csv`,
-  e2e_small     500,000 reads, median of 3 passes
+  e2e_small     500,000 reads, median of 3 passes; e2e_scale then one
+                more pass split by thread (`thread_split`,
+                scripts/torch_thread_split.py's timers)
   host_pipeline the host stages alone: scan, the read with the scan
                 (np.fromfile, and the read-only map classify takes),
-                pack, CSV formatting (the row writer, and its printf
-                plain version), tally
+                pack (at its default team, half the cores, and at
+                every core; and its plain version), CSV formatting (the
+                row writer, and its printf plain version), tally
   accuracy      8 random genomes of 200 kb, 50,000 reads with 1%
                 substitutions and 0.2% indels, built and classified
   stream_ratio  the headline table streamed in parts against resident
@@ -492,7 +495,11 @@ def main(argv=None) -> int:
                     blocks = []
             f.write(b"".join(blocks))
 
-    def e2e_times(clf, fq, out_csv, n_expect, passes=3, paired=None):
+    def e2e_times(clf, fq, out_csv, n_expect, passes=3, paired=None,
+                  split=False):
+        """The median of `passes` timed passes; with `split`, one more
+        pass under scripts/torch_thread_split.py's timers (its split by
+        thread in `thread_split`, not in the rates)."""
         clf.classify_file_to_csv(fq, out_csv, paired)  # warm-up
         kernels.reset_launches()
         ts = []
@@ -504,13 +511,23 @@ def main(argv=None) -> int:
             if n != n_expect:
                 raise AssertionError(f"{n} reads classified of {n_expect}")
         med = statistics.median(ts)
+        launches = launched()
+        thread_split = None
+        if split:
+            from torch_thread_split import ThreadSplit
+
+            with ThreadSplit() as timers:
+                clf.classify_file_to_csv(fq, out_csv, paired)
+                sync()
+            thread_split = timers.report(-(-n_expect // chunk))
         return {
             "reads_per_sec": round(n_expect / med, 1),
             "objects_per_min": int(n_expect / med * 60),
             "best_reads_per_sec": round(n_expect / min(ts), 1),
             "pass_s": ts,
             "spread": _spread(ts),
-            "launches": launched(),
+            "launches": launches,
+            **({"thread_split": thread_split} if split else {}),
         }
 
     def h2d_mb_per_s(mb: int):
@@ -545,7 +562,8 @@ def main(argv=None) -> int:
                                  ("e2e_small", db, "out.csv")):
             _log(tag)
             clf = new_classifier(e2e_db)
-            detail[tag] = e2e_times(clf, fq, td / out, e2e_reads)
+            detail[tag] = e2e_times(clf, fq, td / out, e2e_reads,
+                                    split=tag == "e2e_scale")
             clf.close()
             del clf
             gc.collect()
@@ -590,6 +608,25 @@ def main(argv=None) -> int:
                     read_len, n_rows=chunk)
 
         pack_s = _min_time(_pack_all)
+        pack_plain_s = pack_cores_s = float("inf")
+        if _native.available():
+            # the pack at every core, as its plain version runs
+            pack_cores_s = _min_time(lambda: [_native.pack_block2(
+                raw, ss_h[i: i + chunk], se_h[i: i + chunk], read_len,
+                n_rows=chunk, threads=os.cpu_count())
+                for i in range(0, nrec, chunk)])
+
+            # the one-base-a-step plain version, whose bytes it must equal
+            def _pack_plain_all(fn=_native.pack_block2_plain):
+                return [fn(raw, ss_h[i: i + chunk], se_h[i: i + chunk],
+                           read_len, n_rows=chunk)
+                        for i in range(0, nrec, chunk)]
+
+            pack_plain_s = _min_time(_pack_plain_all)
+            if not all(np.array_equal(a, b) for u, v in zip(
+                    _pack_plain_all(_native.pack_block2), _pack_plain_all())
+                    for a, b in zip(u, v)):
+                raise AssertionError("pack_block2 != pack_block2_plain")
 
         # drain side: format synthetic but plausible results for every
         # read through the production formatter
@@ -637,6 +674,10 @@ def main(argv=None) -> int:
             "n_reads": nrec,
             "scan_reads_per_sec": round(nrec / scan_s, 1),
             "pack_reads_per_sec": round(nrec / pack_s, 1),
+            "pack_all_cores_reads_per_sec": round(nrec / pack_cores_s, 1),
+            "pack_plain_reads_per_sec": round(nrec / pack_plain_s, 1),
+            "pack_team": (_native.pack_team(chunk) if use_native_h
+                          else None),
             "format_rows_per_sec": round(nrec / fmt_s, 1),
             "format_printf_rows_per_sec": round(nrec / printf_s, 1),
             # values the row writer handed to snprintf (outside the
@@ -653,7 +694,9 @@ def main(argv=None) -> int:
             "serial_chain_reads_per_sec": round(nrec / chain_s, 1),
             "vs_device_step": round(
                 nrec / chain_s / detail["step_reads_per_sec"], 2),
-            "stage_s": {"scan": scan_s, "pack": pack_s, "format": fmt_s,
+            "stage_s": {"scan": scan_s, "pack": pack_s,
+                        "pack_all_cores": pack_cores_s,
+                        "pack_plain": pack_plain_s, "format": fmt_s,
                         "format_printf": printf_s,
                         "read_fromfile_scan": read_scan_s["fromfile"],
                         "read_map_scan": read_scan_s["map"]},

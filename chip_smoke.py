@@ -79,6 +79,15 @@ against `--device cpu`:
     reads it and scanned by the one-thread scan_fastq/scan_fasta and by
     the parallel scan on the OpenMP team (equal offsets required), both
     times printed with the team and the host's cores;
+  - host_pack (after host_format): 1,048,576 seeded 150 bp reads,
+    1,048,576 pairs of 150 bp mates and a multi-line FASTA of 1,048,576
+    sequences packed into the 2-bit wire format in classify's batches by
+    the eight-bases-a-step pack and by its plain version, at team 1 and
+    at every core (the new pack also at its default team): equal bytes
+    required, every time, the host's copy rate, the team and the cores;
+  - file_to_csv also prints one more pass split by thread (the main,
+    producer and writer threads' stages, waits and uncovered time;
+    scripts/torch_thread_split.py);
   - host_format (after host_scan): 1,048,576 seeded result rows (ratios,
     -nan, -0, +-inf, ties at the sixth digit and their neighbours,
     doubles of every magnitude) through the CSV row writer and its
@@ -128,6 +137,7 @@ S2_SLOTS, S2_CHOICES = 2, 2
 N_LONG, LONG_MIN, LONG_MAX = 256, 33_000, 100_000
 HOST_SCAN_READS = 1 << 20
 HOST_FORMAT_ROWS = 1 << 20
+HOST_PACK_READS = 1 << 20
 PHRED = bytes(range(33, 75))  # '!'..'J': quality lines may open '@', '+'
 
 
@@ -650,6 +660,82 @@ def check_host_format(n: int = HOST_FORMAT_ROWS,
             f"{handed} values handed to snprintf; team "
             f"{native.format_team(chunk)}, "
             f"{len(os.sched_getaffinity(0))} host cores")
+
+
+def check_host_pack(tmp: Path, n: int = HOST_PACK_READS,
+                    chunk: int = 16384) -> str:
+    """The 2-bit wire pack against its plain version: n seeded 150 bp
+    reads (Phred quality bytes), n pairs of 150 bp mates (two such
+    files, packed as classify joins them, bin 320) and a multi-line
+    FASTA of n sequences, each read as classify reads it and packed in
+    classify's batches of `chunk` by `native.pack_block2` /
+    `pack_block2_paired` and by their plain versions at team 1 and at
+    every core, at every team asked (1, every core, the default):
+    equal bytes required; every time (min of 3, in turns; the new pack
+    also at its default team, half the cores), the host's copy rate,
+    the team and the cores."""
+    import torch_host_scan as hs
+    from cuclark_tpu_torch import native
+    from cuclark_tpu_torch.pipeline import _read_file_bytes
+
+    def read(name, data):
+        path = tmp / f"host_pack_{name}"
+        path.write_bytes(data)
+        return path, _read_file_bytes(path)
+
+    cores = len(os.sched_getaffinity(0))
+    r1, b1 = read("r1.fq", hs.fastq_bytes(n, 21, READ_LEN, PHRED))
+    r2, b2 = read("r2.fq", hs.fastq_bytes(n, 22, READ_LEN, PHRED))
+    fa, bf = read("fa", hs.fasta_bytes(n, 23, READ_LEN))
+    _, _, s1, e1 = native.scan(b1)
+    _, _, s2, e2 = native.scan(b2)
+    _, _, sf, ef = native.scan(bf)
+    if not len(s1) == len(s2) == len(sf) == n:
+        raise AssertionError(f"host_pack: {len(s1)}, {len(s2)}, {len(sf)} "
+                             f"records of {n}")
+
+    def batches(fn, args, L, **kw):
+        return [fn(*(a if isinstance(a, np.ndarray) and a.dtype == np.uint8
+                     else a[i:i + chunk] for a in args), L,
+                   n_rows=min(chunk, n - i), **kw)
+                for i in range(0, n, chunk)]
+
+    cases = (("fastq", native.pack_block2, native.pack_block2_plain,
+              (b1, s1, e1), 152),
+             ("pairs", native.pack_block2_paired,
+              native.pack_block2_paired_plain, (b1, s1, e1, b2, s2, e2),
+              320),
+             ("fasta", native.pack_block2, native.pack_block2_plain,
+              (bf, sf, ef), 152))
+    out = []
+    for name, new, plain, args, L in cases:
+        want = batches(plain, args, L)
+        for team in (1, cores, 0):
+            got = batches(new, args, L, threads=team)
+            if not all(np.array_equal(a, b) for u, v in zip(got, want)
+                       for a, b in zip(u, v)):
+                raise AssertionError(f"host_pack {name}: pack at team "
+                                     f"{team} != its plain version")
+        t = hs.times_ms({
+            "plain_1": hs._printf_on(1, lambda: batches(plain, args, L)),
+            "new_1": lambda: batches(new, args, L, threads=1),
+            "plain": hs._printf_on(cores, lambda: batches(plain, args, L)),
+            "new": lambda: batches(new, args, L, threads=cores),
+            "new_default": lambda: batches(new, args, L)}, 3)
+        m = {k: min(v) for k, v in t.items()}
+        out.append(f"{name} {n}: plain {m['plain_1']:.1f} ms, new "
+                   f"{m['new_1']:.1f} ms ({m['plain_1'] / m['new_1']:.2f}x) "
+                   f"at team 1, plain {m['plain']:.1f} ms, new "
+                   f"{m['new']:.1f} ms ({m['plain'] / m['new']:.2f}x) at "
+                   f"team {cores}, new {m['new_default']:.1f} ms at its "
+                   f"default team")
+    del b1, b2, bf
+    for path in (r1, r2, fa):
+        path.unlink()
+    rate = hs.copy_rate(512, cores)
+    return (f"{'; '.join(out)}; equal bytes; copy rate "
+            f"{rate / 1e9:.2f} GB/s read + written; pack team "
+            f"{native.pack_team(chunk)}, {cores} host cores")
 
 
 def golden_example(tmp: Path) -> None:
@@ -2476,6 +2562,8 @@ def main(argv=None) -> int:
         _phase("host_scan", t0, check_host_scan(tmp))
         t0 = time.time()
         _phase("host_format", t0, check_host_format())
+        t0 = time.time()
+        _phase("host_pack", t0, check_host_pack(tmp))
 
         # 3. golden example through the CLI on the card
         t0 = time.time()
@@ -2750,6 +2838,16 @@ def main(argv=None) -> int:
             e2e.append(n / (time.time() - t1))
         if (tmp / "again.csv").read_bytes() != gpu_csv.read_bytes():
             raise AssertionError("a second classify wrote another CSV")
+        # one more pass split by thread (scripts/torch_thread_split.py)
+        from torch_thread_split import ThreadSplit, summary
+
+        with ThreadSplit() as split:
+            clf.classify_file_to_csv(fq, tmp / "again.csv")
+            torch.cuda.synchronize()
+        print("  file_to_csv " + summary(split.report(
+            -(-args.reads // clf.cfg.batch_reads))), flush=True)
+        if (tmp / "again.csv").read_bytes() != gpu_csv.read_bytes():
+            raise AssertionError("the split pass wrote another CSV")
         _phase("file_to_csv", t0,
                f"{', '.join(f'{r:.1f}' for r in e2e)} reads/s on {card}")
 

@@ -372,6 +372,9 @@ void pack_block(const uint8_t* buf,
     }
 }
 
+// The plain version of pack_block2 (one base a step, OR-updates into a
+// zeroed row), which pack_block2 is held to byte for byte.
+//
 // Pack records straight into the 2-bit wire format the device step
 // consumes: packed2 [nrec, Lp/4] (4 bases/byte, little-endian 2-bit
 // lanes) + vbits [nrec, Lp/8] (validity bitmask, little-endian),
@@ -380,10 +383,11 @@ void pack_block(const uint8_t* buf,
 // the same single-pass packing role as the reference's container
 // encoder (src/CuCLARK_hh.hh:1608-1763).  Non-ACGT chars occupy a
 // position with valid bit 0; newlines/CR are skipped.
-void pack_block2(const uint8_t* buf,
-                 const int64_t* seq_s, const int64_t* seq_e, int64_t nrec,
-                 uint8_t* packed2, uint8_t* vbits, int64_t Lp,
-                 int64_t maxw, int64_t* lengths) {
+void pack_block2_plain(const uint8_t* buf,
+                       const int64_t* seq_s, const int64_t* seq_e,
+                       int64_t nrec,
+                       uint8_t* packed2, uint8_t* vbits, int64_t Lp,
+                       int64_t maxw, int64_t* lengths) {
     const uint8_t* lut = LUT;
     const int64_t W2 = Lp / 4, WV = Lp / 8;
     if (maxw > Lp) maxw = Lp;
@@ -411,17 +415,20 @@ void pack_block2(const uint8_t* buf,
     }
 }
 
+// The plain version of pack_block2_paired.
+//
 // Fused paired-end wire packing: mate 1, ONE joining invalid position
 // (the 'N' of the reference's mergePairedFiles, src/file.cc:205-268),
 // then mate 2 — straight into the 2-bit wire format, replacing the
 // pack + numpy shift-merge + re-pack detour.  Same layout rules as
 // pack_block2; lengths receive len1 + 1 + len2 (true char counts).
-void pack_block2_paired(const uint8_t* buf1,
-                        const int64_t* s1, const int64_t* e1,
-                        const uint8_t* buf2,
-                        const int64_t* s2, const int64_t* e2,
-                        int64_t nrec, uint8_t* packed2, uint8_t* vbits,
-                        int64_t Lp, int64_t maxw, int64_t* lengths) {
+void pack_block2_paired_plain(const uint8_t* buf1,
+                              const int64_t* s1, const int64_t* e1,
+                              const uint8_t* buf2,
+                              const int64_t* s2, const int64_t* e2,
+                              int64_t nrec, uint8_t* packed2,
+                              uint8_t* vbits, int64_t Lp, int64_t maxw,
+                              int64_t* lengths) {
     const uint8_t* lut = LUT;
     const int64_t W2 = Lp / 4, WV = Lp / 8;
     if (maxw > Lp) maxw = Lp;
@@ -452,6 +459,274 @@ void pack_block2_paired(const uint8_t* buf1,
             if (pass == 0) { w++; len++; }  // joining 'N' (invalid)
         }
         lengths[r] = len;
+    }
+}
+
+// ---- The 2-bit wire pack, eight bases a step ---------------------------
+//
+// pack_block2 / pack_block2_paired write the bytes of the plain versions
+// above for every input: the LUT's codes (A=3 C=2 G=1 T/U=0, either
+// case; any other byte an invalid position with valid bit 0), '\n' and
+// '\r' skipped, positions past maxw dropped while lengths count every
+// byte that is not a newline.  Bytes are loaded eight at a time as a
+// uint64_t and classified with byte-wise compares (SWAR, no ISA flag):
+// 32 bases a step (a whole word) or 16 while no byte is below 0x20,
+// else 8, a newline ending the step early, so a multi-line record runs
+// the same path segment by segment.  A row's words are built in registers
+// (RowOut) and each byte of the row is stored once: every 32 bases a
+// 64-bit word of packed2 and a 32-bit word of vbits, then the last
+// partial word and the row's zero tail.  A pair's mate 2 starts at
+// len1 + 1, at any offset in a word: RowOut carries it across.
+
+static const uint64_t kOnes = 0x0101010101010101ULL;
+static const uint64_t kLow7 = 0x7F7F7F7F7F7F7F7FULL;
+
+// 0x80 in each byte of x equal to c, else 0 (exact: no carry crosses a
+// byte, as (z & 0x7f) + 0x7f <= 0xfe)
+static inline uint64_t eq_bytes(uint64_t x, uint8_t c) {
+    const uint64_t z = x ^ (kOnes * c);
+    return ~(((z & kLow7) + kLow7) | z) & ~kLow7;
+}
+
+static inline uint64_t newline_bytes(uint64_t x) {
+    return eq_bytes(x, '\n') | eq_bytes(x, '\r');
+}
+
+// nonzero when a byte of x is below 0x20: a newline, or a control byte
+// (never a base), which sends the step down the exact path
+static inline uint64_t any_control(uint64_t x) {
+    return (x - kOnes * 0x20) & ~x & ~kLow7;
+}
+
+// The 8 bytes of x as 16 bits of codes (base j at bits 2j) and 8 valid
+// bits.  After folding case, (y >> 1) & 3 is A 0, C 1, G 3, T/U 2; the
+// one byte a valid base with that h can be is 0x61 | h << 1, plus 0x10
+// for T/U (whose bit 0 is either), so one exact compare a byte decides
+// validity.  h ^ (h >> 1) ^ 3 maps h to the LUT's A 3, C 2, G 1, T/U 0.
+static inline void codes8(uint64_t x, uint64_t* codes, uint64_t* valid) {
+    const uint64_t y = x | (kOnes * 0x20);
+    const uint64_t h = (y >> 1) & (kOnes * 3);
+    const uint64_t hb = (h >> 1) & kOnes;       // h's high bit
+    const uint64_t tu = hb & ~h;                // h == 2: T or U
+    const uint64_t want = (kOnes * 0x61) | (tu << 4) | (h << 1);
+    const uint64_t d = (y ^ want) & ~tu;
+    const uint64_t v = (~(((d & kLow7) + kLow7) | d) & ~kLow7) >> 7;
+    uint64_t c = (h ^ hb ^ (kOnes * 3)) & (v * 3);
+    c = (c | (c >> 6)) & 0x000F000F000F000FULL;   // 2 codes a 16-bit lane
+    c = (c | (c >> 12)) & 0x000000FF000000FFULL;  // 4 a 32-bit lane
+    *codes = (c | (c >> 24)) & 0xFFFFULL;         // 8
+    *valid = (v * 0x0102040810204080ULL) >> 56;   // bit j: byte j
+}
+
+// One output row under construction: w bases so far (w <= maxw), the
+// codes and valid bits of the word of 32 bases that holds base w.
+struct RowOut {
+    uint8_t* p2;
+    uint8_t* vb;
+    int64_t W2, WV;
+    int64_t w = 0;
+    uint64_t c = 0, v = 0;
+
+    // append k (1..16) bases; the caller keeps w + k <= maxw <= Lp, so a
+    // word that fills lies inside the row
+    inline void put(uint64_t codes, uint64_t valid, int k) {
+        const int o = (int)(w & 31);
+        c |= codes << (2 * o);
+        v |= valid << o;
+        if (o + k >= 32) {
+            const int done = 32 - o;  // 1..16 bases of this step fit
+            const uint32_t v32 = (uint32_t)v;
+            memcpy(p2 + (w >> 5) * 8, &c, 8);
+            memcpy(vb + (w >> 5) * 4, &v32, 4);
+            c = codes >> (2 * done);
+            v = valid >> done;
+        }
+        w += k;
+    }
+
+    // a whole word of 32 bases where w is a multiple of 32
+    inline void word(uint64_t codes, uint32_t valid) {
+        memcpy(p2 + (w >> 5) * 8, &codes, 8);
+        memcpy(vb + (w >> 5) * 4, &valid, 4);
+        w += 32;
+    }
+
+    // the partial word, then zeros to the end of the row
+    inline void finish() {
+        int64_t b2 = (w >> 5) * 8, bv = (w >> 5) * 4;
+        if (w & 31) {
+            if (b2 + 8 <= W2) {
+                memcpy(p2 + b2, &c, 8);
+                b2 += 8;
+            } else {  // the row ends inside this word
+                for (; b2 < W2; b2++, c >>= 8) p2[b2] = (uint8_t)c;
+            }
+            if (bv + 4 <= WV) {
+                const uint32_t v32 = (uint32_t)v;
+                memcpy(vb + bv, &v32, 4);
+                bv += 4;
+            } else {
+                for (; bv < WV; bv++, v >>= 8) vb[bv] = (uint8_t)v;
+            }
+        }
+        if (b2 < W2) memset(p2 + b2, 0, (size_t)(W2 - b2));
+        if (bv < WV) memset(vb + bv, 0, (size_t)(WV - bv));
+    }
+};
+
+// bytes of buf[i, hi) that are not newlines
+static int64_t non_newline(const uint8_t* buf, int64_t i, int64_t hi) {
+    int64_t n = hi - i;
+    for (; i + 8 <= hi; i += 8) {
+        uint64_t x;
+        memcpy(&x, buf + i, 8);
+        n -= __builtin_popcountll(newline_bytes(x));
+    }
+    for (; i < hi; i++) n -= (buf[i] == '\n' || buf[i] == '\r');
+    return n;
+}
+
+// Append the bases of buf[lo, hi) to row, up to maxw of them; returns
+// the bytes of the range that are not newlines.  While no byte is below
+// 0x20 (a single-line record throughout): a whole word of 32 bases a
+// step where the row is at a word's start, else 16; otherwise eight
+// bytes, a newline ending the step, so the next step starts past it
+// with the row's word carried.
+static int64_t pack_range(const uint8_t* buf, const int64_t lo,
+                          const int64_t hi, RowOut& row, int64_t maxw) {
+    int64_t i = lo, len = 0;
+    uint64_t c0, v0, c1, v1;
+    while (i < hi && row.w < maxw) {
+        uint64_t x, x1;
+        if ((row.w & 31) == 0 && i + 32 <= hi && row.w + 32 <= maxw) {
+            uint64_t x2, x3, c2, v2, c3, v3;
+            memcpy(&x, buf + i, 8);
+            memcpy(&x1, buf + i + 8, 8);
+            memcpy(&x2, buf + i + 16, 8);
+            memcpy(&x3, buf + i + 24, 8);
+            if (!(any_control(x) | any_control(x1) | any_control(x2) |
+                  any_control(x3))) {
+                codes8(x, &c0, &v0);
+                codes8(x1, &c1, &v1);
+                codes8(x2, &c2, &v2);
+                codes8(x3, &c3, &v3);
+                row.word(c0 | c1 << 16 | c2 << 32 | c3 << 48,
+                         (uint32_t)(v0 | v1 << 8 | v2 << 16 | v3 << 24));
+                i += 32;
+                len += 32;
+                continue;
+            }
+        }
+        if (i + 16 <= hi && row.w + 16 <= maxw) {
+            memcpy(&x, buf + i, 8);
+            memcpy(&x1, buf + i + 8, 8);
+            if (!(any_control(x) | any_control(x1))) {
+                codes8(x, &c0, &v0);
+                codes8(x1, &c1, &v1);
+                row.put(c0 | c1 << 16, v0 | v1 << 8, 16);
+                i += 16;
+                len += 16;
+                continue;
+            }
+        }
+        int k = 8;
+        if (i + 8 <= hi) {
+            memcpy(&x, buf + i, 8);
+        } else {  // the range's last k bytes; the bytes past them are 0
+            k = (int)(hi - i);
+            if (hi - 8 >= lo) {  // the 8 bytes ending at hi, shifted down
+                memcpy(&x, buf + hi - 8, 8);
+                x >>= 8 * (8 - k);
+            } else {
+                x = 0;
+                for (int j = 0; j < k; j++)
+                    x |= (uint64_t)buf[i + j] << (8 * j);
+            }
+        }
+        const uint64_t nl = newline_bytes(x);
+        const int seg = nl ? __builtin_ctzll(nl) >> 3 : k;  // before it
+        const int64_t room = maxw - row.w;
+        const int put = seg < room ? seg : (int)room;
+        if (put > 0) {
+            codes8(x, &c0, &v0);
+            if (put < 8) {
+                c0 &= (1ULL << (2 * put)) - 1;
+                v0 &= (1ULL << put) - 1;
+            }
+            row.put(c0, v0, put);
+        }
+        len += seg;
+        i += seg + (nl ? 1 : 0);
+    }
+    return len + (i < hi ? non_newline(buf, i, hi) : 0);
+}
+
+// classify packs on its producer thread while it writes rows on its
+// writer thread, so the two default teams split the OpenMP team
+// (omp_get_max_threads(): OMP_NUM_THREADS, else every core): the pack
+// takes half, rounded down, the rows the rest (at least one each).  On
+// an H100's 8-core host 4 + 4 beat 8 + 8 in most file -> CSV passes
+// (PERF.md, Findings; scripts/torch_teams_e2e.py).
+static int64_t pack_share() {
+    int64_t T = 1;
+#ifdef _OPENMP
+    T = omp_get_max_threads();
+#endif
+    return T / 2 > 0 ? T / 2 : 1;
+}
+
+static int64_t rows_share() {
+    int64_t T = 1;
+#ifdef _OPENMP
+    T = omp_get_max_threads();
+#endif
+    return T - pack_share() > 0 ? T - pack_share() : 1;
+}
+
+// Threads the pack runs nrec rows on: nthreads when > 0 (tests pin it),
+// else one below 256 rows and pack_share() from there up.
+int64_t pack_team(int64_t nrec, int64_t nthreads) {
+    if (nthreads > 0) return nthreads;
+    return nrec >= 256 ? pack_share() : 1;
+}
+
+// pack_block2_plain's bytes (every byte of rows [0, nrec)), eight bases
+// a step; nthreads as pack_team.
+void pack_block2(const uint8_t* buf,
+                 const int64_t* seq_s, const int64_t* seq_e, int64_t nrec,
+                 uint8_t* packed2, uint8_t* vbits, int64_t Lp,
+                 int64_t maxw, int64_t* lengths, int64_t nthreads) {
+    const int64_t W2 = Lp / 4, WV = Lp / 8;
+    if (maxw > Lp) maxw = Lp;
+    const int T = (int)pack_team(nrec, nthreads);
+#pragma omp parallel for schedule(static) num_threads(T) if (T > 1)
+    for (int64_t r = 0; r < nrec; r++) {
+        RowOut row{packed2 + r * W2, vbits + r * WV, W2, WV};
+        lengths[r] = pack_range(buf, seq_s[r], seq_e[r], row, maxw);
+        row.finish();
+    }
+}
+
+// pack_block2_paired_plain's bytes: mate 1, the joining invalid
+// position, mate 2 through the same row; nthreads as pack_team.
+void pack_block2_paired(const uint8_t* buf1,
+                        const int64_t* s1, const int64_t* e1,
+                        const uint8_t* buf2,
+                        const int64_t* s2, const int64_t* e2,
+                        int64_t nrec, uint8_t* packed2, uint8_t* vbits,
+                        int64_t Lp, int64_t maxw, int64_t* lengths,
+                        int64_t nthreads) {
+    const int64_t W2 = Lp / 4, WV = Lp / 8;
+    if (maxw > Lp) maxw = Lp;
+    const int T = (int)pack_team(nrec, nthreads);
+#pragma omp parallel for schedule(static) num_threads(T) if (T > 1)
+    for (int64_t r = 0; r < nrec; r++) {
+        RowOut row{packed2 + r * W2, vbits + r * WV, W2, WV};
+        int64_t len = pack_range(buf1, s1[r], e1[r], row, maxw);
+        if (row.w < maxw) row.put(0, 0, 1);  // the joining 'N' (invalid)
+        len += 1 + pack_range(buf2, s2[r], e2[r], row, maxw);
+        lengths[r] = len;
+        row.finish();
     }
 }
 
@@ -1367,18 +1642,13 @@ static int64_t write_rows_team(const RowFields& a, int64_t n, int64_t T,
 }
 
 // The team for n rows: nthreads when > 0 (tests pin it), else one
-// thread below min_rows and the OpenMP team (at most FMT_MAX_THREADS)
-// from there up, as the printf versions choose.
+// thread below min_rows (as the printf versions choose) and
+// rows_share() (at most FMT_MAX_THREADS) from there up.
 static int64_t format_team(int64_t n, int64_t min_rows, int64_t nthreads) {
     if (nthreads > 0) return nthreads;
-    int64_t nt = 1;
-#ifdef _OPENMP
-    if (n >= min_rows) {
-        nt = omp_get_max_threads();
-        if (nt > FMT_MAX_THREADS) nt = FMT_MAX_THREADS;
-    }
-#endif
-    return nt;
+    if (n < min_rows) return 1;
+    const int64_t nt = rows_share();
+    return nt < FMT_MAX_THREADS ? nt : FMT_MAX_THREADS;
 }
 
 // The team format_rows runs n rows on (nthreads as format_team).

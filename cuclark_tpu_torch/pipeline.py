@@ -37,6 +37,7 @@ and on a streamed table's last part, on a mesh or on one device.
 
 from __future__ import annotations
 
+import functools
 import os
 import stat
 
@@ -295,6 +296,74 @@ def _pad_rows(wire, multiple: int):
     return (np.pad(p2, ((0, pad), (0, 0))), np.pad(vb, ((0, pad), (0, 0))))
 
 
+# batches in `_prefetch`'s queue
+PREFETCH_DEPTH = 2
+# wire batches a card's producer packs without waiting on a copy: those
+# in the prefetch queue, the one the consumer took last and the one
+# being packed (a slot whose copy is still queued behind device steps is
+# waited for)
+WIRE_RING_SLOTS = PREFETCH_DEPTH + 1 + 1
+
+
+class _WireRing:
+    """The host buffers a producer packs wire batches into, a ring of
+    `slots`: pinned on a card, so that the host-to-device copy reads the
+    pack's output in place, with no second host copy.  A slot holds a
+    batch's packed2 and vbits back to back in one buffer, so one copy
+    uploads both.  `acquire` hands a slot out again only after the event
+    recorded behind its last copy has completed, and waits for it on
+    the calling (producer) thread.  `stream` gives the stream the copies
+    are issued on; `pin=False` gives plain tensors and `event` makes the
+    events (stand-ins in tests)."""
+
+    def __init__(self, slots: int, stream, pin: bool = True, event=None):
+        self._stream = stream
+        self._pin = pin
+        self._event = event or torch.cuda.Event
+        self._bufs = [None] * slots     # a flat uint8 buffer a slot
+        self._views = [None] * slots    # ((rows, w2, wv), packed2, vbits)
+        self._events = [None] * slots   # made at a slot's first copy
+        self._pending = [False] * slots  # a copy not yet waited for
+        self._next = 0
+
+    def acquire(self, rows: int, w2: int, wv: int):
+        """(slot, packed2 [rows, w2], vbits [rows, wv]): numpy views of the
+        next slot's buffer, grown to fit, once its last copy has
+        completed.  A batch of the last shape reuses the slot's views."""
+        slot = self._next
+        self._next = (slot + 1) % len(self._bufs)
+        if self._pending[slot]:
+            ev = self._events[slot]
+            if not ev.query():
+                ev.synchronize()
+            self._pending[slot] = False
+        views = self._views[slot]
+        if views is None or views[0] != (rows, w2, wv):
+            n2, nv = rows * w2, rows * wv
+            buf = self._bufs[slot]
+            if buf is None or buf.numel() < n2 + nv:
+                buf = self._bufs[slot] = torch.empty(
+                    n2 + nv, dtype=torch.uint8, pin_memory=self._pin)
+            flat = buf[:n2 + nv].numpy()
+            views = self._views[slot] = ((rows, w2, wv),
+                                         flat[:n2].reshape(rows, w2),
+                                         flat[n2:].reshape(rows, wv))
+        return slot, views[1], views[2]
+
+    def upload(self, slot: int, device):
+        """(packed2, vbits) on `device`: the slot's batch in one
+        non-blocking copy, with the event `acquire` waits for recorded
+        behind it on the copy stream."""
+        (rows, w2, wv), _, _ = self._views[slot]
+        n2 = rows * w2
+        dev = self._bufs[slot][:n2 + rows * wv].to(device, non_blocking=True)
+        if self._events[slot] is None:
+            self._events[slot] = self._event()
+        self._events[slot].record(self._stream())
+        self._pending[slot] = True
+        return dev[:n2].view(rows, w2), dev[n2:].view(rows, wv)
+
+
 class Classifier:
     """Holds the DB on one torch device ("cuda", "cuda:N" or "cpu") or on
     a mesh of them (`parallel.mesh.Mesh`; `device` is then its first
@@ -322,6 +391,9 @@ class Classifier:
         self._sharded = None  # parallel.mesh.ShardedClassifier, resident
         self._pinned = None   # _PinnedRows of a streamed table on a card
         self._streams = []    # ((device, db column), _PartStream) on a card
+        # the pinned buffers a card's file path packs into (no mesh: the
+        # mesh pads and places its batches from plain arrays)
+        self._ring = None
         self.spec = db.spec
         self.spec.check()
         if self.device.type == "cuda":
@@ -329,6 +401,9 @@ class Classifier:
                 raise RuntimeError(
                     f"device {self.device} requested but "
                     f"torch.cuda.is_available() is False")
+            if mesh is None:
+                self._ring = _WireRing(WIRE_RING_SLOTS, functools.partial(
+                    torch.cuda.current_stream, self.device))
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         # Explicit --max-table-mb, else the device's free memory less a
@@ -394,6 +469,7 @@ class Classifier:
         for _, st in self._streams:
             st.close()
         self._streams = []
+        self._ring = None
         if self._pinned is not None:
             self._pinned.close()
             self._pinned = None
@@ -482,12 +558,17 @@ class Classifier:
             mx = int((e - s).max(initial=1))
         return max(self._bin_for(mx), self.db.k)
 
-    def _put_wire(self, wire):
+    def _put_wire(self, wire, slot=None):
         """Start the host->device transfer of a wire batch, from pinned
         memory without blocking.  Called from the producer (prefetch)
-        thread so the copy overlaps formatting of earlier batches.  On a
+        thread so the copy overlaps formatting of earlier batches.  A
+        batch packed into ring slot `slot` (`wire` is its views) is copied
+        from there in one copy (`_WireRing.upload`); another batch is
+        copied into pinned memory first.  On a
         mesh the batch pads with all-invalid rows to the data axis and
         its row blocks go to their devices (`parallel.mesh.place_wire`)."""
+        if slot is not None:
+            return self._ring.upload(slot, self.device)
         if self.mesh is not None:
             from cuclark_tpu_torch.parallel.mesh import place_wire
 
@@ -672,9 +753,12 @@ class Classifier:
 
     def _packed_batches(self, buf, buf2, name_s, name_e, seq_s, seq_e,
                         seq_s2, seq_e2):
-        """Yield ((packed2, vbits), (ns, ne), lengths, cnt) batches in
-        the 2-bit wire format (codec.pack_codes layout); a pair is
-        packed as mate 1, a joining N, mate 2."""
+        """Yield (wire, (ns, ne), lengths, cnt) batches, the wire in the
+        2-bit wire format (codec.pack_codes layout) and its transfer to
+        the device started (`_put_wire`); a pair is packed as mate 1, a
+        joining N, mate 2.  On a card (no mesh) each batch is packed
+        straight into a slot of the pinned ring."""
+        from cuclark_tpu_torch import native
         from cuclark_tpu_torch.io import fast_parse
 
         paired = buf2 is not None
@@ -696,14 +780,23 @@ class Classifier:
             if paired:
                 L = self._bin_for_range(seq_s[lo:hi], seq_e[lo:hi],
                                         seq_s2[lo:hi], seq_e2[lo:hi])
-                p2, vb, lengths = fast_parse.pack_block2_paired_dispatch(
-                    buf, seq_s[lo:hi], seq_e[lo:hi],
-                    buf2, seq_s2[lo:hi], seq_e2[lo:hi], L, n_rows=cnt)
             else:
                 L = self._bin_for_range(seq_s[lo:hi], seq_e[lo:hi])
+            slot = out = None
+            if self._ring is not None:
+                slot, p2, vb = self._ring.acquire(cnt, *native.wire_shape(L))
+                out = (p2, vb, np.empty(cnt, np.int64))
+            if paired:
+                p2, vb, lengths = fast_parse.pack_block2_paired_dispatch(
+                    buf, seq_s[lo:hi], seq_e[lo:hi],
+                    buf2, seq_s2[lo:hi], seq_e2[lo:hi], L, n_rows=cnt,
+                    out=out)
+            else:
                 p2, vb, lengths = fast_parse.pack_block2_dispatch(
-                    buf, seq_s[lo:hi], seq_e[lo:hi], L, n_rows=cnt)
-            yield (p2, vb), (name_s[lo:hi], name_e[lo:hi]), lengths, cnt
+                    buf, seq_s[lo:hi], seq_e[lo:hi], L, n_rows=cnt,
+                    out=out)
+            yield (self._put_wire((p2, vb), slot),
+                   (name_s[lo:hi], name_e[lo:hi]), lengths, cnt)
             lo = hi
 
     def classify_file(self, path, paired_path=None, skip: int = 0,
@@ -724,8 +817,7 @@ class Classifier:
         def packed():
             for wire, (ns, ne), lengths, cnt in self._packed_batches(
                     buf, buf2, *scan):
-                names = fast_parse.names_of(buf, ns, ne)
-                yield self._put_wire(wire), names, lengths, cnt
+                yield wire, fast_parse.names_of(buf, ns, ne), lengths, cnt
 
         if self.stream_parts > 1:
             for group in self._grouped(_prefetch(packed())):
@@ -781,11 +873,6 @@ class Classifier:
                            _host_numpy(lab) if lab is not None else None,
                            buf, ns, ne, lengths, cnt)
 
-            def put_batches():
-                for wire, nsne, lengths, cnt in self._packed_batches(
-                        buf, buf2, *scan):
-                    yield self._put_wire(wire), nsne, lengths, cnt
-
             # Third pipeline stage: the D2H wait + CSV formatting + file
             # write run on a single writer thread (in submission order,
             # so rows stay ordered), overlapping the main thread's
@@ -802,7 +889,8 @@ class Classifier:
                 if self.stream_parts > 1:
                     # streaming on the same native writer path: stream
                     # the parts over a group, then flush its batches
-                    for group in self._grouped(_prefetch(put_batches())):
+                    for group in self._grouped(_prefetch(
+                            self._packed_batches(buf, buf2, *scan))):
                         outs = self._stream_group_dev(
                             [w for w, _, _, _ in group])
                         for (_, (ns, ne), lengths, cnt), out in zip(group,
@@ -812,7 +900,7 @@ class Classifier:
                             futs.popleft().result()
                 else:
                     for wire, (ns, ne), lengths, cnt in _prefetch(
-                            put_batches()):
+                            self._packed_batches(buf, buf2, *scan)):
                         submit(self._device_step(wire), ns, ne, lengths,
                                cnt)
                         if len(futs) > 3:
@@ -990,7 +1078,7 @@ def dense_counts(labels_np: np.ndarray, n_targets: int) -> np.ndarray:
     return out
 
 
-def _prefetch(gen, depth: int = 2):
+def _prefetch(gen, depth: int = PREFETCH_DEPTH):
     """Run a generator in a background thread with a bounded queue.
 
     The packer's hot loops (numpy/native) release the GIL, so scanning

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """The host feed and drain of classify timed on the machine it runs on:
 the record scan (`cuclark_tpu_torch.native`) by team size, the file
-read with the scan, and the CSV row writer by team size.
+read with the scan, the 2-bit wire pack against its plain version, the
+CSV row writer by team size, the pack and the writer run together at
+several splits of the cores, and a table of the host stages against the
+host's copy rate.
 
     python3 scripts/torch_host_scan.py [--reads 500000] [--pairs 12]
-        [--out FILE]
+        [--copy-mb 512] [--out FILE]
 
 It writes a FASTQ of bench_torch.py's e2e shape and format (`--reads`
 reads of 150 bp, `@r<i>` names, quality all 'I'), reads it once so the
@@ -30,7 +33,34 @@ page cache holds it, then:
     through the snprintf plain version (`format_rows_printf`) at its
     own default team and at teams 1 and 8 (omp_set_num_threads); every
     team's bytes must equal the plain version's; the minor page faults
-    of one more pass of each.
+    of one more pass of each;
+  - pack: `--pairs` pairs of the eight-bases-a-step pack
+    (`native.pack_block2`, every core) against its plain version
+    (`pack_block2_plain`, every core: its default) over every read in
+    classify's batches of
+    `--chunk` at bin 152, in turns, the first of each pair alternating;
+    the same for the paired pack (`pack_block2_paired` against
+    `pack_block2_paired_plain`, each read cut into mates of 75 + 75 as
+    bench_torch.py's light_paired, mate 2 at position 76); the new
+    pack's bytes must equal the plain version's; min and median ms;
+  - teams: the pack and the row writer of every read run at the same
+    time on two threads, as classify's producer and writer threads run
+    them, at pack + writer teams of T + T (every core for both),
+    T/2 + T/2 (the default split, `native.pack_team` and
+    `format_team`), 3T/4 + T/4 and T/4 + 3T/4 (T the host's cores), in
+    turns, `--reps` rounds; then T + T again in a process of its own
+    with OMP_WAIT_POLICY=passive, and T + T in one with the default
+    policy beside it; each configuration's wall time of both and each
+    side's own time;
+  - stages: the host's copy rate (a `np.copyto` of `--copy-mb` MB, more
+    than the last-level cache, split over T threads; bytes read plus
+    bytes written a second) and, for the scan, the pack, the paired
+    pack, the rows and the extended rows (64 count columns), calls and
+    ms per 1M reads of the new and the plain version, the bytes each
+    reads and writes, the least time those bytes take at the copy rate
+    (the bound) and the share of it each version reaches; each stage at
+    the team classify runs it on (the scan every core, the pack half,
+    the rows the rest; the plain versions every core).
 
 Prints the host's cores, the default team, the card's name and power
 limit where `nvidia-smi` answers, and one JSON line last.
@@ -253,6 +283,299 @@ def format_rates(buf: np.ndarray, chunk: int, reps: int) -> dict:
     return out
 
 
+PACK_BIN = 152   # classify's bin for 150 bp reads and 75 + 75 pairs
+
+
+def pack_offsets(buf: np.ndarray):
+    """(seq_s, seq_e) of every read of `buf`, and the light_paired cut of
+    each into mates of 75 + 75: (s1, e1, s2, e2)."""
+    from cuclark_tpu_torch import native
+
+    _, _, ss, se = native.scan(buf)
+    mid = ss + (se - ss) // 2
+    return (ss, se), (ss, mid, mid, se)
+
+
+def pack_chunks(fn, buf, offs, chunk: int, **kw) -> list:
+    """`fn` (a pack entry) over every read in batches of `chunk` at bin
+    PACK_BIN, as classify's producer packs them: each batch's arrays.
+    `offs` is (s, e) or, for a paired entry, (s1, e1, s2, e2)."""
+    n = len(offs[0])
+    out = []
+    for i in range(0, n, chunk):
+        o = [a[i:i + chunk] for a in offs]
+        args = ((buf, *o) if len(o) == 2
+                else (buf, o[0], o[1], buf, o[2], o[3]))
+        out.append(fn(*args, PACK_BIN, n_rows=len(o[0]), **kw))
+    return out
+
+
+def _same_packs(a: list, b: list) -> bool:
+    return all(np.array_equal(x, y) for u, v in zip(a, b)
+               for x, y in zip(u, v))
+
+
+def ab_pairs(fns: dict, pairs: int, label: str) -> list:
+    """`pairs` pairs of the two functions of `fns` (name -> function),
+    the first of each pair alternating: each pair's two times (ms)."""
+    names = list(fns)
+    for fn in fns.values():
+        fn()
+    out = []
+    for i in range(pairs):
+        order = names[::1 if i % 2 == 0 else -1]
+        t = {}
+        for name in order:
+            t0 = time.perf_counter()
+            fns[name]()
+            t[name] = (time.perf_counter() - t0) * 1e3
+        out.append({"first": order[0], **{f"{k}_ms": v
+                                           for k, v in t.items()}})
+        print(f"{label} pair {i + 1}: {order[0]} first, "
+              + ", ".join(f"{k} {t[k]:.3f} ms" for k in names), flush=True)
+    return out
+
+
+def pack_rates(buf: np.ndarray, chunk: int, pairs: int) -> dict:
+    """The pack and the paired pack against their plain versions:
+    `pairs` pairs each in turns (`ab_pairs`); raises unless the bytes
+    are equal.  Per entry: the pairs, the new pack's wins, min and
+    median ms of each."""
+    from cuclark_tpu_torch import native
+
+    single, paired = pack_offsets(buf)
+    cores = len(os.sched_getaffinity(0))
+    out = {"team": cores, "default_team": native.pack_team(chunk)}
+    for label, offs, new, plain in (
+            ("pack", single, native.pack_block2, native.pack_block2_plain),
+            ("pack_paired", paired, native.pack_block2_paired,
+             native.pack_block2_paired_plain)):
+        if not _same_packs(pack_chunks(new, buf, offs, chunk),
+                           pack_chunks(plain, buf, offs, chunk)):
+            raise AssertionError(f"{label}: the new pack differs from the "
+                                 f"plain version")
+        ps = ab_pairs({"plain": lambda: pack_chunks(plain, buf, offs,
+                                                     chunk),
+                       "new": lambda: pack_chunks(new, buf, offs, chunk,
+                                                  threads=cores)},
+                      pairs, label)
+        wins = sum(p["new_ms"] < p["plain_ms"] for p in ps)
+        row = {"pairs": ps, "wins": wins}
+        at_default = times_ms({"new_default": lambda: pack_chunks(
+            new, buf, offs, chunk)}, pairs)
+        for name in ("new", "plain", "new_default"):
+            ts = at_default[name] if name in at_default else [
+                p[f"{name}_ms"] for p in ps]
+            row[name] = {"min_ms": min(ts),
+                         "median_ms": statistics.median(ts),
+                         "reads_per_sec": len(offs[0]) / min(ts) * 1e3}
+        print(f"{label}: new won {wins} of {pairs} pairs; new min "
+              f"{row['new']['min_ms']:.3f} ms (median "
+              f"{row['new']['median_ms']:.3f}), plain min "
+              f"{row['plain']['min_ms']:.3f} ms (median "
+              f"{row['plain']['median_ms']:.3f}); "
+              f"{row['new']['reads_per_sec']:,.0f} against "
+              f"{row['plain']['reads_per_sec']:,.0f} reads/s at team "
+              f"{cores}; new at its default team "
+              f"{out['default_team']}: min "
+              f"{row['new_default']['min_ms']:.3f} ms", flush=True)
+        out[label] = row
+    return out
+
+
+def team_splits(cores: int) -> list:
+    """(name, pack team, writer team): T + T, T/2 + T/2 (the default
+    split), 3T/4 + T/4 and T/4 + 3T/4 for T cores."""
+    T = max(cores, 1)
+    q = max(T // 4, 1)
+    return [(f"{a}+{b}", a, b) for a, b in
+            ((T, T), (max(T // 2, 1), max(T // 2, 1)),
+             (max(T - q, 1), q), (q, max(T - q, 1)))]
+
+
+def together(buf, offs, fields, chunk: int, pack_team: int,
+             fmt_team: int) -> dict:
+    """The pack of every read and the rows of every read at the same
+    time on two threads, at the given teams: the wall time of both and
+    each side's own time (ms)."""
+    import threading
+
+    from cuclark_tpu_torch import native
+
+    start = threading.Barrier(3)
+    t = {}
+
+    def side(name, fn):
+        start.wait()
+        t0 = time.perf_counter()
+        fn()
+        t[name] = (time.perf_counter() - t0) * 1e3
+
+    th = [threading.Thread(target=side, args=("pack_ms", lambda: pack_chunks(
+              native.pack_block2, buf, offs, chunk, threads=pack_team))),
+          threading.Thread(target=side, args=("rows_ms", lambda: format_chunks(
+              native.format_rows, fields, chunk, threads=fmt_team)))]
+    for x in th:
+        x.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for x in th:
+        x.join()
+    t["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    return t
+
+
+def team_rates(buf: np.ndarray, chunk: int, reps: int,
+               splits: list) -> dict:
+    """`together` at each (name, pack team, writer team) of `splits`,
+    `reps` rounds in turns after a warm-up round: per split each round's
+    times and the min and median wall."""
+    offs, _ = pack_offsets(buf)
+    fields = format_inputs(buf)
+    out = {name: [] for name, _, _ in splits}
+    for r in range(reps + 1):
+        for name, a, b in splits:
+            got = together(buf, offs, fields, chunk, a, b)
+            if r:
+                out[name].append(got)
+    res = {}
+    for name, ts in out.items():
+        walls = [t["wall_ms"] for t in ts]
+        res[name] = {"rounds": ts, "min_wall_ms": min(walls),
+                     "median_wall_ms": statistics.median(walls)}
+        print(f"teams {name} (pack + writer): wall min {min(walls):.3f} "
+              f"ms, median {statistics.median(walls):.3f}; pack median "
+              f"{statistics.median(t['pack_ms'] for t in ts):.3f}, rows "
+              f"median {statistics.median(t['rows_ms'] for t in ts):.3f}",
+              flush=True)
+    return res
+
+
+def team_rates_in_process(path: Path, chunk: int, reps: int, cores: int,
+                          policy: str | None) -> dict:
+    """`team_rates` at T + T in a fresh process with OMP_WAIT_POLICY set
+    to `policy` (unset for None): its JSON result."""
+    env = dict(os.environ)
+    env.pop("OMP_WAIT_POLICY", None)
+    if policy:
+        env["OMP_WAIT_POLICY"] = policy
+    code = (f"import json, sys; sys.path[:0] = [{str(ROOT)!r}, "
+            f"{str(ROOT / 'scripts')!r}]; import numpy as np; "
+            f"import torch_host_scan as hs; "
+            f"print(json.dumps(hs.team_rates(np.fromfile({str(path)!r}, "
+            f"np.uint8), {chunk}, {reps}, [('{cores}+{cores}', {cores}, "
+            f"{cores})])))")
+    run = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=1200)
+    print(run.stdout.strip().splitlines()[0] if run.stdout else "",
+          flush=True)
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def copy_rate(mb: int, team: int, reps: int = 5) -> float:
+    """Bytes read plus bytes written a second by a `np.copyto` of `mb`
+    MB split over `team` threads (numpy copies without the interpreter
+    lock), best of `reps`."""
+    import threading
+
+    src = np.ones(mb << 20, np.uint8)
+    dst = np.zeros_like(src)
+    cuts = np.linspace(0, len(src), team + 1).astype(np.int64)
+    best = float("inf")
+    for _ in range(reps):
+        start = threading.Barrier(team + 1)
+
+        def part(lo, hi):
+            start.wait()
+            np.copyto(dst[lo:hi], src[lo:hi])
+
+        th = [threading.Thread(target=part, args=(cuts[i], cuts[i + 1]))
+              for i in range(team)]
+        for x in th:
+            x.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for x in th:
+            x.join()
+        best = min(best, time.perf_counter() - t0)
+    return 2 * len(src) / best
+
+
+def ext_inputs(fields, n_targets: int = 64, seed: int = 9):
+    """Count columns for `format_rows_ext` (n_targets a row) beside the
+    fields of `format_inputs`."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 40, (len(fields[0]), n_targets)).astype(np.uint32)
+
+
+def stage_table(buf: np.ndarray, chunk: int, reps: int, rate: float,
+                scan: dict, pack: dict, fmt: dict) -> dict:
+    """The host stages against the copy rate: per stage the calls and
+    the ms per 1M reads of the new and the plain version, the bytes it
+    reads and writes a read, the bound (those bytes at `rate`) and the
+    share of it each version reaches."""
+    from cuclark_tpu_torch import native
+
+    ns, ne, ss, se = native.scan(buf)
+    n = len(ss)
+    per_m = 1e6 / n
+    seq = float((se - ss).sum()) / n
+    name_b = float((ne - ns).sum()) / n
+    fields = format_inputs(buf)
+    rows_b = sum(len(a) for a in format_chunks(native.format_rows, fields,
+                                               chunk)) / n
+    counts = ext_inputs(fields)
+
+    def ext(fn, **kw):
+        out = []
+        for i in range(0, n, chunk):
+            s = slice(i, i + chunk)
+            got = fn(counts[s], *(f[s] for f in fields[:7]), fields[7],
+                     fields[8][s], fields[9][s], *fields[10:], **kw)
+            out.append(got[0] if isinstance(got, tuple) else got)
+        return out
+
+    if b"".join(a.tobytes() for a in ext(native.format_rows_ext)) != \
+            b"".join(a.tobytes() for a in ext(native.format_rows_ext_printf)):
+        raise AssertionError("format_rows_ext differs from its printf "
+                             "version")
+    ext_b = sum(len(a) for a in ext(native.format_rows_ext)) / n
+    t_ext = times_ms({"new": lambda: ext(native.format_rows_ext),
+                      "plain": lambda: ext(native.format_rows_ext_printf)},
+                     reps)
+    wire = sum(native.wire_shape(PACK_BIN)) + 8  # packed2, vbits, length
+    field_b = 8 + 8 + 16 + 8 + 16 + name_b       # format_rows' inputs
+    rows = {
+        "scan": (per_m * 1, len(buf) / n, 32,
+                 scan["team_default"]["min_ms"], scan["serial"]["min_ms"]),
+        "pack": (per_m * n / chunk, seq + 16, wire,
+                 pack["pack"]["new_default"]["min_ms"],
+                 pack["pack"]["plain"]["min_ms"]),
+        "pack_paired": (per_m * n / chunk, seq + 32, wire,
+                        pack["pack_paired"]["new_default"]["min_ms"],
+                        pack["pack_paired"]["plain"]["min_ms"]),
+        "rows": (per_m * n / chunk, field_b, rows_b,
+                 fmt["team_default"]["min_ms"], fmt["printf"]["min_ms"]),
+        "rows_extended": (per_m * n / chunk, field_b + 4 * counts.shape[1],
+                          ext_b, min(t_ext["new"]), min(t_ext["plain"])),
+    }
+    out = {"copy_bytes_per_sec": rate, "reads": n}
+    for name, (calls, b_in, b_out, new_ms, plain_ms) in rows.items():
+        bound_s = (b_in + b_out) * 1e6 / rate
+        new_s, plain_s = new_ms * 1e-3 * per_m, plain_ms * 1e-3 * per_m
+        out[name] = {"calls_per_1m": calls, "in_bytes": b_in,
+                     "out_bytes": b_out, "new_s_per_1m": new_s,
+                     "plain_s_per_1m": plain_s, "bound_s_per_1m": bound_s,
+                     "new_share": bound_s / new_s,
+                     "plain_share": bound_s / plain_s}
+        print(f"stage {name}: {calls:.1f} calls per 1M reads, "
+              f"{b_in:.1f} B in + {b_out:.1f} B out a read; per 1M reads "
+              f"new {new_s:.4f} s, plain {plain_s:.4f} s, bound "
+              f"{bound_s:.4f} s ({bound_s / new_s:.1%} / "
+              f"{bound_s / plain_s:.1%})", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reads", type=int, default=500_000)
@@ -260,6 +583,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--chunk", type=int, default=16384,
                     help="rows a format call (bench_torch.py's chunk)")
+    ap.add_argument("--copy-mb", type=int, default=512,
+                    help="MB of the copy-rate buffer (above the host's "
+                         "last-level cache)")
     ap.add_argument("--out", help="also write the JSON line here")
     args = ap.parse_args(argv)
 
@@ -328,6 +654,20 @@ def main(argv=None) -> int:
               flush=True)
 
         fmt = format_rates(buf, args.chunk, args.reps)
+        pack = pack_rates(buf, args.chunk, args.pairs)
+        splits = team_splits(cores)
+        teams = team_rates(buf, args.chunk, args.reps, splits)
+        full = splits[0]
+        for policy in (None, "passive"):
+            got = team_rates_in_process(path, args.chunk, args.reps,
+                                        full[1], policy)
+            teams[f"{full[0]} {policy or 'default'} policy, own process"] = \
+                got[full[0]]
+        rate = copy_rate(args.copy_mb, cores)
+        print(f"copy rate: {rate / 1e9:.2f} GB/s read + written "
+              f"({args.copy_mb} MB, {cores} threads)", flush=True)
+        stages = stage_table(buf, args.chunk, args.reps, rate, scan, pack,
+                             fmt)
     line = {"card": smi, "cores": cores, "default_team": team,
             "reads": args.reads, "bytes": int(len(buf)), "scan": scan,
             "read_pairs": pairs, "threaded_read_wins": wins,
@@ -336,7 +676,8 @@ def main(argv=None) -> int:
             "map_passes_gate": map_wins >= 11 * args.pairs / 12,
             "format_chunk": args.chunk,
             "format_default_team": fmt.pop("default_team"),
-            "format": fmt}
+            "format": fmt, "pack": pack, "teams": teams,
+            "stages": stages}
     if args.out:
         Path(args.out).write_text(json.dumps(line) + "\n")
     print(json.dumps(line))

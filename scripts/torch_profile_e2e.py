@@ -1,13 +1,22 @@
 """Where the host time of cuclark_tpu_torch's file -> CSV path goes:
-cProfile over `Classifier.classify_file_to_csv` on a synthetic FASTQ.
+cProfile over `Classifier.classify_file_to_csv` on a synthetic FASTQ,
+then the same pass split by thread.
 
 Counterpart of `scripts/profile_e2e.py`, with its knobs: N reads of
 150 bp (substrings of a random 2 Mb genome, numpy seed 0) against a
 synthetic qs table of KMERS random k-mers (k=31, load 0.85) over TARGETS
 targets.  It prints the table, one timed pass's rate, and the 25 most
 expensive calls by cumulative time.  cProfile adds a cost to every
-Python call and none to native code or the card, so the shares it
-prints are for finding candidates; `bench_torch.py` measures.
+Python call and none to native code or the card, and it sees the main
+thread only, so the shares it prints are for finding candidates;
+`bench_torch.py` measures.
+
+Then SPLIT_PASSES (default 3) passes run without cProfile under the
+wall-clock timers of `scripts/torch_thread_split.py` (the pack, the
+pinned copy and H2D issue, the launch, the readback wait, the gamma
+arithmetic, the rows, the write, the queue and future waits; per
+thread: main, producer, writer): a line of each pass's split, and the
+split of the median pass as the JSON line last.
 
 Run from the repository root, on the card (the default) or on the CPU:
 
@@ -21,6 +30,7 @@ it exits 2.
 import argparse
 import cProfile
 import io
+import json
 import os
 import pstats
 import sys
@@ -48,8 +58,9 @@ def main(argv=None) -> int:
               "is False); pass --device cpu to profile the CPU path",
               file=sys.stderr)
         return 2
-    if str(ROOT) not in sys.path:
-        sys.path.insert(0, str(ROOT))
+    for p in (ROOT, ROOT / "scripts"):
+        if str(p) not in sys.path:
+            sys.path.insert(0, str(p))
     from cuclark_tpu_torch import codec
     from cuclark_tpu_torch.config import ClassifyConfig, DBConfig
     from cuclark_tpu_torch.hashdb import build_table
@@ -58,6 +69,7 @@ def main(argv=None) -> int:
     n_reads = int(os.environ.get("N", 200_000))
     n_kmers = int(os.environ.get("KMERS", 4_000_000))
     n_targets = int(os.environ.get("TARGETS", 1024))
+    split_passes = int(os.environ.get("SPLIT_PASSES", 3))
     rng = np.random.default_rng(0)
     km = np.unique(codec.canonical_np(
         rng.integers(0, 1 << 62, size=int(n_kmers * 1.05), dtype=np.uint64),
@@ -95,12 +107,28 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
         pr.disable()
         dt = time.time() - t0
+        s = io.StringIO()
+        pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(25)
+        print(f"e2e: {n} reads in {dt:.4f} s = {n / dt:,.1f} reads/s "
+              f"(under cProfile)", flush=True)
+        print(s.getvalue(), flush=True)
+
+        from torch_thread_split import ThreadSplit, summary
+
+        batches = -(-n_reads // clf.cfg.batch_reads)
+        splits = []
+        for _ in range(split_passes):
+            with ThreadSplit() as split:
+                clf.classify_file_to_csv(fq, out)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+            splits.append(split.report(batches))
+            print(summary(splits[-1]), flush=True)
         clf.close()
-    print(f"e2e: {n} reads in {dt:.4f} s = {n / dt:,.1f} reads/s "
-          f"(under cProfile)", flush=True)
-    s = io.StringIO()
-    pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(25)
-    print(s.getvalue())
+    if splits:
+        med = sorted(splits, key=lambda r: r["wall_s"])[len(splits) // 2]
+        print(json.dumps({"reads": n_reads, "device": str(dev),
+                          "split": med}))
     return 0
 
 
