@@ -23,7 +23,9 @@ against `--device cpu`:
   - streamed: `--max-table-mb 600`, the table in 4 bucket-range parts of
     268 MB uploaded per group of batches (the range query kernel, the qs
     stash split over the parts, each batch's last part the fused range
-    launch); the range kernel against plain on every part of 2, 4 and 8
+    launch through the range kernel's queue, range_query_score_kernel,
+    timed beside query_score_kernel over the same part, its bound and
+    ceiling); the range kernel against plain on every part of 2, 4 and 8
     (q4 too; s2 in 8) and every db shard of 2 and 4, and one streamed
     group of `stream_group_eff` batches (the group a file streams in)
     taken apart: its wall time, the part uploads' time and the part
@@ -49,7 +51,10 @@ against `--device cpu`:
     score (resident, and a streamed batch's last part; 150 bp reads and
     paired reads) or in the score kernel (with labels), against plain
     and the resident results; a
-    1 x 1 mesh's step timed in turns with the resident fused step; and
+    1 x 1 mesh's step timed in turns with the resident fused step; the
+    q4 and s2 tables' sharded steps on 2 db shards (shard 0's fused
+    launch against plain and resident, timed beside query_score_kernel
+    with its bound and ceiling); and
     `Classifier(db, mesh=...)` resident and streamed (each device's
     shard in 4 parts), and on the mate files, each CSV equal to the
     resident CSV;
@@ -279,15 +284,28 @@ def check_stash_ranges(p2, vb, main, stash, resident, *, k, spec) -> int:
     return err
 
 
+def fused_range_key(spec, nb_local: int, P: int) -> str:
+    """The launch key of a fused range launch of reads of P windows over
+    nb_local main rows (`kernels.queue_score_windows`): the queued launch,
+    query_score_queue[_q4|_s2], or query_score_part[_q4|_s2]."""
+    from cuclark_tpu_torch import kernels
+
+    base = ("query_score_queue" if kernels.queue_score_windows(
+        spec.nb_bits, nb_local, spec.layout, P) > 1 else "query_score_part")
+    return base if spec.layout == "qs" else f"{base}_{spec.layout}"
+
+
 def check_fused_range(p2, vb, main, stash, *, k, spec) -> int:
     """The fused range entry (`probe.query_score_part_results`, the last
-    launch of a mesh block) against its plain version: each of 4 parts
+    launch of a mesh block or of a streamed batch: the queued launch
+    where the route takes it) against its plain version: each of 4 parts
     and each of 2 db shards (`range_calls`: a qs stash split over them),
     acc_in None or random labels on half the windows
     the range misses (a key lives in one range, so the other launches
-    give 0 where it hits), each call one launch; then 3 parts accumulated
-    by the range kernel and the last one fused with their sum give the
-    resident fused results."""
+    give 0 where it hits), each call one launch under the route's key;
+    the queued launch (`kernels.query_score_queue`) at W 2 and 4 on the
+    same calls; then 3 parts accumulated by the range kernel and the
+    last one fused with their sum give the resident fused results."""
     import torch
 
     from cuclark_tpu_torch import kernels, probe
@@ -304,19 +322,33 @@ def check_fused_range(p2, vb, main, stash, *, k, spec) -> int:
                     stash_start=sstart)
         own = probe.query_part_labels_plain(p2, vb, m, s, **args)
         missed = torch.where(own > 0, 0, rand)
+        key = fused_range_key(spec, m.shape[0], P)
         for acc_in in (None, missed):
-            before = sum(kernels.LAUNCHES.values())
+            before = dict(kernels.LAUNCHES)
             got = probe.query_score_part_results(p2, vb, m, s, **args,
                                                  acc_in=acc_in)
             torch.cuda.synchronize()
             want = probe.query_score_part_results_plain(p2, vb, m, s, **args,
                                                         acc_in=acc_in)
             if (not torch.equal(got, want)
-                    or sum(kernels.LAUNCHES.values()) != before + 1):
+                    or kernels.LAUNCHES[key] != before[key] + 1
+                    or sum(kernels.LAUNCHES.values())
+                    != sum(before.values()) + 1):
                 raise AssertionError(f"{spec.layout} fused range entry != "
                                      f"plain on rows [{start}, "
                                      f"{start + m.shape[0]}) at k={k}")
             err = max(err, tm.max_abs_err(got, want))
+            qargs = dict(args, acc_in=acc_in)
+            del qargs["nb_local"]
+            for W in (2, 4):
+                got = kernels.query_score_queue(p2, vb, m, s, windows=W,
+                                                **qargs)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{spec.layout} queued fused range "
+                                         f"launch at W {W} != plain on rows "
+                                         f"[{start}, {start + m.shape[0]}) "
+                                         f"at k={k}, P={P}")
         if not torch.equal(missed, torch.where(own > 0, 0, rand)):
             raise AssertionError("the fused range entry wrote its acc_in")
     acc = None
@@ -961,13 +993,15 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts, more=()):
     of meshes of 2 and 4), each call written and accumulated; every
     pass's accumulated labels equal the resident query.  Then the fused last
     part: the fused range launch over part parts-1 with the other parts'
-    sum (acc_in) against plain and the resident results.  Returns
-    (max_abs_err, ms, plain ms, bound ms) per part call of the `parts`
-    pass (the times over a whole pass), and (max_abs_err, ms, plain ms,
-    bound ms) of the fused last part."""
+    sum (acc_in, the route's kernel: the queued launch) against plain and
+    the resident results, and query_score_kernel over the same part (the
+    route before the queued launch) beside it.  Returns (max_abs_err, ms,
+    plain ms, bound ms) per part call of the `parts` pass (the times over
+    a whole pass), and (max_abs_err, ms, plain ms, bound ms,
+    query_score_kernel ms) of the fused last part."""
     import torch
 
-    from cuclark_tpu_torch import codec, probe
+    from cuclark_tpu_torch import codec, kernels, probe
 
     p2, vb = wire
 
@@ -1029,8 +1063,19 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts, more=()):
     if not (torch.equal(fused, fused_plain) and torch.equal(fused, whole)):
         raise AssertionError(f"{spec.layout} fused last part != plain or != "
                              f"the resident results")
+    # the same launch through query_score_kernel (a thread a window)
+    old_args = dict(fargs)
+    del old_args["nb_local"], old_args["acc_in"]
+    fused_old = kernels._launch_query_score(p2, vb, m, s, acc_in,
+                                            **old_args)
+    torch.cuda.synchronize()
+    if not torch.equal(fused_old, fused):
+        raise AssertionError(f"{spec.layout} query_score_kernel over the "
+                             f"last part != the routed launch")
     fused_ms = tm.cuda_ms(lambda: probe.query_score_part_results(
         p2, vb, m, s, **fargs), 20)
+    fused_old_ms = tm.cuda_ms(lambda: kernels._launch_query_score(
+        p2, vb, m, s, acc_in, **old_args), 20)
     fused_plain_ms = tm.cuda_ms(lambda: probe.query_score_part_results_plain(
         p2, vb, m, s, **fargs), 2)
     # it reads the wire and acc_in, writes [R, 5], and its ranges' rows
@@ -1045,7 +1090,7 @@ def check_stream_kernels(main_t, stash_t, wire, k, spec, parts, more=()):
         20 * p2.shape[0]))
     return (err, ms / parts, plain_ms / parts, bound,
             (tm.max_abs_err(fused, fused_plain), fused_ms, fused_plain_ms,
-             fused_bound))
+             fused_bound, fused_old_ms))
 
 
 def stream_group_breakdown(clf, wires) -> dict:
@@ -1245,7 +1290,12 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
                  touched, db.spec, p2.numel() + vb.numel(),
                  20 * p2.shape[0]))}
     ceiling = {}
-    last_name = f"query_score_part_stream_{layout}"
+    # a streamed batch's fused last part: the queued launch where the
+    # route takes it (its launch key names the kernel's row)
+    last_key = fused_range_key(db.spec, db.nb // parts,
+                               4 * p2.shape[1] - db.k + 1)
+    last_name = (last_key if last_key.startswith("query_score_queue")
+                 else f"query_score_part_stream_{layout}")
     ceiling[res_name], ceiling[part_name], ceiling[last_name] = (
         tm.layout_ceilings(ceiling_lib, main_t, choices, db.spec, parts))
     ceiling[fused_name] = ceiling[res_name]
@@ -1279,7 +1329,7 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
         main_t, None, wire, db.k, db.spec, parts,
         more=(2, 8) if layout == "q4" else ())
     (err[last_name], ms[last_name], ms[f"{last_name}_plain"],
-     bound[last_name]) = last
+     bound[last_name], last_old_ms) = last
     del main_t
     torch.cuda.empty_cache()
     secs = {"kernels": time.time() - t_step}
@@ -1298,7 +1348,7 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
     stderr, launches_stream = run_cli(
         ["classify", "-D", dbdir, "-O", str(fq), "-R", str(stream_csv),
          "--device", "cuda", "--max-table-mb", str(stream_mb)],
-        (part_name, f"query_score_part_{layout}"))
+        (part_name, last_key))
     if launches_stream["score"]:
         raise AssertionError(f"{layout} streamed batches did not end in the "
                              f"fused last part: {launches_stream}")
@@ -1369,9 +1419,11 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
               f"{'2, 4 and 8' if layout == 'q4' else parts} and each db "
               f"shard of 2 and 4; {ms[part_name]:.4f} ms per part call of "
               f"{parts} (plain {ms[part_name + '_plain']:.4f}, ceiling "
-              f"{ceiling[part_name]:.4f}); fused last part "
+              f"{ceiling[part_name]:.4f}); fused last part ({last_key}) "
               f"{ms[last_name]:.4f} ms (plain {ms[last_name + '_plain']:.4f},"
-              f" ceiling {ceiling[last_name]:.4f}); resident CSV == qs CSV, "
+              f" bound {bound[last_name]:.4f}, ceiling "
+              f"{ceiling[last_name]:.4f}; query_score_kernel over the same "
+              f"part {last_old_ms:.4f} ms); resident CSV == qs CSV, "
               f"launches "
               f"{_launched(launches)}; {parts} parts of {part_mb:.1f} MB, "
               f"CSV == qs CSV, launches {_launched(launches_stream)}; "
@@ -1385,8 +1437,7 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
     return (err, ms, {fused_name: launches[fused_name],
                       res_name: launches_ext[res_name],
                       part_name: launches_stream[part_name],
-                      last_name: launches_stream[
-                          f"query_score_part_{layout}"]}, detail, bound,
+                      last_name: launches_stream[last_key]}, detail, bound,
             ceiling)
 
 
@@ -1514,8 +1565,85 @@ def _turns(fns: dict, reps: int, rounds: int = 3) -> dict:
     return out
 
 
+def check_mesh_layout(db, m, wire, ceiling_lib, dev) -> tuple[int, str]:
+    """A q4 or s2 headline table on the 2 x 2 mesh m: the sharded resident
+    step without labels (each block's shard 1 a range launch, then its
+    shard 0 the fused range launch with that sum: the queued launch where
+    the route takes it, at W 2) against plain and the resident fused
+    results, its launches counted; then shard 0's launch alone, acc_in
+    shard 1's labels, == resident, timed in turns with query_score_kernel
+    over the same shard, beside its bound and the gather-only ceiling of
+    the rows it gathers.  Returns (max_abs_err, detail)."""
+    import statistics
+
+    import torch
+
+    from cuclark_tpu_torch import codec, kernels, probe
+    from cuclark_tpu_torch.hashdb import table_to_device
+    from cuclark_tpu_torch.parallel import mesh
+
+    p2, vb = wire
+    lay, spec, k = db.layout, db.spec, db.k
+    P = 4 * p2.shape[1] - k + 1
+    main_t, _ = table_to_device(db, dev)
+    nb, half = main_t.shape[0], main_t.shape[0] // 2
+    resident = probe.query_score_results(p2, vb, main_t, None, k=k,
+                                         spec=spec)
+    smain, sstash = mesh.shard_db_table(db, m)
+    wires = mesh.place_wire(m, p2.cpu().numpy(), vb.cpu().numpy())
+    step, plain = (mesh.build_sharded_classify(
+        m, nb_total=nb, with_labels=False, plain=pl, k=k, spec=spec)
+        for pl in (False, True))
+    kernels.reset_launches()
+    res, _ = step(smain, sstash, wires)
+    torch.cuda.synchronize()
+    route = _launched(kernels.LAUNCHES)
+    key = fused_range_key(spec, half, P)
+    pres, _ = plain(smain, sstash, wires)
+    res, pres = torch.cat(res), torch.cat(pres)
+    if route != {f"query_part_{lay}": 2, key: 2} or not (
+            torch.equal(res, pres) and torch.equal(res, resident)):
+        raise AssertionError(f"{lay} sharded step on 2 db shards: launches "
+                             f"{route}, or != plain or != resident")
+    err = tm.max_abs_err(res, pres)
+    step_ms = tm.cuda_ms(lambda: step(smain, sstash, wires), 10)
+    del res, pres, smain, sstash, wires
+    acc = probe.query_part_labels(p2, vb, main_t[half:], None,
+                                  bucket_start=half, nb_local=half, k=k,
+                                  spec=spec)
+    shard0 = main_t[:half]
+    args = dict(bucket_start=0, k=k, spec=spec, stash_start=0)
+    fns = {"routed": lambda: probe.query_score_part_results(
+               p2, vb, shard0, None, nb_local=half, acc_in=acc, **args),
+           "query_score_kernel": lambda: kernels._launch_query_score(
+               p2, vb, shard0, None, acc, **args)}
+    for name, fn in fns.items():
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, resident):
+            raise AssertionError(f"{lay} shard 0 of 2 ({name}) with shard "
+                                 f"1's labels != resident")
+    t = _turns(fns, 20)
+    gathered = tm.range_rows(codec.unpack_codes(p2, vb), main_t, spec, k, 0,
+                             half)
+    bound = tm.bound_ms(tm.query_bytes(
+        (torch.unique(gathered[0]), None), spec,
+        p2.numel() + vb.numel() + 4 * acc.numel(), 20 * p2.shape[0]))
+    ceiling = tm.range_ceiling_ms(ceiling_lib, main_t, None, gathered, spec)
+    med = {n: statistics.median(v) for n, v in t.items()}
+    wins = sum(a < b for a, b in zip(t["routed"], t["query_score_kernel"]))
+    del main_t, shard0, acc, gathered, resident
+    torch.cuda.empty_cache()
+    return err, (f"{lay} on 2 db shards: sharded step ({route} a batch) "
+                 f"{step_ms:.4f} ms == plain and resident; shard 0's launch "
+                 f"({key}) {med['routed']:.4f} ms, query_score_kernel over "
+                 f"it {med['query_score_kernel']:.4f} ms in turns (routed "
+                 f"faster in {wins} of {len(t['routed'])}), bound "
+                 f"{bound:.4f}, ceiling {ceiling:.4f}")
+
+
 def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
-               dev, card: str):
+               dev, card: str, layout_dbs=(), ceiling_lib=None):
     """A 2 data x 2 db mesh of four handles of the card: each db shard's
     labels of the main-path batch against plain, their sum against the
     resident labels; the sharded resident step without labels (each
@@ -1525,7 +1653,8 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
     last part fused or accumulated then scored, each against its plain
     version and the resident results; a 1 x 1 mesh's step (one fused
     launch over the whole table) timed in turns with the resident fused
-    step; then
+    step; the q4 and s2 tables of layout_dbs on 2 db shards
+    (check_mesh_layout); then
     `Classifier(db, mesh=...)` file->CSV, resident and with each device's
     shard streamed in 4 parts, twice each, every CSV equal to the
     resident one, the counts reset just before each Classifier's runs and
@@ -1709,7 +1838,10 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
     fres, route_p = launched_by(lambda: all_parts(pstep, "fused"))
     pfres = all_parts(plain_pstep, "fused")
     fres, pfres = torch.cat(fres), torch.cat(pfres)
-    if route_p != {"query_part": 14, "query_score_part": 2} or not (
+    # each block's last launch: shard 0 of the last part, an eighth of
+    # the table (the queued launch where the route takes it)
+    last_key = fused_range_key(db.spec, rows // 2, 4 * p2.shape[1] - db.k + 1)
+    if route_p != {"query_part": 14, last_key: 2} or not (
             torch.equal(fres, pfres) and torch.equal(fres, resident_res)):
         raise AssertionError(f"sharded parts ending in the fused launch: "
                              f"launches {route_p}, or != plain or != "
@@ -1738,6 +1870,11 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
         lambda: all_parts(plain_pstep, "fused"), 2) / 4
     del main_t, stash_t, smain, sstash, resident, wires, w1
     torch.cuda.empty_cache()
+    layout_details = []
+    for ldb in layout_dbs:
+        e, d = check_mesh_layout(ldb, m, wire, ceiling_lib, dev)
+        err["build_sharded_classify"] = max(err["build_sharded_classify"], e)
+        layout_details.append(d)
 
     launches, rates, gbps = {}, {}, []
     budget = mesh_stream_budget_mb(db, 2, 4)
@@ -1810,7 +1947,8 @@ def check_mesh(db, tmp: Path, fq: Path, wire, gpu_csv: Path, paired,
               f"{4 * pp2.shape[1]}] batch: sharded step ({route_pf}) and "
               f"parts ending fused ({route_pp}) == plain and resident, "
               f"Classifier(mesh) paired CSV == resident paired CSV, "
-              f"launches {paired_launches}")
+              f"launches {paired_launches}" + "".join(
+                  f"; {d}" for d in layout_details))
     counts = {k: v.get("query_part", 0) for k, v in launches.items()}
     counts["query_score_part"] = launches["build_sharded_classify"][
         "query_score_part"]
@@ -2671,7 +2809,12 @@ def main(argv=None) -> int:
         ceiling["query_part_main"] = float(np.mean(part_main))
         ceiling["query_part"] = ceiling["query_part_main"] + (
             stash_ms / STREAM_PARTS["qs"])
-        ceiling["query_score_part_stream"] = part_main[-1] + (
+        # a streamed batch's fused last part: the queued launch where the
+        # route takes it (its launch key names the kernel's row)
+        stream_key = fused_range_key(db.spec, rows, L - db.k + 1)
+        stream_last = (stream_key if stream_key == "query_score_queue"
+                       else "query_score_part_stream")
+        ceiling[stream_last] = part_main[-1] + (
             stash_ms / STREAM_PARTS["qs"])
         del touched, unpacked
         for name in ("query_score", "classify_step", "build_sharded_classify",
@@ -2796,9 +2939,8 @@ def main(argv=None) -> int:
          bound["query_part"], last) = check_stream_kernels(
             main_t, stash_t, wire[0], db.k, db.spec, STREAM_PARTS["qs"],
             more=(2, 8))
-        (err["query_score_part_stream"], ms["query_score_part_stream"],
-         ms["query_score_part_stream_plain"],
-         bound["query_score_part_stream"]) = last
+        (err[stream_last], ms[stream_last], ms[f"{stream_last}_plain"],
+         bound[stream_last], stream_old_ms) = last
         wire0 = wire[0]
         del main_t, stash_t, lab, res
         torch.cuda.empty_cache()
@@ -2812,10 +2954,11 @@ def main(argv=None) -> int:
                f"{ms['query_part_plain']:.4f}, bound "
                f"{bound['query_part']:.4f}, ceiling "
                f"{ceiling['query_part']:.4f}); fused last part "
-               f"{ms['query_score_part_stream']:.4f} ms (plain "
-               f"{ms['query_score_part_stream_plain']:.4f}, bound "
-               f"{bound['query_score_part_stream']:.4f}, ceiling "
-               f"{ceiling['query_score_part_stream']:.4f}) == the resident "
+               f"({stream_key}) {ms[stream_last]:.4f} ms (plain "
+               f"{ms[stream_last + '_plain']:.4f}, bound "
+               f"{bound[stream_last]:.4f}, ceiling "
+               f"{ceiling[stream_last]:.4f}; query_score_kernel over the "
+               f"same part {stream_old_ms:.4f} ms) == the resident "
                f"results; on {card}")
 
         # the resident main path, through the CLI: counts from this run
@@ -2875,10 +3018,10 @@ def main(argv=None) -> int:
         stderr, launches_stream = run_cli(
             ["classify", "-D", dbdir, "-O", str(fq), "-R", str(stream_csv),
              "--device", "cuda", "--max-table-mb", str(stream_mb)],
-            ("query_part", "query_score_part"))
+            ("query_part", stream_key))
         if launches_stream["score"] or launches_stream[
-                "query_score_part"] != -(-args.reads
-                                         // ClassifyConfig().batch_reads):
+                stream_key] != -(-args.reads
+                                 // ClassifyConfig().batch_reads):
             raise AssertionError(f"the streamed batches did not end in the "
                                  f"fused last part: {launches_stream}")
         if f"{STREAM_PARTS['qs']} bucket-range parts" not in stderr:
@@ -2999,7 +3142,8 @@ def main(argv=None) -> int:
         (mesh_err, mesh_ms, launches_mesh, detail, mesh_bound,
          resident_res) = check_mesh(
             db, tmp, fq, wire0, gpu_csv,
-            (pwire, pres, r1, r2, paired_csv), dev, card)
+            (pwire, pres, r1, r2, paired_csv), dev, card,
+            (dbs["q4"], dbs["s2"]), ceiling_lib)
         del pwire, pres
         bound.update(mesh_bound)
         for name, e in mesh_err.items():
@@ -3017,6 +3161,7 @@ def main(argv=None) -> int:
         # the q4 and s2 tables of the same k-mers: kernels at real size,
         # then resident and streamed classify through the CLI
         head = head_fastq(fq, tmp / "head.fq", min(16384, args.reads))
+        layout_last = {}
         for layout in ("q4", "s2"):
             t0 = time.time()
             (lay_err, lay_ms, lay_launches, detail, lay_bound,
@@ -3029,6 +3174,9 @@ def main(argv=None) -> int:
                 err[name] = max(err.get(name, 0), e)
             ms.update(lay_ms)
             launches.update(lay_launches)
+            # the row of a streamed batch's last part (check_layout)
+            layout_last[layout] = next(n for n in lay_launches if n.startswith(
+                ("query_score_queue", "query_score_part_stream")))
             _phase(f"layouts_{layout}", t0, detail)
         del wire0
         torch.cuda.empty_cache()
@@ -3097,14 +3245,14 @@ def main(argv=None) -> int:
          "max_abs_err": err["query_part"],
          "ms": ms["query_part"], "plain_ms": ms["query_part_plain"]},
         # each streamed batch's last part: the fused range launch with the
-        # earlier parts' sum (acc_in)
-        {"name": "query_score_part_stream", "route": "cuda",
+        # earlier parts' sum (acc_in), queued where the route takes it
+        {"name": stream_last, "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/query.cu",
          "replaces": "cuclark_tpu/pipeline.py:96",
-         "launches": launches_stream["query_score_part"],
-         "max_abs_err": err["query_score_part_stream"],
-         "ms": ms["query_score_part_stream"],
-         "plain_ms": ms["query_score_part_stream_plain"]},
+         "launches": launches_stream[stream_key],
+         "max_abs_err": err[stream_last],
+         "ms": ms[stream_last],
+         "plain_ms": ms[f"{stream_last}_plain"]},
         {"name": "score", "route": "cuda",
          "source": "cuclark_tpu_torch/csrc/score.cu",
          "replaces": "cuclark_tpu/score.py:28",
@@ -3117,15 +3265,13 @@ def main(argv=None) -> int:
                             "cuclark_tpu/pipeline.py:71"),
                            ("query_q4", "cuclark_tpu/probe.py:236"),
                            ("query_part_q4", "cuclark_tpu/probe.py:236"),
-                           ("query_score_part_stream_q4",
-                            "cuclark_tpu/pipeline.py:96"),
+                           (layout_last["q4"], "cuclark_tpu/pipeline.py:96"),
                            ("query_score_s2", "cuclark_tpu/pipeline.py:71"),
                            ("query_score_290_s2",
                             "cuclark_tpu/pipeline.py:71"),
                            ("query_s2", "cuclark_tpu/probe.py:131"),
                            ("query_part_s2", "cuclark_tpu/probe.py:131"),
-                           ("query_score_part_stream_s2",
-                            "cuclark_tpu/pipeline.py:96")):
+                           (layout_last["s2"], "cuclark_tpu/pipeline.py:96")):
         kern.append({"name": name, "route": "cuda",
                      "source": "cuclark_tpu_torch/csrc/query.cu",
                      "replaces": replaces, "launches": launches[name],

@@ -127,7 +127,9 @@
 // ranges of the block's column-0 shard (or of the last part) and the other
 // launches' label sum (acc_in), which it reads once and adds before the
 // score, so neither that sum's write-back nor the score kernel's launch is
-// paid.  One tile is scored by warp 0 (warp_score.cuh) as before; wider
+// paid (over a range that range_query_kernel queues, the last launch is
+// range_query_score_kernel where it ran faster: its note below).  One
+// tile is scored by warp 0 (warp_score.cuh) as before; wider
 // reads count their labels into a distinct-label table in shared memory
 // (count_label: a warp's lanes of one label add once; score_table: the top
 // two of the table's exact counts), whose registers are the gathers':
@@ -642,6 +644,44 @@ __device__ __forceinline__ uint32_t range_entry(
   return (in0 ? kIn0 : 0u) | (in1 ? kIn1 : 0u);
 }
 
+// The calling lane's slot in a block's queue of *n entries when `push`
+// (else any value): a ballot and one shared atomic a warp.  Every lane of
+// the warp calls it.
+__device__ __forceinline__ int queue_slot(bool push, int* n) {
+  const int lane = threadIdx.x & 31;
+  const unsigned m = __ballot_sync(kFull, push);
+  if (m == 0) return 0;
+  int slot = 0;
+  if (lane == 0) slot = atomicAdd(n, __popc(m));
+  return __shfl_sync(kFull, slot, 0) + __popc(m & ((1u << lane) - 1));
+}
+
+// The label of a queued window (range_entry's words a, b) over the
+// call's ranges (first rows start, sstart): qs from its main and stash
+// rows where in0 and in1, both loads in flight; q4 and s2 from its
+// choice-0 row where choice0, else from its choice-1 row.
+template <int LAYOUT>
+__device__ __forceinline__ int32_t entry_label(
+    bool choice0, bool in1, uint32_t a, uint32_t b,
+    const void* __restrict__ main_rows, const uint4* __restrict__ stash_rows,
+    uint32_t mask, uint32_t smask, uint32_t start, uint32_t sstart,
+    int nb_bits, int stash_bits, int slots) {
+  const uint4* rows4 = static_cast<const uint4*>(main_rows);
+  if (LAYOUT == kQs)
+    // main row l2 & (NB-1), stash row h1 & (NBS-1)
+    return qs_label<false>(rows4, (b & mask) - start, choice0, stash_rows,
+                           (a & smask) - sstart, in1, a, b, nb_bits,
+                           stash_bits, true);
+  if (LAYOUT == kQ4)
+    return choice0 ? row_label(load_row<false>(rows4, (b & mask) - start), a,
+                               b >> nb_bits, 0u)
+                   : row_label(load_row<false>(rows4, (a & mask) - start), b,
+                               a >> nb_bits, 1u);
+  const uint32_t row = (choice0 ? mix1(b, a) : mix2(b, a)) & mask;
+  return s2_row_label(static_cast<const uint32_t*>(main_rows), row - start,
+                      a, b, slots);
+}
+
 // The range query for calls that read a small share of the table (a part
 // of a streamed table, a db shard of a mesh): a block of kTile threads
 // stages W tile-units, reads_per_block reads of tiles_per_block tiles from
@@ -1032,6 +1072,194 @@ __global__ void __launch_bounds__(fused_threads(LAYOUT, T))
   // cut score end
 }
 
+// The fused query and score over a range of at most half the table (a
+// streamed batch's last part, a mesh block's shard-0 launch: the call
+// with acc_in) through range_query_kernel's gather queue.  It replaces
+// cuclark_tpu/pipeline.py:probe_part_step (:96) followed by
+// cuclark_tpu/score.py:score_labels (:28) for the last part, and the last
+// shard of cuclark_tpu/parallel/mesh.py:build_sharded_classify and
+// build_sharded_probe_part (:96, :164).  What bounds it: the gathers of
+// the rows in range (about 1/parts of the windows'), at the gather-only
+// ceiling of those rows, plus one pass over the wire and acc_in.
+// query_score_kernel gathers a thread a window, so over a part only the
+// lanes whose row lies in the range gather (about one in eight for s2 in
+// 8 parts) while the warp pays the whole latency chain; here a block of
+// kTile threads runs the front half for all its windows, queues the
+// windows with a row in range (a ballot and one shared atomic a warp, as
+// range_query_kernel), and every thread drains the queue:
+//   - reads of one tile (T = 1): G = W reads a block (W = 2 or 4,
+//     kernels.range_windows), W windows a thread;
+//   - reads of 2 to 8 tiles: one read a block, T windows a thread, since
+//     the score needs all of a read's windows in one block.
+// acc_in is loaded into lab_s, a slot a window, coalesced and before any
+// gather; each queued window adds its label to its own slot, and in each
+// round exactly one thread writes a slot, so no atomics.  q4 and s2 take
+// choice 1 of a window whose choice 0 missed in a second round after a
+// barrier; qs loads a window's main and stash rows before it compares
+// either (qs_label<false>).  Then one tile is scored a warp a read
+// (warp_score.cuh: warp w scores read w), wider reads through the
+// block's distinct-label table (count_label, score_table), as in
+// query_score_kernel.  A block's reads past R stage zeros, queue nothing
+// and store nothing.  Ranges are compared in 32 bits (range_entry), so
+// nb_bits and stash_bits are at most 31.  Reads of 2 to 8 tiles are held
+// to 40 registers a thread (12 blocks an SM): at s2's 48-52 its paired
+// last part ran 10% slower.
+// On an H100 80GB HBM3 at 700 W (scripts/torch_kernel_ab.py, batches of
+// 65,536 reads against the 64M-k-mer tables, 12 timings a side against
+// query_score_kernel; PERF.md section 6) a streamed batch's last part of
+// 150 bp reads took qs 0.1185 -> 0.1078 ms (4 parts), q4 0.1375 ->
+// 0.1326 (4) and s2 0.1623 -> 0.1028 (8), of joined 2 x 150 bp pairs qs
+// 0.4219 -> 0.3206, q4 0.4267 -> 0.3406 and s2 0.3411 -> 0.3222, and a q4
+// mesh block's shard 0 of 2 0.2559 -> 0.2203; qs and q4 reads of two
+// tiles, q4's and s2's of eight, s2's shards of 2 and q4's paired shards
+// of 2 ran no faster, and keep query_score_kernel
+// (cuclark_tpu_torch/kernels.py QUEUE_SCORE_TILES).  range_query_kernel
+// keeps its own copy of the queue and the drain (queue_slot, entry_label):
+// built on them, its part calls ran 0.2-0.4% slower (1 to 4 of 12
+// timings faster than its own code).
+template <int LAYOUT, int W, int T>
+__global__ void __launch_bounds__(kTile,
+                                  T == 1 ? (LAYOUT == kS2 ? 12 : 16) : 12)
+    range_query_score_kernel(
+        const uint8_t* __restrict__ packed2,
+        const uint8_t* __restrict__ vbits, const void* __restrict__ main_rows,
+        const uint4* __restrict__ stash_rows,
+        const int32_t* __restrict__ acc_in, int32_t* __restrict__ results,
+        int64_t R, int P, int s2, int s8, int k, int nb_bits, int stash_bits,
+        uint64_t bucket_start, uint64_t nb_local, uint64_t stash_start,
+        uint64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
+        int num_choices) {
+  static_assert(T == 1 || W == 1, "reads of several tiles: one a block");
+  constexpr int G = T == 1 ? W : 1;   // reads a block
+  constexpr int U = G * T;            // tile-units a block
+  constexpr int N = U * kTile;        // windows a block: 10 bits of an id
+  static_assert(N <= 1024 && G <= kTile / 32, "a queue id holds a window");
+  constexpr int kW2 = w2_words(T), kWv = v_words(T);
+  constexpr int kBytes = 4 * (kW2 + kWv);
+  constexpr int kSlots = T == 1 ? 1 : table_slots(T);
+  __shared__ uint32_t w2[G][kW2];
+  __shared__ uint32_t wv[G][kWv];
+  __shared__ int32_t lab_s[N];
+  __shared__ uint16_t q_id[N];
+  __shared__ uint32_t q_a[N], q_b[N];
+  __shared__ uint16_t q2[LAYOUT == kQs ? 1 : N];
+  __shared__ int q_n, q2_n;
+  __shared__ int32_t keys[kSlots];
+  __shared__ uint32_t counts[kSlots];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * G;
+  const uint32_t mask = static_cast<uint32_t>((1ull << nb_bits) - 1);
+  const uint32_t smask = static_cast<uint32_t>((1ull << stash_bits) - 1);
+  const uint32_t start = static_cast<uint32_t>(bucket_start);
+  const uint32_t local = static_cast<uint32_t>(nb_local);
+  const uint32_t sstart = static_cast<uint32_t>(stash_start);
+  if (tid == 0) {
+    q_n = 0;
+    q2_n = 0;
+  }
+  if constexpr (T > 1) {
+    for (int i = tid; i < kSlots; i += kTile) {
+      keys[i] = 0;
+      counts[i] = 0;
+    }
+  }
+  // acc_in first, coalesced: unit u is tile u % T of read r0 + u / T
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t r = r0 + u / T;
+    const int p = (u % T) * kTile + tid;
+    lab_s[u * kTile + tid] =
+        acc_in != nullptr && r < R && p < P ? __ldg(acc_in + r * P + p) : 0;
+  }
+  // each read's T tiles as stage_wire<T> stages them
+  for (int i = tid; i < G * kBytes; i += kTile) {
+    const int g = i / kBytes, j = i - g * kBytes;
+    const int64_t r = r0 + g;
+    uint8_t v = 0;
+    if (j < 4 * kW2) {
+      if (r < R && j < s2) v = __ldg(packed2 + r * s2 + j);
+      reinterpret_cast<uint8_t*>(w2[g])[j] = v;
+    } else {
+      const int q = j - 4 * kW2;
+      if (r < R && q < s8) v = __ldg(vbits + r * s8 + q);
+      reinterpret_cast<uint8_t*>(wv[g])[q] = v;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int g = u / T, p = (u % T) * kTile + tid;
+    uint32_t flags = 0, a = 0, b = 0;
+    uint64_t c;
+    if (r0 + g < R && p < P && window_kmer(w2[g], wv[g], p, k, &c))
+      flags = range_entry<LAYOUT>(c, stash_rows != nullptr, mask, smask,
+                                  start, local, sstart,
+                                  static_cast<uint32_t>(nbs_local), c1, c2,
+                                  c3, num_choices, &a, &b);
+    const int slot = queue_slot(flags != 0, &q_n);
+    if (flags != 0) {
+      q_id[slot] = static_cast<uint16_t>((u * kTile + tid) | flags);
+      q_a[slot] = a;
+      q_b[slot] = b;
+    }
+  }
+  __syncthreads();
+  // each queued window adds its label to its own slot (ids bits 0-9)
+  const int n = q_n;
+  for (int e0 = 0; e0 < n; e0 += kTile) {
+    const int e = e0 + tid;
+    bool again = false;
+    if (e < n) {
+      const uint32_t id = q_id[e];
+      const bool in0 = id & kIn0, in1 = id & kIn1;
+      const int32_t lab = entry_label<LAYOUT>(
+          in0, in1, q_a[e], q_b[e], main_rows, stash_rows, mask, smask,
+          start, sstart, nb_bits, stash_bits, slots);
+      again = LAYOUT != kQs && in0 && in1 && lab == 0;
+      if (lab != 0) lab_s[id & (kIn0 - 1)] += lab;
+    }
+    if (LAYOUT != kQs) {
+      const int slot = queue_slot(again, &q2_n);
+      if (again) q2[slot] = static_cast<uint16_t>(e);
+    }
+  }
+  if (LAYOUT != kQs) {
+    __syncthreads();
+    // the second round: choice 1 of the windows whose choice 0 missed
+    const int n2 = q2_n;
+    for (int i = tid; i < n2; i += kTile) {
+      const int e = q2[i];
+      const int32_t lab = entry_label<LAYOUT>(
+          false, true, q_a[e], q_b[e], main_rows, stash_rows, mask, smask,
+          start, sstart, nb_bits, stash_bits, slots);
+      if (lab != 0) lab_s[q_id[e] & (kIn0 - 1)] += lab;
+    }
+  }
+  __syncthreads();
+  if constexpr (T == 1) {
+    // warp w scores read r0 + w
+    const int warp = tid >> 5;
+    if (warp >= G || r0 + warp >= R) return;
+    constexpr int E = kTile / 32;
+    int32_t a[E];
+    int total = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      a[e] = lab_s[warp * kTile + 32 * e + lane];
+      total += a[e] > 0;
+    }
+    warp_score<E>(a, total, lane, results + (r0 + warp) * 5);
+  } else {
+    __shared__ unsigned long long red[2 * (kTile / 32)];
+    __shared__ int red_total[kTile / 32];
+#pragma unroll
+    for (int u = 0; u < T; ++u)
+      count_label<kSlots>(keys, counts, lab_s[u * kTile + tid]);
+    __syncthreads();
+    score_table<kSlots>(keys, counts, red, red_total, results + r0 * 5);
+  }
+}
+
 // The fused kernel of one layout for reads of T tiles, and of `tiles`,
 // in blocks of `threads`.
 template <int LAYOUT, int T, bool LATE, typename... Args>
@@ -1090,6 +1318,34 @@ bool launch_range(int W, dim3 grid, cudaStream_t st, Args... args) {
       return true;
     default: return false;
   }
+}
+
+// range_query_score_kernel of one layout for reads of `tiles` tiles: W =
+// 2 or 4 reads a block of one tile, one read a block of 2 to 8.
+template <int LAYOUT, int W, int T, typename... Args>
+void launch_queue_tiles(unsigned grid, cudaStream_t st, Args... args) {
+  range_query_score_kernel<LAYOUT, W, T><<<grid, kTile, 0, st>>>(args...);
+}
+
+template <int LAYOUT, typename... Args>
+bool launch_queue(int W, int tiles, unsigned grid, cudaStream_t st,
+                  Args... args) {
+  switch (tiles) {
+    case 1:
+      if (W == 2) launch_queue_tiles<LAYOUT, 2, 1>(grid, st, args...);
+      else if (W == 4) launch_queue_tiles<LAYOUT, 4, 1>(grid, st, args...);
+      else return false;
+      break;
+    case 2: launch_queue_tiles<LAYOUT, 1, 2>(grid, st, args...); break;
+    case 3: launch_queue_tiles<LAYOUT, 1, 3>(grid, st, args...); break;
+    case 4: launch_queue_tiles<LAYOUT, 1, 4>(grid, st, args...); break;
+    case 5: launch_queue_tiles<LAYOUT, 1, 5>(grid, st, args...); break;
+    case 6: launch_queue_tiles<LAYOUT, 1, 6>(grid, st, args...); break;
+    case 7: launch_queue_tiles<LAYOUT, 1, 7>(grid, st, args...); break;
+    case 8: launch_queue_tiles<LAYOUT, 1, 8>(grid, st, args...); break;
+    default: return false;
+  }
+  return true;
 }
 
 }  // namespace
@@ -1291,6 +1547,67 @@ extern "C" int cuclark_query_score_range(
           tiles, P, grid, st, p2, vb, main_rows, nullptr, acc, out, P, s2,
           s8, k, nb_bits, 0, start, local, uint64_t{0}, uint64_t{0}, c1,
           c2, c3, slots, num_choices, 0);
+      break;
+    default:
+      break;
+  }
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused query and score of cuclark_query_score_range over a range of
+// rows through range_query_score_kernel: its operands, and W = `windows`
+// (2 or 4) reads a block of reads of one tile (P <= kTile), one read a
+// block of reads of 2 to kMaxTiles tiles; grid_x blocks, ceil(R / W) or
+// R (cuclark_tpu_torch/kernels.py:queue_geometry), so no read is split
+// over blocks.  nb_bits and stash_bits are at most 31 (the ranges are
+// compared in 32 bits).  Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int cuclark_query_score_queue(
+    int layout, const void* packed2, const void* vbits, const void* main_rows,
+    const void* stash_rows, const void* acc_in, void* results, int64_t R,
+    int P, int s2, int s8, int k, int nb_bits, int stash_bits,
+    int64_t bucket_start, int64_t nb_local, int64_t stash_start,
+    int64_t nbs_local, uint32_t c1, uint32_t c2, uint32_t c3, int slots,
+    int num_choices, int windows, int64_t grid_x, void* stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  const int tiles = (P + kTile - 1) / kTile;
+  const int64_t reads = tiles == 1 ? windows : 1;
+  if (R < 0 || R > 0x7FFFFFFF || P < 1 || P > kMaxTiles * kTile || k < 2 ||
+      k > 32 || nb_bits > 31 || stash_bits > 31 ||
+      (windows != 2 && windows != 4) || grid_x != (R + reads - 1) / reads ||
+      (layout != kQs && stash_rows != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* p2 = static_cast<const uint8_t*>(packed2);
+  const uint8_t* vb = static_cast<const uint8_t*>(vbits);
+  const uint4* stash = static_cast<const uint4*>(stash_rows);
+  const int32_t* acc = static_cast<const int32_t*>(acc_in);
+  int32_t* out = static_cast<int32_t*>(results);
+  const uint64_t start = static_cast<uint64_t>(bucket_start);
+  const uint64_t local = static_cast<uint64_t>(nb_local);
+  const uint64_t sstart = static_cast<uint64_t>(stash_start);
+  const uint64_t slocal = static_cast<uint64_t>(nbs_local);
+  const unsigned grid = static_cast<unsigned>(grid_x);
+  bool launched = false;
+  switch (layout) {
+    case kQs:
+      launched = launch_queue<kQs>(
+          windows, tiles, grid, st, p2, vb, main_rows, stash, acc, out, R, P,
+          s2, s8, k, nb_bits, stash_bits, start, local, sstart, slocal, c1,
+          c2, c3, slots, num_choices);
+      break;
+    case kQ4:
+      launched = launch_queue<kQ4>(
+          windows, tiles, grid, st, p2, vb, main_rows, stash, acc, out, R, P,
+          s2, s8, k, nb_bits, 0, start, local, uint64_t{0}, uint64_t{0}, c1,
+          c2, c3, slots, num_choices);
+      break;
+    case kS2:
+      launched = launch_queue<kS2>(
+          windows, tiles, grid, st, p2, vb, main_rows, stash, acc, out, R, P,
+          s2, s8, k, nb_bits, 0, start, local, uint64_t{0}, uint64_t{0}, c1,
+          c2, c3, slots, num_choices);
       break;
     default:
       break;

@@ -35,8 +35,12 @@ one range of rows, with the int32 [R, P] label sum of the batch's other
 range launches added before the score: the last launch of a data block
 of a mesh step, or of the last part of a streamed step, on a mesh
 (`parallel/mesh.py`) or on one device (`pipeline.Classifier`), counted
-as `query_score_part[_q4|_s2]`.  Both go through one C entry,
-`cuclark_query_score_range`.  `score`
+as `query_score_part[_q4|_s2]`; over a range that the range query takes
+queued (`queue_score_windows`), through the queued fused instance
+(`range_query_score_kernel`, laid out by `queue_geometry`) instead,
+counted as `query_score_queue[_q4|_s2]`.  The fused instance goes through
+the C entry `cuclark_query_score_range`, the queued one through
+`cuclark_query_score_queue`.  `score`
 launches the score kernel (`csrc/score.cu`), counted as `score` for rows
 of up to MAX_SCORE_WINDOWS windows and `score_long` for longer ones.
 
@@ -145,13 +149,59 @@ def range_geometry(R: int, P: int, windows: int) -> RangeGeometry:
         for base in range(0, gy, GRID_Y_MAX)))
 
 
+# The reads whose fused range launch takes range_query_score_kernel
+# (csrc/query.cu): by layout and the range's W (`range_windows`), the
+# tile counts T = ceil(P / TILE) at which it beat query_score_kernel in
+# at least 11 of 12 timings on an H100 (scripts/torch_kernel_ab.py,
+# PERF.md section 6); every other read keeps query_score_kernel.
+# Tile counts 5 to 7 (no default length bin gives them) were not timed.
+QUEUE_SCORE_TILES = {("qs", 4): frozenset({1, 3, 4, 8}),
+                     ("q4", 2): frozenset({1}),
+                     ("q4", 4): frozenset({1, 3, 4}),
+                     ("s2", 2): frozenset(),
+                     ("s2", 4): frozenset({1, 2, 3, 4})}
+
+
+def queue_score_windows(nb_bits: int, nb_local: int, layout: str,
+                        P: int) -> int:
+    """W of the fused range launch of reads of P windows over nb_local of
+    the table's 2^nb_bits main rows: `range_windows` where
+    QUEUE_SCORE_TILES[(layout, W)] holds the reads' tile count
+    (range_query_score_kernel, W reads a block of one tile), else 1
+    (query_score_kernel, a thread a window)."""
+    W = range_windows(nb_bits, nb_local, layout)
+    tiles = QUEUE_SCORE_TILES.get((layout, W), frozenset())
+    return W if -(-P // TILE) in tiles else 1
+
+
+@dataclass(frozen=True)
+class QueueGeometry:
+    """The blocks of a range_query_score_kernel launch over R reads:
+    reads_per_block reads a block (W = `windows` for reads of one tile,
+    one for wider reads: the score needs a read's windows in one block),
+    grid_x blocks on x, block x covering reads from x * reads_per_block."""
+
+    windows: int
+    reads_per_block: int
+    grid_x: int
+
+
+@functools.lru_cache(maxsize=64)
+def queue_geometry(R: int, P: int, windows: int) -> QueueGeometry:
+    """The launch of a queued fused range call of R reads of P windows at
+    W = `windows`: never a read split over blocks."""
+    G = windows if P <= TILE else 1
+    return QueueGeometry(windows, G, -(-R // G))
+
+
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"query": 0, "query_part": 0, "query_codes": 0, "query_q4": 0,
             "query_part_q4": 0, "query_codes_q4": 0, "query_s2": 0,
             "query_part_s2": 0, "query_codes_s2": 0, "query_score": 0,
             "query_score_q4": 0, "query_score_s2": 0, "query_score_part": 0,
-            "query_score_part_q4": 0, "query_score_part_s2": 0, "score": 0,
-            "score_long": 0}
+            "query_score_part_q4": 0, "query_score_part_s2": 0,
+            "query_score_queue": 0, "query_score_queue_q4": 0,
+            "query_score_queue_s2": 0, "score": 0, "score_long": 0}
 
 # The query kernel's layout argument (csrc/query.cu, enum Layout).
 _LAYOUT_CODE = {"qs": 0, "q4": 1, "s2": 2}
@@ -232,6 +282,10 @@ ENTRIES = {
                                   _i32, _i32, _i32, _i32, _i32, _i32, _i64,
                                   _i64, _i64, _i64, _u32, _u32, _u32, _i32,
                                   _i32, _i32, _vp],
+    "cuclark_query_score_queue": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
+                                  _i32, _i32, _i32, _i32, _i32, _i32, _i64,
+                                  _i64, _i64, _i64, _u32, _u32, _u32, _i32,
+                                  _i32, _i32, _i64, _vp],
     "cuclark_score": [_vp, _vp, _i64, _i32, _vp],
     "cuclark_score_long": [_vp, _vp, _i64, _i32, _vp],
 }
@@ -449,11 +503,13 @@ def query_codes(codes: torch.Tensor, main: torch.Tensor,
 
 def _launch_query_score(packed2, vbits, main, stash, acc_in, *, k,
                         spec: TableSpec, bucket_start: int,
-                        stash_start: int) -> torch.Tensor:
-    """Check the fused query and score's operands and launch it
-    (`cuclark_query_score_range`) on the current stream over the table
-    range that main and stash hold (`_check_table_range`), acc_in int32
-    [R, P] or None -> results int32 [R, 5]."""
+                        stash_start: int, windows: int = 1) -> torch.Tensor:
+    """Check the fused query and score's operands and launch it on the
+    current stream over the table range that main and stash hold
+    (`_check_table_range`), acc_in int32 [R, P] or None -> results int32
+    [R, 5]: windows 1 through `cuclark_query_score_range`
+    (query_score_kernel), W = 2 or 4 through `cuclark_query_score_queue`
+    (range_query_score_kernel, laid out by `queue_geometry`)."""
     spec.check()
     P = 4 * packed2.shape[-1] - k + 1
     if not 2 <= k <= 32 or not 1 <= P <= QUERY_SCORE_MAX_WINDOWS:
@@ -469,19 +525,28 @@ def _launch_query_score(packed2, vbits, main, stash, acc_in, *, k,
         stash_start=stash_start)
     if acc_in is not None:
         _check_acc(acc_in, "acc_in", dev, R, P)
+    if windows != 1 and (windows not in (2, 4) or spec.nb_bits > 31
+                         or spec.stash_bits > 31):
+        raise ValueError(f"the queued fused range launch takes W 2 or 4 "
+                         f"and nb_bits, stash_bits <= 31, got W={windows}")
     results = torch.empty((R, 5), dtype=torch.int32, device=dev)
     lib = load()
     c1, c2, c3 = feistel_seed_consts(spec.seed)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.cuclark_query_score_range(
-            _LAYOUT_CODE[spec.layout], packed2.data_ptr(), vbits.data_ptr(),
+    args = (_LAYOUT_CODE[spec.layout], packed2.data_ptr(), vbits.data_ptr(),
             main.data_ptr(), stash_ptr,
             None if acc_in is None else acc_in.data_ptr(),
             results.data_ptr(), R, P, s2, s8, k, spec.nb_bits,
             spec.stash_bits, bucket_start, nb_local, stash_start, nbs_local,
-            c1, c2, c3, spec.slots, spec.num_choices, int(spec.sampled),
-            stream), "query_score")
+            c1, c2, c3, spec.slots, spec.num_choices)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if windows == 1:
+            _raise_on(lib.cuclark_query_score_range(
+                *args, int(spec.sampled), stream), "query_score")
+        else:
+            _raise_on(lib.cuclark_query_score_queue(
+                *args, windows, queue_geometry(R, P, windows).grid_x,
+                stream), "query_score")
     return results
 
 
@@ -517,11 +582,40 @@ def query_score_part(packed2: torch.Tensor, vbits: torch.Tensor,
     probe), with acc_in, int32 [R, P] or None, added to the labels before
     the score -> results int32 [R, 5], as score(query_part(..., acc=
     acc_in)) gives them; acc_in is only read.  Rows of at most
-    QUERY_SCORE_MAX_WINDOWS windows."""
+    QUERY_SCORE_MAX_WINDOWS windows.  Where `queue_score_windows` gives
+    W > 1 (a range the range query takes queued, reads of a tile count in
+    QUEUE_SCORE_TILES), the launch is range_query_score_kernel
+    (`query_score_queue`), counted as query_score_queue[_q4|_s2]; else
+    query_score_kernel, counted as query_score_part[_q4|_s2]."""
+    P = 4 * packed2.shape[-1] - k + 1
+    W = queue_score_windows(spec.nb_bits, main_part.shape[0], spec.layout, P)
+    if W > 1:
+        return query_score_queue(packed2, vbits, main_part, stash,
+                                 bucket_start=bucket_start, k=k, spec=spec,
+                                 stash_start=stash_start, acc_in=acc_in,
+                                 windows=W)
     results = _launch_query_score(packed2, vbits, main_part, stash, acc_in,
                                   k=k, spec=spec, bucket_start=bucket_start,
                                   stash_start=stash_start)
     _count("query_score_part", spec.layout)
+    return results
+
+
+def query_score_queue(packed2: torch.Tensor, vbits: torch.Tensor,
+                      main_part: torch.Tensor, stash: torch.Tensor | None, *,
+                      bucket_start: int, k: int, spec: TableSpec,
+                      stash_start: int = 0,
+                      acc_in: torch.Tensor | None = None,
+                      windows: int) -> torch.Tensor:
+    """query_score_part's launch through range_query_score_kernel at W =
+    `windows` (2 or 4) reads a block of one tile (one read a block of 2
+    to 8 tiles), whatever the route: the windows with a row in the range
+    are queued a block, then every thread gathers from the queue.
+    Counted as query_score_queue[_q4|_s2]."""
+    results = _launch_query_score(packed2, vbits, main_part, stash, acc_in,
+                                  k=k, spec=spec, bucket_start=bucket_start,
+                                  stash_start=stash_start, windows=windows)
+    _count("query_score_queue", spec.layout)
     return results
 
 

@@ -296,8 +296,10 @@ def query_score_part_results(
     score: the last launch of a data block of a mesh step, or of a
     streamed batch's last part, whose labels never leave the chip.  A qs stash of None skips the stash probe, which
     is exact only when another call of the same batch probes it.  The
-    query kernel's fused instance for CUDA tensors, its plain version for
-    CPU tensors."""
+    query kernel's fused instance for CUDA tensors (its queued instance,
+    range_query_score_kernel, where `kernels.queue_score_windows` routes
+    the range and the reads' width), its plain version for CPU
+    tensors."""
     if packed2.device.type == "cpu":
         return query_score_part_results_plain(
             packed2, vbits, main_part, stash, bucket_start=bucket_start,

@@ -58,7 +58,32 @@ q4 and s2 of the same 64M 31-mers) and reads:
     reads and of 65,536 joined 301 bp pairs (bin 320); score_122_many on
     [65,536, 122] random labels over 1..65,535 with 30% misses (rows of
     many distinct labels: the warp path's sort);
-  - score_long: the labels of 256 reads of 33-100 kb, [256, 98,402].
+  - score_long: the labels of 256 reads of 33-100 kb, [256, 98,402];
+  - query_score_part_{qs,q4,s2}: a streamed batch's fused last launch
+    (the last part of STREAM_PARTS, the qs stash split over the parts,
+    acc_in the earlier parts' label sum) of the 150 bp batch; a build
+    with `cuclark_query_score_queue` takes it wherever the range query
+    queues the range (`kernels.range_windows` > 1, whatever the
+    package's route holds), an older one `cuclark_query_score_range`; query_score_part_290_{layout}: the same
+    at the paired shape; query_score_shard_{q4,s2}_2: a mesh block's
+    shard-0 launch of 2 db shards, acc_in shard 1's labels
+    (query_score_shard_290_{q4,s2}_2: of the paired batch);
+    query_score_part_{160,512,1024}_{layout}: the same on the single-end
+    reads of those bins (two, four and eight tiles);
+    query_score_part_two_{layout}: the yardstick of two launches, the
+    range query of the last part into a copy of acc_in, then the score.
+    Each with its bound (its rows in range, the wire and acc_in read
+    once, [R, 5] written), the gather-only ceiling of the rows it
+    gathers (`torch_measure.range_rows`, `range_ceiling_ms`) and, but
+    for the yardstick, its plain version's time on the same call.
+
+`--groups LAYOUT ...` then times a streamed group of each layout's table
+(`chip_smoke.stream_group_breakdown`: `stream_group_eff` of the 150 bp
+batch through a streaming Classifier's `_stream_group_dev`, its part
+calls' device time by CUDA events) with the new build and each old one
+in turns (old, new, new, old, 3 times): an old build is
+loaded in place of the package's library with the queued fused route
+off (`kernels.QUEUE_SCORE_TILES` empty), the route of its sources.
 
 `--pair A B` times cases A and B of the new build against each other in
 turns (A, B, B, A).  `nvcc -Xptxas -v` prints each build's kernels'
@@ -254,6 +279,42 @@ class Kernels:
             raise RuntimeError(f"query_score launch failed: CUDA error {err}")
         return out
 
+    def query_score_part(self, p2, vb, main, stash, acc_in, out, *, spec,
+                         k, bucket_start, stash_start=0):
+        """The fused range launch with acc_in added before the score: the
+        queued one where the build has it and the range query queues the
+        range (`kernels.range_windows` > 1), whatever the package's route
+        (`kernels.QUEUE_SCORE_TILES`) holds, so that the A/B decides the
+        route; else `cuclark_query_score_range`."""
+        import torch
+
+        from cuclark_tpu_torch import kernels
+        from cuclark_tpu_torch.hashdb import feistel_seed_consts
+
+        R, s2 = p2.shape
+        P, s8 = 4 * s2 - k + 1, vb.shape[1]
+        st = torch.cuda.current_stream().cuda_stream
+        args = (kernels._LAYOUT_CODE[spec.layout], p2.data_ptr(),
+                vb.data_ptr(), main.data_ptr(),
+                None if stash is None else stash.data_ptr(),
+                acc_in.data_ptr(), out.data_ptr(), R, P, s2, s8, k,
+                spec.nb_bits, spec.stash_bits, bucket_start, main.shape[0],
+                stash_start, 0 if stash is None else stash.shape[0],
+                *feistel_seed_consts(spec.seed), spec.slots,
+                spec.num_choices)
+        W = (kernels.range_windows(spec.nb_bits, main.shape[0], spec.layout)
+             if hasattr(self.lib, "cuclark_query_score_queue") else 1)
+        if W > 1:
+            err = self.lib.cuclark_query_score_queue(
+                *args, W, kernels.queue_geometry(R, P, W).grid_x, st)
+        else:
+            err = self.lib.cuclark_query_score_range(
+                *args, *self._sampled(spec), st)
+        if err:
+            raise RuntimeError(f"query_score_part launch failed: CUDA error "
+                               f"{err}")
+        return out
+
     def score(self, labels, out, scratch=None):
         import torch
 
@@ -328,6 +389,10 @@ def timed(fn, reps: int) -> float:
 
 # single-end bins of the wide step cases (reads one base shorter)
 WIDE_BINS = (160, 192, 256, 320, 512, 1024)
+# the bins of the wide fused last-part cases: two, four and eight tiles
+LAST_BINS = (160, 512, 1024)
+# rounds of (old, new, new, old) streamed groups a layout of --groups
+GROUP_TURNS = 3
 
 
 def main(argv=None) -> int:
@@ -348,6 +413,10 @@ def main(argv=None) -> int:
                     metavar=("A", "B"),
                     help="also time cases A and B of the new build in "
                          "turns (A, B, B, A), 2 x --turns timings each")
+    ap.add_argument("--groups", nargs="*", default=[],
+                    choices=("qs", "q4", "s2"),
+                    help="also time a streamed group of these layouts' "
+                         "tables, the new build against each old one")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "kernel_ab.json")
     args = ap.parse_args(argv)
@@ -359,8 +428,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
+    import torch_gather_ceiling
     import torch_measure as tm
-    from cuclark_tpu_torch import codec, kernels
+    from cuclark_tpu_torch import codec, kernels, probe
     from cuclark_tpu_torch.config import DBConfig
     from cuclark_tpu_torch.hashdb import build_table, table_to_device
 
@@ -516,6 +586,62 @@ def main(argv=None) -> int:
         bound[name] = tm.bound_ms(4 * lab.numel() + 20 * lab.shape[0])
     del touched, touched_parts
 
+    # the fused last launches: name -> (layout, wire, its range call,
+    # acc_in: the label sum of the pass's other calls), each with its
+    # bound and the ceiling of the rows it gathers
+    ceiling_lib = torch_gather_ceiling.build()
+    ceiling = {}
+    last = {}
+    pair_codes = codec.unpack_codes(pp2, pvb)
+    for lay in dbs:
+        for tag, (x, v, c) in (("", (p2, vb, codes_t)),
+                               ("_290", (pp2, pvb, pair_codes))):
+            calls = cs.range_calls(*tables[lay], cs.STREAM_PARTS[lay])
+            last[f"query_score_part{tag}_{lay}"] = (lay, x, v, c, calls[-1],
+                                                    calls[:-1])
+        for b in LAST_BINS:
+            x, v, c = wide[str(b)]
+            last[f"query_score_part_{b}_{lay}"] = (lay, x, v, c, calls[-1],
+                                                   calls[:-1])
+    for lay in ("q4", "s2"):
+        calls = cs.range_calls(*tables[lay], 2)
+        last[f"query_score_shard_{lay}_2"] = (lay, p2, vb, codes_t, calls[0],
+                                              calls[1:])
+        last[f"query_score_shard_290_{lay}_2"] = (lay, pp2, pvb, pair_codes,
+                                                  calls[0], calls[1:])
+    last_acc = {}
+    for name, (lay, x, v, c, call, others) in last.items():
+        P_l = 4 * x.shape[1] - k + 1
+        acc_l = torch.zeros((x.shape[0], P_l), dtype=torch.int32,
+                            device=dev)
+        for m, s_, start, sstart in others:
+            new.query(x, v, m, s_, acc_l, spec=spec[lay], k=k,
+                      bucket_start=start, stash_start=sstart,
+                      accumulate=True)
+        last_acc[name] = acc_l
+        m, s_, start, sstart = call
+        gathered = tm.range_rows(c, tables[lay][0], spec[lay], k, start,
+                                 m.shape[0], sstart,
+                                 0 if s_ is None else s_.shape[0])
+        uniq = (torch.unique(gathered[0]), None if gathered[1] is None
+                else torch.unique(gathered[1]))
+        bound[name] = tm.bound_ms(tm.query_bytes(
+            uniq, spec[lay], x.numel() + v.numel() + 4 * acc_l.numel(),
+            20 * x.shape[0]))
+        ceiling[name] = tm.range_ceiling_ms(ceiling_lib, tables[lay][0],
+                                            tables[lay][1], gathered,
+                                            spec[lay])
+        if name.count("_") == 3 and name.startswith("query_score_part"):
+            two = name.replace("query_score_part", "query_score_part_two")
+            bound[two], ceiling[two] = bound[name], ceiling[name]
+        del gathered, uniq
+    del pair_codes
+    for name in ("query_score_part_two_qs", "query_score_part_two_q4",
+                 "query_score_part_two_s2"):
+        lay = name.rsplit("_", 1)[1]
+        last[name] = last[f"query_score_part_{lay}"]
+        last_acc[name] = last_acc[f"query_score_part_{lay}"]
+
     def make_cases(kern: Kernels):
         """name -> (callable, launches per call, output tensor)."""
         out = torch.empty((R, P), dtype=torch.int32, device=dev)
@@ -604,6 +730,26 @@ def main(argv=None) -> int:
             cases[f"score_{n}"] = (
                 lambda lab=lab, o=res[n]: kern.score(lab, o, scratch), 1,
                 res[n])
+        for name, (lay, x, v, _, (m, s_, start, sstart), _o) in last.items():
+            o = torch.empty((x.shape[0], 5), dtype=torch.int32, device=dev)
+            acc_l = last_acc[name]
+            if name.startswith("query_score_part_two"):
+                lab_l = torch.empty_like(acc_l)
+
+                def two(x=x, v=v, m=m, s_=s_, start=start, sstart=sstart,
+                        lay=lay, acc_l=acc_l, lab_l=lab_l, o=o):
+                    lab_l.copy_(acc_l)
+                    kern.query(x, v, m, s_, lab_l, spec=spec[lay], k=k,
+                               bucket_start=start, stash_start=sstart,
+                               accumulate=True)
+                    return kern.score(lab_l, o)
+                cases[name] = (two, 1, o)
+            else:
+                cases[name] = (
+                    lambda x=x, v=v, m=m, s_=s_, start=start, sstart=sstart,
+                    lay=lay, acc_l=acc_l, o=o: kern.query_score_part(
+                        x, v, m, s_, acc_l, o, spec=spec[lay], k=k,
+                        bucket_start=start, stash_start=sstart), 1, o)
         return cases
 
     builds = {"new": make_cases(new)}
@@ -637,6 +783,20 @@ def main(argv=None) -> int:
                 "new_median_ms": new_med,
                 "share_of_bound_new": bound[name] / new_med}
         line = [f"{name}: new {new_med:.4f} ms"]
+        if name in ceiling:
+            case["ceiling_ms"] = ceiling[name]
+            case["share_of_ceiling_new"] = ceiling[name] / new_med
+            line.append(f"ceiling {ceiling[name]:.4f} ms "
+                        f"({ceiling[name] / new_med:.1%})")
+        if name in last and not name.startswith("query_score_part_two"):
+            # the fused range entry's plain version on the same call
+            lay, x, v, _, (m, s_, start, sstart), _o = last[name]
+            case["plain_ms"] = tm.cuda_ms(
+                lambda: probe.query_score_part_results_plain(
+                    x, v, m, s_, bucket_start=start, nb_local=m.shape[0],
+                    k=k, spec=spec[lay], stash_start=sstart,
+                    acc_in=last_acc[name]), 2)
+            line.append(f"plain {case['plain_ms']:.4f} ms")
         for o in olds:
             t_old, t_new = pair[o]["old"], pair[o]["new"]
             wins = sum(n < t for n, t in zip(t_new, t_old))
@@ -665,6 +825,9 @@ def main(argv=None) -> int:
         print(f"pair {a} {med[a]:.4f} ms vs {b} {med[b]:.4f} ms (new build, "
               f"in turns): {b} faster in {wins} of {len(times[a])}",
               flush=True)
+    if args.groups:
+        result["groups"] = time_groups(args, dbs, (p2, vb), olds, unchecked,
+                                       dev)
     for name, c in result["cases"].items():
         if not name.startswith(("classify_step", "step_packed")):
             continue
@@ -680,6 +843,62 @@ def main(argv=None) -> int:
                           **{o: c[o]["median_ms"] for o in olds}}
                       for n, c in result["cases"].items()}))
     return 0
+
+
+def time_groups(args, dbs, wire, olds, unchecked, dev) -> dict:
+    """A streamed group of each layout of args.groups
+    (`chip_smoke.stream_group_breakdown` on the wire batch, through a
+    streaming Classifier of the layout's table in STREAM_PARTS parts)
+    with the new build and each checked old build in turns (old, new,
+    new, old, GROUP_TURNS times): an old build's library stands in
+    for the package's, the queued fused route off.  Prints a line a
+    layout and old build -> {layout: {build: [breakdowns]}}."""
+    import chip_smoke as cs
+    from cuclark_tpu_torch import kernels, pipeline
+    from cuclark_tpu_torch.config import ClassifyConfig
+
+    new_lib, new_tiles = kernels.load(), dict(kernels.QUEUE_SCORE_TILES)
+    off = {lay: frozenset() for lay in new_tiles}
+    out = {}
+    try:
+        for lay in args.groups:
+            db = dbs[lay]
+            clf = pipeline.Classifier(db, ClassifyConfig(
+                max_table_mb=cs.stream_budget_mb(db)), device=dev)
+            if clf.stream_parts != cs.STREAM_PARTS[lay]:
+                raise AssertionError(f"{lay}: {clf.stream_parts} parts")
+            runs = {"new": []}
+            for o in (o for o in olds if o not in unchecked):
+                runs[o] = []
+                for _ in range(GROUP_TURNS):
+                    for which in (o, "new", "new", o):
+                        kernels._LIB = (olds[o].lib if which == o
+                                        else new_lib)
+                        kernels.QUEUE_SCORE_TILES.update(
+                            off if which == o else new_tiles)
+                        runs[which].append(cs.stream_group_breakdown(
+                            clf, [wire]))
+                t_old = [g["call_ms"] for g in runs[o]]
+                t_new = [g["call_ms"] for g in runs["new"][-len(t_old):]]
+                wins = sum(n < t for n, t in zip(t_new, t_old))
+                print(f"group {lay}: {runs[o][0]['batches']} batches of "
+                      f"{cs.STREAM_PARTS[lay]} parts, part calls new "
+                      f"{statistics.median(t_new):.4f} ms "
+                      f"({statistics.median(t_new) / runs[o][0]['batches']:.4f}"
+                      f" a batch), {o} {statistics.median(t_old):.4f} ms "
+                      f"({statistics.median(t_old) / runs[o][0]['batches']:.4f}"
+                      f" a batch); new faster in {wins} of {len(t_old)}; "
+                      f"wall new {statistics.median(g['wall_ms'] for g in runs['new']):.4f}"
+                      f" ms, {o} "
+                      f"{statistics.median(g['wall_ms'] for g in runs[o]):.4f}"
+                      f" ms", flush=True)
+            clf.close()
+            del clf
+            out[lay] = runs
+    finally:
+        kernels._LIB = new_lib
+        kernels.QUEUE_SCORE_TILES.update(new_tiles)
+    return out
 
 
 if __name__ == "__main__":

@@ -221,6 +221,46 @@ def layout_ceilings(lib, main_t, choices, spec, parts: int):
     return resident, float(np.mean(part_ms)), part_ms[-1]
 
 
+def range_rows(codes, main_t, spec, k: int, start: int, rows: int,
+               sstart: int = 0, srows: int = 0):
+    """The rows a range call (main rows [start, start + rows) and, for
+    qs, stash rows [sstart, sstart + srows)) gathers for the valid
+    windows of codes [R, L], in window order with repeats: a q4 or s2
+    window's choice-0 row where it lies in the range, its choice-1 row
+    where that lies in the range and choice 0 lies outside or gives label
+    0 -> (main rows, None); a qs window's main row and its stash row
+    where each lies in its range -> (main buckets, stash buckets)."""
+    import torch
+
+    def within(b, lo, n):
+        return (b >= lo) & (b < lo + n)
+
+    if spec.layout == "qs":
+        both = qs_window_rows(codes, spec, k).to(torch.int64)
+        return (both[within(both[:, 0], start, rows), 0],
+                both[within(both[:, 1], sstart, srows), 1])
+    rows0, rows1, has1, zero = choice_rows(codes, main_t, spec, k)
+    in0, in1 = within(rows0, start, rows), within(rows1, start, rows)
+    pair = torch.stack([rows0, rows1], 1)
+    return pair[torch.stack([in0, in1 & has1 & (zero | ~in0)], 1)], None
+
+
+def range_ceiling_ms(lib, main_t, stash_t, gathered, spec) -> float:
+    """The practical ceiling of a range call's gathers: the gather-only
+    kernel over range_rows' rows in window order (a qs call's main rows,
+    then its stash rows: two launches whose times add)."""
+    import torch
+
+    main, stash = gathered
+    if spec.layout != "qs":
+        return layout_gathers(lib, main_t, main, spec)
+    ms = gather_ceiling_ms(lib, main_t, main.to(torch.int32).contiguous())
+    if stash is not None and stash.numel():
+        ms += gather_ceiling_ms(lib, stash_t,
+                                stash.to(torch.int32).contiguous())
+    return ms
+
+
 def query_bytes(touched, spec, in_bytes: int, out_bytes: int,
                 parts: int = 1, later_hits: int = 0) -> float:
     """Least bytes of a query per call: its input (wire or codes) and its

@@ -966,15 +966,17 @@ def test_query_score_part_kernel_matches_plain(dev, layout, P_, k, L, acc):
     the others; each of 2 db shards with its stash range; acc_in None,
     or random labels on half the windows the range misses (a key lives
     in one range only, so where the range hits the other launches give
-    0); one launch a call, counted as query_score_part[_q4|_s2].  Then 3
-    parts accumulated by the range kernel and the last one fused with
-    their sum give the resident fused results."""
+    0); one launch a call, counted as query_score_part[_q4|_s2], or as
+    query_score_queue[_q4|_s2] where the route takes the queued launch
+    (kernels.queue_score_windows: parts, and q4's db shards, at the tile
+    counts it routes).  Then 3 parts accumulated by the range kernel and the last
+    one fused with their sum give the resident fused results."""
     db, codes = fused_case(k, L, layout)
     p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
     assert 4 * p2.shape[1] - k + 1 == P_
     main, stash = hashdb.table_to_device(db, dev)
     spec = db.spec
-    name = "query_score_part" + ("" if layout == "qs" else f"_{layout}")
+    suffix = "" if layout == "qs" else f"_{layout}"
     rng = np.random.default_rng(P_)
     a = rng.integers(1, 65536, size=(p2.shape[0], P_)).astype(np.int32)
     a[rng.random(a.shape) < 0.5] = 0
@@ -997,6 +999,8 @@ def test_query_score_part_kernel_matches_plain(dev, layout, P_, k, L, acc):
             acc_in = torch.from_numpy(acc_np).to(dev)
         args = dict(bucket_start=start, nb_local=rows, k=k, spec=spec,
                     stash_start=sstart, acc_in=acc_in)
+        name = ("query_score_queue" if kernels.queue_score_windows(
+            db.nb_bits, rows, layout, P_) > 1 else "query_score_part") + suffix
         before = dict(kernels.LAUNCHES)
         got = probe.query_score_part_results(p2, vb, part, s, **args)
         torch.cuda.synchronize()
@@ -1019,6 +1023,60 @@ def test_query_score_part_kernel_matches_plain(dev, layout, P_, k, L, acc):
     torch.cuda.synchronize()
     assert torch.equal(got, resident)
     assert int((resident[:, 2] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("acc", ["random", "none"])
+@pytest.mark.parametrize("P_,k,L", FUSED_RANGE_P)
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+def test_query_score_queue_kernel_matches_plain(dev, layout, P_, k, L, acc,
+                                                W):
+    """The queued fused range launch (`cuclark_query_score_queue`,
+    range_query_score_kernel, through kernels.query_score_queue at W 2
+    and 4) against the fused range entry's plain version, on 47 reads (a
+    ragged last block at either W): each of 4 parts, the qs stash split
+    over them; each of 2 db shards with its stash range; acc_in None or
+    random labels on half the windows the range misses; one launch a
+    call, counted as query_score_queue[_q4|_s2]; acc_in is left as it
+    was."""
+    db, codes = fused_case(k, L, layout)
+    p2, vb = (torch.from_numpy(a).to(dev)
+              for a in codec.pack_codes(codes[:47]))
+    assert 4 * p2.shape[1] - k + 1 == P_
+    main, stash = hashdb.table_to_device(db, dev)
+    spec = db.spec
+    name = "query_score_queue" + ("" if layout == "qs" else f"_{layout}")
+    rng = np.random.default_rng(P_ + W)
+    a = rng.integers(1, 65536, size=(p2.shape[0], P_)).astype(np.int32)
+    a[rng.random(a.shape) < 0.5] = 0
+    ranges = []
+    for n in (4, 2):
+        rows = db.nb // n
+        for j in range(n):
+            s, sstart = probe.stash_range(stash, j, n)
+            ranges.append((j * rows, rows, s, sstart))
+    hits = 0
+    for start, rows, s, sstart in ranges:
+        part = main[start:start + rows]
+        own = probe.query_part_labels_plain(
+            p2, vb, part, s, bucket_start=start, nb_local=rows, k=k,
+            spec=spec, stash_start=sstart).cpu().numpy()
+        hits += int((own > 0).sum())
+        acc_np = np.where(own > 0, 0, a)
+        acc_in = torch.from_numpy(acc_np).to(dev) if acc == "random" else None
+        args = dict(bucket_start=start, k=k, spec=spec, stash_start=sstart,
+                    acc_in=acc_in)
+        before = dict(kernels.LAUNCHES)
+        got = kernels.query_score_queue(p2, vb, part, s, windows=W, **args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before[name] + 1
+        assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+        want = probe.query_score_part_results_plain(p2, vb, part, s,
+                                                    nb_local=rows, **args)
+        assert torch.equal(got, want), (start, rows, W)
+        if acc_in is not None:
+            assert torch.equal(acc_in.cpu(), torch.from_numpy(acc_np))
+    assert hits > 0
 
 
 @pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
@@ -1053,8 +1111,10 @@ def test_resident_fused_step_unchanged(dev, layout):
 def test_mesh_step_launches_fused(dev, num_data, num_db):
     """On a num_data x num_db mesh of handles of the card, a one-tile
     batch without labels launches (num_db - 1) x num_data range kernels
-    and num_data fused ones, and no score kernel; with labels, range
-    kernels and a score a block.  Both give the resident results."""
+    and num_data fused ones (the queued fused launch where a qs shard is
+    at most a quarter of the table: 4 db shards), and no score kernel;
+    with labels, range kernels and a score a block.  Both give the
+    resident results."""
     from cuclark_tpu_torch.parallel import mesh
 
     k = 31
@@ -1070,8 +1130,11 @@ def test_mesh_step_launches_fused(dev, num_data, num_db):
     res, lab = sc.step_packed(p2, vb)
     torch.cuda.synchronize()
     assert lab is None
+    fused = ("query_score_queue" if kernels.queue_score_windows(
+        db.nb_bits, db.nb // num_db, "qs", 4 * p2.shape[1] - k + 1) > 1
+        else "query_score_part")
     assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
-        "query_score_part": num_data, "query_part": (num_db - 1) * num_data
+        fused: num_data, "query_part": (num_db - 1) * num_data
     } or (num_db == 1 and {n: c for n, c in kernels.LAUNCHES.items() if c}
           == {"query_score_part": num_data})
     assert torch.equal(torch.cat(res), want)
@@ -1081,6 +1144,7 @@ def test_mesh_step_launches_fused(dev, num_data, num_db):
     assert kernels.LAUNCHES["query_part"] == num_db * num_data
     assert kernels.LAUNCHES["score"] == num_data
     assert kernels.LAUNCHES["query_score_part"] == 0
+    assert kernels.LAUNCHES["query_score_queue"] == 0
     assert torch.equal(torch.cat(res), want)
 
 
