@@ -93,11 +93,23 @@ against `--device cpu`:
   - file_to_csv also prints one more pass split by thread (the main,
     producer and writer threads' stages, waits and uncovered time;
     scripts/torch_thread_split.py);
-  - host_format (after host_scan): 1,048,576 seeded result rows (ratios,
+  - host_mate (after host_scan): 1,048,576 seeded pairs of 150 bp mates
+    named `SRR1234567.<i>/1` and `/2`, and in Casava 1.8's style; the
+    native mate-id check (team 1, every core, classify's dispatch)
+    against its numpy plain version on equal ids and with a mismatch
+    planted at record 0, n - 1 and a random record: the same index
+    required, both times, the team and the cores;
+  - host_format (after host_mate): 1,048,576 seeded result rows (ratios,
     -nan, -0, +-inf, ties at the sixth digit and their neighbours,
     doubles of every magnitude) through the CSV row writer and its
     snprintf plain version in classify's batches: equal bytes required,
-    both times, the values handed to snprintf, the team and the cores.
+    both times, the values handed to snprintf, the team and the cores;
+    then the results entry (gamma and confidence computed by the
+    writer) against `gamma_confidence` + the printf version on seeded
+    results rows with reads of k - 2 to k + 1 bases, single and paired:
+    equal bytes, both times;
+  - classify_paired also prints one more paired pass split by thread
+    (its head's `mate_check` among the main thread's stages).
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 last three lines are the card's name and power limit, a JSON object of
@@ -143,6 +155,7 @@ N_LONG, LONG_MIN, LONG_MAX = 256, 33_000, 100_000
 HOST_SCAN_READS = 1 << 20
 HOST_FORMAT_ROWS = 1 << 20
 HOST_PACK_READS = 1 << 20
+HOST_MATE_PAIRS = 1 << 20
 PHRED = bytes(range(33, 75))  # '!'..'J': quality lines may open '@', '+'
 
 
@@ -608,6 +621,43 @@ def check_host_scan(tmp: Path, n: int = HOST_SCAN_READS) -> str:
             f"{len(os.sched_getaffinity(0))} host cores")
 
 
+def check_host_mate(n: int = HOST_MATE_PAIRS) -> str:
+    """The mate-id check of paired classify's head: n seeded pairs of
+    150 bp mates in each name style of `scripts/torch_host_scan.py`
+    (`SRR1234567.<i>/1` and `/2`; Casava 1.8, whose ids the scan's cut
+    at the space leaves equal), checked by the plain version
+    (`fast_parse.first_mate_mismatch_plain`), by the native check at
+    team 1, at every core and through classify's dispatch, on equal ids
+    and with a mismatch planted at record 0, n - 1 and a random record:
+    every version must give the same index (a hard failure); the plain
+    and the native times (min of 3, in turns), the team and the host's
+    cores."""
+    import torch_host_scan as hs
+    from cuclark_tpu_torch import native
+    from cuclark_tpu_torch.io import fast_parse
+
+    cores = len(os.sched_getaffinity(0))
+    out = []
+    for style in hs.MATE_STYLES:
+        mates = hs.mate_buffers(n, style)
+        args = (mates[0], mates[1], mates[2], mates[3], mates[4], mates[5])
+        planted = hs.planted_mates(mates, n, sorted({1, cores}))
+        if fast_parse.first_mate_mismatch(*args) != -1:
+            raise AssertionError(f"{style}: classify's check found a "
+                                 f"mismatch in equal ids")
+        t = hs.times_ms({
+            "plain": lambda: fast_parse.first_mate_mismatch_plain(*args),
+            "native": lambda: native.first_mate_mismatch(*args)}, 3)
+        out.append(f"{style} {n} pairs: plain {min(t['plain']):.3f} ms, "
+                   f"native {min(t['native']):.4f} ms "
+                   f"({min(t['plain']) / min(t['native']):.1f}x); planted "
+                   + ", ".join(f"{case} {v['at']}" for case, v in
+                               planted.items()))
+        del mates, args
+    return (f"{'; '.join(out)}; native == plain at every case; team "
+            f"{native.mate_team(n)}, {cores} host cores")
+
+
 def host_format_fields(n: int, seed: int = 13):
     """n seeded result rows whose gamma and confidence hold what the row
     writer must print as glibc's %g does: ratios t/d (d up to 2,048),
@@ -685,13 +735,85 @@ def check_host_format(n: int = HOST_FORMAT_ROWS,
         "writer": lambda: hs.format_chunks(native.format_rows, fields,
                                            chunk)}, 3)
     nan_rows = got.count(b",-nan,") + got.count(b",-nan\n")
+    res = check_host_results(fields, chunk)
     return (f"{n} rows, {len(got)} bytes ({nan_rows} -nan fields): "
             f"printf {min(t['printf']):.3f} ms, writer "
             f"{min(t['writer']):.3f} ms "
             f"({min(t['printf']) / min(t['writer']):.2f}x), equal bytes; "
-            f"{handed} values handed to snprintf; team "
+            f"{handed} values handed to snprintf; {res}; team "
             f"{native.format_team(chunk)}, "
             f"{len(os.sched_getaffinity(0))} host cores")
+
+
+def host_results(fields, seed: int = 19):
+    """Seeded results rows for the names of `host_format_fields`: totals
+    up to 65,535 (0 for most reads of k bases or fewer), best + second = 0 in
+    a seventh of the rows, lengths k - 2 to k + 1 beside 150 (gamma -0,
+    -nan, +-inf): the inputs of `torch_host_scan.results_chunks`."""
+    buf, ns, ne, tnb, tno = fields[7:]
+    n = len(ns)
+    rng = np.random.default_rng(seed)
+    short = K + np.arange(-2, 2)
+    lengths = np.where(rng.random(n) < 0.3,
+                       short[rng.integers(0, len(short), n)],
+                       READ_LEN).astype(np.int64)
+    total = rng.integers(0, 65536, n)
+    total[(lengths <= K) & (rng.random(n) < 0.9)] = 0  # paired: norm < k
+    best = rng.integers(0, total + 1)
+    second = rng.integers(0, total - best + 1)
+    zero = rng.random(n) < 1 / 7
+    best[zero] = second[zero] = 0
+    nt = len(tno) - 1
+    results = np.stack([total, rng.integers(0, nt, n), best,
+                        rng.integers(0, nt, n), second], 1).astype(np.int32)
+    return results, lengths, K, buf, ns, ne, tnb, tno
+
+
+def printf_results(results, lengths, k, paired, buf, ns, ne, tnb, tno):
+    """The plain version of `native.format_results`: numpy's
+    `gamma_confidence`, then the printf formatter (a tuple, as the
+    writer returns)."""
+    from cuclark_tpu_torch import native, score
+
+    total, ibest, best, isecond, second = (results[:, i] for i in range(5))
+    norm, gamma, conf = score.gamma_confidence(total, best, second, lengths,
+                                               k, paired)
+    return native.format_rows_printf(norm, gamma, ibest, best, isecond,
+                                     second, conf, buf, ns, ne, tnb,
+                                     tno), 0
+
+
+def check_host_results(fields, chunk: int) -> str:
+    """The results entry (`native.format_results`: gamma and confidence
+    computed by the row writer) against `gamma_confidence` +
+    `format_rows_printf` on `host_results` rows, single and paired, in
+    chunks of `chunk`: equal bytes required; both times (min of 3, in
+    turns)."""
+    import torch_host_scan as hs
+    from cuclark_tpu_torch import native
+
+    inputs = host_results(fields)
+    for paired in (False, True):
+        got = b"".join(a.tobytes() for a in hs.results_chunks(
+            native.format_results, inputs, chunk, paired))
+        want = b"".join(a.tobytes() for a in hs.results_chunks(
+            printf_results, inputs, chunk, paired))
+        if got != want:
+            raise AssertionError(f"format_results != gamma_confidence + "
+                                 f"format_rows_printf (paired {paired})")
+        for field in (b",-nan,", b",-0,"):
+            if field not in got:
+                raise AssertionError(f"no {field!r} gamma in the results "
+                                     f"rows")
+    t = hs.times_ms({
+        "plain": lambda: hs.results_chunks(printf_results, inputs, chunk),
+        "results": lambda: hs.results_chunks(native.format_results, inputs,
+                                             chunk)}, 3)
+    return (f"results entry on {len(inputs[0])} rows (lengths k - 2 to "
+            f"k + 1 and {READ_LEN}), single and paired: gamma_confidence + "
+            f"printf {min(t['plain']):.3f} ms, results entry "
+            f"{min(t['results']):.3f} ms "
+            f"({min(t['plain']) / min(t['results']):.2f}x), equal bytes")
 
 
 def check_host_pack(tmp: Path, n: int = HOST_PACK_READS,
@@ -2699,6 +2821,8 @@ def main(argv=None) -> int:
         t0 = time.time()
         _phase("host_scan", t0, check_host_scan(tmp))
         t0 = time.time()
+        _phase("host_mate", t0, check_host_mate())
+        t0 = time.time()
         _phase("host_format", t0, check_host_format())
         t0 = time.time()
         _phase("host_pack", t0, check_host_pack(tmp))
@@ -3103,6 +3227,16 @@ def main(argv=None) -> int:
         if (tmp / "paired_again.csv").read_bytes() != paired_csv.read_bytes():
             raise AssertionError("a second paired classify wrote another "
                                  "CSV")
+        # one more paired pass split by thread: the head's mate_check
+        with ThreadSplit() as split:
+            clf.classify_file_to_csv(r1, tmp / "paired_again.csv", r2)
+            torch.cuda.synchronize()
+        report = split.report(-(-args.reads // clf.cfg.batch_reads))
+        print("  classify_paired " + summary(report), flush=True)
+        if "mate_check" not in report["threads"]["MainThread"]["stages"]:
+            raise AssertionError("the paired pass ran no mate-id check")
+        if (tmp / "paired_again.csv").read_bytes() != paired_csv.read_bytes():
+            raise AssertionError("the split paired pass wrote another CSV")
         del clf
         torch.cuda.empty_cache()
         _phase("classify_paired", t0,

@@ -14,6 +14,7 @@
 #include <unistd.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 
@@ -346,6 +347,92 @@ int64_t read_file_par(const char* path, uint8_t* out, int64_t n,
     }
     close(fd);
     return got;
+}
+
+// ---- The mate-id check on the OpenMP team ----
+//
+// first_mate_mismatch gives the numpy check's answer
+// (fast_parse.first_mate_mismatch_plain): the first record i < n whose
+// mate ids differ, else -1.  A name is buf[s, e) as the scan cut it (at
+// a space or a tab); its id ends at the first '/' in it (the reference
+// merger's separator, src/file.cc:210-214), else at e.  Two ids match
+// when their lengths and their bytes are equal; a NUL is a byte like
+// any other.  Each thread takes one contiguous range of records and
+// stops at its first mismatch, or once a lower range has found one (it
+// looks every kMateStep records); the smallest index found is the
+// answer at every team size.  -2: a name lies outside its buffer.
+//
+// The check runs in classify's head, before the producer and writer
+// threads start, so it takes the whole team, as the scan does.  Below
+// kMateParMinRecs records (about 0.5 ms on one thread) the team's start
+// would cost more than it saves: one thread.
+
+static const int64_t kMateParMinRecs = 1 << 14;
+static const int64_t kMateStep = 1024;
+
+// Threads the check runs n records on: nthreads when > 0 (tests pin
+// it), else one below kMateParMinRecs and the OpenMP team from there up.
+int64_t mate_team(int64_t n, int64_t nthreads) {
+    int64_t t = nthreads;
+    if (t <= 0) {
+        t = 1;
+#ifdef _OPENMP
+        if (n >= kMateParMinRecs) t = omp_get_max_threads();
+#endif
+    }
+    if (t > n) t = n;
+    return t < 1 ? 1 : t;
+}
+
+static inline int64_t mate_id_len(const uint8_t* buf, int64_t s,
+                                  int64_t e) {
+    const void* p = memchr(buf + s, '/', (size_t)(e - s));
+    return p ? (const uint8_t*)p - (buf + s) : e - s;
+}
+
+int64_t first_mate_mismatch(const uint8_t* buf1, int64_t n1,
+                            const int64_t* ns1, const int64_t* ne1,
+                            const uint8_t* buf2, int64_t n2,
+                            const int64_t* ns2, const int64_t* ne2,
+                            int64_t n, int64_t nthreads) {
+    if (n <= 0) return -1;
+    const int64_t T = mate_team(n, nthreads);
+    std::atomic<int64_t> first(INT64_MAX);
+    std::atomic<bool> outside(false);
+#pragma omp parallel for schedule(static, 1) num_threads(T) if (T > 1)
+    for (int64_t t = 0; t < T; t++) {
+        const int64_t lo = chunk_lo(n, T, t), hi = chunk_lo(n, T, t + 1);
+        for (int64_t b = lo; b < hi; b += kMateStep) {
+            if (first.load(std::memory_order_relaxed) < lo
+                || outside.load(std::memory_order_relaxed)) break;
+            const int64_t be = b + kMateStep < hi ? b + kMateStep : hi;
+            int64_t i = b;
+            for (; i < be; i++) {
+                const int64_t s1 = ns1[i], e1 = ne1[i];
+                const int64_t s2 = ns2[i], e2 = ne2[i];
+                if (s1 < 0 || e1 < s1 || e1 > n1 || s2 < 0 || e2 < s2
+                    || e2 > n2) {
+                    outside.store(true, std::memory_order_relaxed);
+                    break;
+                }
+                const int64_t l1 = mate_id_len(buf1, s1, e1);
+                if (l1 != mate_id_len(buf2, s2, e2)
+                    || memcmp(buf1 + s1, buf2 + s2, (size_t)l1) != 0) {
+                    // the first mismatch of this range: fold it into
+                    // the shared minimum
+                    int64_t cur = first.load(std::memory_order_relaxed);
+                    while (i < cur && !first.compare_exchange_weak(
+                                          cur, i, std::memory_order_relaxed))
+                        ;
+                    break;
+                }
+            }
+            if (i < be) break;
+        }
+    }
+    if (outside.load()) return -2;
+    const int64_t f = first.load();
+    return f == INT64_MAX ? -1 : f;
 }
 
 // Pack records into a [nrec, L] code matrix (pre-filled by caller or
@@ -1341,6 +1428,9 @@ int64_t format_rows_ext_printf(int64_t n, int64_t n_targets,
 // range of rows: thread 0 straight into the output, the others into a
 // scratch buffer of their own kept across calls; after a barrier the
 // others copy their pieces to prefix-summed offsets, in parallel.
+// format_results / format_results_ext write the same rows from the
+// card's results rows and the reads' lengths, computing each row's
+// norm, gamma and confidence on the same team (classify's writer).
 
 typedef unsigned __int128 u128;
 
@@ -1513,6 +1603,9 @@ static inline char* put_str(char* p, const uint8_t* s, int64_t len) {
     return p + len;
 }
 
+// A batch's rows: the field arrays (norm ... conf), or the card's
+// results rows with the reads' lengths (results set: the fields are
+// computed here, row by row).
 struct RowFields {
     int64_t n_targets;  // count columns a row (counts null: none)
     const uint32_t* counts;
@@ -1528,13 +1621,55 @@ struct RowFields {
     const int64_t* name_e;
     const uint8_t* tnames;
     const int64_t* tname_off;
+    const int32_t* results;  // [n, 5]: total, ibest, best, isecond, second
+    const int64_t* lengths;
+    int64_t k;
+    int64_t paired;  // 1: a joined pair, whose joining N leaves the norm
 };
+
+struct RowVals {
+    int64_t norm;
+    double gamma;
+    int32_t ibest, best, isecond, second;
+    double conf;
+};
+
+// Row i's values.  From a results row they are score.gamma_confidence's,
+// bit for bit: the same IEEE double operations in the same order (the
+// build has no -ffast-math, and none of them is a multiply-add that
+// contraction could fuse).  A read of k - 1 bases divides 0 by 0 (a NaN
+// with the sign bit set on x86, as numpy's), a shorter one 0 by a
+// negative number (-0).
+static inline RowVals row_vals(const RowFields& a, int64_t i) {
+    RowVals v;
+    if (a.results) {
+        const int32_t* r = a.results + 5 * i;
+        v.norm = a.lengths[i] - a.paired;
+        v.gamma = (double)r[0] / (((double)v.norm - (double)a.k) + 1.0);
+        v.ibest = r[1];
+        v.best = r[2];
+        v.isecond = r[3];
+        v.second = r[4];
+        const double s = (double)v.best + (double)v.second;
+        v.conf = s < 0.001 ? 0.0 : (double)v.best / s;
+    } else {
+        v.norm = a.norm[i];
+        v.gamma = a.gamma[i];
+        v.ibest = a.ibest[i];
+        v.best = a.best[i];
+        v.isecond = a.isecond[i];
+        v.second = a.second[i];
+        v.conf = a.conf[i];
+    }
+    return v;
+}
 
 // the printf versions' room check for row i
 static inline int64_t row_bound(const RowFields& a, int64_t i) {
     int64_t nl = a.name_e[i] - a.name_s[i];
     if (nl > 39) nl = 39;
-    const int64_t t1 = a.ibest[i], t2 = a.isecond[i];
+    const int64_t t1 = a.results ? a.results[5 * i + 1] : a.ibest[i];
+    const int64_t t2 = a.results ? a.results[5 * i + 3] : a.isecond[i];
     return nl + (a.counts ? 12 * (a.n_targets + 1) : 0) + 160
            + (a.tname_off[t1 + 1] - a.tname_off[t1])
            + (a.tname_off[t2 + 1] - a.tname_off[t2]);
@@ -1557,23 +1692,24 @@ static int64_t write_rows(const RowFields& a, int64_t lo, int64_t hi,
                 p = put_u64(p, row[t]);
             }
         }
+        const RowVals v = row_vals(a, i);
         *p++ = ',';
-        p = put_i64(p, a.norm[i]);
+        p = put_i64(p, v.norm);
         *p++ = ',';
-        p = put_g(p, a.gamma[i], n_printf);
-        const int64_t t1 = a.ibest[i], t2 = a.isecond[i];
+        p = put_g(p, v.gamma, n_printf);
+        const int64_t t1 = v.ibest, t2 = v.isecond;
         *p++ = ',';
         p = put_str(p, a.tnames + a.tname_off[t1],
                     a.tname_off[t1 + 1] - a.tname_off[t1]);
         *p++ = ',';
-        p = put_i64(p, a.best[i]);
+        p = put_i64(p, v.best);
         *p++ = ',';
         p = put_str(p, a.tnames + a.tname_off[t2],
                     a.tname_off[t2 + 1] - a.tname_off[t2]);
         *p++ = ',';
-        p = put_i64(p, a.second[i]);
+        p = put_i64(p, v.second);
         *p++ = ',';
-        p = put_g(p, a.conf[i], n_printf);
+        p = put_g(p, v.conf, n_printf);
         *p++ = '\n';
     }
     return p - out;
@@ -1656,6 +1792,12 @@ int64_t format_rows_team(int64_t n, int64_t nthreads) {
     return format_team(n, 4096, nthreads);
 }
 
+// The extended rows' one-thread floor: one thread while
+// n * (n_targets + 8) < 65536, as the printf version.
+static int64_t ext_min_rows(int64_t n_targets) {
+    return (65536 + n_targets + 7) / (n_targets + 8);
+}
+
 // The rows of format_rows_printf; nthreads as format_team; *n_printf
 // receives the count of values put_g handed to snprintf.  Returns the
 // bytes written, or -1 when cap is too small.
@@ -1671,7 +1813,7 @@ int64_t format_rows(int64_t n,
                     int64_t* n_printf) {
     const RowFields a = {0, nullptr, norm, gamma, ibest, best, isecond,
                          second, conf, buf, name_s, name_e, tnames,
-                         tname_off};
+                         tname_off, nullptr, nullptr, 0, 0};
     return write_rows_team(a, n, format_team(n, 4096, nthreads), out, cap,
                            n_printf);
 }
@@ -1690,11 +1832,47 @@ int64_t format_rows_ext(int64_t n, int64_t n_targets,
                         int64_t* n_printf) {
     const RowFields a = {n_targets, counts, norm, gamma, ibest, best,
                          isecond, second, conf, buf, name_s, name_e,
-                         tnames, tname_off};
-    // one thread while n * (n_targets + 8) < 65536, as the printf version
-    const int64_t min_rows = (65536 + n_targets + 7) / (n_targets + 8);
-    return write_rows_team(a, n, format_team(n, min_rows, nthreads), out,
-                           cap, n_printf);
+                         tnames, tname_off, nullptr, nullptr, 0, 0};
+    return write_rows_team(a, n, format_team(n, ext_min_rows(n_targets),
+                                             nthreads),
+                           out, cap, n_printf);
+}
+
+// The rows of format_rows from the card's results rows ([n, 5] int32,
+// row-major: total, best index, best, second index, second) and the
+// reads' lengths: norm = length - paired, gamma and confidence computed
+// on the writer's team (row_vals), as score.gamma_confidence computes
+// them.  nthreads, *n_printf and the return as format_rows.
+int64_t format_results(int64_t n, const int32_t* results,
+                       const int64_t* lengths, int64_t k, int64_t paired,
+                       const uint8_t* buf,
+                       const int64_t* name_s, const int64_t* name_e,
+                       const uint8_t* tnames, const int64_t* tname_off,
+                       char* out, int64_t cap, int64_t nthreads,
+                       int64_t* n_printf) {
+    const RowFields a = {0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, buf, name_s, name_e,
+                         tnames, tname_off, results, lengths, k, paired};
+    return write_rows_team(a, n, format_team(n, 4096, nthreads), out, cap,
+                           n_printf);
+}
+
+// The rows of format_rows_ext from results rows, as format_results.
+int64_t format_results_ext(int64_t n, int64_t n_targets,
+                           const uint32_t* counts, const int32_t* results,
+                           const int64_t* lengths, int64_t k, int64_t paired,
+                           const uint8_t* buf,
+                           const int64_t* name_s, const int64_t* name_e,
+                           const uint8_t* tnames, const int64_t* tname_off,
+                           char* out, int64_t cap, int64_t nthreads,
+                           int64_t* n_printf) {
+    const RowFields a = {n_targets, counts, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, nullptr, buf, name_s,
+                         name_e, tnames, tname_off, results, lengths, k,
+                         paired};
+    return write_rows_team(a, n, format_team(n, ext_min_rows(n_targets),
+                                             nthreads),
+                           out, cap, n_printf);
 }
 
 // ---- result-CSV ingestion (abundance / density summarization) ----

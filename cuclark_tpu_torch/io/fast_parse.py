@@ -1,7 +1,9 @@
 """Vectorized FASTA/FASTQ scanning and read packing.
 
 Counterpart of `cuclark_tpu/io/fast_parse.py` (`scan_file`,
-`pack_block2_dispatch`), carried over unchanged.
+`pack_block2_dispatch`), carried over; the mate-id check
+(`first_mate_mismatch`) goes native, and the numpy check stays as its
+plain version (`first_mate_mismatch_plain`).
 
 The equivalent of the reference's OpenMP record scanner +
 container packer (src/CuCLARK_hh.hh:1335-1551 boundary scan;
@@ -155,7 +157,20 @@ def pack_block(buf: np.ndarray, seq_s, seq_e, max_len: int,
 
 
 def first_mate_mismatch(buf1, ns1, ne1, buf2, ns2, ne2) -> int:
-    """Vectorized mate-id validation for the file fast path.
+    """Mate-id validation for the file fast path: the native check on
+    the OpenMP team (`native.first_mate_mismatch`) when the native module
+    is available, else `first_mate_mismatch_plain`; both give the same
+    index."""
+    from cuclark_tpu_torch import native
+
+    if native.available():
+        return native.first_mate_mismatch(buf1, ns1, ne1, buf2, ns2, ne2)
+    return first_mate_mismatch_plain(buf1, ns1, ne1, buf2, ns2, ne2)
+
+
+def first_mate_mismatch_plain(buf1, ns1, ne1, buf2, ns2, ne2) -> int:
+    """Vectorized mate-id validation, the plain version the native check
+    is held to (tests, chip_smoke.py, the host scripts).
 
     Names (already cut at space/tab by the scan) are further cut at '/'
     — the reference merger's separator set (src/file.cc:210-214) — and

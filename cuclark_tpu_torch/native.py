@@ -10,9 +10,15 @@ one-thread scan stays beside it as the plain version
 `format_rows`/`format_rows_ext` write classify's CSV rows without
 printf, byte for byte the rows of the JAX package's snprintf formatter,
 which stays beside them as the plain version (`format_rows_printf`,
-`format_rows_ext_printf`).  `pack_block2`/`pack_block2_paired` pack
-eight bases a step into arrays the caller may give (`out`); the one-base
-loops stay as `pack_block2_plain`/`pack_block2_paired_plain`.
+`format_rows_ext_printf`); `format_results`/`format_results_ext` write
+the same rows from the card's results rows, computing gamma and
+confidence themselves (held to `score.gamma_confidence` + the printf
+versions).  `first_mate_mismatch` checks the mate ids of two scanned
+files on the OpenMP team (held to
+`fast_parse.first_mate_mismatch_plain`).  `pack_block2`/
+`pack_block2_paired` pack eight bases a step into arrays the caller may
+give (`out`); the one-base loops stay as
+`pack_block2_plain`/`pack_block2_paired_plain`.
 
 Compiled lazily with g++ on first use and cached in the user's cache
 directory (`_cache_dir`); everything degrades gracefully to the numpy
@@ -109,6 +115,12 @@ def _build() -> ctypes.CDLL | None:
                                    ctypes.POINTER(ctypes.c_int64)]
     lib.scan_fasta_par.restype = ctypes.c_int64
     lib.scan_fasta_par.argtypes = lib.scan_fastq_par.argtypes
+    lib.mate_team.restype = ctypes.c_int64
+    lib.mate_team.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    mate = [_U8P, ctypes.c_int64, _I64P, _I64P]
+    lib.first_mate_mismatch.restype = ctypes.c_int64
+    lib.first_mate_mismatch.argtypes = mate + mate + [ctypes.c_int64,
+                                                      ctypes.c_int64]
     lib.read_file_par.restype = ctypes.c_int64
     lib.read_file_par.argtypes = [ctypes.c_char_p, _U8P, ctypes.c_int64,
                                   ctypes.c_int64]
@@ -179,6 +191,13 @@ def _build() -> ctypes.CDLL | None:
     lib.format_rows_ext_printf.argtypes = rows_ext
     lib.format_rows_ext.restype = ctypes.c_int64
     lib.format_rows_ext.argtypes = rows_ext + [
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+    results = [_I32P, _I64P, ctypes.c_int64, ctypes.c_int64] + rows[8:]
+    lib.format_results.restype = ctypes.c_int64
+    lib.format_results.argtypes = [ctypes.c_int64] + results + [
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+    lib.format_results_ext.restype = ctypes.c_int64
+    lib.format_results_ext.argtypes = rows_ext[:3] + results + [
         ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
     lib.csv_tally.restype = ctypes.c_int64
     lib.csv_tally.argtypes = [
@@ -292,6 +311,39 @@ def scan(buf: np.ndarray, threads: int = 0):
             f"malformed FASTQ record at byte {c}: line does not start "
             f"with '@' (remainder would be silently skipped)")
     return tuple(offsets)
+
+
+def mate_team(n: int, threads: int = 0) -> int:
+    """Threads `first_mate_mismatch` runs n records on: `threads` when
+    > 0, else one below 16,384 records and the OpenMP team
+    (OMP_NUM_THREADS, else every core) from there up; never more than
+    n."""
+    return int(_lib().mate_team(n, threads))
+
+
+def first_mate_mismatch(buf1: np.ndarray, ns1, ne1, buf2: np.ndarray, ns2,
+                        ne2, threads: int = 0) -> int:
+    """The index of the first of the first min(len(ns1), len(ns2))
+    records whose mate ids differ, or -1: the numpy check's answer
+    (`fast_parse.first_mate_mismatch_plain`, the plain version), on the
+    OpenMP team (`threads` as `mate_team`).  A name is buf[s:e] as the
+    scan cut it, its id the bytes before its first '/', else all of it.
+    Raises ValueError when a name lies outside its buffer."""
+    n = min(len(ns1), len(ns2))
+    if n == 0:
+        return -1
+    if len(ne1) < n or len(ne2) < n:
+        raise ValueError(f"first_mate_mismatch: {len(ne1)}/{len(ne2)} name "
+                         f"ends for {n} records")
+    args = [a for buf, s, e in ((buf1, ns1, ne1), (buf2, ns2, ne2))
+            for a in (np.ascontiguousarray(buf, np.uint8), len(buf),
+                      np.ascontiguousarray(s[:n], np.int64),
+                      np.ascontiguousarray(e[:n], np.int64))]
+    r = _lib().first_mate_mismatch(*args, n, threads)
+    if r == -2:
+        raise ValueError("first_mate_mismatch: a name offset lies outside "
+                         "its buffer")
+    return int(r)
 
 
 def read_file(path, threads: int = 0) -> np.ndarray:
@@ -575,6 +627,56 @@ def format_rows_ext_printf(counts, norm, gamma, ibest, best, isecond,
                    _row_args(norm, gamma, ibest, best, isecond, second,
                              conf, buf, name_s, name_e, tname_bytes,
                              tname_off))
+
+
+def _result_args(results, lengths, k: int, paired: bool, buf, name_s,
+                 name_e, tname_bytes, tname_off) -> tuple:
+    """The results entries' arguments after n (contiguous, typed,
+    checked: results [n, 5], n lengths and names)."""
+    results = np.ascontiguousarray(results, np.int32)
+    n = len(results)
+    if results.ndim != 2 or results.shape[1] != 5:
+        raise ValueError(f"results {results.shape} is not [n, 5]")
+    if not len(lengths) == len(name_s) == len(name_e) == n:
+        raise ValueError(f"{n} results rows, {len(lengths)} lengths, "
+                         f"{len(name_s)}/{len(name_e)} names")
+    return (results, np.ascontiguousarray(lengths, np.int64), int(k),
+            int(bool(paired)), np.ascontiguousarray(buf, np.uint8),
+            np.ascontiguousarray(name_s, np.int64),
+            np.ascontiguousarray(name_e, np.int64),
+            np.ascontiguousarray(tname_bytes, np.uint8),
+            np.ascontiguousarray(tname_off, np.int64))
+
+
+def format_results(results, lengths, k: int, paired: bool, buf, name_s,
+                   name_e, tname_bytes, tname_off,
+                   threads: int = 0) -> tuple[np.ndarray, int]:
+    """A batch's CSV rows straight from the card's results rows (int32
+    [n, 5]: total, best index, best, second index, second) and the
+    reads' lengths: `format_rows`' rows of `score.gamma_confidence`'s
+    norm, gamma and confidence, which the row writer computes itself,
+    row by row on its team, bit for bit as numpy does.  Returns and
+    `threads` as `format_rows`."""
+    n_printf = ctypes.c_int64(0)
+    rows = _format(_lib().format_results, (len(results),), 0,
+                   _result_args(results, lengths, k, paired, buf, name_s,
+                                name_e, tname_bytes, tname_off),
+                   (threads, ctypes.byref(n_printf)))
+    return rows, n_printf.value
+
+
+def format_results_ext(counts, results, lengths, k: int, paired: bool, buf,
+                       name_s, name_e, tname_bytes, tname_off,
+                       threads: int = 0) -> tuple[np.ndarray, int]:
+    """`format_rows_ext`' rows from results rows, as `format_results`;
+    `counts` the dense count columns."""
+    lead = _ext_lead(counts, len(results))
+    n_printf = ctypes.c_int64(0)
+    rows = _format(_lib().format_results_ext, lead, lead[1],
+                   _result_args(results, lengths, k, paired, buf, name_s,
+                                name_e, tname_bytes, tname_off),
+                   (threads, ctypes.byref(n_printf)))
+    return rows, n_printf.value
 
 
 def spill_partition(kmers: np.ndarray, labels: np.ndarray,

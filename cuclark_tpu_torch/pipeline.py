@@ -85,7 +85,8 @@ def classify_step_packed(table, packed2, vbits, *, k, spec: TableSpec,
 
 class CsvSink:
     """CLARK-CSV output sink: native OpenMP row writing without printf
-    (csrc/host_ops.cpp format_rows/format_rows_ext), extended-mode
+    from the card's results rows (csrc/host_ops.cpp
+    format_results/format_results_ext), extended-mode
     hit-stat accumulation, and the reference header
     (src/CuCLARK_hh.hh:1956-1972).  The file handle must be opened in
     binary mode; call flush() from a single (writer) thread so rows stay
@@ -114,23 +115,17 @@ class CsvSink:
         np or None, read names as (buf, ns, ne) byte offsets."""
         from cuclark_tpu_torch import native
 
-        results = results[:cnt]
-        lengths = lengths[:cnt]
-        total, ibest, best, isecond, second = (
-            results[:, i] for i in range(5))
-        norm, gamma, conf = score.gamma_confidence(
-            total, best, second, lengths, self.db.k, self.paired)
+        # gamma and confidence are computed by the row writer itself
+        # (`native.format_results`), as score.gamma_confidence would
+        args = (results[:cnt], lengths[:cnt], self.db.k, self.paired, buf,
+                ns[:cnt], ne[:cnt], self.tname_bytes, self.tname_off)
         if self.extended:
             counts = dense_counts(labels_np[:cnt],
                                   self.db.num_targets)[:, 1:]
             accumulate_hit_stats(self.hstats, (counts > 0).sum(axis=1))
-            rows, _ = native.format_rows_ext(
-                counts, norm, gamma, ibest, best, isecond, second, conf,
-                buf, ns[:cnt], ne[:cnt], self.tname_bytes, self.tname_off)
+            rows, _ = native.format_results_ext(counts, *args)
         else:
-            rows, _ = native.format_rows(
-                norm, gamma, ibest, best, isecond, second, conf,
-                buf, ns[:cnt], ne[:cnt], self.tname_bytes, self.tname_off)
+            rows, _ = native.format_results(*args)
         self.f.write(rows)
         self.total_rows += cnt
 

@@ -4,7 +4,8 @@ Counterpart of `cuclark_tpu/score.py`.  `score_labels` (score.py:28) is
 a hand-written CUDA kernel, `csrc/score.cu`, for CUDA tensors and its
 plain PyTorch version `score_labels_plain` for CPU tensors; the kernel
 is held against the plain version.  `gamma_confidence` is host numpy,
-carried over unchanged.
+carried over unchanged: the record path's, and the plain version of the
+row writer's own arithmetic (`native.format_results`, classify's CSV).
 
 Per read, the window labels are sorted, runs of equal labels are
 counted at their run ends, and the best target is found as (max count,

@@ -7,7 +7,9 @@ several splits of the cores, and a table of the host stages against the
 host's copy rate.
 
     python3 scripts/torch_host_scan.py [--reads 500000] [--pairs 12]
-        [--copy-mb 512] [--out FILE]
+        [--copy-mb 512] [--mate-pairs 500000,1048576]
+        [--sections scan,read,map,format,pack,teams,mate,writer,stages]
+        [--out FILE]
 
 It writes a FASTQ of bench_torch.py's e2e shape and format (`--reads`
 reads of 150 bp, `@r<i>` names, quality all 'I'), reads it once so the
@@ -52,15 +54,35 @@ page cache holds it, then:
     with OMP_WAIT_POLICY=passive, and T + T in one with the default
     policy beside it; each configuration's wall time of both and each
     side's own time;
+  - mate: the mate-id check of paired classify's head: two mate files
+    of the largest `--mate-pairs` pairs of 150 bp mates, in each name
+    style (`SRR1234567.<i>/1` and `/2`; Casava 1.8's `<...>:<i>
+    1:N:0:ATCACG` and ` 2:...`, which the scan's cut leaves equal), and
+    for each size the first n pairs: `--pairs` rounds in turns of the
+    plain version (`fast_parse.first_mate_mismatch_plain`, numpy) and
+    the native check (`native.first_mate_mismatch`) at teams 1, 4 and
+    every core, each team's wins against the plain version of its
+    round; then a mismatch planted at record 0, n - 1 and a random
+    record, every version required to find it, one time each;
+  - writer: the writer's batch over the largest `--mate-pairs` rows
+    (mate 1's names, seeded results rows of 150 bp reads) in chunks of
+    `--chunk`: the results entry (`native.format_results`, gamma and
+    confidence in the writer) against the parent's path
+    (`score.gamma_confidence` + `native.format_rows`), both at the
+    writer's default team, `--pairs` pairs in turns; equal bytes
+    required, single and paired;
   - stages: the host's copy rate (a `np.copyto` of `--copy-mb` MB, more
     than the last-level cache, split over T threads; bytes read plus
     bytes written a second) and, for the scan, the pack, the paired
-    pack, the rows and the extended rows (64 count columns), calls and
-    ms per 1M reads of the new and the plain version, the bytes each
+    pack, the rows, the extended rows (64 count columns), the mate
+    check (s per 1M pairs: every core against the plain version) and
+    the rows from results rows (against gamma_confidence + rows), calls
+    and s per 1M reads of the new and the plain version, the bytes each
     reads and writes, the least time those bytes take at the copy rate
     (the bound) and the share of it each version reaches; each stage at
-    the team classify runs it on (the scan every core, the pack half,
-    the rows the rest; the plain versions every core).
+    the team classify runs it on (the scan and the check every core,
+    the pack half, the rows the rest; the plain versions every core).
+    A section left out of `--sections` gives no row.
 
 Prints the host's cores, the default team, the card's name and power
 limit where `nvidia-smi` answers, and one JSON line last.
@@ -89,16 +111,16 @@ TEAMS = (1, 2, 4, 8)
 
 
 def fastq_bytes(n: int, seed: int, read_len: int = 150,
-                qual: bytes = b"I") -> bytes:
+                qual: bytes = b"I", name: bytes = b"r%d") -> bytes:
     """n random reads in bench_torch.py's record format; quality bytes
-    drawn from `qual`."""
+    drawn from `qual`; header i is `name % i`."""
     rng = np.random.default_rng(seed)
     seqs = np.frombuffer(b"ACGT", np.uint8)[
         rng.integers(0, 4, (n, read_len))]
     quals = np.frombuffer(qual, np.uint8)[
         rng.integers(0, len(qual), (n, read_len))]
-    return b"".join(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(),
-                                           quals[i].tobytes())
+    return b"".join(b"@%s\n%s\n+\n%s\n" % (name % i, seqs[i].tobytes(),
+                                          quals[i].tobytes())
                     for i in range(n))
 
 
@@ -472,6 +494,217 @@ def team_rates_in_process(path: Path, chunk: int, reps: int, cores: int,
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
+# mate 1's and mate 2's header of pair i: an SRA run's `.i/1` and `/2`,
+# and Casava 1.8's, which the scan's cut at the space leaves equal
+MATE_STYLES = {
+    "srr": (b"SRR1234567.%d/1", b"SRR1234567.%d/2"),
+    "casava": (b"EAS139:136:FC706VJ:2:2104:15343:%d 1:N:0:ATCACG",
+               b"EAS139:136:FC706VJ:2:2104:15343:%d 2:N:0:ATCACG")}
+MATE_SIZES = (500_000, 1 << 20)
+
+
+def mate_buffers(n: int, style: str, seed: int = 31):
+    """Two mate files of n pairs of 150 bp mates named in `style`
+    (`MATE_STYLES`), scanned: (buf1, ns1, ne1, buf2, ns2, ne2); buf2 a
+    writeable copy, for mismatches planted and taken out again."""
+    from cuclark_tpu_torch import native
+
+    a, b = MATE_STYLES[style]
+    b1 = np.frombuffer(fastq_bytes(n, seed, name=a), np.uint8)
+    b2 = np.frombuffer(fastq_bytes(n, seed + 1, name=b), np.uint8).copy()
+    ns1, ne1, _, _ = native.scan(b1)
+    ns2, ne2, _, _ = native.scan(b2)
+    return b1, ns1, ne1, b2, ns2, ne2
+
+
+def mate_teams(cores: int) -> list:
+    """The check's teams timed: 1, 4 and every core."""
+    return sorted({1, min(4, cores), cores})
+
+
+def mate_fns(mates, n: int, teams) -> dict:
+    """The plain check and the native one at each team over the first n
+    pairs of `mates` (`mate_buffers`): name -> function."""
+    from cuclark_tpu_torch import native
+    from cuclark_tpu_torch.io import fast_parse
+
+    b1, ns1, ne1, b2, ns2, ne2 = mates
+    args = (b1, ns1[:n], ne1[:n], b2, ns2[:n], ne2[:n])
+    fns = {"plain": lambda: fast_parse.first_mate_mismatch_plain(*args)}
+    for t in teams:
+        fns[f"team_{t}"] = (
+            lambda t=t: native.first_mate_mismatch(*args, threads=t))
+    return fns
+
+
+def planted_mates(mates, n: int, teams, seed: int = 5) -> dict:
+    """Each version of the check (`mate_fns`) on equal ids and with one
+    mismatch planted in mate 2's id (its first byte changed, then put
+    back) at record 0, n - 1 and a random record: raises unless every
+    version gives the planted index (-1 on equal ids).  Per case the
+    index and each version's time of one call (ms)."""
+    b2, ns2 = mates[3], mates[4]
+    at_random = int(np.random.default_rng(seed).integers(n))
+    fns = mate_fns(mates, n, teams)
+    out = {}
+    for case, at in (("equal", -1), ("first", 0), ("last", n - 1),
+                     ("random", at_random)):
+        pos = int(ns2[at]) if at >= 0 else None
+        if pos is not None:
+            old = int(b2[pos])
+            b2[pos] = ord("X") if old != ord("X") else ord("Y")
+        try:
+            row = {"at": at}
+            for name, fn in fns.items():
+                t0 = time.perf_counter()
+                got = fn()
+                row[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+                if got != at:
+                    raise AssertionError(f"mate check {name}, {case}: "
+                                         f"{got}, planted {at}")
+        finally:
+            if pos is not None:
+                b2[pos] = old
+        out[case] = row
+    return out
+
+
+def mate_rates(sizes, pairs: int, styles=tuple(MATE_STYLES)) -> dict:
+    """The native mate-id check at teams 1, 4 and every core against its
+    plain version (`first_mate_mismatch_plain`), for each name style and
+    each size in `sizes` (the first n pairs of one pair of files):
+    `pairs` rounds in turns (`ab_pairs`), each team's wins against the
+    plain version of its round, min and median ms; then the planted
+    mismatches (`planted_mates`)."""
+    from cuclark_tpu_torch import native
+
+    cores = len(os.sched_getaffinity(0))
+    teams = mate_teams(cores)
+    out = {"teams": teams, "default_team": native.mate_team(max(sizes))}
+    for style in styles:
+        mates = mate_buffers(max(sizes), style)
+        names_b = float((mates[2] - mates[1]).sum()
+                        + (mates[5] - mates[4]).sum()) / len(mates[1])
+        for n in sizes:
+            ps = ab_pairs(mate_fns(mates, n, teams), pairs,
+                          f"mate {style} {n}")
+            row = {"pairs": ps, "name_bytes_per_pair": names_b,
+                   "planted": planted_mates(mates, n, teams)}
+            for name in ["plain"] + [f"team_{t}" for t in teams]:
+                ts = [p[f"{name}_ms"] for p in ps]
+                row[name] = {"min_ms": min(ts),
+                             "median_ms": statistics.median(ts)}
+                if name != "plain":
+                    row[name]["wins"] = sum(p[f"{name}_ms"] < p["plain_ms"]
+                                            for p in ps)
+            print(f"mate {style} {n} pairs: plain min "
+                  f"{row['plain']['min_ms']:.3f} ms (median "
+                  f"{row['plain']['median_ms']:.3f}); "
+                  + "; ".join(f"team {t} min {row[f'team_{t}']['min_ms']:.3f}"
+                              f" (median {row[f'team_{t}']['median_ms']:.3f}"
+                              f"), won {row[f'team_{t}']['wins']} of {pairs}"
+                              for t in teams)
+                  + "; planted " + ", ".join(
+                      f"{c} {v['at']}: plain {v['plain_ms']:.3f}, team "
+                      f"{cores} {v[f'team_{cores}_ms']:.3f} ms"
+                      for c, v in row["planted"].items()), flush=True)
+            out[f"{style}_{n}"] = row
+        del mates
+    return out
+
+
+def results_inputs(mates, k: int = 31, n_targets: int = 1024,
+                   seed: int = 17):
+    """Seeded results rows of 150 bp reads (P = 150 - k + 1 windows: total
+    <= P, best <= total, second <= total - best) for mate 1's records of
+    `mates` (`mate_buffers`), its names, and n_targets targets:
+    (results int32 [n, 5], lengths, k, buf, ns, ne, tname bytes,
+    offsets)."""
+    from cuclark_tpu_torch import native
+
+    buf, ns, ne = mates[:3]
+    n = len(ns)
+    rng = np.random.default_rng(seed)
+    total = rng.integers(0, 150 - k + 2, n)
+    best = rng.integers(0, total + 1)
+    second = rng.integers(0, total - best + 1)
+    results = np.stack([total, rng.integers(0, n_targets + 1, n), best,
+                        rng.integers(0, n_targets + 1, n), second],
+                       1).astype(np.int32)
+    tnb, tno = native.pack_target_names(
+        ["NA"] + [f"T{i}" for i in range(1, n_targets + 1)])
+    return (results, np.full(n, 150, np.int64), k, buf, ns, ne, tnb, tno)
+
+
+def parent_rows(results, lengths, k, paired, buf, ns, ne, tnb, tno):
+    """A batch's rows as the parent tree's `CsvSink.flush` makes them:
+    `score.gamma_confidence` in numpy, then `native.format_rows` on the
+    field arrays (the plain version of `native.format_results`)."""
+    from cuclark_tpu_torch import native, score
+
+    total, ibest, best, isecond, second = (results[:, i] for i in range(5))
+    norm, gamma, conf = score.gamma_confidence(total, best, second, lengths,
+                                               k, paired)
+    return native.format_rows(norm, gamma, ibest, best, isecond, second,
+                              conf, buf, ns, ne, tnb, tno)
+
+
+def results_chunks(fn, inputs, chunk: int, paired: bool = False) -> list:
+    """`fn` (`native.format_results` or `parent_rows`) over the rows in
+    chunks of `chunk`, as classify's writer writes batches: each chunk's
+    bytes."""
+    results, lengths, k, buf, ns, ne, tnb, tno = inputs
+    out = []
+    for i in range(0, len(results), chunk):
+        s = slice(i, i + chunk)
+        got = fn(results[s], lengths[s], k, paired, buf, ns[s], ne[s], tnb,
+                 tno)
+        out.append(got[0])
+    return out
+
+
+def writer_batch(mates, chunk: int, pairs: int) -> dict:
+    """The writer's batch: the results entry (`native.format_results`,
+    gamma and confidence in the writer) against `gamma_confidence` +
+    `format_rows` (`parent_rows`) over mate 1's records in chunks of
+    `chunk`, both at the writer's default team; raises unless the bytes
+    are equal (single and paired); `pairs` pairs in turns."""
+    from cuclark_tpu_torch import native
+
+    inputs = results_inputs(mates)
+    for paired in (False, True):
+        a = results_chunks(native.format_results, inputs, chunk, paired)
+        b = results_chunks(parent_rows, inputs, chunk, paired)
+        if b"".join(x.tobytes() for x in a) != b"".join(
+                x.tobytes() for x in b):
+            raise AssertionError(f"format_results != gamma_confidence + "
+                                 f"format_rows (paired {paired})")
+    ps = ab_pairs({"parent": lambda: results_chunks(parent_rows, inputs,
+                                                    chunk),
+                   "new": lambda: results_chunks(native.format_results,
+                                                 inputs, chunk)},
+                  pairs, "writer batch")
+    n = len(inputs[0])
+    row = {"rows": n, "chunk": chunk, "team": native.format_team(chunk),
+           "pairs": ps, "wins": sum(p["new_ms"] < p["parent_ms"]
+                                    for p in ps),
+           "row_bytes": sum(len(x) for x in results_chunks(
+               native.format_results, inputs, chunk)) / n,
+           "name_bytes": float((inputs[5] - inputs[4]).sum()) / n}
+    for name in ("parent", "new"):
+        ts = [p[f"{name}_ms"] for p in ps]
+        row[name] = {"min_ms": min(ts), "median_ms": statistics.median(ts),
+                     "batch_ms": min(ts) * chunk / n}
+    print(f"writer batch ({n} rows, {chunk} a batch, team {row['team']}): "
+          f"new won {row['wins']} of {pairs}; new min "
+          f"{row['new']['min_ms']:.3f} ms ({row['new']['batch_ms']:.4f} a "
+          f"batch; median {row['new']['median_ms']:.3f}), parent min "
+          f"{row['parent']['min_ms']:.3f} ms "
+          f"({row['parent']['batch_ms']:.4f} a batch; median "
+          f"{row['parent']['median_ms']:.3f})", flush=True)
+    return row
+
+
 def copy_rate(mb: int, team: int, reps: int = 5) -> float:
     """Bytes read plus bytes written a second by a `np.copyto` of `mb`
     MB split over `team` threads (numpy copies without the interpreter
@@ -509,11 +742,14 @@ def ext_inputs(fields, n_targets: int = 64, seed: int = 9):
 
 
 def stage_table(buf: np.ndarray, chunk: int, reps: int, rate: float,
-                scan: dict, pack: dict, fmt: dict) -> dict:
+                scan: dict | None, pack: dict | None, fmt: dict | None,
+                mate: dict | None = None,
+                writer: dict | None = None) -> dict:
     """The host stages against the copy rate: per stage the calls and
-    the ms per 1M reads of the new and the plain version, the bytes it
-    reads and writes a read, the bound (those bytes at `rate`) and the
-    share of it each version reaches."""
+    the s per 1M reads (pairs) of the new and the plain version, the
+    bytes it reads and writes a read, the bound (those bytes at `rate`)
+    and the share of it each version reaches; a section not run (None)
+    gives no row."""
     from cuclark_tpu_torch import native
 
     ns, ne, ss, se = native.scan(buf)
@@ -521,48 +757,71 @@ def stage_table(buf: np.ndarray, chunk: int, reps: int, rate: float,
     per_m = 1e6 / n
     seq = float((se - ss).sum()) / n
     name_b = float((ne - ns).sum()) / n
-    fields = format_inputs(buf)
-    rows_b = sum(len(a) for a in format_chunks(native.format_rows, fields,
-                                               chunk)) / n
-    counts = ext_inputs(fields)
-
-    def ext(fn, **kw):
-        out = []
-        for i in range(0, n, chunk):
-            s = slice(i, i + chunk)
-            got = fn(counts[s], *(f[s] for f in fields[:7]), fields[7],
-                     fields[8][s], fields[9][s], *fields[10:], **kw)
-            out.append(got[0] if isinstance(got, tuple) else got)
-        return out
-
-    if b"".join(a.tobytes() for a in ext(native.format_rows_ext)) != \
-            b"".join(a.tobytes() for a in ext(native.format_rows_ext_printf)):
-        raise AssertionError("format_rows_ext differs from its printf "
-                             "version")
-    ext_b = sum(len(a) for a in ext(native.format_rows_ext)) / n
-    t_ext = times_ms({"new": lambda: ext(native.format_rows_ext),
-                      "plain": lambda: ext(native.format_rows_ext_printf)},
-                     reps)
-    wire = sum(native.wire_shape(PACK_BIN)) + 8  # packed2, vbits, length
     field_b = 8 + 8 + 16 + 8 + 16 + name_b       # format_rows' inputs
-    rows = {
-        "scan": (per_m * 1, len(buf) / n, 32,
-                 scan["team_default"]["min_ms"], scan["serial"]["min_ms"]),
-        "pack": (per_m * n / chunk, seq + 16, wire,
-                 pack["pack"]["new_default"]["min_ms"],
-                 pack["pack"]["plain"]["min_ms"]),
-        "pack_paired": (per_m * n / chunk, seq + 32, wire,
-                        pack["pack_paired"]["new_default"]["min_ms"],
-                        pack["pack_paired"]["plain"]["min_ms"]),
-        "rows": (per_m * n / chunk, field_b, rows_b,
-                 fmt["team_default"]["min_ms"], fmt["printf"]["min_ms"]),
-        "rows_extended": (per_m * n / chunk, field_b + 4 * counts.shape[1],
-                          ext_b, min(t_ext["new"]), min(t_ext["plain"])),
-    }
+    wire = sum(native.wire_shape(PACK_BIN)) + 8  # packed2, vbits, length
+    rows = {}  # name -> (calls, in bytes, out bytes, new s, plain s) / 1M
+    if scan is not None:
+        rows["scan"] = (per_m * 1, len(buf) / n, 32,
+                        scan["team_default"]["min_ms"] * 1e-3 * per_m,
+                        scan["serial"]["min_ms"] * 1e-3 * per_m)
+    if pack is not None:
+        for label, extra in (("pack", 16), ("pack_paired", 32)):
+            rows[label] = (per_m * n / chunk, seq + extra, wire,
+                           pack[label]["new_default"]["min_ms"] * 1e-3 * per_m,
+                           pack[label]["plain"]["min_ms"] * 1e-3 * per_m)
+    if fmt is not None:
+        fields = format_inputs(buf)
+        rows_b = sum(len(a) for a in format_chunks(native.format_rows,
+                                                   fields, chunk)) / n
+        counts = ext_inputs(fields)
+
+        def ext(fn, **kw):
+            out = []
+            for i in range(0, n, chunk):
+                s = slice(i, i + chunk)
+                got = fn(counts[s], *(f[s] for f in fields[:7]), fields[7],
+                         fields[8][s], fields[9][s], *fields[10:], **kw)
+                out.append(got[0] if isinstance(got, tuple) else got)
+            return out
+
+        if b"".join(a.tobytes() for a in ext(native.format_rows_ext)) != \
+                b"".join(a.tobytes()
+                         for a in ext(native.format_rows_ext_printf)):
+            raise AssertionError("format_rows_ext differs from its printf "
+                                 "version")
+        ext_b = sum(len(a) for a in ext(native.format_rows_ext)) / n
+        t_ext = times_ms({"new": lambda: ext(native.format_rows_ext),
+                          "plain": lambda: ext(
+                              native.format_rows_ext_printf)}, reps)
+        rows["rows"] = (per_m * n / chunk, field_b, rows_b,
+                        fmt["team_default"]["min_ms"] * 1e-3 * per_m,
+                        fmt["printf"]["min_ms"] * 1e-3 * per_m)
+        rows["rows_extended"] = (per_m * n / chunk,
+                                 field_b + 4 * counts.shape[1], ext_b,
+                                 min(t_ext["new"]) * 1e-3 * per_m,
+                                 min(t_ext["plain"]) * 1e-3 * per_m)
+    if mate is not None:
+        # the check reads the four offsets and both names of a pair
+        cores = len(os.sched_getaffinity(0))
+        key = max((k for k in mate if k.startswith("srr_")),
+                  key=lambda k: int(k.split("_")[1]))
+        m = mate[key]
+        pairs_n = int(key.split("_")[1])
+        rows["mate_check"] = (
+            1e6 / pairs_n, 32 + m["name_bytes_per_pair"], 0,
+            m[f"team_{cores}"]["min_ms"] * 1e-3 * 1e6 / pairs_n,
+            m["plain"]["min_ms"] * 1e-3 * 1e6 / pairs_n)
+    if writer is not None:
+        # results row, length, two name offsets and the name in; the row
+        # out
+        w = writer
+        rows["rows_results"] = (
+            1e6 / w["chunk"], 20 + 8 + 16 + w["name_bytes"], w["row_bytes"],
+            w["new"]["min_ms"] * 1e-3 * 1e6 / w["rows"],
+            w["parent"]["min_ms"] * 1e-3 * 1e6 / w["rows"])
     out = {"copy_bytes_per_sec": rate, "reads": n}
-    for name, (calls, b_in, b_out, new_ms, plain_ms) in rows.items():
+    for name, (calls, b_in, b_out, new_s, plain_s) in rows.items():
         bound_s = (b_in + b_out) * 1e6 / rate
-        new_s, plain_s = new_ms * 1e-3 * per_m, plain_ms * 1e-3 * per_m
         out[name] = {"calls_per_1m": calls, "in_bytes": b_in,
                      "out_bytes": b_out, "new_s_per_1m": new_s,
                      "plain_s_per_1m": plain_s, "bound_s_per_1m": bound_s,
@@ -576,6 +835,10 @@ def stage_table(buf: np.ndarray, chunk: int, reps: int, rate: float,
     return out
 
 
+SECTIONS = ("scan", "read", "map", "format", "pack", "teams", "mate",
+            "writer", "stages")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reads", type=int, default=500_000)
@@ -586,8 +849,18 @@ def main(argv=None) -> int:
     ap.add_argument("--copy-mb", type=int, default=512,
                     help="MB of the copy-rate buffer (above the host's "
                          "last-level cache)")
+    ap.add_argument("--mate-pairs", default=",".join(
+        str(n) for n in MATE_SIZES),
+        help="sizes of the mate check and the writer's batch (pairs, "
+             "comma-separated; the largest also the writer's rows)")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help="comma-separated subset of " + ",".join(SECTIONS))
     ap.add_argument("--out", help="also write the JSON line here")
     args = ap.parse_args(argv)
+    sections = set(args.sections.split(","))
+    if not sections <= set(SECTIONS):
+        ap.error(f"unknown sections {sorted(sections - set(SECTIONS))}")
+    mate_sizes = tuple(int(x) for x in args.mate_pairs.split(","))
 
     from cuclark_tpu_torch import native
 
@@ -597,87 +870,106 @@ def main(argv=None) -> int:
         return 2
     smi = card()
     cores = len(os.sched_getaffinity(0))
+    line = {"card": smi, "cores": cores, "reads": args.reads,
+            "sections": sorted(sections)}
+    scan = fmt = pack = mate = writer = None
     with tempfile.TemporaryDirectory(prefix="host_scan_") as td:
         path = Path(td) / "bench.fq"
         path.write_bytes(fastq_bytes(args.reads, 0))
         buf = np.fromfile(path, np.uint8)  # and into the page cache
         team = native.scan_team(len(buf))
+        line.update(default_team=team, bytes=int(len(buf)))
         print(f"host: {cores} cores (os.cpu_count {os.cpu_count()}), "
               f"default team {team}, OMP_NUM_THREADS="
               f"{os.environ.get('OMP_NUM_THREADS')}; card: {smi}; "
-              f"{len(buf):,} bytes, {args.reads:,} reads", flush=True)
+              f"{len(buf):,} bytes, {args.reads:,} reads; sections "
+              f"{','.join(sorted(sections))}", flush=True)
 
         want = native.scan_records_serial(buf, False)
         if len(want[0]) != args.reads:
             raise AssertionError(f"{len(want[0])} records of {args.reads}")
-        fns = {"serial": lambda: native.scan_records_serial(buf, False)}
-        for t in TEAMS + (0,):
-            if not _same(native.scan_records(buf, False, t), want):
-                raise AssertionError(f"team {t}: offsets differ from "
-                                     f"scan_fastq's")
-            fns[f"team_{t or 'default'}"] = (
-                lambda t=t: native.scan_records(buf, False, t))
-        scan = {}
-        for name, ts in times_ms(fns, args.reps).items():
-            scan[name] = {"min_ms": min(ts),
-                          "median_ms": statistics.median(ts),
-                          "reads_per_sec": args.reads / min(ts) * 1e3}
-            print(f"scan {name}: min {min(ts):.3f} ms, median "
-                  f"{statistics.median(ts):.3f} ms, "
-                  f"{scan[name]['reads_per_sec']:,.0f} reads/s",
+        if "scan" in sections:
+            fns = {"serial": lambda: native.scan_records_serial(buf, False)}
+            for t in TEAMS + (0,):
+                if not _same(native.scan_records(buf, False, t), want):
+                    raise AssertionError(f"team {t}: offsets differ from "
+                                         f"scan_fastq's")
+                fns[f"team_{t or 'default'}"] = (
+                    lambda t=t: native.scan_records(buf, False, t))
+            scan = {}
+            for name, ts in times_ms(fns, args.reps).items():
+                scan[name] = {"min_ms": min(ts),
+                              "median_ms": statistics.median(ts),
+                              "reads_per_sec": args.reads / min(ts) * 1e3}
+                print(f"scan {name}: min {min(ts):.3f} ms, median "
+                      f"{statistics.median(ts):.3f} ms, "
+                      f"{scan[name]['reads_per_sec']:,.0f} reads/s",
+                      flush=True)
+            line["scan"] = scan
+
+        if "read" in sections:
+            if not np.array_equal(native.read_file(path), buf):
+                raise AssertionError("read_file differs from np.fromfile")
+            pairs = []
+            for i in range(args.pairs):
+                order = ("fromfile", "threaded")[::1 if i % 2 == 0 else -1]
+                t = {}
+                for name in order:
+                    t0 = time.perf_counter()
+                    got = (np.fromfile(path, np.uint8) if name == "fromfile"
+                           else native.read_file(path))
+                    t[name] = (time.perf_counter() - t0) * 1e3
+                    del got
+                pairs.append({"first": order[0], **{f"{k}_ms": v
+                                                     for k, v in t.items()}})
+                print(f"read pair {i + 1}: {order[0]} first, np.fromfile "
+                      f"{t['fromfile']:.3f} ms, threaded "
+                      f"{t['threaded']:.3f} ms", flush=True)
+            wins = sum(p["threaded_ms"] < p["fromfile_ms"] for p in pairs)
+            print(f"threaded read won {wins} of {args.pairs} pairs",
                   flush=True)
+            line.update(read_pairs=pairs, threaded_read_wins=wins,
+                        threaded_read_passes_gate=wins >= 11 * args.pairs
+                        / 12)
 
-        if not np.array_equal(native.read_file(path), buf):
-            raise AssertionError("read_file differs from np.fromfile")
-        pairs = []
-        for i in range(args.pairs):
-            order = ("fromfile", "threaded")[::1 if i % 2 == 0 else -1]
-            t = {}
-            for name in order:
-                t0 = time.perf_counter()
-                got = (np.fromfile(path, np.uint8) if name == "fromfile"
-                       else native.read_file(path))
-                t[name] = (time.perf_counter() - t0) * 1e3
-                del got
-            pairs.append({"first": order[0], **{f"{k}_ms": v
-                                                 for k, v in t.items()}})
-            print(f"read pair {i + 1}: {order[0]} first, np.fromfile "
-                  f"{t['fromfile']:.3f} ms, threaded {t['threaded']:.3f} "
-                  f"ms", flush=True)
-        wins = sum(p["threaded_ms"] < p["fromfile_ms"] for p in pairs)
-        print(f"threaded read won {wins} of {args.pairs} pairs",
-              flush=True)
+        if "map" in sections:
+            map_pairs = map_gate(path, want, args.pairs)
+            map_wins = sum(p["map_ms"] < p["fromfile_ms"]
+                           for p in map_pairs)
+            print(f"map + scan won {map_wins} of {args.pairs} pairs",
+                  flush=True)
+            line.update(map_pairs=map_pairs, map_wins=map_wins,
+                        map_passes_gate=map_wins >= 11 * args.pairs / 12)
 
-        map_pairs = map_gate(path, want, args.pairs)
-        map_wins = sum(p["map_ms"] < p["fromfile_ms"] for p in map_pairs)
-        print(f"map + scan won {map_wins} of {args.pairs} pairs",
-              flush=True)
-
-        fmt = format_rates(buf, args.chunk, args.reps)
-        pack = pack_rates(buf, args.chunk, args.pairs)
-        splits = team_splits(cores)
-        teams = team_rates(buf, args.chunk, args.reps, splits)
-        full = splits[0]
-        for policy in (None, "passive"):
-            got = team_rates_in_process(path, args.chunk, args.reps,
-                                        full[1], policy)
-            teams[f"{full[0]} {policy or 'default'} policy, own process"] = \
-                got[full[0]]
-        rate = copy_rate(args.copy_mb, cores)
-        print(f"copy rate: {rate / 1e9:.2f} GB/s read + written "
-              f"({args.copy_mb} MB, {cores} threads)", flush=True)
-        stages = stage_table(buf, args.chunk, args.reps, rate, scan, pack,
-                             fmt)
-    line = {"card": smi, "cores": cores, "default_team": team,
-            "reads": args.reads, "bytes": int(len(buf)), "scan": scan,
-            "read_pairs": pairs, "threaded_read_wins": wins,
-            "threaded_read_passes_gate": wins >= 11 * args.pairs / 12,
-            "map_pairs": map_pairs, "map_wins": map_wins,
-            "map_passes_gate": map_wins >= 11 * args.pairs / 12,
-            "format_chunk": args.chunk,
-            "format_default_team": fmt.pop("default_team"),
-            "format": fmt, "pack": pack, "teams": teams,
-            "stages": stages}
+        if "format" in sections:
+            fmt = format_rates(buf, args.chunk, args.reps)
+            line.update(format_chunk=args.chunk,
+                        format_default_team=fmt.pop("default_team"),
+                        format=fmt)
+        if "pack" in sections:
+            pack = line["pack"] = pack_rates(buf, args.chunk, args.pairs)
+        if "teams" in sections:
+            splits = team_splits(cores)
+            teams = team_rates(buf, args.chunk, args.reps, splits)
+            full = splits[0]
+            for policy in (None, "passive"):
+                got = team_rates_in_process(path, args.chunk, args.reps,
+                                            full[1], policy)
+                teams[f"{full[0]} {policy or 'default'} policy, own "
+                      f"process"] = got[full[0]]
+            line["teams"] = teams
+        if "mate" in sections:
+            mate = line["mate"] = mate_rates(mate_sizes, args.pairs)
+        if "writer" in sections:
+            writer = line["writer_batch"] = writer_batch(
+                mate_buffers(max(mate_sizes), "srr"), args.chunk,
+                args.pairs)
+        if "stages" in sections:
+            rate = copy_rate(args.copy_mb, cores)
+            print(f"copy rate: {rate / 1e9:.2f} GB/s read + written "
+                  f"({args.copy_mb} MB, {cores} threads)", flush=True)
+            line["stages"] = stage_table(buf, args.chunk, args.reps, rate,
+                                         scan, pack, fmt, mate, writer)
     if args.out:
         Path(args.out).write_text(json.dumps(line) + "\n")
     print(json.dumps(line))

@@ -13,10 +13,10 @@ thread only, so the shares it prints are for finding candidates;
 
 Then SPLIT_PASSES (default 3) passes run without cProfile under the
 wall-clock timers of `scripts/torch_thread_split.py` (the pack, the
-pinned copy and H2D issue, the launch, the readback wait, the gamma
-arithmetic, the rows, the write, the queue and future waits; per
-thread: main, producer, writer): a line of each pass's split, and the
-split of the median pass as the JSON line last.
+pinned copy and H2D issue, the launch, the readback wait, the rows
+with their gamma and confidence, the write, the queue and future waits;
+per thread: main, producer, writer): a line of each pass's split, and
+the split of the median pass as the JSON line last.
 
 Run from the repository root, on the card (the default) or on the CPU:
 

@@ -18,8 +18,9 @@ round is one pass of each block at each split (pack team + writer team:
 T + T, every core for both; T/2 + T/2, the default split of
 `native.pack_team` and `format_team`; 3T/4 + T/4; T/4 + 3T/4; T the
 host's cores) in turns.  The teams are set by wrapping
-`native.pack_block2`, `pack_block2_paired`, `format_rows` and
-`format_rows_ext` with `threads=`; the package is not changed.
+`native.pack_block2`, `pack_block2_paired` and the row writer's
+entries (`format_results`, `format_results_ext`, `format_rows`,
+`format_rows_ext`) with `threads=`; the package is not changed.
 
 Exactness, a hard failure: every pass's CSV equals, byte for byte, the
 block's CSV from a pass that packs into fresh arrays and copies them to
@@ -105,7 +106,8 @@ class Teams:
     entries for the length of a `with` block."""
 
     NAMES = {"pack_block2": 0, "pack_block2_paired": 0, "format_rows": 1,
-             "format_rows_ext": 1}
+             "format_rows_ext": 1, "format_results": 1,
+             "format_results_ext": 1}
 
     def __init__(self, pack: int, writer: int):
         self.teams = (pack, writer)

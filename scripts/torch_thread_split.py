@@ -4,8 +4,12 @@ pass: where each of the main, producer and writer threads spends a pass.
 The timers wrap the package's own functions for the length of a `with`
 block and restore them after; the package holds no timer or switch of
 its own.  Each wrapped call is timed exclusive of the wrapped calls
-nested in it on the same thread (`CsvSink.flush` less the gamma
-arithmetic and the rows is mostly `f.write`).
+nested in it on the same thread (`CsvSink.flush` less the rows is
+mostly `f.write`; `read_scan` less `mate_check` is the read and the
+scans of the head).  The rows are the row writer's results entries
+(`format_results`, which compute gamma and confidence themselves), so
+on classify's CSV path `gamma_confidence` reads 0; a tree whose
+`CsvSink` still calls it (an earlier one) times it there.
 
     from torch_thread_split import ThreadSplit
     with ThreadSplit() as split:
@@ -38,6 +42,8 @@ TIMED = (
      "stage"),
     ("cuclark_tpu_torch.pipeline", "Classifier", "_scan_for_classify",
      "read_scan", "stage"),
+    ("cuclark_tpu_torch.io.fast_parse", None, "first_mate_mismatch",
+     "mate_check", "stage"),
     ("cuclark_tpu_torch.pipeline", "_WireRing", "acquire", "ring_acquire",
      "wait"),
     ("cuclark_tpu_torch.pipeline", "Classifier", "_put_wire", "put_wire",
@@ -52,6 +58,9 @@ TIMED = (
      "gamma_confidence", "stage"),
     ("cuclark_tpu_torch.native", None, "format_rows", "rows", "stage"),
     ("cuclark_tpu_torch.native", None, "format_rows_ext", "rows", "stage"),
+    ("cuclark_tpu_torch.native", None, "format_results", "rows", "stage"),
+    ("cuclark_tpu_torch.native", None, "format_results_ext", "rows",
+     "stage"),
     ("cuclark_tpu_torch.pipeline", "CsvSink", "flush", "flush_write",
      "stage"),
 )

@@ -5,11 +5,15 @@ printf) byte for byte against its snprintf plain versions
 and above 4,096 rows: every ratio t/d for d up to 2,048, random double
 bit patterns, exact ties at the sixth significant digit and the
 neighbours of ties and notation boundaries, NaN of either sign, +-0 and
-+-inf, long names and empty target names; and classify's CSV on the
-read-only mapped input (`pipeline._read_file_bytes`) against the JAX
++-inf, long names and empty target names; the results entries
+(`native.format_results`/`format_results_ext`, gamma and confidence
+computed by the writer) against `score.gamma_confidence` + the printf
+versions and the JAX package's, at 1, 4,095, 4,096 and 16,384 rows and
+teams 1, 2 and 4, reads of k - 2 to k + 1 bases; and classify's CSV on
+the read-only mapped input (`pipeline._read_file_bytes`) against the JAX
 package's: plain, --extended and paired with reads of length k - 1 (the
--nan rows), an empty file, a FIFO, simulate-reads and --num-hosts on the
-mate files."""
+-nan rows), with no numpy gamma on the path, an empty file, a FIFO,
+simulate-reads and --num-hosts on the mate files."""
 
 import contextlib
 import functools
@@ -271,6 +275,130 @@ def test_csv_format_locale_independent():
         locale.setlocale(locale.LC_NUMERIC, "C")
 
 
+# ---- the rows from the card's results rows ----
+
+K_RES = 27
+RESULT_ROWS = (1, 4095, 4096, 16384)
+RESULT_TEAMS = (1, 2, 4)
+RES_TARGETS = ("NA", "T1", "", "a-long-target-name-of-30-bytes", "T4")
+
+
+@functools.lru_cache(maxsize=None)
+def _results_case(n: int, paired: bool):
+    """n seeded results rows and lengths: lengths k - 2, k - 1, k, k + 1
+    (and k + 2 for a pair, whose norm is its length less one) beside
+    longer reads, totals up to 65,535, a seventh of the rows with best +
+    second = 0; names and target names as `_fields`, count columns for
+    the extended rows."""
+    rng = np.random.default_rng(n + paired)
+    short = K_RES + np.arange(-2, 3 if paired else 2)
+    lengths = np.where(rng.random(n) < 0.5, short[rng.integers(
+        0, len(short), n)], rng.integers(K_RES, 2000, n)).astype(np.int64)
+    total = rng.integers(0, 65536, n)
+    # a read with no window hits nothing (most of them: a few keep a
+    # total, whose gamma is +-inf)
+    total[(lengths - paired < K_RES) & (rng.random(n) < 0.9)] = 0
+    best = rng.integers(0, total + 1)
+    second = rng.integers(0, best + 1)
+    zero = rng.random(n) < 1 / 7
+    best[zero] = second[zero] = 0
+    nt = len(RES_TARGETS)
+    results = np.stack([total, rng.integers(0, nt, n), best,
+                        rng.integers(0, nt, n), second], 1).astype(np.int32)
+    names = [b"r%d" % i + b"n" * int(rng.integers(0, 50)) for i in range(n)]
+    ne = np.cumsum([len(x) for x in names], dtype=np.int64)
+    ns = ne - np.array([len(x) for x in names], np.int64)
+    tnb, tno = native.pack_target_names(list(RES_TARGETS))
+    counts = rng.integers(0, 1 << 20, (n, nt - 1)).astype(np.uint32)
+    return (results, lengths, np.frombuffer(b"".join(names), np.uint8), ns,
+            ne, tnb, tno, counts)
+
+
+def _results_want(n: int, paired: bool, extended: bool) -> bytes:
+    """`score.gamma_confidence` + the printf plain version's bytes, which
+    must equal the JAX package's gamma_confidence + formatter's."""
+    from cuclark_tpu import score as jscore
+    from cuclark_tpu_torch import score
+
+    results, lengths, buf, ns, ne, tnb, tno, counts = _results_case(
+        n, paired)
+    cols = [results[:, i] for i in range(5)]
+    out = []
+    for gc, fmt in ((score.gamma_confidence,
+                     native.format_rows_ext_printf if extended
+                     else native.format_rows_printf),
+                    (jscore.gamma_confidence,
+                     jnative.format_rows_ext if extended
+                     else jnative.format_rows)):
+        norm, gamma, conf = gc(cols[0], cols[2], cols[4], lengths, K_RES,
+                               paired)
+        fields = (norm, gamma, cols[1], cols[2], cols[3], cols[4], conf, buf,
+                  ns, ne, tnb, tno)
+        got = fmt(counts, *fields) if extended else fmt(*fields)
+        out.append(got.tobytes() if hasattr(got, "tobytes") else got)
+    assert out[0] == out[1]
+    return out[0]
+
+
+@pytest.mark.parametrize("extended", [False, True],
+                         ids=["default", "extended"])
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+@pytest.mark.parametrize("team", RESULT_TEAMS)
+@pytest.mark.parametrize("rows", RESULT_ROWS)
+def test_results_entry_matches_gamma_confidence_printf(rows, team, paired,
+                                                       extended):
+    """The results entries' rows (gamma and confidence computed by the
+    writer) equal `gamma_confidence` + the printf version's and the JAX
+    package's, -nan (a read of k - 1 bases) and -0 (shorter) included."""
+    results, lengths, buf, ns, ne, tnb, tno, counts = _results_case(
+        rows, paired)
+    args = (results, lengths, K_RES, paired, buf, ns, ne, tnb, tno)
+    if extended:
+        got, handed = native.format_results_ext(counts, *args, threads=team)
+    else:
+        got, handed = native.format_results(*args, threads=team)
+    want = _results_want(rows, paired, extended)
+    assert got.tobytes() == want
+    assert handed == 0
+    if rows >= 4095:
+        for field in (b",-nan,", b",-0,", b",inf,", b",0\n"):
+            assert field in want
+
+
+def test_results_entry_short_reads():
+    """Lengths k - 2 .. k + 1, unpaired and paired: gamma -0, -nan, a
+    ratio, and confidence 0 where best + second = 0."""
+    tnb, tno = native.pack_target_names(["NA", "T1"])
+    buf = np.frombuffer(b"abcd", np.uint8)
+    ns, ne = np.arange(4, dtype=np.int64), np.arange(1, 5, dtype=np.int64)
+    results = np.array([[0, 0, 0, 0, 0], [0, 1, 0, 0, 0], [1, 1, 1, 0, 0],
+                        [2, 1, 2, 0, 1]], np.int32)
+    lengths = K_RES + np.arange(-2, 2, dtype=np.int64)
+    got = native.format_results(results, lengths, K_RES, False, buf, ns, ne,
+                                tnb, tno, threads=1)[0].tobytes()
+    assert got.splitlines() == [b"a,25,-0,NA,0,NA,0,0", b"b,26,-nan,T1,0,NA,0,0",
+                                b"c,27,1,T1,1,NA,0,1",
+                                b"d,28,1,T1,2,NA,1,0.666667"]
+    got = native.format_results(results, lengths + 1, K_RES, True, buf, ns,
+                                ne, tnb, tno, threads=1)[0].tobytes()
+    assert [r.split(b",")[1:3] for r in got.splitlines()] == [
+        [b"25", b"-0"], [b"26", b"-nan"], [b"27", b"1"], [b"28", b"1"]]
+
+
+def test_results_entry_checks_its_arrays():
+    """Rows that are not [n, 5], or lengths and names of another count,
+    raise."""
+    tnb, tno = native.pack_target_names(["NA"])
+    buf = np.zeros(8, np.uint8)
+    z = np.zeros(3, np.int64)
+    with pytest.raises(ValueError):
+        native.format_results(np.zeros((3, 4), np.int32), z, K_RES, False,
+                              buf, z, z, tnb, tno)
+    with pytest.raises(ValueError):
+        native.format_results(np.zeros((3, 5), np.int32), z[:2], K_RES,
+                              False, buf, z, z, tnb, tno)
+
+
 # ---- classify's CSV on the mapped input ----
 
 def _run(main, argv) -> int:
@@ -353,6 +481,27 @@ def test_classify_csv_on_mapped_input(inputs, mapped, mode):
     assert b",-nan," in want
     assert (b",-0," in want) == (mode != "paired")  # no mate under k
     assert mapped and set(mapped) == {"memmap"}, mapped
+
+
+@pytest.mark.parametrize("mode", ["plain", "extended", "paired"])
+def test_csv_rows_need_no_numpy_gamma(inputs, monkeypatch, tmp_path, mode):
+    """classify's CSV path leaves gamma and confidence to the row writer:
+    with `score.gamma_confidence` made to raise, the CSV is still the
+    JAX package's."""
+    from cuclark_tpu_torch import score
+
+    def refuse(*a, **kw):
+        raise AssertionError("gamma_confidence called on the CSV path")
+
+    monkeypatch.setattr(score, "gamma_confidence", refuse)
+    tmp, _, fq, r1, r2, _ = inputs
+    argv = {"plain": ["-O", str(fq)],
+            "extended": ["-O", str(fq), "--extended"],
+            "paired": ["-P", str(r1), str(r2)]}[mode]
+    out = tmp_path / "t.csv"
+    assert _run(cli.main, ["classify", "-D", str(tmp / "jdb"), "-R",
+                           str(out), "--device", "cpu", *argv]) == 0
+    assert out.read_bytes() == _jax_csv(tmp, mode, argv)
 
 
 def _classifier(tmp):
