@@ -90,9 +90,19 @@ against `--device cpu`:
     the eight-bases-a-step pack and by its plain version, at team 1 and
     at every core (the new pack also at its default team): equal bytes
     required, every time, the host's copy rate, the team and the cores;
+  - host_inflate (after host_pack): 1,048,576 seeded 150 bp reads with
+    Illumina's binned qualities gzipped at level 6 as one member and as
+    BGZF members, each mapped as classify maps it and inflated by the
+    plain version (`GzipFile`) and by `native.inflate` on the OpenMP
+    team: equal bytes required, both times, the native call's counters
+    (chunks, joined, redone, bytes decoded with markers, members), the
+    team and the cores;
   - file_to_csv also prints one more pass split by thread (the main,
     producer and writer threads' stages, waits and uncovered time;
-    scripts/torch_thread_split.py);
+    scripts/torch_thread_split.py), then one pass of a gzip copy of the
+    reads split the same way: its CSV must be the plain reads' and its
+    inflate native (`inflate` among the main thread's stages);
+    classify_paired does the same with gzip copies of both mate files;
   - host_mate (after host_scan): 1,048,576 seeded pairs of 150 bp mates
     named `SRR1234567.<i>/1` and `/2`, and in Casava 1.8's style; the
     native mate-id check (team 1, every core, classify's dispatch)
@@ -156,6 +166,7 @@ HOST_SCAN_READS = 1 << 20
 HOST_FORMAT_ROWS = 1 << 20
 HOST_PACK_READS = 1 << 20
 HOST_MATE_PAIRS = 1 << 20
+HOST_INFLATE_READS = 1 << 20
 PHRED = bytes(range(33, 75))  # '!'..'J': quality lines may open '@', '+'
 
 
@@ -656,6 +667,83 @@ def check_host_mate(n: int = HOST_MATE_PAIRS) -> str:
         del mates, args
     return (f"{'; '.join(out)}; native == plain at every case; team "
             f"{native.mate_team(n)}, {cores} host cores")
+
+
+def check_host_inflate(tmp: Path, n: int = HOST_INFLATE_READS) -> str:
+    """A gzip classify input inflated on the OpenMP team: n seeded 150 bp
+    reads with Illumina's binned qualities (`scripts/torch_host_scan.py`
+    `binned_fastq`) gzipped at level 6 as one member (as `gzip` writes
+    it) and as BGZF members (as bgzip writes them), each mapped as
+    classify maps it and inflated by the plain version
+    (`pipeline._inflate_plain`) and by `native.inflate`: equal bytes
+    required (a hard failure); both times (min of 3, in turns), the
+    native call's counters, the team and the host's cores."""
+    import torch_host_scan as hs
+    from cuclark_tpu_torch import native, pipeline
+
+    fq = tmp / "host_inflate.fq"
+    fq.write_bytes(hs.binned_fastq(n))
+    size = fq.stat().st_size
+    files = hs.gzip_files(fq, levels=(6,), kinds=("member", "bgzfs"))
+    fq.unlink()
+    out = []
+    for name, label in (("l6_member", "one member"),
+                        ("l6_bgzfs", "BGZF members")):
+        buf = np.memmap(files[name], np.uint8, mode="r")
+        want = pipeline._inflate_plain(buf)
+        got = native.inflate(buf)
+        if len(want) != size or got.tobytes() != want:
+            raise AssertionError(f"host_inflate {name}: the native bytes "
+                                 f"differ from the plain version's")
+        counters = native.inflate_counters()
+        del got, want
+        t = hs.times_ms({"plain": lambda: pipeline._inflate_plain(buf),
+                         "native": lambda: native.inflate(buf)}, 3)
+        p, q = min(t["plain"]), min(t["native"])
+        out.append(f"{label} (level 6) {len(buf)} B: plain {p:.1f} ms, "
+                   f"native {q:.1f} ms ({p / q:.2f}x), counters "
+                   f"{counters}")
+        del buf
+        files[name].unlink()
+    return (f"fastq {n} reads, {size} bytes; {'; '.join(out)}; equal "
+            f"bytes; team {native.inflate_team(1 << 30)}, "
+            f"{len(os.sched_getaffinity(0))} host cores")
+
+
+def gzip_copy(path: Path) -> Path:
+    """A level-6 one-member gzip copy of `path` beside it."""
+    import gzip
+
+    gz = path.with_name(path.name + ".gz")
+    gz.write_bytes(gzip.compress(path.read_bytes(), 6, mtime=0))
+    return gz
+
+
+def gzip_pass_split(clf, label: str, csv: Path, want: Path, batches: int,
+                    path: Path, paired: Path | None = None) -> None:
+    """One `classify_file_to_csv` pass of gzip copies of the inputs,
+    split by thread: the CSV must be the plain inputs' and the inflate
+    native (its stage in the main thread's split)."""
+    import torch
+
+    from cuclark_tpu_torch import native
+    from torch_thread_split import ThreadSplit, summary
+
+    gz = gzip_copy(path)
+    gz2 = gzip_copy(paired) if paired is not None else None
+    with ThreadSplit() as split:
+        clf.classify_file_to_csv(gz, csv, gz2)
+        torch.cuda.synchronize()
+    report = split.report(batches)
+    print(f"  {label} gzip " + summary(report), flush=True)
+    if csv.read_bytes() != want.read_bytes():
+        raise AssertionError(f"{label}: the gzip inputs' CSV differs from "
+                             f"the plain inputs'")
+    calls = report["threads"]["MainThread"]["stages"].get("inflate", {})
+    if calls.get("calls") != (2 if paired is not None else 1) or \
+            native.inflate_counters()["members"] != 1:
+        raise AssertionError(f"{label}: the gzip pass did not inflate "
+                             f"natively: {calls}")
 
 
 def host_format_fields(n: int, seed: int = 13):
@@ -2826,6 +2914,8 @@ def main(argv=None) -> int:
         _phase("host_format", t0, check_host_format())
         t0 = time.time()
         _phase("host_pack", t0, check_host_pack(tmp))
+        t0 = time.time()
+        _phase("host_inflate", t0, check_host_inflate(tmp))
 
         # 3. golden example through the CLI on the card
         t0 = time.time()
@@ -3115,6 +3205,8 @@ def main(argv=None) -> int:
             -(-args.reads // clf.cfg.batch_reads))), flush=True)
         if (tmp / "again.csv").read_bytes() != gpu_csv.read_bytes():
             raise AssertionError("the split pass wrote another CSV")
+        gzip_pass_split(clf, "file_to_csv", tmp / "again.csv", gpu_csv,
+                        -(-args.reads // clf.cfg.batch_reads), fq)
         _phase("file_to_csv", t0,
                f"{', '.join(f'{r:.1f}' for r in e2e)} reads/s on {card}")
 
@@ -3237,6 +3329,9 @@ def main(argv=None) -> int:
             raise AssertionError("the paired pass ran no mate-id check")
         if (tmp / "paired_again.csv").read_bytes() != paired_csv.read_bytes():
             raise AssertionError("the split paired pass wrote another CSV")
+        gzip_pass_split(clf, "classify_paired", tmp / "paired_again.csv",
+                        paired_csv, -(-args.reads // clf.cfg.batch_reads),
+                        r1, r2)
         del clf
         torch.cuda.empty_cache()
         _phase("classify_paired", t0,

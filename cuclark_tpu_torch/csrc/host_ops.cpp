@@ -2095,3 +2095,1287 @@ int64_t csv_values(const uint8_t* buf, int64_t n,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------
+// gzip inflate on the OpenMP team (RFC 1951 / 1952).
+//
+// gz_inflate gives the bytes `gzip.GzipFile(...).read()` gives, and
+// refuses (a negative return) every input that reader rejects: members
+// one after another, zero bytes after a member's trailer skipped, each
+// member's CRC32 and ISIZE (its length mod 2^32) checked, anything else
+// after the last member refused.  It accepts exactly the deflate streams
+// zlib accepts: block type 3, a stored block with LEN != ~NLEN, more
+// than 286 length or 30 distance codes, an incomplete or oversubscribed
+// code (a lone length-1 code excepted for the literal/length and the
+// distance code, as zlib's inflate_table allows), a bad repeat, a
+// missing end-of-block code, symbols 286-287 or distances 30-31, and a
+// distance reaching before its member's first byte are refused.
+//
+// Work is cut two ways:
+//  - a run of BGZF members (FEXTRA subfield "BC" with BSIZE, as htslib's
+//    bgzip writes) states each member's bounds and, in its trailer, its
+//    size: the members are inflated a member a thread into their places;
+//  - anything else (one large member, concatenated members) is cut into
+//    chunks of compressed bytes, as pugz (Kerbiriou & Chikhi 2019) and
+//    rapidgzip (Knespel & Brunst 2023) do.  Each chunk after the first
+//    searches forward from its first bit for a block start (a dynamic
+//    header whose code lengths build complete codes, or a stored block
+//    with LEN == ~NLEN behind three zero bits) and decodes from there
+//    into 16-bit symbols: a back-reference before the chunk's start
+//    copies a marker (256 + its index in the unknown 32 KiB window);
+//    once the last 32 KiB written hold no marker the chunk goes on in
+//    bytes.  Chunk i, decoded from its confirmed start, stops at the
+//    first block boundary at or past chunk i+1's guess: reaching it
+//    exactly confirms the guess; passing it means the guess was wrong,
+//    and chunk i+1 is decoded again from chunk i's end.  A chunk with no
+//    start found joins the one before it.  So the bytes are the
+//    sequential decode's whatever the finder guesses.  The chunks run in
+//    waves of one a thread; a wave's first chunk starts confirmed, with
+//    the real window, and writes straight into the output.  Windows pass
+//    forward a chunk at a time (each chunk's last 32 KiB, in order), then
+//    every thread replaces its chunk's markers, copies it into place and
+//    takes the CRC32 of each member's part of it; the parts are combined
+//    (crc32_combine's GF(2) product) and checked against the trailers.
+//
+// The output is an anonymous mapping that grows by mremap; gz_free
+// unmaps it.
+
+#include <sys/mman.h>
+
+#include <vector>
+
+namespace gzi {
+
+static const int64_t kWin = 32768;
+static const int64_t kSlack = 258 + 16;   // a copy's overrun room
+
+enum { R_EOB = 0, R_DATA = -2, R_TRUNC = -3, R_SPACE = 1, R_CAP = -8 };
+// gz_inflate's codes (negative: refused)
+enum { E_HEADER = -1, E_DATA = -2, E_TRUNC = -3, E_CRC = -4, E_SIZE = -5,
+       E_NOMEM = -7 };
+
+// --- CRC32 (slice-by-8) and its combination ---------------------------
+struct CrcTables {
+    uint32_t t[8][256];
+    uint32_t x2n[32];   // x^(2^k) mod P
+    CrcTables() {
+        for (uint32_t i = 0; i < 256; i++) {
+            uint32_t c = i;
+            for (int k = 0; k < 8; k++)
+                c = (c >> 1) ^ (0xEDB88320u & (0u - (c & 1)));
+            t[0][i] = c;
+        }
+        for (int j = 1; j < 8; j++)
+            for (int i = 0; i < 256; i++)
+                t[j][i] = (t[j - 1][i] >> 8) ^ t[0][t[j - 1][i] & 0xFF];
+        uint32_t p = 1u << 30;  // x^1
+        x2n[0] = p;
+        for (int k = 1; k < 32; k++) x2n[k] = p = multmodp(p, p);
+    }
+    // a(x) b(x) mod P(x), bit-reflected as zlib's crc32 holds them
+    static uint32_t multmodp(uint32_t a, uint32_t b) {
+        uint32_t m = 1u << 31, p = 0;
+        while (m) {
+            if (a & m) p ^= b;
+            m >>= 1;
+            b = (b & 1) ? (b >> 1) ^ 0xEDB88320u : b >> 1;
+        }
+        return p;
+    }
+};
+static const CrcTables& crc_tables() {
+    static const CrcTables T;
+    return T;
+}
+
+static uint32_t crc32_one(uint32_t crc, const uint8_t* p, int64_t n) {
+    const auto& T = crc_tables().t;
+    uint32_t c = ~crc;
+    while (n > 0 && ((uintptr_t)p & 7)) {
+        c = (c >> 8) ^ T[0][(c ^ *p++) & 0xFF];
+        n--;
+    }
+    while (n >= 8) {
+        uint64_t w;
+        memcpy(&w, p, 8);
+        uint32_t lo = (uint32_t)w ^ c, hi = (uint32_t)(w >> 32);
+        c = T[7][lo & 0xFF] ^ T[6][(lo >> 8) & 0xFF] ^ T[5][(lo >> 16) & 0xFF]
+            ^ T[4][lo >> 24] ^ T[3][hi & 0xFF] ^ T[2][(hi >> 8) & 0xFF]
+            ^ T[1][(hi >> 16) & 0xFF] ^ T[0][hi >> 24];
+        p += 8;
+        n -= 8;
+    }
+    while (n-- > 0) c = (c >> 8) ^ T[0][(c ^ *p++) & 0xFF];
+    return ~c;
+}
+
+static uint32_t crc32_combine(uint32_t crc1, uint32_t crc2, uint64_t len2);
+
+// Four quarters at once (the table lookups of one do not wait on the
+// others'), then combined.
+static uint32_t crc32_update(uint32_t crc, const uint8_t* p, int64_t n) {
+    if (n < (1 << 16)) return crc32_one(crc, p, n);
+    const auto& T = crc_tables().t;
+    int64_t q = (n / 4) & ~(int64_t)7;
+    uint32_t c[4] = {~crc, ~0u, ~0u, ~0u};
+    for (int64_t o = 0; o < q; o += 8) {
+        for (int s = 0; s < 4; s++) {
+            uint64_t w;
+            memcpy(&w, p + s * q + o, 8);
+            uint32_t lo = (uint32_t)w ^ c[s], hi = (uint32_t)(w >> 32);
+            c[s] = T[7][lo & 0xFF] ^ T[6][(lo >> 8) & 0xFF]
+                   ^ T[5][(lo >> 16) & 0xFF] ^ T[4][lo >> 24] ^ T[3][hi & 0xFF]
+                   ^ T[2][(hi >> 8) & 0xFF] ^ T[1][(hi >> 16) & 0xFF]
+                   ^ T[0][hi >> 24];
+        }
+    }
+    uint32_t r = ~c[0];
+    for (int s = 1; s < 4; s++) r = crc32_combine(r, ~c[s], (uint64_t)q);
+    return crc32_one(r, p + 4 * q, n - 4 * q);
+}
+
+// the CRC32 of A followed by B from crc(A), crc(B) and |B| (any size)
+static uint32_t crc32_combine(uint32_t crc1, uint32_t crc2, uint64_t len2) {
+    const auto& C = crc_tables();
+    uint32_t p = 1u << 31;  // x^0
+    for (unsigned k = 3; len2; len2 >>= 1, k++)
+        if (len2 & 1) p = CrcTables::multmodp(C.x2n[k & 31], p);
+    return CrcTables::multmodp(p, crc1) ^ crc2;
+}
+
+// --- bits, LSB first ---------------------------------------------------
+struct Bits {
+    const uint8_t* in = nullptr;
+    int64_t n = 0;
+    int64_t pos = 0;     // next byte to load (may pass n: zeros fed)
+    uint64_t buf = 0;    // bits above cnt are zero or the true next bits
+    int cnt = 0;
+    int64_t over = 0;    // zero bytes fed past the end
+    inline void refill() {
+        if (pos + 8 <= n) {
+            uint64_t w;
+            memcpy(&w, in + pos, 8);
+            buf |= w << cnt;
+            pos += (63 - cnt) >> 3;
+            cnt |= 56;
+        } else {
+            while (cnt <= 56) {
+                uint64_t b = 0;
+                if (pos < n) b = in[pos];
+                else over++;
+                pos++;
+                buf |= b << cnt;
+                cnt += 8;
+            }
+        }
+    }
+    inline void drop(int k) { buf >>= k; cnt -= k; }
+    inline uint32_t bits(int k) const {
+        return (uint32_t)(buf & ((1ull << k) - 1));
+    }
+    int64_t bitpos() const { return pos * 8 - cnt; }
+    void seek(int64_t bit) {
+        pos = bit >> 3;
+        buf = 0;
+        cnt = 0;
+        over = 0;
+        refill();
+        drop((int)(bit & 7));
+    }
+};
+
+// --- Huffman tables ----------------------------------------------------
+// entry: [0,4) bits this level, [4,8) extra bits (sub-table bits for a
+// link), [8,11) kind, [16,32) value
+enum { K_LIT = 0, K_LEN = 1, K_EOB = 2, K_SUB = 3, K_BAD = 4 };
+static const int kLitRoot = 10, kDistRoot = 8, kClRoot = 7;
+static const int kLitCap = 2048, kDistCap = 1024;
+
+static inline uint32_t ent(uint32_t val, uint32_t kind, uint32_t extra,
+                           uint32_t len) {
+    return (val << 16) | (kind << 8) | (extra << 4) | len;
+}
+static inline uint32_t kind_of(uint32_t e) { return (e >> 8) & 7; }
+
+static const uint16_t kLenBase[29] = {
+    3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51,
+    59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
+static const uint8_t kLenExtra[29] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4,
+    5, 5, 5, 5, 0};
+static const uint16_t kDistBase[30] = {
+    1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385,
+    513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385,
+    24577};
+static const uint8_t kDistExtra[30] = {
+    0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10,
+    10, 11, 11, 12, 12, 13, 13};
+static const uint8_t kClOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11,
+                                     4, 12, 3, 13, 2, 14, 1, 15};
+
+enum { T_CL = 0, T_LIT = 1, T_DIST = 2 };
+
+static inline uint32_t sym_entry(int type, int s, int len) {
+    if (type == T_CL) return ent(s, K_LIT, 0, len);
+    if (type == T_DIST)
+        return s < 30 ? ent(kDistBase[s], K_LIT, kDistExtra[s], len)
+                      : ent(0, K_BAD, 0, len);
+    if (s < 256) return ent(s, K_LIT, 0, len);
+    if (s == 256) return ent(0, K_EOB, 0, len);
+    if (s < 286) return ent(kLenBase[s - 257], K_LEN, kLenExtra[s - 257], len);
+    return ent(0, K_BAD, 0, len);
+}
+
+static inline uint32_t rev_bits(uint32_t c, int len) {
+    uint32_t r = 0;
+    for (int i = 0; i < len; i++) { r = (r << 1) | (c & 1); c >>= 1; }
+    return r;
+}
+
+// zlib's acceptance of a set of code lengths: none oversubscribed, and
+// complete unless (literal/length or distance) a lone length-1 code.
+// max == 0 (no code) is accepted for the distance code only here: zlib
+// accepts it for both, but a literal/length code without the
+// end-of-block code (checked by the caller) is refused anyway.
+static int lengths_ok(const uint8_t* lens, int n, int type, int* maxp,
+                      int* count) {
+    for (int l = 0; l < 16; l++) count[l] = 0;
+    for (int s = 0; s < n; s++) count[lens[s]]++;
+    int max = 15;
+    while (max > 0 && count[max] == 0) max--;
+    *maxp = max;
+    if (max == 0) return type == T_DIST ? 0 : -1;
+    int left = 1;
+    for (int l = 1; l <= 15; l++) {
+        left <<= 1;
+        left -= count[l];
+        if (left < 0) return -1;
+    }
+    if (left > 0 && (type == T_CL || max != 1)) return -1;
+    return 0;
+}
+
+// Build a two-level table (root bits, then sub-tables).  Returns 0, or
+// -1 for lengths zlib refuses.
+static int build_table(const uint8_t* lens, int n, int type, int root,
+                       uint32_t* table, int cap) {
+    int count[16], max;
+    if (lengths_ok(lens, n, type, &max, count)) return -1;
+    int size = 1 << root;
+    for (int i = 0; i < size; i++) table[i] = ent(0, K_BAD, 0, 0);
+    if (max == 0) return 0;
+    int offs[17];
+    offs[1] = 0;
+    for (int l = 1; l < 16; l++) offs[l + 1] = offs[l] + count[l];
+    uint16_t sorted[320];
+    for (int s = 0; s < n; s++)
+        if (lens[s]) sorted[offs[lens[s]]++] = (uint16_t)s;
+    int rem[16];
+    for (int l = 0; l < 16; l++) rem[l] = count[l];
+    uint32_t code = 0;
+    int prev = 0, k = 0, next = size, cur_prefix = -1, sub_off = 0,
+        sub_bits = 0;
+    for (int l = 1; l <= max; l++) {
+        for (int c = 0; c < count[l]; c++, k++) {
+            code <<= (l - prev);
+            prev = l;
+            int s = sorted[k];
+            uint32_t r = rev_bits(code, l);
+            if (l <= root) {
+                uint32_t e = sym_entry(type, s, l);
+                for (uint32_t i = r; i < (uint32_t)size; i += 1u << l)
+                    table[i] = e;
+            } else {
+                int prefix = (int)(r & (uint32_t)(size - 1));
+                if (prefix != cur_prefix) {
+                    int curr = l - root, left = 1 << curr;
+                    while (curr + root < max) {
+                        left -= rem[curr + root];
+                        if (left <= 0) break;
+                        curr++;
+                        left <<= 1;
+                    }
+                    sub_off = next;
+                    sub_bits = curr;
+                    next += 1 << curr;
+                    if (next > cap) return -1;
+                    table[prefix] = ent(sub_off, K_SUB, sub_bits, root);
+                    cur_prefix = prefix;
+                }
+                uint32_t e = sym_entry(type, s, l - root);
+                for (uint32_t i = r >> root; i < (1u << sub_bits);
+                     i += 1u << (l - root))
+                    table[sub_off + i] = e;
+            }
+            rem[l]--;
+            code++;
+        }
+    }
+    return 0;
+}
+
+struct FixedTables {
+    uint32_t lit[kLitCap], dist[kDistCap];
+    FixedTables() {
+        uint8_t l[288];
+        for (int i = 0; i < 144; i++) l[i] = 8;
+        for (int i = 144; i < 256; i++) l[i] = 9;
+        for (int i = 256; i < 280; i++) l[i] = 7;
+        for (int i = 280; i < 288; i++) l[i] = 8;
+        build_table(l, 288, T_LIT, kLitRoot, lit, kLitCap);
+        uint8_t d[32];
+        for (int i = 0; i < 32; i++) d[i] = 5;
+        build_table(d, 32, T_DIST, kDistRoot, dist, kDistCap);
+    }
+};
+static const FixedTables& fixed_tables() {
+    static const FixedTables F;
+    return F;
+}
+
+// Read a dynamic block's header (after its 3 header bits) and build its
+// tables.  Returns 0, R_DATA or R_TRUNC.
+static int read_dynamic(Bits& br, uint32_t* lit, uint32_t* dist) {
+    br.refill();
+    int hlit = (int)br.bits(5) + 257;
+    br.drop(5);
+    int hdist = (int)br.bits(5) + 1;
+    br.drop(5);
+    int hclen = (int)br.bits(4) + 4;
+    br.drop(4);
+    if (hlit > 286 || hdist > 30) return R_DATA;
+    uint8_t cl[19] = {0};
+    for (int i = 0; i < hclen; i++) {
+        if (br.cnt < 3) br.refill();
+        cl[kClOrder[i]] = (uint8_t)br.bits(3);
+        br.drop(3);
+    }
+    uint32_t clt[1 << kClRoot];
+    if (build_table(cl, 19, T_CL, kClRoot, clt, 1 << kClRoot)) return R_DATA;
+    uint8_t lens[320];
+    int total = hlit + hdist, i = 0;
+    while (i < total) {
+        br.refill();
+        if (br.over > 8) return R_TRUNC;
+        uint32_t e = clt[br.bits(kClRoot)];
+        br.drop(e & 15);
+        int sym = (int)(e >> 16);
+        if (sym < 16) { lens[i++] = (uint8_t)sym; continue; }
+        int rep;
+        uint8_t v = 0;
+        if (sym == 16) {
+            if (i == 0) return R_DATA;
+            v = lens[i - 1];
+            rep = 3 + (int)br.bits(2);
+            br.drop(2);
+        } else if (sym == 17) {
+            rep = 3 + (int)br.bits(3);
+            br.drop(3);
+        } else {
+            rep = 11 + (int)br.bits(7);
+            br.drop(7);
+        }
+        if (i + rep > total) return R_DATA;
+        while (rep--) lens[i++] = v;
+    }
+    if (br.over > 8) return R_TRUNC;
+    if (lens[256] == 0) return R_DATA;
+    if (build_table(lens, hlit, T_LIT, kLitRoot, lit, kLitCap)) return R_DATA;
+    if (build_table(lens + hlit, hdist, T_DIST, kDistRoot, dist, kDistCap))
+        return R_DATA;
+    return 0;
+}
+
+// --- output buffers ----------------------------------------------------
+// Anonymous mappings that grow by mremap (no copy).  A fresh page's
+// fault is a large share of a byte's cost when every thread faults at
+// once, so a first mapping of an expected size is populated whole
+// (`populate`), and chunk buffers are reused from wave to wave.
+static void* grow_map(void* p, int64_t old_bytes, int64_t bytes,
+                      bool populate = false) {
+    void* q = p ? mremap(p, (size_t)old_bytes, (size_t)bytes, MREMAP_MAYMOVE)
+                : mmap(nullptr, (size_t)bytes, PROT_READ | PROT_WRITE,
+                       MAP_PRIVATE | MAP_ANONYMOUS
+                           | (populate ? MAP_POPULATE : 0), -1, 0);
+    return q == MAP_FAILED ? nullptr : q;
+}
+static inline int64_t page_round(int64_t b) {
+    return (b + 4095) & ~(int64_t)4095;
+}
+
+struct ByteBuf {          // bytes, with `pre` bytes of window before out()
+    uint8_t* base = nullptr;
+    int64_t pre = 0, len = 0, cap = 0;
+    uint8_t* out() { return base + pre; }
+    // room for `need` output bytes + slack; a first mapping populated
+    // up to `populate` bytes' worth
+    bool reserve(int64_t need, bool populate = false) {
+        int64_t want = pre + need + kSlack;
+        if (want <= cap) return true;
+        int64_t nc = page_round(std::max(want, cap + cap / 2));
+        void* p = grow_map(base, cap, nc, populate);
+        if (!p) return false;
+        base = (uint8_t*)p;
+        cap = nc;
+        return true;
+    }
+    void release() {
+        if (base) munmap(base, (size_t)cap);
+        base = nullptr;
+        cap = len = pre = 0;
+    }
+};
+
+struct WideBuf {          // 16-bit symbols after kWin markers
+    uint16_t* base = nullptr;
+    int64_t len = 0, cap = 0;  // cap counts symbols after the prefix
+    uint16_t* out() { return base + kWin; }
+    bool reserve(int64_t need, bool populate = false) {
+        if (need + kSlack <= cap) return true;
+        int64_t nb = page_round(
+            (kWin + std::max(need + kSlack, cap + cap / 2)) * 2);
+        bool fresh = base == nullptr;
+        void* p = grow_map(base, cap ? (kWin + cap) * 2 : 0, nb, populate);
+        if (!p) return false;
+        base = (uint16_t*)p;
+        if (fresh)
+            for (int64_t i = 0; i < kWin; i++) base[i] = (uint16_t)(256 + i);
+        cap = nb / 2 - kWin;
+        return true;
+    }
+    void release() {
+        if (base) munmap(base, (size_t)(kWin + cap) * 2);
+        base = nullptr;
+        len = cap = 0;
+    }
+};
+
+template <typename T>
+struct Out {
+    T* o;
+    int64_t pos, cap;      // output written; room (positions) before slack
+    int64_t floor;         // smallest position a copy may read
+    int64_t min_ref;       // smallest position read before 0 (wide)
+};
+
+// Do the last kWin symbols hold no marker?  Asked at a block's end; the
+// tail is searched from its end, where a marker is likeliest.
+static bool marker_free(const WideBuf& w) {
+    if (w.len < kWin) return false;
+    const uint16_t* o = w.base + kWin;
+    for (int64_t e = w.len; e > w.len - kWin; e -= 256) {
+        uint16_t m = 0;
+        for (int k = 1; k <= 256; k++) m |= o[e - k];
+        if (m >= 256) return false;
+    }
+    return true;
+}
+
+// Decode symbols of a Huffman block until its end-of-block code, an
+// error, or the room runs out (R_SPACE: grow and call again).
+template <typename T>
+static int huff(Bits& brr, const uint32_t* lt, const uint32_t* dt,
+                Out<T>& s) {
+    constexpr bool W = sizeof(T) == 2;
+    Bits br = brr;
+    T* o = s.o;
+    int64_t pos = s.pos;
+    const int64_t lim = s.cap - 258;
+    const int64_t floor = s.floor;
+    int64_t min_ref = s.min_ref;
+    int rc;
+    for (;;) {
+        if (pos > lim) { rc = R_SPACE; break; }
+        br.refill();
+        if (br.over > 8) { rc = R_TRUNC; break; }
+        uint32_t e = lt[br.buf & ((1u << kLitRoot) - 1)];
+        // a run of literals from the root table (codes of at most
+        // kLitRoot bits) while that many bits are held
+        while (kind_of(e) == K_LIT) {
+            br.drop(e & 15);
+            o[pos++] = (T)(e >> 16);
+            if (br.cnt < kLitRoot || pos > lim) break;
+            e = lt[br.buf & ((1u << kLitRoot) - 1)];
+        }
+        if (kind_of(e) == K_LIT) continue;
+        br.refill();
+        if (kind_of(e) == K_SUB) {
+            br.drop(kLitRoot);
+            e = lt[(e >> 16) + br.bits((e >> 4) & 15)];
+            if (kind_of(e) == K_LIT) {
+                br.drop(e & 15);
+                o[pos++] = (T)(e >> 16);
+                continue;
+            }
+        }
+        br.drop(e & 15);
+        uint32_t k = kind_of(e);
+        if (k != K_LEN) { rc = k == K_EOB ? R_EOB : R_DATA; break; }
+        uint32_t ex = (e >> 4) & 15;
+        uint32_t len = (e >> 16) + br.bits(ex);
+        br.drop(ex);
+        uint32_t d = dt[br.buf & ((1u << kDistRoot) - 1)];
+        if (kind_of(d) == K_SUB) {
+            br.drop(kDistRoot);
+            d = dt[(d >> 16) + br.bits((d >> 4) & 15)];
+        }
+        if (kind_of(d) != K_LIT) { rc = R_DATA; break; }
+        br.drop(d & 15);
+        uint32_t ex2 = (d >> 4) & 15;
+        uint32_t dist = (d >> 16) + br.bits(ex2);
+        br.drop(ex2);
+        int64_t src = pos - (int64_t)dist;
+        if (src < floor) { rc = R_DATA; break; }
+        T* dp = o + pos;
+        const T* sp = o + src;
+        if (dist >= 8 / sizeof(T)) {
+            T* end = dp + len;
+            do {
+                memcpy(dp, sp, 8);
+                dp += 8 / sizeof(T);
+                sp += 8 / sizeof(T);
+            } while (dp < end);
+        } else if (dist == 1) {
+            std::fill(dp, dp + len, sp[0]);
+        } else {
+            for (uint32_t i = 0; i < len; i++) dp[i] = sp[i];
+        }
+        if (W && src < min_ref) min_ref = src;
+        pos += len;
+    }
+    brr = br;
+    s.pos = pos;
+    s.min_ref = min_ref;
+    return rc;
+}
+
+// --- chunks --------------------------------------------------------------
+enum { S_BLOCK = 0, S_STORED = 1, S_HEADER = 2, S_NONE = 3 };
+struct Start {
+    int64_t bit = 0;   // S_BLOCK: the block header's bit; S_STORED: 8 x
+    int kind = S_NONE; // the LEN field's byte (a non-final stored block);
+};                     // S_HEADER: 8 x a member header's first byte
+
+struct MemberEnd {
+    int64_t out;        // chunk position where the member's bytes end
+    uint32_t crc, isize;
+};
+
+enum { STOP_REACHED = 1, STOP_PASSED = 2, STOP_END = 3 };
+
+struct Chunk {
+    Start start, target, end;
+    bool spec = false;    // window unknown: starts in 16-bit symbols
+    bool direct = false;  // writes into the result (window known)
+    int64_t floor0 = 0;   // direct: the member's start (chunk position)
+    int64_t limit = 0;    // spec: most output before giving up (0: none)
+    int64_t expect = 1 << 16;  // output expected (a first buffer's size)
+    WideBuf w;
+    ByteBuf nb;
+    int64_t min_ref = 0;
+    std::vector<MemberEnd> ends;
+    int status = 0, stop = 0;
+    Chunk() = default;
+    Chunk(const Chunk&) = delete;
+    Chunk& operator=(const Chunk&) = delete;
+    ~Chunk() { release(); }
+    int64_t len() const { return w.len + nb.len; }
+    void release() { w.release(); nb.release(); }
+    void reset() {        // for another start, keeping the buffers
+        w.len = 0;
+        nb.len = nb.pre = 0;
+        ends.clear();
+        min_ref = 0;
+        status = stop = 0;
+    }
+};
+
+// Parse a member header at byte b; the deflate stream's first byte, or
+// -1.  *bsize: BGZF's BSIZE when the header carries it, else -1.
+static int64_t parse_header(const uint8_t* in, int64_t n, int64_t b,
+                            int64_t* bsize) {
+    if (bsize) *bsize = -1;
+    if (b + 10 > n || in[b] != 0x1f || in[b + 1] != 0x8b || in[b + 2] != 8)
+        return -1;
+    int flg = in[b + 3];
+    int64_t p = b + 10;
+    if (flg & 4) {
+        if (p + 2 > n) return -1;
+        int64_t xlen = in[p] | (in[p + 1] << 8);
+        p += 2;
+        if (p + xlen > n) return -1;
+        for (int64_t q = p; bsize && q + 4 <= p + xlen;) {
+            int64_t slen = in[q + 2] | (in[q + 3] << 8);
+            if (in[q] == 'B' && in[q + 1] == 'C' && slen == 2
+                && q + 6 <= p + xlen) {
+                *bsize = in[q + 4] | (in[q + 5] << 8);
+                break;
+            }
+            q += 4 + slen;
+        }
+        p += xlen;
+    }
+    for (int f = 8; f <= 16; f <<= 1) {
+        if (!(flg & f)) continue;
+        const void* z = p < n ? memchr(in + p, 0, (size_t)(n - p)) : nullptr;
+        if (!z) return -1;
+        p = (const uint8_t*)z - in + 1;
+    }
+    if (flg & 2) {
+        if (p + 2 > n) return -1;
+        p += 2;
+    }
+    return p;
+}
+
+static inline uint32_t le32(const uint8_t* p) {
+    return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16)
+           | ((uint32_t)p[3] << 24);
+}
+
+// Decode a chunk from c.start until it reaches (or passes) c.target at a
+// block boundary, the input ends after a member, or an error.
+static void run_chunk(const uint8_t* in, int64_t n, Chunk& c) {
+    Bits br;
+    br.in = in;
+    br.n = n;
+    uint32_t lit[kLitCap], dist[kDistCap];
+    const FixedTables& F = fixed_tables();
+    bool wide = c.spec;
+    Out<uint16_t> ws{};
+    Out<uint8_t> ns{};
+    int64_t member_at = c.spec ? INT64_MIN : c.floor0;  // chunk position
+    if (wide) {
+        if (!c.w.reserve(c.expect, true)) { c.status = E_NOMEM; return; }
+    } else {
+        if (!c.nb.reserve(c.expect, !c.direct)) {
+            c.status = E_NOMEM;
+            return;
+        }
+    }
+    auto total = [&]() { return c.w.len + c.nb.len; };
+    // leave 16-bit symbols: the window is the last kWin symbols, or
+    // nothing when a member starts here
+    auto go_narrow = [&](bool member_start) -> bool {
+        int64_t keep = member_start ? 0 : kWin;
+        c.nb.pre = keep;
+        if (!c.nb.reserve(1 << 16)) return false;
+        const uint16_t* src = c.w.out() + c.w.len - keep;
+        for (int64_t i = 0; i < keep; i++) c.nb.base[i] = (uint8_t)src[i];
+        wide = false;
+        return true;
+    };
+    int st = c.start.kind;
+    int64_t hb = c.start.bit >> 3;
+    bool final_blk = false;
+    if (st != S_HEADER) br.seek(c.start.bit);
+    int type = -1;
+    for (;;) {
+        if (st == S_HEADER) {
+            int64_t p = parse_header(in, n, hb, nullptr);
+            if (p < 0) { c.status = E_HEADER; return; }
+            member_at = total();
+            if (wide && !go_narrow(true)) { c.status = E_NOMEM; return; }
+            br.seek(p * 8);
+            st = S_BLOCK;
+        }
+        if (st == S_BLOCK) {
+            int64_t b = br.bitpos();
+            if (c.target.kind == S_BLOCK) {
+                if (b == c.target.bit) {
+                    c.stop = STOP_REACHED;
+                    c.end = c.target;
+                    return;
+                }
+                if (b > c.target.bit) {
+                    c.stop = STOP_PASSED;
+                    c.end.bit = b;
+                    c.end.kind = S_BLOCK;
+                    return;
+                }
+            } else if (c.target.kind == S_STORED) {
+                int64_t q8 = c.target.bit;
+                if (b > q8 - 3) {
+                    c.stop = STOP_PASSED;
+                    c.end.bit = b;
+                    c.end.kind = S_BLOCK;
+                    return;
+                }
+                if (b >= q8 - 10) {
+                    br.refill();
+                    if (br.bits(3) == 0 && ((b + 3 + 7) >> 3) << 3 == q8) {
+                        c.stop = STOP_REACHED;
+                        c.end = c.target;
+                        return;
+                    }
+                }
+            }
+            br.refill();
+            if (br.over > 8) { c.status = E_TRUNC; return; }
+            final_blk = br.bits(1);
+            type = (int)(br.bits(3) >> 1);
+            br.drop(3);
+            if (type == 3) { c.status = E_DATA; return; }
+            if (type == 0) {
+                br.drop(br.cnt & 7);
+                st = S_STORED;
+            } else {
+                if (type == 2) {
+                    int r = read_dynamic(br, lit, dist);
+                    if (r) { c.status = r == R_TRUNC ? E_TRUNC : E_DATA; return; }
+                }
+                const uint32_t* lt = type == 1 ? F.lit : lit;
+                const uint32_t* dt = type == 1 ? F.dist : dist;
+                for (;;) {
+                    int r;
+                    if (wide) {
+                        ws.o = c.w.out();
+                        ws.pos = c.w.len;
+                        ws.cap = c.w.cap - 8;
+                        ws.floor = member_at == INT64_MIN ? -kWin : member_at;
+                        ws.min_ref = c.min_ref;
+                        r = huff<uint16_t>(br, lt, dt, ws);
+                        c.w.len = ws.pos;
+                        c.min_ref = ws.min_ref;
+                    } else {
+                        ns.o = c.nb.out();
+                        ns.pos = c.nb.len;
+                        ns.cap = c.nb.cap - c.nb.pre - 8;
+                        int64_t f = member_at == INT64_MIN
+                                        ? -c.nb.pre : member_at - c.w.len;
+                        ns.floor = std::max(f, -c.nb.pre);
+                        ns.min_ref = 0;
+                        r = huff<uint8_t>(br, lt, dt, ns);
+                        c.nb.len = ns.pos;
+                    }
+                    if (r == R_EOB) break;
+                    if (r == R_SPACE) {
+                        int64_t t = total();
+                        if (c.limit && t > c.limit) { c.status = R_CAP; return; }
+                        bool ok = wide ? c.w.reserve(c.w.len + (c.w.len >> 1) + 65536)
+                                       : c.nb.reserve(c.nb.len + (c.nb.len >> 1) + 65536);
+                        if (!ok) { c.status = E_NOMEM; return; }
+                        continue;
+                    }
+                    c.status = r == R_TRUNC ? E_TRUNC : E_DATA;
+                    return;
+                }
+                if (wide && marker_free(c.w) && !go_narrow(false)) {
+                    c.status = E_NOMEM;
+                    return;
+                }
+                st = final_blk ? -1 : S_BLOCK;
+            }
+        }
+        if (st == S_STORED) {
+            int64_t bp = br.bitpos() >> 3;  // byte aligned here
+            if (bp + 4 > n) { c.status = E_TRUNC; return; }
+            uint32_t len = in[bp] | (in[bp + 1] << 8);
+            uint32_t nlen = in[bp + 2] | (in[bp + 3] << 8);
+            if (len != (~nlen & 0xFFFF)) { c.status = E_DATA; return; }
+            if (bp + 4 + len > n) { c.status = E_TRUNC; return; }
+            const uint8_t* src = in + bp + 4;
+            if (wide) {
+                if (!c.w.reserve(c.w.len + len)) { c.status = E_NOMEM; return; }
+                uint16_t* o = c.w.out() + c.w.len;
+                for (uint32_t i = 0; i < len; i++) o[i] = src[i];
+                c.w.len += len;
+                if (marker_free(c.w) && !go_narrow(false)) {
+                    c.status = E_NOMEM;
+                    return;
+                }
+            } else {
+                if (!c.nb.reserve(c.nb.len + len)) { c.status = E_NOMEM; return; }
+                memcpy(c.nb.out() + c.nb.len, src, len);
+                c.nb.len += len;
+            }
+            if (c.limit && total() > c.limit) { c.status = R_CAP; return; }
+            br.seek((bp + 4 + len) * 8);
+            st = final_blk ? -1 : S_BLOCK;
+        }
+        if (st == -1) {  // the member's trailer, zero padding, what follows
+            int64_t bp = (br.bitpos() + 7) >> 3;
+            if (bp + 8 > n) { c.status = E_TRUNC; return; }
+            c.ends.push_back({total(), le32(in + bp), le32(in + bp + 4)});
+            int64_t p = bp + 8;
+            while (p < n && in[p] == 0) p++;
+            if (p == n) {
+                c.stop = STOP_END;
+                c.end.bit = 8 * n;
+                c.end.kind = S_NONE;
+                return;
+            }
+            hb = p;
+            st = S_HEADER;
+        }
+    }
+}
+
+// --- the block finder ----------------------------------------------------
+static inline uint64_t bits_at(const uint8_t* in, int64_t n, int64_t bit) {
+    int64_t b = bit >> 3;
+    uint64_t w = 0;
+    if (b + 8 <= n) memcpy(&w, in + b, 8);
+    else
+        for (int64_t i = 0; b + i < n && i < 8; i++)
+            w |= (uint64_t)in[b + i] << (8 * i);
+    return w >> (bit & 7);  // at least 57 bits valid
+}
+
+// Does a dynamic block header at bit p build codes zlib accepts?  The
+// code lengths are summed as they are read (in units of 2^-15), so most
+// false starts stop at their first oversubscribed length.  A lone
+// length-1 literal/length code, which zlib accepts, is not guessed.
+static bool dynamic_at(const uint8_t* in, int64_t n, int64_t p) {
+    uint64_t w = bits_at(in, n, p);
+    if (((w >> 1) & 3) != 2) return false;
+    int hlit = (int)((w >> 3) & 31) + 257, hdist = (int)((w >> 8) & 31) + 1;
+    if (hlit > 286 || hdist > 30) return false;
+    int hclen = (int)((w >> 13) & 15) + 4;
+    uint64_t w2 = bits_at(in, n, p + 17);
+    uint8_t cl[19] = {0};
+    int kraft = 0;
+    for (int i = 0; i < hclen; i++) {
+        int l = (int)((w2 >> (3 * i)) & 7);
+        cl[kClOrder[i]] = (uint8_t)l;
+        if (l) kraft += 128 >> l;
+    }
+    if (kraft != 128) return false;
+    uint32_t clt[1 << kClRoot];
+    if (build_table(cl, 19, T_CL, kClRoot, clt, 1 << kClRoot)) return false;
+    Bits br;
+    br.in = in;
+    br.n = n;
+    br.seek(p + 17 + 3 * hclen);
+    int total = hlit + hdist, i = 0, prev = -1;
+    int32_t sum[2] = {0, 0};
+    bool eob = false;
+    while (i < total) {
+        br.refill();
+        if (br.over > 8) return false;
+        uint32_t e = clt[br.bits(kClRoot)];
+        br.drop(e & 15);
+        int sym = (int)(e >> 16), rep = 1, v = sym;
+        if (sym == 16) {
+            if (prev < 0) return false;
+            v = prev;
+            rep = 3 + (int)br.bits(2);
+            br.drop(2);
+        } else if (sym == 17) {
+            v = 0;
+            rep = 3 + (int)br.bits(3);
+            br.drop(3);
+        } else if (sym == 18) {
+            v = 0;
+            rep = 11 + (int)br.bits(7);
+            br.drop(7);
+        }
+        if (i + rep > total) return false;
+        for (; rep; rep--, i++) {
+            int part = i >= hlit;
+            if (v) sum[part] += 32768 >> v;
+            if (i == 256) eob = v != 0;
+        }
+        if (sum[0] > 32768 || sum[1] > 32768) return false;
+        prev = v;
+    }
+    return eob && sum[0] == 32768
+           && (sum[1] == 32768 || sum[1] == 16384 || sum[1] == 0);
+}
+
+// Is there a non-final stored block whose LEN is at byte q?  LEN ==
+// ~NLEN passes at random about once in 2^16 bytes, so the block must
+// also fit the input and be followed by a header that checks: a
+// dynamic one that builds its codes, or another stored block (a fixed
+// block after it is a start the finder does not guess).
+static bool stored_at(const uint8_t* in, int64_t n, int64_t q) {
+    if (q + 4 > n || (in[q - 1] & 0xE0) != 0) return false;
+    int64_t len = in[q] | (in[q + 1] << 8);
+    if (len != (~(in[q + 2] | (in[q + 3] << 8)) & 0xFFFF)) return false;
+    int64_t next = q + 4 + len;
+    if (next >= n) return false;
+    int type = (int)((in[next] >> 1) & 3);
+    if (type == 2) return dynamic_at(in, n, next * 8);
+    if (type == 0) {
+        int64_t r = next + 1;
+        return r + 4 <= n && (in[r] | (in[r + 1] << 8))
+                                 == (~(in[r + 2] | (in[r + 3] << 8)) & 0xFFFF);
+    }
+    return false;
+}
+
+// The first block start at or after byte lo and before byte hi.
+static bool find_start(const uint8_t* in, int64_t n, int64_t lo, int64_t hi,
+                       Start* s) {
+    for (int64_t p = lo * 8; p < hi * 8 && (p >> 3) < n; p++) {
+        if ((p & 7) == 5) {  // a stored block's LEN at byte q = (p+3)/8
+            int64_t q = (p + 3) >> 3;
+            if (stored_at(in, n, q)) {
+                s->bit = q * 8;
+                s->kind = S_STORED;
+                return true;
+            }
+        }
+        if ((bits_at(in, n, p) & 6) == 4 && dynamic_at(in, n, p)) {
+            s->bit = p;
+            s->kind = S_BLOCK;
+            return true;
+        }
+    }
+    return false;
+}
+
+// --- the whole input -----------------------------------------------------
+struct Result {
+    ByteBuf out;          // the result (mapped); in discard mode only the
+    int64_t base_abs = 0; // window: out.out()[0] is byte base_abs
+    bool discard = false;
+    int64_t total() const { return base_abs + out.len; }
+    uint8_t* at(int64_t abs) { return out.out() + (abs - base_abs); }
+    bool room(int64_t abs_end) { return out.reserve(abs_end - base_abs); }
+    void compact() {  // discard mode: keep the last kWin bytes
+        if (!discard || out.len <= kWin) return;
+        int64_t drop = out.len - kWin;
+        memmove(out.out(), out.out() + drop, (size_t)kWin);
+        base_abs += drop;
+        out.len = kWin;
+    }
+};
+
+struct Stats {
+    int64_t team = 1, chunks = 0, joined = 0, redone = 0, marker_bytes = 0,
+            members = 0, bgzf_members = 0, waves = 0;
+};
+
+struct MemberCheck {      // the member being checked, across chunks
+    uint32_t crc = 0;
+    uint64_t len = 0;
+    int64_t start = 0;    // its first byte's position in the output
+};
+
+// A run of BGZF members from byte b, inflated a member a thread.
+// Returns the byte after the last member taken (b if none).
+static int64_t bgzf_run(const uint8_t* in, int64_t n, int64_t b, int team,
+                        Result& res, Stats& st) {
+    struct M { int64_t at, data, end; uint32_t isize; int64_t off; };
+    std::vector<M> ms;
+    int64_t out = res.total();
+    for (int64_t p = b; p < n;) {
+        int64_t bsize;
+        int64_t d = parse_header(in, n, p, &bsize);
+        if (d < 0 || bsize < 0) break;
+        int64_t e = p + bsize + 1;
+        if (e > n || e - 8 < d) break;
+        uint32_t isize = le32(in + e - 4);
+        if ((int64_t)isize > 1040 * (e - d) + 1024) break;  // not plausible
+        ms.push_back({p, d, e, isize, out});
+        out += isize;
+        p = e;
+    }
+    if (ms.size() < 2) return b;
+    if (!res.discard && !res.room(out)) return b;
+    int64_t nm = (int64_t)ms.size();
+    std::vector<int> ok(nm, 0);
+#pragma omp parallel num_threads(team) if (team > 1)
+    {
+        Chunk c;
+#pragma omp for schedule(dynamic, 4)
+        for (int64_t i = 0; i < nm; i++) {
+            const M& m = ms[i];
+            c.start.bit = m.data * 8;
+            c.start.kind = S_BLOCK;
+            c.target.kind = S_NONE;
+            c.floor0 = 0;
+            c.w.len = 0;
+            c.nb.len = 0;
+            c.nb.pre = 0;
+            c.ends.clear();
+            c.status = c.stop = 0;
+            c.limit = m.isize + 65536;
+            // decode this member alone: the input cut at its end
+            run_chunk(in, m.end, c);
+            if (c.status || c.stop != STOP_END || c.ends.size() != 1
+                || c.nb.len != (int64_t)m.isize || c.ends[0].out != c.nb.len)
+                continue;
+            // the trailer must sit at the end BSIZE states
+            const uint8_t* o = c.nb.out();
+            uint32_t crc = crc32_update(0, o, c.nb.len);
+            if (crc != c.ends[0].crc || m.isize != c.ends[0].isize) continue;
+            if (!res.discard) memcpy(res.at(m.off), o, (size_t)c.nb.len);
+            ok[i] = 1;
+        }
+        c.release();
+    }
+    // a member is taken when its deflate stream, its trailer and any
+    // zero bytes after it end where BSIZE says (STOP_END in the cut
+    // input, one trailer) with the size and CRC32 its trailer states;
+    // the run stops before the first member that is not
+    int64_t taken = 0;
+    while (taken < nm && ok[taken]) taken++;
+    if (taken == 0) return b;
+    st.bgzf_members += taken;
+    st.members += taken;
+    int64_t end_abs = taken < nm ? ms[taken].off : out;
+    if (res.discard) {
+        // the window is all discard mode keeps: the last member's bytes
+        // are not held, so a following chunk takes its window afresh
+        res.base_abs = end_abs;
+        res.out.len = 0;
+    } else {
+        res.out.len = end_abs - res.base_abs;
+    }
+    return ms[taken - 1].end;
+}
+
+static int64_t default_chunk(int64_t bytes, int team) {
+    if (team <= 1) return bytes > 0 ? bytes : 1;
+    const int64_t cap = 2 << 20, lo = 64 << 10;
+    int64_t waves = (bytes + (int64_t)team * cap - 1) / ((int64_t)team * cap);
+    int64_t nch = std::max<int64_t>(1, waves * team);
+    return std::max(lo, (bytes + nch - 1) / nch);
+}
+
+// The chunked decode from a confirmed start to the end of the input.
+static int chunked(const uint8_t* in, int64_t n, Start cur, int team,
+                   int64_t chunk_bytes, Result& res, MemberCheck& mc,
+                   Stats& st) {
+    int64_t lo = cur.bit >> 3;
+    int64_t C = chunk_bytes > 0 ? chunk_bytes : default_chunk(n - lo, team);
+    int64_t nominal = std::max<int64_t>(1, (n - lo + C - 1) / C);
+    // guesses: chunk 0 is cur; a chunk with no start found joins the
+    // one before it
+    std::vector<Start> g(nominal);
+    std::vector<char> found(nominal, 0);
+    found[0] = 1;
+    g[0] = cur;
+#pragma omp parallel for schedule(dynamic, 1) num_threads(team) if (team > 1)
+    for (int64_t k = 1; k < nominal; k++)
+        found[k] = find_start(in, n, lo + k * C, std::min(n, lo + (k + 1) * C),
+                              &g[k]);
+    std::vector<Start> guess;
+    for (int64_t k = 0; k < nominal; k++) {
+        if (found[k]) guess.push_back(g[k]);
+        else st.joined++;
+    }
+    int64_t nch = (int64_t)guess.size();
+    st.chunks += nch;
+    // a wave's chunks: slot j - i holds chunk j, its buffers kept for
+    // the next wave's
+    std::vector<Chunk> slots(std::min<int64_t>(team, nch));
+    for (int64_t i = 0; i < nch;) {
+        int64_t w1 = std::min(nch, i + team);
+        st.waves++;
+        int64_t A0 = res.total();
+        auto chunk_at = [&](int64_t j) -> Chunk& { return slots[j - i]; };
+        // the wave's first chunk writes into the result with the window
+        // behind it; the rest guess
+        for (int64_t j = i; j < w1; j++) {
+            Chunk& c = chunk_at(j);
+            c.reset();
+            c.expect = 4 * C;
+            c.start = j == i ? cur : guess[j];
+            c.target = j + 1 < nch ? guess[j + 1] : Start{};
+            c.spec = j != i;
+            c.direct = j == i;
+            c.limit = c.spec ? 1040 * std::max<int64_t>(C, 1) + (1 << 20) : 0;
+            if (c.direct) {
+                c.nb = res.out;
+                c.nb.pre = res.out.pre + res.out.len;
+                c.nb.len = 0;
+                c.floor0 = mc.start - A0;
+                if (cur.kind == S_HEADER) c.floor0 = 0;
+            }
+        }
+#pragma omp parallel for schedule(static, 1) num_threads(team) if (team > 1)
+        for (int64_t j = i; j < w1; j++) run_chunk(in, n, chunk_at(j));
+        {   // the result's mapping may have moved or grown
+            Chunk& c = chunk_at(i);
+            int64_t l = c.nb.len;
+            res.out.base = c.nb.base;
+            res.out.cap = c.nb.cap;
+            res.out.len += l;
+            c.nb = ByteBuf();
+            c.nb.len = l;   // its length, for the positions below
+        }
+        // confirm the chain; decode again what was guessed wrong
+        int64_t last = w1 - 1;
+        bool end = false;
+        for (int64_t j = i; j < w1; j++) {
+            Chunk& c = chunk_at(j);
+            bool confirmed = j == i || chunk_at(j - 1).stop == STOP_REACHED;
+            if (!confirmed || c.status == R_CAP) {
+                c.reset();
+                c.start = confirmed ? c.start : chunk_at(j - 1).end;
+                c.limit = 0;
+                st.redone++;
+                run_chunk(in, n, c);
+            }
+            if (c.status) return c.status;
+            if (c.stop == STOP_END) { last = j; end = true; break; }
+        }
+        // positions, the member floor of markers, the windows in order
+        std::vector<int64_t> A(last + 2);
+        A[i] = A0;
+        for (int64_t j = i; j <= last; j++)
+            A[j + 1] = A[j] + chunk_at(j).len();
+        if (!res.room(A[last + 1])) return E_NOMEM;
+        {
+            int64_t ms = mc.start;
+            for (int64_t j = i; j <= last; j++) {
+                Chunk& c = chunk_at(j);
+                if (c.spec && A[j] + c.min_ref < ms) return E_DATA;
+                for (auto& e : c.ends) ms = A[j] + e.out;
+            }
+        }
+        // a chunk's symbols into place: a byte, or its window's byte
+        // (256 + i: the window's byte i) looked up in a 33 KiB table
+        auto put = [&](Chunk& c, int64_t Aj, int64_t a, int64_t b) {
+            uint8_t* F = res.at(Aj);
+            int64_t wl = c.w.len, e = std::min(b, wl);
+            if (a < e) {
+                // the window's bytes that exist (markers before the
+                // output's first byte were refused above)
+                std::vector<uint8_t> lut(256 + kWin, 0);
+                for (int v = 0; v < 256; v++) lut[v] = (uint8_t)v;
+                int64_t have = std::min(kWin, Aj - res.base_abs);
+                memcpy(lut.data() + 256 + kWin - have, F - have, (size_t)have);
+                const uint16_t* w = c.w.out();
+                const uint8_t* L = lut.data();
+                for (int64_t p = a; p < e; p++) F[p] = L[w[p]];
+            }
+            int64_t s = std::max(a, wl);
+            if (b > s) memcpy(F + s, c.nb.out() + (s - wl), (size_t)(b - s));
+        };
+        for (int64_t j = i + 1; j <= last; j++) {
+            Chunk& c = chunk_at(j);
+            put(c, A[j], std::max<int64_t>(0, c.len() - kWin), c.len());
+        }
+        // every thread: its chunk's head, then the CRC32 of each member's
+        // part of it
+        std::vector<std::vector<uint32_t>> crcs(last + 1);
+#pragma omp parallel for schedule(static, 1) num_threads(team) if (team > 1)
+        for (int64_t j = i; j <= last; j++) {
+            Chunk& c = chunk_at(j);
+            int64_t L = c.len();
+            if (j > i) put(c, A[j], 0, std::max<int64_t>(0, L - kWin));
+            const uint8_t* F = res.at(A[j]);
+            int64_t a = 0;
+            for (auto& e : c.ends) {
+                crcs[j].push_back(crc32_update(0, F + a, e.out - a));
+                a = e.out;
+            }
+            crcs[j].push_back(crc32_update(0, F + a, L - a));
+        }
+        for (int64_t j = i; j <= last; j++) {
+            Chunk& c = chunk_at(j);
+            st.marker_bytes += c.w.len;
+            int64_t a = 0;
+            for (size_t k = 0; k <= c.ends.size(); k++) {
+                int64_t b = k < c.ends.size() ? c.ends[k].out : c.len();
+                mc.crc = crc32_combine(mc.crc, crcs[j][k], (uint64_t)(b - a));
+                mc.len += (uint64_t)(b - a);
+                if (k < c.ends.size()) {
+                    if (mc.crc != c.ends[k].crc) return E_CRC;
+                    if ((uint32_t)mc.len != c.ends[k].isize) return E_SIZE;
+                    st.members++;
+                    mc.crc = 0;
+                    mc.len = 0;
+                    mc.start = A[j] + b;
+                }
+                a = b;
+            }
+        }
+        res.out.len = A[last + 1] - res.base_abs;
+        res.compact();
+        if (end) return 0;
+        cur = chunk_at(last).end;
+        i = last + 1;
+    }
+    return E_TRUNC;  // the input ended inside a member
+}
+
+static int inflate_all(const uint8_t* in, int64_t n, int team,
+                       int64_t chunk_bytes, Result& res, Stats& st) {
+    if (n < 2 || in[0] != 0x1f || in[1] != 0x8b) return E_HEADER;
+    int64_t b = 0;
+    MemberCheck mc;
+    for (;;) {
+        int64_t e = bgzf_run(in, n, b, team, res, st);
+        if (e == b) break;
+        while (e < n && in[e] == 0) e++;
+        if (e == n) return 0;
+        b = e;
+        mc.start = res.total();
+    }
+    mc.start = res.total();
+    Start cur;
+    cur.bit = b * 8;
+    cur.kind = S_HEADER;
+    return chunked(in, n, cur, team, chunk_bytes, res, mc, st);
+}
+
+}  // namespace gzi
+
+extern "C" {
+
+static const int64_t kInflateParMinBytes = 1 << 20;  // below: one thread
+
+// Threads gz_inflate runs an n-byte input on: nthreads when > 0, else
+// one below kInflateParMinBytes and the OpenMP team from there up.
+int64_t inflate_team(int64_t n, int64_t nthreads) {
+    int64_t t = nthreads;
+    if (t <= 0) {
+        t = 1;
+#ifdef _OPENMP
+        if (n >= kInflateParMinBytes) t = omp_get_max_threads();
+#endif
+    }
+    return t < 1 ? 1 : t;
+}
+
+// Inflate a gzip file's bytes.  Returns 0 and the output (an anonymous
+// mapping *out of *out_cap bytes holding *out_len; gz_free it), or a
+// negative code when the input is refused (nothing to free).
+// chunk_bytes: compressed bytes a chunk (0: from the input and the
+// team).  flags & 1: keep only the last 32 KiB of output (sizes and
+// checks only; *out_len is the whole length).  stats (8): team, chunks,
+// chunks joined, chunks decoded again, bytes decoded with markers,
+// members, BGZF members inflated a member a thread, waves.
+int64_t gz_inflate(const uint8_t* in, int64_t n, int64_t nthreads,
+                   int64_t chunk_bytes, int64_t flags, uint8_t** out,
+                   int64_t* out_len, int64_t* out_cap, int64_t* stats) {
+    gzi::Result res;
+    res.discard = flags & 1;
+    gzi::Stats st;
+    st.team = inflate_team(n, nthreads);
+    // one member's ISIZE ends the input: when it is plausible (1 to 16
+    // times the input, a sequence file's ratio), the output's first
+    // mapping is that size, populated
+    int64_t hint = n >= 4 ? gzi::le32(in + n - 4) : 0;
+    bool sized = !res.discard && hint >= n && hint <= 16 * n;
+    int64_t first = res.discard ? gzi::kWin : sized ? hint : 4 * n;
+    int rc = res.out.reserve(first, sized)
+                 ? gzi::inflate_all(in, n, (int)st.team, chunk_bytes, res, st)
+                 : gzi::E_NOMEM;
+    int64_t s[8] = {st.team, st.chunks, st.joined, st.redone, st.marker_bytes,
+                    st.members, st.bgzf_members, st.waves};
+    if (stats) memcpy(stats, s, sizeof(s));
+    if (rc) {
+        res.out.release();
+        return rc;
+    }
+    *out = res.out.base;
+    *out_len = res.total();
+    *out_cap = res.out.cap;
+    return 0;
+}
+
+void gz_free(uint8_t* p, int64_t cap) {
+    if (p) munmap(p, (size_t)cap);
+}
+
+uint32_t gz_crc32_combine(uint32_t crc1, uint32_t crc2, uint64_t len2) {
+    return gzi::crc32_combine(crc1, crc2, len2);
+}
+
+}  // extern "C"

@@ -18,7 +18,11 @@ files on the OpenMP team (held to
 `fast_parse.first_mate_mismatch_plain`).  `pack_block2`/
 `pack_block2_paired` pack eight bases a step into arrays the caller may
 give (`out`); the one-base loops stay as
-`pack_block2_plain`/`pack_block2_paired_plain`.
+`pack_block2_plain`/`pack_block2_paired_plain`.  `inflate` inflates a
+gzip input on the OpenMP team (BGZF members a thread each, anything
+else in chunks decoded speculatively), byte for byte
+`gzip.GzipFile(...).read()`, which stays as `pipeline._inflate_plain`,
+the plain version.
 
 Compiled lazily with g++ on first use and cached in the user's cache
 directory (`_cache_dir`); everything degrades gracefully to the numpy
@@ -211,6 +215,19 @@ def _build() -> ctypes.CDLL | None:
     lib.csv_values.argtypes = [
         _U8P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, _F64P, ctypes.c_int64]
+    lib.inflate_team.restype = ctypes.c_int64
+    lib.inflate_team.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    lib.gz_inflate.restype = ctypes.c_int64
+    lib.gz_inflate.argtypes = [
+        _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        _I64P]
+    lib.gz_free.restype = None
+    lib.gz_free.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.gz_crc32_combine.restype = ctypes.c_uint32
+    lib.gz_crc32_combine.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
+                                     ctypes.c_uint64]
     return lib
 
 
@@ -842,3 +859,93 @@ def build_cuckoo(kmers: np.ndarray, labels: np.ndarray, nb_bits: int,
     if rc != 0:
         return None
     return keys_lo, keys_hi, labs
+
+
+class InflateRefused(ValueError):
+    """`inflate` refused its input: the reference's reader rejects it
+    too, and its error says why (`pipeline._inflate_plain`)."""
+
+
+_INFLATE_REASONS = {-1: "a member header", -2: "deflate data",
+                    -3: "the input ended inside a member",
+                    -4: "a CRC32", -5: "a length (ISIZE)",
+                    -7: "no memory"}
+_INFLATE_KEYS = ("team", "chunks", "joined", "redone", "marker_bytes",
+                 "members", "bgzf_members", "waves")
+_INFLATE_LAST: dict = {}
+
+
+def inflate_team(n: int, threads: int = 0) -> int:
+    """Threads `inflate` runs an n-byte gzip input on: `threads` when
+    > 0, else one below 1 MiB and the OpenMP team (OMP_NUM_THREADS, else
+    every core) from there up."""
+    return int(_lib().inflate_team(n, threads))
+
+
+def inflate_counters() -> dict:
+    """The last `inflate`/`inflate_check` call's counters: team;
+    chunks (speculative chunks after joins); joined (chunks where no
+    block start was found, joined to the one before); redone (chunks
+    decoded again after a wrong guess or past their output cap);
+    marker_bytes (bytes decoded as 16-bit symbols, before their window
+    was known); members; bgzf_members (inflated a member a thread);
+    waves (rounds of one chunk a thread)."""
+    return dict(_INFLATE_LAST)
+
+
+class _Pages:
+    """The anonymous mapping `gz_inflate` returned, read-only through
+    numpy's array interface and unmapped with the last array over it."""
+
+    def __init__(self, lib, base: int, n: int, cap: int):
+        self._free = (lib.gz_free, base, cap)
+        self.__array_interface__ = {"shape": (n,), "typestr": "|u1",
+                                    "data": (base, True), "version": 3}
+
+    def __del__(self):
+        free, base, cap = self._free
+        free(base, cap)
+
+
+def _gz_inflate(data, threads: int, chunk: int, flags: int):
+    global _INFLATE_LAST
+    lib = _lib()
+    a = np.ascontiguousarray(np.frombuffer(data, np.uint8)
+                             if isinstance(data, (bytes, bytearray))
+                             else data, np.uint8)
+    base, n, cap = ctypes.c_void_p(), ctypes.c_int64(), ctypes.c_int64()
+    stats = np.zeros(len(_INFLATE_KEYS), np.int64)
+    rc = lib.gz_inflate(a, len(a), threads, chunk, flags,
+                        ctypes.byref(base), ctypes.byref(n),
+                        ctypes.byref(cap), stats)
+    _INFLATE_LAST = dict(zip(_INFLATE_KEYS, map(int, stats)))
+    if rc:
+        raise InflateRefused(f"gzip input refused at "
+                             f"{_INFLATE_REASONS.get(rc, rc)}")
+    return lib, base.value, n.value, cap.value
+
+
+def inflate(data, threads: int = 0, chunk: int = 0) -> np.ndarray:
+    """A gzip file's bytes (uint8, read-only), inflated on the OpenMP
+    team: the bytes `gzip.GzipFile(fileobj=io.BytesIO(data)).read()`
+    gives, every member's CRC32 and ISIZE checked.  `threads` as
+    `inflate_team`; `chunk`: compressed bytes a speculative chunk (0:
+    from the input and the team; tests force many).  Raises
+    InflateRefused on an input that reader rejects."""
+    lib, base, n, cap = _gz_inflate(data, threads, chunk, 0)
+    return np.asarray(_Pages(lib, base, n, cap))
+
+
+def inflate_check(data, threads: int = 0, chunk: int = 0) -> int:
+    """`inflate` keeping only a 32 KiB window of its output: the length
+    it would give, with every check made (an output over memory, as a
+    stream of more than 4 GiB, in tests)."""
+    lib, base, n, cap = _gz_inflate(data, threads, chunk, 1)
+    lib.gz_free(base, cap)
+    return n
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """The CRC32 of A then B from crc(A), crc(B) and len(B), as zlib's
+    crc32_combine (the inflater's, exposed for tests)."""
+    return int(_lib().gz_crc32_combine(crc1, crc2, len2))

@@ -1122,32 +1122,56 @@ def _prefetch(gen, depth: int = PREFETCH_DEPTH):
         stop.set()
 
 
+def _inflate_plain(data) -> bytes:
+    """The reference's inflate of a gzip input
+    (`gzip.GzipFile(...).read()`, cuclark_tpu/pipeline.py's
+    `_read_file_bytes`): the plain version `native.inflate` is held to,
+    raising the reference's error on an input it rejects."""
+    import gzip
+    import io
+
+    return gzip.GzipFile(fileobj=io.BytesIO(data)).read()
+
+
+def _inflate(data) -> np.ndarray:
+    """A gzip input's bytes, read-only, inflated on the OpenMP team
+    (`native.inflate`).  An input the native inflater refuses goes to
+    the plain version for the reference's error; were that version to
+    read it, the two disagree and RuntimeError is raised (its bytes are
+    never returned).  Without the native module (no compiler) the plain
+    version inflates, as every native stage degrades to numpy."""
+    from cuclark_tpu_torch import native
+
+    if not native.available():
+        return np.frombuffer(_inflate_plain(data), np.uint8)
+    try:
+        return native.inflate(data)
+    except native.InflateRefused as refused:
+        _inflate_plain(data)
+        raise RuntimeError(f"the native inflater refused a gzip input "
+                           f"the reference reads ({refused})") from refused
+
+
 def _read_file_bytes(path) -> np.ndarray:
     """A classify input's bytes, read-only.  A regular uncompressed file
     is mapped (`np.memmap`, no copy: the scan's threads take its page
     faults), an empty one is an empty array (a map of 0 bytes raises),
-    gzip goes through the inflating reader, and a FIFO or a device is
-    read whole in one pass (it can be read only once: no probe, and
-    `np.fromfile` cannot size it).  The choice follows `os.stat`.  A
-    mapped file that is truncated while the array lives ends the
-    process with SIGBUS."""
+    a gzip file is mapped and inflated on the OpenMP team (`_inflate`),
+    and a FIFO or a device is read whole in one pass (it can be read
+    only once: no probe, and `np.fromfile` cannot size it), then
+    inflated the same way when it carries gzip.  The choice follows
+    `os.stat`.  A mapped file that is truncated while the array lives
+    ends the process with SIGBUS."""
     st = os.stat(path)
     if not stat.S_ISREG(st.st_mode):
         with open(path, "rb") as f:
             data = f.read()
         if data[:2] == b"\x1f\x8b":
-            import gzip
-
-            data = gzip.decompress(data)
+            return _inflate(np.frombuffer(data, np.uint8))
         return np.frombuffer(data, dtype=np.uint8)
     if st.st_size == 0:
         return np.zeros(0, np.uint8)
     with open(path, "rb") as probe_f:
         is_gz = probe_f.read(2) == b"\x1f\x8b"
-    if not is_gz:
-        return np.memmap(path, np.uint8, mode="r")
-    from cuclark_tpu_torch.io.fasta import _open
-
-    with _open(path) as f:
-        data = f.read()
-    return np.frombuffer(data, dtype=np.uint8)
+    buf = np.memmap(path, np.uint8, mode="r")
+    return _inflate(buf) if is_gz else buf

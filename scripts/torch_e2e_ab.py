@@ -1,34 +1,35 @@
 #!/usr/bin/env python3
 """File -> CSV on the tree's host path and on its parent's, timed in
-turns in one process, each pass split by thread: what the native mate-id
-check and the row writer's own gamma move end to end.
+turns in one process, each pass split by thread: what the gzip inflate
+on the OpenMP team moves end to end.
 
     N=500000 ROUNDS=12 python3 scripts/torch_e2e_ab.py [--out FILE]
 
 It draws torch_profile_e2e.py's data (numpy seed 0): a qs table of KMERS
 (default 4M) random 31-mers over 1,024 targets, N (default 500,000)
 150 bp reads named `r<i>` and N pairs of 75 + 75 bp mates named
-`SRR1234567.<i>/1` and `/2`, substrings of a random 2 Mb genome.  One
+`SRR1234567.<i>/1` and `/2`, substrings of a random 2 Mb genome, and a
+gzip copy of each file (level 6, one member, as `gzip` writes it).  One
 resident `Classifier` on the card runs ROUNDS rounds; a round is one
-pass of the reads and one of the pairs under each configuration, the
-order alternating from round to round:
+pass of each job (the reads, the pairs, the gzip reads, the gzip pairs)
+under each configuration, the order alternating from round to round:
 
-  new     the tree as it is: the mate ids checked natively on the
-          OpenMP team (`native.first_mate_mismatch`), the rows written
-          from the card's results rows with gamma and confidence
-          computed by the writer (`native.format_results`);
-  parent  the parent's path: the numpy check
-          (`fast_parse.first_mate_mismatch_plain`), and `CsvSink.flush`
-          computing gamma and confidence in numpy
-          (`score.gamma_confidence`) before the fields writer
-          (`native.format_rows`).
+  new     the tree as it is: a gzip input mapped and inflated on the
+          OpenMP team (`native.inflate` through `pipeline._inflate`);
+  parent  the parent's path: the inflate on one thread
+          (`pipeline._inflate_plain`, `gzip.GzipFile(...).read()`, over
+          the mapped bytes: a copy of the compressed bytes more than the
+          parent's `gzip.open(path).read()`).
 
-The parent's path is set by swapping those two functions for the pass;
-the package is not changed.  Every pass's CSV must equal the first
-pass's, byte for byte (a hard failure).  Prints each configuration's
-median, quartiles, passes and rounds won against `parent`, its median
-pass split by thread, and one JSON line last.  Without a card it exits
-2 (DEV=cpu runs it on the CPU).
+The parent's path is set by swapping `pipeline._inflate` for the pass;
+the package is not changed.  The plain jobs do not inflate: they are the
+control (no pass of theirs should move).  Every pass's CSV must equal
+the plain job's first pass's, byte for byte (a hard failure).  Prints
+each configuration's median, quartiles, passes and rounds won against
+`parent`, its median pass split by thread (the head before the first
+batch: the main thread's `read_scan` with `inflate` and `mate_check`
+inside it), and one JSON line last.  Without a card it exits 2 (DEV=cpu
+runs it on the CPU).
 """
 
 import json
@@ -59,29 +60,19 @@ def fastq(path: Path, rows: np.ndarray, name: bytes = b"r%d") -> None:
                          for i in range(len(rows))))
 
 
-def parent_flush(self, results, labels_np, buf, ns, ne, lengths, cnt):
-    """`CsvSink.flush` as the parent tree has it: gamma and confidence
-    in numpy, then the writer of the field arrays."""
-    from cuclark_tpu_torch import native, score
-    from cuclark_tpu_torch.pipeline import accumulate_hit_stats, dense_counts
+def parent_inflate(data) -> np.ndarray:
+    """`pipeline._inflate` as the parent tree has it: one thread."""
+    from cuclark_tpu_torch import pipeline
 
-    results = results[:cnt]
-    lengths = lengths[:cnt]
-    total, ibest, best, isecond, second = (results[:, i] for i in range(5))
-    norm, gamma, conf = score.gamma_confidence(
-        total, best, second, lengths, self.db.k, self.paired)
-    if self.extended:
-        counts = dense_counts(labels_np[:cnt], self.db.num_targets)[:, 1:]
-        accumulate_hit_stats(self.hstats, (counts > 0).sum(axis=1))
-        rows, _ = native.format_rows_ext(
-            counts, norm, gamma, ibest, best, isecond, second, conf, buf,
-            ns[:cnt], ne[:cnt], self.tname_bytes, self.tname_off)
-    else:
-        rows, _ = native.format_rows(
-            norm, gamma, ibest, best, isecond, second, conf, buf, ns[:cnt],
-            ne[:cnt], self.tname_bytes, self.tname_off)
-    self.f.write(rows)
-    self.total_rows += cnt
+    return np.frombuffer(pipeline._inflate_plain(data), np.uint8)
+
+
+def _gzip_file(args) -> None:
+    import gzip
+
+    src, dst = args
+    Path(dst).write_bytes(gzip.compress(Path(src).read_bytes(), 6,
+                                        mtime=0))
 
 
 def main(argv=None) -> int:
@@ -96,7 +87,6 @@ def main(argv=None) -> int:
     from cuclark_tpu_torch import codec, pipeline
     from cuclark_tpu_torch.config import ClassifyConfig, DBConfig
     from cuclark_tpu_torch.hashdb import build_table
-    from cuclark_tpu_torch.io import fast_parse
     from torch_thread_split import ThreadSplit
 
     dev = torch.device(os.environ.get("DEV", "cuda"))
@@ -121,27 +111,35 @@ def main(argv=None) -> int:
           b"SRR1234567.%d/1")
     fastq(td / "m2.fq", genome[st[:, None] + np.arange(75, 150)],
           b"SRR1234567.%d/2")
+    import multiprocessing as mp
+
+    names = ("r.fq", "m1.fq", "m2.fq")
+    with mp.get_context("spawn").Pool(len(names)) as pool:
+        pool.map(_gzip_file, [(td / f, td / (f + ".gz")) for f in names])
     clf = pipeline.Classifier(db, ClassifyConfig(batch_reads=16384),
                               device=dev)
     T = len(os.sched_getaffinity(0))
-    real = (fast_parse.first_mate_mismatch, pipeline.CsvSink.flush)
+    real = pipeline._inflate
 
     def setup(cfg):
         if cfg == "parent":
-            fast_parse.first_mate_mismatch = \
-                fast_parse.first_mate_mismatch_plain
-            pipeline.CsvSink.flush = parent_flush
+            pipeline._inflate = parent_inflate
 
     def reset():
-        fast_parse.first_mate_mismatch, pipeline.CsvSink.flush = real
+        pipeline._inflate = real
 
-    jobs = {"single": (td / "r.fq", None), "paired": (td / "m1.fq",
-                                                      td / "m2.fq")}
+    jobs = {"single": (td / "r.fq", None),
+            "paired": (td / "m1.fq", td / "m2.fq"),
+            "gzip single": (td / "r.fq.gz", None),
+            "gzip paired": (td / "m1.fq.gz", td / "m2.fq.gz")}
     out_csv = td / "o.csv"
     want = {}
     for job, (a, b) in jobs.items():
         clf.classify_file_to_csv(a, out_csv, b)
         want[job] = out_csv.read_bytes()
+        if job.startswith("gzip") and want[job] != want[job[5:]]:
+            raise AssertionError(f"{job}: another CSV than the plain "
+                                 f"input's")
     times = {(j, c): [] for j in jobs for c in CONFIGS}
     splits = {(j, c): [] for j in jobs for c in CONFIGS}
     batches = -(-n // 16384)
@@ -184,6 +182,10 @@ def main(argv=None) -> int:
                 **row["stages"], **row["waits"]}.items()}
                 for row in med["threads"].values()}
             print(f"    median pass split: {json.dumps(roles)}", flush=True)
+            head = roles.get("main", {})
+            print(f"    head before the first batch: "
+                  f"{sum(head.get(k, 0) for k in ('read_scan', 'inflate', 'mate_check')):.4f} s (inflate "
+                  f"{head.get('inflate', 0):.4f})", flush=True)
             line["configs"][f"{job} {cfg}"] = {"pass_s": ts,
                                                "median_split": med}
     if args.out:

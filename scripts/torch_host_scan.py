@@ -8,7 +8,9 @@ host's copy rate.
 
     python3 scripts/torch_host_scan.py [--reads 500000] [--pairs 12]
         [--copy-mb 512] [--mate-pairs 500000,1048576]
-        [--sections scan,read,map,format,pack,teams,mate,writer,stages]
+        [--inflate-reads 1048576] [--inflate-rounds 12]
+        [--sections scan,read,map,format,pack,teams,mate,writer,inflate,
+                    stages]
         [--out FILE]
 
 It writes a FASTQ of bench_torch.py's e2e shape and format (`--reads`
@@ -71,12 +73,32 @@ page cache holds it, then:
     (`score.gamma_confidence` + `native.format_rows`), both at the
     writer's default team, `--pairs` pairs in turns; equal bytes
     required, single and paired;
+  - inflate: a gzip classify input inflated by the plain version
+    (`pipeline._inflate_plain`, `gzip.GzipFile(...).read()`, one
+    thread) and by the native inflater (`native.inflate`) at teams 1,
+    4, 8 and the default, `--inflate-rounds` rounds in turns (the order
+    rotating from round to round), each native team's wins against the
+    plain version of its round, equal bytes required; the input is
+    `--inflate-reads` 150 bp reads with Illumina's binned qualities
+    ('#,:F', 'F' most often) and SRR names, at gzip levels 1, 6 and 9,
+    each as one member (levels 1 and 6 as `gzip` writes it, zlib on one
+    thread; level 9 as pigz writes one member, 128 KiB pieces each
+    primed with the 32 KiB before it and sync-flushed, as zlib's level
+    9 takes minutes a file on one core), as BGZF members (as bgzip
+    writes them) and as concatenated members (a member every 16 MiB of
+    the FASTQ); the counters of the default team's call (chunks,
+    joined, redone, bytes decoded with markers, members); then the peak
+    RSS of a process that inflates the level-6 one-member file, by each
+    version (`inflate_rss`: resident pages sampled while it runs);
   - stages: the host's copy rate (a `np.copyto` of `--copy-mb` MB, more
     than the last-level cache, split over T threads; bytes read plus
     bytes written a second) and, for the scan, the pack, the paired
     pack, the rows, the extended rows (64 count columns), the mate
     check (s per 1M pairs: every core against the plain version) and
-    the rows from results rows (against gamma_confidence + rows), calls
+    the rows from results rows (against gamma_confidence + rows), the
+    inflate of the level-6 one-member file (per 1M reads: the default
+    team against the plain version; bytes in = the compressed file,
+    out = the FASTQ), calls
     and s per 1M reads of the new and the plain version, the bytes each
     reads and writes, the least time those bytes take at the copy rate
     (the bound) and the share of it each version reaches; each stage at
@@ -705,6 +727,233 @@ def writer_batch(mates, chunk: int, pairs: int) -> dict:
     return row
 
 
+INFLATE_READS = 1 << 20
+INFLATE_LEVELS = (1, 6, 9)
+INFLATE_TEAMS = (1, 4, 8, 0)       # 0: the default team
+BINNED_QUALS = (b"#,:F", (0.05, 0.10, 0.15, 0.70))
+
+
+def binned_fastq(n: int, seed: int = 23) -> bytes:
+    """n 150 bp reads named `SRR1234567.<i> length=150`, qualities from
+    Illumina's four bins ('#,:F', 'F' most often): the kind of FASTQ a
+    sequencer's `.fastq.gz` holds (3.6:1 at gzip level 6)."""
+    rng = np.random.default_rng(seed)
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, 150))]
+    qual, p = BINNED_QUALS
+    quals = rng.choice(np.frombuffer(qual, np.uint8), (n, 150), p=p)
+    return b"".join(b"@SRR1234567.%d length=150\n%s\n+\n%s\n"
+                    % (i, seqs[i].tobytes(), quals[i].tobytes())
+                    for i in range(n))
+
+
+def _raw_deflate(data: bytes, level: int, zdict: bytes = b"",
+                 last: bool = True) -> bytes:
+    import zlib
+
+    co = (zlib.compressobj(level, zlib.DEFLATED, -15, zdict=zdict) if zdict
+          else zlib.compressobj(level, zlib.DEFLATED, -15))
+    return co.compress(data) + co.flush(zlib.Z_FINISH if last
+                                        else zlib.Z_SYNC_FLUSH)
+
+
+def _gz_piece(args) -> bytes:
+    """One piece of a gzip file (a pool task; the FASTQ read from
+    `path`, bytes [lo, hi)): a BGZF member, a whole member, or a pigz
+    piece of one member's deflate stream (primed with the 32 KiB before
+    it, sync-flushed unless it is the last)."""
+    import struct
+    import zlib
+
+    path, lo, hi, level, kind = args
+    pre = min(lo, 32768)
+    with open(path, "rb") as f:
+        f.seek(lo - pre)
+        data = f.read(hi - lo + pre)
+    zdict, data = data[:pre], data[pre:]
+    if kind == "pigz":
+        return _raw_deflate(data, level, zdict, last=False)
+    d = _raw_deflate(data, level)
+    tail = struct.pack("<II", zlib.crc32(data), len(data))
+    if kind == "bgzf":
+        return (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x06\x00BC"
+                b"\x02\x00" + struct.pack("<H", 18 + len(d) + 8 - 1) + d
+                + tail)
+    return b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00\xff" + d + tail
+
+
+BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000"
+                         "000000")
+
+
+def gzip_files(fq: Path, levels=INFLATE_LEVELS,
+               kinds=("member", "bgzfs", "members")) -> dict:
+    """The FASTQ at `fq` gzipped at each level as one member, as BGZF
+    members and as concatenated members (see the `inflate` section;
+    `kinds` of them), written beside it: name -> path
+    (`l<level>_<kind>`).  The pieces compress on every core (a process
+    pool: a caller's script must guard its own code under `__main__`);
+    a level-1 or 6 one-member file takes one core."""
+    import gzip
+    import multiprocessing as mp
+    import struct
+    import zlib
+
+    n = fq.stat().st_size
+    out, jobs = {}, []
+    for level in levels:
+        for kind, step in (("bgzf", 65280), ("member", 16 << 20)):
+            if kind + "s" not in kinds:
+                continue
+            jobs.append((f"l{level}_{kind}s", [
+                (str(fq), lo, min(n, lo + step), level, kind)
+                for lo in range(0, n, step)]))
+    with mp.get_context("spawn").Pool(len(os.sched_getaffinity(0))) as pool:
+        singles = {}
+        for level in levels if "member" in kinds else ():
+            if level == 9:
+                step = 128 << 10
+                pieces = [(str(fq), lo, min(n, lo + step), level, "pigz")
+                          for lo in range(0, n, step)]
+                singles[level] = ("pigz", pool.map_async(_gz_piece, pieces,
+                                                         chunksize=16))
+            else:
+                singles[level] = ("gzip", pool.apply_async(
+                    gzip.compress, (fq.read_bytes(), level),
+                    {"mtime": 0}))
+        for name, tasks in jobs:
+            parts = pool.map(_gz_piece, tasks, chunksize=16)
+            if name.endswith("bgzfs"):
+                parts.append(BGZF_EOF)
+            out[name] = fq.with_name(f"{fq.name}.{name}.gz")
+            out[name].write_bytes(b"".join(parts))
+        for level, (kind, res) in singles.items():
+            path = fq.with_name(f"{fq.name}.l{level}_member.gz")
+            if kind == "gzip":
+                path.write_bytes(res.get())
+            else:
+                body = res.get()
+                body[-1] = body[-1] + _raw_deflate(b"", level)  # BFINAL
+                data = fq.read_bytes()
+                path.write_bytes(b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00"
+                                 b"\xff" + b"".join(body) + struct.pack(
+                                     "<II", zlib.crc32(data), len(data)))
+            out[f"l{level}_member"] = path
+    return dict(sorted(out.items()))
+
+
+def inflate_rates(files: dict, want_len: int, rounds: int,
+                  teams=INFLATE_TEAMS) -> dict:
+    """Each file inflated by the plain version and by the native
+    inflater at `teams`, `rounds` rounds in turns (the order rotating):
+    min and median ms, each team's wins against the plain version of its
+    round, the default team's counters; equal bytes required."""
+    from cuclark_tpu_torch import native, pipeline
+
+    out = {}
+    for name, path in files.items():
+        buf = np.memmap(path, np.uint8, mode="r")
+        want = pipeline._inflate_plain(buf)
+        if len(want) != want_len:
+            raise AssertionError(f"{name}: {len(want)} bytes inflated, "
+                                 f"{want_len} expected")
+        fns = {"plain": lambda: pipeline._inflate_plain(buf)}
+        for t in teams:
+            got = native.inflate(buf, threads=t)
+            if got.tobytes() != want:
+                raise AssertionError(f"{name}: team {t} != the plain bytes")
+            del got
+            fns[f"team_{t or 'default'}"] = (
+                lambda t=t: native.inflate(buf, threads=t))
+        native.inflate(buf)
+        counters = native.inflate_counters()
+        del want
+        names = list(fns)
+        ts = {k: [] for k in names}
+        for r in range(rounds):
+            for k in names[r % len(names):] + names[:r % len(names)]:
+                t0 = time.perf_counter()
+                got = fns[k]()
+                ts[k].append((time.perf_counter() - t0) * 1e3)
+                del got
+        row = {"compressed_bytes": int(len(buf)), "counters": counters}
+        for k in names:
+            row[k] = {"min_ms": min(ts[k]),
+                      "median_ms": statistics.median(ts[k]), "ms": ts[k]}
+            if k != "plain":
+                row[k]["wins"] = sum(a < b for a, b in zip(ts[k],
+                                                           ts["plain"]))
+        out[name] = row
+        print(f"inflate {name} ({len(buf):,} B, "
+              f"{want_len / len(buf):.2f}:1): plain min "
+              f"{row['plain']['min_ms']:.1f} ms (median "
+              f"{row['plain']['median_ms']:.1f}); "
+              + "; ".join(f"{k} {row[k]['min_ms']:.1f} ms (median "
+                          f"{row[k]['median_ms']:.1f}, "
+                          f"{row['plain']['min_ms'] / row[k]['min_ms']:.2f}x"
+                          f", won {row[k]['wins']} of {rounds})"
+                          for k in names[1:])
+              + f"; counters {counters}", flush=True)
+        del buf
+    return out
+
+
+_RSS_MAIN = """
+import os, sys, threading
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from cuclark_tpu_torch import native, pipeline
+
+PAGE = os.sysconf("SC_PAGE_SIZE")
+
+
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * PAGE // 1024
+
+
+native.available()
+before, peak, done = rss(), [0], threading.Event()
+
+
+def sample():
+    while not done.is_set():
+        peak[0] = max(peak[0], rss())
+        done.wait(0.0005)
+
+
+t = threading.Thread(target=sample)
+t.start()
+buf = np.memmap(sys.argv[2], np.uint8, mode="r")
+out = (pipeline._inflate_plain(buf) if sys.argv[3] == "plain"
+       else native.inflate(buf))
+done.set()
+t.join()
+print(before, max(peak[0], rss()), len(out))
+"""
+
+
+def inflate_rss(path: Path) -> dict:
+    """Peak RSS (KiB) of a process that maps `path` and inflates it, by
+    each version, beside its RSS before the inflate and the bytes it
+    gives.  The peak is the largest of `/proc/self/statm`'s resident
+    pages sampled every 0.5 ms while the inflate runs (both versions
+    release the interpreter lock while they inflate); `ru_maxrss` and
+    VmHWM do not serve here: the first keeps the parent's peak across
+    fork and exec, and the card's host has no second."""
+    out = {}
+    for version in ("plain", "native"):
+        got = subprocess.run([sys.executable, "-c", _RSS_MAIN, str(ROOT),
+                              str(path), version], capture_output=True,
+                             text=True, check=True).stdout.split()
+        before, peak, n = map(int, got)
+        out[version] = {"peak_kib": peak, "before_kib": before,
+                        "out_bytes": n}
+        print(f"inflate peak RSS, {version}: {peak:,} KiB ({before:,} before"
+              f" the inflate; {n:,} bytes out, {n / 1024:,.0f} KiB)",
+              flush=True)
+    return out
+
+
 def copy_rate(mb: int, team: int, reps: int = 5) -> float:
     """Bytes read plus bytes written a second by a `np.copyto` of `mb`
     MB split over `team` threads (numpy copies without the interpreter
@@ -744,7 +993,8 @@ def ext_inputs(fields, n_targets: int = 64, seed: int = 9):
 def stage_table(buf: np.ndarray, chunk: int, reps: int, rate: float,
                 scan: dict | None, pack: dict | None, fmt: dict | None,
                 mate: dict | None = None,
-                writer: dict | None = None) -> dict:
+                writer: dict | None = None,
+                inflate: dict | None = None) -> dict:
     """The host stages against the copy rate: per stage the calls and
     the s per 1M reads (pairs) of the new and the plain version, the
     bytes it reads and writes a read, the bound (those bytes at `rate`)
@@ -819,6 +1069,14 @@ def stage_table(buf: np.ndarray, chunk: int, reps: int, rate: float,
             1e6 / w["chunk"], 20 + 8 + 16 + w["name_bytes"], w["row_bytes"],
             w["new"]["min_ms"] * 1e-3 * 1e6 / w["rows"],
             w["parent"]["min_ms"] * 1e-3 * 1e6 / w["rows"])
+    if inflate is not None:
+        # one call a file: the compressed bytes in, the FASTQ out
+        f = inflate["files"]["l6_member"]
+        per = 1e6 / inflate["reads"]
+        rows["inflate"] = (per, f["compressed_bytes"] / inflate["reads"],
+                           inflate["fastq_bytes"] / inflate["reads"],
+                           f["team_default"]["min_ms"] * 1e-3 * per,
+                           f["plain"]["min_ms"] * 1e-3 * per)
     out = {"copy_bytes_per_sec": rate, "reads": n}
     for name, (calls, b_in, b_out, new_s, plain_s) in rows.items():
         bound_s = (b_in + b_out) * 1e6 / rate
@@ -836,7 +1094,7 @@ def stage_table(buf: np.ndarray, chunk: int, reps: int, rate: float,
 
 
 SECTIONS = ("scan", "read", "map", "format", "pack", "teams", "mate",
-            "writer", "stages")
+            "writer", "inflate", "stages")
 
 
 def main(argv=None) -> int:
@@ -853,6 +1111,9 @@ def main(argv=None) -> int:
         str(n) for n in MATE_SIZES),
         help="sizes of the mate check and the writer's batch (pairs, "
              "comma-separated; the largest also the writer's rows)")
+    ap.add_argument("--inflate-reads", type=int, default=INFLATE_READS,
+                    help="reads of the inflate section's FASTQ")
+    ap.add_argument("--inflate-rounds", type=int, default=12)
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help="comma-separated subset of " + ",".join(SECTIONS))
     ap.add_argument("--out", help="also write the JSON line here")
@@ -872,7 +1133,7 @@ def main(argv=None) -> int:
     cores = len(os.sched_getaffinity(0))
     line = {"card": smi, "cores": cores, "reads": args.reads,
             "sections": sorted(sections)}
-    scan = fmt = pack = mate = writer = None
+    scan = fmt = pack = mate = writer = inflate = None
     with tempfile.TemporaryDirectory(prefix="host_scan_") as td:
         path = Path(td) / "bench.fq"
         path.write_bytes(fastq_bytes(args.reads, 0))
@@ -964,12 +1225,32 @@ def main(argv=None) -> int:
             writer = line["writer_batch"] = writer_batch(
                 mate_buffers(max(mate_sizes), "srr"), args.chunk,
                 args.pairs)
+        if "inflate" in sections:
+            ifq = Path(td) / "binned.fq"
+            ifq.write_bytes(binned_fastq(args.inflate_reads))
+            t0 = time.perf_counter()
+            files = gzip_files(ifq)
+            print(f"inflate: {len(files)} gzip files of "
+                  f"{ifq.stat().st_size:,} bytes written in "
+                  f"{time.perf_counter() - t0:.1f} s; default team "
+                  f"{native.inflate_team(files['l6_member'].stat().st_size)}",
+                  flush=True)
+            inflate = line["inflate"] = {
+                "reads": args.inflate_reads,
+                "fastq_bytes": ifq.stat().st_size,
+                "rounds": args.inflate_rounds,
+                "files": inflate_rates(files, ifq.stat().st_size,
+                                       args.inflate_rounds),
+                "rss_l6_member": inflate_rss(files["l6_member"])}
+            for path in files.values():
+                path.unlink()
         if "stages" in sections:
             rate = copy_rate(args.copy_mb, cores)
             print(f"copy rate: {rate / 1e9:.2f} GB/s read + written "
                   f"({args.copy_mb} MB, {cores} threads)", flush=True)
             line["stages"] = stage_table(buf, args.chunk, args.reps, rate,
-                                         scan, pack, fmt, mate, writer)
+                                         scan, pack, fmt, mate, writer,
+                                         inflate)
     if args.out:
         Path(args.out).write_text(json.dumps(line) + "\n")
     print(json.dumps(line))

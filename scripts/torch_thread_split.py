@@ -6,7 +6,8 @@ block and restore them after; the package holds no timer or switch of
 its own.  Each wrapped call is timed exclusive of the wrapped calls
 nested in it on the same thread (`CsvSink.flush` less the rows is
 mostly `f.write`; `read_scan` less `mate_check` is the read and the
-scans of the head).  The rows are the row writer's results entries
+scans of the head; a gzip input's inflate, `_inflate`, is timed
+apart inside it).  The rows are the row writer's results entries
 (`format_results`, which compute gamma and confidence themselves), so
 on classify's CSV path `gamma_confidence` reads 0; a tree whose
 `CsvSink` still calls it (an earlier one) times it there.
@@ -44,6 +45,7 @@ TIMED = (
      "read_scan", "stage"),
     ("cuclark_tpu_torch.io.fast_parse", None, "first_mate_mismatch",
      "mate_check", "stage"),
+    ("cuclark_tpu_torch.pipeline", None, "_inflate", "inflate", "stage"),
     ("cuclark_tpu_torch.pipeline", "_WireRing", "acquire", "ring_acquire",
      "wait"),
     ("cuclark_tpu_torch.pipeline", "Classifier", "_put_wire", "put_wire",

@@ -537,10 +537,25 @@ def test_empty_input(inputs, mapped):
     assert errs[0] == errs[1] and "empty file" in errs[0]
 
 
+@pytest.fixture
+def plain_inflates(monkeypatch):
+    """Records every call of the plain inflater (`_inflate_plain`)."""
+    calls = []
+    plain = pipeline._inflate_plain
+
+    def spy(data):
+        calls.append(len(data))
+        return plain(data)
+
+    monkeypatch.setattr(pipeline, "_inflate_plain", spy)
+    return calls
+
+
 @pytest.mark.parametrize("gz", [False, True], ids=["plain", "gzip"])
-def test_fifo_input(inputs, mapped, tmp_path, gz):
+def test_fifo_input(inputs, mapped, plain_inflates, tmp_path, gz):
     """A FIFO is read once, whole (neither probed nor mapped), and
-    inflated when it carries gzip: its CSV is the JAX package's CSV of
+    inflated on the OpenMP team when it carries gzip (the plain
+    inflater never called): its CSV is the JAX package's CSV of
     the same reads in a regular file.  Through
     `Classifier.classify_file_to_csv`: the CLI's list-mode check reads
     an -O path before classify does, in both packages."""
@@ -572,10 +587,15 @@ def test_fifo_input(inputs, mapped, tmp_path, gz):
     assert done and out.read_bytes() == _jax_csv(tmp, "plain",
                                                  ["-O", str(fq)])
     assert mapped == ["ndarray"]
+    assert plain_inflates == []
+    if gz:
+        assert native.inflate_counters()["members"] == 1
 
 
-def test_gzip_input_not_mapped(inputs, mapped, tmp_path):
-    """A gzip input goes through the inflating reader."""
+def test_gzip_input_not_mapped(inputs, mapped, plain_inflates, tmp_path):
+    """A gzip input goes through the inflating reader: the file mapped
+    and inflated on the OpenMP team (`native.inflate`), the plain
+    inflater never called."""
     import gzip
 
     tmp, _, fq, _, _, _ = inputs
@@ -587,6 +607,8 @@ def test_gzip_input_not_mapped(inputs, mapped, tmp_path):
                            str(gz)]) == 0
     assert out.read_bytes() == _jax_csv(tmp, "plain", ["-O", str(fq)])
     assert mapped == ["ndarray"]
+    assert plain_inflates == []
+    assert native.inflate_counters()["members"] == 1
 
 
 def test_mapped_buffer_is_read_only(inputs):
