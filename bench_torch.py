@@ -16,7 +16,7 @@ targets).  The blocks of `detail`:
   e2e_scale,    file -> CSV through `Classifier.classify_file_to_csv`,
   e2e_small     500,000 reads, median of 3 passes; e2e_scale then one
                 more pass split by thread (`thread_split`,
-                scripts/torch_thread_split.py's timers)
+                the program's spans, scripts/torch_thread_split.py)
   host_pipeline the host stages alone: scan, the read with the scan
                 (np.fromfile, and the read-only map classify takes),
                 pack (at its default team, half the cores, and at
@@ -498,7 +498,7 @@ def main(argv=None) -> int:
     def e2e_times(clf, fq, out_csv, n_expect, passes=3, paired=None,
                   split=False):
         """The median of `passes` timed passes; with `split`, one more
-        pass under scripts/torch_thread_split.py's timers (its split by
+        pass split by the program's spans (scripts/torch_thread_split.py; by
         thread in `thread_split`, not in the rates)."""
         clf.classify_file_to_csv(fq, out_csv, paired)  # warm-up
         kernels.reset_launches()

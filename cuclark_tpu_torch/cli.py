@@ -19,8 +19,9 @@ bucket-range parts.  `--num-hosts`/`--host-id` classify one host's share
 of the input; `--coordinator`/`--num-processes`/`--process-id` run one
 job over several processes (torch.distributed, gloo), each writing
 <results>.h<rank>.  `--profile DIR` writes a torch.profiler trace of the
-single-process job loop.  `classify` builds the database first when it
-is missing, as the reference's CuCLARK constructor does
+single-process job loop, with the program's spans (`spans`, category
+`cuclark_span`) on the trace's clock.  `classify` builds the database
+first when it is missing, as the reference's CuCLARK constructor does
 (src/CuCLARK_hh.hh:221-310).  The other subcommands are host code: the
 same output as `cuclark-tpu`'s, byte for byte.
 """
@@ -127,29 +128,47 @@ def _build_jobs(args):
     return jobs
 
 
-def _profiler(trace_dir: str | None, device: str):
+def _profiler(trace_dir: str | None, device: str, since: int = 0):
     """A torch.profiler context over the classify jobs (the reference's
     jax.profiler.trace): host operations, and the card's kernels and
     copies when `device` is a CUDA device.  On exit it writes a Chrome
-    trace (`<host>_<pid>.<ns>.pt.trace.json`) into trace_dir.  A null
-    context when trace_dir is None."""
+    trace (`<host>_<pid>.<ns>.pt.trace.json`) into trace_dir, with the
+    program's spans begun after the mark `since` (the command's set-up
+    spans and the profiled loop's spans) as events of category
+    `cuclark_span`, and the process's counters as its
+    `cuclark_counters` entry.  A null context when trace_dir is None."""
     if trace_dir is None:
         return contextlib.nullcontext()
+    import os
+    import socket
+
     import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuclark_tpu_torch import spans
+
+    def write(prof):
+        out = Path(trace_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / (f"{socket.gethostname()}_{os.getpid()}."
+                      f"{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(str(path))
+        snap = spans.snapshot(since)
+        spans.add_to_chrome_trace(path, snap["spans"], os.getpid(),
+                                  snap["counters"])
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(trace_dir))
+    return profile(activities=activities, on_trace_ready=write)
 
 
 def cmd_classify(args) -> int:
+    from cuclark_tpu_torch import spans
     from cuclark_tpu_torch.hashdb import KmerDB
     from cuclark_tpu_torch.pipeline import Classifier
 
+    since = spans.mark()  # the spans a --profile trace holds begin here
     if args.sfactor != 1 and not 2 <= args.sfactor <= 30:
         # reference bound: [2, SFACTORMAX=30] (src/main.cc:214-218)
         print("error: the sampling factor value should be in the "
@@ -206,7 +225,7 @@ def cmd_classify(args) -> int:
             print(f" - Streaming DB in {clf.stream_parts} bucket-range "
                   f"parts ({src})", file=sys.stderr)
         jobs = _build_jobs(args)  # (path, paired_path, out_path)
-        with _profiler(args.profile, args.device):
+        with _profiler(args.profile, args.device, since):
             for path, paired_path, out_path in jobs:
                 t0 = time.time()
                 skip = 0

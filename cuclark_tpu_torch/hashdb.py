@@ -46,6 +46,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from cuclark_tpu_torch import spans
 from cuclark_tpu_torch.config import DBConfig, MTRGTS
 
 # Empty-slot sentinel of the s2 layout.  An all-ones uint64 can never be
@@ -600,7 +601,67 @@ def build_table(
     kmers:  uint64 [N] unique canonical k-mers.
     labels: int    [N] 1-based target labels (1..T).
     target_names: T+1 names, index 0 == "NA".
+
+    Recorded as a `build_table` span (`spans`, always) with children
+    `build_table.check`, one `build_table.insert` a placement attempt
+    and `build_table.verify`; the counter `build_table.attempts` holds
+    the last call's number of placement attempts.
     """
+    attempts = 0
+
+    def insert(build, *args):
+        nonlocal attempts
+        attempts += 1
+        with spans.span("build_table.insert", always=True) as s:
+            s.attrs = {"nb_bits": args[0], "attempt": attempts}
+            return build(kmers, labels, target_names, cfg, *args)
+
+    with spans.span("build_table", always=True) as top:
+        try:
+            with spans.span("build_table.check", always=True):
+                kmers, labels = _checked_keys(kmers, labels)
+            n = len(kmers)
+            top.attrs = {"keys": n}
+            if nb_bits is None:
+                nb_bits = choose_nb_bits(n, cfg)
+            for attempt in range(8):
+                check_q_bits(cfg.layout, nb_bits)
+                db = None
+                if cfg.layout == "qs":
+                    sb0 = choose_stash_bits(n, nb_bits)
+                    # reject int32-overflowing stash geometry BEFORE the
+                    # build, not at first classify (the artifact would be
+                    # unusable)
+                    check_q_bits("qs", nb_bits, min(sb0 + 1, nb_bits))
+                    for sb in (sb0, sb0 + 1):  # grow the stash first
+                        for seed in range(2):  # fresh Feistel constants
+                            db = insert(_try_build_qs, nb_bits,
+                                        min(sb, nb_bits), seed)
+                            if db is not None:
+                                break
+                        if db is not None:
+                            break
+                elif cfg.layout == "q4":
+                    for seed in range(4):  # fresh Feistel constants
+                        db = insert(_try_build_q4, nb_bits, seed)
+                        if db is not None:
+                            break
+                else:
+                    db = insert(_try_build, nb_bits)
+                if db is not None:
+                    with spans.span("build_table.verify", always=True):
+                        db.verify(kmers, labels)
+                    return db
+                nb_bits += 1  # overflow: double the table and retry
+            raise RuntimeError("hash table construction failed to converge")
+        finally:
+            spans.set_counter("build_table.attempts", attempts)
+            top.attrs = dict(top.attrs or {}, attempts=attempts)
+
+
+def _checked_keys(kmers, labels):
+    """(kmers uint64, labels uint32) of build_table's input, checked: the
+    same length, labels 1-based and <= MTRGTS, k-mers unique."""
     kmers = np.asarray(kmers, dtype=np.uint64)
     labels = np.asarray(labels, dtype=np.uint32)
     n = len(kmers)
@@ -619,39 +680,7 @@ def build_table(
         if not np.all(s[1:] != s[:-1]):
             raise ValueError("k-mers must be unique (target-specific)")
         del s
-
-    if nb_bits is None:
-        nb_bits = choose_nb_bits(n, cfg)
-
-    for attempt in range(8):
-        check_q_bits(cfg.layout, nb_bits)
-        db = None
-        if cfg.layout == "qs":
-            sb0 = choose_stash_bits(n, nb_bits)
-            # reject int32-overflowing stash geometry BEFORE the build,
-            # not at first classify (the artifact would be unusable)
-            check_q_bits("qs", nb_bits, min(sb0 + 1, nb_bits))
-            for sb in (sb0, sb0 + 1):  # grow the stash before the main
-                for seed in range(2):  # fresh Feistel constants per retry
-                    db = _try_build_qs(kmers, labels, target_names, cfg,
-                                       nb_bits, min(sb, nb_bits), seed)
-                    if db is not None:
-                        break
-                if db is not None:
-                    break
-        elif cfg.layout == "q4":
-            for seed in range(4):  # fresh Feistel constants per retry
-                db = _try_build_q4(kmers, labels, target_names, cfg,
-                                   nb_bits, seed)
-                if db is not None:
-                    break
-        else:
-            db = _try_build(kmers, labels, target_names, cfg, nb_bits)
-        if db is not None:
-            db.verify(kmers, labels)
-            return db
-        nb_bits += 1  # overflow: double the table and retry
-    raise RuntimeError("hash table construction failed to converge")
+    return kmers, labels
 
 
 def _try_build_qs(kmers, labels, target_names, cfg, nb_bits, stash_bits,

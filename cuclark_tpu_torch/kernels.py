@@ -11,7 +11,10 @@ nvcc.
 
 Each launch function takes CUDA tensors, checks them, launches on
 PyTorch's current stream, raises if the launch reports an error, and
-adds one to its entry of `LAUNCHES`.  The callers are the wrappers
+adds one to its entry of `LAUNCHES`; each ctypes call into a C entry
+is a `step.launch` span (`spans`), and the library's first load a
+`kernels.load` span (with `kernels.compile` where nvcc runs, counted
+in `kernels.builds`).  The callers are the wrappers
 `probe.query_labels`, `probe.query_part_labels`,
 `probe.query_codes_labels`, `probe.query_score_results`,
 `probe.query_score_part_results` and `score.score_labels`, which take
@@ -63,6 +66,7 @@ from pathlib import Path
 
 import torch
 
+from cuclark_tpu_torch import spans
 from cuclark_tpu_torch.hashdb import TableSpec, feistel_seed_consts
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -307,10 +311,13 @@ def load() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            path = library_path()
-            if not path.exists():
-                compile_library(_CSRC, path)
-            _LIB = bind(ctypes.CDLL(str(path)))
+            with spans.span("kernels.load", always=True):
+                path = library_path()
+                if not path.exists():
+                    with spans.span("kernels.compile", always=True):
+                        compile_library(_CSRC, path)
+                    spans.count("kernels.builds")
+                _LIB = bind(ctypes.CDLL(str(path)))
         return _LIB
 
 
@@ -416,18 +423,22 @@ def _launch_query(packed2, vbits, main, stash, acc, *, k, spec: TableSpec,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if W == 1:
-            _raise_on(lib.cuclark_query(
-                _LAYOUT_CODE[spec.layout], int(vbits is None),
-                packed2.data_ptr(),
-                None if vbits is None else vbits.data_ptr(), *args,
-                int(spec.sampled), stream), "query")
+            with spans.span("step.launch"):
+                err = lib.cuclark_query(
+                    _LAYOUT_CODE[spec.layout], int(vbits is None),
+                    packed2.data_ptr(),
+                    None if vbits is None else vbits.data_ptr(), *args,
+                    int(spec.sampled), stream)
+            _raise_on(err, "query")
             return out
         g = range_geometry(R, P, W)
         for base, gy in g.launches:
-            _raise_on(lib.cuclark_query_range(
-                _LAYOUT_CODE[spec.layout], packed2.data_ptr(),
-                vbits.data_ptr(), *args, W, g.reads_per_block,
-                g.tiles_per_block, g.grid_x, gy, base, stream), "query")
+            with spans.span("step.launch"):
+                err = lib.cuclark_query_range(
+                    _LAYOUT_CODE[spec.layout], packed2.data_ptr(),
+                    vbits.data_ptr(), *args, W, g.reads_per_block,
+                    g.tiles_per_block, g.grid_x, gy, base, stream)
+            _raise_on(err, "query")
     return out
 
 
@@ -541,12 +552,15 @@ def _launch_query_score(packed2, vbits, main, stash, acc_in, *, k,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if windows == 1:
-            _raise_on(lib.cuclark_query_score_range(
-                *args, int(spec.sampled), stream), "query_score")
+            with spans.span("step.launch"):
+                err = lib.cuclark_query_score_range(
+                    *args, int(spec.sampled), stream)
         else:
-            _raise_on(lib.cuclark_query_score_queue(
-                *args, windows, queue_geometry(R, P, windows).grid_x,
-                stream), "query_score")
+            grid_x = queue_geometry(R, P, windows).grid_x
+            with spans.span("step.launch"):
+                err = lib.cuclark_query_score_queue(*args, windows, grid_x,
+                                                    stream)
+        _raise_on(err, "query_score")
     return results
 
 
@@ -635,7 +649,9 @@ def score(labels: torch.Tensor) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(getattr(lib, f"cuclark_{name}")(
-            labels.data_ptr(), results.data_ptr(), R, P, stream), name)
+        entry = getattr(lib, f"cuclark_{name}")
+        with spans.span("step.launch"):
+            err = entry(labels.data_ptr(), results.data_ptr(), R, P, stream)
+        _raise_on(err, name)
     LAUNCHES[name] += 1
     return results

@@ -27,7 +27,8 @@ the plain version.
 Compiled lazily with g++ on first use and cached in the user's cache
 directory (`_cache_dir`); everything degrades gracefully to the numpy
 implementations when no compiler is available (`native.available()` ->
-False).
+False).  The first load is a `native.load` span (`spans`), with
+`native.compile` where g++ runs, counted in `native.builds`.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+
+from cuclark_tpu_torch import spans
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "host_ops.cpp"
 _LIB = None
@@ -92,7 +95,10 @@ def _build() -> ctypes.CDLL | None:
         tmp = cache.with_suffix(f".tmp{os.getpid()}.so")
         cmd = flags + [str(_SRC), "-o", str(tmp)]
         try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            with spans.span("native.compile", always=True):
+                subprocess.run(cmd, check=True, capture_output=True,
+                               timeout=120)
+            spans.count("native.builds")
             os.replace(tmp, cache)  # atomic publish
         except (subprocess.SubprocessError, FileNotFoundError, OSError):
             tmp.unlink(missing_ok=True)
@@ -238,7 +244,8 @@ def _lib() -> ctypes.CDLL | None:
         if os.environ.get("CUCLARK_NO_NATIVE"):
             _LIB = None
         else:
-            _LIB = _build()
+            with spans.span("native.load", always=True):
+                _LIB = _build()
     return _LIB
 
 

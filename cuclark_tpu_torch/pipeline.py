@@ -44,7 +44,7 @@ import stat
 import numpy as np
 import torch
 
-from cuclark_tpu_torch import probe, score
+from cuclark_tpu_torch import probe, score, spans
 from cuclark_tpu_torch.config import ClassifyConfig
 from cuclark_tpu_torch.hashdb import KmerDB, TableSpec, table_to_device
 
@@ -59,9 +59,16 @@ def classify_step(table, codes, *, k, spec: TableSpec, stash=None,
                   with_labels=True):
     """One device step on unpacked codes: codes uint8 [R, L] (0..3, >= 4
     an N or padding) -> (results int32 [R, 5], labels int32 [R, L-k+1]
-    or None), against the resident table as for classify_step_packed."""
-    labels = probe.query_codes_labels(codes, table, stash, k=k, spec=spec)
-    results = score.score_labels(labels)
+    or None), against the resident table as for classify_step_packed.
+    A `step` span, as classify_step_packed's."""
+    with spans.span("step") as s:
+        if s:
+            s.attrs = {"rows": codes.shape[0],
+                       "windows": codes.shape[1] - k + 1,
+                       "wire_bytes": codes.numel(), "fused": 0}
+        labels = probe.query_codes_labels(codes, table, stash, k=k,
+                                          spec=spec)
+        results = score.score_labels(labels)
     return results, (labels if with_labels else None)
 
 
@@ -74,12 +81,26 @@ def classify_step_packed(table, packed2, vbits, *, k, spec: TableSpec,
     the qs main rows [NB, 8] and stash rows [NBS, 8], or the q4 or s2
     rows with stash None.  Without labels, reads of up to 1,024 windows
     take the fused query and score (`probe.fuses_score`), on every
-    layout: the same results, the labels never leaving the chip."""
-    if not with_labels and probe.fuses_score(packed2, k):
-        return probe.query_score_results(packed2, vbits, table, stash, k=k,
-                                         spec=spec), None
-    labels = probe.query_labels(packed2, vbits, table, stash, k=k, spec=spec)
-    results = score.score_labels(labels)
+    layout: the same results, the labels never leaving the chip.
+
+    Recorded, while per-batch spans are (`spans`), as a `step` span
+    with attributes rows, windows (a row), wire_bytes and fused; each
+    kernel launch in it is a `step.launch` child, so the step's self
+    time is the routing, the operand checks and the results' allocation.
+    """
+    with spans.span("step") as s:
+        fused = not with_labels and probe.fuses_score(packed2, k)
+        if s:
+            s.attrs = {"rows": packed2.shape[0],
+                       "windows": 4 * packed2.shape[1] - k + 1,
+                       "wire_bytes": packed2.numel() + vbits.numel(),
+                       "fused": int(fused)}
+        if fused:
+            return probe.query_score_results(packed2, vbits, table, stash,
+                                             k=k, spec=spec), None
+        labels = probe.query_labels(packed2, vbits, table, stash, k=k,
+                                    spec=spec)
+        results = score.score_labels(labels)
     return results, (labels if with_labels else None)
 
 
@@ -123,9 +144,11 @@ class CsvSink:
             counts = dense_counts(labels_np[:cnt],
                                   self.db.num_targets)[:, 1:]
             accumulate_hit_stats(self.hstats, (counts > 0).sum(axis=1))
-            rows, _ = native.format_results_ext(counts, *args)
+            with spans.span("rows"):
+                rows, _ = native.format_results_ext(counts, *args)
         else:
-            rows, _ = native.format_results(*args)
+            with spans.span("rows"):
+                rows, _ = native.format_results(*args)
         self.f.write(rows)
         self.total_rows += cnt
 
@@ -239,7 +262,11 @@ class _PartStream:
         done = torch.cuda.Event(enable_timing=True)
         lo = p * self.rows + self.offset
         with torch.cuda.device(self.device), \
-                torch.cuda.stream(self.copy_stream):
+                torch.cuda.stream(self.copy_stream), \
+                spans.span("part_upload") as s:
+            if s:
+                s.attrs = {"part": p,
+                           "bytes": self.nrows * self.row_words * 4}
             if self._read_done[i] is not None:
                 self.copy_stream.wait_event(self._read_done[i])
             start.record(self.copy_stream)
@@ -373,8 +400,6 @@ class Classifier:
 
     def __init__(self, db: KmerDB, cfg: ClassifyConfig | None = None,
                  len_bins=DEFAULT_LEN_BINS, device="cuda", mesh=None):
-        from cuclark_tpu_torch.memplan import resolve_table_budget_mb
-
         self.db = db
         self.cfg = cfg or ClassifyConfig()
         self.len_bins = tuple(sorted(len_bins))
@@ -401,6 +426,14 @@ class Classifier:
                     torch.cuda.current_stream, self.device))
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
+        with spans.span("classifier.place", always=True):
+            self._place(db, mesh)
+
+    def _place(self, db: KmerDB, mesh) -> None:
+        """The table on the device, resident or set up to stream (the
+        `classifier.place` span: memplan and table_to_device)."""
+        from cuclark_tpu_torch.memplan import resolve_table_budget_mb
+
         # Explicit --max-table-mb, else the device's free memory less a
         # reserve (the reference's free-VRAM probe + RESERVED,
         # src/CuClarkDB.cu:540-574); None = unbounded (the CPU).  On a
@@ -733,8 +766,9 @@ class Classifier:
                 f"paired files have different record counts: {path} has "
                 f"{n1_total}, {paired_path} has {len(seq_s2)}")
         first = rec_lo + skip
-        bad = fast_parse.first_mate_mismatch(buf, name_s, name_e, buf2,
-                                             ns2[first:], ne2[first:])
+        with spans.span("mate_check"):
+            bad = fast_parse.first_mate_mismatch(buf, name_s, name_e, buf2,
+                                                 ns2[first:], ne2[first:])
         if bad >= 0:
             n1 = buf[name_s[bad]:name_e[bad]].tobytes().decode(
                 "ascii", "replace")
@@ -748,11 +782,14 @@ class Classifier:
 
     def _packed_batches(self, buf, buf2, name_s, name_e, seq_s, seq_e,
                         seq_s2, seq_e2):
-        """Yield (wire, (ns, ne), lengths, cnt) batches, the wire in the
-        2-bit wire format (codec.pack_codes layout) and its transfer to
-        the device started (`_put_wire`); a pair is packed as mate 1, a
-        joining N, mate 2.  On a card (no mesh) each batch is packed
-        straight into a slot of the pinned ring."""
+        """Yield (wire, (ns, ne), lengths, cnt, batch id) batches, the
+        wire in the 2-bit wire format (codec.pack_codes layout) and its
+        transfer to the device started (`_put_wire`); a pair is packed as
+        mate 1, a joining N, mate 2.  On a card (no mesh) each batch is
+        packed straight into a slot of the pinned ring.  The batch id
+        (`spans.new_batch`, None while no span records) is carried by the
+        batch's `ring_acquire`, `pack` and `put_wire` spans here and by
+        its spans on the other threads."""
         from cuclark_tpu_torch import native
         from cuclark_tpu_torch.io import fast_parse
 
@@ -778,20 +815,25 @@ class Classifier:
             else:
                 L = self._bin_for_range(seq_s[lo:hi], seq_e[lo:hi])
             slot = out = None
+            bid = spans.new_batch()
             if self._ring is not None:
-                slot, p2, vb = self._ring.acquire(cnt, *native.wire_shape(L))
+                with spans.span("ring_acquire", bid):
+                    slot, p2, vb = self._ring.acquire(
+                        cnt, *native.wire_shape(L))
                 out = (p2, vb, np.empty(cnt, np.int64))
-            if paired:
-                p2, vb, lengths = fast_parse.pack_block2_paired_dispatch(
-                    buf, seq_s[lo:hi], seq_e[lo:hi],
-                    buf2, seq_s2[lo:hi], seq_e2[lo:hi], L, n_rows=cnt,
-                    out=out)
-            else:
-                p2, vb, lengths = fast_parse.pack_block2_dispatch(
-                    buf, seq_s[lo:hi], seq_e[lo:hi], L, n_rows=cnt,
-                    out=out)
-            yield (self._put_wire((p2, vb), slot),
-                   (name_s[lo:hi], name_e[lo:hi]), lengths, cnt)
+            with spans.span("pack", bid):
+                if paired:
+                    p2, vb, lengths = fast_parse.pack_block2_paired_dispatch(
+                        buf, seq_s[lo:hi], seq_e[lo:hi],
+                        buf2, seq_s2[lo:hi], seq_e2[lo:hi], L, n_rows=cnt,
+                        out=out)
+                else:
+                    p2, vb, lengths = fast_parse.pack_block2_dispatch(
+                        buf, seq_s[lo:hi], seq_e[lo:hi], L, n_rows=cnt,
+                        out=out)
+            with spans.span("put_wire", bid):
+                wire = self._put_wire((p2, vb), slot)
+            yield wire, (name_s[lo:hi], name_e[lo:hi]), lengths, cnt, bid
             lo = hi
 
     def classify_file(self, path, paired_path=None, skip: int = 0,
@@ -805,12 +847,13 @@ class Classifier:
 
         from cuclark_tpu_torch.io import fast_parse
 
-        buf, buf2, *scan = self._scan_for_classify(path, paired_path, skip,
-                                                   num_hosts, host_id)
+        with spans.span("read_scan"):
+            buf, buf2, *scan = self._scan_for_classify(
+                path, paired_path, skip, num_hosts, host_id)
         paired = buf2 is not None
 
         def packed():
-            for wire, (ns, ne), lengths, cnt in self._packed_batches(
+            for wire, (ns, ne), lengths, cnt, _ in self._packed_batches(
                     buf, buf2, *scan):
                 yield wire, fast_parse.names_of(buf, ns, ne), lengths, cnt
 
@@ -854,19 +897,22 @@ class Classifier:
                 path, out_path, paired_path, skip, num_hosts, host_id,
                 append, print_stats)
 
-        buf, buf2, *scan = self._scan_for_classify(path, paired_path, skip,
-                                                   num_hosts, host_id)
+        with spans.span("read_scan"):
+            buf, buf2, *scan = self._scan_for_classify(
+                path, paired_path, skip, num_hosts, host_id)
 
         with open(out_path, "ab" if append else "wb") as f:
             sink = CsvSink(f, self.db, extended, buf2 is not None)
             if not append:
                 sink.write_header()
 
-            def flush_one(pending, ns, ne, lengths, cnt):
+            def flush_one(pending, ns, ne, lengths, cnt, bid):
                 res, lab = pending
-                sink.flush(_host_numpy(res),
-                           _host_numpy(lab) if lab is not None else None,
-                           buf, ns, ne, lengths, cnt)
+                with spans.span("readback_wait", bid):
+                    res = _host_numpy(res)
+                    lab = _host_numpy(lab) if lab is not None else None
+                with spans.span("flush_write", bid):
+                    sink.flush(res, lab, buf, ns, ne, lengths, cnt)
 
             # Third pipeline stage: the D2H wait + CSV formatting + file
             # write run on a single writer thread (in submission order,
@@ -877,31 +923,39 @@ class Classifier:
             with ThreadPoolExecutor(1) as writer:
                 futs = deque()
 
-                def submit(out, ns, ne, lengths, cnt):
-                    futs.append(writer.submit(flush_one, _readback(out),
-                                              ns, ne, lengths, cnt))
+                def submit(out, ns, ne, lengths, cnt, bid):
+                    with spans.span("readback_issue", bid):
+                        pending = _readback(out)
+                    futs.append(writer.submit(flush_one, pending, ns, ne,
+                                              lengths, cnt, bid))
+
+                def wait_writer():
+                    with spans.span("writer_future_wait"):
+                        futs.popleft().result()
 
                 if self.stream_parts > 1:
                     # streaming on the same native writer path: stream
                     # the parts over a group, then flush its batches
                     for group in self._grouped(_prefetch(
                             self._packed_batches(buf, buf2, *scan))):
-                        outs = self._stream_group_dev(
-                            [w for w, _, _, _ in group])
-                        for (_, (ns, ne), lengths, cnt), out in zip(group,
-                                                                   outs):
-                            submit(out, ns, ne, lengths, cnt)
+                        with spans.span("device_step"):
+                            outs = self._stream_group_dev(
+                                [item[0] for item in group])
+                        for (_, (ns, ne), lengths, cnt, bid), out in zip(
+                                group, outs):
+                            submit(out, ns, ne, lengths, cnt, bid)
                         while len(futs) > 3:
-                            futs.popleft().result()
+                            wait_writer()
                 else:
-                    for wire, (ns, ne), lengths, cnt in _prefetch(
+                    for wire, (ns, ne), lengths, cnt, bid in _prefetch(
                             self._packed_batches(buf, buf2, *scan)):
-                        submit(self._device_step(wire), ns, ne, lengths,
-                               cnt)
+                        with spans.span("device_step", bid):
+                            out = self._device_step(wire)
+                        submit(out, ns, ne, lengths, cnt, bid)
                         if len(futs) > 3:
-                            futs.popleft().result()
+                            wait_writer()
                 while futs:
-                    futs.popleft().result()
+                    wait_writer()
         self.hit_stats = (sink.hstats, sink.total_rows)
         if extended and print_stats:
             print_hit_stats(*self.hit_stats)
@@ -1091,12 +1145,13 @@ def _prefetch(gen, depth: int = PREFETCH_DEPTH):
         # bounded put that gives up once the consumer is gone, so an
         # abandoned generator cannot pin the worker thread (and the
         # file-sized buffers its frames hold) forever
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.25)
-                return True
-            except queue.Full:
-                continue
+        with spans.span("prefetch_put_wait"):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.25)
+                    return True
+                except queue.Full:
+                    continue
         return False
 
     def worker():
@@ -1112,7 +1167,8 @@ def _prefetch(gen, depth: int = PREFETCH_DEPTH):
     t.start()
     try:
         while True:
-            item = q.get()
+            with spans.span("prefetch_get_wait"):
+                item = q.get()
             if item is _END:
                 break
             if isinstance(item, BaseException):
@@ -1167,11 +1223,23 @@ def _read_file_bytes(path) -> np.ndarray:
         with open(path, "rb") as f:
             data = f.read()
         if data[:2] == b"\x1f\x8b":
-            return _inflate(np.frombuffer(data, np.uint8))
+            return _inflate_spanned(np.frombuffer(data, np.uint8))
         return np.frombuffer(data, dtype=np.uint8)
     if st.st_size == 0:
         return np.zeros(0, np.uint8)
     with open(path, "rb") as probe_f:
         is_gz = probe_f.read(2) == b"\x1f\x8b"
     buf = np.memmap(path, np.uint8, mode="r")
-    return _inflate(buf) if is_gz else buf
+    return _inflate_spanned(buf) if is_gz else buf
+
+
+def _inflate_spanned(data) -> np.ndarray:
+    """`_inflate` in an `inflate` span whose attributes are the native
+    inflater's counters (`native.inflate_counters`)."""
+    from cuclark_tpu_torch import native
+
+    with spans.span("inflate") as s:
+        out = _inflate(data)
+        if s and native.available():
+            s.attrs = native.inflate_counters()
+    return out

@@ -11,10 +11,10 @@ Python call and none to native code or the card, and it sees the main
 thread only, so the shares it prints are for finding candidates;
 `bench_torch.py` measures.
 
-Then SPLIT_PASSES (default 3) passes run without cProfile under the
-wall-clock timers of `scripts/torch_thread_split.py` (the pack, the
-pinned copy and H2D issue, the launch, the readback wait, the rows
-with their gamma and confidence, the write, the queue and future waits;
+Then SPLIT_PASSES (default 3) passes run without cProfile, split by
+the program's spans as `scripts/torch_thread_split.py` sums them (the pack,
+the pinned copy and H2D issue, the launch, the readback wait, the rows,
+the write, the queue and future waits;
 per thread: main, producer, writer): a line of each pass's split, and
 the split of the median pass as the JSON line last.
 

@@ -1,16 +1,16 @@
-"""Wall-clock timers on each thread of a `Classifier.classify_file_to_csv`
-pass: where each of the main, producer and writer threads spends a pass.
+"""Where each thread of a `Classifier.classify_file_to_csv` pass spends
+it (main, producer, writer), read from the program's own spans.
 
-The timers wrap the package's own functions for the length of a `with`
-block and restore them after; the package holds no timer or switch of
-its own.  Each wrapped call is timed exclusive of the wrapped calls
-nested in it on the same thread (`CsvSink.flush` less the rows is
-mostly `f.write`; `read_scan` less `mate_check` is the read and the
-scans of the head; a gzip input's inflate, `_inflate`, is timed
-apart inside it).  The rows are the row writer's results entries
-(`format_results`, which compute gamma and confidence themselves), so
-on classify's CSV path `gamma_confidence` reads 0; a tree whose
-`CsvSink` still calls it (an earlier one) times it there.
+A `with ThreadSplit()` block opens a `cuclark_tpu_torch.spans.session()`,
+so the pass records its file-path spans (`read_scan`, `inflate`,
+`mate_check`, `pack`, `ring_acquire`, `put_wire`, `device_step`,
+`readback_issue`, `readback_wait`, `rows`, `flush_write` and the waits
+`prefetch_put_wait`, `prefetch_get_wait`, `writer_future_wait`), and
+`report()` sums them by thread.  Each stage is timed exclusive of the
+stages nested in it on the same thread (`flush_write` less the rows is
+mostly `f.write`; `read_scan` less `mate_check` and `inflate` is the
+read and the scans of the head); spans of other names (`step`,
+`step.launch`, `part_upload`) count within the stage that holds them.
 
     from torch_thread_split import ThreadSplit
     with ThreadSplit() as split:
@@ -20,152 +20,76 @@ on classify's CSV path `gamma_confidence` reads 0; a tree whose
 
 `report()` gives, per thread (keyed by its name, with its role: main,
 producer, writer), the sum and count of each stage and wait, the time
-before the thread's first timed call and after its last (`outside`),
-and the wall time no timer covers (`uncovered`); for every thread
-stages + waits + outside + uncovered == the pass's wall time.  The
-writer's uncovered time is mostly its executor's wait for the next
-batch to write.  The timers cost about a microsecond a call, a few dozen
-calls a batch.  The sums are wall time: a stage's time includes its
-thread's waits for the interpreter lock and for a core.
+before the thread's first stage and after its last (`outside`), and the
+wall time no stage covers (`uncovered`); for every thread stages +
+waits + outside + uncovered == the pass's wall time.  The writer's
+uncovered time is mostly its executor's wait for the next batch to
+write.  A span costs about 2 us recorded on the H100's host, a dozen a batch
+(PERF.md section 6).  The sums are wall time: a stage's time includes
+its thread's waits for the interpreter lock and for a core.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
-import queue
-import threading
+import collections
 import time
 
-# (module path, owner attribute or None, function, stage, kind)
-TIMED = (
-    ("cuclark_tpu_torch.native", None, "pack_block2", "pack", "stage"),
-    ("cuclark_tpu_torch.native", None, "pack_block2_paired", "pack",
-     "stage"),
-    ("cuclark_tpu_torch.pipeline", "Classifier", "_scan_for_classify",
-     "read_scan", "stage"),
-    ("cuclark_tpu_torch.io.fast_parse", None, "first_mate_mismatch",
-     "mate_check", "stage"),
-    ("cuclark_tpu_torch.pipeline", None, "_inflate", "inflate", "stage"),
-    ("cuclark_tpu_torch.pipeline", "_WireRing", "acquire", "ring_acquire",
-     "wait"),
-    ("cuclark_tpu_torch.pipeline", "Classifier", "_put_wire", "put_wire",
-     "stage"),
-    ("cuclark_tpu_torch.pipeline", "Classifier", "_device_step",
-     "device_step", "stage"),
-    ("cuclark_tpu_torch.pipeline", None, "_readback", "readback_issue",
-     "stage"),
-    ("cuclark_tpu_torch.pipeline", None, "_host_numpy", "readback_wait",
-     "wait"),
-    ("cuclark_tpu_torch.score", None, "gamma_confidence",
-     "gamma_confidence", "stage"),
-    ("cuclark_tpu_torch.native", None, "format_rows", "rows", "stage"),
-    ("cuclark_tpu_torch.native", None, "format_rows_ext", "rows", "stage"),
-    ("cuclark_tpu_torch.native", None, "format_results", "rows", "stage"),
-    ("cuclark_tpu_torch.native", None, "format_results_ext", "rows",
-     "stage"),
-    ("cuclark_tpu_torch.pipeline", "CsvSink", "flush", "flush_write",
-     "stage"),
-)
+from cuclark_tpu_torch import spans
 
-
-class _Clock:
-    """Per-thread sums of exclusive time by (stage, kind)."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.threads = {}  # name -> {"first", "last", "sums", "stack"}
-
-    def _mine(self):
-        name = threading.current_thread().name
-        rec = self.threads.get(name)
-        if rec is None:
-            with self.lock:
-                rec = self.threads.setdefault(name, {
-                    "first": None, "last": None, "sums": {}, "stack": []})
-        return rec
-
-    def timed(self, fn, stage: str, kind: str):
-        def wrapper(*args, **kwargs):
-            rec = self._mine()
-            t0 = time.perf_counter()
-            if rec["first"] is None:
-                rec["first"] = t0
-            rec["stack"].append(0.0)  # time of the calls nested in this one
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                t1 = time.perf_counter()
-                inner = rec["stack"].pop()
-                if rec["stack"]:
-                    rec["stack"][-1] += t1 - t0
-                s = rec["sums"].setdefault((stage, kind), [0.0, 0])
-                s[0] += t1 - t0 - inner
-                s[1] += 1
-                rec["last"] = t1
-        wrapper.__wrapped__ = fn
-        return wrapper
+STAGES = ("read_scan", "inflate", "mate_check", "pack", "put_wire",
+          "device_step", "readback_issue", "rows", "flush_write")
+WAITS = ("ring_acquire", "readback_wait", "prefetch_put_wait",
+         "prefetch_get_wait", "writer_future_wait")
 
 
 class ThreadSplit:
-    """Install the timers for a `with` block; `report()` after it."""
+    """Record the program's spans for a `with` block; `report()` after
+    it."""
 
     def __init__(self):
-        self.clock = _Clock()
-        self._undo = []
+        self._session = spans.session()
+        self.snap = None
         self.t0 = self.t1 = None
 
-    def _patch(self, owner, attr: str, new) -> None:
-        self._undo.append((owner, attr, owner.__dict__[attr]))
-        setattr(owner, attr, new)
-
     def __enter__(self):
-        import importlib
-
-        clock = self.clock
-        for mod_name, cls, fn, stage, kind in TIMED:
-            owner = importlib.import_module(mod_name)
-            if cls is not None:  # a tree without the class times the rest
-                owner = getattr(owner, cls, None)
-            if owner is not None and fn in owner.__dict__:
-                self._patch(owner, fn, clock.timed(owner.__dict__[fn],
-                                                   stage, kind))
-
-        # the producer's waits on a full prefetch queue, the consumer's on
-        # an empty one (`pipeline._prefetch` makes a queue.Queue a pass)
-        class TimedQueue(queue.Queue):
-            put = clock.timed(queue.Queue.put, "prefetch_put_wait", "wait")
-            get = clock.timed(queue.Queue.get, "prefetch_get_wait", "wait")
-
-        self._patch(queue, "Queue", TimedQueue)
-        # the main thread's waits on the writer's futures
-        self._patch(concurrent.futures.Future, "result", clock.timed(
-            concurrent.futures.Future.result, "writer_future_wait", "wait"))
-        self.t0 = time.perf_counter()
+        self._session.__enter__()
+        self.t0 = time.time_ns()
         return self
 
     def __exit__(self, *exc):
-        self.t1 = time.perf_counter()
-        while self._undo:
-            owner, attr, old = self._undo.pop()
-            setattr(owner, attr, old)
+        self.t1 = time.time_ns()
+        self._session.__exit__(*exc)
+        self.snap = self._session.snapshot()
         return False
 
     def report(self, batches: int | None = None) -> dict:
         """The split of the block's wall time, per thread; with
         `batches`, each sum also per batch (ms)."""
-        wall = self.t1 - self.t0
+        wall = (self.t1 - self.t0) / 1e9
         out = {"wall_s": wall, "batches": batches, "threads": {}}
-        for name, rec in self.clock.threads.items():
-            sums = rec["sums"]
-            stages = {s: {"s": v[0], "calls": v[1]}
-                      for (s, k), v in sorted(sums.items()) if k == "stage"}
-            waits = {s: {"s": v[0], "calls": v[1]}
-                     for (s, k), v in sorted(sums.items()) if k == "wait"}
+        kind = dict.fromkeys(STAGES, "stage") | dict.fromkeys(WAITS, "wait")
+        own = spans.self_ns(self.snap["spans"], kind)
+        by_thread = collections.defaultdict(list)
+        for s in self.snap["spans"]:
+            if s.name in kind:
+                by_thread[s.thread].append(s)
+        names = self.snap["threads"]
+        for tid, rows in by_thread.items():
+            sums = {}
+            for s in rows:
+                v = sums.setdefault((s.name, kind[s.name]), [0.0, 0])
+                v[0] += own[s.id] / 1e9
+                v[1] += 1
+            stages = {n: {"s": v[0], "calls": v[1]}
+                      for (n, k), v in sorted(sums.items()) if k == "stage"}
+            waits = {n: {"s": v[0], "calls": v[1]}
+                     for (n, k), v in sorted(sums.items()) if k == "wait"}
             busy = sum(v["s"] for v in stages.values())
             waiting = sum(v["s"] for v in waits.values())
-            first = rec["first"] if rec["first"] is not None else self.t1
-            last = rec["last"] if rec["last"] is not None else self.t1
-            outside = max(first - self.t0, 0.0) + max(self.t1 - last, 0.0)
+            first = min(s.start_ns for s in rows)
+            last = max(s.end_ns for s in rows)
+            outside = (max(first - self.t0, 0) + max(self.t1 - last, 0)) / 1e9
+            name = names.get(tid, str(tid))
             row = {"role": _role(name, stages), "stages": stages,
                    "waits": waits, "busy_s": busy, "wait_s": waiting,
                    "outside_s": outside,

@@ -1257,3 +1257,57 @@ def test_sampled_table_matches_plain(dev, stash20, tmp_path, L):
                                      db.seed)
     empty = (main[l2 & (db.nb - 1)] == 0).all(-1)
     assert int((valid & empty & (labels > 0)).sum()) > 0
+
+
+def test_step_launch_spans_enclose_their_launches(dev, tmp_path):
+    """In a CUDA-only torch.profiler trace (the benchmark's), each
+    `step.launch` span of the program, mapped with `spans.trace_us`,
+    encloses its kernel's `cudaLaunchKernel` event: the spans and the
+    trace share one clock on the card's torch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuclark_tpu_torch import pipeline, spans
+
+    rng = np.random.default_rng(22)
+    km = np.unique(codec.canonical_np(rng.integers(
+        0, 1 << 62, size=60_000, dtype=np.uint64), 31))
+    labels = rng.integers(1, 100, size=len(km)).astype(np.uint32)
+    db = hashdb.build_table(km, labels, ["NA"] + [f"T{i}" for i in
+                                                  range(1, 100)],
+                            DBConfig(k=31))
+    main, stash = hashdb.table_to_device(db, dev)
+    codes = rng.integers(0, 4, size=(4096, 152)).astype(np.uint8)
+    p2, vb = (torch.from_numpy(a).to(dev) for a in codec.pack_codes(codes))
+
+    def steps(n):
+        for _ in range(n):
+            for labels_too in (False, True):  # fused; query + score
+                pipeline.classify_step_packed(main, p2, vb, k=31,
+                                              spec=db.spec, stash=stash,
+                                              with_labels=labels_too)
+
+    steps(2)
+    torch.cuda.synchronize()
+    since = spans.mark()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    steps(20)
+    torch.cuda.synchronize()
+    prof.stop()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = int(trace["baseTimeNanoseconds"])
+    assert base == spans.BASE_NS, torch.__version__
+    calls = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in trace["traceEvents"] if e.get("ph") == "X"
+             and e.get("cat") == "cuda_runtime"
+             and e["name"].startswith("cudaLaunchKernel")]
+    ours = [s for s in spans.snapshot(since)["spans"]
+            if s.name == "step.launch"]
+    assert len(ours) == 20 * 3
+    inside = [any(spans.trace_us(s.start_ns, base) <= a
+                  and b <= spans.trace_us(s.end_ns, base) for a, b in calls)
+              for s in ours]
+    assert all(inside), (f"{sum(inside)} of {len(ours)} step.launch spans "
+                         f"enclose a launch, torch {torch.__version__}")
