@@ -1654,13 +1654,15 @@ def check_layout(db, tmp: Path, fq: Path, head: Path, ext_fq: Path,
 def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
                      dev, card: str):
     """Reads of LONG_MIN to LONG_MAX bases against the qs headline table:
-    the score kernel's `score_long` entry against plain on the labels of
-    the batch the main path gives it, then `classify --device cuda` (which
-    must launch score_long) equal to --device cpu byte for byte.  Returns
+    the score kernel's `score_long` entry, and its `score_bounded` entry
+    at the table's label bound, against plain on the labels of the batch
+    the main path gives it, then `classify --device cuda` (which must
+    launch the bounded entry, or score_long for a bound above
+    SCORE_BOUND_CAP) equal to --device cpu byte for byte.  Returns
     (max_abs_err, ms, plain ms, launches, phase detail, bound ms)."""
     import torch
 
-    from cuclark_tpu_torch import codec, probe, score
+    from cuclark_tpu_torch import codec, kernels, probe, score
     from cuclark_tpu_torch.hashdb import table_to_device
 
     L = int(np.ceil((max(len(c) for c in long_codes) + 1) / 128) * 128)
@@ -1672,23 +1674,28 @@ def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
     main_t, stash_t = table_to_device(db, dev)
     lab = probe.query_labels(p2, vb, main_t, stash_t, k=db.k, spec=db.spec)
     del main_t, stash_t, p2, vb
+    label_bound = db.spec.label_bound
+    entry = ("score_bounded" if label_bound <= kernels.SCORE_BOUND_CAP
+             else "score_long")
     res = score.score_labels(lab)
+    res_bounded = score.score_labels(lab, label_bound)
     torch.cuda.synchronize()
     res_plain = score.score_labels_plain(lab)
-    if not torch.equal(res, res_plain):
-        raise AssertionError(f"score_long kernel != plain at "
-                             f"{list(lab.shape)}")
+    if not (torch.equal(res, res_plain) and torch.equal(res_bounded,
+                                                        res_plain)):
+        raise AssertionError(f"score_long or score_bounded kernel != plain "
+                             f"at {list(lab.shape)}")
     err = tm.max_abs_err(res, res_plain)
-    ms = tm.cuda_ms(lambda: score.score_labels(lab), 5)
+    ms = tm.cuda_ms(lambda: score.score_labels(lab, label_bound), 5)
     plain_ms = tm.cuda_ms(lambda: score.score_labels_plain(lab), 2)
     shape = list(lab.shape)
     bound = tm.bound_ms(4 * lab.numel() + 20 * lab.shape[0])
-    del lab, res, res_plain
+    del lab, res, res_bounded, res_plain
     torch.cuda.empty_cache()
     gpu_csv, cpu_csv = tmp / "long_gpu.csv", tmp / "long_cpu.csv"
     _, launches = run_cli(["classify", "-D", dbdir, "-O", str(long_fq),
                            "-R", str(gpu_csv), "--device", "cuda"],
-                          ("query", "score_long"))
+                          ("query", entry))
     run_cli(["classify", "-D", dbdir, "-O", str(long_fq), "-R",
              str(cpu_csv), "--device", "cpu"])
     if gpu_csv.read_bytes() != cpu_csv.read_bytes():
@@ -1698,10 +1705,11 @@ def check_long_reads(tmp: Path, db, dbdir: str, long_fq: Path, long_codes,
     if len(rows) != len(long_codes) or any(r.split(",")[-5] == "NA" for r in rows):
         raise AssertionError(f"{len(rows)} long-read rows, or an "
                              f"unassigned one, for {len(long_codes)} reads")
-    detail = (f"{N_LONG} reads, score_long on {shape} bit-identical, "
+    detail = (f"{N_LONG} reads, score_long and {entry} (label bound "
+              f"{label_bound}) on {shape} bit-identical, {entry} "
               f"{ms:.4f} ms (plain {plain_ms:.4f}); CSV identical to "
               f"--device cpu, launches {launches}; on {card}")
-    return err, ms, plain_ms, launches["score_long"], detail, bound
+    return err, ms, plain_ms, launches[entry], detail, bound
 
 
 def check_classify_step(codes_np: np.ndarray, B: int, main_t, stash_t,

@@ -13,7 +13,7 @@
 // 64-bit key (count << 32 | ~label): highest count first, then the smallest
 // label on ties, exactly the tie-break of score.py:37-66.  The second is
 // the same maximum with the best label left out.  total counts the labels
-// > 0.  Two paths:
+// > 0.  Three paths:
 //
 //   - Rows of up to kWarpMax windows (every short-read length bin, and
 //     paired reads; the code is in warp_score.cuh, which query.cu's fused
@@ -32,19 +32,52 @@
 //     and the sorted labels are disjoint, so their keys merge, and warp
 //     max-reductions give the best and the second.  No shared memory and
 //     no __syncthreads().
-//   - Longer rows, in the `score` entry above kWarpMax and in the
+//   - Longer rows whose labels have a bound of at most kBoundBins - 1 (a
+//     table's largest label, TableSpec.label_bound; 76 in the benchmark's
+//     full DB), in the `score_bounded` entry: the bounded histogram, one
+//     block of kBoundThreads a read and bound + 1 counters, rounded up to
+//     32, in shared memory.  The row is read once, 16 B a load (a scalar
+//     head up to the first 16-byte boundary, since a row starts at
+//     r * P * 4 bytes, and a scalar tail), kUnroll loads a thread in
+//     flight.  A long read's windows hit one target or miss, so a thread
+//     counts a run of equal labels (misses skipped) in a register, adds it
+//     where the label changes, and at the end the lanes of a warp that
+//     hold one label add together (__match_any_sync, __reduce_add_sync).
+//     The counters are then scanned for the top two as below.
+//   - Other rows over kWarpMax windows, in the `score` entry and in the
 //     `score_long` entry (rows over 32,768 windows: reads over 32,798
-//     bases at k=31, as nanopore and PacBio give): one block per read and
-//     a label histogram in shared memory, kBins u32 counters (128 KB) for
-//     the labels [0, 32,768), then for [32,768, 65,536) only when the row
+//     bases at k=31, as nanopore and PacBio give): the wide histogram, one
+//     block of kHistThreads a read, kBins u32 counters (128 KB) for the
+//     labels [0, 32,768), then for [32,768, 65,536) only when the row
 //     holds such a label.  Labels are at most 65,535 (config.MTRGTS; the
 //     plain version's sentinel is 65,536); a label above counts in total
-//     only.  A long read's windows mostly hit one target, so each warp
-//     groups equal labels with __match_any_sync and adds once per distinct
-//     label.  Each thread keeps the top two keys of the counters it scans,
-//     across both ranges, and two block max-reductions give the best and
-//     the second.  No scratch in device memory: the row is read once (twice
-//     when it holds labels of both ranges).
+//     only.  Each warp groups equal labels with __match_any_sync and adds
+//     once per distinct label.  Each thread keeps the top two keys of the
+//     counters it scans, across both ranges, and two block max-reductions
+//     give the best and the second.  No scratch in device memory: the row
+//     is read once (twice when it holds labels of both ranges).
+//
+// Why the bounded path (NVIDIA H100 80GB HBM3, 700 W; the labels of the
+// full_ont_long pool, 26 batches over 1,024 windows, 0.768 G windows,
+// whose least bytes take 0.918 ms a pass): the wide histogram took 4.75-
+// 4.82 ms a pass (19%).  Its 128 KB of counters leave one 1,024-thread
+// block an SM; each read clears and scans 32,768 counters to count at most
+// 76 labels, and its loads, 4 B a thread a step, keep about 4 KB in flight
+// an SM, far from what 3.35 TB/s needs.  Designs tried (ms a pass, two
+// label sets): 1,024 threads, 4 loads a thread, 2 blocks an SM 1.38-1.56;
+// the same with 2 loads 1.47, 8 loads 1.87, __match_any_sync counting
+// instead of runs 1.49; 512 threads, 8 loads 1.35; 256 threads, 8 loads
+// 1.28-1.29, with __match_any_sync 1.40; 128 threads, 8 loads 1.30;
+// 256 threads, 4 loads, at least 4 blocks an SM (the kernel) 1.25-1.31
+// (70-73%).  kBoundBins is the most counters at which two blocks still
+// share an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor: 2 at 28,832,
+// 1 at 28,864); a larger bound takes the wide histogram.  Up to that cap
+// the bounded histogram wins at every bound measured (the pool's labels
+// spread over [1, bound]; ms a pass, bounded against wide): 76 1.35 /
+// 4.92, 4,096 1.39 / 4.77, 16,384 1.67 / 4.78, 28,831 2.22 / 4.84, and in
+// each group of rows (the 2,048-4,096, 16,384 and larger bins), where the
+// counters it clears and scans grow with the bound.  512 threads would
+// take 1.85 ms at 28,831 but 1.37 at 76.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see cuclark_tpu_torch/kernels.py).
@@ -59,6 +92,12 @@ constexpr int kWarpMax = 1024;      // longest row of the warp path
 constexpr int kWarpsPerBlock = 8;   // warp path: reads per block
 constexpr int kBins = 32768;        // histogram counters per label range
 constexpr int kHistThreads = 1024;
+// Bounded instance: blocks of kBoundThreads, kUnroll 16-byte loads a
+// thread in flight, and at most kBoundBins counters (bound + 1 rounded up
+// to 32): the most at which two blocks still share an SM's shared memory.
+constexpr int kBoundThreads = 256;
+constexpr int kUnroll = 4;
+constexpr int kBoundBins = 28832;
 
 #include "warp_score.cuh"
 
@@ -108,18 +147,16 @@ __device__ __forceinline__ int block_sum(int v, int* red) {
   return v;
 }
 
-// One block of kHistThreads per read: the label histogram in shared
-// memory, kBins counters a range.
-__global__ void __launch_bounds__(kHistThreads)
-    score_hist_kernel(const int32_t* __restrict__ labels,
-                      int32_t* __restrict__ results, int P) {
-  extern __shared__ uint32_t hist[];
-  __shared__ unsigned long long red[kHistThreads / 32];
-  __shared__ int red_sum[kHistThreads / 32];
+// The wide instance's counting: kBins counters a range, the labels
+// [0, kBins), then [kBins, 2 * kBins) only when the row holds such a
+// label; each warp groups equal labels with __match_any_sync.  Leaves the
+// thread's top two keys in b1, b2 and its share of total.
+__device__ __forceinline__ void count_wide(const int32_t* __restrict__ row,
+                                           int P, uint32_t* hist,
+                                           unsigned long long& b1,
+                                           unsigned long long& b2,
+                                           int& total) {
   const int lane = threadIdx.x & 31;
-  const int32_t* row = labels + static_cast<int64_t>(blockIdx.x) * P;
-  unsigned long long b1 = 0, b2 = 0;
-  int total = 0;
   bool upper = false;
   for (int lo = 0;; lo += kBins) {
     for (int c = threadIdx.x; c < kBins; c += blockDim.x) hist[c] = 0;
@@ -146,6 +183,87 @@ __global__ void __launch_bounds__(kHistThreads)
     // orders this scan before the counters are zeroed again
     if (lo != 0 || !__syncthreads_or(upper)) break;
   }
+}
+
+// The bounded instance's counting: `bins` counters, the labels [0, bins).
+// The row is read once, 16 bytes a load (a scalar head up to the first
+// 16-byte boundary and a scalar tail), kUnroll loads a thread in flight.
+// A thread counts a run of equal labels (misses between them skipped) in
+// a register and adds it to its counter where the label changes and once
+// at the end, when each warp's lanes of one label add together.  A label
+// of `bins` or more counts in total only.
+__device__ __forceinline__ void count_bounded(const int32_t* __restrict__ row,
+                                              int P, int bins, uint32_t* hist,
+                                              unsigned long long& b1,
+                                              unsigned long long& b2,
+                                              int& total) {
+  const int lane = threadIdx.x & 31;
+  const int t = threadIdx.x;
+  for (int c = t; c < bins; c += kBoundThreads) hist[c] = 0;
+  __syncthreads();
+  int32_t cur = 0;
+  uint32_t run = 0;
+  auto add = [&](int32_t v) {
+    total += v > 0;
+    if (v <= 0 || v >= bins) return;
+    if (v != cur) {
+      if (run) atomicAdd(&hist[cur], run);
+      cur = v;
+      run = 0;
+    }
+    ++run;
+  };
+  const int head = min(
+      P, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(row) & 15)) &
+                          15) >> 2);
+  const int nvec = (P - head) >> 2;
+  const int tail = head + 4 * nvec;
+  if (t < head) add(__ldg(row + t));
+  const int4* vec = reinterpret_cast<const int4*>(row + head);
+  for (int i = t; i < nvec; i += kUnroll * kBoundThreads) {
+    int4 q[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = i + u * kBoundThreads;
+      q[u] = j < nvec ? __ldg(vec + j) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      add(q[u].x);
+      add(q[u].y);
+      add(q[u].z);
+      add(q[u].w);
+    }
+  }
+  if (tail + t < P) add(__ldg(row + tail + t));
+  const unsigned peers = __match_any_sync(kFull, run ? cur : -1);
+  const uint32_t sum = __reduce_add_sync(peers, run);
+  if (run && lane == __ffs(peers) - 1) atomicAdd(&hist[cur], sum);
+  __syncthreads();
+  for (int c = t; c < bins; c += kBoundThreads) {
+    const uint32_t n = hist[c];
+    if (n) keep_top2(run_key(n, c), b1, b2);
+  }
+}
+
+// One block per read, of kHistThreads (wide) or kBoundThreads (Bounded):
+// the label histogram in shared memory, kBins counters a range (wide) or
+// `bins`.
+template <bool Bounded>
+__global__ void __launch_bounds__(Bounded ? kBoundThreads : kHistThreads,
+                                  Bounded ? 4 : 1)
+    score_hist_kernel(const int32_t* __restrict__ labels,
+                      int32_t* __restrict__ results, int P, int bins) {
+  extern __shared__ uint32_t hist[];
+  __shared__ unsigned long long red[kHistThreads / 32];
+  __shared__ int red_sum[kHistThreads / 32];
+  const int32_t* row = labels + static_cast<int64_t>(blockIdx.x) * P;
+  unsigned long long b1 = 0, b2 = 0;
+  int total = 0;
+  if constexpr (Bounded)
+    count_bounded(row, P, bins, hist, b1, b2, total);
+  else
+    count_wide(row, P, hist, b1, b2, total);
   const unsigned long long best = block_max(b1, red);
   const unsigned long long second =
       block_max(best_other(b1, b2, key_label(best)), red);
@@ -165,15 +283,20 @@ int launch_warp(const int32_t* labels, int32_t* results, int64_t R, int P,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The histogram path over `bins` counters: the wide instance at kBins,
+// the bounded one at most kBoundBins.
+template <bool Bounded>
 int launch_hist(const int32_t* labels, int32_t* results, int64_t R, int P,
-                cudaStream_t st) {
+                int bins, cudaStream_t st) {
   if (R > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kBins * static_cast<int>(sizeof(uint32_t));
   const cudaError_t e = cudaFuncSetAttribute(
-      score_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      score_hist_kernel<Bounded>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (Bounded ? kBoundBins : kBins) * static_cast<int>(sizeof(uint32_t)));
   if (e != cudaSuccess) return static_cast<int>(e);
-  score_hist_kernel<<<static_cast<unsigned>(R), kHistThreads, smem, st>>>(
-      labels, results, P);
+  score_hist_kernel<Bounded><<<static_cast<unsigned>(R),
+                               Bounded ? kBoundThreads : kHistThreads,
+                               bins * sizeof(uint32_t), st>>>(labels, results,
+                                                              P, bins);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -189,7 +312,7 @@ extern "C" int cuclark_score(const void* labels, void* results, int64_t R,
   const int32_t* in = static_cast<const int32_t*>(labels);
   int32_t* out = static_cast<int32_t*>(results);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P > kWarpMax) return launch_hist(in, out, R, P, st);
+  if (P > kWarpMax) return launch_hist<false>(in, out, R, P, kBins, st);
   if (P <= 32) return launch_warp<1>(in, out, R, P, st);
   if (P <= 64) return launch_warp<2>(in, out, R, P, st);
   if (P <= 128) return launch_warp<4>(in, out, R, P, st);
@@ -204,7 +327,23 @@ extern "C" int cuclark_score_long(const void* labels, void* results,
                                   int64_t R, int P, void* stream) {
   if (P <= kMaxScore) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaSuccess);
-  return launch_hist(static_cast<const int32_t*>(labels),
-                     static_cast<int32_t*>(results), R, P,
-                     static_cast<cudaStream_t>(stream));
+  return launch_hist<false>(static_cast<const int32_t*>(labels),
+                            static_cast<int32_t*>(results), R, P, kBins,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// results int32 [R, 5] from labels int32 [R, P] with P > kWarpMax whose
+// labels are at most `bound`, 0 <= bound < kBoundBins: the bounded
+// histogram of bound + 1 counters, rounded up to 32.  Launches on `stream`
+// and returns cudaGetLastError().
+extern "C" int cuclark_score_bounded(const void* labels, void* results,
+                                     int64_t R, int P, int bound,
+                                     void* stream) {
+  if (P <= kWarpMax || bound < 0 || bound >= kBoundBins)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  return launch_hist<true>(static_cast<const int32_t*>(labels),
+                           static_cast<int32_t*>(results), R, P,
+                           (bound + 32) & ~31,
+                           static_cast<cudaStream_t>(stream));
 }

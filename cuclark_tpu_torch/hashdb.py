@@ -40,7 +40,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -150,7 +152,9 @@ class TableSpec:
     bucket bits, the qs stash bits, the Feistel seed (qs, q4), the s2
     slots and hash choices, and whether a load with a sample factor
     zeroed rows (a qs query then reads the stash behind an empty main
-    row too: csrc/query.cu, qs_label)."""
+    row too: csrc/query.cu, qs_label), and a bound on the table's labels
+    (`KmerDB.label_bound`: no label the table holds is larger), which
+    sizes the score kernel's histogram (`score.score_labels`)."""
 
     layout: str
     nb_bits: int
@@ -159,6 +163,7 @@ class TableSpec:
     slots: int = 4
     num_choices: int = 2
     sampled: bool = False
+    label_bound: int = MTRGTS
 
     @property
     def row_words(self) -> int:
@@ -175,6 +180,9 @@ class TableSpec:
             raise ValueError(f"s2 needs 1 <= slots <= 255 and 1 or 2 hash "
                              f"choices, got slots={self.slots} "
                              f"num_choices={self.num_choices}")
+        if not 0 <= self.label_bound <= MTRGTS:
+            raise ValueError(f"label bound {self.label_bound} outside "
+                             f"[0, {MTRGTS}]")
 
 
 @dataclasses.dataclass
@@ -195,6 +203,10 @@ class KmerDB:
     seed: int = 0                # q4/qs Feistel seed
     stash_bits: int = 0          # qs: NBS = 1 << stash_bits stash rows
     sampled: bool = False        # rows zeroed by a load's sample factor
+    # no stored label is larger: the largest label of build_table's
+    # input, or of the table `load` read (held to its target names);
+    # None where neither set it (the spec then takes MTRGTS)
+    label_bound: int | None = None
 
     @property
     def nb(self) -> int:
@@ -210,7 +222,29 @@ class KmerDB:
         """The layout fields the probes read, as one record."""
         return TableSpec(self.layout, self.nb_bits, self.stash_bits,
                          self.seed, self.slots, self.num_choices,
-                         self.sampled)
+                         self.sampled,
+                         MTRGTS if self.label_bound is None
+                         else self.label_bound)
+
+    def max_label(self) -> int:
+        """The largest label the table stores (0 for none): blocks of
+        rows on a thread each (numpy's reductions release the
+        interpreter lock), no table-sized temporary."""
+        S = self.slots
+
+        def block(lo: int) -> int:
+            t = np.ascontiguousarray(self.table[lo:lo + (1 << 18)])
+            if self.layout in ("q4", "qs"):
+                # label16 is the low half of each meta word (little-endian)
+                lab = t.view(np.uint16)[:, 8::2]
+            else:
+                lab = np.where((t[:, :S] != EMPTY) | (t[:, S:2 * S] != EMPTY),
+                               t[:, 2 * S:], 0)
+            return int(lab.max()) if lab.size else 0
+
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            return max(pool.map(block, range(0, self.total_rows, 1 << 18)),
+                       default=0)
 
     def split_tables(self) -> tuple[np.ndarray, np.ndarray | None]:
         """(main, stash) host views: rows [0, NB) and [NB, NB + NBS) of
@@ -280,6 +314,13 @@ class KmerDB:
             stash_bits=meta.get("stash_bits", 0),
             sampled=sample_factor > 1,
         )
+        # the file's labels are held to its target names, and their
+        # largest is the bound
+        top = db.max_label()
+        if top > db.num_targets:
+            raise ValueError(f"{path} stores label {top}, above its "
+                             f"{db.num_targets} target names")
+        db.label_bound = top
         if sample_factor > 1:
             keep = (np.arange(db.total_rows) % sample_factor) == 0
             # in place: np.load already materialized a fresh writable
@@ -619,7 +660,7 @@ def build_table(
     with spans.span("build_table", always=True) as top:
         try:
             with spans.span("build_table.check", always=True):
-                kmers, labels = _checked_keys(kmers, labels)
+                kmers, labels, top_label = _checked_keys(kmers, labels)
             n = len(kmers)
             top.attrs = {"keys": n}
             if nb_bits is None:
@@ -651,6 +692,7 @@ def build_table(
                 if db is not None:
                     with spans.span("build_table.verify", always=True):
                         db.verify(kmers, labels)
+                    db.label_bound = top_label
                     return db
                 nb_bits += 1  # overflow: double the table and retry
             raise RuntimeError("hash table construction failed to converge")
@@ -660,14 +702,16 @@ def build_table(
 
 
 def _checked_keys(kmers, labels):
-    """(kmers uint64, labels uint32) of build_table's input, checked: the
-    same length, labels 1-based and <= MTRGTS, k-mers unique."""
+    """(kmers uint64, labels uint32, the largest label or 0) of
+    build_table's input, checked: the same length, labels 1-based and
+    <= MTRGTS, k-mers unique."""
     kmers = np.asarray(kmers, dtype=np.uint64)
     labels = np.asarray(labels, dtype=np.uint32)
     n = len(kmers)
     if len(labels) != n:
         raise ValueError("kmers and labels length mismatch")
-    if labels.size and (labels.min() < 1 or labels.max() > MTRGTS):
+    top = int(labels.max()) if labels.size else 0
+    if labels.size and (labels.min() < 1 or top > MTRGTS):
         raise ValueError("labels must be 1-based and <= MTRGTS")
     # builder outputs arrive sorted ascending (sort-reduce), where
     # uniqueness is a diff check; a sorted copy (8 B/key — GBs at RefSeq
@@ -680,7 +724,7 @@ def _checked_keys(kmers, labels):
         if not np.all(s[1:] != s[:-1]):
             raise ValueError("k-mers must be unique (target-specific)")
         del s
-    return kmers, labels
+    return kmers, labels, top
 
 
 def _try_build_qs(kmers, labels, target_names, cfg, nb_bits, stash_bits,

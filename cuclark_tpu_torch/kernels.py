@@ -44,8 +44,10 @@ queued (`queue_score_windows`), through the queued fused instance
 counted as `query_score_queue[_q4|_s2]`.  The fused instance goes through
 the C entry `cuclark_query_score_range`, the queued one through
 `cuclark_query_score_queue`.  `score`
-launches the score kernel (`csrc/score.cu`), counted as `score` for rows
-of up to MAX_SCORE_WINDOWS windows and `score_long` for longer ones.
+launches the score kernel (`csrc/score.cu`), counted as `score_bounded`
+for rows over 1,024 windows whose labels have a bound of at most
+SCORE_BOUND_CAP, else as `score` for rows of up to MAX_SCORE_WINDOWS
+windows and `score_long` for longer ones.
 
 A launch runs with its tensors' device made current, on that device's
 current stream, so the devices of a mesh may be different cards or
@@ -79,6 +81,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuclark_tpu_torc
 # Longest label row of the score kernel's `score` entry; longer rows
 # (reads over 32,798 bases at k=31) go to its `score_long` entry.
 MAX_SCORE_WINDOWS = 32768
+
+# Largest label bound of the score kernel's `score_bounded` entry
+# (csrc/score.cu kBoundBins - 1): bound + 1 counters, rounded up to 32,
+# in at most 115,328 bytes of shared memory, the most at which two
+# blocks still share an H100 SM.  The bounded histogram beats the wide
+# one at every bound up to it (csrc/score.cu's header).
+SCORE_BOUND_CAP = 28831
 
 # Longest label row of `query_score`: kMaxTiles tiles of the query kernel
 # (csrc/query.cu), the rows of the score kernel's warp path (csrc/score.cu
@@ -205,7 +214,8 @@ LAUNCHES = {"query": 0, "query_part": 0, "query_codes": 0, "query_q4": 0,
             "query_score_q4": 0, "query_score_s2": 0, "query_score_part": 0,
             "query_score_part_q4": 0, "query_score_part_s2": 0,
             "query_score_queue": 0, "query_score_queue_q4": 0,
-            "query_score_queue_s2": 0, "score": 0, "score_long": 0}
+            "query_score_queue_s2": 0, "score": 0, "score_long": 0,
+            "score_bounded": 0}
 
 # The query kernel's layout argument (csrc/query.cu, enum Layout).
 _LAYOUT_CODE = {"qs": 0, "q4": 1, "s2": 2}
@@ -292,6 +302,7 @@ ENTRIES = {
                                   _i32, _i32, _i64, _vp],
     "cuclark_score": [_vp, _vp, _i64, _i32, _vp],
     "cuclark_score_long": [_vp, _vp, _i64, _i32, _vp],
+    "cuclark_score_bounded": [_vp, _vp, _i64, _i32, _i32, _vp],
 }
 
 
@@ -633,10 +644,14 @@ def query_score_queue(packed2: torch.Tensor, vbits: torch.Tensor,
     return results
 
 
-def score(labels: torch.Tensor) -> torch.Tensor:
+def score(labels: torch.Tensor, label_bound: int | None = None
+          ) -> torch.Tensor:
     """Launch the score kernel (csrc/score.cu) -> results int32 [R, 5]:
-    its `score` entry for rows of up to MAX_SCORE_WINDOWS windows, its
-    `score_long` entry for longer ones.  Neither needs scratch."""
+    for rows over 1,024 windows whose labels are at most a label_bound
+    of at most SCORE_BOUND_CAP, its `score_bounded` entry (a histogram
+    of label_bound + 1 counters); else its `score` entry for rows of up
+    to MAX_SCORE_WINDOWS windows, its `score_long` entry for longer
+    ones.  None needs scratch."""
     dev = labels.device
     if dev.type != "cuda":
         raise ValueError(f"score kernel needs CUDA tensors, got {dev}")
@@ -644,14 +659,22 @@ def score(labels: torch.Tensor) -> torch.Tensor:
     R, P = labels.shape
     if P < 1:
         raise ValueError(f"labels need at least one window per read, got {P}")
+    if label_bound is not None and label_bound < 0:
+        raise ValueError(f"label bound {label_bound} is negative")
     results = torch.empty((R, 5), dtype=torch.int32, device=dev)
-    name = "score" if P <= MAX_SCORE_WINDOWS else "score_long"
+    bound = ()
+    if (P > QUERY_SCORE_MAX_WINDOWS and label_bound is not None
+            and label_bound <= SCORE_BOUND_CAP):
+        name, bound = "score_bounded", (label_bound,)
+    else:
+        name = "score" if P <= MAX_SCORE_WINDOWS else "score_long"
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         entry = getattr(lib, f"cuclark_{name}")
         with spans.span("step.launch"):
-            err = entry(labels.data_ptr(), results.data_ptr(), R, P, stream)
+            err = entry(labels.data_ptr(), results.data_ptr(), R, P, *bound,
+                        stream)
         _raise_on(err, name)
     LAUNCHES[name] += 1
     return results

@@ -56,6 +56,7 @@ answers differ between the two forms; the labels and CSVs are the same.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -269,13 +270,15 @@ def _fused_blocks(fused, wires, main, stash, sums, *, k: int,
             for d, (p2, vb) in enumerate(w[0] for w in wires)]
 
 
-def _step_fns(plain: bool):
+def _step_fns(plain: bool, label_bound: int | None = None):
     """(range query, score, fused range query and score): the kernels'
-    wrappers, or with plain=True their plain versions."""
+    wrappers, the score's given the table's label bound, or with
+    plain=True their plain versions."""
     if plain:
         return (probe.query_part_labels_plain, score.score_labels_plain,
                 probe.query_score_part_results_plain)
-    return (probe.query_part_labels, score.score_labels,
+    return (probe.query_part_labels,
+            functools.partial(score.score_labels, label_bound=label_bound),
             probe.query_score_part_results)
 
 
@@ -303,7 +306,7 @@ def build_sharded_classify(mesh: Mesh, *, k: int, spec: TableSpec,
                          f"divisible by db={num_db}")
     kw = dict(k=k, spec=spec, nb_local=nb_total // num_db, part_start=0)
     nbs_local = nbs_total // num_db
-    query, score_fn, fused = _step_fns(plain)
+    query, score_fn, fused = _step_fns(plain, spec.label_bound)
 
     def step(main, stash, wires):
         if (not with_labels and not mesh.spans_processes

@@ -68,7 +68,7 @@ def classify_step(table, codes, *, k, spec: TableSpec, stash=None,
                        "wire_bytes": codes.numel(), "fused": 0}
         labels = probe.query_codes_labels(codes, table, stash, k=k,
                                           spec=spec)
-        results = score.score_labels(labels)
+        results = score.score_labels(labels, spec.label_bound)
     return results, (labels if with_labels else None)
 
 
@@ -100,7 +100,7 @@ def classify_step_packed(table, packed2, vbits, *, k, spec: TableSpec,
                                              k=k, spec=spec), None
         labels = probe.query_labels(packed2, vbits, table, stash, k=k,
                                     spec=spec)
-        results = score.score_labels(labels)
+        results = score.score_labels(labels, spec.label_bound)
     return results, (labels if with_labels else None)
 
 
@@ -657,8 +657,8 @@ class Classifier:
                         out[gi] = (res, None)
                     else:
                         acc[gi] = res
-            return [out[gi] or ([score.score_labels(a) for a in blocks],
-                                blocks if ext else None)
+            return [out[gi] or ([score.score_labels(a, self.spec.label_bound)
+                                 for a in blocks], blocks if ext else None)
                     for gi, blocks in enumerate(acc)]
         if self._streams:
             parts = self._streams[0][1].parts_on_device()
@@ -682,7 +682,8 @@ class Classifier:
                 else:
                     acc[gi] = probe.query_part_labels(p2, vb, part, stash,
                                                       acc=acc[gi], **args)
-        return [out[gi] or (score.score_labels(a), a if ext else None)
+        return [out[gi] or (score.score_labels(a, self.spec.label_bound),
+                            a if ext else None)
                 for gi, a in enumerate(acc)]
 
     def _mesh_parts(self):

@@ -58,12 +58,16 @@ def score_labels_plain(labels: torch.Tensor) -> torch.Tensor:
                        dim=-1).to(torch.int32)
 
 
-def score_labels(labels: torch.Tensor) -> torch.Tensor:
+def score_labels(labels: torch.Tensor,
+                 label_bound: int | None = None) -> torch.Tensor:
     """Per-read results int32 [R, 5]: the score kernel for a CUDA tensor,
-    its plain version for a CPU tensor."""
+    its plain version for a CPU tensor.  label_bound, where given, is at
+    least every label of `labels` (a table's `TableSpec.label_bound`):
+    the kernel then counts rows over 1,024 windows in a histogram of that
+    many labels (`kernels.score`); the results are the same."""
     if labels.device.type == "cpu":
         return score_labels_plain(labels)
-    return kernels.score(labels)
+    return kernels.score(labels, label_bound)
 
 
 def gamma_confidence(total, best, second, length, k: int, paired: bool):

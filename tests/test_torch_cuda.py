@@ -82,20 +82,64 @@ def _score_rows(seed, R, P):
     return lab
 
 
+def _bounded_rows(seed, R, P, bound):
+    """R rows of labels of at most `bound`: all miss; an exact tie (the
+    smaller label wins); many distinct labels; the bound alone; runs of
+    random lengths; two labels alternating; then rows of one label with
+    misses and a few others, as a long read from one genome gives."""
+    rng = np.random.default_rng(seed)
+    lo = max(1, bound // 2)
+    lab = np.zeros((R, P), np.int32)
+    q = P // 4
+    lab[1, :q], lab[1, q:2 * q] = bound, lo
+    lab[2] = rng.integers(0, bound + 1, size=P)
+    lab[3] = np.where(rng.random(P) < 0.6, bound, 0)
+    runs = rng.integers(1, 40, size=P)
+    lab[4] = np.repeat(rng.integers(0, bound + 1, size=P), runs)[:P]
+    lab[5, ::2], lab[5, 1::3] = lo, bound
+    for r in range(6, R):
+        row = np.where(rng.random(P) < 0.6, rng.integers(1, bound + 1), 0)
+        other = rng.random(P) < 0.02
+        row[other] = rng.integers(1, bound + 1, size=int(other.sum()))
+        lab[r] = row
+    return lab
+
+
 SCORE_P = [1, 2, 31, 32, 33, 98, 122, 128, 129, 290, 994, 1025, 2018, 16354,
            32768]
+BOUNDS = [1, 76, 1072, kernels.SCORE_BOUND_CAP, kernels.SCORE_BOUND_CAP + 1]
+# (P, label bound): without a bound, every path of the `score` entry;
+# with one, rows over 1,024 windows at and above the cap, and warp-path
+# rows that a bound leaves on the warp path
+SCORE_CASES = ([(P, None) for P in SCORE_P]
+               + [(P, b) for P in (1025, 2018, 16354, 32769, 40000, 138210)
+                  for b in BOUNDS] + [(994, 76), (122, 76)])
 
 
-@pytest.mark.parametrize("P", SCORE_P)
-def test_score_kernel_matches_plain(dev, P):
+@pytest.mark.parametrize("P,bound", SCORE_CASES)
+def test_score_kernel_matches_plain(dev, P, bound):
     """Every path of the `score` entry: the warp path up to 1,024 windows
-    (one E per power of two), the histogram above, both label ranges."""
-    R = 4096 if P <= 1024 else 16
-    t = torch.from_numpy(_score_rows(R + P, R, P)).to(dev)
-    before = kernels.LAUNCHES["score"]
-    got = score.score_labels(t)
+    (one E per power of two), the histogram above, both label ranges;
+    and with a label bound the bounded histogram (`score_bounded`), one
+    launch exactly where the rows are over 1,024 windows and the bound
+    at most the cap, else the entry without a bound."""
+    if bound is None:
+        R = 4096 if P <= 1024 else 16
+        t = torch.from_numpy(_score_rows(R + P, R, P)).to(dev)
+        entry = "score"
+    else:
+        R = 16 if P <= 40000 else 8
+        t = torch.from_numpy(_bounded_rows(P + bound, R, P, bound)).to(dev)
+        entry = ("score_bounded"
+                 if P > 1024 and bound <= kernels.SCORE_BOUND_CAP
+                 else "score" if P <= kernels.MAX_SCORE_WINDOWS
+                 else "score_long")
+    before = dict(kernels.LAUNCHES)
+    got = score.score_labels(t, bound)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["score"] == before + 1
+    after = dict(kernels.LAUNCHES)
+    assert after[entry] == before[entry] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
     assert torch.equal(got, score.score_labels_plain(t))
 
 

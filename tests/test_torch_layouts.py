@@ -6,6 +6,7 @@ second hash choice alone, s2 keys whose two buckets coincide),
 resident, streamed, paired, --extended and -s 4).  Every comparison is
 exact."""
 
+import dataclasses
 import random
 
 import jax.numpy as jnp
@@ -92,6 +93,33 @@ def test_build_table_matches_jax(case, use_native, monkeypatch):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(db.probe_np(km), lab.astype(np.int32))
     np.testing.assert_array_equal(db.probe_np(km), jdb.probe_np(km))
+    assert db.spec.label_bound == db.max_label() == int(lab.max())
+
+
+@pytest.mark.parametrize("layout", ["qs", "q4", "s2"])
+def test_spec_refuses_labels_above_its_bound(layout, tmp_path):
+    """A table file is held to its target names where it is loaded: a
+    stored label above them raises ValueError, and the labels' largest
+    is the loaded spec's bound.  A table that neither build_table nor
+    load made takes the wide bound, MTRGTS.  A sampled s2 table's
+    emptied rows hold no label."""
+    n, nb_bits = (100_000, 17) if layout != "s2" else (1500, 10)
+    km, lab = _keys(5, n, 31), np.minimum(_labels(5, n), 250)
+    db = hashdb.build_table(km, lab, NAMES, DBConfig(
+        k=31, layout=layout, slots=2, num_choices=2), nb_bits=nb_bits)
+    assert db.spec.label_bound == 250 < len(NAMES) - 1
+    unbound = dataclasses.replace(db, label_bound=None)
+    assert unbound.spec.label_bound == hashdb.MTRGTS
+    short = dataclasses.replace(db, target_names=NAMES[:3])
+    good, bad = tmp_path / "good.npz", tmp_path / "bad.npz"
+    db.save(good)
+    short.save(bad)
+    assert hashdb.KmerDB.load(good).spec.label_bound == 250
+    loaded = hashdb.KmerDB.load(good, sample_factor=3)
+    assert loaded.spec.label_bound == 250
+    assert loaded.max_label() <= 250
+    with pytest.raises(ValueError, match="above"):
+        hashdb.KmerDB.load(bad)
 
 
 @pytest.mark.parametrize("layout", ["qs", "q4", "s2"])

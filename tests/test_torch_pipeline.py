@@ -17,7 +17,7 @@ from cuclark_tpu import cli as jcli
 from cuclark_tpu import codec as jcodec
 from cuclark_tpu import pipeline as jpipeline
 from cuclark_tpu.hashdb import KmerDB as JKmerDB
-from cuclark_tpu_torch import cli, pipeline
+from cuclark_tpu_torch import cli, pipeline, score
 from cuclark_tpu_torch.hashdb import KmerDB, table_to_device
 from tests.test_end2end import make_genomes, sample_reads
 
@@ -62,6 +62,8 @@ def test_port_db_has_jax_checksum(inputs):
     assert (db.nb_bits, db.stash_bits, db.seed) == (
         jdb.nb_bits, jdb.stash_bits, jdb.seed)
     assert db.checksum() == jdb.checksum()
+    # a loaded table's label bound is its largest label, held to its names
+    assert db.num_targets >= db.spec.label_bound == db.max_label() > 0
 
 
 def test_port_csv_matches_jax_csv(inputs):
@@ -113,6 +115,9 @@ def test_classify_step_packed_matches_jax(inputs):
     np.testing.assert_array_equal(lab.numpy(), np.asarray(jlab))
     np.testing.assert_array_equal(res.numpy(), np.asarray(jres))
     assert (res.numpy()[:, 2] > 0).sum() > len(reads) // 2
+    # the label bound steers the kernel only: the same rows without it
+    assert torch.equal(score.score_labels(lab, db.spec.label_bound),
+                       score.score_labels(lab))
 
 
 def test_example_reproduces_expected_csv(tmp_path):
