@@ -16,6 +16,15 @@ copies issued as `Classifier._put_wire` and `_readback` issue them
 (non-blocking, on the current stream), with `IN_FLIGHT` batches in
 flight as `Classifier.classify_file` keeps them.
 
+A configuration may state the settings of a streamed table (the
+`classify` fields `max_table_mb` and `stream_group`, the card budget
+`device_mb` that memplan reads, and the plan `stream_parts` it stands
+for).  Where the table streams in parts, the window steps groups of
+`Classifier.stream_group_eff` batches through the program's group step
+(`Classifier._stream_group_dev`: every part uploaded once a group and
+probed by every batch of it), each group issued before the one ahead of
+it is waited for.
+
 The check compares, once the window has closed and the program's state
 is freed, the results that landed last in the window for a sample of
 the pool's batches drawn from the seed (the batch of the longest reads
@@ -26,6 +35,7 @@ out from the reads' bases and the (k-mer, label) set.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -59,6 +69,12 @@ CHECK_SHARE = 0.25
 TRACE_SECONDS = 5.0
 # trace categories of the host's CUDA calls, which name an idle gap
 HOST_CALLS = ("cuda_runtime", "cuda_driver")
+# the ClassifyConfig fields a configuration's "classify" may set: those
+# the CLI's --max-table-mb and --stream-group set
+CLASSIFY_KEYS = ("max_table_mb", "stream_group")
+# the program's stand-in for the card's free memory
+# (memplan.device_memory_budget_mb), set from a configuration's device_mb
+DEVICE_MB_ENV = "CUCLARK_DEVICE_MB"
 
 
 def load_json(path: Path) -> dict:
@@ -271,6 +287,92 @@ def warm_up(pool, step, device) -> None:
         torch.cuda.synchronize(device)
 
 
+def issue_group(pool, idx, step_group, device) -> list:
+    """[(batch index, host results, event)] of the batches `idx`: each
+    uploaded, the group stepped once, each batch's results copied back."""
+    outs = step_group([upload(pool[bi], device) for bi in idx])
+    return [(bi, *readback(res, device)) for bi, res in zip(idx, outs)]
+
+
+def group_indices(start: int, size: int, n: int) -> list[int]:
+    """The pool's next `size` batches from `start`, taken cyclically."""
+    return [(start + j) % n for j in range(size)]
+
+
+def run_window_groups(pool, step_group, size: int, seconds: float, device,
+                      prof=None) -> Window:
+    """`run_window` for a streamed table: issue groups of `size` batches
+    for `seconds`, each group before the one ahead of it is waited for,
+    and count by batch as `run_window` does."""
+    w = Window()
+    inflight = collections.deque()
+    clock = time.perf_counter
+    traced = prof is not None
+    if traced:
+        prof.start()
+    t0 = clock()
+    close = t0 + seconds
+    i = 0
+    while clock() < close:
+        if traced and clock() >= t0 + TRACE_SECONDS:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            prof.stop()
+            traced = False
+        idx = group_indices(i, size, len(pool))
+        i += size
+        t_issue = clock()
+        held = issue_group(pool, idx, step_group, device)
+        dt = clock() - t_issue
+        w.issue_s += dt
+        w.issued += size
+        inflight.append(held)
+        if traced:
+            w.launches.extend(idx)
+        else:
+            w.untraced += size
+            w.untraced_issue_s += dt
+        w.attempted += sum(pool[bi].count for bi in idx)
+        if len(inflight) > 1:
+            for bj, h, e in inflight.popleft():
+                wait(e)
+                if clock() <= close:
+                    w.landed += pool[bj].count
+                w.last[bj] = h
+    for held in inflight:
+        for bj, h, e in held:
+            if e is None or e.query():
+                w.landed += pool[bj].count
+    for held in inflight:
+        for bj, h, e in held:
+            wait(e)
+            w.last[bj] = h
+    if traced:
+        prof.stop()
+    return w
+
+
+def warm_up_groups(pool, step_group, size: int, device) -> None:
+    """`warm_up` for a streamed table: one pass of groups over the pool
+    and one group more, a group in flight behind the one issued, as the
+    window holds them."""
+    inflight = collections.deque()
+    last = {}
+    for g in range(-(-len(pool) // size) + 1):
+        inflight.append(issue_group(pool, group_indices(g * size, size,
+                                                        len(pool)),
+                                    step_group, device))
+        if len(inflight) > 1:
+            for bj, h, e in inflight.popleft():
+                wait(e)
+                last[bj] = h
+    for held in inflight:
+        for _, _, e in held:
+            wait(e)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 # ---------- the check ----------
 
 
@@ -328,15 +430,24 @@ class TraceRun:
     batches: list
     launches: list
     issue_us: float | None = None
+    # a streamed table's part uploads: the bytes of each, in part order
+    # (every group uploads every part once); empty for a resident table
+    part_bytes: list = dataclasses.field(default_factory=list)
 
 
 def count_bytes(pool, launched, reads, clf, k: int) -> None:
     """Each launched batch's least bytes by kernel kind (`metrics/_bytes`),
     counted on its reads against the program's table rows (qs only: the
-    query readers are silent on another layout)."""
+    query readers are silent on another layout).  A streamed table's
+    batch counts its range launches part by part against the host's
+    main rows and the stash: "range", a list in part order, and, where
+    its last part is fused with the score, "range_fused"."""
     import _bytes
 
     spec = clf.spec
+    streamed = clf.table is None
+    if streamed:
+        host_main = torch.from_numpy(clf.np_table.view(np.int32))
     for bi in sorted(set(launched)):
         b = pool[bi]
         wire = b.count * (b.w2 + b.wv)
@@ -345,6 +456,18 @@ def count_bytes(pool, launched, reads, clf, k: int) -> None:
         if not b.fused:
             b.bytes["score"] = labels + out
         if spec.layout != "qs":
+            continue
+        if streamed:
+            codes = reference.read_codes(reads.bufs, reads.starts,
+                                         reads.ends, b.first, b.count,
+                                         clf.stash.device)
+            q, valid = reference.window_keys(codes, k)
+            m, s = _bytes.qs_rows_host(q[valid], host_main, spec.nb_bits,
+                                       spec.stash_bits, spec.seed)
+            rows = _bytes.part_rows(m, s, spec.nb_bits, spec.stash_bits,
+                                    clf.stream_parts)
+            b.bytes.update(_bytes.range_bytes(rows, wire, labels,
+                                              out if b.fused else None))
             continue
         codes = reference.read_codes(reads.bufs, reads.starts, reads.ends,
                                      b.first, b.count, clf.table.device)
@@ -406,10 +529,42 @@ def forbidden_modules() -> list[str]:
                   & set(FORBIDDEN))
 
 
+@contextlib.contextmanager
+def device_budget(mb):
+    """The program's card budget set to `mb` MB (None: left as it is)
+    until the block ends, then restored."""
+    if mb is None:
+        yield
+        return
+    before = os.environ.get(DEVICE_MB_ENV)
+    os.environ[DEVICE_MB_ENV] = str(mb)
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[DEVICE_MB_ENV]
+        else:
+            os.environ[DEVICE_MB_ENV] = before
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float, wrap_step=None, log=print) -> dict:
     """One run of `cell` -> the result object (and its checks last).
-    `wrap_step` wraps the step (tests plant faults with it)."""
+    `wrap_step` wraps the step (tests plant faults with it): a batch's
+    `step(packed2, vbits) -> results`, or on a streamed table the group's
+    `step([(packed2, vbits), ...]) -> [results, ...]`."""
+    classify = cell.config.get("classify", {})
+    unknown = sorted(set(classify) - set(CLASSIFY_KEYS))
+    if unknown:
+        raise ValueError(f"the configuration's classify sets {unknown}; "
+                         f"it may set only {list(CLASSIFY_KEYS)}")
+    with device_budget(cell.config.get("device_mb")):
+        return _run_cell(cell, seed, seconds, trace, device, t_start,
+                         wrap_step, log, classify)
+
+
+def _run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
+              t_start: float, wrap_step, log, classify: dict) -> dict:
     from cuclark_tpu_torch.config import ClassifyConfig, DBConfig
     from cuclark_tpu_torch.hashdb import build_table
     from cuclark_tpu_torch.pipeline import Classifier, classify_step_packed
@@ -442,22 +597,46 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                      DBConfig(k=k, gap=cfg["gap"], layout=cfg["layout"],
                               target_load=cfg["target_load"]))
     phase("build_table")
-    clf = Classifier(db, ClassifyConfig(), device=device)
+    clf = Classifier(db, ClassifyConfig(**classify), device=device)
     phase("classifier")
-    if clf.stream_parts != 1:
-        raise RuntimeError(f"the table streams in {clf.stream_parts} parts; "
-                           f"the cell times a resident table")
+    parts = cfg.get("stream_parts", 1)
+    streamed = clf.stream_parts > 1
+    if clf.stream_parts != parts:
+        raise RuntimeError(f"the table streams in {clf.stream_parts} "
+                           f"part(s); the configuration states {parts}")
     table, stash, spec = clf.table, clf.stash, clf.spec
+    plan = {}
+    if streamed:
+        size = clf.stream_group_eff
+        plan = {"stream_parts": clf.stream_parts, "stream_group": size,
+                "part_bytes": clf.np_table.nbytes // clf.stream_parts,
+                "table_budget_mb": clf.table_budget_mb}
+        log("plan: " + ", ".join(f"{n} {v}" for n, v in plan.items())
+            + f"; {DEVICE_MB_ENV}={os.environ.get(DEVICE_MB_ENV)}")
+        if len(reads.batches) < size:
+            raise RuntimeError(f"the pool holds {len(reads.batches)} "
+                               f"batches, fewer than a group of {size}")
+        # the program's group step (every part uploaded once, each batch
+        # probing every part), under the public name `step_group` once
+        # the program gives it one, which this file cannot follow later
+        program_step = (getattr(clf, "step_group", None)
+                        or clf._stream_group_dev)
 
-    def step(p2, vb):
-        return classify_step_packed(table, p2, vb, k=k, spec=spec,
-                                    stash=stash, with_labels=False)[0]
+        def step(wires):
+            return [res for res, _ in program_step(wires)]
+    else:
+        def step(p2, vb):
+            return classify_step_packed(table, p2, vb, k=k, spec=spec,
+                                        stash=stash, with_labels=False)[0]
 
     if wrap_step is not None:
         step = wrap_step(step)
     pool = build_pool(reads, k, device)
     phase("pack")
-    warm_up(pool, step, device)
+    if streamed:
+        warm_up_groups(pool, step, size, device)
+    else:
+        warm_up(pool, step, device)
     phase("warm_up")
     t_setup = time.perf_counter() - t_start
     log("set-up phases, s: " + ", ".join(f"{n} {v:.3f}"
@@ -475,7 +654,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     # the set-up's objects out of the collector's way in the window
     gc.collect()
     gc.freeze()
-    win = run_window(pool, step, seconds, device, prof)
+    if streamed:
+        win = run_window_groups(pool, step, size, seconds, device, prof)
+    else:
+        win = run_window(pool, step, seconds, device, prof)
     gc.unfreeze()
     issue_us = (win.untraced_issue_s / win.untraced * 1e6 if win.untraced
                 else None)
@@ -491,15 +673,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                   "platform": "gpu" if device.type == "cuda" else "cpu",
                   "kind": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu"),
-                  "count": 1, "memory_peak_bytes": peak}}
+                  "count": 1, "memory_peak_bytes": peak, **plan}}
+    if streamed and device.type == "cuda":
+        log("part uploads of the last group, GB/s: "
+            + ", ".join(f"{g:.2f}" for g in clf.part_upload_gbps()))
     if trace:
         import _trace
 
         t_trace = time.perf_counter()
         events = read_trace(prof)
         run = TraceRun(events, _trace.window_us(events) if events else (0, 0),
-                       pool, win.launches, issue_us)
+                       pool, win.launches, issue_us,
+                       [plan["part_bytes"]] * clf.stream_parts
+                       if streamed else [])
+        t_bytes = time.perf_counter()
         count_bytes(pool, win.launches, reads, clf, k)
+        log(f"bytes: {len(set(win.launches))} batches counted in "
+            f"{time.perf_counter() - t_bytes:.1f} s")
         for m in cell.per_layer:
             v = reader(m["name"])(run)
             if v is not None:
@@ -517,6 +707,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             result["metrics"][m["name"]] = {"value": values[m["name"]],
                                             "unit": m["unit"]}
     # free the program's state before the reference runs on the card
+    if streamed:
+        clf.close()
     del clf, db, table, stash, step
     for b in pool:
         b.buf = None

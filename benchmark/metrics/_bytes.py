@@ -5,8 +5,10 @@ Frozen copies, from commit 5f9e300, of `scripts/torch_measure.py`'s
 `bound_ms`, `qs_window_rows`/`touched_rows` (qs layout) and
 `query_bytes` (one resident call), with the Feistel mix of
 `cuclark_tpu_torch.hashdb` (`feistel_seed_consts`, `feistel_mix_torch`)
-and the row match of `probe._match_labels` that they use, so that a
-change to the program cannot change the yardstick.  Each input byte is
+and the row match of `probe._match_labels` that they use, and, from
+commit c61579e, the split of a streamed table's stash over its parts
+(`probe.stash_range`), so that a change to the program cannot change
+the yardstick.  Each input byte is
 counted once, each output byte once, and each table row a batch needs
 once (32 B), whatever the kernel reads again.  A qs window needs its
 main row, and its stash row only where the main row gives no label and
@@ -85,3 +87,56 @@ def query_bytes(n_main: int, n_stash: int, in_bytes: int,
     """Least bytes of one resident query call: input and output once,
     each needed 32 B row once."""
     return in_bytes + out_bytes + 32 * (n_main + n_stash)
+
+
+def qs_rows_host(keys: torch.Tensor, main_host: torch.Tensor, nb_bits: int,
+                 stash_bits: int, seed: int):
+    """`qs_rows` where the main rows lie in host memory (a streamed
+    table's) and the keys on any device: only the distinct rows that the
+    keys index cross to the keys' device."""
+    h1, l2 = feistel_mix(keys >> 32, keys & _MASK32, seed)
+    b0 = l2 & ((1 << nb_bits) - 1)
+    b1 = h1 & ((1 << stash_bits) - 1)
+    rows, inv = torch.unique(b0, return_inverse=True)
+    main = main_host[rows.cpu()].to(keys.device)
+    lab = _match_labels(main, inv, l2, h1, nb_bits, 0)
+    full = ((main[inv][:, 4:] & 0xFFFF) != 0).sum(1) == 4
+    return rows, torch.unique(b1[(lab == 0) & full])
+
+
+def part_rows(main_rows: torch.Tensor, stash_rows: torch.Tensor,
+              nb_bits: int, stash_bits: int, parts: int) -> list:
+    """[(main rows, stash rows)] that each part of a table streamed in
+    `parts` bucket-range parts reads of the distinct rows given: main
+    row b in part b // (2^nb_bits / parts); stash row r in the part whose
+    range [p * n // parts, (p + 1) * n // parts) of the n stash rows
+    holds it, or in part 0 where the parts outnumber the stash rows."""
+    nb_part = (1 << nb_bits) // parts
+    main = torch.bincount(main_rows // nb_part, minlength=parts).tolist()
+    n = 1 << stash_bits
+    if parts > n:
+        return list(zip(main, [stash_rows.numel()] + [0] * (parts - 1)))
+    edges = torch.tensor([p * n // parts for p in range(1, parts)],
+                         dtype=stash_rows.dtype, device=stash_rows.device)
+    stash = torch.bincount(torch.searchsorted(edges, stash_rows, right=True),
+                           minlength=parts).tolist()
+    return list(zip(main, stash))
+
+
+def range_bytes(rows: list, in_bytes: int, acc_bytes: int,
+                out_bytes: int | None = None) -> dict:
+    """Least bytes of a streamed batch's launches, part by part, from
+    `part_rows`: {"range": [one a range launch, in part order]} and,
+    where the last part is fused with the score (out_bytes given),
+    "range_fused".  A range launch reads the wire and its part's rows,
+    and writes the labels: on the first part its own, on a later one the
+    earlier parts' sum that it reads, with its own added.  The fused
+    launch reads the wire, the earlier parts' sum and its rows, and
+    writes the results."""
+    calls = [in_bytes + (2 if p else 1) * acc_bytes + 32 * (m + s)
+             for p, (m, s) in enumerate(rows)]
+    if out_bytes is None:
+        return {"range": calls}
+    m, s = rows[-1]
+    return {"range": calls[:-1],
+            "range_fused": in_bytes + acc_bytes + out_bytes + 32 * (m + s)}

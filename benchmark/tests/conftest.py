@@ -32,6 +32,18 @@ def tiny(workload: str) -> "harness.Cell":
     return cell
 
 
+def tiny_streamed(workload: str = "full_se150") -> "harness.Cell":
+    """`tiny(workload)` with its 4.2 MB main rows streamed in 4 parts (a
+    table budget of 7.3 MB, the 4.2 MB stash taken off it and the rest
+    halved for the double buffers), in groups of 2 batches (a card budget
+    of 64 MB leaves no room to grow the group), so that the CPU and a
+    card plan alike."""
+    cell = tiny(workload)
+    cell.config = dict(cell.config, stream_parts=4, device_mb=64,
+                       classify={"max_table_mb": 7.3, "stream_group": 2})
+    return cell
+
+
 @pytest.fixture
 def card():
     """The first card; skips without one."""

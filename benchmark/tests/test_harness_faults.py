@@ -7,7 +7,7 @@ import time
 
 import pytest
 import torch
-from conftest import tiny
+from conftest import tiny, tiny_streamed
 
 import harness
 
@@ -93,3 +93,32 @@ def test_tiny_run_on_the_card(card, workload):
     kernel = ("query_roofline_pct" if workload == "full_ont_long"
               else "fused_roofline_pct")
     assert 0 < t["metrics"][kernel]["value"] <= 100
+
+
+@pytest.mark.cuda
+def test_tiny_streamed_run_on_the_card(card, monkeypatch):
+    """A tiny table streamed in 4 parts on the card is correct, and its
+    trace holds a range_query_kernel event for each of a traced batch's
+    first 3 parts and a range_query_score_kernel event for its last."""
+    import _trace
+
+    cell = tiny_streamed()
+    r = run(cell, device=card)
+    assert r["correct"], r["checks"]
+    assert (r["device"]["stream_parts"], r["device"]["stream_group"]) == (4, 2)
+    runs = []
+    breakdown = harness.breakdown
+
+    def spy(trace_run):
+        runs.append(trace_run)
+        return breakdown(trace_run)
+    monkeypatch.setattr(harness, "breakdown", spy)
+    t = run(cell, device=card, trace=True)
+    assert t["correct"] and t["device"]["busy_s"] > 0
+    (tr,) = runs
+    assert tr.launches and tr.part_bytes == [r["device"]["part_bytes"]] * 4
+    assert len(_trace.kernels(tr.events, "range_query_kernel")) == \
+        3 * len(tr.launches)
+    assert len(_trace.kernels(tr.events, "range_query_score_kernel")) == \
+        len(tr.launches)
+    assert all(len(tr.batches[b].bytes["range"]) == 3 for b in tr.launches)
